@@ -11,29 +11,46 @@ Phases, in order; any failure raises and the script exits non-zero:
      llama2-7b shapes in bf16 and smoke shapes in f32, with unclaimed
      pages, pos = 0 rows, a row with no claimed page, claimed-but-empty
      pages, GQA groups > 1, NaN in every page a row does not own, idx = -1
-     rows and ranks 8/16/32/64 under BGMV and MBGMV;
-  3. serve full-width llama2-7b (32 layers, d_model 4096, bf16, seeded
+     rows and ranks 8/16/32/64 under BGMV and MBGMV; flash attention at
+     yi-9b's long prompt (bf16, B 2, H 32 over KV 4, hd 128, L 4096,
+     causal), at llama2-7b's (H = KV = 32, L 256), both on (B, L, H, hd)
+     views as the model passes them, and at smoke shapes in f32
+     (non-causal, window, Lq != Lk, ragged L, GQA groups 1/2/8);
+  3a. serve full-width llama2-7b (32 layers, d_model 4096, bf16, seeded
      random weights on the card) through `InferenceServer`: 16 requests
      with kernel="bgmv", then 6 with kernel="mbgmv"; every request must
-     finish with its tokens and every kernel's launch count must move.
-     Prints prefill and decode times taken with CUDA events around the
-     backend's calls, with no synchronization added (the host runs ahead
-     of the card as in service), and the run's wall time;
-  4. one decode step's logits through the kernels vs through the plain
-     versions, on the card;
-  5. per-kernel timing at the decode shapes of phase 4 (CUDA events, L2
+     finish with its tokens and every kernel's launch count must move
+     (flash attention: once per layer of every prefill call). Prints
+     prefill and decode times taken with CUDA events around the backend's
+     calls, with no synchronization added (the host runs ahead of the card
+     as in service), and the run's wall time;
+  4a. one llama2-7b decode step's logits through the kernels vs through
+     the plain versions, on the card, and its profile;
+  5a. per-kernel timing at the decode shapes of phase 4a (CUDA events, L2
      flushed between launches) beside its bound, the plain version and a
-     PyTorch library call, as one {"kernels": [...]} line; then the last
-     line {"ok": true, "device": {...}}.
+     PyTorch library call; then llama2-7b is freed;
+  3b. serve full-width yi-9b (48 layers, 32 heads over 4 KV heads, bf16,
+     seeded random weights): 8 requests, three of 2,049-4,000 prompt
+     tokens and five of 32-256, 16 new tokens each, in two arms on the same
+     requests: monolithic prefill (chunk_budget=0) and chunked prefill
+     (chunk_budget=512); every request finishes in both arms;
+  4b. yi-9b prefill logits (B 2, one 3,000-token prompt per row) through
+     the flash kernel vs the plain attention, and a profile of one prefill
+     call at the serving shape (8 rows x 4,096 tokens, LoRA on);
+  5b. flash attention timed at the shape of layer 0 of the largest
+     captured yi-9b prefill call, as the other kernels are; then one
+     {"kernels": [...]} line and the last line {"ok": true, "device":
+     {...}}.
 
-Tolerances (kernel vs plain version on the same inputs), per output row b:
-bf16 max|kernel[b] - plain[b]| <= 1e-2 * max|plain[b]|; f32 <= 1e-5 *
-max(1, max|plain[b]|).
-Decode-step logits: max|kernels - plain| <= 5e-2 * max|plain|.
+Tolerances (kernel vs plain version on the same inputs), per output row b
+(per query row (b, h, i) for attention): bf16 max|kernel[b] - plain[b]|
+<= 1e-2 * max|plain[b]|; f32 <= 1e-5 * max(1, max|plain[b]|).
+Decode-step and prefill logits: max|kernels - plain| <= 5e-2 * max|plain|.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -83,14 +100,26 @@ def main() -> int:
 
     errs = kernel_checks(torch)
     from repro_torch.configs.base import get_config
-    cfg = get_config("llama2-7b")
-    serving, params = serve_phase(torch, cfg)
-    step = logits_phase(torch, cfg, params)
+    llama = get_config("llama2-7b")
+    serving, params = serve_phase(torch, llama, LLAMA_RUNS, "3a")
+    step = logits_phase(torch, llama, params)
     kernels = timing_phase(torch, step, errs, serving)
-    print(json.dumps({"serving": serving,
-                      "decode_logits": step["logits"],
-                      "decode_profile": step["profile"],
-                      "lora_rank_sweep": step["rank_sweep"]}), flush=True)
+    report = {"serving": serving, "decode_logits": step["logits"],
+              "decode_profile": step["profile"],
+              "lora_rank_sweep": step["rank_sweep"]}
+    del step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    yi = get_config("yi-9b")
+    capture = {}
+    with capture_largest_attention(capture):
+        yi_serving, yi_params = serve_phase(torch, yi, YI_RUNS, "3b")
+    report["yi_serving"] = yi_serving
+    report["yi_arms_agree"] = arms_agree(yi_serving)
+    report.update(prefill_phase(torch, yi, yi_params))
+    kernels.append(flash_timing(torch, capture["args"], errs, yi_serving))
+    print(json.dumps(report), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -161,7 +190,7 @@ def kernel_checks(torch):
     print("phase 2: kernels vs plain versions on the card", flush=True)
     rng = np.random.default_rng(SEED)
     worst = {"paged_attention": 0.0, "lora_shrink": 0.0,
-             "lora_expand": 0.0}
+             "lora_expand": 0.0, "flash_attention": 0.0}
 
     def note(name, err, full):
         if full:
@@ -248,6 +277,41 @@ def kernel_checks(torch):
                 f"lora_expand {mode} {label}", out,
                 ref.lora_expand_ref(yd, b, idx, live), dt), full)
             check(bool((out[idx < 0] == 0).all()), "expand: idx -1 row != 0")
+
+    # flash attention: (label, B, H, KV, Lq, Lk, hd, causal, window, dtype,
+    # full-width); full-width cases are (B, L, H, hd) tensors passed as
+    # their (B, H, L, hd) views, as the model passes them
+    from repro_torch.kernels.flash import flash_attention
+    fcases = [("yi-9b L 4096 bf16", 2, 32, 4, 4096, 4096, 128, True, None,
+               bf, True),
+              ("llama2-7b L 256 bf16", 8, 32, 32, 256, 256, 128, True, None,
+               bf, True),
+              ("GQA 8 window 128 ragged bf16", 2, 16, 2, 1000, 1000, 64,
+               True, 128, bf, False),
+              ("smoke non-causal f32", 2, 4, 4, 130, 130, 32, False, None,
+               f32, False),
+              ("smoke window 48 GQA 2 ragged f32", 2, 4, 2, 257, 257, 32,
+               True, 48, f32, False),
+              ("smoke Lq < Lk GQA 8 f32", 1, 8, 1, 96, 160, 64, True, None,
+               f32, False),
+              ("smoke Lq > Lk non-causal window GQA 2 f32", 1, 4, 2, 160, 96,
+               16, False, 48, f32, False)]
+    for label, B, H, KV, Lq, Lk, hd, causal, window, dt, full in fcases:
+        g = torch.Generator(device="cuda").manual_seed(Lq + H)
+        q = torch.randn(B, Lq, H, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, Lk, KV, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, Lk, KV, hd, generator=g, device="cuda").to(dt)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        if not full:
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        # each query row (b, h, i) to its own limit: the first queries
+        # attend a few keys (outputs ~3), late ones thousands (~0.05)
+        note("flash_attention", check_close(
+            f"flash_attention {label}", got.reshape(-1, hd),
+            want.reshape(-1, hd), dt), full)
+        del q, k, v, got, want
     torch.cuda.synchronize()
     return worst
 
@@ -255,14 +319,24 @@ def kernel_checks(torch):
 # ------------------------------------------------------------ phase 3 ----
 
 ADAPTER_RANKS = (8, 16, 32, 64)
+# (label, kernel, server kwargs, request kwargs)
+LLAMA_RUNS = [("bgmv", "bgmv", {}, {"n": 16, "seed": SEED}),
+              ("mbgmv", "mbgmv", {}, {"n": 6, "seed": SEED + 1})]
+YI_LONG, YI_SHORT = (2049, 4001), (32, 257)
+YI_REQUESTS = {"n": 8, "seed": SEED + 2, "lengths": "yi", "max_new": 16}
+YI_SERVER = {"cache_slots": 4096}
+YI_RUNS = [("chunk_budget=0", "bgmv", dict(YI_SERVER, chunk_budget=0),
+            YI_REQUESTS),
+           ("chunk_budget=512", "bgmv", dict(YI_SERVER, chunk_budget=512),
+            YI_REQUESTS)]
 
 
-def make_server(torch, cfg, kernel, params):
+def make_server(torch, cfg, kernel, params, cache_slots=512, **kw):
     from repro_torch.core.engine import InferenceServer
     from repro_torch.core.lora import AdapterSpec
     srv = InferenceServer(cfg, mode="caraserve", kernel=kernel, max_batch=8,
-                          cache_slots=512, page_size=32, params=params,
-                          seed=SEED, device="cuda")
+                          cache_slots=cache_slots, page_size=32,
+                          params=params, seed=SEED, device="cuda", **kw)
     uids = []
     for r in ADAPTER_RANKS:
         for i in range(2):
@@ -272,48 +346,58 @@ def make_server(torch, cfg, kernel, params):
     return srv, uids
 
 
-def make_requests(cfg, uids, n, seed, spacing_ms=2.0):
+def make_requests(cfg, uids, n, seed, spacing_ms=2.0, lengths=None,
+                  max_new=32):
+    """n requests over the adapters. Prompt lengths: 32-256 tokens, or,
+    with lengths="yi", three long prompts of 2,049-4,000 tokens (requests
+    0, 3 and 6, so the prefill bucket reaches 4,096) among short ones."""
     import numpy as np
     from repro_torch.serving.request import Request
     rng = np.random.default_rng(seed)
-    return [Request(rid=i, adapter_uid=uids[i % len(uids)],
-                    prompt=rng.integers(0, cfg.vocab,
-                                        int(rng.integers(32, 257))
-                                        ).astype(np.int32),
-                    max_new_tokens=32, arrival_ms=spacing_ms * i)
-            for i in range(n)]
+    out = []
+    for i in range(n):
+        lo, hi = YI_LONG if lengths == "yi" and i % 3 == 0 else YI_SHORT
+        prompt = rng.integers(0, cfg.vocab, int(rng.integers(lo, hi)))
+        out.append(Request(rid=i, adapter_uid=uids[i % len(uids)],
+                           prompt=prompt.astype(np.int32),
+                           max_new_tokens=max_new,
+                           arrival_ms=spacing_ms * i))
+    return out
 
 
 def _counters():
-    from repro_torch.kernels import bgmv, paged
+    from repro_torch.kernels import bgmv, flash, paged
     return {"paged_attention": paged.paged_attention,
             "lora_shrink": bgmv.lora_shrink,
-            "lora_expand": bgmv.lora_expand}
+            "lora_expand": bgmv.lora_expand,
+            "flash_attention": flash.flash_attention}
 
 
-def serve_phase(torch, cfg):
-    """Phase 3: drive the main path through InferenceServer, once per LoRA
-    kernel mode, with every launch count zeroed just before and read just
-    after. Prefill and decode times are the card's: a CUDA event is
-    recorded on the stream at the start and end of each backend call, with
-    no host synchronization added, so the host queues step N+1 while the
-    card runs step N as it does in service; the spans are read after the
-    run's one synchronize. A call's span runs from when the card reaches
-    its first work (or the host records the start, if the card is idle) to
-    when its last work ends, so host gaps inside a call count and gaps
-    between calls do not; `wall_s` covers the whole run."""
+def serve_phase(torch, cfg, runs, phase):
+    """Phase 3a/3b: drive the main path through InferenceServer, once per
+    run, with every launch count zeroed just before and read just after.
+    Prefill, prefill-chunk and decode times are the card's: a CUDA event
+    is recorded on the stream at the start and end of each backend call,
+    with no host synchronization added, so the host queues step N+1 while
+    the card runs step N as it does in service; the spans are read after
+    the run's one synchronize. A call's span runs from when the card
+    reaches its first work (or the host records the start, if the card is
+    idle) to when its last work ends, so host gaps inside a call count and
+    gaps between calls do not; `wall_s` covers the whole run. Runs with
+    the same request kwargs serve the same requests."""
     import numpy as np
-    print("phase 3: serving full-width llama2-7b on the card", flush=True)
+    print(f"phase {phase}: serving full-width {cfg.name} on the card",
+          flush=True)
     out, params = [], None
-    for kernel, n_req in (("bgmv", 16), ("mbgmv", 6)):
+    for label, kernel, server_kw, req_kw in runs:
         t_init = time.perf_counter()
-        srv, uids = make_server(torch, cfg, kernel, params)
+        srv, uids = make_server(torch, cfg, kernel, params, **server_kw)
         params = srv.params
-        reqs = make_requests(cfg, uids, n_req, SEED + len(out))
+        reqs = make_requests(cfg, uids, **req_kw)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t_init
         be = srv.backend
-        spans = {"prefill": [], "decode": []}
+        spans = {"prefill": [], "chunk": [], "decode": []}
         decode_tokens = [0]
 
         def timed(fn, kind, count):
@@ -330,6 +414,7 @@ def serve_phase(torch, cfg):
 
         be.prefill_admitted = timed(be.prefill_admitted, "prefill",
                                     lambda states: 0)
+        be.prefill_chunk = timed(be.prefill_chunk, "chunk", lambda *a: 0)
         be.decode = timed(be.decode, "decode", lambda ready, *a: len(ready))
         be.megastep = timed(be.megastep, "decode",
                             lambda ready, nsteps, *a: sum(nsteps))
@@ -346,20 +431,35 @@ def serve_phase(torch, cfg):
                  for k, v in spans.items()}
         for st in srv.states:
             check(len(st.generated) == st.req.max_new_tokens,
-                  f"{kernel}: request {st.req.rid} produced "
+                  f"{label}: request {st.req.rid} produced "
                   f"{len(st.generated)} of {st.req.max_new_tokens} tokens")
             check(all(0 <= t < cfg.vocab for t in st.generated),
-                  f"{kernel}: request {st.req.rid} token out of range")
-        check(len(srv.states) == n_req, f"{kernel}: lost requests")
+                  f"{label}: request {st.req.rid} token out of range")
+        check(len(srv.states) == len(reqs), f"{label}: lost requests")
         for n, c in launches.items():
-            check(c > 0, f"{kernel}: kernel {n} never launched on the "
+            check(c > 0, f"{label}: kernel {n} never launched on the "
                   "main path")
+        check(launches["flash_attention"]
+              == cfg.n_layers * len(times["prefill"]),
+              f"{label}: {launches['flash_attention']} flash launches for "
+              f"{len(times['prefill'])} prefill calls of {cfg.n_layers} "
+              "layers")
+        stats = dict(be.transfer_stats)
+        if server_kw.get("chunk_budget"):
+            check(stats["prefill_chunks"] > 0, f"{label}: no prefill chunk")
         tokens = sum(len(st.generated) for st in srv.states)
-        rec = {"kernel": kernel, "requests": n_req, "tokens": tokens,
+        rec = {"model": cfg.name, "run": label, "kernel": kernel,
+               "requests": len(reqs), "tokens": tokens,
+               "prompt_tokens": [int(st.req.prompt_len) for st in srv.states],
                "wall_s": wall, "setup_s": init_s,
                "prefill_calls": len(times["prefill"]),
+               "prefill_ms": times["prefill"],
                "prefill_ms_median": float(np.median(times["prefill"])),
                "prefill_ms_max": float(np.max(times["prefill"])),
+               "chunk_calls": len(times["chunk"]),
+               "chunk_ms_median": float(np.median(times["chunk"]))
+               if times["chunk"] else None,
+               "chunk_ms_total": float(sum(times["chunk"])),
                "decode_calls": len(times["decode"]),
                "decode_tokens": decode_tokens[0],
                "decode_ms": float(sum(times["decode"])),
@@ -369,18 +469,35 @@ def serve_phase(torch, cfg):
                "tok_s_wall": tokens / wall,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "launches": launches,
-               "transfer_stats": dict(be.transfer_stats)}
-        print(f"  {kernel}: {n_req} requests, {tokens} tokens in "
-              f"{wall:.2f} s wall ({rec['tok_s_wall']:.1f} tok/s); "
-              "prefill median "
-              f"{rec['prefill_ms_median']:.1f} ms over "
-              f"{rec['prefill_calls']} calls; decode "
-              f"{rec['decode_tok_s']:.1f} tok/s; launches {launches}",
+               "transfer_stats": stats,
+               "generated": {st.req.rid: list(map(int, st.generated))
+                             for st in srv.states}}
+        chunks = (f"; {rec['chunk_calls']} chunks, median "
+                  f"{rec['chunk_ms_median']:.1f} ms"
+                  if rec["chunk_calls"] else "")
+        print(f"  {cfg.name} {label}: {len(reqs)} requests, {tokens} tokens "
+              f"in {wall:.2f} s wall ({rec['tok_s_wall']:.1f} tok/s); "
+              f"prefill median {rec['prefill_ms_median']:.1f} ms over "
+              f"{rec['prefill_calls']} calls{chunks}; decode "
+              f"{rec['decode_tok_s']:.1f} tok/s; peak "
+              f"{rec['peak_mem_gib']:.1f} GiB; launches {launches}",
               flush=True)
         out.append(rec)
         del srv, be
+        gc.collect()
         torch.cuda.empty_cache()
     return out, params
+
+
+def arms_agree(records):
+    """How many requests' tokens agree between the first two runs. Not
+    required to be all: bf16 near-ties between the two numerics paths
+    (flash vs plain chunk attention) can flip a greedy token (phase 4a)."""
+    a, b = records[0]["generated"], records[1]["generated"]
+    same = sum(a[r] == b[r] for r in a)
+    print(f"  {records[0]['run']} vs {records[1]['run']}: tokens agree on "
+          f"{same}/{len(a)} requests", flush=True)
+    return {"requests": len(a), "agree": same}
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -410,7 +527,7 @@ def plain_ops():
 @contextlib.contextmanager
 def capture_first_calls(store):
     """Record the arguments of the first paged-attention and LoRA-delta
-    call (layer 0) of a decode step, for phase 5's timing."""
+    call (layer 0) of a decode step, for phase 5a's timing."""
     from repro_torch.kernels import ops
     saved = ops.paged_attention, ops.lora_delta
 
@@ -429,13 +546,45 @@ def capture_first_calls(store):
         ops.paged_attention, ops.lora_delta = saved
 
 
+@contextlib.contextmanager
+def capture_largest_attention(store):
+    """Record the arguments of the largest prefill-attention call (its
+    first layer) while serving, for phase 5b's timing."""
+    from repro_torch.kernels import ops
+    saved = ops.attention
+
+    def attn(q, k, v, **kw):
+        if "args" not in store or q.numel() > store["args"][0].numel():
+            store["args"] = (q, k, v)
+        return saved(q, k, v, **kw)
+
+    ops.attention = attn
+    try:
+        yield
+    finally:
+        ops.attention = saved
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the model's prefill attention to the plain version (on the
+    card)."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.attention
+    ops.attention = ref.flash_attention_ref
+    try:
+        yield
+    finally:
+        ops.attention = saved
+
+
 def logits_phase(torch, cfg, params):
-    """Phase 4: admit 8 requests at once, serve them up to their first
+    """Phase 4a: admit 8 requests at once, serve them up to their first
     decode step, then run
     the next decode step twice on copies of the KV pool — through the
     kernels and through the plain versions — and compare the logits."""
     from repro_torch.models import model as model_lib
-    print("phase 4: decode-step logits, kernels vs plain versions",
+    print("phase 4a: decode-step logits, kernels vs plain versions",
           flush=True)
     srv, uids = make_server(torch, cfg, "bgmv", params)
     for r in make_requests(cfg, uids, 8, SEED + 7, spacing_ms=0.0):
@@ -472,7 +621,8 @@ def logits_phase(torch, cfg, params):
     print(f"  logits max abs err {err:.4e}, max |logit| {scale:.4e}, "
           f"relative {err / scale:.3e} (limit {LOGIT_TOL}); greedy tokens "
           f"agree on {same}/{int(act.sum())} active rows", flush=True)
-    store["profile"] = profile_step(torch, step_logits)
+    store["profile"] = profile_step(torch, step_logits,
+                                    "one llama2-7b decode step")
     store["pool_ranks"] = be.pool.pool["ranks"]
     store["logits"] = {"max_abs_err": err, "max_abs_logit": scale,
                        "rel_err": err / scale, "rows": int(act.sum()),
@@ -481,10 +631,69 @@ def logits_phase(torch, cfg, params):
     return store
 
 
-def profile_step(torch, step_fn, top=12):
-    """Where one llama2-7b decode step's time goes: torch.profiler over a
-    warm step, device time summed by kernel name, and the step's wall
-    time, so the device's idle share shows."""
+def prefill_phase(torch, cfg, params):
+    """Phase 4b: yi-9b prefill logits at one long prompt per row (B 2,
+    3,000 tokens: no multiple of the kernel's 64-row tiles) through the
+    flash kernel and through the plain attention, every other op the
+    same; then a profile of one prefill call at the serving shape (8 rows
+    x 4,096 tokens, LoRA on through 8 stacked adapters, row caches
+    written), as `prefill_admitted` makes it."""
+    import numpy as np
+    from repro_torch.models import model as model_lib
+    print("phase 4b: yi-9b prefill logits, flash kernel vs plain attention",
+          flush=True)
+    rng = np.random.default_rng(SEED + 11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 3000)),
+                           dtype=torch.int32, device="cuda")
+
+    def logits():
+        with torch.no_grad():
+            out, _ = model_lib.prefill(cfg, params, {"tokens": toks},
+                                       last_only=True)
+        return out[:, -1].float()
+
+    lk = logits()
+    with plain_attention():
+        lp = logits()
+    torch.cuda.synchronize()
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    check(bool(torch.isfinite(lk).all()), "phase 4b: non-finite logits")
+    check(err <= LOGIT_TOL * scale,
+          f"phase 4b: logits max abs err {err:.3e} > {LOGIT_TOL} * "
+          f"{scale:.3e}")
+    same = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    print(f"  prefill logits max abs err {err:.4e}, max |logit| "
+          f"{scale:.4e}, relative {err / scale:.3e} (limit {LOGIT_TOL}); "
+          f"greedy tokens agree on {same}/2 rows", flush=True)
+    out = {"prefill_logits": {"max_abs_err": err, "max_abs_logit": scale,
+                              "rel_err": err / scale, "rows": 2,
+                              "prompt_tokens": 3000, "greedy_agree": same}}
+
+    srv, uids = make_server(torch, cfg, "bgmv", params, **YI_SERVER)
+    lora = srv.backend._lora_arg_stacked(uids)
+    lora["mode"] = "bgmv"
+    big = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 4096)),
+                          dtype=torch.int32, device="cuda")
+    last = torch.full((8,), 4095, dtype=torch.int32, device="cuda")
+
+    def prefill_call():
+        with torch.no_grad():
+            model_lib.prefill(cfg, params, {"tokens": big}, lora=lora,
+                              cache_slots=4096, last_pos=last)
+
+    out["prefill_profile"] = profile_step(
+        torch, prefill_call, "one yi-9b prefill call (8 x 4096 tokens)")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_step(torch, step_fn, what, top=12):
+    """Where one call's time goes: torch.profiler over a warm call, device
+    time summed by kernel name, and the call's wall time, so the device's
+    idle share shows."""
     from torch.profiler import ProfilerActivity, profile
     step_fn()
     torch.cuda.synchronize()
@@ -510,7 +719,7 @@ def profile_step(torch, step_fn, top=12):
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "device_idle_share": (1.0 - device_ms / wall_ms)
            if device_ms else None, "top": rows[:top]}
-    print(f"  one decode step, synchronized and profiled (a per-layer "
+    print(f"  {what}, synchronized and profiled (a per-layer "
           f"diagnostic): {wall_ms:.1f} ms wall, {device_ms:.1f} ms of "
           "device kernels", flush=True)
     for r in rows[:top]:
@@ -521,10 +730,10 @@ def profile_step(torch, step_fn, top=12):
 
 # ------------------------------------------------------------ phase 5 ----
 
-def time_ms(torch, fn, flush, n=100):
+def time_ms(torch, fn, flush, n=100, warm=3):
     """Mean device time of fn over n launches, each started with a cold
-    L2 (flushed by an untimed write), after a warm-up."""
-    for _ in range(3):
+    L2 (flushed by an untimed write), after `warm` warm-up launches."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -552,7 +761,7 @@ def timing_phase(torch, step, errs, serving):
     from repro_torch.kernels.bgmv import lora_expand, lora_shrink
     from repro_torch.kernels.paged import paged_attention
     from repro_torch.models.layers import paged_kv_for_attn
-    print("phase 5: kernel timing at the decode shapes of phase 4",
+    print("phase 5a: kernel timing at the decode shapes of phase 4a",
           flush=True)
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
@@ -655,6 +864,78 @@ def timing_phase(torch, step, errs, serving):
               f"{r['library_ms'] * 1e3:.1f} us, {r['launches']} launches",
               flush=True)
     return rows
+
+
+def flash_timing(torch, args, errs, serving):
+    """Phase 5b: the flash kernel at layer 0 of the largest captured yi-9b
+    prefill call, beside its bound, the plain version and SDPA over K/V
+    repeated across each GQA group (timed only, never called by the port).
+    Launch counts are the monolithic arm's; the chunked arm's and
+    llama2-7b's are listed beside them. Each timing runs for about a
+    second or a few launches, whichever is more."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash import flash_attention
+    print("phase 5b: flash attention timing at the captured yi-9b prefill "
+          "shape", flush=True)
+    q, k, v = args
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    # causal (query, key) pairs the kernel is given, pad positions of the
+    # packed batch included (the kernel cannot tell them apart)
+    pairs = sum(min(i + 1, Lk) for i in range(Lq))
+    esz = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
+    b_ms, b_by = bound(nbytes, 4 * B * H * hd * pairs, "bfloat16")
+
+    def auto_n(fn, budget_ms=1000.0, n_max=50):
+        fn()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        return max(3, min(n_max, int(budget_ms / max(s.elapsed_time(e),
+                                                      1e-3))))
+
+    def kern():
+        return flash_attention(q, k, v)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v)
+
+    kr = k.repeat_interleave(H // KV, dim=1)
+    vr = v.repeat_interleave(H // KV, dim=1)
+
+    def library():
+        return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+
+    by_run = {f"{r['model']} {r['run']}": r["launches"]["flash_attention"]
+              for r in serving}
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash.py:110",
+           "path": "yi-9b prefill",
+           "launches": serving[0]["launches"]["flash_attention"],
+           "max_abs_err": errs["flash_attention"],
+           "ms": time_ms(torch, kern, flush, n=auto_n(kern), warm=1),
+           "plain_ms": time_ms(torch, plain, flush, n=auto_n(plain), warm=0),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, library, flush, n=auto_n(library),
+                                 warm=1),
+           "bytes": nbytes, "ops": 4 * B * H * hd * pairs,
+           "launches_by_run": by_run,
+           "shape": {"B": B, "H": H, "KV": KV, "Lq": Lq, "Lk": Lk, "hd": hd,
+                     "causal_pairs": pairs, "dtype": str(q.dtype)}}
+    row["tflop_s"] = row["ops"] / row["ms"] / 1e9
+    print(f"  flash_attention: {row['ms']:.3f} ms (bound {b_ms:.3f} ms by "
+          f"{b_by}, {row['tflop_s']:.1f} TFLOP/s), plain "
+          f"{row['plain_ms']:.1f} ms, library (SDPA) "
+          f"{row['library_ms']:.3f} ms, launches {by_run}", flush=True)
+    return row
 
 
 def rank_sweep(torch, a, b, x, flush):

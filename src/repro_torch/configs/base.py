@@ -2,7 +2,7 @@
 
 A copy of the reference's config module whose dtype property yields a
 torch dtype (`torch_dtype`). The port registers only the configs it
-serves (llama2-7b); `smoke()` is unchanged, so the reduced variant has
+serves (llama2-7b, yi-9b); `smoke()` is unchanged, so the reduced variant has
 the reference's exact shapes.
 """
 from __future__ import annotations

@@ -23,9 +23,13 @@ step runs). Entry points:
     same `_fused_step`, so it equals K single steps exactly. (A CUDA graph
     per K is later work.)
 
-The port updates the KV pool and the pipeline state in place. Chunked
-prefill, the dense memory plane, the per-step baseline pipeline and
-temperature sampling raise NotImplementedError (ROADMAP.md queue 1).
+  * `prefill_chunk` — one chunk of a long prompt's prefill for one row
+    (chunked prefill), written into the row's claimed pages in place; only
+    the final chunk samples and seeds the row's pipeline state.
+
+The port updates the KV pool and the pipeline state in place. The dense
+memory plane, the per-step baseline pipeline and temperature sampling
+raise NotImplementedError (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -261,10 +265,51 @@ class NumericsBackend:
         cache_lib.clear_pages(self.cache, ids)
 
     def restore_pages(self, st: RequestState):
-        raise _not_ported("chunked prefill (restore_pages)")
+        """Swap-in for a half-prefilled (chunk-phase) row: reinsert the
+        saved page payload only. Unlike `swap_in` there is no pipeline
+        re-seed — the row has no sampled token yet; its next chunk simply
+        continues from st.prefill_pos against the restored pages."""
+        payload, st.swap_payload = st.swap_payload, None
+        cache_lib.insert_pages(self.cache, payload, st.kv_pages)
+        self.transfer_stats["h2d"] += 1
+        self.transfer_stats["h2d_bytes"] += cache_lib.tree_nbytes(payload)
 
-    def prefill_chunk(self, st, row_pages, start, n_tokens, final):
-        raise _not_ported("chunked prefill")
+    @torch.no_grad()
+    def prefill_chunk(self, st: RequestState, row_pages: List[int],
+                      start: int, n_tokens: int, final: bool):
+        """One chunk of an incremental prefill for a single row: consume
+        prompt[start : start+n_tokens] against the row's claimed pages,
+        writing the chunk's K/V into them in place. Only the final chunk
+        samples — through the same last-position gather, sample and
+        pipeline seed as `prefill_admitted`; its token reaches
+        `st.generated` through the readback queue. The chunk width is
+        bucketed (powers of two, capped at cache_slots) like the
+        reference's."""
+        if start + n_tokens > self.cache_slots:
+            raise ValueError(
+                f"request {st.req.rid}: chunk [{start}, {start + n_tokens})"
+                f" exceeds the {self.cache_slots}-slot block table")
+        Cb = min(bucket(n_tokens), self.cache_slots)
+        toks = np.zeros((1, Cb), np.int32)
+        toks[0, :n_tokens] = st.req.prompt[start:start + n_tokens]
+        ids = np.asarray(row_pages, np.int32)
+        lora = self._lora_arg_stacked([st.req.adapter_uid])
+        lora["mode"] = self._mode_str()
+        self.transfer_stats["h2d"] += 2            # tokens, page ids
+        self.transfer_stats["h2d_bytes"] += toks.nbytes + ids.nbytes
+        self.transfer_stats["prefill_chunks"] += 1
+        logits = model_lib.prefill_chunk(
+            self.cfg, self.params, _upload(toks, self.device), start,
+            n_tokens, self.cache, _upload(ids, self.device), lora=lora,
+            last=final)
+        if not final:
+            return
+        tok = sample(logits[:, 0], temperature=self.temperature)
+        pipe, r = self.pipe, st.row
+        pipe.last_tok[r] = tok[0]
+        pipe.pos[r] = st.req.prompt_len
+        pipe.target[r] = st.req.prompt_len + st.req.max_new_tokens - 1
+        pipe.stash(tok, [(st, 0, 1)])
 
     # ---------------------------------------------------------- prefill ----
     def _lora_arg_stacked(self, uids: List[str]):

@@ -27,7 +27,6 @@ A copy of the reference's `repro.core.engine` with the port's planes
 wired in. The timeline stays the analytic simulator: every TTFT, TPT or
 tokens/s it reports is simulated. `device=None` means the card; a server
 with numerics refuses to start without one unless device="cpu" is given.
-Chunked prefill (`chunk_budget > 0`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -67,10 +66,6 @@ class InferenceServer:
                  admit_footprint: str = "prompt",
                  preempt: str = "recompute", chunk_budget: int = 0,
                  shed_late_slo: float = 0.0, device=None):
-        if chunk_budget:
-            raise NotImplementedError(
-                "chunked prefill (chunk_budget > 0) is not ported to "
-                "repro_torch yet (ROADMAP.md queue 1)")
         self.device = resolve_device(device) if numerics else None
         self.cfg = cfg
         self.mode = mode

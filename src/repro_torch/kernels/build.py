@@ -39,6 +39,9 @@ _SIGNATURES = {
     "rt_lora_shrink": [_P] * 5 + [_I] * 5 + [_P],
     # y, b, idx, live, out, rows, r_max, d_out, slots, dtype, stream
     "rt_lora_expand": [_P] * 5 + [_I] * 5 + [_P],
+    # q, k, v, out, strides (12 int64 on the host),
+    # B, H, KV, Lq, Lk, hd, causal, window, dtype, stream
+    "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()
@@ -130,8 +133,9 @@ def stream_handle(device: torch.device) -> int:
 
 
 def require(t: torch.Tensor, name: str, *, dtypes=None, ndim=None,
-            device=None) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor the kernel takes."""
+            device=None, contiguous=True) -> None:
+    """Raise unless `t` is a CUDA tensor the kernel takes (contiguous,
+    unless the kernel reads it through its strides)."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -142,7 +146,7 @@ def require(t: torch.Tensor, name: str, *, dtypes=None, ndim=None,
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

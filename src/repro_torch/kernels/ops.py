@@ -5,9 +5,16 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.bgmv import lora_expand, lora_shrink
+from repro_torch.kernels.flash import flash_attention
 from repro_torch.kernels.paged import paged_attention
 
-__all__ = ["lora_delta", "lora_live", "paged_attention"]
+__all__ = ["attention", "lora_delta", "lora_live", "paged_attention"]
+
+
+def attention(q, k, v, causal=True, window=None):
+    """Prefill attention. q (B, H, Lq, hd); k/v (B, KV, Lk, hd) ->
+    (B, H, Lq, hd); query i sits at position i, as key i."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def lora_live(idx, ranks=None, mode="bgmv", r_max=None, rank_block=16):

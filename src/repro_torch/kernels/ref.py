@@ -123,3 +123,40 @@ def paged_attention_ref(q, k_pages, v_pages, pos_pages, block_table, pos):
     l = p.sum(-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bkgs,bksh->bkgh", p, v) / l
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+# ------------------------------------------------------ flash attention ----
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, block=512):
+    """Prefill attention, the function of the flash kernel.
+
+    q (B, H, Lq, hd); k/v (B, KV, Lk, hd) -> (B, H, Lq, hd) in q's dtype.
+    Query i sits at position i, as key i (the TPU kernel's alignment,
+    repro/kernels/flash.py, not its JAX oracle's decode-style
+    qpos = i + Lk - Lq). A key counts iff kpos <= qpos when causal and
+    qpos - kpos < window when a window is given; GQA maps head h to KV head
+    h // (H / KV). Scores, softmax and PV run in f32 with the mask applied
+    to p, so a query with no valid key returns zeros. Queries are taken
+    `block` at a time, which bounds the f32 score tensor and changes
+    nothing else."""
+    b, h, lq, hd = q.shape
+    kv, lk = k.shape[1], k.shape[2]
+    kt = k.float().transpose(-1, -2)[:, :, None]        # (B, KV, 1, hd, Lk)
+    vf = v.float()[:, :, None]                          # (B, KV, 1, Lk, hd)
+    kpos = torch.arange(lk, device=q.device)[None]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for s0 in range(0, lq, block):
+        qg = q[:, :, s0:s0 + block].float()
+        n = qg.shape[2]
+        s = (qg.reshape(b, kv, h // kv, n, hd) @ kt) * hd ** -0.5
+        qpos = torch.arange(s0, s0 + n, device=q.device)[:, None]
+        valid = torch.ones(n, lk, dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= kpos <= qpos
+        if window is not None:
+            valid &= qpos - kpos < window
+        s = torch.where(valid, s, NEG_INF)
+        p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        o = (p @ vf) / p.sum(-1, keepdim=True).clamp(min=1e-30)
+        out[:, :, s0:s0 + n] = o.reshape(b, h, n, hd).to(q.dtype)
+    return out

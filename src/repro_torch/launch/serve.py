@@ -3,6 +3,9 @@ generated trace and report the paper's three metrics.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b
+
+`--arch` names a config the port serves: llama2-7b (default) or yi-9b.
 
 The timeline is the analytic simulator, so every latency and rate printed
 here is *simulated*; the tokens are computed for real on `--device`. The

@@ -124,7 +124,16 @@ def attn_chunked(q, k, v, *, causal=True, window=None, block=512):
 
 def attn_prefill(q, k, v, *, causal=True, window=None, block=512,
                  direct_threshold=2048):
-    """Direct attention up to `direct_threshold` keys, chunked beyond."""
+    """Prefill attention; q (B, L, H, hd), k/v (B, L, KV, hd). The device
+    decides: on CUDA the flash kernel runs, reading the (B, H, L, hd)
+    transposes of q/k/v through their strides (no copy) and writing an
+    output whose transpose is contiguous (B, L, H, hd); on the CPU, direct
+    attention up to `direct_threshold` keys and chunked beyond, as in the
+    reference's `attn_prefill`."""
+    if q.is_cuda:
+        out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window)
+        return out.transpose(1, 2)
     if k.shape[1] <= direct_threshold:
         if causal:
             mask = causal_mask(q.shape[1], k.shape[1], window=window,
@@ -214,6 +223,20 @@ def paged_attn_decode(q, cache, block_table, pos):
         return out[:, None]
     ck, cv, cpos = paged_kv_for_attn(cache, block_table)
     return attn_decode(q, ck, cv, cpos, pos)
+
+
+def paged_attn_chunk(q, cache, block_table, positions):
+    """A prefill chunk's attention over its row's pages, the chunk's own K/V
+    already written. q (1, C, H, hd); block_table (1, W) the row's pages;
+    positions (1, C) absolute. Each query attends the cached slots whose
+    position is >= 0 and <= its own, as the reference's `prefill_chunk`
+    does with `attn_direct`. Plain PyTorch on every device: the reference
+    computes this outside any Pallas kernel."""
+    ck, cv, cpos = paged_kv_for_attn(cache, block_table)
+    kp = cpos[:, None, :]
+    valid = (kp >= 0) & (kp <= positions[..., None])
+    return attn_direct(q, ck.transpose(1, 2), cv.transpose(1, 2),
+                       valid[:, None, None])
 
 
 # ------------------------------------------------------------------ MLP ----

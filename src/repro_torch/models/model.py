@@ -1,6 +1,7 @@
 """Family dispatch, dense family only: mirrors `repro.models.model`.
 
   prefill(cfg, params, batch, ...) -> (logits, row caches)
+  prefill_chunk(cfg, params, ...)  -> logits of the final chunk, or None
   decode(cfg, params, cache, ...)  -> (logits, cache)
   cache_abstract(cfg, batch, ...)  -> meta-device stand-ins of the cache
 
@@ -36,9 +37,21 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """The model's capability, as in the reference; the port's serving
-    backend does not run chunked prefill yet (ROADMAP.md queue 1)."""
+    """True when the serving backend may split this model's prefill into
+    fixed-token chunks (backend.prefill_chunk): the paged layered GQA cache
+    plus per-position-independent blocks (MoE capacity routing depends on
+    how many tokens share the batch)."""
     return supports_paged(cfg) and not cfg.moe
+
+
+def prefill_chunk(cfg, params, tokens_c, start, clen, cache, page_ids, *,
+                  lora=None, last=False):
+    """One chunk of an incremental prefill, written into the row's pages of
+    the paged pool in place; see transformer.prefill_chunk."""
+    if not supports_chunked_prefill(cfg):
+        raise ValueError(f"chunked prefill unsupported for {cfg.name}")
+    return transformer.prefill_chunk(cfg, params, tokens_c, start, clen,
+                                     cache, page_ids, lora=lora, last=last)
 
 
 def prefill(cfg, params, batch, *, lora=None, cache_slots=None,

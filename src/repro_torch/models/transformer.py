@@ -1,5 +1,6 @@
 """Decoder-only dense transformer with LoRA hooks on W_q/W_k/W_v (paper
-sec 7.1): the modules, and the prefill / decode functions over them.
+sec 7.1): the modules, and the prefill / chunked-prefill / decode
+functions over them.
 Mirrors the dense branch of `repro.models.transformer`.
 
 QKV projections are stored 3-D — (d_model, heads, head_dim) — and the
@@ -16,8 +17,8 @@ from repro_torch.core.lora import lora_apply
 from repro_torch.kernels.ops import lora_live
 from repro_torch.models.layers import (apply_rope, attn_prefill,
                                        cache_write_token_paged, mlp_apply,
-                                       paged_attn_decode, paged_write_index,
-                                       rope_tables)
+                                       paged_attn_chunk, paged_attn_decode,
+                                       paged_write_index, rope_tables)
 from repro_torch.models.param import Dense, Norm, norm_apply
 
 ROADMAP_FAMILIES = ("model family or variant not ported to repro_torch yet "
@@ -87,9 +88,12 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
     page pools, updated in place) through `block_table` and attends over
     the row's pages; `write_mask` (B,) bool drops the write of frozen rows.
     Prefill attends densely and returns the rotated (k, v) so the caller
-    can build the row caches. `rope_cs`, `write_index` and `lora_live` are
-    per-step values the caller computes once for all layers (`rope_cs`:
-    `layers.rope_tables` at `positions`)."""
+    can build the row caches; given a `cache`, it is one chunk of a row's
+    prefill instead (B = 1): the chunk's K/V land in the row's pages at
+    `write_index` and the chunk attends over those pages. `rope_cs`,
+    `write_index` and `lora_live` are per-step values the caller computes
+    once for all layers (`rope_cs`: `layers.rope_tables` at
+    `positions`)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     lora = (lora_idx, lora_ranks, lora_mode, cfg.lora.rank_block, lora_live)
     q = _plus(_proj(p.wq, x), _lora_heads(x, lora_layer, "q", *lora, H, hd))
@@ -105,6 +109,12 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
         cache_write_token_paged(cache, k, v, positions, block_table,
                                 write_mask=write_mask, index=write_index)
         out = paged_attn_decode(q, cache, block_table, positions)
+    elif cache is not None:
+        # each of the chunk's tokens written as a one-token row of its own
+        cache_write_token_paged(cache, k.transpose(0, 1), v.transpose(0, 1),
+                                positions[0], block_table,
+                                index=write_index)
+        out = paged_attn_chunk(q, cache, block_table, positions)
     else:
         out = attn_prefill(q, k, v)
     B, L = out.shape[0], out.shape[1]
@@ -215,6 +225,48 @@ def prefill(cfg, params: Transformer, tokens, *, lora=None,
     elif last_only:
         x = x[:, -1:]
     return unembed(cfg, params, x), cache
+
+
+def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
+                  clen: int, cache, page_ids, *, lora=None, last=False):
+    """One chunk of an incremental prefill, written into the row's pages
+    in place (the reference gathers the row into a dense view and returns
+    a new one).
+
+    tokens_c: (1, C) token slice padded to C; `start`: absolute position
+    of the chunk's first token; `clen`: real tokens in the chunk. cache is
+    the paged pool {"k"/"v": (L, P + 1, KV, ps, hd), "pos": (L, P + 1,
+    ps)}; page_ids (W,) int32 the row's claimed pages in logical order,
+    covering slots [0, start + clen). Token j of the chunk lands in slot
+    start + j; pad tokens (j >= clen) write into the sink page, so the
+    row's pad slots keep pos -1, as the reference's dropped scatter does.
+    Every per-position op (projection + LoRA, RoPE, norms, MLP, residuals)
+    is the sequence of `attn_apply` / `block_apply`; attention masks by the
+    cached absolute positions (`layers.paged_attn_chunk`, plain PyTorch on
+    every device, as the reference computes it outside Pallas). Returns
+    the (1, 1, vocab) logits of the chunk's last real token when `last`,
+    else None."""
+    _check_family(cfg)
+    x = embed_tokens(cfg, params, tokens_c)
+    C = x.shape[1]
+    offs = torch.arange(C, dtype=torch.int32, device=x.device)
+    positions = (start + offs)[None]
+    bt = page_ids.to(torch.int32).reshape(1, -1)
+    windex = paged_write_index(cache["k"], bt.expand(C, -1), positions[0],
+                               write_mask=offs < clen)
+    rope_cs = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    live = _lora_live(cfg, lora)
+    for i, p_l in enumerate(params.blocks):
+        ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
+        cache_l = {name: t[i] for name, t in cache.items()}
+        x, _ = block_apply(
+            cfg, p_l, x, positions, lora_layer=ll, lora_idx=lora_idx,
+            lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
+            decode=False, cache=cache_l, block_table=bt, rope_cs=rope_cs,
+            write_index=windex)
+    if not last:
+        return None
+    return unembed(cfg, params, x[:, max(clen - 1, 0)][:, None])
 
 
 def decode_step(cfg, params: Transformer, cache, tokens_t, pos, *,

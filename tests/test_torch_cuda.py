@@ -19,7 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.engine import InferenceServer  # noqa: E402
 from repro_torch.core.lora import AdapterSpec  # noqa: E402
-from repro_torch.kernels import bgmv, ops, paged, ref  # noqa: E402
+from repro_torch.kernels import bgmv, flash, ops, paged, ref  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -109,11 +109,48 @@ def test_lora_kernels_match_plain(card, mode):
     assert bool((got[4] == 0).all())
 
 
-def _serve(device, params=None):
-    cfg = get_config("llama2-7b").smoke()
+@pytest.mark.parametrize("causal,window,group,Lq,Lk,hd", [
+    (True, None, 1, 130, 130, 32), (True, 48, 2, 257, 257, 64),
+    (False, None, 4, 96, 160, 16), (False, 48, 8, 160, 96, 128)])
+def test_flash_kernel_matches_plain(card, causal, window, group, Lq, Lk, hd):
+    """f32 (the CUDA-core path): ragged lengths, Lq != Lk, GQA groups 1 to
+    8, causal or not, with and without a window."""
+    rng = np.random.default_rng(Lq + hd)
+    KV = 2
+    q = rng.normal(size=(2, KV * group, Lq, hd)).astype(np.float32)
+    k = rng.normal(size=(2, KV, Lk, hd)).astype(np.float32)
+    v = rng.normal(size=(2, KV, Lk, hd)).astype(np.float32)
+    args = [torch.from_numpy(a).to(card) for a in (q, k, v)]
+    n = flash.flash_attention.launches
+    got = flash.flash_attention(*args, causal=causal, window=window)
+    want = ref.flash_attention_ref(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash.flash_attention.launches == n + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+def test_flash_kernel_bf16_strided_matches_plain(card):
+    """bf16 (the tensor-core path) on (B, H, L, hd) views of (B, L, H, hd)
+    tensors, as the model passes them: each query row within 1e-2 of its
+    largest plain value (one bf16 rounding of the output, and P rounded to
+    bf16 for the PV product)."""
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn(2, 300, 8, 128, generator=g, device=card).bfloat16()
+    k = torch.randn(2, 300, 2, 128, generator=g, device=card).bfloat16()
+    v = torch.randn(2, 300, 2, 128, generator=g, device=card).bfloat16()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    got = flash.flash_attention(qt, kt, vt)
+    want = ref.flash_attention_ref(qt, kt, vt)
+    assert got.transpose(1, 2).is_contiguous()
+    err = (got.float() - want.float()).abs().amax(-1)
+    assert bool((err <= 1e-2 * want.float().abs().amax(-1)).all())
+
+
+def _serve(device, params=None, arch="llama2-7b", **kw):
+    cfg = get_config(arch).smoke()
     srv = InferenceServer(cfg, mode="caraserve", max_batch=4,
                           cache_slots=64, seed=0, device=device,
-                          params=params)
+                          params=params, **kw)
     for i, r in enumerate((8, 4, 2, 8)):
         srv.register_adapter(AdapterSpec(f"ad{i}", r, cfg.name))
     rng = np.random.default_rng(1)
@@ -133,5 +170,21 @@ def test_server_on_card_matches_server_on_cpu(card):
     n = paged.paged_attention.launches
     gpu = _serve("cuda", params=params)
     assert paged.paged_attention.launches > n
+    assert {s.req.rid: s.generated for s in gpu.states} == \
+        {s.req.rid: s.generated for s in cpu.states}
+
+
+@pytest.mark.parametrize("chunk_budget", [0, 16])
+def test_yi9b_server_on_card_matches_server_on_cpu(card, chunk_budget):
+    """yi-9b-smoke (f32, GQA group 2), monolithic and chunked prefill: the
+    flash, paged and LoRA kernels give the CPU server's tokens."""
+    kw = dict(arch="yi-9b", page_size=16, chunk_budget=chunk_budget)
+    cpu = _serve("cpu", **kw)
+    params = copy.deepcopy(cpu.params).to(card)
+    n = flash.flash_attention.launches
+    gpu = _serve("cuda", params=params, **kw)
+    assert flash.flash_attention.launches > n
+    assert (gpu.backend.transfer_stats["prefill_chunks"] > 0) == \
+        bool(chunk_budget)
     assert {s.req.rid: s.generated for s in gpu.states} == \
         {s.req.rid: s.generated for s in cpu.states}

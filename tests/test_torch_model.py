@@ -35,10 +35,9 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
 
 
-@pytest.fixture(scope="module")
-def both():
-    cj = jget("llama2-7b").smoke()
-    ct = tget("llama2-7b").smoke()
+def _both(arch):
+    cj = jget(arch).smoke()
+    ct = tget(arch).smoke()
     pj = split(jmodel.init_params(cj, jax.random.PRNGKey(0)))[0]
     pt = params_from_jax(ct, jax.tree.map(np.asarray, pj), device="cpu")
     pool_j = jlora.pool_init(cj, n_slots=len(RANKS))
@@ -57,6 +56,17 @@ def both():
     return cj, ct, pj, pt, pool_j, pool_t
 
 
+@pytest.fixture(scope="module")
+def both():
+    return _both("llama2-7b")
+
+
+@pytest.fixture(scope="module")
+def both_yi():
+    """yi-9b-smoke: 4 query heads over 2 KV heads (GQA group 2)."""
+    return _both("yi-9b")
+
+
 def _lora(both, mode, idx):
     _, _, _, _, pool_j, pool_t = both
     if mode is None:
@@ -67,6 +77,19 @@ def _lora(both, mode, idx):
 
 
 def test_params_layout_matches_reference(both):
+    _params_layout(both)
+
+
+def test_yi9b_params_layout_matches_reference(both_yi):
+    """GQA shapes: wk/wv (d, KV, hd) with KV < H, from the seeded init and
+    from the reference's tree."""
+    _params_layout(both_yi)
+    cj, _, _, pt, _, _ = both_yi
+    assert tuple(pt.blocks[0].attn.wk.w.shape) == (cj.d_model,
+                                                   cj.n_kv_heads, cj.hd)
+
+
+def _params_layout(both):
     cj, ct, pj, pt, _, _ = both
     own = init_params(ct, seed=0, device="cpu")
     blk = pj["blocks"]
@@ -159,6 +182,18 @@ def test_prefill_and_three_decode_steps_match_reference(both, mode):
     """Packed prefill with a last-position gather, the page scatter of its
     row caches, then three paged decode steps (one row frozen by its write
     mask after the first, one row without an adapter)."""
+    _prefill_and_decode(both, mode)
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv", None])
+def test_yi9b_prefill_and_three_decode_steps_match_reference(both_yi, mode):
+    """The same on yi-9b-smoke, where every prefill and decode attention
+    runs at GQA group 2 and the k/v LoRA deltas are KV * hd wide."""
+    assert both_yi[1].n_heads == 2 * both_yi[1].n_kv_heads
+    _prefill_and_decode(both_yi, mode)
+
+
+def _prefill_and_decode(both, mode):
     cj, ct, pj, pt, _, _ = both
     B, L, S, ps, P = 3, 12, 16, 4, 12
     W = S // ps
@@ -230,3 +265,53 @@ def test_attn_prefill_direct_and_chunked_match_reference():
                                        block=8)
         np.testing.assert_allclose(direct.numpy(), want, **TOL)
         np.testing.assert_allclose(chunked.numpy(), want, **TOL)
+
+
+def _chunk_pool(cfg, model_lib, cache_lib, S, ps, P):
+    return cache_lib.zeros_paged(model_lib.cache_abstract(cfg, 1, S), P, ps)
+
+
+@pytest.mark.parametrize("arch,mode", [("yi-9b", "bgmv"),
+                                       ("yi-9b", "mbgmv"),
+                                       ("llama2-7b", "bgmv")])
+def test_prefill_chunk_matches_reference(both, both_yi, arch, mode):
+    """A 23-token prompt in chunks of 8 (the last padded from 7) through the
+    row's pages, scattered in block-table order over non-adjacent page ids:
+    after every chunk the row's KV (gathered dense) agrees with the
+    reference's returned view within TOL and its positions are equal (pad
+    slots stay -1); the final chunk's logits agree with the reference's
+    and with the port's own monolithic prefill of the whole prompt."""
+    cj, ct, pj, pt, _, _ = both_yi if arch == "yi-9b" else both
+    S, ps, P, L, C = 32, 4, 12, 23, 8
+    ids = np.array([5, 2, 9, 0, 7, 11, 3, 1], np.int32)     # W = S // ps
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cj.vocab, L).astype(np.int32)
+    lj, lt = _lora(both_yi if arch == "yi-9b" else both, mode, [1])
+    pool_j = _chunk_pool(cj, jmodel, jcache, S, ps, P)
+    pool_t = _chunk_pool(ct, tmodel, tcache, S, ps, P)
+    for start in range(0, L, C):
+        clen = min(C, L - start)
+        last = start + clen == L
+        chunk = np.zeros((1, C), np.int32)
+        chunk[0, :clen] = toks[start:start + clen]
+        view = jcache.gather_pages(pool_j, jnp.asarray(ids))
+        logits_j, view = jmodel.prefill_chunk(
+            cj, pj, jnp.asarray(chunk), jnp.asarray(start, jnp.int32),
+            jnp.asarray(clen, jnp.int32), view, lora=lj, last=last)
+        pool_j = jcache.scatter_pages(pool_j, view,
+                                      jnp.asarray(ids)[None])
+        claimed = ids[:-(-(start + clen) // ps)]
+        logits_t = tmodel.prefill_chunk(ct, pt, _t(chunk), start, clen,
+                                        pool_t, _t(claimed), lora=lt,
+                                        last=last)
+        got = tcache.gather_pages(pool_t, ids)
+        np.testing.assert_array_equal(got["pos"].numpy(),
+                                      np.asarray(view["pos"]))
+        for name in ("k", "v"):
+            np.testing.assert_allclose(got[name].numpy(),
+                                       np.asarray(view[name]), **TOL)
+        assert (logits_t is None) == (not last)
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), **TOL)
+    mono, _ = tmodel.prefill(ct, pt, {"tokens": _t(toks[None])}, lora=lt,
+                             last_only=True)
+    np.testing.assert_allclose(logits_t.numpy(), mono.numpy(), **TOL)

@@ -35,12 +35,12 @@ ROOT = Path(__file__).resolve().parents[1]
 RANKS = (8, 4, 2, 8)
 
 
-def _pair(kernel="bgmv", ranks=RANKS, **kw):
+def _pair(kernel="bgmv", ranks=RANKS, arch="llama2-7b", **kw):
     """A reference server and a port server with the same weights and
     adapters."""
-    cj, ct = jget("llama2-7b").smoke(), tget("llama2-7b").smoke()
-    kw = dict(mode="caraserve", kernel=kernel, max_batch=4, cache_slots=64,
-              seed=0, **kw)
+    cj, ct = jget(arch).smoke(), tget(arch).smoke()
+    kw = dict({"mode": "caraserve", "kernel": kernel, "max_batch": 4,
+               "cache_slots": 64, "seed": 0}, **kw)
     js = JServer(cj, **kw)
     ts = TServer(ct, device="cpu",
                  params=params_from_jax(ct, jax.tree.map(np.asarray,
@@ -75,6 +75,82 @@ def test_server_tokens_match_reference(kernel):
     assert _tokens(ts) == _tokens(js)
     assert ts.backend.transfer_stats["megasteps"] > 0
     assert all(len(s.generated) == s.req.max_new_tokens for s in ts.states)
+
+
+@pytest.mark.parametrize("kernel", ["bgmv", "mbgmv"])
+def test_yi9b_server_tokens_match_reference(kernel):
+    """yi-9b-smoke (GQA group 2, k/v LoRA deltas KV * hd wide) through the
+    same staggered trace: every request's tokens equal the reference's."""
+    js, ts = _pair(kernel, arch="yi-9b")
+    trace = _trace(seed=2)
+    js.run([JReq(*t) for t in trace])
+    ts.run([TReq(*t) for t in trace])
+    assert _tokens(ts) == _tokens(js)
+    assert all(len(s.generated) == s.req.max_new_tokens for s in ts.states)
+
+
+def _long_trace(seed=4):
+    """Prompts of 12-44 tokens (three above a 16-token chunk budget, the
+    last chunk of each partial), staggered so chunks ride decode steps."""
+    rng = np.random.default_rng(seed)
+    return [(i, f"ad{i % 4}", rng.integers(0, 512, n).astype(np.int32), m,
+             float(6 * i))
+            for i, (n, m) in enumerate([(30, 8), (44, 6), (12, 9), (25, 7),
+                                        (14, 5)])]
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "llama2-7b"])
+def test_chunked_server_tokens_match_reference_and_monolithic(arch):
+    """chunk_budget 16 below the longest prompt: the port's chunked server
+    gives the reference's chunked server's tokens and the port's own
+    monolithic tokens (interference control changes the timeline, never
+    the numerics)."""
+    kw = dict(arch=arch, page_size=16, megastep=0)
+    js, ts = _pair(chunk_budget=16, **kw)
+    _, mono = _pair(**kw)
+    trace = _long_trace()
+    js.run([JReq(*t) for t in trace])
+    ts.run([TReq(*t) for t in trace])
+    mono.run([TReq(*t) for t in trace])
+    assert ts.backend.transfer_stats["prefill_chunks"] > 0
+    assert mono.backend.transfer_stats["prefill_chunks"] == 0
+    assert _tokens(ts) == _tokens(js)
+    assert _tokens(ts) == _tokens(mono)
+    assert all(len(s.generated) == s.req.max_new_tokens for s in ts.states)
+
+
+@pytest.mark.parametrize("policy", ["swap", "recompute"])
+def test_half_prefilled_row_preempted_resumes_token_exact(policy):
+    """A 48-token prompt in 16-token chunks is preempted after two chunks
+    (swap keeps its chunk progress and restores the written pages;
+    recompute restarts the prompt) and still emits exactly the tokens of
+    an uninterrupted run."""
+    def run(preempt_after):
+        ct = tget("yi-9b").smoke()
+        ts = TServer(ct, mode="cached", max_batch=4, cache_slots=64,
+                     seed=0, device="cpu", memory="paged", page_size=16,
+                     preempt=policy, chunk_budget=16)
+        ts.register_adapter(TSpec("ad0", 8, ct.name))
+        prompt = np.random.default_rng(9).integers(0, 512, 48)
+        st = ts.submit(TReq(0, "ad0", prompt.astype(np.int32), 5, 0.0))
+        for _ in range(preempt_after):
+            ts.step()
+        if preempt_after:
+            assert st.phase == "prefill" and st.prefill_pos == 32
+            ts._preempt(st)
+            assert st.prefill_pos == (32 if policy == "swap" else 0)
+        while ts.busy() or ts.queue:
+            ts.step()
+        ts.backend.flush_readback()
+        assert st.prefill_pos == 48
+        return st, ts
+
+    want, _ = run(0)
+    st, ts = run(2)
+    assert st.preemptions == 1
+    assert ts.preempt_stats[f"{policy}_preemptions"] == 1
+    assert st.generated == want.generated
+    assert len(st.generated) == 5
 
 
 def _port(**kw):
@@ -134,7 +210,7 @@ def test_preemption_resume_matches_uninterrupted_reference(roomy_reference,
 
 def test_unported_options_raise():
     ct = tget("llama2-7b").smoke()
-    for kw in ({"chunk_budget": 8}, {"memory": "dense"},
+    for kw in ({"memory": "dense"},
                {"pipeline": "perstep"}, {"temperature": 0.7}):
         with pytest.raises(NotImplementedError):
             TServer(ct, max_batch=2, cache_slots=64, device="cpu", **kw)
