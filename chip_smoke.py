@@ -6,16 +6,22 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. print the card's name and power limit; build the CUDA kernels from
-     src/repro_torch/csrc with nvcc (sm_90a) and print the build time;
+     src/repro_torch/csrc with nvcc (sm_90a) and print the build time and
+     each kernel's registers, static shared memory and spills (ptxas);
   2. hold each kernel against its plain PyTorch version on the card:
      llama2-7b shapes in bf16 and smoke shapes in f32, with unclaimed
      pages, pos = 0 rows, a row with no claimed page, claimed-but-empty
      pages, GQA groups > 1, NaN in every page a row does not own, idx = -1
-     rows and ranks 8/16/32/64 under BGMV and MBGMV; flash attention at
+     rows and ranks 8/16/32/64 under BGMV and MBGMV, the shrink on both
+     its paths (8 and 64 rows: split d_in; prefill rows in runs of 1/17/
+     32/64/4,096 per slot, a ragged last tile, whole tiles of idx -1 rows,
+     and yi-9b's 32,768 rows: row tiles) and repeatable bitwise; flash attention at
      yi-9b's long prompt (bf16, B 2, H 32 over KV 4, hd 128, L 4096,
      causal), at llama2-7b's (H = KV = 32, L 256), both on (B, L, H, hd)
-     views as the model passes them, and at smoke shapes in f32
-     (non-causal, window, Lq != Lk, ragged L, GQA groups 1/2/8);
+     views as the model passes them, in bf16 at hd 32/64/128 with Lq !=
+     Lk, lengths no multiple of the 128-key tile, windows, causal=False
+     and GQA groups 1/4/8, and at smoke shapes in f32 (non-causal,
+     window, Lq != Lk, ragged L, GQA groups 1/2/8);
   3a. serve full-width llama2-7b (32 layers, d_model 4096, bf16, seeded
      random weights on the card) through `InferenceServer`: 16 requests
      with kernel="bgmv", then 6 with kernel="mbgmv"; every request must
@@ -38,9 +44,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the flash kernel vs the plain attention, and a profile of one prefill
      call at the serving shape (8 rows x 4,096 tokens, LoRA on);
   5b. flash attention timed at the shape of layer 0 of the largest
-     captured yi-9b prefill call, as the other kernels are; then one
-     {"kernels": [...]} line and the last line {"ok": true, "device":
-     {...}}.
+     captured yi-9b prefill call, as the other kernels are, and the LoRA
+     shrink at layer 0 of phase 4b's prefill call (32,768 rows); then one
+     {"kernels": [...]} line (the six TPU kernels' rows and the prefill
+     shrink row) and the last line {"ok": true, "device": {...}}.
 
 Tolerances (kernel vs plain version on the same inputs), per output row b
 (per query row (b, h, i) for attention): bf16 max|kernel[b] - plain[b]|
@@ -97,6 +104,7 @@ def main() -> int:
         else f"nvcc {build.build_seconds:.1f} s"
     print(f"kernels ready in {time.perf_counter() - t0:.1f} s ({built}) -> "
           f"{build.library_path().name}", flush=True)
+    print_build_info(build.build_log)
 
     errs = kernel_checks(torch)
     from repro_torch.configs.base import get_config
@@ -117,8 +125,11 @@ def main() -> int:
         yi_serving, yi_params = serve_phase(torch, yi, YI_RUNS, "3b")
     report["yi_serving"] = yi_serving
     report["yi_arms_agree"] = arms_agree(yi_serving)
-    report.update(prefill_phase(torch, yi, yi_params))
+    prefill = prefill_phase(torch, yi, yi_params)
+    lora_args = prefill.pop("prefill_lora")
+    report.update(prefill)
     kernels.append(flash_timing(torch, capture["args"], errs, yi_serving))
+    kernels.append(shrink_prefill_timing(torch, lora_args, yi_serving))
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -126,6 +137,40 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+KERNEL_NAMES = ("flash_bf16", "flash_f32", "lora_shrink_tile",
+                "lora_shrink_split", "lora_expand", "paged_attention")
+
+
+def print_build_info(log):
+    """Registers, static shared memory and spills of each kernel, from
+    nvcc's `-Xptxas -v` report of the build that ran."""
+    import re
+    if not log:
+        print("  (library found built: no ptxas report)", flush=True)
+        return
+    name, spill = None, "spills ?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(" + "|".join(KERNEL_NAMES) + r")_kernelI(\w*?)EE",
+                          m.group(1))
+            args = "" if k is None else k.group(2).replace(
+                "13__nv_bfloat16", "bf16,").replace("Li", "")
+            args = re.sub(r"^f", "f32,", args).replace("E", ",").strip(",")
+            name = f"{k.group(1)}<{args}>" if k else m.group(1)[:60]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers.*?(?:, (\d+) bytes smem)?$",
+                      line)
+        if m and name:
+            print(f"  ptxas {name}: {m.group(1)} registers, static smem "
+                  f"{m.group(2) or 0} B, {spill}", flush=True)
+            name, spill = None, "spills ?"
 
 
 # ------------------------------------------------------------ phase 2 ----
@@ -240,15 +285,29 @@ def kernel_checks(torch):
                   "row bitwise unchanged", flush=True)
 
     # LoRA shrink / expand: (label, rows, d_in, d_out, r_max, ranks, rb,
-    # dtype, full-width)
-    lcases = [("decode bf16", 8, 4096, 4096, 64, [8, 16, 32, 64] * 2, 16,
-               bf, True),
-              ("prefill 1024 rows bf16", 1024, 4096, 4096, 64,
-               [8, 16, 32, 64] * 2, 16, bf, True),
-              ("smoke f32", 8, 128, 128, 8, [8, 3, 5, 1], 4, f32, False),
+    # dtype, full-width, seg). seg 0: slots drawn at random per row; seg T:
+    # prefill's layout, runs of T rows per slot cycling through -1 and
+    # every slot, so run boundaries fall inside row tiles, whole tiles
+    # hold only idx -1 rows (T >= 64) and the last tile is ragged. Up to
+    # 64 rows the shrink takes its split-d_in path, above it row tiles
+    # (of 128 rows at 32,768 rows: yi-9b's 8 x 4,096 prefill).
+    y8 = [8, 16, 32, 64] * 2
+    lcases = [("decode bf16", 8, 4096, 4096, 64, y8, 16, bf, True, 0),
+              ("64 rows bf16", 64, 4096, 4096, 64, y8, 16, bf, True, 0),
+              ("prefill 1024 rows bf16", 1024, 4096, 4096, 64, y8, 16, bf,
+               True, 0),
+              *[(f"prefill runs of {T} bf16", 5 * max(T, 64) + 77, 4096,
+                 4096, 64, y8, 16, bf, True, T) for T in (1, 17, 32, 64)],
+              ("prefill runs of 4096 bf16", 2 * 4096 + 77, 4096, 4096, 64,
+               y8, 16, bf, True, 4096),
+              ("yi-9b prefill 32768 rows bf16", 32768, 4096, 512, 64, y8,
+               16, bf, True, 4096),
+              ("smoke f32", 8, 128, 128, 8, [8, 3, 5, 1], 4, f32, False, 0),
               ("smoke prefill f32", 96, 128, 128, 8, [8, 3, 5, 1], 4, f32,
-               False)]
-    for label, rows, d_in, d_out, r_max, ranks, rb, dt, full in lcases:
+               False, 0),
+              ("smoke prefill runs of 17 f32", 300, 128, 128, 8,
+               [8, 3, 5, 1], 4, f32, False, 17)]
+    for label, rows, d_in, d_out, r_max, ranks, rb, dt, full, seg in lcases:
         g = torch.Generator(device="cuda").manual_seed(len(label))
         slots = len(ranks)
         a = torch.zeros(slots, d_in, r_max, device="cuda", dtype=dt)
@@ -259,9 +318,13 @@ def kernel_checks(torch):
             b[s, :r] = (torch.randn(r, d_out, generator=g, device="cuda")
                         * r ** -0.5).to(dt)
         x = torch.randn(rows, d_in, generator=g, device="cuda").to(dt)
-        idx = torch.as_tensor(rng.integers(-1, slots, rows),
-                              dtype=torch.int32, device="cuda")
-        idx[0] = -1
+        if seg:
+            idx = torch.as_tensor(np.arange(rows) // seg % (slots + 1) - 1,
+                                  dtype=torch.int32, device="cuda")
+        else:
+            idx = torch.as_tensor(rng.integers(-1, slots, rows),
+                                  dtype=torch.int32, device="cuda")
+            idx[0] = -1
         ranks_t = torch.as_tensor(ranks, dtype=torch.int32, device="cuda")
         for mode, live in (("bgmv", ref.bgmv_live(idx, r_max)),
                            ("mbgmv", ref.mbgmv_live(idx, ranks_t, rb))):
@@ -271,6 +334,8 @@ def kernel_checks(torch):
                 ref.lora_shrink_ref(x, a, idx, live), f32), full)
             dead = torch.arange(r_max, device="cuda")[None] >= live[:, None]
             check(bool((y[dead] == 0).all()), "shrink: dead columns != 0")
+            check(torch.equal(y, lora_shrink(x, a, idx, live)),
+                  "shrink: two runs differ (sums must repeat bitwise)")
             yd = y.to(dt)
             out = lora_expand(yd, b, idx, live)
             note("lora_expand", check_close(
@@ -279,8 +344,10 @@ def kernel_checks(torch):
             check(bool((out[idx < 0] == 0).all()), "expand: idx -1 row != 0")
 
     # flash attention: (label, B, H, KV, Lq, Lk, hd, causal, window, dtype,
-    # full-width); full-width cases are (B, L, H, hd) tensors passed as
-    # their (B, H, L, hd) views, as the model passes them
+    # full-width); full-width and "view" cases are (B, L, H, hd) tensors
+    # passed as their (B, H, L, hd) views, as the model passes them. The
+    # bf16 kernel's K/V tiles are 128 keys: "ragged" lengths are no
+    # multiple of that
     from repro_torch.kernels.flash import flash_attention
     fcases = [("yi-9b L 4096 bf16", 2, 32, 4, 4096, 4096, 128, True, None,
                bf, True),
@@ -288,6 +355,16 @@ def kernel_checks(torch):
                bf, True),
               ("GQA 8 window 128 ragged bf16", 2, 16, 2, 1000, 1000, 64,
                True, 128, bf, False),
+              ("hd 32 GQA 1 Lq < Lk ragged view bf16", 2, 8, 8, 200, 333, 32,
+               True, None, bf, False),
+              ("hd 64 GQA 4 Lq > Lk non-causal view bf16", 2, 16, 4, 300,
+               190, 64, False, None, bf, False),
+              ("hd 128 GQA 8 window 100 non-causal ragged view bf16", 1, 16,
+               2, 777, 777, 128, False, 100, bf, False),
+              ("hd 32 GQA 4 window 64 ragged bf16", 2, 8, 2, 515, 515, 32,
+               True, 64, bf, False),
+              ("hd 128 GQA 1 Lq < Lk window 200 ragged view bf16", 1, 4, 4,
+               129, 1100, 128, True, 200, bf, False),
               ("smoke non-causal f32", 2, 4, 4, 130, 130, 32, False, None,
                f32, False),
               ("smoke window 48 GQA 2 ragged f32", 2, 4, 2, 257, 257, 32,
@@ -302,7 +379,7 @@ def kernel_checks(torch):
         k = torch.randn(B, Lk, KV, hd, generator=g, device="cuda").to(dt)
         v = torch.randn(B, Lk, KV, hd, generator=g, device="cuda").to(dt)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        if not full:
+        if not (full or "view" in label):
             q, k, v = (t.contiguous() for t in (q, k, v))
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -682,6 +759,10 @@ def prefill_phase(torch, cfg, params):
             model_lib.prefill(cfg, params, {"tokens": big}, lora=lora,
                               cache_slots=4096, last_pos=last)
 
+    store = {}
+    with capture_first_calls(store):
+        prefill_call()                   # layer 0's LoRA shrink, captured
+    out["prefill_lora"] = store["lora_delta"]
     out["prefill_profile"] = profile_step(
         torch, prefill_call, "one yi-9b prefill call (8 x 4096 tokens)")
     del srv
@@ -935,6 +1016,67 @@ def flash_timing(torch, args, errs, serving):
           f"{b_by}, {row['tflop_s']:.1f} TFLOP/s), plain "
           f"{row['plain_ms']:.1f} ms, library (SDPA) "
           f"{row['library_ms']:.3f} ms, launches {by_run}", flush=True)
+    return row
+
+
+def shrink_prefill_timing(torch, captured, serving):
+    """Phase 5b: the LoRA shrink at layer 0 (target q) of the yi-9b prefill
+    call of phase 4b: 32,768 rows (8 x 4,096 tokens, each row's slot
+    repeated over its 4,096 tokens), d_in 4,096, r_max 64, 8 adapters; the
+    row-tile path. Held per row against the plain version, timed beside
+    its bound (phase 5a's formula), the plain version and one
+    torch.matmul(x, A_cat) over all slots' A side by side (d_in x 8 r_max):
+    every slot's columns for every row, a superset of the function, timed
+    only and never called by the port. Launches: the yi-9b monolithic
+    arm's."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bgmv import lora_shrink, shrink_plan, sm_count
+    print("phase 5b: LoRA shrink at the yi-9b prefill shape", flush=True)
+    (x, a, b, idx), kw = captured
+    live = kw.get("live")
+    if live is None:
+        live = ops.lora_live(idx, kw.get("ranks"), kw.get("mode", "bgmv"),
+                             a.shape[-1], kw.get("rank_block", 16))
+    rows, d_in = x.shape
+    slots, _, r_max = a.shape
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    y = lora_shrink(x, a, idx, live)
+    err = check_close("lora_shrink prefill (yi-9b layer 0 q)", y,
+                      ref.lora_shrink_ref(x, a, idx, live), torch.float32)
+    adapted = idx >= 0
+    slot_live = dict(zip(idx[adapted].tolist(), live[adapted].tolist()))
+    live_cols = sum(slot_live.values())
+    row_live = int(live.sum())
+    e = x.element_size()
+    nbytes = (x.numel() * e + live_cols * d_in * e + 8 * rows
+              + y.numel() * 4)
+    b_ms, b_by = bound(nbytes, 2 * d_in * row_live, "bfloat16")
+    a_cat = a.permute(1, 0, 2).reshape(d_in, slots * r_max).contiguous()
+    plan = shrink_plan(rows, d_in, slots, sm_count(x.device))
+    row = {"name": "lora_shrink[bgmv, prefill]", "route": "cuda",
+           "source": "src/repro_torch/csrc/lora.cu",
+           "replaces": "src/repro/kernels/bgmv.py:86",
+           "path": "yi-9b prefill",
+           "launches": serving[0]["launches"]["lora_shrink"],
+           "max_abs_err": err,
+           "ms": time_ms(torch, lambda: lora_shrink(x, a, idx, live), flush),
+           "plain_ms": time_ms(torch, lambda: ref.lora_shrink_ref(
+               x, a, idx, live), flush, n=10),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, lambda: torch.matmul(x, a_cat),
+                                 flush),
+           "library_call": f"torch.matmul(x, A_cat {tuple(a_cat.shape)}): "
+                           "all slots' columns for every row (a superset)",
+           "bytes": nbytes,
+           "shape": {"rows": rows, "d_in": d_in, "r_max": r_max,
+                     "slots": slots, "adapters": len(slot_live),
+                     "live_columns": row_live, "tile_rows": plan.tile}}
+    print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
+          f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
+          f"{row['plain_ms'] * 1e3:.1f} us, library (matmul over A_cat) "
+          f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches",
+          flush=True)
     return row
 
 

@@ -14,34 +14,47 @@
 // times the ~295 flops/byte above which the bf16 tensor cores, not the
 // memory, are the limit. At yi-9b's long-prompt prefill (8 rows x 4096
 // tokens, H 32, hd 128) one layer is 1.1e12 flops: 1.1 ms at 989 TFLOP/s.
+// Only wgmma reaches that rate, so the bf16 kernel is built around it.
 //
-// Design (bf16). One block of 4 warps per (query tile of 64 rows, head,
-// row), the heaviest causal tiles launched first. The TPU grid's
-// sequential KV axis becomes a loop inside the block over KV tiles of 64
-// keys that starts and ends where the causal / window mask allows, so a
-// tile the mask excludes is never read. Q is staged in shared memory once
-// and then held as mma fragments in registers; each K/V tile is loaded
-// once for the whole query tile with 16-byte cp.async, zero-filled at and
-// past Lk (ragged lengths need no padded copies), and double-buffered so
-// the next tile's loads overlap this tile's math. QK^T and PV run on the
-// tensor cores as mma.sync m16n8k16 (bf16 in, f32 accumulate). Each warp
-// owns 16 query rows, so the softmax statistics stay in registers (a quad
-// of lanes shares a row) and P goes from the score accumulators straight
-// into PV's A fragments, rounded to bf16. The element-wise mask runs only
-// on tiles the mask cuts. q/k/v/out are strided (last dim contiguous), so
-// the model passes its (B, L, H, hd) tensors as (B, H, L, hd) views
-// without a copy. No wgmma, TMA or warp specialisation yet.
+// Design (bf16): one block per (128-row query tile, head, row), the
+// heaviest causal tiles launched first, warp-specialised into three
+// warpgroups.
+//  - Producer (warpgroup 2, one thread, 24 registers): TMA loads Q once
+//    and K/V tiles of 128 keys into a 3-stage ring guarded by full and
+//    empty mbarriers per K and per V (a K buffer is free once S is done).
+//    The loop starts and ends at the tiles the causal / window mask lets
+//    the query tile see, so a tile the mask excludes is never read. K/V rows at or past Lk come in as zeros (the
+//    tensor map's L extent is Lk), so ragged lengths need no padded copy.
+//    The maps are encoded on the host at each call from the views' strides
+//    (4-D: hd, L, heads, batch), so the model's (B, L, H, hd) tensors pass
+//    as (B, H, L, hd) views without a copy.
+//  - Two consumers (warpgroups 0 and 1, 64 query rows each, 240
+//    registers via setmaxnreg): S = Q K^T as wgmma m64n128k16 with Q and K
+//    K-major in swizzled shared memory (128-byte swizzle; a 128-wide head
+//    is two 64-column boxes; hd 32 uses the 64-byte swizzle); online
+//    softmax in registers with exp2 (a quad of lanes shares a row); P is
+//    rounded to bf16 in registers and is the register A operand of
+//    O += P V, wgmma m64n{hd}k16 with V read MN-major through the
+//    descriptor's transpose bit. Rounding P is the one place where the
+//    arithmetic differs from the plain version. The element-wise mask runs
+//    only on tiles the mask cuts. Only rows below Lq are stored.
+//  - Overlap (as FlashAttention-3 does within a warpgroup): a consumer
+//    issues tile i's Q K^T and tile i - 1's P V together and runs tile
+//    i's softmax while P V is on the tensor cores. The softmax takes one
+//    FFMA and one ex2.approx an element (max of raw scores, scale folded
+//    into the exponent).
 //
-// Design (f32, small shapes). The same tiling on CUDA cores: 32 x 32
-// tiles, one quad of lanes per query row, scores and P in f32.
+// Design (f32, small shapes). Tiles of 32 x 32 on CUDA cores, one quad of
+// lanes per query row, scores and P in f32, K/V through shared memory.
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;            // 4 warps
-constexpr int kBQ = 64, kBK = 64;        // bf16 tiles (16 query rows / warp)
+constexpr int kThreads = 128;            // f32 kernel: 4 warps
 constexpr int kFB = 32;                  // f32 tiles (queries and keys)
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -54,9 +67,9 @@ struct Problem {
   float scale;
 };
 
-// KV tiles [j_lo, j_hi) a query tile starting at q0 can see: keys past the
-// tile's last query are causally masked, keys at or before q0 - window are
-// outside every row's window.
+// KV tiles [j_lo, j_hi) a query tile of rows [q0, q0 + bq) can see: keys
+// past the tile's last query are causally masked, keys at or before
+// q0 - window are outside every row's window.
 __device__ __forceinline__ void kv_tiles(const Problem& p, int q0, int bq,
                                          int bk, int& j_lo, int& j_hi) {
   int k_hi = p.Lk;
@@ -79,246 +92,307 @@ __device__ __forceinline__ bool tile_full(const Problem& p, int q0, int bq,
          (p.window <= 0 || (q0 + bq - 1) - k0 < p.window);
 }
 
-// ------------------------------------------------------ PTX helpers ----
+// -------------------------------------------------------------- bf16 ----
 
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+constexpr int kBQ = 128;                 // query rows a block (2 x 64)
+constexpr int kBK = 128;                 // keys a K/V tile
+constexpr int kStages = 3;               // K/V ring depth
+constexpr int kWG = 128;                 // threads a warpgroup
+constexpr int kBf16Threads = 3 * kWG;    // consumers 0, 1; producer 2
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+__device__ __forceinline__ float ex2(float x) {   // 2^x, one MUFU op
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// 16 bytes global -> shared; `pred` false zero-fills the 16 bytes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
+// One online-softmax step over a 64 x kBK score tile in registers (the
+// wgmma accumulator layout): mask unless the tile is full (masked scores
+// -inf), update the row max m (of raw scores) and sum l, and turn s into
+// p = 2^(s sl2 - m sl2) in place, one FFMA and one ex2 an element (sl2 =
+// hd^-0.5 log2 e; masked p exactly 0). corr rescales what was summed
+// before. A row with no valid key yet keeps m = -inf, p = 0, l = 0.
+template <int NS>
+__device__ __forceinline__ void softmax_step(float (&s)[NS * 4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2],
+                                             const Problem& p, int qrow,
+                                             int k0, bool full, float sl2,
+                                             int lane) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!full && !key_ok(p, qrow + (e >> 1) * 8,
+                           k0 + n * 8 + (lane & 3) * 2 + (e & 1)))
+        s[4 * n + e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * n + e]);
+    }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // mx[r] is the new max: -inf only if the row has seen no valid key
+    base[r] = mx[r] == -INFINITY ? 0.f : mx[r] * sl2;
+    corr[r] = ex2(m[r] * sl2 - base[r]);     // m = -inf: 0 (nothing yet)
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = ex2(fmaf(s[4 * n + e], sl2, -base[e >> 1]));
+      s[4 * n + e] = pe;
+      l[e >> 1] += pe;
+    }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
-                                              const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// rows [row0, row0 + ROWS) of a (rows, HD) bf16 matrix with row stride
-// `ld` into shared memory (row stride LDS), rows at or past n_rows zeroed
-template <int ROWS, int HD, int LDS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long ld, int row0, int n_rows,
-                                          int tid) {
-  constexpr int kChunks = HD / 8;
-#pragma unroll 4
-  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = row0 + r < n_rows;
-    const bf16* s = ok ? src + (long long)(row0 + r) * ld + c * 8 : src;
-    cp_async16(dst + r * LDS + c * 8, s, ok);
+// P as the A fragments of P V, rounded to bf16: k-step t covers keys
+// 16t..16t+15, the S column blocks 2t and 2t + 1.
+template <int NS>
+__device__ __forceinline__ void p_fragments(const float (&s)[NS * 4],
+                                            uint32_t (&pf)[NS / 2][4]) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    pf[n >> 1][(n & 1) * 2] = rt::pack_bf16(s[4 * n], s[4 * n + 1]);
+    pf[n >> 1][(n & 1) * 2 + 1] = rt::pack_bf16(s[4 * n + 2], s[4 * n + 3]);
   }
 }
 
-// -------------------------------------------------------------- bf16 ----
+// Shared-memory layout of a (rows x HD) bf16 tile as TMA writes it with
+// swizzle: HD / kBox column boxes, each `rows` rows of kSwz bytes.
+template <int HD>
+struct Tile {
+  static constexpr int kBox = HD < 64 ? HD : 64;   // columns a box
+  static constexpr int kBoxes = HD / kBox;
+  static constexpr int kSwz = kBox * 2;            // bytes a row: 64 or 128
+  static constexpr int kAtom = 8 * kSwz;           // 8 rows: the SBO
+  static constexpr unsigned kLayout = kSwz == 128 ? 1 : 2;
+  static constexpr int kQBytes = kBQ * HD * 2;
+  static constexpr int kKVBytes = kBK * HD * 2;
+  // Q, then kStages K tiles, then kStages V tiles, then the barriers
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes;
+};
+
+struct Barriers {
+  uint64_t q_full;
+  uint64_t k_full[kStages], v_full[kStages];
+  uint64_t k_empty[kStages], v_empty[kStages];
+};
+
+// Offset of k-step kk (16 columns of hd) in a swizzled tile of `rows`
+// rows, in the 16-byte units of a descriptor's address: 32 bytes further
+// into the box each step, the next box after kBox / 16 steps.
+template <int HD>
+__device__ __forceinline__ unsigned koff(int kk, int rows) {
+  using T = Tile<HD>;
+  return (((kk * 16) / T::kBox) * rows * (unsigned)T::kSwz +
+          ((kk * 16) % T::kBox) * 2u) >> 4;
+}
+
+// S = Q K^T over stage st (Q and K K-major: transpose bits 0)
+template <int HD>
+__device__ __forceinline__ void issue_s(float (&s)[kBK / 2], uint64_t dq,
+                                        uint64_t dk, int st) {
+  const unsigned kb = (st * Tile<HD>::kKVBytes) >> 4;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    rt::Wgmma<kBK>::template ss<0, 0>(s, dq + koff<HD>(kk, kBQ),
+                                      dk + kb + koff<HD>(kk, kBK), kk > 0);
+  rt::wgmma_commit();
+}
+
+// O += P V over stage st (V MN-major: transpose bit 1; a 16-key k-step
+// is 16 rows further)
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pf)[kBK / 16][4],
+                                         uint64_t dv, int st) {
+  using T = Tile<HD>;
+  const unsigned vb = (st * T::kKVBytes) >> 4;
+#pragma unroll
+  for (int tt = 0; tt < kBK / 16; ++tt)
+    rt::Wgmma<HD>::template rs<1>(o, pf[tt],
+                                  dv + vb + ((tt * 16 * T::kSwz) >> 4), 1);
+  rt::wgmma_commit();
+}
+
+template <int NP>
+__device__ __forceinline__ void fence_frags(uint32_t (&pf)[NP][4]) {
+#pragma unroll
+  for (int tt = 0; tt < NP; ++tt) rt::fence_regs(pf[tt]);
+}
+
+// O *= corr row-wise, then P -> bf16 A fragments
+template <int HD>
+__device__ __forceinline__ void rescale(float (&o)[HD / 2],
+                                        const float (&corr)[2],
+                                        const float (&s)[kBK / 2],
+                                        uint32_t (&pf)[kBK / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    o[4 * n] *= corr[0];
+    o[4 * n + 1] *= corr[0];
+    o[4 * n + 2] *= corr[1];
+    o[4 * n + 3] *= corr[1];
+  }
+  p_fragments<kBK / 8>(s, pf);
+}
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ out, Problem p) {
-  constexpr int LDS = HD + 8;            // padded: ldmatrix conflict-free
-  constexpr int KS = HD / 16;            // k-steps of QK^T over hd
-  constexpr int NO = HD / 8;             // 8-wide output column tiles
-  constexpr int NS = kBK / 8;            // 8-key score tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kBQ * LDS;           // two buffers
-  bf16* v_s = k_s + 2 * kBK * LDS;       // two buffers
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+__global__ void __launch_bounds__(kBf16Threads, 1) flash_bf16_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+    Problem p) {
+  using T = Tile<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms must sit on 1024-byte boundaries
+  unsigned char* base =
+      smem_raw + ((1024 - (rt::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = base;
+  unsigned char* k_s = q_s + T::kQBytes;                   // + st * kKVBytes
+  unsigned char* v_s = k_s + kStages * T::kKVBytes;
+  Barriers& bar = *reinterpret_cast<Barriers*>(base + T::kSmem);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const bf16* qb = q + b * p.qb + h * p.qh;
-  const bf16* kb = k + b * p.kb + kvh * p.kh;
-  const bf16* vb = v + b * p.vb + kvh * p.vh;
   int j_lo, j_hi;
   kv_tiles(p, q0, kBQ, kBK, j_lo, j_hi);
 
-  load_rows<kBQ, HD, LDS>(q_s, qb, p.ql, q0, p.Lq, tid);
-  cp_async_commit();
-  if (j_lo < j_hi) {
-    load_rows<kBK, HD, LDS>(k_s, kb, p.kl, j_lo * kBK, p.Lk, tid);
-    load_rows<kBK, HD, LDS>(v_s, vb, p.vl, j_lo * kBK, p.Lk, tid);
+  if (threadIdx.x == 0) {
+    rt::mbar_init(&bar.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      rt::mbar_init(&bar.k_full[s], 1);
+      rt::mbar_init(&bar.v_full[s], 1);
+      rt::mbar_init(&bar.k_empty[s], 2 * kWG);
+      rt::mbar_init(&bar.v_empty[s], 2 * kWG);
+    }
+    rt::fence_barrier_init();
   }
-  cp_async_commit();
-  cp_async_wait<1>();                    // Q has landed
   __syncthreads();
 
-  unsigned qf[KS][4];                    // this warp's 16 rows of Q
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldsm_x4(qf[ks], q_s + (warp * 16 + (lane & 15)) * LDS + ks * 16 +
-                        (lane >> 4) * 8);
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
-  const int qrow = q0 + warp * 16 + (lane >> 2);   // +8 for the second row
-  const float sl2 = p.scale * kLog2e;              // exp(x) = exp2(x log2 e)
-
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int buf = (j - j_lo) & 1;
-    if (j + 1 < j_hi) {
-      load_rows<kBK, HD, LDS>(k_s + (buf ^ 1) * kBK * LDS, kb, p.kl,
-                              (j + 1) * kBK, p.Lk, tid);
-      load_rows<kBK, HD, LDS>(v_s + (buf ^ 1) * kBK * LDS, vb, p.vl,
-                              (j + 1) * kBK, p.Lk, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();                  // tile j has landed
-    __syncthreads();
-    const bf16* kt = k_s + buf * kBK * LDS;
-    const bf16* vt = v_s + buf * kBK * LDS;
-
-    // S = Q K^T: score tile n holds keys 8n..8n+7
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        unsigned bk[4];
-        ldsm_x4(bk, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDS +
-                        ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], bk[2], bk[3]);
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {
+    // ------------------------------------------------ producer ----
+    rt::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * kWG) {
+      const int kvh = h / (p.H / p.KV);
+      rt::mbar_expect_tx(&bar.q_full, T::kQBytes);
+      for (int x = 0; x < T::kBoxes; ++x)
+        rt::tma_load_4d(q_s + x * kBQ * T::kSwz, &tq, &bar.q_full,
+                        x * T::kBox, q0, h, b);
+      for (int j = j_lo, i = 0; j < j_hi; ++j, ++i) {
+        const int st = i % kStages;
+        const unsigned par = ((i / kStages) & 1) ^ 1;
+        rt::mbar_wait(&bar.k_empty[st], par);
+        rt::mbar_expect_tx(&bar.k_full[st], T::kKVBytes);
+        for (int x = 0; x < T::kBoxes; ++x)
+          rt::tma_load_4d(k_s + st * T::kKVBytes + x * kBK * T::kSwz, &tk,
+                          &bar.k_full[st], x * T::kBox, j * kBK, kvh, b);
+        rt::mbar_wait(&bar.v_empty[st], par);
+        rt::mbar_expect_tx(&bar.v_full[st], T::kKVBytes);
+        for (int x = 0; x < T::kBoxes; ++x)
+          rt::tma_load_4d(v_s + st * T::kKVBytes + x * kBK * T::kSwz, &tv,
+                          &bar.v_full[st], x * T::kBox, j * kBK, kvh, b);
       }
     }
+  } else {
+    // ------------------------------------------------ consumers ----
+    rt::setmaxnreg_inc<kConsumerRegs>();
+    constexpr int NS = kBK / 8;          // 8-key column blocks of S
+    constexpr int NP = kBK / 16;         // 16-key k-steps of P V
+    const int t = threadIdx.x % kWG, warp = t / 32, lane = t % 32;
+    const float sl2 = p.scale * kLog2e;  // exp(x) = exp2(x log2 e)
 
-    // mask, running max, rescale
-    const int k0 = j * kBK;
-    const bool full = tile_full(p, q0, kBQ, k0, kBK);
-    float mx[2] = {rt::kNegInf, rt::kNegInf};
+    // Q / K descriptors: K-major, swizzled, SBO = one 8-row atom (k-steps:
+    // koff). V: MN-major (transposed), LBO = the next box of hd columns,
+    // SBO = the next 8 keys.
+    const uint64_t dq = rt::smem_desc(q_s + wg * 64 * T::kSwz, 16, T::kAtom,
+                                      T::kLayout);
+    const uint64_t dk = rt::smem_desc(k_s, 16, T::kAtom, T::kLayout);
+    const uint64_t dv = rt::smem_desc(v_s, kBK * T::kSwz, T::kAtom,
+                                      T::kLayout);
+    float o[HD / 2], m[2], l[2], corr[2];
+    float s[NS * 4];
+    uint32_t pf[NP][4];
+
+    // Tile i's softmax runs while tile i - 1's P V is on the tensor cores:
+    // S_i and P_{i-1} V are issued together, S_i is waited for first.
+    const int q0w = q0 + wg * 64;        // this warpgroup's 64 rows
+    const int qrow = q0w + warp * 16 + (lane >> 2);   // +8 for e >= 2
+    const int ntiles = j_hi - j_lo;
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * sl2;
-        if (!full && !key_ok(p, qrow + (e >> 1) * 8,
-                             k0 + n * 8 + (lane & 3) * 2 + (e & 1)))
-          x = rt::kNegInf;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    for (int n = 0; n < HD / 2; ++n) o[n] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    rt::mbar_wait(&bar.q_full, 0);
+    if (ntiles > 0) {
+      rt::mbar_wait(&bar.k_full[0], 0);
+      rt::fence_regs(s);
+      rt::wgmma_fence();
+      issue_s<HD>(s, dq, dk, 0);
+      rt::wgmma_wait<0>();
+      rt::fence_regs(s);
+      rt::mbar_arrive(&bar.k_empty[0]);
+      softmax_step<NS>(s, m, l, corr, p, qrow, j_lo * kBK,
+                       tile_full(p, q0w, 64, j_lo * kBK, kBK), sl2, lane);
+      rescale<HD>(o, corr, s, pf);
+      for (int i = 1; i < ntiles; ++i) {
+        const int st = i % kStages, ps = (i - 1) % kStages;
+        rt::mbar_wait(&bar.k_full[st], (i / kStages) & 1);
+        rt::mbar_wait(&bar.v_full[ps], ((i - 1) / kStages) & 1);
+        rt::fence_regs(s);
+        rt::fence_regs(o);
+        fence_frags(pf);
+        rt::wgmma_fence();
+        issue_s<HD>(s, dq, dk, st);
+        issue_pv<HD>(o, pf, dv, ps);
+        rt::wgmma_wait<1>();             // S_i done; P_{i-1} V still runs
+        rt::fence_regs(s);
+        rt::mbar_arrive(&bar.k_empty[st]);
+        const int k0 = (j_lo + i) * kBK;
+        softmax_step<NS>(s, m, l, corr, p, qrow, k0,
+                         tile_full(p, q0w, 64, k0, kBK), sl2, lane);
+        rt::wgmma_wait<0>();
+        rt::fence_regs(o);
+        fence_frags(pf);                 // P_{i-1} is read until here
+        rt::mbar_arrive(&bar.v_empty[ps]);
+        rescale<HD>(o, corr, s, pf);
       }
-    float corr[2];
+      const int ps = (ntiles - 1) % kStages;
+      rt::mbar_wait(&bar.v_full[ps], ((ntiles - 1) / kStages) & 1);
+      rt::fence_regs(o);
+      fence_frags(pf);
+      rt::wgmma_fence();
+      issue_pv<HD>(o, pf, dv, ps);
+      rt::wgmma_wait<0>();
+      rt::fence_regs(o);
+      rt::mbar_arrive(&bar.v_empty[ps]);
+    }
+
+    // the quad's partial sums -> the row's l; rows below Lq are stored
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
-
-    // P (masked entries exactly 0) as the A fragments of PV: k-step t
-    // covers keys 16t..16t+15, i.e. score tiles 2t and 2t + 1
-    unsigned pf[NS / 2][4];
+    bf16* ob = out + b * p.ob + h * p.oh;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      float pe[4];
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      if (row < p.Lq) {
+        bf16* orow = ob + (long long)row * p.ol + (lane & 3) * 2;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        pe[e] = s[n][e] > rt::kNegInf ? exp2f(s[n][e] - m[e >> 1]) : 0.f;
-      l[0] += pe[0] + pe[1];
-      l[1] += pe[2] + pe[3];
-      pf[n >> 1][(n & 1) * 2] = pack_bf16(pe[0], pe[1]);
-      pf[n >> 1][(n & 1) * 2 + 1] = pack_bf16(pe[2], pe[3]);
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // O += P V
-#pragma unroll
-    for (int t = 0; t < NS / 2; ++t) {
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        unsigned bv[4];
-        ldsm_x4_trans(bv, vt + (t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                   * LDS + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pf[t], bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pf[t], bv[2], bv[3]);
+        for (int n = 0; n < HD / 8; ++n)
+          *reinterpret_cast<unsigned*>(orow + n * 8) = rt::pack_bf16(
+              o[4 * n + 2 * r] * inv[r], o[4 * n + 2 * r + 1] * inv[r]);
       }
     }
-    __syncthreads();                     // buffer `buf` is refilled next
-  }
-
-  // the quad's partial sums -> the row's l; stage the tile in q_s (Q now
-  // lives in registers; each warp rewrites only the rows it read) for
-  // 16-byte stores
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
-  }
-  __syncwarp();
-  const int srow = warp * 16 + (lane >> 2);
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int col = n * 8 + (lane & 3) * 2;
-    *reinterpret_cast<unsigned*>(q_s + srow * LDS + col) =
-        pack_bf16(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    *reinterpret_cast<unsigned*>(q_s + (srow + 8) * LDS + col) =
-        pack_bf16(acc[n][2] * inv[1], acc[n][3] * inv[1]);
-  }
-  __syncthreads();
-  bf16* ob = out + b * p.ob + h * p.oh;
-  constexpr int kChunks = HD / 8;
-  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    if (q0 + r < p.Lq)
-      *reinterpret_cast<uint4*>(ob + (long long)(q0 + r) * p.ol + c * 8) =
-          *reinterpret_cast<const uint4*>(q_s + r * LDS + c * 8);
   }
 }
 
@@ -423,37 +497,93 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
 
 // ------------------------------------------------------------ launch ----
 
-template <typename T, typename Kern>
-cudaError_t launch(Kern kern, int tile, size_t smem, const void* q,
-                   const void* k, const void* v, void* out, const Problem& p,
-                   int B, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((p.Lq + tile - 1) / tile, p.H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), p);
-  return cudaGetLastError();
-}
-
-template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, const Problem& p, int B, cudaStream_t st) {
-  const size_t smem = sizeof(bf16) * (size_t)(kBQ + 4 * kBK) * (HD + 8);
-  return launch<bf16>(flash_bf16_kernel<HD>, kBQ, smem, q, k, v, out, p, B,
-                      st);
-}
-
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, const Problem& p, int B, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * ((size_t)3 * kFB * (HD + 1) + (size_t)kFB * (kFB + 1));
-  return launch<float>(flash_f32_kernel<HD>, kFB, smem, q, k, v, out, p, B,
-                       st);
+  auto kern = flash_f32_kernel<HD>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((p.Lq + kFB - 1) / kFB, p.H, B);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), p);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled is a driver-API function. It is looked up at run
+// time through the runtime's driver entry point, so the library links
+// nothing beyond the CUDA runtime; a driver without it makes every bf16
+// call fail with cudaErrorNotSupported.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                            cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (hd, L, heads, batch) of a bf16 (B, heads, L, hd) view with
+// element strides sb, sh, sl, boxes of (kBox, rows) zero-filled outside.
+template <int HD>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int heads, int L,
+                long long sb, long long sh, long long sl, int rows) {
+  using T = Tile<HD>;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)max(L, 1),
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)T::kBox, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode_tiled()(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             T::kSwz == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, const Problem& p, int B, cudaStream_t st) {
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<HD>(&tq, q, B, p.H, p.Lq, p.qb, p.qh, p.ql, kBQ) ||
+      !tensor_map<HD>(&tk, k, B, p.KV, p.Lk, p.kb, p.kh, p.kl, kBK) ||
+      !tensor_map<HD>(&tv, v, B, p.KV, p.Lk, p.vb, p.vh, p.vl, kBK))
+    return cudaErrorInvalidValue;
+  // + 1024 for aligning the base to a swizzle atom
+  const size_t smem = Tile<HD>::kSmem + sizeof(Barriers) + 1024;
+  auto kern = flash_bf16_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Lq + kBQ - 1) / kBQ, p.H, B);
+  kern<<<grid, kBf16Threads, smem, st>>>(tq, tk, tv, static_cast<bf16*>(out),
+                                         p);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,0 +1,99 @@
+// Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
+// loads, register reallocation between warpgroups and wgmma shared-memory
+// descriptors.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda.h>   // CUtensorMap (a type only: nothing of libcuda is linked)
+
+#include "common.cuh"
+
+namespace rt {
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// arrive and expect `bytes` of TMA transactions in the current phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned addr,
+                                              unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait until the phase of parity `parity` has completed (a fresh barrier
+// is in phase 0, so waiting on parity 1 returns at once).
+// (No watchdog trap in the loop: a trap path makes ptxas keep values in
+// local memory and ignore setmaxnreg's larger register budget.)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  while (!mbar_try_wait(addr, parity)) {
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`. Elements outside the
+// tensor are zero-filled.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Move registers between warpgroups (every warp of the warpgroup runs it).
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout (1 = 128-byte,
+// 2 = 64-byte). The swizzle atom (8 rows) must be aligned to its size.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
+                                              unsigned sbo, unsigned layout) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+}  // namespace rt

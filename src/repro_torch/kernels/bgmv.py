@@ -9,15 +9,62 @@ tensor launches the kernel or raises. `lora_shrink.launches` and
 
     shrink:  y[b]   = x[b] @ A[idx[b]][:, :live[b]]    (rows, d_in) -> f32
     expand:  out[b] = y[b, :live[b]] @ B[idx[b]][:live[b]]
+
+The shrink kernel has two launch shapes, chosen here from the row count
+alone (`shrink_plan`, no device sync): up to SPLIT_MAX_ROWS rows (decode)
+split d_in over a cluster of SPLIT blocks a row; more rows (prefill,
+chunks) go in tiles of 64 or 128 consecutive rows, one block per (tile,
+distinct slot of the tile).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 _FLOATS = (torch.float32, torch.bfloat16)
-SHRINK_THREADS = 1024          # csrc/lora.cu: kShrinkThreads
+MAX_R = 8 * 1024               # r_max = 8 x a power of two up to this
+SPLIT = 8                      # csrc/lora.cu: kSplit, blocks a row (cluster)
+SPLIT_MAX_ROWS = 64            # split path up to here (decode batches)
+TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the kernel takes
+
+
+class ShrinkPlan(NamedTuple):
+    """The shrink kernel's launch. Row-tile path: tiles of `tile` rows,
+    `per_tile` blocks a tile (block k takes the tile's k-th distinct slot),
+    `blocks` in all. Split path (tile 0): SPLIT blocks a row, block k of a
+    row reducing d in [k * d_chunk, (k + 1) * d_chunk)."""
+    tile: int
+    per_tile: int
+    blocks: int
+    d_chunk: int
+
+
+def shrink_plan(rows: int, d_in: int, slots: int, sms: int) -> ShrinkPlan:
+    """Split d_in up to SPLIT_MAX_ROWS rows: a row tile holding many
+    slots would stream each slot's A through one SM, while the split path
+    spreads every row over SPLIT blocks. Above it, row tiles of 128 once
+    they fill every SM (`sms`) at least once, of 64 below that (twice the
+    blocks for mid-sized calls)."""
+    if rows <= SPLIT_MAX_ROWS:
+        d_chunk = -(-d_in // SPLIT)
+        return ShrinkPlan(0, SPLIT, rows * SPLIT, -(-d_chunk // 8) * 8)
+    tile = TILE_ROWS[1] if -(-rows // TILE_ROWS[1]) >= sms else TILE_ROWS[0]
+    per_tile = max(1, min(slots, tile))
+    return ShrinkPlan(tile, per_tile, -(-rows // tile) * per_tile, 0)
+
+
+_SMS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (cached: the plan is computed per call)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def _check_rows(name, idx, live, rows):
@@ -38,19 +85,25 @@ def lora_shrink(x, a, idx, live):
     if not x.is_cuda:
         return ref.lora_shrink_ref(x, a, idx, live)
     lanes = r_max // 8
-    if r_max % 8 or lanes & (lanes - 1) or lanes > SHRINK_THREADS:
+    if r_max % 8 or lanes & (lanes - 1) or r_max > MAX_R:
         raise ValueError(f"lora_shrink: the kernel takes r_max = 8 x a power "
-                         f"of two <= {8 * SHRINK_THREADS}, got {r_max}")
+                         f"of two <= {MAX_R}, got {r_max}")
+    if d_in % 8:
+        raise ValueError(f"lora_shrink: the kernel takes d_in a multiple of "
+                         f"8 (16-byte copies of x), got {d_in}")
     build.require(x, "x", dtypes=_FLOATS, ndim=2)
     build.require(a, "a", dtypes=(x.dtype,), ndim=3, device=x.device)
+    build.require_aligned(x, "x")
     build.require_aligned(a, "a")
     for name, t in (("idx", idx), ("live", live)):
         build.require(t, name, dtypes=(torch.int32,), device=x.device)
     lib = build.library()
+    plan = shrink_plan(rows, d_in, slots, sm_count(x.device))
     y = torch.empty(rows, r_max, dtype=torch.float32, device=x.device)
     rc = lib.rt_lora_shrink(x.data_ptr(), a.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), y.data_ptr(), rows, d_in, r_max,
-                            slots, build.DTYPE_CODE[x.dtype],
+                            slots, plan.tile, plan.d_chunk,
+                            build.DTYPE_CODE[x.dtype],
                             build.stream_handle(x.device))
     build.check_launch(rc, "lora_shrink")
     lora_shrink.launches += 1

@@ -8,6 +8,14 @@ ctypes; each entry point launches on the stream it is given and returns
 `cudaGetLastError()`. Nothing here runs at import: the first kernel call
 builds (or finds) the library. A missing `nvcc` or a failed build raises —
 no caller falls back to the plain versions.
+
+The flash kernel's TMA tensor maps are encoded by the driver function
+`cuTensorMapEncodeTiled`, which the library looks up at run time through
+the CUDA runtime's driver entry point (`cudaGetDriverEntryPoint`), so
+nothing beyond the runtime is linked; a driver without it makes the bf16
+flash call raise (`flash_attention`: CUDA error 801, not supported).
+nvcc runs with `-Xptxas -v`; its report (registers, shared memory and
+spills of each kernel) is kept in `build_log`.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -35,8 +43,9 @@ _SIGNATURES = {
     # q, k_pages, v_pages, pos_pages, block_table, pos, out,
     # B, H, KV, P, ps, hd, W, dtype, stream
     "rt_paged_attention": [_P] * 7 + [_I] * 8 + [_P],
-    # x, a, idx, live, y, rows, d_in, r_max, slots, dtype, stream
-    "rt_lora_shrink": [_P] * 5 + [_I] * 5 + [_P],
+    # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, dtype,
+    # stream
+    "rt_lora_shrink": [_P] * 5 + [_I] * 7 + [_P],
     # y, b, idx, live, out, rows, r_max, d_out, slots, dtype, stream
     "rt_lora_expand": [_P] * 5 + [_I] * 5 + [_P],
     # q, k, v, out, strides (12 int64 on the host),
@@ -47,6 +56,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None    # set by the build that ran
+build_log: str = ""                      # nvcc's output of the build that ran
 
 
 def _nvcc() -> str:
@@ -74,7 +84,7 @@ def library_path() -> Path:
 
 
 def _build(out: Path) -> None:
-    global build_seconds
+    global build_seconds, build_log
     nvcc = _nvcc()
     cus, _ = _sources()
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -101,6 +111,8 @@ def _build(out: Path) -> None:
                                + link.stdout.decode(errors="replace"))
         os.replace(tmp_so, out)
     build_seconds = time.perf_counter() - t0
+    build_log = "\n".join(f"--- {cu.name}\n{log}"
+                          for cu, log in zip(cus, logs))
 
 
 def library() -> ctypes.CDLL:

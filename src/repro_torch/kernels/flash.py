@@ -18,11 +18,13 @@ from repro_torch.kernels import build, ref
 
 # head dims the kernel is instantiated for (csrc/flash_attention.cu)
 HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (16, 32, 64, 128)}
+NOT_SUPPORTED = 801            # cudaErrorNotSupported: no TMA encoder
 
 
 def _require_strided(t, name, dtype, device):
-    """The kernel reads rows of hd contiguous elements in 16-byte vectors
-    at any (batch, head, position) stride that keeps them aligned."""
+    """The kernels read rows of hd contiguous elements by TMA (bf16) or in
+    16-byte vectors (f32): a 16-byte-aligned base and strides that are
+    multiples of 8 elements."""
     build.require(t, name, dtypes=(dtype,), ndim=4, device=device,
                   contiguous=False)
     if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
@@ -67,6 +69,10 @@ def flash_attention(q, k, v, *, causal=True, window=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         B, H, KV, Lq, Lk, hd, int(causal), 0 if window is None else window,
         build.DTYPE_CODE[q.dtype], build.stream_handle(q.device))
+    if rc == NOT_SUPPORTED:
+        raise RuntimeError("flash_attention: the CUDA driver does not "
+                           "provide cuTensorMapEncodeTiled (TMA), which the "
+                           "bf16 kernel needs")
     build.check_launch(rc, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -188,3 +188,67 @@ def test_yi9b_server_on_card_matches_server_on_cpu(card, chunk_budget):
         bool(chunk_budget)
     assert {s.req.rid: s.generated for s in gpu.states} == \
         {s.req.rid: s.generated for s in cpu.states}
+
+
+def _rows_close(got, want, tol, floor):
+    """Each output row within tol x max(floor, that row's max |plain|)."""
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    scale = want.float().abs().flatten(1).amax(1).clamp(min=floor)
+    assert bool((err <= tol * scale).all()), float((err / scale).max())
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+@pytest.mark.parametrize("rows,seg,d_in", [
+    (8, 0, 1024), (64, 0, 4096), (65, 1, 512), (300, 17, 512),
+    (8269, 4096, 256), (16896 + 77, 4096, 64)])
+def test_lora_shrink_paths_match_plain(card, mode, rows, seg, d_in):
+    """bf16 shrink on both launch shapes: split d_in (<= 64 rows) and row
+    tiles of 64 / 128 rows, at random slots (seg 0) and at prefill's runs
+    of `seg` rows per slot (boundaries inside tiles, whole tiles of idx -1
+    rows, a ragged last tile), ranks 8/16/32/64. f32 output: each row
+    within 1e-5 x max(1, its max |plain|), dead columns exactly 0, and a
+    second run bitwise equal (no atomics)."""
+    g = torch.Generator(device=card).manual_seed(rows + d_in)
+    ranks = [8, 16, 32, 64] * 2
+    a = torch.zeros(8, d_in, 64, device=card, dtype=torch.bfloat16)
+    for s, r in enumerate(ranks):
+        a[s, :, :r] = (torch.randn(d_in, r, generator=g, device=card)
+                       * d_in ** -0.5).bfloat16()
+    x = torch.randn(rows, d_in, generator=g, device=card).bfloat16()
+    if seg:
+        idx = torch.arange(rows, device=card) // seg % 9 - 1
+    else:
+        idx = torch.randint(-1, 8, (rows,), generator=g, device=card)
+    idx = idx.to(torch.int32)
+    live = ref.bgmv_live(idx, 64) if mode == "bgmv" else ref.mbgmv_live(
+        idx, torch.tensor(ranks, dtype=torch.int32, device=card), 16)
+    n = bgmv.lora_shrink.launches
+    y = bgmv.lora_shrink(x, a, idx, live)
+    assert bgmv.lora_shrink.launches == n + 1
+    _rows_close(y, ref.lora_shrink_ref(x, a, idx, live), 1e-5, 1.0)
+    dead = torch.arange(64, device=card)[None] >= live[:, None]
+    assert bool((y[dead] == 0).all())
+    assert torch.equal(y, bgmv.lora_shrink(x, a, idx, live))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("causal,window,group,Lq,Lk", [
+    (True, None, 1, 200, 333), (True, 64, 4, 515, 515),
+    (False, None, 8, 300, 190), (False, 100, 4, 777, 777)])
+def test_flash_kernel_bf16_head_dims(card, hd, causal, window, group, Lq,
+                                     Lk):
+    """The wgmma kernel at every bf16 head dim, on (B, H, L, hd) views of
+    (B, L, H, hd) tensors: lengths no multiple of its 128-key tile,
+    Lq != Lk, windows, causal=False, GQA groups 1/4/8; each query row
+    within 1e-2 of its largest plain value."""
+    g = torch.Generator(device=card).manual_seed(Lq + hd)
+    KV = 2
+    q = torch.randn(2, Lq, KV * group, hd, generator=g, device=card)
+    k = torch.randn(2, Lk, KV, hd, generator=g, device=card)
+    v = torch.randn(2, Lk, KV, hd, generator=g, device=card)
+    qt, kt, vt = (t.bfloat16().transpose(1, 2) for t in (q, k, v))
+    n = flash.flash_attention.launches
+    got = flash.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert flash.flash_attention.launches == n + 1
+    want = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window)
+    _rows_close(got.reshape(-1, hd), want.reshape(-1, hd), 1e-2, 0.0)

@@ -273,3 +273,90 @@ def test_cpu_tensors_never_build_or_count(monkeypatch):
                    _t(b), torch.tensor([0, -1, 1], dtype=torch.int32))
     assert before == (paged.paged_attention.launches,
                       bgmv.lora_shrink.launches, bgmv.lora_expand.launches)
+
+
+# ------------------------------------- LoRA shrink at prefill layouts ----
+
+def _segmented_idx(rows, seg, slots):
+    """Prefill's layout: each row's slot repeated over a run of `seg`
+    rows (core/lora.lora_apply repeats it T times), runs cycling through
+    -1 (no adapter) and every slot; the last run is ragged."""
+    return (np.arange(rows) // seg % (slots + 1) - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("seg", [1, 17, 32, 64, 4096])
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+def test_shrink_segmented_rows_match_pallas(mode, seg):
+    """The plain shrink (what the row-tile kernel is held to on the card)
+    against the Pallas kernels at segment boundaries inside and across
+    64/128-row tiles, whole tiles of idx -1 rows, a ragged last tile, and
+    ranks 8/16/32/64 (junk past each rank: MBGMV never reads it)."""
+    ranks = [8, 16, 32, 64]
+    a, _, rng = _lora_pool(seg, 4, 32, 8, 64, ranks)
+    a[0, :, 16:] = 5.0
+    rows = min(5 * max(seg, 64), 2 * seg) + 77
+    x = rng.normal(size=(rows, 32)).astype(np.float32)
+    idx = _segmented_idx(rows, seg, 4)
+    r_np = np.asarray(ranks, np.int32)
+    if mode == "bgmv":
+        a[0, :, 16:] = 0.0               # BGMV reads every column
+        want = jbgmv.bgmv_shrink(jnp.asarray(x), jnp.asarray(a),
+                                 jnp.asarray(idx))
+        got = bgmv.bgmv_shrink(_t(x), _t(a), _t(idx))
+    else:
+        want = jmbgmv.mbgmv_shrink(jnp.asarray(x), jnp.asarray(a),
+                                   jnp.asarray(idx), jnp.asarray(r_np),
+                                   rank_block=16)
+        got = mbgmv.mbgmv_shrink(_t(x), _t(a), _t(idx), _t(r_np),
+                                 rank_block=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.all(got.numpy()[idx < 0] == 0)
+
+
+_SMS = 132                               # the H100 SXM's SM count
+
+
+@pytest.mark.parametrize("rows", [
+    1, 8, bgmv.SPLIT_MAX_ROWS, bgmv.SPLIT_MAX_ROWS + 1, 63, 64, 65, 129,
+    128 * _SMS - 1, 128 * _SMS, 128 * (_SMS - 1) + 1, 128 * _SMS + 1,
+    32768])
+@pytest.mark.parametrize("d_in", [4096, 520, 8])
+@pytest.mark.parametrize("slots", [1, 8, 300])
+def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
+    """The launch plan computed on the host from `rows`: the split path up
+    to SPLIT_MAX_ROWS rows (SPLIT blocks a row over disjoint d slices that
+    cover d_in once, in multiples of 8), row tiles above it (128 rows once
+    they fill every SM, else 64), one block per (tile, distinct slot of the
+    tile) with the first also zeroing rows without an adapter: every row
+    is written by exactly one block, at random and at prefill layouts."""
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS)
+    if rows <= bgmv.SPLIT_MAX_ROWS:
+        assert plan.tile == 0 and plan.blocks == rows * bgmv.SPLIT
+        assert plan.d_chunk % 8 == 0 and plan.d_chunk > 0
+        hits = np.zeros(d_in, int)
+        for part in range(bgmv.SPLIT):    # the kernel's d slice of a block
+            lo = part * plan.d_chunk
+            hits[lo:min(d_in, lo + plan.d_chunk)] += 1
+        assert np.all(hits == 1)
+        return
+    big = -(-rows // 128) >= _SMS
+    assert plan.tile == (128 if big else 64) and plan.d_chunk == 0
+    assert plan.tile in bgmv.TILE_ROWS
+    assert plan.per_tile == min(slots, plan.tile)
+    n_tiles = plan.blocks // plan.per_tile
+    assert n_tiles == -(-rows // plan.tile)
+    rng = np.random.default_rng(rows + slots)
+    for idx in (rng.integers(-1, slots, rows),
+                _segmented_idx(rows, 17, slots)):
+        hits = np.zeros(rows, int)
+        for t in range(n_tiles):          # the kernel's blocks (t, k)
+            lo = t * plan.tile
+            tile = idx[lo:lo + plan.tile]
+            firsts = list(dict.fromkeys(int(i) for i in tile if i >= 0))
+            assert len(firsts) <= plan.per_tile
+            for k in range(plan.per_tile):
+                if k < len(firsts):
+                    hits[lo + np.flatnonzero(tile == firsts[k])] += 1
+                if k == 0:
+                    hits[lo + np.flatnonzero(tile < 0)] += 1
+        assert np.all(hits == 1)
