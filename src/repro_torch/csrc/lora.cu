@@ -53,8 +53,9 @@ constexpr int kSplit = 8;                // blocks a row: a portable cluster
 // y[row, r] for r < live[row]: block `part` of the row's cluster reduces
 // d in [part * d_chunk, (part + 1) * d_chunk). Threads are r_max/8 rank
 // lanes of 8 columns x (blockDim / lanes) d-groups; a lane reads its 8
-// columns of one d row of A in a single 16-byte load. The d-groups are
-// reduced through shared memory by a fixed tree, the blocks by rank 0.
+// columns of one d row of A in a single 16-byte load, up to 8 loads a
+// thread in flight. The d-groups are reduced through shared memory by a
+// fixed tree, the blocks by rank 0.
 template <typename T>
 __global__ void __cluster_dims__(kSplit, 1, 1) lora_shrink_split_kernel(
     const T* __restrict__ x, const T* __restrict__ a,
@@ -77,7 +78,7 @@ __global__ void __cluster_dims__(kSplit, 1, 1) lora_shrink_split_kernel(
   if (c0 < lv) {
     const T* xr = x + (size_t)row * d_in;
     const T* as = a + (size_t)s * d_in * r_max + c0;
-#pragma unroll 4
+#pragma unroll 8
     for (int d = d_lo + grp; d < d_hi; d += ngrp) {
       const float xv = rt::to_f32(xr[d]);
       float w[rt::kVec];
@@ -386,7 +387,9 @@ cudaError_t launch_split(const void* x, const void* a, const int* idx,
                          const int* live, float* y, int rows, int d_in,
                          int r_max, int slots, int d_chunk, cudaStream_t st) {
   const int lanes = r_max / rt::kVec;
-  const int threads = max(256, lanes);
+  // a handful of rows is bound by latency: 512 threads keep more loads in
+  // flight; from 17 rows on, rows x kSplit blocks fill the card at 256
+  const int threads = max(rows <= 16 ? 512 : 256, lanes);
   const size_t smem = (size_t)(threads / lanes) * r_max * sizeof(float);
   lora_shrink_split_kernel<T><<<rows * kSplit, threads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(a), idx, live, y, d_in,
