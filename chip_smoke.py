@@ -11,11 +11,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. hold each kernel against its plain PyTorch version on the card:
      llama2-7b shapes in bf16 and smoke shapes in f32, with unclaimed
      pages, pos = 0 rows, a row with no claimed page, claimed-but-empty
-     pages, GQA groups > 1, NaN in every page a row does not own, idx = -1
+     pages, GQA groups 1/4/8, paged attention in one block a row (llama2-
+     7b's 8 x 32) and with each row's table split over blocks (a 3,000-
+     token row beside short ones at yi-9b's 8 x 4, 2,400-2,500-token rows
+     at groups 1 and 8), NaN in every page a row does not own (llama2-7b
+     and yi-9b shapes), idx = -1
      rows and ranks 8/16/32/64 under BGMV and MBGMV, the shrink on both
      its paths (8 and 64 rows: split d_in; prefill rows in runs of 1/17/
      32/64/4,096 per slot, a ragged last tile, whole tiles of idx -1 rows,
-     and yi-9b's 32,768 rows: row tiles) and repeatable bitwise; flash attention at
+     and yi-9b's 32,768 rows: row tiles), the expand on both of its (1, 8
+     and 64 rows: decode; 65 to 32,768 rows: row tiles), d_out 512 / 4,096
+     and a ragged 136 (f32), every kernel repeatable bitwise; flash attention at
      yi-9b's long prompt (bf16, B 2, H 32 over KV 4, hd 128, L 4096,
      causal), at llama2-7b's (H = KV = 32, L 256), both on (B, L, H, hd)
      views as the model passes them, in bf16 at hd 32/64/128 with Lq !=
@@ -34,7 +40,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the plain versions, on the card, and its profile;
   5a. per-kernel timing at the decode shapes of phase 4a (CUDA events, L2
      flushed between launches) beside its bound, the plain version and a
-     PyTorch library call; then llama2-7b is freed;
+     PyTorch library call; then llama2-7b is freed (paged attention is
+     also timed at yi-9b's decode shape after phase 5b: layer 0 of the
+     first decode step of phase 3b's monolithic arm, a row at pos >=
+     2,048);
   3b. serve full-width yi-9b (48 layers, 32 heads over 4 KV heads, bf16,
      seeded random weights): 8 requests, three of 2,049-4,000 prompt
      tokens and five of 32-256, 16 new tokens each, in two arms on the same
@@ -45,9 +54,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      call at the serving shape (8 rows x 4,096 tokens, LoRA on);
   5b. flash attention timed at the shape of layer 0 of the largest
      captured yi-9b prefill call, as the other kernels are, and the LoRA
-     shrink at layer 0 of phase 4b's prefill call (32,768 rows); then one
-     {"kernels": [...]} line (the six TPU kernels' rows and the prefill
-     shrink row) and the last line {"ok": true, "device": {...}}.
+     shrink and expand at layer 0 of phase 4b's prefill call (32,768
+     rows); then one {"kernels": [...]} line (the six TPU kernels' rows,
+     the prefill shrink and expand rows and the yi-9b paged row) and the
+     last line {"ok": true, "device": {...}}.
 
 Tolerances (kernel vs plain version on the same inputs), per output row b
 (per query row (b, h, i) for attention): bf16 max|kernel[b] - plain[b]|
@@ -121,7 +131,7 @@ def main() -> int:
 
     yi = get_config("yi-9b")
     capture = {}
-    with capture_largest_attention(capture):
+    with capture_largest_attention(capture), capture_first_decode(capture):
         yi_serving, yi_params = serve_phase(torch, yi, YI_RUNS, "3b")
     report["yi_serving"] = yi_serving
     report["yi_arms_agree"] = arms_agree(yi_serving)
@@ -130,6 +140,8 @@ def main() -> int:
     report.update(prefill)
     kernels.append(flash_timing(torch, capture["args"], errs, yi_serving))
     kernels.append(shrink_prefill_timing(torch, lora_args, yi_serving))
+    kernels.append(expand_prefill_timing(torch, lora_args, yi_serving))
+    kernels.append(paged_yi_timing(torch, capture["decode"], yi_serving))
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -140,7 +152,8 @@ def main() -> int:
 
 
 KERNEL_NAMES = ("flash_bf16", "flash_f32", "lora_shrink_tile",
-                "lora_shrink_split", "lora_expand", "paged_attention")
+                "lora_shrink_split", "lora_expand_tile", "lora_expand_decode",
+                "paged_attention", "paged_combine")
 
 
 def print_build_info(log):
@@ -241,16 +254,28 @@ def kernel_checks(torch):
         if full:
             worst[name] = max(worst[name], err)
 
-    # paged attention: (label, B, H, KV, hd, ps, W, P, dtype, full-width)
+    # paged attention: (label, B, H, KV, hd, ps, W, P, dtype, full-width,
+    # context lengths or None for random ones). B x KV < the SM count
+    # splits each row's table over blocks (kernels/paged.py: split_plan):
+    # llama2-7b's 8 x 32 takes one split, the others several
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [("llama2-7b bf16", 8, 32, 32, 128, 32, 16, 176, bf, True),
-             ("GQA 4 bf16", 8, 32, 8, 128, 32, 16, 176, bf, True),
-             ("smoke f32", 4, 4, 4, 32, 32, 2, 10, f32, False),
-             ("GQA 2 ps 8 f32", 4, 4, 2, 32, 8, 5, 24, f32, False),
-             ("GQA 4 hd 16 f32", 4, 8, 2, 16, 8, 5, 24, f32, False)]
-    for label, B, H, KV, hd, ps, W, P, dt, full in cases:
+    yi_ctx = [0, 1, 3000, 2100, 40, 100, 200, 37]
+    cases = [("llama2-7b bf16", 8, 32, 32, 128, 32, 16, 176, bf, True, None),
+             ("GQA 4 bf16", 8, 32, 8, 128, 32, 16, 176, bf, True, None),
+             ("yi-9b long rows GQA 8 bf16", 8, 32, 4, 128, 32, 128, 200, bf,
+              True, yi_ctx),
+             ("MHA long row splits bf16", 3, 4, 4, 128, 32, 96, 100, bf,
+              False, [0, 2500, 9]),
+             ("smoke f32", 4, 4, 4, 32, 32, 2, 10, f32, False, None),
+             ("GQA 2 ps 8 f32", 4, 4, 2, 32, 8, 5, 24, f32, False, None),
+             ("GQA 4 hd 16 f32", 4, 8, 2, 16, 8, 5, 24, f32, False, None),
+             ("GQA 8 long row splits f32", 3, 8, 1, 64, 16, 160, 170, f32,
+              False, [0, 2400, 30])]
+    for label, B, H, KV, hd, ps, W, P, dt, full, ctx in cases:
         cap = W * ps
-        ctx = [0, 1] + [int(rng.integers(2, cap + 1)) for _ in range(B - 2)]
+        if ctx is None:
+            ctx = [0, 1] + [int(rng.integers(2, cap + 1))
+                            for _ in range(B - 2)]
         args, free = paged_case(torch, rng, B, H, KV, hd, ps, W, P, dt, ctx)
         q, k, v, pp, bt, pos = args
         # a claimed-but-empty page, and an unclaimed hole mid-table
@@ -267,7 +292,9 @@ def kernel_checks(torch):
         note("paged_attention",
              check_close(f"paged_attention {label}", got, want, dt), full)
         check(bool((got[0] == 0).all()), "row with no claimed page != 0")
-        if full and label.startswith("llama2-7b"):
+        check(torch.equal(got, paged_attention(*args)),
+              f"paged_attention {label}: two runs differ")
+        if full and label.startswith(("llama2-7b", "yi-9b")):
             # tenant isolation: NaN in every page a row does not own must
             # leave that row's output bitwise unchanged
             for b in range(B):
@@ -291,8 +318,14 @@ def kernel_checks(torch):
     # hold only idx -1 rows (T >= 64) and the last tile is ragged. Up to
     # 64 rows the shrink takes its split-d_in path, above it row tiles
     # (of 128 rows at 32,768 rows: yi-9b's 8 x 4,096 prefill).
+    # The expand takes its decode path up to 64 rows and row tiles above.
     y8 = [8, 16, 32, 64] * 2
-    lcases = [("decode bf16", 8, 4096, 4096, 64, y8, 16, bf, True, 0),
+    lcases = [("decode 1 row bf16", 1, 4096, 4096, 64, y8, 16, bf, True, 0),
+              ("decode bf16", 8, 4096, 4096, 64, y8, 16, bf, True, 0),
+              ("65 rows runs of 1 d_out 512 bf16", 65, 4096, 512, 64, y8, 16,
+               bf, True, 1),
+              ("prefill 4133 rows runs of 4096 bf16", 4096 + 37, 4096, 4096,
+               64, y8, 16, bf, True, 4096),
               ("64 rows bf16", 64, 4096, 4096, 64, y8, 16, bf, True, 0),
               ("prefill 1024 rows bf16", 1024, 4096, 4096, 64, y8, 16, bf,
                True, 0),
@@ -306,6 +339,10 @@ def kernel_checks(torch):
               ("smoke prefill f32", 96, 128, 128, 8, [8, 3, 5, 1], 4, f32,
                False, 0),
               ("smoke prefill runs of 17 f32", 300, 128, 128, 8,
+               [8, 3, 5, 1], 4, f32, False, 17),
+              ("smoke decode d_out 136 f32", 8, 128, 136, 8, [8, 3, 5, 1],
+               4, f32, False, 0),
+              ("smoke prefill runs of 17 d_out 136 f32", 300, 128, 136, 8,
                [8, 3, 5, 1], 4, f32, False, 17)]
     for label, rows, d_in, d_out, r_max, ranks, rb, dt, full, seg in lcases:
         g = torch.Generator(device="cuda").manual_seed(len(label))
@@ -342,6 +379,8 @@ def kernel_checks(torch):
                 f"lora_expand {mode} {label}", out,
                 ref.lora_expand_ref(yd, b, idx, live), dt), full)
             check(bool((out[idx < 0] == 0).all()), "expand: idx -1 row != 0")
+            check(torch.equal(out, lora_expand(yd, b, idx, live)),
+                  "expand: two runs differ (sums must repeat bitwise)")
 
     # flash attention: (label, B, H, KV, Lq, Lk, hd, causal, window, dtype,
     # full-width); full-width and "view" cases are (B, L, H, hd) tensors
@@ -642,6 +681,30 @@ def capture_largest_attention(store):
         ops.attention = saved
 
 
+YI_LONG_POS = 2048            # phase 5a's yi-9b decode call holds a row here
+
+
+@contextlib.contextmanager
+def capture_first_decode(store):
+    """Clone the arguments of the first paged-attention call while serving
+    (layer 0 of the first decode step of the first run: the yi-9b
+    monolithic arm), for phase 5a's yi-9b row; the pool and tables change
+    in place afterwards."""
+    from repro_torch.kernels import ops
+    saved = ops.paged_attention
+
+    def pa(*a):
+        if "decode" not in store:
+            store["decode"] = tuple(t.clone() for t in a)
+        return saved(*a)
+
+    ops.paged_attention = pa
+    try:
+        yield
+    finally:
+        ops.paged_attention = saved
+
+
 @contextlib.contextmanager
 def plain_attention():
     """Route the model's prefill attention to the plain version (on the
@@ -836,21 +899,18 @@ def bound(nbytes, ops, dtype_name):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def timing_phase(torch, step, errs, serving):
+def paged_row(torch, args, flush, **meta):
+    """A kernels-line row for one paged-attention call: its time beside
+    its bound (each claimed page of K and V read once, q read and out
+    written once; 4 flops a valid slot and head dim per query head), the
+    plain version and SDPA over the gathered pages with K/V repeated
+    across each GQA group (timed only, never called by the port)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bgmv import lora_expand, lora_shrink
-    from repro_torch.kernels.paged import paged_attention
+    from repro_torch.kernels.bgmv import sm_count
+    from repro_torch.kernels.paged import paged_attention, split_plan
     from repro_torch.models.layers import paged_kv_for_attn
-    print("phase 5a: kernel timing at the decode shapes of phase 4a",
-          flush=True)
-    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    flush = flush_buf.zero_
-    launches = {r["kernel"]: r["launches"] for r in serving}
-    rows = []
-
-    # paged attention, layer 0 of the captured step
-    q, k, v, pp, bt, pos = step["paged_attention"]
+    q, k, v, pp, bt, pos = args
     B, H, hd = q.shape
     KV, ps = k.shape[1], k.shape[2]
     claimed = bt[bt >= 0].long()
@@ -863,14 +923,16 @@ def timing_phase(torch, step, errs, serving):
     ops_n = 4 * (H // KV) * KV * hd * n_valid
     b_ms, b_by = bound(nbytes, ops_n, "bfloat16")
     kd, vd, kp = paged_kv_for_attn({"k": k, "v": v, "pos": pp}, bt)
+    kd = kd.repeat_interleave(H // KV, dim=1)
+    vd = vd.repeat_interleave(H // KV, dim=1)
     mask = ((kp >= 0) & (kp <= pos[:, None]))[:, None, None, :]
     qs = q[:, :, None, :]
-    rows.append({
-        "name": "paged_attention", "route": "cuda",
+    return {
+        "name": meta["name"], "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged.py:107",
-        "path": "bgmv", "launches": launches["bgmv"]["paged_attention"],
-        "max_abs_err": errs["paged_attention"],
+        "path": meta["path"], "launches": meta["launches"],
+        "max_abs_err": meta["max_abs_err"],
         "ms": time_ms(torch, lambda: paged_attention(q, k, v, pp, bt, pos),
                       flush),
         "plain_ms": time_ms(torch, lambda: ref.paged_attention_ref(
@@ -878,10 +940,28 @@ def timing_phase(torch, step, errs, serving):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kd, vd, attn_mask=mask), flush),
-        "bytes": nbytes, "shape": {"B": B, "H": H, "KV": KV, "hd": hd,
-                                   "ps": ps, "W": bt.shape[1],
-                                   "claimed_pages": int(claimed.numel()),
-                                   "valid_slots": n_valid}})
+        "bytes": nbytes, "shape": {
+            "B": B, "H": H, "KV": KV, "hd": hd, "ps": ps, "W": bt.shape[1],
+            "claimed_pages": int(claimed.numel()), "valid_slots": n_valid,
+            "max_pos": int(pos.max()),
+            "splits": split_plan(B, KV, bt.shape[1], sm_count(q.device))}}
+
+
+def timing_phase(torch, step, errs, serving):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bgmv import lora_expand, lora_shrink
+    print("phase 5a: kernel timing at the decode shapes of phase 4a",
+          flush=True)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    launches = {r["kernel"]: r["launches"] for r in serving}
+    rows = []
+
+    # paged attention, layer 0 of the captured step
+    rows.append(paged_row(torch, step["paged_attention"], flush,
+                          name="paged_attention", path="bgmv",
+                          launches=launches["bgmv"]["paged_attention"],
+                          max_abs_err=errs["paged_attention"]))
 
     # LoRA shrink / expand, layer 0 target q of the captured step
     (x, a, b, idx, *_), _ = step["lora_delta"]
@@ -1077,6 +1157,106 @@ def shrink_prefill_timing(torch, captured, serving):
           f"{row['plain_ms'] * 1e3:.1f} us, library (matmul over A_cat) "
           f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches",
           flush=True)
+    return row
+
+
+def expand_prefill_timing(torch, captured, serving):
+    """Phase 5b: the LoRA expand at layer 0 (target q) of the yi-9b
+    prefill call of phase 4b: 32,768 rows (each row's slot repeated over
+    its 4,096 tokens), r_max 64, d_out 4,096, 8 adapters, y from the
+    shrink cast to bf16; the row-tile path. Held per row against the plain
+    version, timed beside its bound (phase 5a's formula), the plain
+    version and one torch.matmul(Y_bd, B_cat): Y_bd (rows, 8 r_max) holds
+    each row's y in its slot's r_max columns and zeros elsewhere, B_cat
+    (8 r_max, d_out) stacks the slots' B — the same function at 8x the
+    flops, timed only and never called by the port. Launches: the yi-9b
+    monolithic arm's."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bgmv import (expand_plan, lora_expand,
+                                          lora_shrink, sm_count)
+    print("phase 5b: LoRA expand at the yi-9b prefill shape", flush=True)
+    (x, a, b, idx), kw = captured
+    live = kw.get("live")
+    if live is None:
+        live = ops.lora_live(idx, kw.get("ranks"), kw.get("mode", "bgmv"),
+                             a.shape[-1], kw.get("rank_block", 16))
+    rows = x.shape[0]
+    slots, r_max, d_out = b.shape
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    yd = lora_shrink(x, a, idx, live).to(x.dtype)
+    out = lora_expand(yd, b, idx, live)
+    err = check_close("lora_expand prefill (yi-9b layer 0 q)", out,
+                      ref.lora_expand_ref(yd, b, idx, live), x.dtype)
+    check(torch.equal(out, lora_expand(yd, b, idx, live)),
+          "expand prefill: two runs differ")
+    del out
+    adapted = idx >= 0
+    slot_live = dict(zip(idx[adapted].tolist(), live[adapted].tolist()))
+    live_cols = sum(slot_live.values())
+    row_live = int(live.sum())
+    e = yd.element_size()
+    nbytes = (yd.numel() * e + live_cols * d_out * e + 8 * rows
+              + rows * d_out * e)
+    b_ms, b_by = bound(nbytes, 2 * d_out * row_live, "bfloat16")
+    y_bd = torch.zeros(rows, slots, r_max, dtype=yd.dtype, device="cuda")
+    keep = torch.arange(r_max, device="cuda")[None] < live[:, None]
+    y_bd[adapted, idx[adapted].long()] = torch.where(keep, yd, 0)[adapted]
+    y_bd = y_bd.reshape(rows, slots * r_max)
+    b_cat = b.reshape(slots * r_max, d_out)
+    plan = expand_plan(rows, d_out, slots, sm_count(x.device))
+    row = {"name": "lora_expand[bgmv, prefill]", "route": "cuda",
+           "source": "src/repro_torch/csrc/lora.cu",
+           "replaces": "src/repro/kernels/bgmv.py:136",
+           "path": "yi-9b prefill",
+           "launches": serving[0]["launches"]["lora_expand"],
+           "max_abs_err": err,
+           "ms": time_ms(torch, lambda: lora_expand(yd, b, idx, live), flush),
+           "plain_ms": time_ms(torch, lambda: ref.lora_expand_ref(
+               yd, b, idx, live), flush, n=10),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, lambda: torch.matmul(y_bd, b_cat),
+                                 flush),
+           "library_call": f"torch.matmul(Y_bd {tuple(y_bd.shape)}, B_cat "
+                           f"{tuple(b_cat.shape)}): the same function at "
+                           f"{slots}x the flops",
+           "bytes": nbytes,
+           "shape": {"rows": rows, "r_max": r_max, "d_out": d_out,
+                     "slots": slots, "adapters": len(slot_live),
+                     "live_columns": row_live, "tile_rows": plan.tile}}
+    print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
+          f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
+          f"{row['plain_ms'] * 1e3:.1f} us, library (matmul Y_bd x B_cat) "
+          f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches",
+          flush=True)
+    return row
+
+
+def paged_yi_timing(torch, args, serving):
+    """Phase 5a's paged-attention row at yi-9b's decode shape: layer 0 of
+    the first decode step of the monolithic arm (8 rows, 32 query heads
+    over 4 KV heads, one row at pos >= YI_LONG_POS), held per row against
+    the plain version and timed as the llama2-7b row is. Launches: the
+    yi-9b monolithic arm's."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged import paged_attention
+    print("phase 5a: paged attention at the yi-9b decode shape", flush=True)
+    q, k, v, pp, bt, pos = args
+    check(int(pos.max()) >= YI_LONG_POS,
+          f"yi-9b decode capture: no row at pos >= {YI_LONG_POS}")
+    err = check_close("paged_attention yi-9b decode (layer 0)",
+                      paged_attention(*args), ref.paged_attention_ref(*args),
+                      q.dtype)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    row = paged_row(torch, args, flush_buf.zero_,
+                    name="paged_attention[yi-9b]", path="yi-9b decode",
+                    launches=serving[0]["launches"]["paged_attention"],
+                    max_abs_err=err)
+    print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
+          f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}), plain "
+          f"{row['plain_ms'] * 1e3:.1f} us, library (SDPA) "
+          f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches, "
+          f"shape {row['shape']}", flush=True)
     return row
 
 

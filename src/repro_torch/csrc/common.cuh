@@ -67,6 +67,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(pred ? 16 : 0));
 }
 
+// 4 bytes global -> shared (an int of a page's positions)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

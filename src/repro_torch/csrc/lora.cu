@@ -34,6 +34,24 @@
 //    sums from their shared memory (distributed shared memory) in rank
 //    order and writes y, so 8 rows fill 64 SMs instead of 8. A row
 //    re-reads its adapter's A from L2, which a handful of rows affords.
+//
+// The expand is bound by bytes too, and by its output: at yi-9b's prefill
+// (d_out 4096) out is 268 MB against 4 MB each of y and B. Two launch
+// shapes, chosen on the host from `rows` (kernels/bgmv.py: expand_plan):
+//  - Row tiles (prefill and chunks). One block per (tile of 64 or 128
+//    consecutive rows, 128 output columns); the block visits the tile's
+//    distinct slots in turn (prefill repeats each row's slot T times, so
+//    most tiles hold one), loads that slot's rows of y and its
+//    B[s][:live, 128 columns] by cp.async, multiplies on the tensor cores
+//    (mma.sync m16n8k16, bf16 in, f32 accumulate; warp tiles of 32 x 32)
+//    64 rank rows a pass, adds each pass on the CUDA cores, casts once
+//    and writes the tile through shared memory as 16-byte stores. B is
+//    read once per tile instead of once per row; every element of out is
+//    written by one block. f32 takes the same tiles on CUDA cores.
+//  - Decode (up to 64 rows). One block per (row, 256 columns): each lane
+//    owns 8 columns, read from one rank row of B in a 16-byte load, and
+//    the 8 warps split the live rank rows, their partials added in warp
+//    order.
 // Every sum runs in a fixed order (no atomics): results repeat bitwise.
 #include <type_traits>
 
@@ -397,38 +415,330 @@ cudaError_t launch_split(const void* x, const void* a, const int* idx,
   return cudaGetLastError();
 }
 
-// ----------------------------------------------------------- expand ----
+// ------------------------------------------------ expand: row tiles ----
 
-// out[row, o] = sum_{r < live[row]} y[row, r] * B[idx[row], r, o], f32
-// accumulation, one cast. Grid (rows, ceil(d_out / blockDim)), one output
-// column per thread: consecutive threads read consecutive columns of B.
-template <typename T>
-__global__ void lora_expand_kernel(const T* __restrict__ y,
-                                   const T* __restrict__ b,
-                                   const int* __restrict__ idx,
-                                   const int* __restrict__ live,
-                                   T* __restrict__ out, int r_max, int d_out,
-                                   int slots) {
-  extern __shared__ float ys[];
-  const int row = blockIdx.x;
-  const int o = blockIdx.y * blockDim.x + threadIdx.x;
-  const int s = idx[row];
-  const int lv = (s >= 0 && s < slots) ? min(live[row], r_max) : 0;
-  for (int r = threadIdx.x; r < lv; r += blockDim.x)
-    ys[r] = rt::to_f32(y[(size_t)row * r_max + r]);
-  __syncthreads();
-  if (o >= d_out) return;
-  float acc = 0.f;
-  if (lv > 0) {
-    const T* bs = b + (size_t)s * r_max * d_out;
-#pragma unroll 8
-    for (int r = 0; r < lv; ++r)
-      acc += ys[r] * rt::to_f32(bs[(size_t)r * d_out + o]);
-  }
-  out[(size_t)row * d_out + o] = rt::from_f32<T>(acc);
+constexpr int kER = 64;                     // rank rows a pass
+constexpr int kEN = 128;                    // output columns a block
+
+template <typename T> struct ExpCfg;
+template <> struct ExpCfg<bf16> {
+  static constexpr int kLdy = kER + 8, kLdb = kEN + 8;     // ldmatrix pad
+};
+template <> struct ExpCfg<float> {
+  static constexpr int kLdy = kER + 4, kLdb = kEN + 4;
+};
+
+// y and B tiles of one pass; the bf16 output tile is staged in the same
+// bytes once the pass's products are done
+template <typename T, int BM>
+constexpr size_t expand_tile_smem() {
+  using C = ExpCfg<T>;
+  const size_t ops = sizeof(T) * ((size_t)BM * C::kLdy +
+                                  (size_t)kER * C::kLdb);
+  const size_t stage = sizeof(T) * (size_t)BM * C::kLdb;
+  return ops > stage ? ops : stage;
 }
 
-constexpr int kExpandThreads = 256;
+// out[rows row0 .. row0 + BM, columns n0 .. n0 + kEN]. The block visits
+// the tile's distinct slots in turn; for slot s it loads y's rows of s
+// (other rows and columns at or past each row's live width as 0) and
+// B[s][:ncol, n0 : n0 + kEN], ncol = the slot's widest live width rounded
+// up to 8, kER rank rows a pass, and writes the rows of s. Rows with no
+// adapter are written as zeros by the same block, so every element of out
+// is written once, by one block.
+template <typename T, int BM>
+__global__ void __launch_bounds__(4 * BM) lora_expand_tile_kernel(
+    const T* __restrict__ y, const T* __restrict__ b,
+    const int* __restrict__ idx, const int* __restrict__ live,
+    T* __restrict__ out, int rows, int r_max, int d_out, int slots) {
+  using C = ExpCfg<T>;
+  constexpr int kThr = 4 * BM;
+  constexpr int VEC = 16 / sizeof(T);       // elements a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ys = reinterpret_cast<T*>(smem_raw);
+  T* bs = ys + BM * C::kLdy;
+  __shared__ int sidx[BM], slive[BM], width[BM];
+  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * kEN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ncols = min(kEN, d_out - n0);   // a multiple of 8
+  if (tid < BM) {
+    const int r = row0 + tid;
+    int s = -1, lv = 0;
+    if (r < rows) {
+      s = idx[r];
+      if (s < 0 || s >= slots) s = -1;
+      else lv = max(0, min(live[r], r_max));
+    }
+    sidx[tid] = s;
+    slive[tid] = lv;
+  }
+  __syncthreads();
+  // a slot's first row in the tile holds the widest live width of the
+  // slot's rows; every other row -1
+  if (tid < BM) {
+    const int s = sidx[tid];
+    int w = -1;
+    if (s >= 0) {
+      bool first = true;
+      for (int u = tid - 1; u >= 0 && first; --u) first = sidx[u] != s;
+      if (first) {
+        w = 0;
+        for (int u = tid; u < BM; ++u)
+          if (sidx[u] == s) w = max(w, slive[u]);
+      }
+    }
+    width[tid] = w;
+  }
+  // rows without an adapter: zeros, 16 bytes a store
+  constexpr int OC = kEN / VEC;
+  for (int i = tid; i < BM * OC; i += kThr) {
+    const int r = i / OC, c = (i % OC) * VEC;
+    if (row0 + r < rows && sidx[r] < 0 && c < ncols)
+      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out + n0 + c) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  const T zero = rt::from_f32<T>(0.f);
+
+  for (int u = 0; u < BM; ++u) {
+    if (width[u] < 0) continue;             // uniform across the block
+    const int s = sidx[u];
+    const int ncol = (width[u] + 7) / 8 * 8;
+    const T* bsl = b + (size_t)s * r_max * d_out + n0;
+
+    // y[rows of s, k0 : k0 + kER] and B[s][k0 : k0 + kn, n0 : n0 + kEN]
+    auto load = [&](int k0, int kn) {
+      constexpr int YC = kER / VEC;
+      for (int i = tid; i < BM * YC; i += kThr) {
+        const int r = i / YC, c = (i % YC) * VEC, k = k0 + c;
+        T* dst = ys + r * C::kLdy + c;
+        const int lv = sidx[r] == s ? slive[r] : 0;
+        const T* src = y + (size_t)(row0 + r) * r_max + k;
+        if (k + VEC <= lv) {
+          rt::cp_async16(dst, src, true);
+        } else if (k < lv) {                // the copy live ends in
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) dst[j] = k + j < lv ? src[j] : zero;
+        } else {
+          rt::cp_async16(dst, y, false);    // zero fill
+        }
+      }
+      for (int i = tid; i < kER * OC; i += kThr) {
+        const int r = i / OC, c = (i % OC) * VEC;
+        const bool ok = r < kn && c < ncols;   // dead rank rows never read
+        rt::cp_async16(bs + r * C::kLdb + c,
+                       ok ? bsl + (size_t)(k0 + r) * d_out + c : b, ok);
+      }
+      rt::cp_async_commit();
+      rt::cp_async_wait<0>();
+      __syncthreads();
+    };
+
+    if constexpr (std::is_same<T, bf16>::value) {
+      // warp tiles of 32 rows x 32 columns: (BM / 32) x 4 warps
+      constexpr int WR = BM / 32, WN = 32, NT = WN / 8;
+      const int wr = warp % WR, wc = warp / WR;
+      const bool mine = __any_sync(0xffffffffu, sidx[wr * 32 + lane] == s) &&
+                        wc * WN < ncols;
+      float acc[2][NT][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+      for (int k0 = 0; k0 < ncol; k0 += kER) {
+        const int kn = min(kER, ncol - k0);
+        __syncthreads();                    // last pass's tiles consumed
+        load(k0, kn);
+        if (!mine) continue;
+        // each pass's sum from the tensor cores, added on the CUDA cores
+        float part[2][NT][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            part[m][n][0] = part[m][n][1] = part[m][n][2] = part[m][n][3] =
+                0.f;
+#pragma unroll
+        for (int ks = 0; ks < kER / 16; ++ks) {
+          if (ks * 16 >= kn) break;
+          unsigned af[2][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            rt::ldsm_x4(af[m], ys + (wr * 32 + m * 16 + (lane & 15)) *
+                                        C::kLdy + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            unsigned bv[4];
+            rt::ldsm_x4_trans(bv, bs + (ks * 16 + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8) * C::kLdb +
+                                      wc * WN + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              rt::mma_bf16(part[m][2 * np], af[m], bv[0], bv[1]);
+              rt::mma_bf16(part[m][2 * np + 1], af[m], bv[2], bv[3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
+      }
+      __syncthreads();                      // tiles free: stage the output
+      T* stage = ys;
+      if (mine) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wr * 32 + m * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              *reinterpret_cast<unsigned*>(
+                  stage + r * C::kLdb + wc * WN + n * 8 + (lane & 3) * 2) =
+                  rt::pack_bf16(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+          }
+      }
+      __syncthreads();
+      for (int i = tid; i < BM * OC; i += kThr) {
+        const int r = i / OC, c = (i % OC) * VEC;
+        if (sidx[r] == s && c < ncols)
+          *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out + n0 +
+                                    c) =
+              *reinterpret_cast<const uint4*>(stage + r * C::kLdb + c);
+      }
+    } else {
+      // f32 on CUDA cores: thread = 4 rows x 8 columns
+      constexpr int RPT = 4;
+      const int rg = tid / 16, cg = tid % 16;
+      float acc[RPT][8];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int k0 = 0; k0 < ncol; k0 += kER) {
+        const int kn = min(kER, ncol - k0);
+        __syncthreads();
+        load(k0, kn);
+        for (int k = 0; k < kn; ++k) {
+          float yv[RPT], bv[8];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) yv[i] = ys[(rg * RPT + i) * C::kLdy + k];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) bv[j] = bs[k * C::kLdb + cg * 8 + j];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] += yv[i] * bv[j];
+        }
+      }
+      if (cg * 8 < ncols) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int r = rg * RPT + i;
+          if (sidx[r] != s) continue;
+          float4* o = reinterpret_cast<float4*>(
+              out + (size_t)(row0 + r) * d_out + n0 + cg * 8);
+          o[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          o[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+      }
+    }
+    __syncthreads();                        // the next slot reuses smem
+  }
+}
+
+template <typename T, int BM>
+cudaError_t launch_expand_tile(const void* y, const void* b, const int* idx,
+                               const int* live, void* out, int rows,
+                               int r_max, int d_out, int slots,
+                               cudaStream_t st) {
+  auto kern = lora_expand_tile_kernel<T, BM>;
+  constexpr size_t smem = expand_tile_smem<T, BM>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((rows + BM - 1) / BM, (d_out + kEN - 1) / kEN);
+  kern<<<grid, 4 * BM, smem, st>>>(
+      static_cast<const T*>(y), static_cast<const T*>(b), idx, live,
+      static_cast<T*>(out), rows, r_max, d_out, slots);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------- expand: decode ----
+
+constexpr int kRankSplit = 8;               // warps a block: rank slices
+constexpr int kDecCols = 8 * 32;            // columns a block: 8 a lane
+
+// out[row, c0 : c0 + kDecCols]: lane l of every warp owns 8 columns and
+// reads them from one rank row of B in a single 16-byte load; warp w sums
+// rank rows w, w + kRankSplit, ... below live[row] (up to 8 loads a thread
+// in flight), and the warps' partials are added in warp order.
+template <typename T>
+__global__ void __launch_bounds__(kRankSplit * 32) lora_expand_decode_kernel(
+    const T* __restrict__ y, const T* __restrict__ b,
+    const int* __restrict__ idx, const int* __restrict__ live,
+    T* __restrict__ out, int r_max, int d_out, int slots) {
+  extern __shared__ __align__(16) float esm[];
+  float* part = esm;                        // kRankSplit x kDecCols
+  float* ysm = esm + kRankSplit * kDecCols; // r_max
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.y * kDecCols + lane * rt::kVec;
+  const int s = idx[row];
+  const int lv = (s >= 0 && s < slots) ? max(0, min(live[row], r_max)) : 0;
+  for (int r = tid; r < lv; r += blockDim.x)
+    ysm[r] = rt::to_f32(y[(size_t)row * r_max + r]);
+  __syncthreads();
+  float acc[rt::kVec];
+#pragma unroll
+  for (int j = 0; j < rt::kVec; ++j) acc[j] = 0.f;
+  if (c < d_out) {
+    const T* bs = b + (size_t)max(s, 0) * r_max * d_out + c;
+#pragma unroll 8
+    for (int r = warp; r < lv; r += kRankSplit) {
+      float w[rt::kVec];
+      rt::load8(bs + (size_t)r * d_out, w);
+      const float yv = ysm[r];
+#pragma unroll
+      for (int j = 0; j < rt::kVec; ++j) acc[j] += yv * w[j];
+    }
+  }
+  float4* mine = reinterpret_cast<float4*>(part + warp * kDecCols +
+                                           lane * rt::kVec);
+  mine[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  mine[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  __syncthreads();
+  const int col = blockIdx.y * kDecCols + tid;
+  if (col < d_out) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRankSplit; ++w) sum += part[w * kDecCols + tid];
+    out[(size_t)row * d_out + col] = rt::from_f32<T>(sum);
+  }
+}
+
+template <typename T>
+cudaError_t launch_expand_decode(const void* y, const void* b,
+                                 const int* idx, const int* live, void* out,
+                                 int rows, int r_max, int d_out, int slots,
+                                 cudaStream_t st) {
+  const size_t smem = sizeof(float) * ((size_t)kRankSplit * kDecCols + r_max);
+  auto kern = lora_expand_decode_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(rows, (d_out + kDecCols - 1) / kDecCols);
+  kern<<<grid, kRankSplit * 32, smem, st>>>(
+      static_cast<const T*>(y), static_cast<const T*>(b), idx, live,
+      static_cast<T*>(out), r_max, d_out, slots);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -474,24 +784,38 @@ extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
   return (int)e;
 }
 
+// tile = 64 or 128: row tiles of that many rows x kEN columns; tile = 0:
+// the decode path, one block per (row, kDecCols columns).
 extern "C" int rt_lora_expand(const void* y, const void* b, const int* idx,
                               const int* live, void* out, int rows, int r_max,
-                              int d_out, int slots, int dtype, void* stream) {
+                              int d_out, int slots, int tile, int dtype,
+                              void* stream) {
   if (rows == 0) return 0;
-  if (r_max <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(rows, (d_out + kExpandThreads - 1) / kExpandThreads);
-  const size_t smem = (size_t)r_max * sizeof(float);
-  if (dtype == rt::kBF16)
-    lora_expand_kernel<__nv_bfloat16><<<grid, kExpandThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(y),
-        static_cast<const __nv_bfloat16*>(b), idx, live,
-        static_cast<__nv_bfloat16*>(out), r_max, d_out, slots);
-  else if (dtype == rt::kF32)
-    lora_expand_kernel<float><<<grid, kExpandThreads, smem, st>>>(
-        static_cast<const float*>(y), static_cast<const float*>(b), idx, live,
-        static_cast<float*>(out), r_max, d_out, slots);
-  else
+  // 16-byte copies of y's rows and B's rows, 16-byte stores of out's
+  if (r_max <= 0 || r_max % rt::kVec != 0 || d_out <= 0 ||
+      d_out % rt::kVec != 0)
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool bf = dtype == rt::kBF16;
+  if (!bf && dtype != rt::kF32) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (tile == 0) {
+    e = bf ? launch_expand_decode<bf16>(y, b, idx, live, out, rows, r_max,
+                                        d_out, slots, st)
+           : launch_expand_decode<float>(y, b, idx, live, out, rows, r_max,
+                                         d_out, slots, st);
+  } else if (tile == 64) {
+    e = bf ? launch_expand_tile<bf16, 64>(y, b, idx, live, out, rows, r_max,
+                                          d_out, slots, st)
+           : launch_expand_tile<float, 64>(y, b, idx, live, out, rows, r_max,
+                                           d_out, slots, st);
+  } else if (tile == 128) {
+    e = bf ? launch_expand_tile<bf16, 128>(y, b, idx, live, out, rows, r_max,
+                                           d_out, slots, st)
+           : launch_expand_tile<float, 128>(y, b, idx, live, out, rows,
+                                            r_max, d_out, slots, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)e;
 }

@@ -10,155 +10,290 @@
 // of its row once and does ~4 flops per byte read, far below the ~295
 // flops/byte where bf16 tensor cores become the limit.
 //
-// Design: one block per (row, KV head) covers the G query heads of the
-// group, so each K/V page tile is read from device memory once per group
-// rather than once per query head (the TPU grid revisits per head). The
-// TPU grid's sequential W dimension becomes a loop inside the block with
-// the running max / sum / accumulator in registers (one thread per (g, d)
-// output element), cast once at the end. A page whose block-table entry
-// is < 0 is skipped before any read of it: the tenant-isolation rule the
-// reference pairs with its clamp (paged.py:53 with :106). Page tiles are
-// staged in shared memory as f32 with 16-byte loads, several in flight per
-// thread; scores use one warp per (g, slot) with a shuffle reduction over
-// hd. No cp.async/TMA pipelining of the next page yet.
+// Design:
+//  - Grid (row, KV head, split). A split takes a contiguous run of the
+//    row's block-table columns, so a long row spreads over many SMs even
+//    when rows x KV heads are few (yi-9b: 8 x 4). The split count is
+//    chosen on the host from W, B x KV and the SM count (kernels/paged.py:
+//    split_plan). With one split the block writes the output; with more,
+//    each writes (m, l, acc) in f32 to a workspace and a second kernel
+//    combines the splits in split order. A split with no valid slot gives
+//    (m = -1e30, l = 0, acc = 0); a row with none anywhere gets zeros.
+//  - A block covers the G query heads of its KV head, so each page is read
+//    once per group. It first lists the claimed entries of its run (warp
+//    ballot, in table order): an entry < 0 or >= P is skipped before any
+//    read of its page, the tenant-isolation rule the reference pairs with
+//    its clamp (paged.py:53 with :106). Pages then stream through a
+//    kStages-deep cp.async ring of K, V and positions in the input dtype,
+//    one __syncthreads() a page.
+//  - Thread (tg, g, c) keeps q[g, 8c : 8c + 8] and its 8 output columns in
+//    registers. A score is the sum over the L = pow2(hd / 8) lanes of a
+//    head (xor shuffles), so every lane of the head holds it and no score
+//    goes through shared memory. Slot groups tg = 0 .. TG-1 take the
+//    slots t = tg (mod TG) of each page, TG chosen so a block has >= 128
+//    threads (G = 1: 8 slot groups), each with its own running max / sum,
+//    merged at the end in tg order. Sums run in a fixed order: results
+//    repeat bitwise.
 #include "common.cuh"
 
 namespace {
 
+constexpr int kStages = 3;                  // page ring depth
+constexpr int kList = 256;                  // block-table columns a window
+constexpr int kGroup = 4;                   // slots a rescale
+constexpr int kMaxThreads = 256;
+
 template <typename T>
-__global__ void paged_attention_kernel(
+__global__ void __launch_bounds__(kMaxThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ pos_pages,
     const int* __restrict__ block_table, const int* __restrict__ pos,
-    T* __restrict__ out, int H, int KV, int P, int ps, int hd, int W,
-    float scale) {
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int G = H / KV;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;          // G*hd rounded up to a warp
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  const bool owner = tid < G * hd;          // owns output element (g, d)
-  const int g = tid / hd, d = tid % hd;
-  const int h0 = kvh * G;
+    T* __restrict__ out, float* __restrict__ ws, int H, int KV, int P,
+    int ps, int hd, int W, int nsplit, int L, int TG, float scale) {
+  constexpr int VEC = 16 / sizeof(T);       // elements a 16-byte copy
+  const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
+  const int G = H / KV, h0 = kvh * G;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int c = tid % L, g = (tid / L) % G, tg = tid / (L * G);
+  const bool real = tid < L * G * TG;       // the rest pad the last warp
+  const bool act = real && c < hd / rt::kVec;
+  const int tile = ps * hd;                 // elements of a page's K (or V)
 
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                        // ps*hd
-  float* v_s = k_s + ps * hd;               // ps*hd
-  float* q_s = v_s + ps * hd;               // G*hd
-  float* s_s = q_s + G * hd;                // G*ps
-  int* kpos_s = reinterpret_cast<int*>(s_s + G * ps);   // ps
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);              // kStages x (K, V)
+  int* kpos_s = reinterpret_cast<int*>(ring + (size_t)kStages * 2 * tile);
+  __shared__ int plist[kList];
+  __shared__ int pcount;
 
-  // the G query heads of this group are contiguous in q (B, H, hd)
-  const T* qb = q + ((size_t)b * H + h0) * hd;
-  for (int i = tid; i < G * hd; i += nthreads) q_s[i] = rt::to_f32(qb[i]);
+  float qv[rt::kVec], acc[rt::kVec];
+#pragma unroll
+  for (int j = 0; j < rt::kVec; ++j) qv[j] = acc[j] = 0.f;
+  if (act) rt::load8(q + ((size_t)b * H + h0 + g) * hd + c * rt::kVec, qv);
   const int pos_b = pos[b];
+  float m = rt::kNegInf, l = 0.f;
 
-  float m = rt::kNegInf, l = 0.f, acc = 0.f;
-  for (int j = 0; j < W; ++j) {
-    const int page = block_table[(size_t)b * W + j];
-    // uniform across the block: unclaimed pages are never read
-    if (page < 0 || page >= P) continue;
-    __syncthreads();                        // last page's tiles consumed
-    const size_t base = ((size_t)page * KV + kvh) * ps * hd;
-    const T* kb = k_pages + base;
-    const T* vb = v_pages + base;
-    const int nvec = ps * hd / rt::kVec;
-#pragma unroll 4
-    for (int i = tid; i < nvec; i += nthreads) {
-      float kx[rt::kVec], vx[rt::kVec];
-      rt::load8(kb + (size_t)i * rt::kVec, kx);
-      rt::load8(vb + (size_t)i * rt::kVec, vx);
-      float4* dk = reinterpret_cast<float4*>(k_s + i * rt::kVec);
-      float4* dv = reinterpret_cast<float4*>(v_s + i * rt::kVec);
-      dk[0] = make_float4(kx[0], kx[1], kx[2], kx[3]);
-      dk[1] = make_float4(kx[4], kx[5], kx[6], kx[7]);
-      dv[0] = make_float4(vx[0], vx[1], vx[2], vx[3]);
-      dv[1] = make_float4(vx[4], vx[5], vx[6], vx[7]);
+  auto load = [&](int st, int page) {
+    const size_t base = ((size_t)page * KV + kvh) * tile;
+    T* ks = ring + (size_t)st * 2 * tile;
+    T* vs = ks + tile;
+    for (int i = tid; i < tile / VEC; i += nthr) {
+      rt::cp_async16(ks + i * VEC, k_pages + base + (size_t)i * VEC, true);
+      rt::cp_async16(vs + i * VEC, v_pages + base + (size_t)i * VEC, true);
     }
-    for (int i = tid; i < ps; i += nthreads)
-      kpos_s[i] = pos_pages[(size_t)page * ps + i];
-    __syncthreads();
-    for (int i = warp; i < G * ps; i += nwarps) {
-      const int gg = i / ps, t = i % ps;
-      const int kp = kpos_s[t];
-      const bool ok = kp >= 0 && kp <= pos_b;    // uniform in the warp
-      float dot = 0.f;
-      if (ok)
-        for (int e = lane; e < hd; e += 32)
-          dot += q_s[gg * hd + e] * k_s[t * hd + e];
-      dot = rt::warp_sum(dot);
-      if (lane == 0) s_s[i] = ok ? dot * scale : rt::kNegInf;
-    }
-    __syncthreads();
-    if (owner) {
-      const float* sg = s_s + g * ps;
-      float pm = rt::kNegInf;
-      for (int t = 0; t < ps; ++t) pm = fmaxf(pm, sg[t]);
-      const float m_new = fmaxf(m, pm);
-      const float corr = expf(m - m_new);
-      float psum = 0.f, pv = 0.f;
-#pragma unroll 8
-      for (int t = 0; t < ps; ++t) {
-        const int kp = kpos_s[t];
-        if (kp >= 0 && kp <= pos_b) {       // masked slots add nothing
-          const float p = expf(sg[t] - m_new);
-          psum += p;
-          pv += p * v_s[t * hd + d];
-        }
+    for (int i = tid; i < ps; i += nthr)
+      rt::cp_async4(kpos_s + st * ps + i, pos_pages + (size_t)page * ps + i);
+  };
+
+  const int per = (W + nsplit - 1) / nsplit;
+  const int j_lo = split * per, j_hi = min(W, j_lo + per);
+  for (int w0 = j_lo; w0 < j_hi; w0 += kList) {
+    // the claimed entries of this window, in table order
+    const int wn = min(kList, j_hi - w0);
+    if (tid < 32) {
+      int cnt = 0;
+      for (int i0 = 0; i0 < wn; i0 += 32) {
+        const int i = i0 + tid;
+        const int page = i < wn ? block_table[(size_t)b * W + w0 + i] : -1;
+        const bool ok = page >= 0 && page < P;
+        const unsigned bal = __ballot_sync(0xffffffffu, ok);
+        if (ok) plist[cnt + __popc(bal & ((1u << tid) - 1u))] = page;
+        cnt += __popc(bal);
       }
-      l = l * corr + psum;
-      acc = acc * corr + pv;
-      m = m_new;
+      if (tid == 0) pcount = cnt;
+    }
+    __syncthreads();
+    const int n = pcount;
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) {
+      if (st < n) load(st, plist[st]);
+      rt::cp_async_commit();
+    }
+    for (int j = 0; j < n; ++j) {
+      rt::cp_async_wait<kStages - 2>();
+      __syncthreads();                      // page j landed; j - 1 consumed
+      const int nxt = j + kStages - 1;
+      if (nxt < n) load(nxt % kStages, plist[nxt]);
+      rt::cp_async_commit();
+      const T* ks = ring + (size_t)(j % kStages) * 2 * tile;
+      const T* vs = ks + tile;
+      const int* kp = kpos_s + (j % kStages) * ps;
+      // this slot group's slots, kGroup at a time (trip count uniform
+      // across the block, so every lane takes part in the shuffles)
+      for (int t0 = 0; t0 < ps; t0 += kGroup * TG) {
+        float s[kGroup];
+        unsigned ok = 0u;
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          const int t = t0 + u * TG + tg;
+          float dot = 0.f;
+          if (act && t < ps) {
+            float kx[rt::kVec];
+            rt::load8(ks + t * hd + c * rt::kVec, kx);
+#pragma unroll
+            for (int e = 0; e < rt::kVec; ++e) dot += qv[e] * kx[e];
+          }
+          for (int off = L / 2; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          const bool valid = real && t < ps && kp[t] >= 0 && kp[t] <= pos_b;
+          s[u] = valid ? dot * scale : rt::kNegInf;
+          ok |= (unsigned)valid << u;
+        }
+        float pm = rt::kNegInf;
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) pm = fmaxf(pm, s[u]);
+        const float m_new = fmaxf(m, pm);
+        const float corr = expf(m - m_new);
+        l *= corr;
+#pragma unroll
+        for (int e = 0; e < rt::kVec; ++e) acc[e] *= corr;
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          if (!((ok >> u) & 1u)) continue;  // masked slots add nothing
+          const float p = expf(s[u] - m_new);
+          l += p;
+          if (act) {
+            float vx[rt::kVec];
+            rt::load8(vs + (t0 + u * TG + tg) * hd + c * rt::kVec, vx);
+#pragma unroll
+            for (int e = 0; e < rt::kVec; ++e) acc[e] += p * vx[e];
+          }
+        }
+        m = m_new;
+      }
+    }
+    rt::cp_async_wait<0>();
+    __syncthreads();                        // ring and list free
+  }
+
+  // merge the slot groups in tg order (shared memory reused)
+  float* red = reinterpret_cast<float*>(smem_raw);       // nthr x 8
+  float* ml = red + (size_t)nthr * rt::kVec;             // TG x G x (m, l)
+  if (real) {
+    float4* mine = reinterpret_cast<float4*>(red + (size_t)tid * rt::kVec);
+    mine[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    mine[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    if (c == 0) {
+      ml[(tg * G + g) * 2] = m;
+      ml[(tg * G + g) * 2 + 1] = l;
     }
   }
-  if (owner)
-    out[((size_t)b * H + h0) * hd + tid] =
-        rt::from_f32<T>(acc / fmaxf(l, 1e-30f));
+  __syncthreads();
+  if (!act || tg != 0) return;
+  float M = rt::kNegInf;
+  for (int t = 0; t < TG; ++t) M = fmaxf(M, ml[(t * G + g) * 2]);
+  float lsum = 0.f, o[rt::kVec];
+#pragma unroll
+  for (int e = 0; e < rt::kVec; ++e) o[e] = 0.f;
+  for (int t = 0; t < TG; ++t) {
+    const float w = expf(ml[(t * G + g) * 2] - M);
+    lsum += ml[(t * G + g) * 2 + 1] * w;
+    const float* r = red + (size_t)((t * G + g) * L + c) * rt::kVec;
+#pragma unroll
+    for (int e = 0; e < rt::kVec; ++e) o[e] += r[e] * w;
+  }
+  if (nsplit == 1) {
+    T* ob = out + ((size_t)b * H + h0 + g) * hd + c * rt::kVec;
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < rt::kVec; ++e) ob[e] = rt::from_f32<T>(o[e] * inv);
+  } else {
+    // workspace (B, KV, nsplit, G, hd + 2): acc, then m and l
+    float* wp = ws + ((((size_t)b * KV + kvh) * nsplit + split) * G + g) *
+                         (hd + 2);
+#pragma unroll
+    for (int e = 0; e < rt::kVec; ++e) wp[c * rt::kVec + e] = o[e];
+    if (c == 0) {
+      wp[hd] = M;
+      wp[hd + 1] = lsum;
+    }
+  }
+}
+
+// out[b, kvh * G + g, d] from the splits' (m, l, acc), in split order.
+template <typename T>
+__global__ void paged_combine_kernel(const float* __restrict__ ws,
+                                     T* __restrict__ out, int H, int KV,
+                                     int hd, int nsplit) {
+  const int b = blockIdx.x, kvh = blockIdx.y, G = H / KV;
+  const size_t stride = (size_t)G * (hd + 2);           // one split
+  const float* base = ws + ((size_t)b * KV + kvh) * nsplit * stride;
+  for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
+    const int g = i / hd, d = i % hd;
+    const float* w0 = base + (size_t)g * (hd + 2);
+    float M = rt::kNegInf;
+    for (int k = 0; k < nsplit; ++k) M = fmaxf(M, w0[k * stride + hd]);
+    float lsum = 0.f, o = 0.f;
+    for (int k = 0; k < nsplit; ++k) {
+      const float w = expf(w0[k * stride + hd] - M);
+      lsum += w0[k * stride + hd + 1] * w;
+      o += w0[k * stride + d] * w;
+    }
+    out[((size_t)b * H + kvh * G + g) * hd + d] =
+        rt::from_f32<T>(o / fmaxf(lsum, 1e-30f));
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* pos_pages, const int* block_table,
-                   const int* pos, void* out, int B, int H, int KV, int P,
-                   int ps, int hd, int W, cudaStream_t stream) {
+                   const int* pos, void* out, float* ws, int B, int H, int KV,
+                   int P, int ps, int hd, int W, int nsplit,
+                   cudaStream_t stream) {
   const int G = H / KV;
-  const int threads = (G * hd + 31) / 32 * 32;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)ps * hd + (size_t)G * hd + (size_t)G * ps)
-      + sizeof(int) * ps;
+  int L = 1;
+  while (L < hd / rt::kVec) L *= 2;
+  const int TG = G * L >= 128 ? 1 : 128 / (G * L);
+  const int threads = (G * L * TG + 31) / 32 * 32;
+  const size_t ring = (size_t)kStages * (2 * (size_t)ps * hd * sizeof(T) +
+                                         (size_t)ps * sizeof(int));
+  const size_t merge = sizeof(float) * ((size_t)threads * rt::kVec +
+                                        2 * (size_t)TG * G);
+  const size_t smem = ring > merge ? ring : merge;
   auto kern = paged_attention_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3(B, KV), threads, smem, stream>>>(
+  kern<<<dim3(B, KV, nsplit), threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos_pages, block_table, pos,
-      static_cast<T*>(out), H, KV, P, ps, hd, W,
+      static_cast<T*>(out), ws, H, KV, P, ps, hd, W, nsplit, L, TG,
       static_cast<float>(1.0 / sqrt(static_cast<double>(hd))));
+  if (nsplit > 1) {
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const int ct = G * hd < 1024 ? (G * hd + 31) / 32 * 32 : 1024;
+    paged_combine_kernel<T><<<dim3(B, KV), ct, 0, stream>>>(
+        ws, static_cast<T*>(out), H, KV, hd, nsplit);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// nsplit >= 1 runs of block-table columns a row; ws: f32 workspace of
+// B * KV * nsplit * (H / KV) * (hd + 2) floats, unused (may be null) when
+// nsplit == 1.
 extern "C" int rt_paged_attention(const void* q, const void* k_pages,
                                   const void* v_pages, const int* pos_pages,
                                   const int* block_table, const int* pos,
-                                  void* out, int B, int H, int KV, int P,
-                                  int ps, int hd, int W, int dtype,
-                                  void* stream) {
+                                  void* out, float* ws, int B, int H, int KV,
+                                  int P, int ps, int hd, int W, int nsplit,
+                                  int dtype, void* stream) {
   if (B == 0) return 0;
-  if (KV <= 0 || H % KV != 0 || (H / KV) * hd > 1024 || hd % rt::kVec != 0)
+  if (KV <= 0 || H % KV != 0 || (H / KV) * hd > 1024 || hd % rt::kVec != 0 ||
+      hd > 32 * rt::kVec || ps <= 0 || W < 0 || nsplit < 1 ||
+      nsplit > (W > 1 ? W : 1) || (nsplit > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kBF16)
     return (int)launch<__nv_bfloat16>(q, k_pages, v_pages, pos_pages,
-                                      block_table, pos, out, B, H, KV, P, ps,
-                                      hd, W, st);
+                                      block_table, pos, out, ws, B, H, KV, P,
+                                      ps, hd, W, nsplit, st);
   if (dtype == rt::kF32)
     return (int)launch<float>(q, k_pages, v_pages, pos_pages, block_table,
-                              pos, out, B, H, KV, P, ps, hd, W, st);
+                              pos, out, ws, B, H, KV, P, ps, hd, W, nsplit,
+                              st);
   return (int)cudaErrorInvalidValue;
 }

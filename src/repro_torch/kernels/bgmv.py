@@ -14,7 +14,11 @@ The shrink kernel has two launch shapes, chosen here from the row count
 alone (`shrink_plan`, no device sync): up to SPLIT_MAX_ROWS rows (decode)
 split d_in over a cluster of SPLIT blocks a row; more rows (prefill,
 chunks) go in tiles of 64 or 128 consecutive rows, one block per (tile,
-distinct slot of the tile).
+distinct slot of the tile). The expand has two as well (`expand_plan`):
+up to DECODE_MAX_ROWS rows one block per (row, DECODE_COLS columns) with
+the rank rows split over RANK_SPLIT warps; more rows go in tiles of 64 or
+128 consecutive rows x EXPAND_COLS columns, each block visiting its
+tile's distinct slots in turn.
 """
 from __future__ import annotations
 
@@ -28,7 +32,11 @@ _FLOATS = (torch.float32, torch.bfloat16)
 MAX_R = 8 * 1024               # r_max = 8 x a power of two up to this
 SPLIT = 8                      # csrc/lora.cu: kSplit, blocks a row (cluster)
 SPLIT_MAX_ROWS = 64            # split path up to here (decode batches)
-TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the kernel takes
+TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the kernels take
+DECODE_MAX_ROWS = 64           # expand: decode path up to here
+DECODE_COLS = 256              # csrc/lora.cu: kDecCols, columns a block
+RANK_SPLIT = 8                 # csrc/lora.cu: kRankSplit, warps a block
+EXPAND_COLS = 128              # csrc/lora.cu: kEN, columns a row-tile block
 
 
 class ShrinkPlan(NamedTuple):
@@ -54,6 +62,34 @@ def shrink_plan(rows: int, d_in: int, slots: int, sms: int) -> ShrinkPlan:
     tile = TILE_ROWS[1] if -(-rows // TILE_ROWS[1]) >= sms else TILE_ROWS[0]
     per_tile = max(1, min(slots, tile))
     return ShrinkPlan(tile, per_tile, -(-rows // tile) * per_tile, 0)
+
+
+class ExpandPlan(NamedTuple):
+    """The expand kernel's launch: a grid of `row_blocks` x `col_blocks`
+    blocks, each covering `cols` output columns. Decode path (tile 0):
+    one row a block, its live rank rows r taken by warp r % RANK_SPLIT.
+    Row-tile path: `tile` consecutive rows a block, which visits up to
+    `passes` distinct slots of its tile in turn and also writes the zero
+    rows (no adapter) of its tile and columns."""
+    tile: int
+    row_blocks: int
+    col_blocks: int
+    cols: int
+    passes: int
+
+
+def expand_plan(rows: int, d_out: int, slots: int, sms: int) -> ExpandPlan:
+    """The decode path up to DECODE_MAX_ROWS rows: a row tile would
+    visit each row's slot in turn on one block, while one block per (row,
+    DECODE_COLS columns) spreads the row's B reads. Above it, row tiles of
+    128 once they fill every SM (`sms`) twice, of 64 below that."""
+    if rows <= DECODE_MAX_ROWS:
+        return ExpandPlan(0, rows, -(-d_out // DECODE_COLS), DECODE_COLS, 1)
+    col_blocks = -(-d_out // EXPAND_COLS)
+    big = -(-rows // TILE_ROWS[1]) * col_blocks >= 2 * sms
+    tile = TILE_ROWS[1] if big else TILE_ROWS[0]
+    return ExpandPlan(tile, -(-rows // tile), col_blocks, EXPAND_COLS,
+                      max(1, min(slots, tile)))
 
 
 _SMS: dict = {}
@@ -124,15 +160,23 @@ def lora_expand(y, b, idx, live):
     _check_rows("lora_expand", idx, live, rows)
     if not y.is_cuda:
         return ref.lora_expand_ref(y, b, idx, live)
+    if r_max % 8 or d_out % 8 or r_max > MAX_R:
+        raise ValueError(f"lora_expand: the kernel takes r_max <= {MAX_R} "
+                         f"and d_out multiples of 8 (16-byte copies), got "
+                         f"r_max {r_max}, d_out {d_out}")
     build.require(y, "y", dtypes=_FLOATS, ndim=2)
     build.require(b, "b", dtypes=(y.dtype,), ndim=3, device=y.device)
+    build.require_aligned(y, "y")
+    build.require_aligned(b, "b")
     for name, t in (("idx", idx), ("live", live)):
         build.require(t, name, dtypes=(torch.int32,), device=y.device)
     lib = build.library()
+    plan = expand_plan(rows, d_out, slots, sm_count(y.device))
     out = torch.empty(rows, d_out, dtype=b.dtype, device=y.device)
     rc = lib.rt_lora_expand(y.data_ptr(), b.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), out.data_ptr(), rows, r_max,
-                            d_out, slots, build.DTYPE_CODE[y.dtype],
+                            d_out, slots, plan.tile,
+                            build.DTYPE_CODE[y.dtype],
                             build.stream_handle(y.device))
     build.check_launch(rc, "lora_expand")
     lora_expand.launches += 1

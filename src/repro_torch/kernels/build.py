@@ -40,14 +40,14 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q, k_pages, v_pages, pos_pages, block_table, pos, out,
-    # B, H, KV, P, ps, hd, W, dtype, stream
-    "rt_paged_attention": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k_pages, v_pages, pos_pages, block_table, pos, out, ws,
+    # B, H, KV, P, ps, hd, W, nsplit, dtype, stream
+    "rt_paged_attention": [_P] * 8 + [_I] * 9 + [_P],
     # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, dtype,
     # stream
     "rt_lora_shrink": [_P] * 5 + [_I] * 7 + [_P],
-    # y, b, idx, live, out, rows, r_max, d_out, slots, dtype, stream
-    "rt_lora_expand": [_P] * 5 + [_I] * 5 + [_P],
+    # y, b, idx, live, out, rows, r_max, d_out, slots, tile, dtype, stream
+    "rt_lora_expand": [_P] * 5 + [_I] * 6 + [_P],
     # q, k, v, out, strides (12 int64 on the host),
     # B, H, KV, Lq, Lk, hd, causal, window, dtype, stream
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],

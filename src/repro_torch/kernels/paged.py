@@ -4,15 +4,34 @@ csrc/paged_attention.cu, which replaces the Pallas TPU kernel
 
 A CPU tensor runs the plain version (`ref.paged_attention_ref`); a CUDA
 tensor launches the kernel or raises. `paged_attention.launches` counts
-kernel launches.
+kernel launches (one a call; with more than one split the call also
+launches the kernel's combine pass).
+
+The kernel splits each row's block table over `split_plan` blocks, chosen
+here from shapes alone (no device sync).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.bgmv import sm_count
 
 _FLOATS = (torch.float32, torch.bfloat16)
+MIN_SPLIT_PAGES = 4            # block-table columns a split at least
+
+
+def split_plan(B: int, KV: int, W: int, sms: int) -> int:
+    """Runs of block-table columns a row is split into: one when the
+    B x KV blocks fill every SM (`sms`) already; else enough for about two
+    blocks an SM, at least MIN_SPLIT_PAGES columns a split, and no split
+    left empty (the kernel gives split k the columns
+    [k * ceil(W / n), (k + 1) * ceil(W / n)))."""
+    n = min(-(-2 * sms // (B * KV)), W // MIN_SPLIT_PAGES)
+    if B * KV >= sms or n <= 1:
+        return 1
+    per = -(-W // n)
+    return -(-W // per)
 
 
 def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
@@ -41,10 +60,10 @@ def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
     if not q.is_cuda:
         return ref.paged_attention_ref(q, k_pages, v_pages, pos_pages,
                                        block_table, pos)
-    if (H // KV) * hd > 1024 or hd % 8:
+    if (H // KV) * hd > 1024 or hd % 8 or hd > 256:
         raise ValueError(f"paged_attention: the kernel takes GQA group x hd "
-                         f"<= 1024 and hd % 8 == 0, got group {H // KV}, "
-                         f"hd {hd}")
+                         f"<= 1024, hd <= 256 and hd % 8 == 0, got group "
+                         f"{H // KV}, hd {hd}")
     build.require(q, "q", dtypes=_FLOATS, ndim=3)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         build.require(t, name, dtypes=(q.dtype,), ndim=4, device=q.device)
@@ -55,10 +74,15 @@ def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
     build.require_aligned(v_pages, "v_pages")
     lib = build.library()
     out = torch.empty_like(q)
+    nsplit = split_plan(B, KV, W, sm_count(q.device))
+    # per split: (m, l, acc) of each query head, combined by the kernel
+    ws = torch.empty(B * H * nsplit * (hd + 2) if nsplit > 1 else 0,
+                     dtype=torch.float32, device=q.device)
     rc = lib.rt_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         pos_pages.data_ptr(), block_table.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, H, KV, P, ps, hd, W, build.DTYPE_CODE[q.dtype],
+        out.data_ptr(), ws.data_ptr() if nsplit > 1 else None, B, H, KV, P,
+        ps, hd, W, nsplit, build.DTYPE_CODE[q.dtype],
         build.stream_handle(q.device))
     build.check_launch(rc, "paged_attention")
     paged_attention.launches += 1

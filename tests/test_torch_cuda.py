@@ -252,3 +252,95 @@ def test_flash_kernel_bf16_head_dims(card, hd, causal, window, group, Lq,
     assert flash.flash_attention.launches == n + 1
     want = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window)
     _rows_close(got.reshape(-1, hd), want.reshape(-1, hd), 1e-2, 0.0)
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+@pytest.mark.parametrize("rows,seg,d_out,dtype", [
+    (1, 0, 4096, torch.bfloat16), (8, 0, 4096, torch.bfloat16),
+    (64, 0, 512, torch.bfloat16), (65, 1, 512, torch.bfloat16),
+    (300, 17, 384, torch.bfloat16), (4096 + 37, 4096, 4096, torch.bfloat16),
+    (16896 + 77, 64, 512, torch.bfloat16), (8, 0, 136, torch.float32),
+    (300, 17, 136, torch.float32)])
+def test_lora_expand_paths_match_plain(card, mode, rows, seg, d_out,
+                                       dtype):
+    """The expand on both launch shapes: decode (<= 64 rows: a block per
+    (row, 256 columns), rank rows split over warps) and row tiles of 64 /
+    128 rows on the tensor cores (bf16) or CUDA cores (f32), at random
+    slots (seg 0) and at prefill's runs of `seg` rows per slot (boundaries
+    inside tiles, whole tiles of idx -1 rows, ragged last tiles and column
+    tiles), live widths 16/32/64. Each row within 1e-2 (bf16) / 1e-5 (f32)
+    of its max |plain|, idx -1 rows exactly 0, a second run bitwise
+    equal."""
+    g = torch.Generator(device=card).manual_seed(rows + d_out)
+    ranks = [16, 32, 64, 16, 32, 64, 64, 16]
+    b = torch.zeros(8, 64, d_out, device=card, dtype=dtype)
+    for s, r in enumerate(ranks):
+        b[s, :r] = (torch.randn(r, d_out, generator=g, device=card)
+                    * r ** -0.5).to(dtype)
+    y = torch.randn(rows, 64, generator=g, device=card).to(dtype)
+    if seg:
+        idx = torch.arange(rows, device=card) // seg % 9 - 1
+    else:
+        idx = torch.randint(-1, 8, (rows,), generator=g, device=card)
+    idx = idx.to(torch.int32)
+    live = ref.bgmv_live(idx, 64) if mode == "bgmv" else ref.mbgmv_live(
+        idx, torch.tensor(ranks, dtype=torch.int32, device=card), 16)
+    n = bgmv.lora_expand.launches
+    out = bgmv.lora_expand(y, b, idx, live)
+    assert bgmv.lora_expand.launches == n + 1
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    _rows_close(out, ref.lora_expand_ref(y, b, idx, live), tol,
+                0.0 if dtype == torch.bfloat16 else 1.0)
+    assert bool((out[idx < 0] == 0).all())
+    assert torch.equal(out, bgmv.lora_expand(y, b, idx, live))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,KV,split", [
+    (8, 32, 4, True), (2, 8, 1, True), (8, 32, 32, False)])
+def test_paged_attention_splits_match_plain(card, dtype, B, H, KV, split):
+    """The paged kernel with each row's block table split over blocks
+    (few rows x KV heads: yi-9b's 8 x 4, GQA group 8) and in one block
+    (8 x 32, llama2-7b's, group 1): a 2,300-token row beside short rows,
+    a row with no claimed page, unclaimed holes; each row within 1e-2
+    (bf16) / 1e-5 (f32) of its max |plain|, NaN in every page a row does
+    not own leaves its output bitwise unchanged, and a second run is
+    bitwise equal."""
+    hd, ps, W = 128, 32, 80
+    P = B * W + 1
+    g = torch.Generator(device=card).manual_seed(B * H + KV)
+    q = torch.randn(B, H, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(P, KV, ps, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(P, KV, ps, hd, generator=g, device=card).to(dtype)
+    pp = torch.full((P, ps), -1, dtype=torch.int32)
+    bt = torch.full((B, W), -1, dtype=torch.int32)
+    pos = torch.zeros(B, dtype=torch.int32)
+    perm = np.random.default_rng(B).permutation(P - 1).tolist()
+    ctx = [0, 2300] + [37 * (i + 1) for i in range(B - 2)]
+    for b, n_tok in enumerate(ctx):
+        for j in range(-(-n_tok // ps)):
+            pg = perm.pop()
+            bt[b, j] = pg
+            filled = torch.arange(ps) + j * ps
+            pp[pg] = torch.where(filled < n_tok, filled, -1).int()
+        pos[b] = max(n_tok - 1, 0)
+    bt[1, [5, 40]] = -1
+    pp, bt, pos = pp.to(card), bt.to(card), pos.to(card)
+    assert (paged.split_plan(B, KV, W, bgmv.sm_count(q.device)) > 1) \
+        == split
+    n = paged.paged_attention.launches
+    got = paged.paged_attention(q, k, v, pp, bt, pos)
+    assert paged.paged_attention.launches == n + 1
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    _rows_close(got, ref.paged_attention_ref(q, k, v, pp, bt, pos), tol,
+                0.0 if dtype == torch.bfloat16 else 1.0)
+    assert bool((got[0] == 0).all())
+    assert torch.equal(got, paged.paged_attention(q, k, v, pp, bt, pos))
+    for b in range(B):
+        keep = torch.zeros(P, dtype=torch.bool, device=card)
+        keep[bt[b][bt[b] >= 0].long()] = True
+        kk = torch.where(keep[:, None, None, None], k, float("nan"))
+        vv = torch.where(keep[:, None, None, None], v, float("nan"))
+        out = paged.paged_attention(q, kk, vv, torch.where(keep[:, None],
+                                                          pp, 0), bt, pos)
+        assert torch.equal(out[b], got[b]), b

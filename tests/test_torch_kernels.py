@@ -360,3 +360,138 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
                 if k == 0:
                     hits[lo + np.flatnonzero(tile < 0)] += 1
         assert np.all(hits == 1)
+
+
+# ------------------------------------- LoRA expand at prefill layouts ----
+
+@pytest.mark.parametrize("seg", [1, 17, 64])
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+def test_expand_segmented_rows_match_pallas(mode, seg):
+    """The plain expand (what both expand kernels are held to on the card)
+    against the Pallas bgmv/mbgmv_expand at prefill's layouts: runs of
+    `seg` rows per slot cycling through -1 and every slot, live widths
+    4/8/16 (junk in y past each row's live width and in B past each rank:
+    MBGMV never reads them)."""
+    ranks = [4, 8, 16]
+    _, b, rng = _lora_pool(seg + 100, 3, 8, 40, 16, ranks)
+    rows = 2 * max(seg, 64) + 77
+    idx = _segmented_idx(rows, seg, 3)
+    y = rng.normal(size=(rows, 16)).astype(np.float32)
+    r_np = np.asarray(ranks, np.int32)
+    if mode == "bgmv":
+        want = jbgmv.bgmv_expand(jnp.asarray(y), jnp.asarray(b),
+                                 jnp.asarray(idx))
+        got = bgmv.bgmv_expand(_t(y), _t(b), _t(idx))
+    else:
+        live = ref.mbgmv_live(_t(idx), _t(r_np), 4).numpy()
+        y[np.arange(16)[None] >= live[:, None]] = 9.0
+        b[0, 4:], b[1, 8:] = 3.0, -5.0
+        want = jmbgmv.mbgmv_expand(jnp.asarray(y), jnp.asarray(b),
+                                   jnp.asarray(idx), jnp.asarray(r_np),
+                                   rank_block=4)
+        got = mbgmv.mbgmv_expand(_t(y), _t(b), _t(idx), _t(r_np),
+                                 rank_block=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.all(got.numpy()[idx < 0] == 0)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 64, 65, 4133, 32768])
+@pytest.mark.parametrize("d_out", [8, 384, 512, 4096])
+@pytest.mark.parametrize("slots", [1, 8, 300])
+def test_expand_plan_covers_each_output_once(rows, d_out, slots):
+    """The expand's launch plan, computed on the host from `rows`: the
+    decode path up to DECODE_MAX_ROWS rows (a block per (row, DECODE_COLS
+    columns), rank rows split over RANK_SPLIT warps), row tiles above it
+    (128 rows once they fill every SM twice, else 64), each block visiting
+    its tile's distinct slots and zeroing its rows without an adapter.
+    The grid is rows x columns, so each (row, column) is written exactly
+    once iff each row and each column is covered once: checked at random
+    and at prefill layouts."""
+    plan = bgmv.expand_plan(rows, d_out, slots, _SMS)
+    cols = np.zeros(d_out, int)
+    for cb in range(plan.col_blocks):     # the kernel's column blocks
+        cols[cb * plan.cols:min(d_out, (cb + 1) * plan.cols)] += 1
+    assert np.all(cols == 1) and plan.col_blocks == -(-d_out // plan.cols)
+    if rows <= bgmv.DECODE_MAX_ROWS:
+        assert plan.tile == 0 and plan.row_blocks == rows
+        assert plan.cols == bgmv.DECODE_COLS
+        for r_max in (8, 64, 8192):        # warp w: rank rows w (mod split)
+            warp = np.arange(r_max) % bgmv.RANK_SPLIT
+            assert np.all(np.bincount(warp, minlength=bgmv.RANK_SPLIT)
+                          == r_max // bgmv.RANK_SPLIT)
+        return
+    n128 = -(-rows // 128) * plan.col_blocks
+    assert plan.tile == (128 if n128 >= 2 * _SMS else 64)
+    assert plan.tile in bgmv.TILE_ROWS and plan.cols == bgmv.EXPAND_COLS
+    assert plan.row_blocks == -(-rows // plan.tile)
+    assert plan.passes == min(slots, plan.tile)
+    rng = np.random.default_rng(rows + slots + d_out)
+    for idx in (rng.integers(-1, slots, rows),
+                _segmented_idx(rows, 17, slots),
+                _segmented_idx(rows, 4096, slots)):
+        hits = np.zeros(rows, int)
+        for t in range(plan.row_blocks):  # block t's passes, then zeros
+            lo = t * plan.tile
+            tile = idx[lo:lo + plan.tile]
+            firsts = list(dict.fromkeys(int(i) for i in tile if i >= 0))
+            assert len(firsts) <= plan.passes
+            for s in firsts:
+                hits[lo + np.flatnonzero(tile == s)] += 1
+            hits[lo + np.flatnonzero(tile < 0)] += 1
+        assert np.all(hits == 1)
+
+
+# ------------------------------------------ paged attention: splits ----
+
+@pytest.mark.parametrize("W", [1, 5, 130])
+@pytest.mark.parametrize("bkv", [1, 2, 8, 32, 131, 132, 256])
+def test_paged_split_plan_covers_each_column_once(W, bkv):
+    """The paged kernel's split count, chosen on the host from W, B x KV
+    and the SM count: one split once B x KV blocks fill every SM, else
+    about two blocks an SM with at least MIN_SPLIT_PAGES columns a split;
+    split k takes the columns [k * ceil(W / n), (k + 1) * ceil(W / n)),
+    which cover each block-table column of each (row, KV head) exactly
+    once and leave no split empty."""
+    n = paged.split_plan(1, bkv, W, _SMS)
+    assert n == paged.split_plan(bkv, 1, W, _SMS)
+    assert 1 <= n <= max(W, 1)
+    if bkv >= _SMS:
+        assert n == 1
+    per = -(-W // n)
+    hits = np.zeros(W, int)
+    for k in range(n):
+        lo, hi = k * per, min(W, (k + 1) * per)
+        assert hi > lo                   # no empty split
+        hits[lo:hi] += 1
+    assert np.all(hits == 1)
+    if n > 1:
+        assert per >= paged.MIN_SPLIT_PAGES
+        assert n <= -(-2 * _SMS // bkv)
+
+
+@pytest.mark.parametrize("KV,H", [(1, 8), (2, 8)])
+def test_paged_attention_long_table_matches_pallas(KV, H):
+    """A long block table (W 40, the yi-9b shape cut down) at GQA group 8
+    and 4: unclaimed holes mid-table, a row with no claimed page, and a
+    claimed-but-empty page; the plain version against the Pallas kernel."""
+    B, hd, ps, W, P = 3, 16, 8, 40, 90
+    rng = np.random.default_rng(H * 10 + KV)
+    q = rng.normal(size=(B, H, hd)).astype(np.float32)
+    k = rng.normal(size=(P, KV, ps, hd)).astype(np.float32)
+    v = rng.normal(size=(P, KV, ps, hd)).astype(np.float32)
+    pp = np.full((P, ps), -1, np.int32)
+    bt = np.full((B, W), -1, np.int32)
+    pos = np.zeros((B,), np.int32)
+    free = list(rng.permutation(P))
+    for b, n_tok in ((1, W * ps - 5), (2, 37)):
+        for j in range(-(-n_tok // ps)):
+            pg = free.pop()
+            bt[b, j] = pg
+            filled = np.arange(ps) + j * ps
+            pp[pg] = np.where(filled < n_tok, filled, -1)
+        pos[b] = n_tok - 1
+    bt[1, [3, 17, 18]] = -1               # holes: those slots drop out
+    bt[2, 6] = free.pop()                 # claimed, but empty
+    got, want = _both_paged((q, k, v, pp, bt, pos))
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_array_equal(got[0], np.zeros_like(got[0]))
