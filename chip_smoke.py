@@ -1223,7 +1223,8 @@ def expand_prefill_timing(torch, captured, serving):
            "bytes": nbytes,
            "shape": {"rows": rows, "r_max": r_max, "d_out": d_out,
                      "slots": slots, "adapters": len(slot_live),
-                     "live_columns": row_live, "tile_rows": plan.tile}}
+                     "live_columns": row_live, "tile_rows": plan.tile,
+                     "row_blocks": plan.row_blocks}}
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
           f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (matmul Y_bd x B_cat) "

@@ -38,16 +38,18 @@
 // The expand is bound by bytes too, and by its output: at yi-9b's prefill
 // (d_out 4096) out is 268 MB against 4 MB each of y and B. Two launch
 // shapes, chosen on the host from `rows` (kernels/bgmv.py: expand_plan):
-//  - Row tiles (prefill and chunks). One block per (tile of 64 or 128
-//    consecutive rows, 128 output columns); the block visits the tile's
-//    distinct slots in turn (prefill repeats each row's slot T times, so
-//    most tiles hold one), loads that slot's rows of y and its
-//    B[s][:live, 128 columns] by cp.async, multiplies on the tensor cores
-//    (mma.sync m16n8k16, bf16 in, f32 accumulate; warp tiles of 32 x 32)
-//    64 rank rows a pass, adds each pass on the CUDA cores, casts once
-//    and writes the tile through shared memory as 16-byte stores. B is
-//    read once per tile instead of once per row; every element of out is
-//    written by one block. f32 takes the same tiles on CUDA cores.
+//  - Row tiles (prefill and chunks). A block owns 256 output columns and
+//    walks every row_blocks-th tile of 64 consecutive rows, with the next
+//    tile's y and slots loading (cp.async) while it works on the current
+//    one. For each distinct slot of a tile (prefill repeats each row's
+//    slot T times, so most tiles hold one) it multiplies the tile's y by
+//    B[s][:live, 256 columns] on the tensor cores (mma.sync m16n8k16,
+//    bf16 in, f32 accumulate; warp tiles of 32 x 64), 64 rank rows a
+//    pass, each pass added on the CUDA cores, casts once and writes the
+//    slot's rows through shared memory as 16-byte stores. The B tile
+//    stays in shared memory while the slot does not change, so B is read
+//    about once per block instead of once per row; every element of out
+//    is written by one block. f32 takes the same tiles on CUDA cores.
 //  - Decode (up to 64 rows). One block per (row, 256 columns): each lane
 //    owns 8 columns, read from one rank row of B in a 16-byte load, and
 //    the 8 warps split the live rank rows, their partials added in warp
@@ -417,8 +419,10 @@ cudaError_t launch_split(const void* x, const void* a, const int* idx,
 
 // ------------------------------------------------ expand: row tiles ----
 
+constexpr int kEM = 64;                     // rows a tile
 constexpr int kER = 64;                     // rank rows a pass
-constexpr int kEN = 128;                    // output columns a block
+constexpr int kEN = 256;                    // output columns a block
+constexpr int kEThr = 256;                  // 8 warps: 2 x 4 tiles of 32 x 64
 
 template <typename T> struct ExpCfg;
 template <> struct ExpCfg<bf16> {
@@ -428,241 +432,320 @@ template <> struct ExpCfg<float> {
   static constexpr int kLdy = kER + 4, kLdb = kEN + 4;
 };
 
-// y and B tiles of one pass; the bf16 output tile is staged in the same
-// bytes once the pass's products are done
-template <typename T, int BM>
+// two y tiles (the current and the next, in flight), a y tile for rank
+// rows past kER, a B tile and the bf16 output tile
+template <typename T>
 constexpr size_t expand_tile_smem() {
   using C = ExpCfg<T>;
-  const size_t ops = sizeof(T) * ((size_t)BM * C::kLdy +
-                                  (size_t)kER * C::kLdb);
-  const size_t stage = sizeof(T) * (size_t)BM * C::kLdb;
-  return ops > stage ? ops : stage;
+  return sizeof(T) * (3 * (size_t)kEM * C::kLdy + (size_t)kER * C::kLdb +
+                      (std::is_same<T, bf16>::value ? (size_t)kEM * C::kLdb
+                                                    : 0));
 }
 
-// out[rows row0 .. row0 + BM, columns n0 .. n0 + kEN]. The block visits
-// the tile's distinct slots in turn; for slot s it loads y's rows of s
-// (other rows and columns at or past each row's live width as 0) and
-// B[s][:ncol, n0 : n0 + kEN], ncol = the slot's widest live width rounded
-// up to 8, kER rank rows a pass, and writes the rows of s. Rows with no
-// adapter are written as zeros by the same block, so every element of out
-// is written once, by one block.
-template <typename T, int BM>
-__global__ void __launch_bounds__(4 * BM) lora_expand_tile_kernel(
+// out[:, n0 : n0 + kEN] for the row tiles t = blockIdx.y, blockIdx.y +
+// gridDim.y, ... of kEM rows. While a block works on tile t, y of tile
+// t + gridDim.y and its slots are already loading. For each distinct
+// slot s of the tile (a pass), the block multiplies y's rows (rows of
+// other slots give products that are never stored; columns at or past a
+// row's live width are zeroed first) by B[s][:ncol, n0 : n0 + kEN], ncol
+// = the slot's widest live width in the tile rounded up to 8, kept in
+// shared memory across tiles while the slot and width stay the same, and
+// writes the rows of s; rows with no adapter get zeros. Every element of
+// out is written once, by one block. kMulti: r_max > kER, rank rows in
+// several passes (the partial sums take another 64 registers: one block
+// an SM then, as for f32, so that nothing spills).
+template <typename T, bool kMulti>
+__global__ void __launch_bounds__(
+    kEThr, (std::is_same<T, bf16>::value && !kMulti) ? 2 : 1)
+    lora_expand_tile_kernel(
     const T* __restrict__ y, const T* __restrict__ b,
     const int* __restrict__ idx, const int* __restrict__ live,
     T* __restrict__ out, int rows, int r_max, int d_out, int slots) {
   using C = ExpCfg<T>;
-  constexpr int kThr = 4 * BM;
+  constexpr bool kBF = std::is_same<T, bf16>::value;
   constexpr int VEC = 16 / sizeof(T);       // elements a 16-byte copy
+  constexpr int YC = kER / VEC, OC = kEN / VEC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ys = reinterpret_cast<T*>(smem_raw);
-  T* bs = ys + BM * C::kLdy;
-  __shared__ int sidx[BM], slive[BM], width[BM];
-  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * kEN;
+  T* ybuf = reinterpret_cast<T*>(smem_raw);              // 2 x kEM x kLdy
+  T* yx = ybuf + 2 * kEM * C::kLdy;                      // kEM x kLdy
+  T* bs = yx + kEM * C::kLdy;                            // kER x kLdb
+  T* stage = bs + kER * C::kLdb;                         // kEM x kLdb
+  // rows' slots and live widths, one buffer a tile parity: a thread may
+  // write the next tile's while another still reads this tile's
+  __shared__ int sidx[2 * kEM], slive[2 * kEM], wred[2][kEM / 32];
+  __shared__ unsigned firstm[kEM / 32];
+  int pb = 0;                               // this tile's buffer: 0 or kEM
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * kEN;
   const int ncols = min(kEN, d_out - n0);   // a multiple of 8
-  if (tid < BM) {
-    const int r = row0 + tid;
-    int s = -1, lv = 0;
-    if (r < rows) {
-      s = idx[r];
-      if (s < 0 || s >= slots) s = -1;
-      else lv = max(0, min(live[r], r_max));
-    }
-    sidx[tid] = s;
-    slive[tid] = lv;
-  }
-  __syncthreads();
-  // a slot's first row in the tile holds the widest live width of the
-  // slot's rows; every other row -1
-  if (tid < BM) {
-    const int s = sidx[tid];
-    int w = -1;
-    if (s >= 0) {
-      bool first = true;
-      for (int u = tid - 1; u >= 0 && first; --u) first = sidx[u] != s;
-      if (first) {
-        w = 0;
-        for (int u = tid; u < BM; ++u)
-          if (sidx[u] == s) w = max(w, slive[u]);
-      }
-    }
-    width[tid] = w;
-  }
-  // rows without an adapter: zeros, 16 bytes a store
-  constexpr int OC = kEN / VEC;
-  for (int i = tid; i < BM * OC; i += kThr) {
-    const int r = i / OC, c = (i % OC) * VEC;
-    if (row0 + r < rows && sidx[r] < 0 && c < ncols)
-      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out + n0 + c) =
-          make_uint4(0u, 0u, 0u, 0u);
-  }
-  __syncthreads();
+  const int ntiles = (rows + kEM - 1) / kEM;
   const T zero = rt::from_f32<T>(0.f);
 
-  for (int u = 0; u < BM; ++u) {
-    if (width[u] < 0) continue;             // uniform across the block
-    const int s = sidx[u];
-    const int ncol = (width[u] + 7) / 8 * 8;
-    const T* bsl = b + (size_t)s * r_max * d_out + n0;
+  // y[rows of tile t, k0 : k0 + kER] (columns at or past r_max as 0)
+  auto load_y = [&](T* dst, int t, int k0) {
+    for (int i = tid; i < kEM * YC; i += kEThr) {
+      const int r = i / YC, c = (i % YC) * VEC, row = t * kEM + r;
+      const bool ok = row < rows && k0 + c < r_max;
+      rt::cp_async16(dst + r * C::kLdy + c,
+                     ok ? y + (size_t)row * r_max + k0 + c : y, ok);
+    }
+  };
+  // B[s][k0 : k0 + kn, n0 : n0 + kEN]; other rank rows as 0 (never read)
+  auto load_b = [&](int s, int k0, int kn) {
+    const T* src = b + ((size_t)s * r_max + k0) * d_out + n0;
+    for (int i = tid; i < kER * OC; i += kEThr) {
+      const int r = i / OC, c = (i % OC) * VEC;
+      const bool ok = r < kn && c < ncols;
+      rt::cp_async16(bs + r * C::kLdb + c,
+                     ok ? src + (size_t)r * d_out + c : b, ok);
+    }
+  };
+  // row `tid` of tile t: its slot (-1: no adapter or past `rows`), live
+  auto row_info = [&](int t, int& s, int& lv) {
+    const int row = t * kEM + tid;
+    s = -1;
+    lv = 0;
+    if (tid < kEM && row < rows) {
+      s = idx[row];
+      if (s < 0 || s >= slots) s = -1;
+      else lv = max(0, min(live[row], r_max));
+    }
+  };
+  // y columns at or past each row of s's live width, in [k0, k0 + kER)
+  auto mask_y = [&](T* dst, int s, int k0) {
+    for (int i = tid; i < kEM * YC; i += kEThr) {
+      const int r = i / YC, c = (i % YC) * VEC;
+      if (sidx[pb + r] != s || k0 + c + VEC <= slive[pb + r]) continue;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        if (k0 + c + j >= slive[pb + r]) dst[r * C::kLdy + c + j] = zero;
+    }
+  };
 
-    // y[rows of s, k0 : k0 + kER] and B[s][k0 : k0 + kn, n0 : n0 + kEN]
-    auto load = [&](int k0, int kn) {
-      constexpr int YC = kER / VEC;
-      for (int i = tid; i < BM * YC; i += kThr) {
-        const int r = i / YC, c = (i % YC) * VEC, k = k0 + c;
-        T* dst = ys + r * C::kLdy + c;
-        const int lv = sidx[r] == s ? slive[r] : 0;
-        const T* src = y + (size_t)(row0 + r) * r_max + k;
-        if (k + VEC <= lv) {
-          rt::cp_async16(dst, src, true);
-        } else if (k < lv) {                // the copy live ends in
+  // bf16: warp tile of 32 rows x 64 columns; f32: thread 4 rows x 16
+  // columns. Without kMulti each is computed in NH = 2 halves of NW
+  // columns, so the accumulators take 32 registers and two blocks fit an
+  // SM without spilling.
+  constexpr int NH = kMulti ? 1 : 2;
+  constexpr int NW = 64 / NH;               // a warp's columns a half
+  constexpr int FW = 16 / NH;               // an f32 thread's columns a half
+  const int wr = warp & 1, wc = warp >> 1;
+  const int rg = tid / 16, cg = tid % 16;
+  // bf16: d[m * NW / 8 + n] is the mma tile (rows 16 m, columns 8 n) of
+  // the warp's half; f32: d[FW / 4 * i + j / 4][j % 4] is (row i, column j)
+  float acc[NW / 4][4], part[kMulti ? NW / 4 : 1][4];
+  // d = y tile x bs over rank rows [0, kn), kn <= kER, half h's columns
+  auto product = [&](const T* ys, int kn, int h, float (&d)[NW / 4][4]) {
 #pragma unroll
-          for (int j = 0; j < VEC; ++j) dst[j] = k + j < lv ? src[j] : zero;
-        } else {
-          rt::cp_async16(dst, y, false);    // zero fill
-        }
-      }
-      for (int i = tid; i < kER * OC; i += kThr) {
-        const int r = i / OC, c = (i % OC) * VEC;
-        const bool ok = r < kn && c < ncols;   // dead rank rows never read
-        rt::cp_async16(bs + r * C::kLdb + c,
-                       ok ? bsl + (size_t)(k0 + r) * d_out + c : b, ok);
-      }
-      rt::cp_async_commit();
-      rt::cp_async_wait<0>();
-      __syncthreads();
-    };
-
-    if constexpr (std::is_same<T, bf16>::value) {
-      // warp tiles of 32 rows x 32 columns: (BM / 32) x 4 warps
-      constexpr int WR = BM / 32, WN = 32, NT = WN / 8;
-      const int wr = warp % WR, wc = warp / WR;
-      const bool mine = __any_sync(0xffffffffu, sidx[wr * 32 + lane] == s) &&
-                        wc * WN < ncols;
-      float acc[2][NT][4];
+    for (int n = 0; n < NW / 4; ++n)
+      d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+    if constexpr (kBF) {
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+      for (int ks = 0; ks < kER / 16; ++ks) {
+        if (ks * 16 >= kn) break;
 #pragma unroll
-        for (int n = 0; n < NT; ++n)
-          acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
-      for (int k0 = 0; k0 < ncol; k0 += kER) {
-        const int kn = min(kER, ncol - k0);
-        __syncthreads();                    // last pass's tiles consumed
-        load(k0, kn);
-        if (!mine) continue;
-        // each pass's sum from the tensor cores, added on the CUDA cores
-        float part[2][NT][4];
+        for (int m = 0; m < 2; ++m) {
+          unsigned af[4];
+          rt::ldsm_x4(af, ys + (wr * 32 + m * 16 + (lane & 15)) * C::kLdy +
+                              ks * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-            part[m][n][0] = part[m][n][1] = part[m][n][2] = part[m][n][3] =
-                0.f;
-#pragma unroll
-        for (int ks = 0; ks < kER / 16; ++ks) {
-          if (ks * 16 >= kn) break;
-          unsigned af[2][4];
-#pragma unroll
-          for (int m = 0; m < 2; ++m)
-            rt::ldsm_x4(af[m], ys + (wr * 32 + m * 16 + (lane & 15)) *
-                                        C::kLdy + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-          for (int np = 0; np < NT / 2; ++np) {
+          for (int np = 0; np < NW / 16; ++np) {
             unsigned bv[4];
             rt::ldsm_x4_trans(bv, bs + (ks * 16 + (lane & 7) +
                                         ((lane >> 3) & 1) * 8) * C::kLdb +
-                                      wc * WN + np * 16 + (lane >> 4) * 8);
+                                      wc * 64 + h * NW + np * 16 +
+                                      (lane >> 4) * 8);
+            rt::mma_bf16(d[m * NW / 8 + 2 * np], af, bv[0], bv[1]);
+            rt::mma_bf16(d[m * NW / 8 + 2 * np + 1], af, bv[2], bv[3]);
+          }
+        }
+      }
+    } else {
+      for (int k = 0; k < kn; ++k) {
+        float yv[4], bv[FW];
 #pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              rt::mma_bf16(part[m][2 * np], af[m], bv[0], bv[1]);
-              rt::mma_bf16(part[m][2 * np + 1], af[m], bv[2], bv[3]);
+        for (int i = 0; i < 4; ++i) yv[i] = ys[(rg * 4 + i) * C::kLdy + k];
+#pragma unroll
+        for (int j = 0; j < FW; ++j)
+          bv[j] = bs[k * C::kLdb + cg * 16 + h * FW + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < FW; ++j)
+            d[FW / 4 * i + j / 4][j % 4] += yv[i] * bv[j];
+      }
+    }
+  };
+
+  int t = blockIdx.y;
+  int s_nxt, lv_nxt;
+  row_info(t, s_nxt, lv_nxt);
+  if (t < ntiles) load_y(ybuf, t, 0);
+  rt::cp_async_commit();
+  int res_s = -1, res_ncol = 0;             // the B chunk held in bs
+  for (int it = 0; t < ntiles; ++it, t += gridDim.y) {
+    T* yb = ybuf + (it & 1) * kEM * C::kLdy;
+    pb = (it & 1) * kEM;
+    if (tid < kEM) {
+      sidx[pb + tid] = s_nxt;
+      slive[pb + tid] = lv_nxt;
+    }
+    const int t_nxt = t + gridDim.y;
+    if (t_nxt < ntiles) row_info(t_nxt, s_nxt, lv_nxt);
+    rt::cp_async_wait<0>();
+    __syncthreads();                        // tile t's y landed
+    if (t_nxt < ntiles)
+      load_y(ybuf + ((it + 1) & 1) * kEM * C::kLdy, t_nxt, 0);
+    rt::cp_async_commit();
+    const int row0 = t * kEM;
+    // the first row of each distinct slot of the tile
+    if (tid < kEM) {
+      const int s = sidx[pb + tid];
+      bool first = s >= 0;
+      for (int u = tid - 1; u >= 0 && first; --u)
+        first = sidx[pb + u] != s;
+      const unsigned m = __ballot_sync(0xffffffffu, first);
+      if (lane == 0) firstm[warp] = m;
+    }
+    const bool zeros = __syncthreads_or(tid < kEM && row0 + tid < rows &&
+                                        sidx[pb + tid] < 0);
+    // rows without an adapter: zeros, 16 bytes a store
+    if (zeros) {
+      for (int i = tid; i < kEM * OC; i += kEThr) {
+        const int r = i / OC, c = (i % OC) * VEC;
+        if (row0 + r < rows && sidx[pb + r] < 0 && c < ncols)
+          *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out + n0 +
+                                    c) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    for (int q = 0; q < kEM / 32; ++q) {
+      for (unsigned m = firstm[q]; m != 0u; m &= m - 1u) {
+        const int s = sidx[pb + q * 32 + __ffs(m) - 1];
+        // the widest and narrowest live width of the slot's rows
+        if (tid < kEM) {
+          const bool mine = sidx[pb + tid] == s;
+          const int hi = __reduce_max_sync(0xffffffffu,
+                                           mine ? slive[pb + tid] : 0);
+          const int lo = __reduce_min_sync(0xffffffffu,
+                                           mine ? slive[pb + tid] : r_max);
+          if (lane == 0) {
+            wred[0][warp] = hi;
+            wred[1][warp] = lo;
+          }
+        }
+        __syncthreads();
+        int hi = 0, lo = r_max;
+#pragma unroll
+        for (int w = 0; w < kEM / 32; ++w) {
+          hi = max(hi, wred[0][w]);
+          lo = min(lo, wred[1][w]);
+        }
+        const int ncol = (hi + 7) / 8 * 8;
+        const int kn0 = min(kER, ncol);
+        if (lo < min(kER, r_max)) mask_y(yb, s, 0);
+        if (ncol > 0 && (s != res_s || ncol != res_ncol)) {
+          load_b(s, 0, kn0);
+          rt::cp_async_commit();
+          rt::cp_async_wait<0>();
+          res_s = s;
+          res_ncol = ncol;
+        }
+        __syncthreads();                    // yb masked, bs loaded
+        const bool any = kBF ? __any_sync(0xffffffffu,
+                                          sidx[pb + wr * 32 + lane] == s)
+                             : true;
+        for (int h = 0; h < NH; ++h) {
+          if (any && ncol > 0) {
+            product(yb, kn0, h, acc);
+          } else {
+#pragma unroll
+            for (int n = 0; n < NW / 4; ++n)
+              acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+          }
+          // rank rows past kER: one pass a kER rows, each pass's sum
+          // added on the CUDA cores
+          if constexpr (kMulti) for (int k0 = kER; k0 < ncol; k0 += kER) {
+            __syncthreads();                // bs and yx consumed
+            load_y(yx, t, k0);
+            load_b(s, k0, min(kER, ncol - k0));
+            rt::cp_async_commit();
+            rt::cp_async_wait<0>();
+            __syncthreads();
+            mask_y(yx, s, k0);
+            __syncthreads();
+            res_s = -1;
+            if (any) {
+              product(yx, min(kER, ncol - k0), h, part);
+#pragma unroll
+              for (int n = 0; n < NW / 4; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+            }
+          }
+          if constexpr (kBF) {
+            // cast once into the staged tile
+            if (any) {
+#pragma unroll
+              for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+                for (int hr = 0; hr < 2; ++hr) {
+                  const int r = wr * 32 + mm * 16 + (lane >> 2) + 8 * hr;
+#pragma unroll
+                  for (int n = 0; n < NW / 8; ++n)
+                    *reinterpret_cast<unsigned*>(
+                        stage + r * C::kLdb + wc * 64 + h * NW + n * 8 +
+                        (lane & 3) * 2) =
+                        rt::pack_bf16(acc[mm * NW / 8 + n][2 * hr],
+                                      acc[mm * NW / 8 + n][2 * hr + 1]);
+                }
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = rg * 4 + i;
+              if (sidx[pb + r] != s) continue;
+              float* o = out + (size_t)(row0 + r) * d_out + n0 + cg * 16 +
+                         h * FW;
+#pragma unroll
+              for (int q4 = 0; q4 < FW / 4; ++q4)
+                if (cg * 16 + h * FW + q4 * 4 < ncols)
+                  *reinterpret_cast<float4*>(o + q4 * 4) = make_float4(
+                      acc[FW / 4 * i + q4][0], acc[FW / 4 * i + q4][1],
+                      acc[FW / 4 * i + q4][2], acc[FW / 4 * i + q4][3]);
             }
           }
         }
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[m][n][e] += part[m][n][e];
-      }
-      __syncthreads();                      // tiles free: stage the output
-      T* stage = ys;
-      if (mine) {
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = wr * 32 + m * 16 + (lane >> 2) + 8 * h;
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-              *reinterpret_cast<unsigned*>(
-                  stage + r * C::kLdb + wc * WN + n * 8 + (lane & 3) * 2) =
-                  rt::pack_bf16(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+        if constexpr (kBF) {
+          // the slot's rows of the staged tile, 16 bytes a store
+          __syncthreads();
+          for (int i = tid; i < kEM * OC; i += kEThr) {
+            const int r = i / OC, c = (i % OC) * VEC;
+            if (sidx[pb + r] == s && c < ncols)
+              *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out +
+                                        n0 + c) =
+                  *reinterpret_cast<const uint4*>(stage + r * C::kLdb + c);
           }
-      }
-      __syncthreads();
-      for (int i = tid; i < BM * OC; i += kThr) {
-        const int r = i / OC, c = (i % OC) * VEC;
-        if (sidx[r] == s && c < ncols)
-          *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out + n0 +
-                                    c) =
-              *reinterpret_cast<const uint4*>(stage + r * C::kLdb + c);
-      }
-    } else {
-      // f32 on CUDA cores: thread = 4 rows x 8 columns
-      constexpr int RPT = 4;
-      const int rg = tid / 16, cg = tid % 16;
-      float acc[RPT][8];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < ncol; k0 += kER) {
-        const int kn = min(kER, ncol - k0);
-        __syncthreads();
-        load(k0, kn);
-        for (int k = 0; k < kn; ++k) {
-          float yv[RPT], bv[8];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) yv[i] = ys[(rg * RPT + i) * C::kLdy + k];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) bv[j] = bs[k * C::kLdb + cg * 8 + j];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] += yv[i] * bv[j];
         }
-      }
-      if (cg * 8 < ncols) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int r = rg * RPT + i;
-          if (sidx[r] != s) continue;
-          float4* o = reinterpret_cast<float4*>(
-              out + (size_t)(row0 + r) * d_out + n0 + cg * 8);
-          o[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-          o[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-        }
+        __syncthreads();                    // stage, bs, yx, wred free
       }
     }
-    __syncthreads();                        // the next slot reuses smem
   }
+  rt::cp_async_wait<0>();
 }
 
-template <typename T, int BM>
+template <typename T>
 cudaError_t launch_expand_tile(const void* y, const void* b, const int* idx,
                                const int* live, void* out, int rows,
                                int r_max, int d_out, int slots,
-                               cudaStream_t st) {
-  auto kern = lora_expand_tile_kernel<T, BM>;
-  constexpr size_t smem = expand_tile_smem<T, BM>();
+                               int row_blocks, cudaStream_t st) {
+  auto kern = r_max > kER ? lora_expand_tile_kernel<T, true>
+                          : lora_expand_tile_kernel<T, false>;
+  constexpr size_t smem = expand_tile_smem<T>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((rows + BM - 1) / BM, (d_out + kEN - 1) / kEN);
-  kern<<<grid, 4 * BM, smem, st>>>(
+  const dim3 grid((d_out + kEN - 1) / kEN, row_blocks);
+  kern<<<grid, kEThr, smem, st>>>(
       static_cast<const T*>(y), static_cast<const T*>(b), idx, live,
       static_cast<T*>(out), rows, r_max, d_out, slots);
   return cudaGetLastError();
@@ -784,38 +867,31 @@ extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
   return (int)e;
 }
 
-// tile = 64 or 128: row tiles of that many rows x kEN columns; tile = 0:
-// the decode path, one block per (row, kDecCols columns).
+// row_blocks = 0: the decode path, one block per (row, kDecCols columns);
+// row_blocks > 0: row tiles of kEM rows x kEN columns, row_blocks blocks
+// a column tile, block k taking the tiles k, k + row_blocks, ...
 extern "C" int rt_lora_expand(const void* y, const void* b, const int* idx,
                               const int* live, void* out, int rows, int r_max,
-                              int d_out, int slots, int tile, int dtype,
+                              int d_out, int slots, int row_blocks, int dtype,
                               void* stream) {
   if (rows == 0) return 0;
   // 16-byte copies of y's rows and B's rows, 16-byte stores of out's
   if (r_max <= 0 || r_max % rt::kVec != 0 || d_out <= 0 ||
-      d_out % rt::kVec != 0)
+      d_out % rt::kVec != 0 || row_blocks < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = dtype == rt::kBF16;
   if (!bf && dtype != rt::kF32) return (int)cudaErrorInvalidValue;
   cudaError_t e;
-  if (tile == 0) {
+  if (row_blocks == 0)
     e = bf ? launch_expand_decode<bf16>(y, b, idx, live, out, rows, r_max,
                                         d_out, slots, st)
            : launch_expand_decode<float>(y, b, idx, live, out, rows, r_max,
                                          d_out, slots, st);
-  } else if (tile == 64) {
-    e = bf ? launch_expand_tile<bf16, 64>(y, b, idx, live, out, rows, r_max,
-                                          d_out, slots, st)
-           : launch_expand_tile<float, 64>(y, b, idx, live, out, rows, r_max,
-                                           d_out, slots, st);
-  } else if (tile == 128) {
-    e = bf ? launch_expand_tile<bf16, 128>(y, b, idx, live, out, rows, r_max,
-                                           d_out, slots, st)
-           : launch_expand_tile<float, 128>(y, b, idx, live, out, rows,
-                                            r_max, d_out, slots, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  else
+    e = bf ? launch_expand_tile<bf16>(y, b, idx, live, out, rows, r_max,
+                                      d_out, slots, row_blocks, st)
+           : launch_expand_tile<float>(y, b, idx, live, out, rows, r_max,
+                                       d_out, slots, row_blocks, st);
   return (int)e;
 }

@@ -30,8 +30,9 @@
 //    registers. A score is the sum over the L = pow2(hd / 8) lanes of a
 //    head (xor shuffles), so every lane of the head holds it and no score
 //    goes through shared memory. Slot groups tg = 0 .. TG-1 take the
-//    slots t = tg (mod TG) of each page, TG chosen so a block has >= 128
-//    threads (G = 1: 8 slot groups), each with its own running max / sum,
+//    slots t = tg (mod TG) of each page, TG chosen so a block has >= 256
+//    threads (G = 8: 2 slot groups, G = 1: 16), each with its own running
+//    max / sum,
 //    merged at the end in tg order. Sums run in a fixed order: results
 //    repeat bitwise.
 #include "common.cuh"
@@ -242,7 +243,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int G = H / KV;
   int L = 1;
   while (L < hd / rt::kVec) L *= 2;
-  const int TG = G * L >= 128 ? 1 : 128 / (G * L);
+  const int TG = G * L >= kMaxThreads ? 1 : kMaxThreads / (G * L);
   const int threads = (G * L * TG + 31) / 32 * 32;
   const size_t ring = (size_t)kStages * (2 * (size_t)ps * hd * sizeof(T) +
                                          (size_t)ps * sizeof(int));

@@ -16,9 +16,10 @@ split d_in over a cluster of SPLIT blocks a row; more rows (prefill,
 chunks) go in tiles of 64 or 128 consecutive rows, one block per (tile,
 distinct slot of the tile). The expand has two as well (`expand_plan`):
 up to DECODE_MAX_ROWS rows one block per (row, DECODE_COLS columns) with
-the rank rows split over RANK_SPLIT warps; more rows go in tiles of 64 or
-128 consecutive rows x EXPAND_COLS columns, each block visiting its
-tile's distinct slots in turn.
+the rank rows split over RANK_SPLIT warps; more rows go in tiles of
+EXPAND_ROWS consecutive rows x EXPAND_COLS columns, each block walking
+every row_blocks-th tile of its columns and visiting each tile's
+distinct slots in turn.
 """
 from __future__ import annotations
 
@@ -32,11 +33,13 @@ _FLOATS = (torch.float32, torch.bfloat16)
 MAX_R = 8 * 1024               # r_max = 8 x a power of two up to this
 SPLIT = 8                      # csrc/lora.cu: kSplit, blocks a row (cluster)
 SPLIT_MAX_ROWS = 64            # split path up to here (decode batches)
-TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the kernels take
+TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the shrink takes
 DECODE_MAX_ROWS = 64           # expand: decode path up to here
 DECODE_COLS = 256              # csrc/lora.cu: kDecCols, columns a block
 RANK_SPLIT = 8                 # csrc/lora.cu: kRankSplit, warps a block
-EXPAND_COLS = 128              # csrc/lora.cu: kEN, columns a row-tile block
+EXPAND_ROWS = 64               # csrc/lora.cu: kEM, rows a tile
+EXPAND_COLS = 256              # csrc/lora.cu: kEN, columns a row-tile block
+EXPAND_BLOCKS_PER_SM = 2       # row-tile blocks an SM holds at once
 
 
 class ShrinkPlan(NamedTuple):
@@ -68,9 +71,10 @@ class ExpandPlan(NamedTuple):
     """The expand kernel's launch: a grid of `row_blocks` x `col_blocks`
     blocks, each covering `cols` output columns. Decode path (tile 0):
     one row a block, its live rank rows r taken by warp r % RANK_SPLIT.
-    Row-tile path: `tile` consecutive rows a block, which visits up to
-    `passes` distinct slots of its tile in turn and also writes the zero
-    rows (no adapter) of its tile and columns."""
+    Row-tile path: block k of a column tile takes the tiles of `tile`
+    consecutive rows k, k + row_blocks, ..., visits up to `passes`
+    distinct slots of each in turn and also writes the zero rows (no
+    adapter) of its tiles and columns."""
     tile: int
     row_blocks: int
     col_blocks: int
@@ -81,15 +85,17 @@ class ExpandPlan(NamedTuple):
 def expand_plan(rows: int, d_out: int, slots: int, sms: int) -> ExpandPlan:
     """The decode path up to DECODE_MAX_ROWS rows: a row tile would
     visit each row's slot in turn on one block, while one block per (row,
-    DECODE_COLS columns) spreads the row's B reads. Above it, row tiles of
-    128 once they fill every SM (`sms`) twice, of 64 below that."""
+    DECODE_COLS columns) spreads the row's B reads. Above it, row tiles,
+    with as many blocks a column tile as fill every SM (`sms`)
+    EXPAND_BLOCKS_PER_SM times in one round (at least one, at most one a
+    tile), so no block waits for a second round."""
     if rows <= DECODE_MAX_ROWS:
         return ExpandPlan(0, rows, -(-d_out // DECODE_COLS), DECODE_COLS, 1)
     col_blocks = -(-d_out // EXPAND_COLS)
-    big = -(-rows // TILE_ROWS[1]) * col_blocks >= 2 * sms
-    tile = TILE_ROWS[1] if big else TILE_ROWS[0]
-    return ExpandPlan(tile, -(-rows // tile), col_blocks, EXPAND_COLS,
-                      max(1, min(slots, tile)))
+    tiles = -(-rows // EXPAND_ROWS)
+    row_blocks = max(1, min(tiles, EXPAND_BLOCKS_PER_SM * sms // col_blocks))
+    return ExpandPlan(EXPAND_ROWS, row_blocks, col_blocks, EXPAND_COLS,
+                      max(1, min(slots, EXPAND_ROWS)))
 
 
 _SMS: dict = {}
@@ -175,7 +181,7 @@ def lora_expand(y, b, idx, live):
     out = torch.empty(rows, d_out, dtype=b.dtype, device=y.device)
     rc = lib.rt_lora_expand(y.data_ptr(), b.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), out.data_ptr(), rows, r_max,
-                            d_out, slots, plan.tile,
+                            d_out, slots, plan.row_blocks if plan.tile else 0,
                             build.DTYPE_CODE[y.dtype],
                             build.stream_handle(y.device))
     build.check_launch(rc, "lora_expand")

@@ -46,7 +46,8 @@ _SIGNATURES = {
     # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, dtype,
     # stream
     "rt_lora_shrink": [_P] * 5 + [_I] * 7 + [_P],
-    # y, b, idx, live, out, rows, r_max, d_out, slots, tile, dtype, stream
+    # y, b, idx, live, out, rows, r_max, d_out, slots, row_blocks, dtype,
+    # stream
     "rt_lora_expand": [_P] * 5 + [_I] * 6 + [_P],
     # q, k, v, out, strides (12 int64 on the host),
     # B, H, KV, Lq, Lk, hd, causal, window, dtype, stream

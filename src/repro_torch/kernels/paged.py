@@ -18,16 +18,20 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.bgmv import sm_count
 
 _FLOATS = (torch.float32, torch.bfloat16)
-MIN_SPLIT_PAGES = 4            # block-table columns a split at least
+SPLIT_PAGES = 4                # block-table columns a split at least
+MAX_SPLIT_BLOCKS_PER_SM = 8    # blocks of all splits, an SM at most
 
 
 def split_plan(B: int, KV: int, W: int, sms: int) -> int:
     """Runs of block-table columns a row is split into: one when the
-    B x KV blocks fill every SM (`sms`) already; else enough for about two
-    blocks an SM, at least MIN_SPLIT_PAGES columns a split, and no split
-    left empty (the kernel gives split k the columns
-    [k * ceil(W / n), (k + 1) * ceil(W / n)))."""
-    n = min(-(-2 * sms // (B * KV)), W // MIN_SPLIT_PAGES)
+    B x KV blocks fill every SM (`sms`) already; else runs of SPLIT_PAGES
+    columns, so that a long row spreads over many SMs whichever rows are
+    long (blocks whose run holds no claimed page exit at once), capped at
+    MAX_SPLIT_BLOCKS_PER_SM blocks an SM, and no split left empty (the
+    kernel gives split k the columns [k * ceil(W / n), (k + 1) *
+    ceil(W / n)))."""
+    n = min(-(-W // SPLIT_PAGES),
+            MAX_SPLIT_BLOCKS_PER_SM * sms // (B * KV), W // SPLIT_PAGES)
     if B * KV >= sms or n <= 1:
         return 1
     per = -(-W // n)

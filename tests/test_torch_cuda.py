@@ -344,3 +344,29 @@ def test_paged_attention_splits_match_plain(card, dtype, B, H, KV, split):
         out = paged.paged_attention(q, kk, vv, torch.where(keep[:, None],
                                                           pp, 0), bt, pos)
         assert torch.equal(out[b], got[b]), b
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+@pytest.mark.parametrize("rows,dtype", [(8, torch.bfloat16),
+                                        (300, torch.bfloat16),
+                                        (300, torch.float32)])
+def test_lora_expand_ranks_past_64_match_plain(card, mode, rows, dtype):
+    """r_max 128: the row tiles take the rank rows in two passes of 64,
+    each pass's sum added on the CUDA cores; live widths 16/80/128 (the
+    decode path at 8 rows). Each row within 1e-2 (bf16) / 1e-5 (f32) of
+    its max |plain|, and a second run bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(rows)
+    ranks = [128, 80, 16]
+    b = torch.zeros(3, 128, 264, device=card, dtype=dtype)
+    for s, r in enumerate(ranks):
+        b[s, :r] = (torch.randn(r, 264, generator=g, device=card)
+                    * r ** -0.5).to(dtype)
+    y = torch.randn(rows, 128, generator=g, device=card).to(dtype)
+    idx = (torch.arange(rows, device=card) // 17 % 4 - 1).to(torch.int32)
+    live = ref.bgmv_live(idx, 128) if mode == "bgmv" else ref.mbgmv_live(
+        idx, torch.tensor(ranks, dtype=torch.int32, device=card), 16)
+    out = bgmv.lora_expand(y, b, idx, live)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    _rows_close(out, ref.lora_expand_ref(y, b, idx, live), tol,
+                0.0 if dtype == torch.bfloat16 else 1.0)
+    assert torch.equal(out, bgmv.lora_expand(y, b, idx, live))

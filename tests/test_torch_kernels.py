@@ -402,11 +402,12 @@ def test_expand_plan_covers_each_output_once(rows, d_out, slots):
     """The expand's launch plan, computed on the host from `rows`: the
     decode path up to DECODE_MAX_ROWS rows (a block per (row, DECODE_COLS
     columns), rank rows split over RANK_SPLIT warps), row tiles above it
-    (128 rows once they fill every SM twice, else 64), each block visiting
-    its tile's distinct slots and zeroing its rows without an adapter.
-    The grid is rows x columns, so each (row, column) is written exactly
-    once iff each row and each column is covered once: checked at random
-    and at prefill layouts."""
+    of EXPAND_ROWS rows above it, block k of a column tile walking the
+    tiles k, k + row_blocks, ... (as many blocks as fill every SM twice in
+    one round), visiting each tile's distinct slots and zeroing its rows
+    without an adapter. The grid is rows x columns, so each (row, column)
+    is written exactly once iff each row and each column is covered once:
+    checked at random and at prefill layouts."""
     plan = bgmv.expand_plan(rows, d_out, slots, _SMS)
     cols = np.zeros(d_out, int)
     for cb in range(plan.col_blocks):     # the kernel's column blocks
@@ -420,24 +421,26 @@ def test_expand_plan_covers_each_output_once(rows, d_out, slots):
             assert np.all(np.bincount(warp, minlength=bgmv.RANK_SPLIT)
                           == r_max // bgmv.RANK_SPLIT)
         return
-    n128 = -(-rows // 128) * plan.col_blocks
-    assert plan.tile == (128 if n128 >= 2 * _SMS else 64)
-    assert plan.tile in bgmv.TILE_ROWS and plan.cols == bgmv.EXPAND_COLS
-    assert plan.row_blocks == -(-rows // plan.tile)
+    tiles = -(-rows // plan.tile)
+    assert plan.tile == bgmv.EXPAND_ROWS and plan.cols == bgmv.EXPAND_COLS
+    assert 1 <= plan.row_blocks <= tiles
+    assert plan.row_blocks * plan.col_blocks <= max(
+        2 * _SMS, plan.col_blocks)       # one round of blocks
     assert plan.passes == min(slots, plan.tile)
     rng = np.random.default_rng(rows + slots + d_out)
     for idx in (rng.integers(-1, slots, rows),
                 _segmented_idx(rows, 17, slots),
                 _segmented_idx(rows, 4096, slots)):
         hits = np.zeros(rows, int)
-        for t in range(plan.row_blocks):  # block t's passes, then zeros
-            lo = t * plan.tile
-            tile = idx[lo:lo + plan.tile]
-            firsts = list(dict.fromkeys(int(i) for i in tile if i >= 0))
-            assert len(firsts) <= plan.passes
-            for s in firsts:
-                hits[lo + np.flatnonzero(tile == s)] += 1
-            hits[lo + np.flatnonzero(tile < 0)] += 1
+        for k in range(plan.row_blocks):  # block k: its tiles' passes
+            for t in range(k, tiles, plan.row_blocks):
+                lo = t * plan.tile
+                tile = idx[lo:lo + plan.tile]
+                firsts = list(dict.fromkeys(int(i) for i in tile if i >= 0))
+                assert len(firsts) <= plan.passes
+                for s in firsts:
+                    hits[lo + np.flatnonzero(tile == s)] += 1
+                hits[lo + np.flatnonzero(tile < 0)] += 1
         assert np.all(hits == 1)
 
 
@@ -448,7 +451,7 @@ def test_expand_plan_covers_each_output_once(rows, d_out, slots):
 def test_paged_split_plan_covers_each_column_once(W, bkv):
     """The paged kernel's split count, chosen on the host from W, B x KV
     and the SM count: one split once B x KV blocks fill every SM, else
-    about two blocks an SM with at least MIN_SPLIT_PAGES columns a split;
+    runs of at least SPLIT_PAGES columns, at most 8 blocks an SM;
     split k takes the columns [k * ceil(W / n), (k + 1) * ceil(W / n)),
     which cover each block-table column of each (row, KV head) exactly
     once and leave no split empty."""
@@ -465,8 +468,8 @@ def test_paged_split_plan_covers_each_column_once(W, bkv):
         hits[lo:hi] += 1
     assert np.all(hits == 1)
     if n > 1:
-        assert per >= paged.MIN_SPLIT_PAGES
-        assert n <= -(-2 * _SMS // bkv)
+        assert per >= paged.SPLIT_PAGES
+        assert bkv * n <= paged.MAX_SPLIT_BLOCKS_PER_SM * _SMS
 
 
 @pytest.mark.parametrize("KV,H", [(1, 8), (2, 8)])
