@@ -834,7 +834,7 @@ def prefill_phase(torch, cfg, params):
     return out
 
 
-def profile_step(torch, step_fn, what, top=12):
+def profile_step(torch, step_fn, what, top=16):
     """Where one call's time goes: torch.profiler over a warm call, device
     time summed by kernel name, and the call's wall time, so the device's
     idle share shows."""
@@ -1204,7 +1204,6 @@ def expand_prefill_timing(torch, captured, serving):
     y_bd[adapted, idx[adapted].long()] = torch.where(keep, yd, 0)[adapted]
     y_bd = y_bd.reshape(rows, slots * r_max)
     b_cat = b.reshape(slots * r_max, d_out)
-    plan = expand_plan(rows, d_out, slots, sm_count(x.device))
     row = {"name": "lora_expand[bgmv, prefill]", "route": "cuda",
            "source": "src/repro_torch/csrc/lora.cu",
            "replaces": "src/repro/kernels/bgmv.py:136",
@@ -1223,8 +1222,9 @@ def expand_prefill_timing(torch, captured, serving):
            "bytes": nbytes,
            "shape": {"rows": rows, "r_max": r_max, "d_out": d_out,
                      "slots": slots, "adapters": len(slot_live),
-                     "live_columns": row_live, "tile_rows": plan.tile,
-                     "row_blocks": plan.row_blocks}}
+                     "live_columns": row_live,
+                     "row_blocks": expand_plan(rows, d_out,
+                                               sm_count(x.device))}}
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
           f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (matmul Y_bd x B_cat) "

@@ -18,8 +18,8 @@ distinct slot of the tile). The expand has two as well (`expand_plan`):
 up to DECODE_MAX_ROWS rows one block per (row, DECODE_COLS columns) with
 the rank rows split over RANK_SPLIT warps; more rows go in tiles of
 EXPAND_ROWS consecutive rows x EXPAND_COLS columns, each block walking
-every row_blocks-th tile of its columns and visiting each tile's
-distinct slots in turn.
+every n-th tile of its columns and visiting each tile's distinct slots
+in turn.
 """
 from __future__ import annotations
 
@@ -67,35 +67,21 @@ def shrink_plan(rows: int, d_in: int, slots: int, sms: int) -> ShrinkPlan:
     return ShrinkPlan(tile, per_tile, -(-rows // tile) * per_tile, 0)
 
 
-class ExpandPlan(NamedTuple):
-    """The expand kernel's launch: a grid of `row_blocks` x `col_blocks`
-    blocks, each covering `cols` output columns. Decode path (tile 0):
-    one row a block, its live rank rows r taken by warp r % RANK_SPLIT.
-    Row-tile path: block k of a column tile takes the tiles of `tile`
-    consecutive rows k, k + row_blocks, ..., visits up to `passes`
-    distinct slots of each in turn and also writes the zero rows (no
-    adapter) of its tiles and columns."""
-    tile: int
-    row_blocks: int
-    col_blocks: int
-    cols: int
-    passes: int
-
-
-def expand_plan(rows: int, d_out: int, slots: int, sms: int) -> ExpandPlan:
-    """The decode path up to DECODE_MAX_ROWS rows: a row tile would
-    visit each row's slot in turn on one block, while one block per (row,
-    DECODE_COLS columns) spreads the row's B reads. Above it, row tiles,
-    with as many blocks a column tile as fill every SM (`sms`)
-    EXPAND_BLOCKS_PER_SM times in one round (at least one, at most one a
-    tile), so no block waits for a second round."""
+def expand_plan(rows: int, d_out: int, sms: int) -> int:
+    """The expand kernel's launch, as its row blocks a column tile. 0: the
+    decode path (up to DECODE_MAX_ROWS rows), one block per (row,
+    DECODE_COLS columns), live rank row r taken by warp r % RANK_SPLIT: a
+    row tile would visit each row's slot in turn on one block. Otherwise
+    row tiles of EXPAND_ROWS rows x EXPAND_COLS columns, block k of a
+    column tile taking the tiles k, k + row_blocks, ...: as many blocks as
+    fill every SM (`sms`) EXPAND_BLOCKS_PER_SM times in one round (at
+    least one, at most one a tile), so no block waits for a second
+    round."""
     if rows <= DECODE_MAX_ROWS:
-        return ExpandPlan(0, rows, -(-d_out // DECODE_COLS), DECODE_COLS, 1)
-    col_blocks = -(-d_out // EXPAND_COLS)
+        return 0
     tiles = -(-rows // EXPAND_ROWS)
-    row_blocks = max(1, min(tiles, EXPAND_BLOCKS_PER_SM * sms // col_blocks))
-    return ExpandPlan(EXPAND_ROWS, row_blocks, col_blocks, EXPAND_COLS,
-                      max(1, min(slots, EXPAND_ROWS)))
+    col_blocks = -(-d_out // EXPAND_COLS)
+    return max(1, min(tiles, EXPAND_BLOCKS_PER_SM * sms // col_blocks))
 
 
 _SMS: dict = {}
@@ -177,11 +163,11 @@ def lora_expand(y, b, idx, live):
     for name, t in (("idx", idx), ("live", live)):
         build.require(t, name, dtypes=(torch.int32,), device=y.device)
     lib = build.library()
-    plan = expand_plan(rows, d_out, slots, sm_count(y.device))
     out = torch.empty(rows, d_out, dtype=b.dtype, device=y.device)
     rc = lib.rt_lora_expand(y.data_ptr(), b.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), out.data_ptr(), rows, r_max,
-                            d_out, slots, plan.row_blocks if plan.tile else 0,
+                            d_out, slots,
+                            expand_plan(rows, d_out, sm_count(y.device)),
                             build.DTYPE_CODE[y.dtype],
                             build.stream_handle(y.device))
     build.check_launch(rc, "lora_expand")

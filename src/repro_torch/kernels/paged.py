@@ -30,10 +30,10 @@ def split_plan(B: int, KV: int, W: int, sms: int) -> int:
     MAX_SPLIT_BLOCKS_PER_SM blocks an SM, and no split left empty (the
     kernel gives split k the columns [k * ceil(W / n), (k + 1) *
     ceil(W / n)))."""
-    n = min(-(-W // SPLIT_PAGES),
-            MAX_SPLIT_BLOCKS_PER_SM * sms // (B * KV), W // SPLIT_PAGES)
-    if B * KV >= sms or n <= 1:
+    if B * KV >= sms or W < 2 * SPLIT_PAGES:
         return 1
+    n = min(MAX_SPLIT_BLOCKS_PER_SM * sms // max(1, B * KV),
+            W // SPLIT_PAGES)
     per = -(-W // n)
     return -(-W // per)
 

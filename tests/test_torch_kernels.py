@@ -401,46 +401,44 @@ def test_expand_segmented_rows_match_pallas(mode, seg):
 def test_expand_plan_covers_each_output_once(rows, d_out, slots):
     """The expand's launch plan, computed on the host from `rows`: the
     decode path up to DECODE_MAX_ROWS rows (a block per (row, DECODE_COLS
-    columns), rank rows split over RANK_SPLIT warps), row tiles above it
-    of EXPAND_ROWS rows above it, block k of a column tile walking the
+    columns), rank rows split over RANK_SPLIT warps), tiles of
+    EXPAND_ROWS rows above it, block k of a column tile walking the
     tiles k, k + row_blocks, ... (as many blocks as fill every SM twice in
     one round), visiting each tile's distinct slots and zeroing its rows
     without an adapter. The grid is rows x columns, so each (row, column)
     is written exactly once iff each row and each column is covered once:
     checked at random and at prefill layouts."""
-    plan = bgmv.expand_plan(rows, d_out, slots, _SMS)
-    cols = np.zeros(d_out, int)
-    for cb in range(plan.col_blocks):     # the kernel's column blocks
-        cols[cb * plan.cols:min(d_out, (cb + 1) * plan.cols)] += 1
-    assert np.all(cols == 1) and plan.col_blocks == -(-d_out // plan.cols)
-    if rows <= bgmv.DECODE_MAX_ROWS:
-        assert plan.tile == 0 and plan.row_blocks == rows
-        assert plan.cols == bgmv.DECODE_COLS
-        for r_max in (8, 64, 8192):        # warp w: rank rows w (mod split)
+    row_blocks = bgmv.expand_plan(rows, d_out, _SMS)
+    decode = rows <= bgmv.DECODE_MAX_ROWS
+    assert (row_blocks == 0) == decode
+    cols = bgmv.DECODE_COLS if decode else bgmv.EXPAND_COLS
+    col_blocks = -(-d_out // cols)
+    hits = np.zeros(d_out, int)
+    for cb in range(col_blocks):          # the kernel's column blocks
+        hits[cb * cols:min(d_out, (cb + 1) * cols)] += 1
+    assert np.all(hits == 1)
+    if decode:                            # a block a row
+        for r_max in (8, 64, 8192):       # warp w: rank rows w (mod split)
             warp = np.arange(r_max) % bgmv.RANK_SPLIT
             assert np.all(np.bincount(warp, minlength=bgmv.RANK_SPLIT)
                           == r_max // bgmv.RANK_SPLIT)
         return
-    tiles = -(-rows // plan.tile)
-    assert plan.tile == bgmv.EXPAND_ROWS and plan.cols == bgmv.EXPAND_COLS
-    assert 1 <= plan.row_blocks <= tiles
-    assert plan.row_blocks * plan.col_blocks <= max(
-        2 * _SMS, plan.col_blocks)       # one round of blocks
-    assert plan.passes == min(slots, plan.tile)
+    tile = bgmv.EXPAND_ROWS
+    tiles = -(-rows // tile)
+    assert 1 <= row_blocks <= tiles
+    assert row_blocks * col_blocks <= max(2 * _SMS, col_blocks)  # 1 round
     rng = np.random.default_rng(rows + slots + d_out)
     for idx in (rng.integers(-1, slots, rows),
                 _segmented_idx(rows, 17, slots),
                 _segmented_idx(rows, 4096, slots)):
         hits = np.zeros(rows, int)
-        for k in range(plan.row_blocks):  # block k: its tiles' passes
-            for t in range(k, tiles, plan.row_blocks):
-                lo = t * plan.tile
-                tile = idx[lo:lo + plan.tile]
-                firsts = list(dict.fromkeys(int(i) for i in tile if i >= 0))
-                assert len(firsts) <= plan.passes
-                for s in firsts:
-                    hits[lo + np.flatnonzero(tile == s)] += 1
-                hits[lo + np.flatnonzero(tile < 0)] += 1
+        for k in range(row_blocks):       # block k: its tiles' passes
+            for t in range(k, tiles, row_blocks):
+                lo = t * tile
+                part = idx[lo:lo + tile]
+                for s in dict.fromkeys(int(i) for i in part if i >= 0):
+                    hits[lo + np.flatnonzero(part == s)] += 1
+                hits[lo + np.flatnonzero(part < 0)] += 1
         assert np.all(hits == 1)
 
 
