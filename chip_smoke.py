@@ -5,7 +5,8 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-  1. print the card's name and power limit; build the CUDA kernels from
+  1. print the card's name and power limit (and the host's
+     os.cpu_count()); build the CUDA kernels from
      src/repro_torch/csrc with nvcc (sm_90a) and print the build time and
      each kernel's registers, static shared memory and spills (ptxas);
   2. hold each kernel against its plain PyTorch version on the card:
@@ -40,10 +41,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      the plain versions, on the card, and its profile;
   5a. per-kernel timing at the decode shapes of phase 4a (CUDA events, L2
      flushed between launches) beside its bound, the plain version and a
-     PyTorch library call; then llama2-7b is freed (paged attention is
-     also timed at yi-9b's decode shape after phase 5b: layer 0 of the
-     first decode step of phase 3b's monolithic arm, a row at pos >=
-     2,048);
+     PyTorch library call (paged attention is also timed at yi-9b's
+     decode shape after phase 5b: layer 0 of the first decode step of
+     phase 3b's monolithic arm, a row at pos >= 2,048);
+  3c. on the same llama2-7b weights, 12 requests of 32-480 prompt tokens
+     and 64 new tokens (three wrap the 512-slot ring) in four arms: (iv)
+     the paged plane, greedy (the yardstick); (i) memory="dense" with
+     bf16 KV, bgmv, then mbgmv on 6 of the requests; (ii) the same with
+     int8 KV; (iii) pipeline="perstep" on the bf16 dense plane, 6
+     requests; then (iv) temperature 0.8 on the paged plane, 6 requests
+     of 32 new tokens, twice with one seed and once with another. Every
+     arm finishes its requests and launches the LoRA and flash kernels;
+     paged attention launches in arm (iv) only; one seed repeats its
+     streams and another differs;
+  4c. one decode step's logits after one prefill of 8 rows of 32-480
+     tokens, over the same row caches in a dense bf16 slab, an int8 slab
+     and the paged pool: paged vs dense bf16 within 5e-2 and int8 vs bf16
+     within 0.08 of max |logit|; then llama2-7b is freed;
   3b. serve full-width yi-9b (48 layers, 32 heads over 4 KV heads, bf16,
      seeded random weights): 8 requests, three of 2,049-4,000 prompt
      tokens and five of 32-256, 16 new tokens each, in two arms on the same
@@ -67,8 +81,10 @@ Decode-step and prefill logits: max|kernels - plain| <= 5e-2 * max|plain|.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -105,7 +121,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    # the card host's cores: the timeline model's cpu_cores
+    # (repro_torch.core.timing.CARD_HOST_CORES)
+    print(f"{smi}; host os.cpu_count() = {os.cpu_count()}", flush=True)
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -125,6 +143,8 @@ def main() -> int:
     report = {"serving": serving, "decode_logits": step["logits"],
               "decode_profile": step["profile"],
               "lora_rank_sweep": step["rank_sweep"]}
+    report["dense_serving"] = dense_phase(torch, llama, params)
+    report["dense_logits"] = dense_logits_phase(torch, llama, params)
     del step, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -445,14 +465,24 @@ YI_RUNS = [("chunk_budget=0", "bgmv", dict(YI_SERVER, chunk_budget=0),
             YI_REQUESTS),
            ("chunk_budget=512", "bgmv", dict(YI_SERVER, chunk_budget=512),
             YI_REQUESTS)]
+# phase 3c: 12 requests of 32-480 prompt tokens and 64 new ones each
+# (three pass the 512-slot ring), cache_slots 512 (make_server's default)
+DENSE_LONG, DENSE_ANY = (449, 481), (32, 481)
+DENSE_REQUESTS = {"n": 12, "seed": SEED + 3, "lengths": "dense",
+                  "max_new": 64}
+DENSE_HALF = dict(DENSE_REQUESTS, n=6)            # the first 6 of them
+DENSE_TEMP = dict(DENSE_REQUESTS, n=6, max_new=32)
+TEMPERATURE = 0.8
+INT8_LOGIT_TOL = 0.08       # the reference's own int8 bound
 
 
-def make_server(torch, cfg, kernel, params, cache_slots=512, **kw):
+def make_server(torch, cfg, kernel, params, cache_slots=512, seed=SEED,
+                **kw):
     from repro_torch.core.engine import InferenceServer
     from repro_torch.core.lora import AdapterSpec
     srv = InferenceServer(cfg, mode="caraserve", kernel=kernel, max_batch=8,
                           cache_slots=cache_slots, page_size=32,
-                          params=params, seed=SEED, device="cuda", **kw)
+                          params=params, seed=seed, device="cuda", **kw)
     uids = []
     for r in ADAPTER_RANKS:
         for i in range(2):
@@ -466,13 +496,17 @@ def make_requests(cfg, uids, n, seed, spacing_ms=2.0, lengths=None,
                   max_new=32):
     """n requests over the adapters. Prompt lengths: 32-256 tokens, or,
     with lengths="yi", three long prompts of 2,049-4,000 tokens (requests
-    0, 3 and 6, so the prefill bucket reaches 4,096) among short ones."""
+    0, 3 and 6, so the prefill bucket reaches 4,096) among short ones, or,
+    with lengths="dense", 32-480 tokens with every fourth request (0, 4,
+    8) at 449-480, so its positions pass 512 within 64 new tokens."""
     import numpy as np
     from repro_torch.serving.request import Request
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n):
         lo, hi = YI_LONG if lengths == "yi" and i % 3 == 0 else YI_SHORT
+        if lengths == "dense":
+            lo, hi = DENSE_LONG if i % 4 == 0 else DENSE_ANY
         prompt = rng.integers(0, cfg.vocab, int(rng.integers(lo, hi)))
         out.append(Request(rid=i, adapter_uid=uids[i % len(uids)],
                            prompt=prompt.astype(np.int32),
@@ -489,9 +523,11 @@ def _counters():
             "flash_attention": flash.flash_attention}
 
 
-def serve_phase(torch, cfg, runs, phase):
-    """Phase 3a/3b: drive the main path through InferenceServer, once per
-    run, with every launch count zeroed just before and read just after.
+def serve_phase(torch, cfg, runs, phase, params=None):
+    """Phase 3a/3b/3c: drive a path through InferenceServer, once per run,
+    with every launch count zeroed just before and read just after: each
+    kernel must have launched, except paged attention on the dense plane,
+    which must not (dense decode attention is plain PyTorch by design).
     Prefill, prefill-chunk and decode times are the card's: a CUDA event
     is recorded on the stream at the start and end of each backend call,
     with no host synchronization added, so the host queues step N+1 while
@@ -504,7 +540,7 @@ def serve_phase(torch, cfg, runs, phase):
     import numpy as np
     print(f"phase {phase}: serving full-width {cfg.name} on the card",
           flush=True)
-    out, params = [], None
+    out = []
     for label, kernel, server_kw, req_kw in runs:
         t_init = time.perf_counter()
         srv, uids = make_server(torch, cfg, kernel, params, **server_kw)
@@ -553,8 +589,12 @@ def serve_phase(torch, cfg, runs, phase):
                   f"{label}: request {st.req.rid} token out of range")
         check(len(srv.states) == len(reqs), f"{label}: lost requests")
         for n, c in launches.items():
-            check(c > 0, f"{label}: kernel {n} never launched on the "
-                  "main path")
+            if n == "paged_attention" and srv.memory == "dense":
+                check(c == 0, f"{label}: paged attention launched {c} "
+                      "times on the dense plane")
+            else:
+                check(c > 0, f"{label}: kernel {n} never launched on the "
+                      "path")
         check(launches["flash_attention"]
               == cfg.n_layers * len(times["prefill"]),
               f"{label}: {launches['flash_attention']} flash launches for "
@@ -565,6 +605,9 @@ def serve_phase(torch, cfg, runs, phase):
             check(stats["prefill_chunks"] > 0, f"{label}: no prefill chunk")
         tokens = sum(len(st.generated) for st in srv.states)
         rec = {"model": cfg.name, "run": label, "kernel": kernel,
+               "memory": srv.memory, "pipeline": be.pipeline,
+               "kv_cache_dtype": cfg.kv_cache_dtype or str(cfg.torch_dtype),
+               "temperature": be.temperature,
                "requests": len(reqs), "tokens": tokens,
                "prompt_tokens": [int(st.req.prompt_len) for st in srv.states],
                "wall_s": wall, "setup_s": init_s,
@@ -614,6 +657,158 @@ def arms_agree(records):
     print(f"  {records[0]['run']} vs {records[1]['run']}: tokens agree on "
           f"{same}/{len(a)} requests", flush=True)
     return {"requests": len(a), "agree": same}
+
+
+def dense_phase(torch, cfg, params):
+    """Phase 3c: full-width llama2-7b (the phase-3a weights) on the dense
+    plane and the per-step pipeline, beside the paged plane, on the same
+    requests (DENSE_REQUESTS). Arms: (iv) the paged plane, greedy on all
+    12 requests: the yardstick; (i) memory="dense" with bf16 KV, bgmv on
+    all 12, then mbgmv on the first 6; (ii) the same with int8 KV, which
+    memory="auto" puts on the dense plane; (iii) pipeline="perstep" on the
+    bf16 dense plane, 6 requests; (iv) temperature 0.8 on the paged plane,
+    6 requests of 32 new tokens, twice with one seed and once with
+    another. Each arm must finish every request and launch the LoRA and
+    flash kernels; paged attention launches in arm (iv) only
+    (`serve_phase`). The same-seed temperature runs must repeat and the
+    other seed must differ. How many requests agree with the yardstick is
+    reported, not required: bf16 near-ties can flip a greedy token."""
+    temp = {"temperature": TEMPERATURE}
+    bf16, _ = serve_phase(torch, cfg, [
+        ("(iv) paged bgmv", "bgmv", {"memory": "paged"}, DENSE_REQUESTS),
+        ("(i) dense bgmv", "bgmv", {"memory": "dense"}, DENSE_REQUESTS),
+        ("(i) dense mbgmv", "mbgmv", {"memory": "dense"}, DENSE_HALF),
+        ("(iii) perstep bgmv", "bgmv", {"pipeline": "perstep"}, DENSE_HALF),
+        (f"(iv) paged T={TEMPERATURE} seed {SEED}", "bgmv", temp,
+         DENSE_TEMP),
+        (f"(iv) paged T={TEMPERATURE} seed {SEED} again", "bgmv", temp,
+         DENSE_TEMP),
+        (f"(iv) paged T={TEMPERATURE} seed {SEED + 1}", "bgmv",
+         dict(temp, seed=SEED + 1), DENSE_TEMP)], "3c", params=params)
+    int8, _ = serve_phase(
+        torch, dataclasses.replace(cfg, kv_cache_dtype="int8"), [
+            ("(ii) dense int8 bgmv", "bgmv", {}, DENSE_REQUESTS),
+            ("(ii) dense int8 mbgmv", "mbgmv", {}, DENSE_HALF)], "3c",
+        params=params)
+    recs = bf16[:3] + int8 + bf16[3:]
+    check(all(r["memory"] == "dense" for r in recs[1:6])
+          and recs[3]["kv_cache_dtype"] == "int8"
+          and recs[5]["pipeline"] == "perstep"
+          and recs[0]["memory"] == recs[6]["memory"] == "paged",
+          "phase 3c: an arm ran on the wrong plane")
+    temp = [r["generated"] for r in recs[6:]]
+    check(temp[0] == temp[1], "phase 3c: one seed gave two temperature "
+          "streams")
+    check(temp[0] != temp[2], "phase 3c: two seeds gave one temperature "
+          "stream")
+    yard = recs[0]["generated"]
+    for r in recs[1:6]:
+        # leading tokens each request shares with the yardstick: a bf16
+        # near-tie flips one token and the streams part from there
+        prefix = []
+        for rid, toks in r["generated"].items():
+            n = 0
+            while n < len(toks) and toks[n] == yard[rid][n]:
+                n += 1
+            prefix.append(n)
+        r["prefix_with_paged_greedy"] = prefix
+        r["agree_with_paged_greedy"] = sum(
+            n == len(yard[rid]) for rid, n in zip(r["generated"], prefix))
+        print(f"  {r['run']}: decode {r['decode_tok_s']:.1f} tok/s, whole "
+              f"run {r['tok_s_wall']:.1f} tok/s, peak "
+              f"{r['peak_mem_gib']:.2f} GiB; tokens agree with the paged "
+              f"greedy run on {r['agree_with_paged_greedy']}/"
+              f"{r['requests']} requests (leading tokens shared: "
+              f"{prefix})", flush=True)
+    print(f"  temperature {TEMPERATURE}: seed {SEED} repeats, seed "
+          f"{SEED + 1} differs", flush=True)
+    return recs
+
+
+def dense_logits_phase(torch, cfg, params):
+    """Phase 4c: one decode step's logits over the same row caches on
+    three planes. Prefill 8 rows of 32-480 tokens once (LoRA on, 8 stacked
+    adapters), write the row caches into a dense bf16 slab, an int8 slab
+    (quantized from the same caches) and the paged pool (16 pages a row,
+    at random ids), then decode each row's greedy next token once on each.
+    The paged step (the paged kernel) must agree with the dense bf16 step
+    (plain attention) within LOGIT_TOL of max |logit|, and the int8 step
+    with the bf16 step within INT8_LOGIT_TOL. Then a profile of the dense
+    bf16 and int8 steps."""
+    import numpy as np
+    from repro_torch.models import layers, model as model_lib
+    from repro_torch.serving import cache as cache_lib
+    print("phase 4c: one decode step on the dense bf16, dense int8 and "
+          "paged planes", flush=True)
+    S, ps, B = 512, 32, 8
+    rng = np.random.default_rng(SEED + 13)
+    lens = rng.integers(*DENSE_ANY, B)
+    toks = np.zeros((B, S), np.int64)
+    for b, n in enumerate(lens):
+        toks[b, :n] = rng.integers(0, cfg.vocab, n)
+    srv, uids = make_server(torch, cfg, "bgmv", params)
+    lora = srv.backend._lora_arg_stacked(uids)
+    lora["mode"] = "bgmv"
+    lens_d = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, dense = model_lib.prefill(
+            cfg, params, {"tokens": torch.as_tensor(toks, device="cuda")},
+            lora=lora, cache_slots=S, last_pos=lens_d - 1)
+        live = torch.arange(S, device="cuda")[None, None] \
+            < lens_d[None, :, None]
+        dense["pos"] = torch.where(live, dense["pos"], -1)
+        quant = {"pos": dense["pos"].clone()}
+        quant["k"], quant["k_scale"] = layers._quantize(dense["k"])
+        quant["v"], quant["v_scale"] = layers._quantize(dense["v"])
+        page_ids = rng.permutation(B * S // ps).reshape(B, S // ps)
+        pool = cache_lib.zeros_paged(model_lib.cache_abstract(cfg, 1, S),
+                                     B * S // ps, ps, "cuda")
+        cache_lib.scatter_pages(pool, dense, page_ids)
+        bt = torch.as_tensor(page_ids, dtype=torch.int32, device="cuda")
+        tok = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+
+        def step(c, cache, **kw):
+            out, _ = model_lib.decode(c, params, cache, tok, lens_d,
+                                      lora=lora, **kw)
+            return out[:, -1].float()
+
+        counters = _counters()
+        n0 = counters["paged_attention"].launches
+        lp = step(cfg, pool, block_table=bt)
+        check(counters["paged_attention"].launches - n0 == cfg.n_layers,
+              "phase 4c: the paged step did not run the paged kernel")
+        ld = step(cfg, dense)
+        c8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        lq = step(c8, quant)
+        # where a dense step's time goes; a repeated step rewrites the
+        # same token into the same slot
+        prof = {"dense_bf16": profile_step(
+                    torch, lambda: step(cfg, dense),
+                    "one llama2-7b decode step on the dense bf16 slab"),
+                "dense_int8": profile_step(
+                    torch, lambda: step(c8, quant),
+                    "one llama2-7b decode step on the dense int8 slab")}
+    torch.cuda.synchronize()
+    scale = float(ld.abs().max())
+    out = {"rows": B, "prompt_tokens": [int(n) for n in lens],
+           "max_abs_logit": scale, "profiles": prof}
+    for name, got, tol in (("paged_vs_dense_bf16", lp, LOGIT_TOL),
+                           ("int8_vs_bf16_dense", lq, INT8_LOGIT_TOL)):
+        check(bool(torch.isfinite(got).all()), f"phase 4c: {name}: "
+              "non-finite logits")
+        err = float((got - ld).abs().max())
+        same = int((got.argmax(-1) == ld.argmax(-1)).sum())
+        check(err <= tol * scale, f"phase 4c: {name}: max abs err "
+              f"{err:.3e} > {tol} * {scale:.3e}")
+        out[name] = {"max_abs_err": err, "rel_err": err / scale,
+                     "limit": tol, "greedy_agree": same}
+        print(f"  {name}: max abs err {err:.4e}, max |logit| {scale:.4e}, "
+              f"relative {err / scale:.3e} (limit {tol}); greedy tokens "
+              f"agree on {same}/{B} rows", flush=True)
+    del srv, dense, quant, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ phase 4 ----

@@ -1,12 +1,13 @@
 """Numerics plane of the inference server: real PyTorch computation.
 
-Mirrors `repro.core.backend` for `memory="paged"`, `pipeline="fused"`:
-the base-model weights, the paged KV pool, LoRA argument construction and
-a **device-resident decode pipeline** (`DecodePipeline`): greedy sampling
-runs on the device, per-row last-token / position / stop-target state
-lives in device tensors, and the host reads tokens back one step behind
-(the previous step's tokens are copied to pinned memory while the current
-step runs). Entry points:
+Mirrors `repro.core.backend`: the base-model weights, the KV memory plane
+(the paged pool, or the dense per-row slab with bf16/f32 or int8 KV),
+LoRA argument construction and a **device-resident decode pipeline**
+(`DecodePipeline`): sampling (greedy, or temperature through the
+pipeline's `torch.Generator`) runs on the device, per-row last-token /
+position / stop-target state lives in device tensors, and the host reads
+tokens back one step behind (the previous step's tokens are copied to
+pinned memory while the current step runs). Entry points:
 
   * `prefill_admitted` — **batched multi-request prefill**: every request
     admitted in one iteration is packed into one padded (N, L) call
@@ -14,22 +15,25 @@ step runs). Entry points:
     along the slot dim), bucketed to powers of two like the reference. The
     residual stream is gathered at each row's last position before the
     unembed, the first token is sampled on the device, and the row caches
-    land in their claimed pages with one indexed write per leaf.
-  * `decode` — one iteration over the ready rows against the paged pool
-    and the device LoRA slot pool (BGMV or MBGMV kernels). The active mask,
+    land in their claimed pages (paged) or their slab rows (dense) with
+    one indexed write per leaf.
+  * `decode` — one iteration over the ready rows against the KV plane and
+    the device LoRA slot pool (BGMV or MBGMV kernels). The active mask,
     slot map and block table are uploaded only when the batch composition
     changes: zero host->device transfers in steady state.
   * `megastep` — K decode iterations in one call: a Python loop over the
-    same `_fused_step`, so it equals K single steps exactly. (A CUDA graph
-    per K is later work.)
-
+    same `_fused_step`, so it equals K single steps exactly, temperature
+    draws included. (A CUDA graph per K is later work.)
   * `prefill_chunk` — one chunk of a long prompt's prefill for one row
-    (chunked prefill), written into the row's claimed pages in place; only
-    the final chunk samples and seeds the row's pipeline state.
+    (chunked prefill, paged plane only), written into the row's claimed
+    pages in place; only the final chunk samples and seeds the row's
+    pipeline state.
 
-The port updates the KV pool and the pipeline state in place. The dense
-memory plane, the per-step baseline pipeline and temperature sampling
-raise NotImplementedError (ROADMAP.md queue 1).
+`pipeline="perstep"` keeps the reference's pre-pipeline baseline on the
+dense plane: host-built token and position arrays each step, greedy
+sampling off the full logits, a synchronous readback, and a flush after
+each prefill. The port updates the KV plane and the pipeline state in
+place.
 """
 from __future__ import annotations
 
@@ -62,11 +66,6 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               "(ROADMAP.md queue 1)")
-
-
 class DecodePipeline:
     """Device-resident per-row decode state + the async readback queue.
 
@@ -77,18 +76,20 @@ class DecodePipeline:
       target   — stop position: the row freezes once pos reaches it
       active   — host-owned mask of rows in the current decode batch
       idx      — host-owned LoRA pool slot per row (-1: none)
-      block_table — (max_batch, W) logical -> physical page, -1 unclaimed
+      block_table — paged plane: (max_batch, W) logical -> physical page,
+                 -1 unclaimed; None on the dense plane
 
     `active`/`idx`/`block_table` change only on events (admission,
     retirement, a boundary page claim); `refresh` re-uploads them only
-    when their host signature changes.
+    when their host signature changes. `gen` is the sampling generator
+    (the reference threads a PRNG key through its step state).
 
     Readback: `stash` starts a non-blocking copy of the step's tokens into
     pinned host memory and records an event; the queue drains one step
     behind, waiting only for that event, so step k-1's tokens cross while
     step k runs. `flush` drains everything."""
 
-    def __init__(self, max_batch: int, stats: Dict[str, int],
+    def __init__(self, max_batch: int, seed: int, stats: Dict[str, int],
                  bt_width: int, device: torch.device):
         self.max_batch = max_batch
         self.stats = stats
@@ -100,7 +101,9 @@ class DecodePipeline:
         self.active = torch.zeros(max_batch, dtype=torch.bool, device=device)
         self.idx = torch.full((max_batch,), -1, **i32)
         self.bt_width = bt_width
-        self.block_table = torch.full((max_batch, bt_width), -1, **i32)
+        self.block_table = torch.full((max_batch, bt_width), -1, **i32) \
+            if bt_width else None
+        self.gen = torch.Generator(device=device).manual_seed(seed)
         self._sig: Optional[bytes] = None
         self._pending: List[Tuple[torch.Tensor, Optional[torch.cuda.Event],
                                   List[Tuple[RequestState, int, int]]]] = []
@@ -115,19 +118,24 @@ class DecodePipeline:
             active[st.row] = True
         idx = np.asarray(row_slot, np.int64).copy()
         idx[~active] = -1
-        bt = np.full((self.max_batch, self.bt_width), -1, np.int32)
-        for st in ready:
-            pg = row_pages[st.row]
-            bt[st.row, :len(pg)] = pg
-        sig = active.tobytes() + idx.tobytes() + bt.tobytes()
+        sig = active.tobytes() + idx.tobytes()
+        bt = None
+        if self.bt_width:
+            bt = np.full((self.max_batch, self.bt_width), -1, np.int32)
+            for st in ready:
+                pg = row_pages[st.row]
+                bt[st.row, :len(pg)] = pg
+            sig += bt.tobytes()
         if sig != self._sig:
             self.active = _upload(active, self.device)
             self.idx = _upload(idx.astype(np.int32), self.device)
-            self.block_table = _upload(bt, self.device)
             self._sig = sig
-            self.stats["h2d"] += 3
-            self.stats["h2d_bytes"] += active.nbytes + 4 * self.max_batch \
-                + bt.nbytes
+            self.stats["h2d"] += 2
+            self.stats["h2d_bytes"] += active.nbytes + 4 * self.max_batch
+            if bt is not None:
+                self.block_table = _upload(bt, self.device)
+                self.stats["h2d"] += 1
+                self.stats["h2d_bytes"] += bt.nbytes
 
     # -------------------------------------------------------- readback ----
     def stash(self, toks: torch.Tensor,
@@ -177,22 +185,26 @@ class NumericsBackend:
             raise ValueError(f"unknown pipeline {pipeline!r}")
         if memory not in ("dense", "paged"):
             raise ValueError(f"unknown memory plane {memory!r}")
-        if pipeline != "fused":
-            raise _not_ported(f"pipeline={pipeline!r}")
-        if memory != "paged":
-            raise _not_ported(f"memory={memory!r}")
-        if temperature > 0.0:
-            raise _not_ported("temperature sampling")
-        if not model_lib.supports_paged(cfg):
+        if pipeline == "perstep" and temperature > 0.0:
             raise ValueError(
-                f"{cfg.name}: family does not support the paged cache")
-        if cache_slots % page_size:
-            raise ValueError(
-                f"cache_slots ({cache_slots}) must be a multiple of "
-                f"page_size ({page_size}) so a row's block table tiles "
-                "its ring exactly")
-        if allocator is None:
-            raise ValueError("memory='paged' requires a PageAllocator")
+                "pipeline='perstep' is the greedy-only legacy baseline; "
+                "temperature sampling needs the fused pipeline (its "
+                "generator lives in the device-resident step state)")
+        self.paged = memory == "paged"
+        if self.paged:
+            if pipeline != "fused":
+                raise ValueError(
+                    "the paged memory plane rides the fused pipeline")
+            if not model_lib.supports_paged(cfg):
+                raise ValueError(
+                    f"{cfg.name}: family does not support the paged cache")
+            if cache_slots % page_size:
+                raise ValueError(
+                    f"cache_slots ({cache_slots}) must be a multiple of "
+                    f"page_size ({page_size}) so a row's block table tiles "
+                    "its ring exactly")
+            if allocator is None:
+                raise ValueError("memory='paged' requires a PageAllocator")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.kernel = kernel
@@ -201,22 +213,23 @@ class NumericsBackend:
         self.store = store
         self.pool = pool
         self.pipeline = pipeline
-        self.megastep_max = megastep
+        self.megastep_max = megastep if pipeline == "fused" else 0
         self.temperature = temperature
-        self.paged = True
         self.page_size = page_size
         self.allocator = allocator
-        self.bt_width = cache_slots // page_size
+        self.bt_width = cache_slots // page_size if self.paged else 0
         self.params = params if params is not None \
             else init_params(cfg, seed, self.device)
         row_cache = model_lib.cache_abstract(cfg, 1, cache_slots)
-        self.cache = cache_lib.zeros_paged(row_cache, allocator.n_pages,
-                                           page_size, self.device)
+        self.cache = cache_lib.zeros_paged(
+            row_cache, allocator.n_pages, page_size, self.device) \
+            if self.paged else cache_lib.zeros_like_batched(
+                row_cache, max_batch, self.device)
         self.transfer_stats: Dict[str, int] = {
             "h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0,
             "decode_steps": 0, "megasteps": 0, "megastep_iters": 0,
             "prefills": 0, "prefill_chunks": 0}
-        self.pipe = DecodePipeline(max_batch, self.transfer_stats,
+        self.pipe = DecodePipeline(max_batch, seed + 1, self.transfer_stats,
                                    self.bt_width, self.device)
         self.staging = StagingCache(staging_slots,
                                     on_upload=self._count_upload,
@@ -285,6 +298,9 @@ class NumericsBackend:
         `st.generated` through the readback queue. The chunk width is
         bucketed (powers of two, capped at cache_slots) like the
         reference's."""
+        if not self.paged:
+            raise RuntimeError("chunked prefill rides the paged memory "
+                               "plane (memory='paged')")
         if start + n_tokens > self.cache_slots:
             raise ValueError(
                 f"request {st.req.rid}: chunk [{start}, {start + n_tokens})"
@@ -304,8 +320,9 @@ class NumericsBackend:
             last=final)
         if not final:
             return
-        tok = sample(logits[:, 0], temperature=self.temperature)
         pipe, r = self.pipe, st.row
+        tok = sample(logits[:, 0], temperature=self.temperature,
+                     generator=pipe.gen)
         pipe.last_tok[r] = tok[0]
         pipe.pos[r] = st.req.prompt_len
         pipe.target[r] = st.req.prompt_len + st.req.max_new_tokens - 1
@@ -346,10 +363,12 @@ class NumericsBackend:
         if int(lens.max()) > self.cache_slots:
             bad = [st.req.rid for st in states
                    if st.req.prompt_len > self.cache_slots]
+            unit = (f"{self.bt_width}-page block table "
+                    f"(page_size {self.page_size})" if self.paged
+                    else f"{self.cache_slots} KV-cache slots") + " per row"
             raise ValueError(
-                f"requests {bad}: prompt exceeds the {self.bt_width}-page "
-                f"block table (page_size {self.page_size}) per row — the "
-                "engine must reject these at submit time")
+                f"requests {bad}: prompt exceeds the {unit} — the engine "
+                "must reject these at submit time")
         Lp = min(bucket(int(lens.max())), self.cache_slots)
         Nb = bucket(len(states), lo=1)
         N = len(states)
@@ -375,36 +394,29 @@ class NumericsBackend:
         uids = [st.req.adapter_uid for st in states]
         lora = self._lora_arg_stacked(uids + [uids[0]] * (Nb - N))
         lora["mode"] = self._mode_str()
-        ps = self.page_size
-        Sp = -(-Lp // ps) * ps          # prefill cache depth, page-tiled
-        npr = Sp // ps
-        page_ids = np.full((Nb, npr), -1, np.int64)
-        claimed: List[int] = []
-        for i, st in enumerate(states):
-            page_ids[i, :min(len(st.kv_pages), npr)] = st.kv_pages[:npr]
-            claimed.extend(st.kv_pages)
-        self.transfer_stats["h2d"] += 6    # toks, lens, rows, targets,
-        self.transfer_stats["h2d_bytes"] += (  # page ids, clear list
-            toks.nbytes + lens_b.nbytes + rows.nbytes + tgts.nbytes
-            + page_ids.nbytes + 8 * len(claimed))
+        self.transfer_stats["h2d"] += 4    # toks, lens, rows, targets
+        self.transfer_stats["h2d_bytes"] += (
+            toks.nbytes + lens_b.nbytes + rows.nbytes + tgts.nbytes)
         self.transfer_stats["prefills"] += 1
-
+        ps = self.page_size
+        # the row caches' depth: page-tiled on the paged plane; on the
+        # dense plane the slab row past Lp is cleared by scatter_rows
+        Sp = -(-Lp // ps) * ps if self.paged else Lp
         lens_d = _upload(lens_b, self.device)
+        pipe = self.pipe
         logits, row_caches = model_lib.prefill(
             self.cfg, self.params, {"tokens": _upload(toks, self.device)},
-            lora=lora,
-            cache_slots=Sp, last_pos=lens_d - 1)
-        toks_out = sample(logits[:, 0], temperature=self.temperature)
+            lora=lora, cache_slots=Sp, last_pos=lens_d - 1)
+        toks_out = sample(logits[:, 0], temperature=self.temperature,
+                          generator=pipe.gen)
         # slots past each request's true length never become attendable
         live = torch.arange(Sp, device=self.device)[None, None] \
             < lens_d[None, :, None]
         row_caches["pos"] = torch.where(live, row_caches["pos"], -1)
-        # pages reclaimed from a retired row carry stale positions the
-        # attention mask would trust: scrub every claimed page first
-        if claimed:
-            cache_lib.clear_pages(self.cache, claimed)
-        cache_lib.scatter_pages(self.cache, row_caches, page_ids)
-        pipe = self.pipe
+        if self.paged:
+            self._scatter_pages(states, row_caches, Sp // ps, Nb)
+        else:
+            cache_lib.scatter_rows(self.cache, row_caches, rows)
         rows_d = _upload(rows, self.device)
         pipe.last_tok[rows_d] = toks_out[:N]
         pipe.pos[rows_d] = lens_d[:N]
@@ -416,20 +428,42 @@ class NumericsBackend:
         # them from the stash so the readback never appends it again
         pipe.stash(toks_out, [(st, i, 1) for i, st in enumerate(states)
                               if not st.preempted])
+        if self.pipeline == "perstep":
+            pipe.flush()       # legacy path: synchronous readback
+
+    def _scatter_pages(self, states, row_caches, npr: int, Nb: int):
+        """Move the packed prefill's row caches (depth npr pages) into
+        each request's claimed pages; rows and pages past a request's
+        claim land in the sink page."""
+        page_ids = np.full((Nb, npr), -1, np.int64)
+        claimed: List[int] = []
+        for i, st in enumerate(states):
+            page_ids[i, :min(len(st.kv_pages), npr)] = st.kv_pages[:npr]
+            claimed.extend(st.kv_pages)
+        self.transfer_stats["h2d"] += 2    # page ids, clear list
+        self.transfer_stats["h2d_bytes"] += page_ids.nbytes \
+            + 8 * len(claimed)
+        # pages reclaimed from a retired row carry stale positions the
+        # attention mask would trust: scrub every claimed page first
+        if claimed:
+            cache_lib.clear_pages(self.cache, claimed)
+        cache_lib.scatter_pages(self.cache, row_caches, page_ids)
 
     # ----------------------------------------------------------- decode ----
     def _fused_step(self, lora, active):
         """One decode iteration shared by `decode` and `megastep`, so K
         fused iterations equal K single calls. Rows that are inactive or at
-        their stop target drop their KV write (sink page), keep their token
-        and position. Returns the step's (max_batch,) tokens."""
+        their stop target drop their KV write (the sink page, or their
+        dense slot written back unchanged), keep their token and position.
+        Returns the step's (max_batch,) tokens."""
         pipe = self.pipe
         act = active & (pipe.pos < pipe.target)
         logits, _ = model_lib.decode(
             self.cfg, self.params, self.cache, pipe.last_tok[:, None],
             pipe.pos, lora=lora, write_mask=act,
             block_table=pipe.block_table)
-        toks = sample(logits[:, -1], temperature=self.temperature)
+        toks = sample(logits[:, -1], temperature=self.temperature,
+                      generator=pipe.gen)
         pipe.last_tok = torch.where(act, toks, pipe.last_tok)
         pipe.pos = torch.where(act, pipe.pos + 1, pipe.pos)
         return toks
@@ -443,6 +477,8 @@ class NumericsBackend:
                row_pages=None):
         """One decode iteration over the ready rows."""
         self.transfer_stats["decode_steps"] += 1
+        if self.pipeline == "perstep":
+            return self._decode_perstep(ready, row_slot, row_pos)
         pipe = self.pipe
         pipe.refresh(ready, row_slot, row_pages)
         toks = self._fused_step(self._lora_arg(), pipe.active)
@@ -455,8 +491,10 @@ class NumericsBackend:
         rows that reach max_new_tokens mid-window. `nsteps[i]` = tokens
         request i actually produces; the (K, B) token block drains through
         the async readback queue like any other step."""
-        if K < 2:
-            raise RuntimeError(f"megastep needs K >= 2 (K={K})")
+        if self.pipeline != "fused" or K < 2:
+            raise RuntimeError(
+                "megastep needs the fused pipeline and K >= 2 "
+                f"(pipeline={self.pipeline!r}, K={K})")
         self.transfer_stats["decode_steps"] += K
         self.transfer_stats["megasteps"] += 1
         self.transfer_stats["megastep_iters"] += K
@@ -466,3 +504,31 @@ class NumericsBackend:
         ys = torch.stack([self._fused_step(lora, pipe.active)
                           for _ in range(K)])
         pipe.stash(ys, [(st, st.row, n) for st, n in zip(ready, nsteps)])
+
+    # ------------------------------------------------ legacy (perstep) ----
+    def _decode_perstep(self, ready, row_slot, row_pos):
+        """Pre-pipeline baseline: host-built token/position arrays each
+        step, greedy sampling off the full logits, synchronous readback.
+        Every row writes its token (no write mask), as in the reference."""
+        toks = np.zeros((self.max_batch, 1), np.int32)
+        pos = np.zeros((self.max_batch,), np.int32)
+        live = np.zeros((self.max_batch,), bool)
+        idx = np.asarray(row_slot).astype(np.int32)
+        for st in ready:
+            toks[st.row, 0] = st.generated[-1] if st.generated else 0
+            pos[st.row] = row_pos[st.row]
+            live[st.row] = True
+        idx[~live] = -1
+        lora = {"pool": self.pool.pool, "idx": _upload(idx, self.device),
+                "mode": self._mode_str()}
+        self.transfer_stats["h2d"] += 3
+        self.transfer_stats["h2d_bytes"] += (toks.nbytes + pos.nbytes
+                                             + idx.nbytes)
+        logits, _ = model_lib.decode(
+            self.cfg, self.params, self.cache, _upload(toks, self.device),
+            _upload(pos, self.device), lora=lora)
+        new = sample(logits[:, -1]).cpu().numpy()
+        self.transfer_stats["d2h"] += 1
+        self.transfer_stats["d2h_bytes"] += new.nbytes
+        for st in ready:
+            st.generated.append(int(new[st.row]))

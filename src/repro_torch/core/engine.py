@@ -24,8 +24,9 @@ request. Completed requests leave the batch immediately.
 Modes: cached | ondemand | slora | caraserve.  Kernels: bgmv | mbgmv.
 
 A copy of the reference's `repro.core.engine` with the port's planes
-wired in. The timeline stays the analytic simulator: every TTFT, TPT or
-tokens/s it reports is simulated. `device=None` means the card; a server
+wired in. The timeline stays the analytic simulator, modelling the H100
+by default (`core.timing.H100`): every TTFT, TPT or tokens/s it reports
+is simulated. `device=None` means the card; a server
 with numerics refuses to start without one unless device="cpu" is given.
 """
 from __future__ import annotations
@@ -39,7 +40,7 @@ from repro_torch.core.backend import NumericsBackend, bucket as _bucket
 from repro_torch.core.cold_start import ColdStartManager
 from repro_torch.core.lora import AdapterSpec, DevicePool, HostLoRAStore
 from repro_torch.core.scheduler import select_victim
-from repro_torch.core.timing import Hardware, TimingModel, V5E
+from repro_torch.core.timing import H100, Hardware, TimingModel
 from repro_torch.device import resolve_device
 from repro_torch.models.model import supports_chunked_prefill, supports_paged
 from repro_torch.serving.cache import (PageAllocator, boundary_steps,
@@ -55,7 +56,7 @@ PREEMPT_WINDOW_MS = 2000.0
 class InferenceServer:
     def __init__(self, cfg: ModelConfig, *, mode: str = "caraserve",
                  kernel: str = "bgmv", max_batch: int = 8,
-                 cache_slots: int = 256, hw: Hardware = V5E,
+                 cache_slots: int = 256, hw: Hardware = H100,
                  numerics: bool = True, params=None, seed: int = 0,
                  avg_ctx: int = 512, pool_slots: Optional[int] = None,
                  prefetch: bool = False, link_policy: str = "fifo",

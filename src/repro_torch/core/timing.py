@@ -1,23 +1,24 @@
-"""Analytic timing model — the system's "profiler" on a CPU-only container.
+"""Analytic timing model — the serving timeline's "profiler".
 
-A copy of the reference's timing module: the serving timeline stays this
-analytic simulator (TPU v5e / A10 datasheet constants). Every TTFT or
+A copy of the reference's timing module with the card the port runs on as
+its default hardware: one NVIDIA H100 SXM5 80GB (`H100`). Every TTFT or
 tokens/s the engine derives from it is *simulated*, never a measurement
-of the card; the card's own numbers are wall-clock times taken by
-chip_smoke.py.
+of the card; the card's own numbers are times taken by chip_smoke.py.
 
 The paper profiles an A10 GPU to obtain prefill/decode latencies and feeds
 them to both the serving engine's continuous-batching timeline and the
 scheduler's performance models (sec 5, sec 7.5 "we obtain the prefill and
 decoding latency of the simulator by profiling"). We reproduce that
-methodology with a first-principles roofline cost model of the TPU v5e
-target: iteration latency = max(compute term, HBM term) + fixed overheads,
-and LoRA kernel cost follows the BGMV max-rank / MBGMV sum-rank laws by
-construction of the kernels in repro.kernels.
+methodology with a first-principles roofline cost model: iteration
+latency = max(compute term, HBM term) + fixed overheads, and LoRA kernel
+cost follows the BGMV max-rank / MBGMV sum-rank laws by construction of
+the kernels.
 
-Every constant is either a v5e datasheet number or calibrated to the paper's
-figures (adapter upload ~tens of ms for rank 64, Fig 3; <1 ms invocation via
-shared memory, Fig 17; single-CPU token ceiling, Fig 18).
+The device's rates and size are data-sheet numbers; the host-link,
+host-CPU and overhead constants are the paper's calibration (adapter
+upload ~tens of ms for rank 64, Fig 3; <1 ms invocation via shared memory,
+Fig 17; single-CPU token ceiling, Fig 18), not measurements of the card's
+host.
 """
 from __future__ import annotations
 
@@ -26,34 +27,45 @@ from typing import Optional, Sequence
 
 from repro_torch.configs.base import ModelConfig
 
+# os.cpu_count() of the machine that hosts one H100 80GB HBM3 for
+# chip_smoke.py, as its phase-1 line prints it
+CARD_HOST_CORES = 8
+
 
 @dataclasses.dataclass(frozen=True)
 class Hardware:
-    name: str = "tpu-v5e"
-    peak_flops: float = 197e12        # bf16 FLOP/s per chip
-    hbm_bw: float = 819e9             # B/s per chip
-    ici_bw: float = 50e9              # B/s per link
-    hbm_bytes: float = 16 * 2 ** 30
-    chips: int = 1                    # chips per serving instance (TP group)
+    # NVIDIA H100 SXM5 80GB data sheet (700 W): dense bf16 tensor-core
+    # rate, HBM3 bandwidth and capacity; the same two rates bound the
+    # kernels in chip_smoke.py
+    name: str = "h100-sxm5-80gb"
+    peak_flops: float = 989e12        # bf16 FLOP/s per card, dense
+    hbm_bw: float = 3.35e12           # B/s per card
+    ici_bw: float = 50e9              # B/s per NVLink 4 link (18 = 900 GB/s)
+    hbm_bytes: float = 80e9
+    chips: int = 1                    # cards per serving instance (TP group)
     # host <-> device adapter upload (effective, pageable host memory);
-    # calibrated so a rank-64 q/k/v adapter of a 7B model (~100 MiB) costs
-    # ~25 ms, matching paper Fig 3-Right.
+    # the paper's calibration: a rank-64 q/k/v adapter of a 7B model
+    # (~100 MiB) costs ~25 ms, matching paper Fig 3-Right.
     load_bw: float = 4e9
     load_base_ms: float = 1.0
     # parallel upload lanes on the host link; 1 = a single PCIe/DMA stream,
     # so concurrent cold starts serialize on the link (LoadTracker)
     load_concurrency: int = 1
-    # host-assist constants; core GEMM rate calibrated to paper Fig 18
-    # (128-token rank-64 q/k/v prefill of a 7B model on 8 cores ~ 13 ms)
-    cpu_core_flops: float = 120e9     # sustained AVX-512 GEMM FLOP/s per core
-    cpu_cores: int = 112              # TPU VM host cores (DESIGN.md sec 6)
+    # host-assist constants; the core GEMM rate is the paper's calibration
+    # to its Fig 18 (128-token rank-64 q/k/v prefill of a 7B model on 8
+    # cores ~ 13 ms)
+    cpu_core_flops: float = 120e9     # sustained GEMM FLOP/s per core
+    cpu_cores: int = CARD_HOST_CORES  # os.cpu_count() of the card's host
     cpu_max_tokens_per_core: int = 16 # profiling-guided parallelization knob
-    invoke_overhead_ms: float = 0.8   # shared-memory IPC per prefill (Fig 17)
-    sync_per_layer_ms: float = 0.02   # async memcpy+signal operator (Fig 8)
-    step_overhead_ms: float = 1.5     # scheduling/launch overhead per iter
+    # the paper's calibration: shared-memory IPC per prefill (Fig 17), the
+    # async memcpy+signal operator per layer (Fig 8), scheduling/launch
+    # overhead per iteration
+    invoke_overhead_ms: float = 0.8
+    sync_per_layer_ms: float = 0.02
+    step_overhead_ms: float = 1.5
 
 
-V5E = Hardware()
+H100 = Hardware()
 # The paper's testbed GPU, for apples-to-apples reproduction of its figures.
 A10 = Hardware(name="a10", peak_flops=125e12, hbm_bw=600e9,
                hbm_bytes=24 * 2 ** 30, load_bw=4e9)
@@ -77,7 +89,7 @@ def kv_bytes_per_token(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
 class TimingModel:
     """Latency oracle for one serving instance of `cfg` on `hw`."""
 
-    def __init__(self, cfg: ModelConfig, hw: Hardware = V5E):
+    def __init__(self, cfg: ModelConfig, hw: Hardware = H100):
         self.cfg = cfg
         self.hw = hw
         # config-derived constants, hoisted out of the per-iteration path

@@ -1,11 +1,13 @@
 """Shared neural building blocks of the dense family: RoPE, GQA attention
-(direct / chunked online-softmax / decode over a cache), the paged KV
-cache, and the MLP. Mirrors `repro.models.layers` (dense and paged
-subset).
+(direct / chunked online-softmax / decode over a cache), the dense and
+paged KV caches, and the MLP. Mirrors `repro.models.layers` (dense,
+int8-quantized and paged caches; no recurrent blocks).
 
 Conventions:
   activations x: (B, L, D)
   q: (B, L, H, hd); k/v: (B, L, KV, hd)
+  dense KV cache, one layer: k/v (B, KV, S, hd) and pos (B, S), a ring
+  (slot of position p: p % S); int8 adds k_scale/v_scale (B, KV, S).
   paged KV cache, one layer: k/v (P + 1, KV, page_size, hd) and pos
   (P + 1, page_size) absolute positions (-1 = empty). Page P is a write
   sink that no block table names: a write the reference drops by indexing
@@ -159,6 +161,97 @@ def attn_decode(q, cache_k, cache_v, cache_pos, pos, window=None):
     p = torch.softmax(s, dim=-1).to(cache_v.dtype)
     out = torch.einsum("bkgs,bksh->bkgh", p, cache_v)
     return out.reshape(b, 1, h, hd)
+
+
+# ------------------------------------------------------- dense KV cache ----
+#
+# int8 quantization is symmetric, one f32 scale per (head, position).
+# Writes go in place; the reference returns new arrays.
+
+def cache_init(batch, kv_heads, slots, hd, dtype, quantized=False, *,
+               layers=None, device=None):
+    """An empty cache (k/v zeros, pos -1); `layers` adds a leading layer
+    axis, the layout the model's decode takes."""
+    lead = () if layers is None else (layers,)
+    kv = lead + (batch, kv_heads, slots, hd)
+    pay = torch.int8 if quantized else dtype
+    c = {"k": torch.zeros(kv, dtype=pay, device=device),
+         "v": torch.zeros(kv, dtype=pay, device=device),
+         "pos": torch.full(lead + (batch, slots), -1, dtype=torch.int32,
+                           device=device)}
+    if quantized:
+        c["k_scale"] = torch.zeros(kv[:-1], dtype=torch.float32,
+                                   device=device)
+        c["v_scale"] = torch.zeros(kv[:-1], dtype=torch.float32,
+                                   device=device)
+    return c
+
+
+def _quantize(x):
+    """x: (..., hd) -> (int8, scale (...,) f32); rounds half to even, as
+    jnp.round does."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / 127.0
+    q = torch.round(xf / scale.clamp(min=1e-9)[..., None]).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def cache_write_prefill(cache, k, v, positions):
+    """Write a prefill's k/v (B, L, KV, hd) and positions (B, L) into one
+    layer's cache, in place. L <= S: slots [0, L), the rest untouched.
+    L > S: the last S tokens, rolled by L % S so that slot(p) = p % S and
+    later decode writes evict the oldest token."""
+    slots = cache["k"].shape[2]
+    L = k.shape[1]
+    kT, vT = k.transpose(1, 2), v.transpose(1, 2)          # (B, KV, L, hd)
+    leaves = {"k": kT, "v": vT, "pos": positions.to(torch.int32)}
+    if cache["k"].dtype == torch.int8:
+        leaves["k"], leaves["k_scale"] = _quantize(kT)
+        leaves["v"], leaves["v_scale"] = _quantize(vT)
+    for name, x in leaves.items():
+        ax = 1 if name == "pos" else 2                     # the slot axis
+        if L <= slots:
+            cache[name].narrow(ax, 0, L).copy_(x)
+        else:
+            x = x.narrow(ax, L - slots, slots)
+            cache[name].copy_(torch.roll(x, L % slots, dims=ax))
+    return cache
+
+
+def cache_write_token(cache, k_t, v_t, pos, write_mask=None, slot=None):
+    """Write one token at ring slot pos % S, in place. k_t/v_t:
+    (B, 1, KV, hd); pos: (B,). Rows with write_mask False get their slot's
+    old contents written back, so every leaf stays bitwise untouched for
+    them (the reference drops their write by indexing out of bounds).
+    `slot`: a precomputed pos % S, shared by the step's layers."""
+    if slot is None:
+        slot = pos.long() % cache["k"].shape[2]
+    rows = torch.arange(k_t.shape[0], device=k_t.device)
+    leaves = {"k": k_t[:, 0], "v": v_t[:, 0], "pos": pos}
+    if cache["k"].dtype == torch.int8:
+        leaves["k"], leaves["k_scale"] = _quantize(k_t[:, 0])
+        leaves["v"], leaves["v_scale"] = _quantize(v_t[:, 0])
+    for name, new in leaves.items():
+        dst = cache[name]
+        idx = (rows, slot) if name == "pos" else (rows, slice(None), slot)
+        new = new.to(dst.dtype)
+        if write_mask is not None:
+            keep = write_mask.reshape((-1,) + (1,) * (new.dim() - 1))
+            new = torch.where(keep, new, dst[idx])
+        dst[idx] = new
+    return cache
+
+
+def cache_kv_for_attn(cache, dtype):
+    """k/v for attention: the int8 payload dequantized to `dtype`."""
+    if cache["k"].dtype == torch.int8:
+        return (_dequantize(cache["k"], cache["k_scale"], dtype),
+                _dequantize(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
 
 
 # ------------------------------------------------------- paged KV cache ----

@@ -5,16 +5,16 @@
   decode(cfg, params, cache, ...)  -> (logits, cache)
   cache_abstract(cfg, batch, ...)  -> meta-device stand-ins of the cache
 
-Other families raise NotImplementedError (ROADMAP.md queue 1).
+The dense family decodes over the dense per-row cache (bf16/f32 or int8
+KV) or the paged pool. Other families raise NotImplementedError
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 
 
 def supports_last_pos(cfg: ModelConfig) -> bool:
@@ -82,13 +82,12 @@ def decode_cache_slots(cfg: ModelConfig, seq_len: int) -> Optional[int]:
 
 def cache_abstract(cfg: ModelConfig, batch: int, seq_len: int):
     """Meta-device tensors matching the dense decode cache layout:
-    k/v (L, batch, KV, slots, hd), pos (L, batch, slots) int32."""
+    k/v (L, batch, KV, slots, hd), pos (L, batch, slots) int32; with
+    int8 KV the k/v payload is int8 and k_scale/v_scale (L, batch, KV,
+    slots) f32 ride beside it."""
     transformer._check_family(cfg)
-    slots = decode_cache_slots(cfg, seq_len)
-    L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-    meta = dict(device="meta")
-    return {"k": torch.empty(L, batch, kvh, slots, hd,
-                             dtype=cfg.torch_dtype, **meta),
-            "v": torch.empty(L, batch, kvh, slots, hd,
-                             dtype=cfg.torch_dtype, **meta),
-            "pos": torch.empty(L, batch, slots, dtype=torch.int32, **meta)}
+    return layers.cache_init(batch, cfg.n_kv_heads,
+                             decode_cache_slots(cfg, seq_len), cfg.hd,
+                             cfg.torch_dtype,
+                             quantized=cfg.kv_cache_dtype == "int8",
+                             layers=cfg.n_layers, device="meta")

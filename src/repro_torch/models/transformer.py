@@ -1,7 +1,8 @@
 """Decoder-only dense transformer with LoRA hooks on W_q/W_k/W_v (paper
 sec 7.1): the modules, and the prefill / chunked-prefill / decode
-functions over them.
-Mirrors the dense branch of `repro.models.transformer`.
+functions over them, against the dense per-row KV cache (bf16/f32 or
+int8) or the paged pool. Mirrors the dense branch of
+`repro.models.transformer`.
 
 QKV projections are stored 3-D — (d_model, heads, head_dim) — and the
 output projection (heads, head_dim, d_model), the reference's layouts.
@@ -15,7 +16,11 @@ from torch import nn
 
 from repro_torch.core.lora import lora_apply
 from repro_torch.kernels.ops import lora_live
-from repro_torch.models.layers import (apply_rope, attn_prefill,
+from repro_torch.models.layers import (apply_rope, attn_decode,
+                                       attn_prefill, cache_init,
+                                       cache_kv_for_attn,
+                                       cache_write_prefill,
+                                       cache_write_token,
                                        cache_write_token_paged, mlp_apply,
                                        paged_attn_chunk, paged_attn_decode,
                                        paged_write_index, rope_tables)
@@ -80,20 +85,24 @@ def _plus(y, delta):
 
 def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
                lora_layer=None, lora_idx=None, lora_ranks=None,
-               lora_mode="bgmv", lora_live=None, decode=False, cache=None, write_mask=None, block_table=None,
-               write_index=None):
+               lora_mode="bgmv", lora_live=None, decode=False, cache=None,
+               write_mask=None, block_table=None, write_index=None):
     """Returns (out, kv). positions: (B, L) prefill / (B,) decode.
 
-    Decode writes the token's K/V into the paged cache `cache` (one layer's
-    page pools, updated in place) through `block_table` and attends over
-    the row's pages; `write_mask` (B,) bool drops the write of frozen rows.
-    Prefill attends densely and returns the rotated (k, v) so the caller
-    can build the row caches; given a `cache`, it is one chunk of a row's
-    prefill instead (B = 1): the chunk's K/V land in the row's pages at
-    `write_index` and the chunk attends over those pages. `rope_cs`,
-    `write_index` and `lora_live` are per-step values the caller computes
-    once for all layers (`rope_cs`: `layers.rope_tables` at
-    `positions`)."""
+    Decode writes the token's K/V into one layer's cache, in place, and
+    attends over it; `write_mask` (B,) bool drops the write of frozen
+    rows. With a `block_table` the cache is the paged pool and attention
+    reads the row's pages (the paged kernel on the card); without one it
+    is the dense per-row cache, dequantized if int8, and attention is the
+    plain `attn_decode` on every device, as the reference computes it
+    outside any Pallas kernel. Prefill attends densely and returns the
+    rotated (k, v) so the caller can build the row caches; given a
+    `cache`, it is one chunk of a row's prefill instead (B = 1): the
+    chunk's K/V land in the row's pages at `write_index` and the chunk
+    attends over those pages. `rope_cs`, `write_index` (paged: a
+    `paged_write_index`; dense: the ring slot pos % S) and `lora_live`
+    are per-step values the caller computes once for all layers
+    (`rope_cs`: `layers.rope_tables` at `positions`)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     lora = (lora_idx, lora_ranks, lora_mode, cfg.lora.rank_block, lora_live)
     q = _plus(_proj(p.wq, x), _lora_heads(x, lora_layer, "q", *lora, H, hd))
@@ -101,11 +110,12 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
     v = _plus(_proj(p.wv, x), _lora_heads(x, lora_layer, "v", *lora, KV, hd))
     q = apply_rope(q, *rope_cs)
     k = apply_rope(k, *rope_cs)
-    if decode:
-        if block_table is None:
-            raise NotImplementedError(
-                "decode over the dense per-row cache is not ported to "
-                "repro_torch yet (ROADMAP.md queue 1, memory='dense')")
+    if decode and block_table is None:
+        cache_write_token(cache, k, v, positions, write_mask=write_mask,
+                          slot=write_index)
+        ck, cv = cache_kv_for_attn(cache, cfg.torch_dtype)
+        out = attn_decode(q, ck, cv, cache["pos"], positions)
+    elif decode:
         cache_write_token_paged(cache, k, v, positions, block_table,
                                 write_mask=write_mask, index=write_index)
         out = paged_attn_decode(q, cache, block_table, positions)
@@ -184,10 +194,13 @@ def prefill(cfg, params: Transformer, tokens, *, lora=None,
             last_pos=None):
     """Returns (logits, cache). cache_slots=None -> no cache; else the row
     caches {"k"/"v": (L, B, KV, cache_slots, hd), "pos": (L, B,
-    cache_slots)} with the prompt in slots [0, L) and pos -1 past it.
-    last_pos: optional (B,) per-row positions — the residual stream is
-    gathered there *before* the unembed, so the (B, L, vocab) logits are
-    never materialized."""
+    cache_slots)[, "k_scale"/"v_scale": (L, B, KV, cache_slots) f32]}
+    (int8 payload and scales when cfg.kv_cache_dtype == "int8"): the
+    prompt in slots [0, L) and pos -1 past it, or, for a prompt longer
+    than the cache, its last cache_slots tokens in ring order
+    (`layers.cache_write_prefill`). last_pos: optional (B,) per-row
+    positions — the residual stream is gathered there *before* the
+    unembed, so the (B, L, vocab) logits are never materialized."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens)
     B, L = x.shape[0], x.shape[1]
@@ -196,19 +209,10 @@ def prefill(cfg, params: Transformer, tokens, *, lora=None,
                                  device=x.device).expand(B, L)
     cache = None
     if cache_slots is not None:
-        if L > cache_slots:
-            raise NotImplementedError(
-                "a prefill longer than the cache (ring write) is not ported "
-                "to repro_torch yet (ROADMAP.md queue 1, memory='dense')")
-        nl, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-        dev, dt = x.device, cfg.torch_dtype
-        cache = {"k": torch.zeros(nl, B, kvh, cache_slots, hd, dtype=dt,
-                                  device=dev),
-                 "v": torch.zeros(nl, B, kvh, cache_slots, hd, dtype=dt,
-                                  device=dev),
-                 "pos": torch.full((nl, B, cache_slots), -1,
-                                   dtype=torch.int32, device=dev)}
-        cache["pos"][:, :, :L] = positions.to(torch.int32)
+        cache = cache_init(B, cfg.n_kv_heads, cache_slots, cfg.hd,
+                           cfg.torch_dtype,
+                           quantized=cfg.kv_cache_dtype == "int8",
+                           layers=cfg.n_layers, device=x.device)
     rope_cs = rope_tables(positions, cfg.hd, cfg.rope_theta)
     live = _lora_live(cfg, lora)
     for i, p_l in enumerate(params.blocks):
@@ -218,8 +222,8 @@ def prefill(cfg, params: Transformer, tokens, *, lora=None,
             lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
             decode=False, rope_cs=rope_cs)
         if cache is not None:
-            cache["k"][i, :, :, :L] = k.transpose(1, 2)
-            cache["v"][i, :, :, :L] = v.transpose(1, 2)
+            cache_write_prefill({n: t[i] for n, t in cache.items()}, k, v,
+                                positions)
     if last_pos is not None:
         x = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
     elif last_only:
@@ -271,16 +275,21 @@ def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
 
 def decode_step(cfg, params: Transformer, cache, tokens_t, pos, *,
                 lora=None, write_mask=None, block_table=None):
-    """tokens_t: (B, 1); pos: (B,) current absolute position. cache is the
-    paged pool {"k"/"v": (L, P + 1, KV, ps, hd), "pos": (L, P + 1, ps)},
-    updated in place through `block_table` (B, W); write_mask (B,) bool
-    drops frozen rows' writes. Returns (logits, cache)."""
+    """tokens_t: (B, 1); pos: (B,) current absolute position. With a
+    `block_table` (B, W) the cache is the paged pool {"k"/"v": (L, P + 1,
+    KV, ps, hd), "pos": (L, P + 1, ps)}; without one it is the dense
+    per-row cache of `prefill` (k/v (L, B, KV, S, hd), pos (L, B, S), and
+    the scales when int8), the token written at ring slot pos % S. Either
+    is updated in place; write_mask (B,) bool drops frozen rows' writes.
+    Returns (logits, cache)."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens_t)
     # per-step values every layer shares
     rope_cs = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
-    windex = paged_write_index(cache["k"], block_table, pos, write_mask) \
-        if block_table is not None else None
+    if block_table is not None:
+        windex = paged_write_index(cache["k"], block_table, pos, write_mask)
+    else:
+        windex = pos.long() % cache["k"].shape[3]
     live = _lora_live(cfg, lora)
     for i, p_l in enumerate(params.blocks):
         ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)

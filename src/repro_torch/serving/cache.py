@@ -1,17 +1,22 @@
-"""KV-cache memory plane for continuous batching: the paged layout.
+"""KV-cache memory plane for continuous batching. Mirrors
+`repro.serving.cache`; every pool is updated in place. Two layouts:
 
-A fixed pool of ``(page_size, kv_heads, head_dim)`` pages shared by every
-request, plus a per-row *block table* mapping logical page ``j`` of a row
-to a physical page id (``-1`` = unclaimed). Mirrors the paged half of
-`repro.serving.cache`: ``PageAllocator`` is the single id space both the
-KV block tables and the LoRA ``DevicePool`` draw from, and the engine's
-lazy growth / preemption arithmetic is the reference's.
+* **Dense rows**: a fixed ``max_batch`` slab of ``cache_slots``-deep rows
+  (k/v ``(L, max_batch, KV, S, hd)``, pos ``(L, max_batch, S)``, and with
+  int8 KV the f32 scales ``(L, max_batch, KV, S)``); a request owns one
+  whole row, and its prefill cache is scattered into that row
+  (``zeros_like_batched`` / ``scatter_rows`` / ``gather_row``).
 
-Pool layout (per leaf, layer-leading): k/v ``(L, n_pages + 1, KV,
-page_size, hd)``, pos ``(L, n_pages + 1, page_size)`` with -1 = empty.
-The extra last page is the write sink (see models/layers.py): where the
-reference drops an out-of-bounds scatter, the port writes there. The
-pool is updated in place.
+* **Paged**: a fixed pool of ``(page_size, kv_heads, head_dim)`` pages
+  shared by every request, plus a per-row *block table* mapping logical
+  page ``j`` of a row to a physical page id (``-1`` = unclaimed).
+  ``PageAllocator`` is the single id space both the KV block tables and
+  the LoRA ``DevicePool`` draw from, and the engine's lazy growth /
+  preemption arithmetic is the reference's. Pool layout (per leaf,
+  layer-leading): k/v ``(L, n_pages + 1, KV, page_size, hd)``, pos
+  ``(L, n_pages + 1, page_size)`` with -1 = empty. The extra last page is
+  the write sink (see models/layers.py): where the reference drops an
+  out-of-bounds scatter, the port writes there.
 """
 from __future__ import annotations
 
@@ -19,6 +24,61 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+
+# ------------------------------------------------------------ dense rows ----
+
+def zeros_like_batched(row_cache_abstract, max_batch: int, device=None):
+    """The dense slab from a batch-1 cache stand-in of the layered layout
+    (`models.model.cache_abstract`): batch axis 1 widened to `max_batch`;
+    int32 leaves (pos) filled with -1, the others with zeros."""
+    out = {}
+    for name, x in row_cache_abstract.items():
+        shape = list(x.shape)
+        shape[1] = max_batch
+        fill = -1 if x.dtype == torch.int32 else 0
+        out[name] = torch.full(shape, fill, dtype=x.dtype, device=device)
+    return out
+
+
+def scatter_rows(pool_cache, row_caches, rows: Sequence[int]):
+    """Write request i's prefill cache (batch entry i of `row_caches`,
+    batch axis 1) into slab row rows[i], in place, replacing the whole
+    row: slots [0, Sp) from the row cache, slots past its depth Sp <= S
+    cleared (payload and scales 0, pos -1), as the reference's full-depth
+    row write leaves them. Entries outside [0, max_batch) are dropped
+    (the reference's out-of-bounds mode), so padding rows of a bucketed
+    prefill need no select."""
+    max_batch = pool_cache["pos"].shape[1]
+    keep = [i for i, r in enumerate(rows) if 0 <= int(r) < max_batch]
+    if not keep:
+        return pool_cache
+    dev = pool_cache["pos"].device
+    dst_rows = torch.as_tensor([int(rows[i]) for i in keep],
+                               dtype=torch.long).to(dev)
+    prefix = keep == list(range(len(keep)))     # no copy of the sources
+    src_rows = None if prefix else torch.as_tensor(keep).to(dev)
+    for name, dst in pool_cache.items():
+        src = row_caches[name]
+        src = src[:, :len(keep)] if prefix else src.index_select(1, src_rows)
+        ax = 2 if name == "pos" else 3                   # the slot axis
+        sp = src.shape[ax]
+        lead = (slice(None), dst_rows) + (slice(None),) * (ax - 2)
+        dst[lead + (slice(0, sp),)] = src
+        dst[lead + (slice(sp, None),)] = -1 if name == "pos" else 0
+    return pool_cache
+
+
+def scatter_row(pool_cache, row_cache, row: int):
+    """Insert a single-request cache (batch 1) at slab row `row`."""
+    return scatter_rows(pool_cache, row_cache, [row])
+
+
+def gather_row(pool_cache, row: int):
+    """Slab row `row` as a batch-1 cache (views, no copy)."""
+    return {name: x[:, row:row + 1] for name, x in pool_cache.items()}
+
+
+# ----------------------------------------------------------------- paged ----
 
 def kv_page_nbytes(cfg, page_size: int) -> int:
     """Device bytes of one KV page: k+v payload for `page_size` token slots

@@ -10,6 +10,7 @@ f32 throughout, atol = rtol = 1e-5: the same arithmetic in another
 summation order (TF32 is switched off for the plain versions' matmuls).
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -146,10 +147,10 @@ def test_flash_kernel_bf16_strided_matches_plain(card):
     assert bool((err <= 1e-2 * want.float().abs().amax(-1)).all())
 
 
-def _serve(device, params=None, arch="llama2-7b", **kw):
-    cfg = get_config(arch).smoke()
+def _serve(device, params=None, arch="llama2-7b", kv="", seed=0, **kw):
+    cfg = dataclasses.replace(get_config(arch).smoke(), kv_cache_dtype=kv)
     srv = InferenceServer(cfg, mode="caraserve", max_batch=4,
-                          cache_slots=64, seed=0, device=device,
+                          cache_slots=64, seed=seed, device=device,
                           params=params, **kw)
     for i, r in enumerate((8, 4, 2, 8)):
         srv.register_adapter(AdapterSpec(f"ad{i}", r, cfg.name))
@@ -188,6 +189,42 @@ def test_yi9b_server_on_card_matches_server_on_cpu(card, chunk_budget):
         bool(chunk_budget)
     assert {s.req.rid: s.generated for s in gpu.states} == \
         {s.req.rid: s.generated for s in cpu.states}
+
+
+@pytest.mark.parametrize("kv", ["", "int8"])
+def test_dense_server_on_card_matches_server_on_cpu(card, kv):
+    """The dense plane (f32 and int8 KV): the LoRA and flash kernels on the
+    card, dense decode attention in plain PyTorch on both, give the CPU
+    server's tokens; paged attention never launches."""
+    cpu = _serve("cpu", memory="dense", kv=kv)
+    params = copy.deepcopy(cpu.params).to(card)
+    before = {f: f.launches for f in (paged.paged_attention,
+                                      bgmv.lora_shrink,
+                                      flash.flash_attention)}
+    gpu = _serve("cuda", params=params, memory="dense", kv=kv)
+    assert gpu.memory == "dense"
+    moved = {f.__name__: f.launches - n for f, n in before.items()}
+    assert moved["paged_attention"] == 0, moved
+    assert moved["lora_shrink"] > 0 and moved["flash_attention"] > 0, moved
+    assert {s.req.rid: s.generated for s in gpu.states} == \
+        {s.req.rid: s.generated for s in cpu.states}
+
+
+@pytest.mark.parametrize("memory", ["paged", "dense"])
+def test_temperature_streams_on_card_repeat_under_one_seed(card, memory):
+    """T = 0.8 on the card: the same seed gives the same streams (the
+    generator's draws and every kernel repeat bitwise); another seed
+    gives others."""
+    cfg = get_config("llama2-7b").smoke()
+    kw = dict(memory=memory, temperature=0.8)
+    a = _serve("cuda", **kw)
+    params = a.params
+    b = _serve("cuda", params=params, **kw)
+    c = _serve("cuda", params=params, seed=1, **kw)
+    toks = [{s.req.rid: s.generated for s in x.states} for x in (a, b, c)]
+    assert toks[0] == toks[1]
+    assert toks[0] != toks[2]
+    assert all(0 <= t < cfg.vocab for st in a.states for t in st.generated)
 
 
 def _rows_close(got, want, tol, floor):

@@ -4,8 +4,11 @@ CPU) against the reference's InferenceServer: same config
 process, so the hash-seeded adapter weights agree — and the same trace.
 Token streams must be identical per request. Also the port's own
 invariants (megastep = single steps, preemption resumes token-exact), the
-import guard, and the entry points' device rules."""
+import guard, and the entry points' device rules. The port's server is
+given the reference's timeline hardware (its V5E constants, passed in),
+so both servers batch and megastep on identical simulated clocks."""
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -24,25 +27,31 @@ jax = pytest.importorskip("jax")
 from repro.configs.base import get_config as jget  # noqa: E402
 from repro.core.engine import InferenceServer as JServer  # noqa: E402
 from repro.core.lora import AdapterSpec as JSpec  # noqa: E402
+from repro.core.timing import V5E  # noqa: E402
 from repro.serving.request import Request as JReq  # noqa: E402
 from repro_torch.configs.base import get_config as tget  # noqa: E402
 from repro_torch.core.engine import InferenceServer as TServer  # noqa: E402
 from repro_torch.core.lora import AdapterSpec as TSpec  # noqa: E402
+from repro_torch.core.timing import Hardware  # noqa: E402
 from repro_torch.models.weights import init_params, params_from_jax  # noqa: E402,E501
 from repro_torch.serving.request import Request as TReq  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 RANKS = (8, 4, 2, 8)
+# the reference's timeline hardware, for the port's servers held to it
+REF_HW = Hardware(**dataclasses.asdict(V5E))
 
 
-def _pair(kernel="bgmv", ranks=RANKS, arch="llama2-7b", **kw):
-    """A reference server and a port server with the same weights and
-    adapters."""
+def _pair(kernel="bgmv", ranks=RANKS, arch="llama2-7b", kv="", **kw):
+    """A reference server and a port server with the same weights,
+    adapters and timeline hardware; kv="int8" quantizes both KV caches."""
     cj, ct = jget(arch).smoke(), tget(arch).smoke()
+    cj = dataclasses.replace(cj, kv_cache_dtype=kv)
+    ct = dataclasses.replace(ct, kv_cache_dtype=kv)
     kw = dict({"mode": "caraserve", "kernel": kernel, "max_batch": 4,
                "cache_slots": 64, "seed": 0}, **kw)
     js = JServer(cj, **kw)
-    ts = TServer(ct, device="cpu",
+    ts = TServer(ct, device="cpu", hw=REF_HW,
                  params=params_from_jax(ct, jax.tree.map(np.asarray,
                                                          js.params),
                                          device="cpu"), **kw)
@@ -197,7 +206,7 @@ def test_preemption_resume_matches_uninterrupted_reference(roomy_reference,
     ct = tget("llama2-7b").smoke()
     ts = TServer(ct, mode="caraserve", max_batch=4, cache_slots=64, seed=0,
                  device="cpu", memory="paged", page_size=32, total_pages=4,
-                 preempt=policy,
+                 preempt=policy, hw=REF_HW,
                  params=params_from_jax(ct, tree, device="cpu"))
     ts.register_adapter(TSpec("ad0", 8, ct.name))
     ts.run([TReq(*t) for t in _oversub_trace()])
@@ -208,12 +217,43 @@ def test_preemption_resume_matches_uninterrupted_reference(roomy_reference,
     assert ts.allocator.owned_by("kv:") == []
 
 
-def test_unported_options_raise():
-    ct = tget("llama2-7b").smoke()
-    for kw in ({"memory": "dense"},
-               {"pipeline": "perstep"}, {"temperature": 0.7}):
-        with pytest.raises(NotImplementedError):
-            TServer(ct, max_batch=2, cache_slots=64, device="cpu", **kw)
+@pytest.mark.parametrize("kw", [{"memory": "dense"}, {"kv": "int8"},
+                                {"pipeline": "perstep"},
+                                {"temperature": 0.7},
+                                {"temperature": 0.7, "memory": "dense"}],
+                         ids=["dense", "int8", "perstep", "temperature",
+                              "temperature-dense"])
+def test_serving_options_construct_and_run(kw):
+    """The dense plane, int8 KV (which `memory="auto"` puts on the dense
+    plane, as the reference does), the per-step pipeline and temperature
+    sampling: each server starts, serves the trace, and every request
+    finishes with its tokens."""
+    kw = dict(kw)
+    ct = dataclasses.replace(tget("llama2-7b").smoke(),
+                             kv_cache_dtype=kw.pop("kv", ""))
+    ts = TServer(ct, max_batch=4, cache_slots=64, seed=0, device="cpu",
+                 **kw)
+    want = "dense" if ct.kv_cache_dtype or "memory" in kw \
+        or "pipeline" in kw else "paged"
+    assert ts.memory == want
+    for i, r in enumerate(RANKS):
+        ts.register_adapter(TSpec(f"ad{i}", r, ct.name))
+    ts.run([TReq(*t) for t in _trace(n=4)])
+    assert all(len(s.generated) == s.req.max_new_tokens for s in ts.states)
+
+
+@pytest.mark.parametrize("kw", [{"pipeline": "perstep", "temperature": 0.7},
+                                {"pipeline": "perstep", "memory": "paged"}],
+                         ids=["perstep-temperature", "perstep-paged"])
+def test_refused_combinations_raise_like_reference(kw):
+    """The per-step baseline is greedy-only and rides the dense plane: the
+    port refuses what the reference refuses, with a ValueError."""
+    with pytest.raises(ValueError):
+        JServer(jget("llama2-7b").smoke(), max_batch=2, cache_slots=64,
+                **kw)
+    with pytest.raises(ValueError):
+        TServer(tget("llama2-7b").smoke(), max_batch=2, cache_slots=64,
+                device="cpu", **kw)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():
