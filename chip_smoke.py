@@ -44,6 +44,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      PyTorch library call (paged attention is also timed at yi-9b's
      decode shape after phase 5b: layer 0 of the first decode step of
      phase 3b's monolithic arm, a row at pos >= 2,048);
+  3d. on the same llama2-7b weights, a cluster (`core.cluster.Cluster`) of
+     two servers sharing the weights, each with its own page and adapter
+     pools, behind the router, 24 requests of 32-256 prompt tokens and 32
+     new tokens, in four arms: (a) the rank-aware router (Algorithm 1)
+     over kernel="bgmv", (b) over "mbgmv", (c) MOSTIDLE over "bgmv", (d)
+     arm (a) with server 1 crashed mid-decode and restarted. Every request
+     finishes, (a)-(c) use both servers, (d) recovers the crashed
+     server's live requests on the survivor; prints routes, decode
+     tokens/s over both servers, wall time, peak memory and the simulated
+     SLO attainment, TTFT and TPT;
+  3e. the performance model on the card (paper Fig 9): phase 4a's decode
+     step, 32 timed steps per kernel law with 1-8 of the 8 rows carrying
+     adapters of random ranks; alpha, beta and R^2 of Perf_BGMV = alpha
+     |S| max r + beta and Perf_MBGMV = alpha sum r + beta, beside the
+     analytic model on the H100's constants;
   3c. on the same llama2-7b weights, 12 requests of 32-480 prompt tokens
      and 64 new tokens (three wrap the 512-slot ring) in four arms: (iv)
      the paged plane, greedy (the yardstick); (i) memory="dense" with
@@ -69,9 +84,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   5b. flash attention timed at the shape of layer 0 of the largest
      captured yi-9b prefill call, as the other kernels are, and the LoRA
      shrink and expand at layer 0 of phase 4b's prefill call (32,768
-     rows); then one {"kernels": [...]} line (the six TPU kernels' rows,
-     the prefill shrink and expand rows and the yi-9b paged row) and the
-     last line {"ok": true, "device": {...}}.
+     rows); then yi-9b is freed;
+  A. the bf16 yi-9b arms of phase 3b settled in float32: full-width yi-9b
+     in f32 (seeded as in 3b), phase 3b's requests through the monolithic
+     (f32 flash kernel) and chunk_budget=512 arms; their tokens must
+     agree, or, where they part, the top-2 logit margin there must lie
+     below the flash-vs-plain logit difference (a near-tie, printed);
+  then one {"kernels": [...]} line (the six TPU kernels' rows, the
+  prefill shrink and expand rows and the yi-9b paged row) and the last
+  line {"ok": true, "device": {...}}.
 
 Tolerances (kernel vs plain version on the same inputs), per output row b
 (per query row (b, h, i) for attention): bf16 max|kernel[b] - plain[b]|
@@ -143,6 +164,8 @@ def main() -> int:
     report = {"serving": serving, "decode_logits": step["logits"],
               "decode_profile": step["profile"],
               "lora_rank_sweep": step["rank_sweep"]}
+    report["cluster"] = cluster_phase(torch, llama, params)
+    report["perf_model_fit"] = perf_model_phase(torch, llama, step)
     report["dense_serving"] = dense_phase(torch, llama, params)
     report["dense_logits"] = dense_logits_phase(torch, llama, params)
     del step, params
@@ -162,6 +185,10 @@ def main() -> int:
     kernels.append(shrink_prefill_timing(torch, lora_args, yi_serving))
     kernels.append(expand_prefill_timing(torch, lora_args, yi_serving))
     kernels.append(paged_yi_timing(torch, capture["decode"], yi_serving))
+    del yi_params, capture, lora_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["yi_f32_arms"] = f32_arms_phase(torch, yi)
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -493,12 +520,13 @@ def make_server(torch, cfg, kernel, params, cache_slots=512, seed=SEED,
 
 
 def make_requests(cfg, uids, n, seed, spacing_ms=2.0, lengths=None,
-                  max_new=32):
+                  max_new=32, slo_ms=None):
     """n requests over the adapters. Prompt lengths: 32-256 tokens, or,
     with lengths="yi", three long prompts of 2,049-4,000 tokens (requests
     0, 3 and 6, so the prefill bucket reaches 4,096) among short ones, or,
     with lengths="dense", 32-480 tokens with every fourth request (0, 4,
-    8) at 449-480, so its positions pass 512 within 64 new tokens."""
+    8) at 449-480, so its positions pass 512 within 64 new tokens.
+    `slo_ms` is each request's time-per-token SLO."""
     import numpy as np
     from repro_torch.serving.request import Request
     rng = np.random.default_rng(seed)
@@ -511,7 +539,7 @@ def make_requests(cfg, uids, n, seed, spacing_ms=2.0, lengths=None,
         out.append(Request(rid=i, adapter_uid=uids[i % len(uids)],
                            prompt=prompt.astype(np.int32),
                            max_new_tokens=max_new,
-                           arrival_ms=spacing_ms * i))
+                           arrival_ms=spacing_ms * i, slo_tpt_ms=slo_ms))
     return out
 
 
@@ -521,6 +549,32 @@ def _counters():
             "lora_shrink": bgmv.lora_shrink,
             "lora_expand": bgmv.lora_expand,
             "flash_attention": flash.flash_attention}
+
+
+def time_backend_calls(torch, be, spans, decode_tokens):
+    """Wrap a server's backend calls so each records a CUDA event on the
+    stream at its start and its end into `spans` (by kind: prefill, chunk,
+    decode), with no host synchronization added, and counts the decode
+    tokens each decode or megastep call produces into decode_tokens[0].
+    Several servers may share one `spans`."""
+    def timed(fn, kind, count):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(*a, **kw)
+            end.record()
+            spans[kind].append((start, end))
+            decode_tokens[0] += count(*a)
+            return res
+        return run
+
+    be.prefill_admitted = timed(be.prefill_admitted, "prefill",
+                                lambda states: 0)
+    be.prefill_chunk = timed(be.prefill_chunk, "chunk", lambda *a: 0)
+    be.decode = timed(be.decode, "decode", lambda ready, *a: len(ready))
+    be.megastep = timed(be.megastep, "decode",
+                        lambda ready, nsteps, *a: sum(nsteps))
 
 
 def serve_phase(torch, cfg, runs, phase, params=None):
@@ -551,25 +605,7 @@ def serve_phase(torch, cfg, runs, phase, params=None):
         be = srv.backend
         spans = {"prefill": [], "chunk": [], "decode": []}
         decode_tokens = [0]
-
-        def timed(fn, kind, count):
-            def run(*a, **kw):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                res = fn(*a, **kw)
-                end.record()
-                spans[kind].append((start, end))
-                decode_tokens[0] += count(*a)
-                return res
-            return run
-
-        be.prefill_admitted = timed(be.prefill_admitted, "prefill",
-                                    lambda states: 0)
-        be.prefill_chunk = timed(be.prefill_chunk, "chunk", lambda *a: 0)
-        be.decode = timed(be.decode, "decode", lambda ready, *a: len(ready))
-        be.megastep = timed(be.megastep, "decode",
-                            lambda ready, nsteps, *a: sum(nsteps))
+        time_backend_calls(torch, be, spans, decode_tokens)
         counters = _counters()
         for fn in counters.values():
             fn.launches = 0
@@ -806,6 +842,312 @@ def dense_logits_phase(torch, cfg, params):
               f"relative {err / scale:.3e} (limit {tol}); greedy tokens "
               f"agree on {same}/{B} rows", flush=True)
     del srv, dense, quant, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------- phase 3d ----
+
+# 24 requests of 32-256 prompt tokens and 32 new ones each, 2 ms apart:
+# every output stays inside the 512-slot ring, where a crash failover's
+# replay is exact
+CLUSTER_REQUESTS = {"n": 24, "seed": SEED + 4}
+# (label, router, kernel, crash server 1 and restart it)
+CLUSTER_ARMS = [("(a) rank_aware bgmv", "rank_aware", "bgmv", False),
+                ("(b) rank_aware mbgmv", "rank_aware", "mbgmv", False),
+                ("(c) most_idle bgmv", "most_idle", "bgmv", False),
+                ("(d) rank_aware bgmv, crash", "rank_aware", "bgmv", True)]
+SUMMARY_KEYS = ("n", "shed", "recovered", "failovers", "slo_attainment",
+                "ttft_mean", "ttft_p99", "tpt_mean", "tpt_p99",
+                "latency_mean", "cold_starts")
+
+
+def cluster_phase(torch, cfg, params):
+    """Phase 3d: two full-width llama2-7b servers over one copy of the
+    weights (`params`; each server has its own page pool and adapter pool)
+    behind the router, as a user runs `core.cluster.Cluster`. Arms on the
+    same 24 requests: (a) Algorithm 1 over kernel="bgmv", (b) over "mbgmv"
+    (the sum-rank law), (c) MOSTIDLE over "bgmv", (d) arm (a) with server 1
+    crashed while its first request decodes and restarted later (times on
+    the simulated timeline, read from arm (a)'s, which arm (d) repeats up
+    to the crash). The SLO is the reference CLI's: 1.5 x DecPerf of a full
+    batch at rank 64. Each arm must finish every request with its tokens,
+    shed none, launch the flash, paged, shrink and expand kernels, and stay
+    below the card's memory; (a)-(c) must route to both servers; (d) must
+    crash, restart and recover a live request, and peak at most one KV
+    pool above (a). Decode tokens/s come from CUDA-event spans around both
+    servers' backend calls (`time_backend_calls`), summed."""
+    import numpy as np
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.faults import FaultEvent, FaultPlane
+    from repro_torch.core.perf_model import ServerPerfModel
+    from repro_torch.core.scheduler import make_scheduler
+    print("phase 3d: a cluster of two full-width llama2-7b servers on the "
+          "card behind the router", flush=True)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    out, crash = [], None
+    for label, policy, kernel, faulted in CLUSTER_ARMS:
+        t_init = time.perf_counter()
+        servers, uids = [], None
+        for _ in range(2):
+            srv, uids = make_server(torch, cfg, kernel, params)
+            servers.append(srv)
+        check(all(s.params is params for s in servers),
+              f"{label}: the servers do not share the weights")
+        perf = ServerPerfModel(cfg, kernel=kernel)
+        slo = 1.5 * perf.dec_perf([64] * 8)
+        reqs = make_requests(cfg, uids, slo_ms=slo, **CLUSTER_REQUESTS)
+        sched = make_scheduler(policy, perf, slo_ms=slo) \
+            if policy == "rank_aware" else make_scheduler(policy)
+        plane = None
+        if faulted:
+            plane = FaultPlane([FaultEvent(crash[0], "crash", 1),
+                                FaultEvent(crash[1], "restart", 1)])
+        cl = Cluster(servers, sched, faults=plane)
+        routes, route = [], cl._route
+
+        def rec(req, now_ms=None, allow_shed=True):
+            idx = route(req, now_ms=now_ms, allow_shed=allow_shed)
+            routes.append((req.rid, idx, allow_shed))
+            return idx
+
+        cl._route = rec
+        spans = {"prefill": [], "chunk": [], "decode": []}
+        decode_tokens = [0]
+        for srv in servers:
+            time_backend_calls(torch, srv.backend, spans, decode_tokens)
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for t in servers[0].backend.cache.values())
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t_init
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary, states = cl.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        decode_ms = float(sum(s.elapsed_time(e) for s, e in spans["decode"]))
+        arrivals = [sum(1 for _, i, fresh in routes if fresh and i == k)
+                    for k in range(2)]
+        check(summary["n"] == len(reqs) and summary["shed"] == 0,
+              f"{label}: {summary['n']} of {len(reqs)} requests finished, "
+              f"{summary['shed']} shed")
+        for st in states:
+            check(len(st.generated) == st.req.max_new_tokens
+                  and all(0 <= t < cfg.vocab for t in st.generated),
+                  f"{label}: request {st.req.rid} produced "
+                  f"{len(st.generated)} of {st.req.max_new_tokens} tokens")
+        for n, c in launches.items():
+            check(c > 0, f"{label}: kernel {n} never launched on the path")
+        check(peak < card_bytes, f"{label}: peak {peak} B >= the card's "
+              f"{card_bytes} B")
+        if faulted:
+            fs = cl.fault_stats
+            check(fs["crashes"] == 1 and fs["restarts"] == 1
+                  and summary["recovered"] > 0,
+                  f"{label}: crashes {fs['crashes']}, restarts "
+                  f"{fs['restarts']}, recovered {summary['recovered']}")
+            check(peak <= out[0]["peak_mem_bytes"] + pool_bytes,
+                  f"{label}: peak {peak} B grew by more than a KV pool "
+                  f"({pool_bytes} B) over arm (a)'s")
+        else:
+            check(min(arrivals) > 0, f"{label}: routes {arrivals}: a "
+                  "server took no request")
+        rec_ = {"run": label, "policy": policy, "kernel": kernel,
+                "requests": len(reqs), "slo_ms_simulated": slo,
+                "routes_per_server": arrivals,
+                "failover_routes": [i for _, i, fresh in routes
+                                    if not fresh],
+                "wall_s": wall, "setup_s": init_s,
+                "prefill_calls": len(spans["prefill"]),
+                "decode_calls": len(spans["decode"]),
+                "decode_tokens": decode_tokens[0], "decode_ms": decode_ms,
+                "decode_tok_s": 1e3 * decode_tokens[0] / decode_ms,
+                "tok_s_wall": sum(len(st.generated) for st in states) / wall,
+                "peak_mem_bytes": peak, "peak_mem_gib": peak / 2 ** 30,
+                "kv_pool_bytes": pool_bytes, "launches": launches,
+                "fault_stats": dict(cl.fault_stats),
+                "simulated_h100_timeline": {k: summary[k]
+                                            for k in SUMMARY_KEYS},
+                "generated": {st.req.rid: list(map(int, st.generated))
+                              for st in states}}
+        if faulted:
+            a = out[0]["generated"]
+            rec_["agree_with_a"] = sum(rec_["generated"][r] == a[r]
+                                       for r in a)
+            rec_["crash_restart_ms_simulated"] = list(crash)
+        elif crash is None:
+            # where arm (d) crashes server 1: midway through the decode of
+            # the first request it serves in arm (a), on the simulated
+            # timeline (which arm (d) repeats up to the crash), and where
+            # it restarts: as long again after that
+            first = min(servers[1].states, key=lambda st: st.first_token_ms)
+            mid = 0.5 * (first.first_token_ms + first.finish_ms)
+            crash = (mid, mid + (first.finish_ms - first.first_token_ms))
+        sim = rec_["simulated_h100_timeline"]
+        print(f"  {label}: routes per server {arrivals}, "
+              f"{len(rec_['failover_routes'])} failovers; decode "
+              f"{rec_['decode_tok_s']:.1f} tok/s over both servers; "
+              f"{wall:.2f} s wall; peak {rec_['peak_mem_gib']:.2f} GiB; "
+              f"launches {launches}", flush=True)
+        print(f"    simulated on the H100 timeline (not measured): SLO "
+              f"{slo:.2f} ms/token, attainment {sim['slo_attainment']:.3f}, "
+              f"TTFT mean {sim['ttft_mean']:.1f} ms, TPT mean "
+              f"{sim['tpt_mean']:.2f} ms, recovered {sim['recovered']}"
+              + (f"; tokens agree with (a) on {rec_['agree_with_a']}/"
+                 f"{len(reqs)} requests" if faulted else ""), flush=True)
+        out.append(rec_)
+        # the wrapped router holds the cluster: drop every reference, so
+        # the next arm's peak holds only its own two servers' pools
+        del cl, servers, srv, states, sched, rec, route, routes
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------- phase 3e ----
+
+FIT_STEPS, FIT_WARM = 32, 3
+
+
+def perf_model_phase(torch, cfg, step):
+    """Phase 3e: the paper's Fig 9 on the card. Phase 4a's decode step (8
+    rows after one prefill) is run FIT_STEPS times per kernel law after
+    FIT_WARM warm-ups; in each step |S| of the 8 rows (1-8) carry adapters
+    of random ranks from {8, 16, 32, 64} and the rest idx -1. Each step is
+    timed with CUDA events on the stream, no synchronization added, as in
+    serving. Perf_BGMV = alpha |S| max r + beta and Perf_MBGMV = alpha sum r
+    + beta are fitted with the port's `fit_linear`, beside the analytic
+    `profile_and_fit` on the H100's data-sheet constants. No gate on R^2."""
+    import numpy as np
+    from repro_torch.core.perf_model import (batch_feature, fit_linear,
+                                             profile_and_fit)
+    from repro_torch.models import model as model_lib
+    print("phase 3e: the rank-aware performance model on the card (Fig 9)",
+          flush=True)
+    srv = step["keepalive"][0]
+    be = srv.backend
+    pipe = be.pipe
+    act = pipe.active & (pipe.pos < pipe.target)
+    uids = sorted(srv.store.specs, key=lambda u: (srv.store.specs[u].rank,
+                                                  u))
+    stacked = be._lora_arg_stacked(uids)
+    ranks_of = [srv.store.specs[u].rank for u in uids]
+    rng = np.random.default_rng(SEED + 21)
+    out = {}
+    for kernel in ("bgmv", "mbgmv"):
+        feats, rank_sets, evs = [], [], []
+        for i in range(FIT_WARM + FIT_STEPS):
+            n_s = int(rng.integers(1, 9))
+            rows = rng.choice(8, n_s, replace=False)
+            slots = rng.choice(len(uids), n_s)
+            idx = np.full(8, -1, np.int32)
+            idx[rows] = slots
+            lora = {"pool": stacked["pool"], "mode": kernel,
+                    "idx": torch.as_tensor(idx, device="cuda")}
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            with torch.no_grad():
+                logits, _ = model_lib.decode(
+                    cfg, be.params, be.cache, pipe.last_tok[:, None],
+                    pipe.pos, lora=lora, write_mask=act,
+                    block_table=pipe.block_table)
+                logits[:, -1].argmax(-1)
+            e.record()
+            if i >= FIT_WARM:
+                ranks = [ranks_of[j] for j in slots]
+                rank_sets.append(ranks)
+                feats.append(batch_feature(ranks, kernel))
+                evs.append((s, e))
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in evs]
+        fit = fit_linear(feats, ms, kernel)
+        model, _ = profile_and_fit(cfg, kernel)
+        ratio = [model.predict(r) / m for r, m in zip(rank_sets, ms)]
+        out[kernel] = {
+            "steps": FIT_STEPS, "feature": feats, "step_ms": ms,
+            "card_fit": {"alpha": fit.alpha, "beta": fit.beta, "r2": fit.r2},
+            "analytic_h100": {"alpha": model.alpha, "beta": model.beta,
+                              "r2": model.r2},
+            "predicted_over_measured_mean": float(np.mean(ratio)),
+            "step_ms_median": float(np.median(ms))}
+        print(f"  {kernel}: card fit alpha {fit.alpha:.4e} ms, beta "
+              f"{fit.beta:.3f} ms, R^2 {fit.r2:.3f} over {FIT_STEPS} steps "
+              f"(median {np.median(ms):.2f} ms); analytic H100 model alpha "
+              f"{model.alpha:.4e} ms, beta {model.beta:.3f} ms, R^2 "
+              f"{model.r2:.3f}; predicted / measured step time "
+              f"{np.mean(ratio):.3f}", flush=True)
+    return out
+
+
+# ------------------------------------------------------------ phase A ----
+
+def f32_arms_phase(torch, cfg):
+    """Phase A: are the yi-9b arms' bf16 differences (phase 3b) near-ties
+    or a fault? Full-width yi-9b in float32 (seeded as in phase 3b), phase
+    3b's requests, monolithic (the f32 flash kernel) and chunk_budget=512
+    (plain chunk attention) arms; every request's tokens must agree. Where
+    a request's tokens part, its common prefix (prompt + the tokens both
+    arms emitted) is prefilled once through the flash kernel and once
+    through the plain attention, and at the last position each side's
+    top-2 logit margin is set beside the two sides' logit difference: a
+    margin below the difference is a near-tie (recorded, not a failure),
+    a margin above it a fault (the phase raises)."""
+    from repro_torch.models import model as model_lib
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    recs, params = serve_phase(torch, f32, [
+        (f"f32 {label}", kernel, kw, req)
+        for label, kernel, kw, req in YI_RUNS], "A")
+    a, b = recs[0]["generated"], recs[1]["generated"]
+    out = {"runs": [{k: r[k] for k in ("run", "requests", "tokens",
+                                       "wall_s", "decode_tok_s",
+                                       "peak_mem_gib", "launches")}
+                    for r in recs],
+           "requests": len(a), "agree": sum(a[r] == b[r] for r in a),
+           "diverged": []}
+    reqs = {r.rid: r for r in make_requests(cfg, [""] * 8, **YI_REQUESTS)}
+    for rid in a:
+        if a[rid] == b[rid]:
+            continue
+        k = next(i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
+                 if x != y)
+        prefix = list(map(int, reqs[rid].prompt)) + a[rid][:k]
+        toks = torch.as_tensor([prefix], dtype=torch.int32, device="cuda")
+
+        def logits():
+            with torch.no_grad():
+                lg, _ = model_lib.prefill(f32, params, {"tokens": toks},
+                                          last_only=True)
+            return lg[0, -1].float()
+
+        lk = logits()
+        with plain_attention():
+            lp = logits()
+        margins = [float(t[0] - t[1]) for t in
+                   (lk.topk(2).values, lp.topk(2).values)]
+        diff = float((lk - lp).abs().max())
+        tie = min(margins) < diff
+        out["diverged"].append({
+            "rid": rid, "prompt_tokens": reqs[rid].prompt_len,
+            "first_differing_token": k, "top2_margin_flash": margins[0],
+            "top2_margin_plain": margins[1], "logit_diff": diff,
+            "max_abs_logit": float(lp.abs().max()), "near_tie": tie})
+        print(f"  request {rid}: tokens part at {k}; top-2 margin flash "
+              f"{margins[0]:.3e}, plain {margins[1]:.3e}; logit difference "
+              f"{diff:.3e}; max |logit| {float(lp.abs().max()):.3e}: "
+              f"{'near-tie' if tie else 'FAULT'}", flush=True)
+        check(tie, f"phase A: request {rid} parts at token {k} with a "
+              f"top-2 margin {min(margins):.3e} above the logit difference "
+              f"{diff:.3e}: a fault, not a near-tie")
+    print(f"  f32 yi-9b: monolithic and chunked arms agree on "
+          f"{out['agree']}/{out['requests']} requests", flush=True)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return out

@@ -18,7 +18,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core.cluster import Cluster  # noqa: E402
 from repro_torch.core.engine import InferenceServer  # noqa: E402
+from repro_torch.core.faults import FaultEvent, FaultPlane  # noqa: E402
+from repro_torch.core.perf_model import ServerPerfModel  # noqa: E402
+from repro_torch.core.scheduler import make_scheduler  # noqa: E402
 from repro_torch.core.lora import AdapterSpec  # noqa: E402
 from repro_torch.kernels import bgmv, flash, ops, paged, ref  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
@@ -225,6 +229,53 @@ def test_temperature_streams_on_card_repeat_under_one_seed(card, memory):
     assert toks[0] == toks[1]
     assert toks[0] != toks[2]
     assert all(0 <= t < cfg.vocab for st in a.states for t in st.generated)
+
+
+def _smoke_cluster(device, params=None, crash=None):
+    """Two llama2-7b-smoke servers (f32) over one weight set behind the
+    rank-aware router; `crash` = (crash, restart) times of server 1."""
+    cfg = get_config("llama2-7b").smoke()
+    servers = []
+    for _ in range(2):
+        srv = InferenceServer(cfg, mode="caraserve", max_batch=4,
+                              cache_slots=64, seed=0, device=device,
+                              params=params)
+        params = srv.params
+        for i, r in enumerate((8, 4, 2, 8)):
+            srv.register_adapter(AdapterSpec(f"ad{i}", r, cfg.name))
+        servers.append(srv)
+    perf = ServerPerfModel(get_config("llama2-7b"), kernel="bgmv")
+    plane = FaultPlane([FaultEvent(crash[0], "crash", 1),
+                        FaultEvent(crash[1], "restart", 1)]) \
+        if crash else None
+    cl = Cluster(servers, make_scheduler(
+        "rank_aware", perf, slo_ms=1.5 * perf.dec_perf([64] * 4)),
+        faults=plane)
+    rng = np.random.default_rng(5)
+    out, states = cl.run([Request(i, f"ad{i % 4}", rng.integers(
+        0, cfg.vocab, 10 + 3 * i).astype(np.int32), 10, 4.0 * i)
+        for i in range(6)])
+    return cl, out, {s.req.rid: s.generated for s in states}
+
+
+def test_cluster_crash_on_card_matches_cluster_on_cpu(card):
+    """The cluster plane with numerics on the card: two servers sharing
+    one weight set, server 1 crashed while its first request decodes and
+    restarted; the recompute failover re-prefills through the flash kernel
+    and decodes through the paged and LoRA kernels, and every request's
+    tokens equal the CPU cluster's and the unfailed run's (f32)."""
+    cl, _, want = _smoke_cluster("cpu")
+    first = min(cl.servers[1].states, key=lambda st: st.first_token_ms)
+    mid = 0.5 * (first.first_token_ms + first.finish_ms)
+    crash = (mid, mid + first.finish_ms - first.first_token_ms)
+    params = copy.deepcopy(cl.servers[0].params)
+    _, cpu_out, cpu = _smoke_cluster("cpu", params, crash)
+    n = flash.flash_attention.launches
+    gpu_cl, gpu_out, gpu = _smoke_cluster("cuda", params.to(card), crash)
+    assert flash.flash_attention.launches > n
+    assert gpu_cl.fault_stats["crashes"] == 1
+    assert gpu_out["recovered"] == cpu_out["recovered"] > 0
+    assert gpu == cpu == want
 
 
 def _rows_close(got, want, tol, floor):
