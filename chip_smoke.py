@@ -15,16 +15,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      pages, GQA groups 1/4/8, paged attention in one block a row (llama2-
      7b's 8 x 32) and with each row's table split over blocks (a 3,000-
      token row beside short ones at yi-9b's 8 x 4, 2,400-2,500-token rows
-     at groups 1 and 8), NaN in every page a row does not own (llama2-7b
-     and yi-9b shapes), idx = -1
+     at groups 1, 6 and 8; mistral-large's group 12 at hd 128 in one split
+     and in many, dbrx/grok's group 6), NaN in every page a row does not
+     own (llama2-7b, yi-9b and mistral-large shapes), idx = -1
      rows and ranks 8/16/32/64 under BGMV and MBGMV, the shrink on both
      its paths (8 and 64 rows: split d_in; prefill rows in runs of 1/17/
      32/64/4,096 per slot, a ragged last tile, whole tiles of idx -1 rows,
      and yi-9b's 32,768 rows: row tiles), the expand on both of its (1, 8
      and 64 rows: decode; 65 to 32,768 rows: row tiles), d_out 512 / 4,096
-     and a ragged 136 (f32), every kernel repeatable bitwise; flash attention at
+     and a ragged 136 (f32), both at llama2-13b's d 5,120 and mistral-
+     large's d 12,288 (d_out 12,288 and 1,024), every kernel repeatable
+     bitwise; flash attention at
      yi-9b's long prompt (bf16, B 2, H 32 over KV 4, hd 128, L 4096,
-     causal), at llama2-7b's (H = KV = 32, L 256), both on (B, L, H, hd)
+     causal), at llama2-7b's (H = KV = 32, L 256), llama2-13b's (H = KV =
+     40), mistral-large's (96 over 8) and dbrx/grok's (48 over 8), all on
+     (B, L, H, hd)
      views as the model passes them, in bf16 at hd 32/64/128 with Lq !=
      Lk, lengths no multiple of the 128-key tile, windows, causal=False
      and GQA groups 1/4/8, and at smoke shapes in f32 (non-causal,
@@ -90,9 +95,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      (f32 flash kernel) and chunk_budget=512 arms; their tokens must
      agree, or, where they part, the top-2 logit margin there must lie
      below the flash-vs-plain logit difference (a near-tie, printed);
+  F. the rest of the decoder family at full width, one config at a time
+     (seeded bf16 weights on the card, each freed before the next):
+     llama2-13b whole (40 layers), llama2-70b (24 of 80 layers), qwen2-
+     72b (22 of 80, q/k/v bias), command-r-35b (24 of 40), mistral-large-
+     123b (15 of 88, GQA group 12), dbrx-132b (6 of 40, 16 experts top-4)
+     and grok-1-314b (4 of 64, 8 experts top-2, GeGLU): 8 requests of
+     32-256 prompt tokens and 16 new tokens each under kernel="bgmv"
+     (also "mbgmv" on llama2-13b and dbrx-132b), every kernel launched
+     (paged attention at groups 12 and 6 included, flash on every
+     prefill), then one decode step's logits through the kernels vs the
+     plain versions within 5e-2 of max |logit| on every row; on the MoE
+     configs the plain pass replays the kernel pass's expert choices, so
+     the drops are equal layer by layer (checked) and the rows whose
+     plain router alone would have chosen otherwise (near-ties) are
+     printed; the llama2-13b and dbrx decode steps are profiled; paged
+     attention is timed at layer 0 of mistral-large's first decode step
+     (phase 5a's row);
   then one {"kernels": [...]} line (the six TPU kernels' rows, the
-  prefill shrink and expand rows and the yi-9b paged row) and the last
-  line {"ok": true, "device": {...}}.
+  prefill shrink and expand rows and the yi-9b and mistral-large paged
+  rows) and the last line {"ok": true, "device": {...}}.
 
 Tolerances (kernel vs plain version on the same inputs), per output row b
 (per query row (b, h, i) for attention): bf16 max|kernel[b] - plain[b]|
@@ -125,6 +147,14 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def smi_reading():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "build.py").is_file():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -138,10 +168,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_reading()
     # the card host's cores: the timeline model's cpu_cores
     # (repro_torch.core.timing.CARD_HOST_CORES)
     print(f"{smi}; host os.cpu_count() = {os.cpu_count()}", flush=True)
@@ -184,11 +211,15 @@ def main() -> int:
     kernels.append(flash_timing(torch, capture["args"], errs, yi_serving))
     kernels.append(shrink_prefill_timing(torch, lora_args, yi_serving))
     kernels.append(expand_prefill_timing(torch, lora_args, yi_serving))
-    kernels.append(paged_yi_timing(torch, capture["decode"], yi_serving))
+    kernels.append(paged_capture_timing(
+        torch, capture["decode"], yi_serving, "paged_attention[yi-9b]",
+        "yi-9b decode", min_pos=YI_LONG_POS))
     del yi_params, capture, lora_args
     gc.collect()
     torch.cuda.empty_cache()
     report["yi_f32_arms"] = f32_arms_phase(torch, yi)
+    report["families"], mistral_row = family_phase(torch)
+    kernels.append(mistral_row)
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -311,6 +342,14 @@ def kernel_checks(torch):
              ("GQA 4 bf16", 8, 32, 8, 128, 32, 16, 176, bf, True, None),
              ("yi-9b long rows GQA 8 bf16", 8, 32, 4, 128, 32, 128, 200, bf,
               True, yi_ctx),
+             ("mistral-large GQA 12 one split bf16", 8, 96, 8, 128, 32, 4,
+              40, bf, True, None),
+             ("mistral-large GQA 12 long rows bf16", 8, 96, 8, 128, 32, 128,
+              200, bf, True, yi_ctx),
+             ("dbrx/grok GQA 6 bf16", 8, 48, 8, 128, 32, 16, 176, bf, True,
+              None),
+             ("GQA 6 long row splits f32", 3, 12, 2, 128, 32, 96, 100, f32,
+              False, [0, 2500, 9]),
              ("MHA long row splits bf16", 3, 4, 4, 128, 32, 96, 100, bf,
               False, [0, 2500, 9]),
              ("smoke f32", 4, 4, 4, 32, 32, 2, 10, f32, False, None),
@@ -341,7 +380,8 @@ def kernel_checks(torch):
         check(bool((got[0] == 0).all()), "row with no claimed page != 0")
         check(torch.equal(got, paged_attention(*args)),
               f"paged_attention {label}: two runs differ")
-        if full and label.startswith(("llama2-7b", "yi-9b")):
+        if full and label.startswith(("llama2-7b", "yi-9b",
+                                      "mistral-large")):
             # tenant isolation: NaN in every page a row does not own must
             # leave that row's output bitwise unchanged
             for b in range(B):
@@ -382,6 +422,18 @@ def kernel_checks(torch):
                y8, 16, bf, True, 4096),
               ("yi-9b prefill 32768 rows bf16", 32768, 4096, 512, 64, y8,
                16, bf, True, 4096),
+              ("llama2-13b decode d 5120 bf16", 8, 5120, 5120, 64, y8, 16,
+               bf, True, 0),
+              ("llama2-13b prefill 2048 rows d 5120 bf16", 2048, 5120, 5120,
+               64, y8, 16, bf, True, 256),
+              ("mistral-large decode d 12288 bf16", 8, 12288, 12288, 64, y8,
+               16, bf, True, 0),
+              ("mistral-large decode d_in 12288 d_out 1024 bf16", 8, 12288,
+               1024, 64, y8, 16, bf, True, 0),
+              ("mistral-large prefill 2048 rows d 12288 bf16", 2048, 12288,
+               12288, 64, y8, 16, bf, True, 256),
+              ("mistral-large prefill 2048 rows d_out 1024 bf16", 2048,
+               12288, 1024, 64, y8, 16, bf, True, 256),
               ("smoke f32", 8, 128, 128, 8, [8, 3, 5, 1], 4, f32, False, 0),
               ("smoke prefill f32", 96, 128, 128, 8, [8, 3, 5, 1], 4, f32,
                False, 0),
@@ -439,6 +491,12 @@ def kernel_checks(torch):
                bf, True),
               ("llama2-7b L 256 bf16", 8, 32, 32, 256, 256, 128, True, None,
                bf, True),
+              ("llama2-13b H 40 MHA L 256 bf16", 8, 40, 40, 256, 256, 128,
+               True, None, bf, True),
+              ("mistral-large GQA 12 L 256 bf16", 8, 96, 8, 256, 256, 128,
+               True, None, bf, True),
+              ("dbrx/grok GQA 6 L 256 bf16", 8, 48, 8, 256, 256, 128, True,
+               None, bf, True),
               ("GQA 8 window 128 ragged bf16", 2, 16, 2, 1000, 1000, 64,
                True, 128, bf, False),
               ("hd 32 GQA 1 Lq < Lk ragged view bf16", 2, 8, 8, 200, 333, 32,
@@ -474,6 +532,9 @@ def kernel_checks(torch):
         note("flash_attention", check_close(
             f"flash_attention {label}", got.reshape(-1, hd),
             want.reshape(-1, hd), dt), full)
+        check(torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                               window=window)),
+              f"flash_attention {label}: two runs differ")
         del q, k, v, got, want
     torch.cuda.synchronize()
     return worst
@@ -1153,6 +1214,74 @@ def f32_arms_phase(torch, cfg):
     return out
 
 
+# ------------------------------------------------------------ phase F ----
+
+# (config, layers kept on the card or None for all, an extra "mbgmv"
+# run): each cut keeps the bf16 weights near 40 GiB (PERF.md section 4)
+FAMILY = [("llama2-13b", None, True), ("llama2-70b", 24, False),
+          ("qwen2-72b", 22, False), ("command-r-35b", 24, False),
+          ("mistral-large-123b", 15, False), ("dbrx-132b", 6, True),
+          ("grok-1-314b", 4, False)]
+FAMILY_REQUESTS = {"n": 8, "seed": SEED + 5, "max_new": 16}
+# whose decode step is profiled: the paper's second model, and a MoE
+FAMILY_PROFILED = ("llama2-13b", "dbrx-132b")
+SUMMARY_RUN_KEYS = ("run", "kernel", "requests", "tokens", "wall_s",
+                    "setup_s", "prefill_calls", "prefill_ms_median",
+                    "prefill_ms_max", "decode_calls", "decode_tokens",
+                    "decode_ms", "decode_tok_s", "peak_mem_gib", "launches",
+                    "transfer_stats")
+
+
+def family_phase(torch):
+    """Phase F: the rest of the decoder family at full width, one config at
+    a time, each freed before the next: seeded bf16 weights on the card,
+    depth cut as FAMILY says, served as phase 3a serves llama2-7b (8
+    requests of 32-256 prompt tokens, 16 new tokens, bgmv; mbgmv too on
+    llama2-13b and dbrx-132b) with every kernel's launches checked, then
+    one decode step's logits through the kernels against the plain
+    versions (on the MoE configs with the kernel pass's routing replayed
+    and compared layer by layer: `moe_agreement`), profiled on
+    FAMILY_PROFILED. Returns the
+    per-config summaries and phase 5a's paged-attention row at
+    mistral-large's first decode step (GQA group 12)."""
+    from repro_torch.configs.base import get_config
+    print(f"phase F: the rest of the decoder family at full width on "
+          f"{smi_reading()}", flush=True)
+    out, row = [], None
+    for name, layers, mbgmv in FAMILY:
+        full = get_config(name)
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+        runs = [("bgmv", "bgmv", {}, FAMILY_REQUESTS)]
+        if mbgmv:
+            runs.append(("mbgmv", "mbgmv", {}, FAMILY_REQUESTS))
+        capture = {}
+        with capture_first_decode(capture):
+            recs, params = serve_phase(torch, cfg, runs, "F")
+        weights = sum(t.numel() * t.element_size()
+                      for t in params.parameters()) / 2 ** 30
+        step = logits_phase(torch, cfg, params, phase="F",
+                            profile=name in FAMILY_PROFILED)
+        if name == "mistral-large-123b":
+            row = paged_capture_timing(
+                torch, capture["decode"], recs, "paged_attention"
+                "[mistral-large]", "mistral-large decode")
+        out.append({
+            "model": name, "layers": cfg.n_layers,
+            "published_layers": full.n_layers,
+            "gqa_group": cfg.n_heads // cfg.n_kv_heads,
+            "weights_gib": weights,
+            "runs": [{k: r[k] for k in SUMMARY_RUN_KEYS} for r in recs],
+            "decode_logits": step["logits"],
+            "decode_profile": step.get("profile")})
+        print(f"  {name}: {cfg.n_layers}/{full.n_layers} layers, "
+              f"{weights:.2f} GiB of weights, peak "
+              f"{max(r['peak_mem_gib'] for r in recs):.2f} GiB", flush=True)
+        del step, params, capture, recs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, row
+
+
 # ------------------------------------------------------------ phase 4 ----
 
 @contextlib.contextmanager
@@ -1255,14 +1384,19 @@ def plain_attention():
         ops.attention = saved
 
 
-def logits_phase(torch, cfg, params):
+def logits_phase(torch, cfg, params, phase="4a", profile=True):
     """Phase 4a: admit 8 requests at once, serve them up to their first
     decode step, then run
     the next decode step twice on copies of the KV pool — through the
-    kernels and through the plain versions — and compare the logits."""
+    kernels and through the plain versions — and compare the logits of
+    every row. On a MoE config the plain pass replays the kernel pass's
+    expert choices (`replay_routing`), so that both fill each expert's
+    capacity alike and the routing is compared layer by layer
+    (`moe_agreement`)."""
     from repro_torch.models import model as model_lib
-    print("phase 4a: decode-step logits, kernels vs plain versions",
-          flush=True)
+    from repro_torch.models.moe import record_routing
+    print(f"phase {phase}: {cfg.name} decode-step logits, kernels vs plain "
+          "versions", flush=True)
     srv, uids = make_server(torch, cfg, "bgmv", params)
     for r in make_requests(cfg, uids, 8, SEED + 7, spacing_ms=0.0):
         srv.submit(r)
@@ -1283,29 +1417,101 @@ def logits_phase(torch, cfg, params):
                 lora=lora, write_mask=act, block_table=pipe.block_table)
         return logits[:, -1].float(), cache
 
-    with capture_first_calls(store):
+    with capture_first_calls(store), record_routing() as routes_k:
         lk, cache_k = step_logits()
-    with plain_ops():
+    with plain_ops(), replay_routing(routes_k), \
+            record_routing() as routes_p:
         lp, _ = step_logits()
     torch.cuda.synchronize()
-    err = float((lk - lp).abs().max())
+    check(bool(torch.isfinite(lk).all()), f"phase {phase}: non-finite "
+          "logits")
+    moe = moe_agreement(torch, cfg, routes_k, routes_p, phase) \
+        if cfg.moe else {}
     scale = float(lp.abs().max())
-    check(bool(torch.isfinite(lk).all()), "phase 4: non-finite logits")
+    err = float((lk - lp).abs().max())
     check(err <= LOGIT_TOL * scale,
-          f"phase 4: logits max abs err {err:.3e} > {LOGIT_TOL} * "
+          f"phase {phase}: logits max abs err {err:.3e} > {LOGIT_TOL} * "
           f"{scale:.3e}")
     same = int((lk.argmax(-1) == lp.argmax(-1))[act].sum())
+    note = ""
+    if cfg.moe:
+        note = (f"; expert drops per layer {moe['drops_kernels']} / "
+                f"{moe['drops_plain']} (kernels / plain, routing replayed), "
+                f"router probabilities within {moe['max_prob_delta']:.2e}, "
+                f"near-ties the replay took {moe['near_ties']}")
     print(f"  logits max abs err {err:.4e}, max |logit| {scale:.4e}, "
           f"relative {err / scale:.3e} (limit {LOGIT_TOL}); greedy tokens "
-          f"agree on {same}/{int(act.sum())} active rows", flush=True)
-    store["profile"] = profile_step(torch, step_logits,
-                                    "one llama2-7b decode step")
+          f"agree on {same}/{int(act.sum())} active rows{note}", flush=True)
+    if profile:
+        store["profile"] = profile_step(torch, step_logits,
+                                        f"one {cfg.name} decode step")
     store["pool_ranks"] = be.pool.pool["ranks"]
     store["logits"] = {"max_abs_err": err, "max_abs_logit": scale,
                        "rel_err": err / scale, "rows": int(act.sum()),
-                       "greedy_agree": same}
+                       "greedy_agree": same, **moe}
     store["keepalive"] = (srv, cache_k)
     return store
+
+
+@contextlib.contextmanager
+def replay_routing(routes):
+    """Make each MoE layer choose the experts that the matching call in
+    `routes` (the kernel pass's, in call order) chose, with gates from its
+    own router probabilities. A bf16 move of ~3e-3 in a router
+    probability can flip a near-tied expert and change that row by O(1);
+    replayed, both passes fill each expert's capacity alike, so their
+    drops are equal and every row's logits are comparable."""
+    from repro_torch.models import moe
+    saved, calls = moe.top_k, iter(routes)
+
+    def replayed(probs, k):
+        idx = next(calls)["idx"]
+        check(idx.shape == probs.shape[:-1] + (k,), "replay_routing: the "
+              "plain pass routed other shapes than the kernel pass")
+        return probs.gather(-1, idx), idx
+
+    moe.top_k = replayed
+    try:
+        yield
+    finally:
+        moe.top_k = saved
+
+
+def moe_agreement(torch, cfg, routes_k, routes_p, phase):
+    """Compare one decode step's routing through the kernels (routes_k)
+    and through the plain versions replaying it (routes_p), layer by
+    layer (one group: every row of the step). Checked: each layer's
+    chosen experts, kept assignments and drop count are equal. Reported:
+    the largest router-probability move between the passes, and the rows
+    whose plain probabilities alone would have chosen other experts (the
+    near-ties the replay took), each with the plain margin between its
+    k-th and (k+1)-th expert and its probability move."""
+    from repro_torch.models.moe import top_k
+    k = cfg.moe.top_k
+    check(len(routes_k) == len(routes_p) == cfg.n_layers,
+          f"phase {phase}: {len(routes_k)} / {len(routes_p)} MoE calls "
+          f"for {cfg.n_layers} layers")
+    ties, max_delta = [], 0.0
+    for layer, (a, b) in enumerate(zip(routes_k, routes_p)):
+        check(torch.equal(a["idx"], b["idx"])
+              and torch.equal(a["keep"], b["keep"]),
+              f"phase {phase}: layer {layer}: the replayed routing differs")
+        pa, pb = a["probs"][0], b["probs"][0]                  # (rows, E)
+        delta = (pa - pb).abs().amax(-1)                       # (rows,)
+        max_delta = max(max_delta, float(delta.max()))
+        own = top_k(pb, k)[1].sort(-1).values
+        chosen = a["idx"][0].sort(-1).values
+        for r in (own != chosen).any(-1).nonzero()[:, 0].tolist():
+            top = pb[r].sort(descending=True).values
+            ties.append({"layer": layer, "row": r,
+                         "margin": float(top[k - 1] - top[k]),
+                         "prob_move": float(delta[r])})
+    drops = [[int(r["dropped"]) for r in rs] for rs in (routes_k, routes_p)]
+    check(drops[0] == drops[1], f"phase {phase}: expert drops per layer "
+          f"{drops[0]} through the kernels, {drops[1]} through the plain "
+          "versions")
+    return {"near_ties": ties, "max_prob_delta": max_delta,
+            "drops_kernels": drops[0], "drops_plain": drops[1]}
 
 
 def prefill_phase(torch, cfg, params):
@@ -1770,24 +1976,23 @@ def expand_prefill_timing(torch, captured, serving):
     return row
 
 
-def paged_yi_timing(torch, args, serving):
-    """Phase 5a's paged-attention row at yi-9b's decode shape: layer 0 of
-    the first decode step of the monolithic arm (8 rows, 32 query heads
-    over 4 KV heads, one row at pos >= YI_LONG_POS), held per row against
-    the plain version and timed as the llama2-7b row is. Launches: the
-    yi-9b monolithic arm's."""
+def paged_capture_timing(torch, args, serving, name, path, min_pos=0):
+    """A phase-5a paged-attention row at a served decode shape: layer 0 of
+    the first decode step of the first run (`capture_first_decode`; yi-9b:
+    8 rows, 32 query heads over 4 KV heads, one row at pos >= YI_LONG_POS;
+    mistral-large: 96 over 8, GQA group 12), held per row against the
+    plain version and timed as the llama2-7b row is. Launches: that run's."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged import paged_attention
-    print("phase 5a: paged attention at the yi-9b decode shape", flush=True)
+    print(f"phase 5a: paged attention at the {path} shape", flush=True)
     q, k, v, pp, bt, pos = args
-    check(int(pos.max()) >= YI_LONG_POS,
-          f"yi-9b decode capture: no row at pos >= {YI_LONG_POS}")
-    err = check_close("paged_attention yi-9b decode (layer 0)",
+    check(int(pos.max()) >= min_pos,
+          f"{path} capture: no row at pos >= {min_pos}")
+    err = check_close(f"paged_attention {path} (layer 0)",
                       paged_attention(*args), ref.paged_attention_ref(*args),
                       q.dtype)
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    row = paged_row(torch, args, flush_buf.zero_,
-                    name="paged_attention[yi-9b]", path="yi-9b decode",
+    row = paged_row(torch, args, flush_buf.zero_, name=name, path=path,
                     launches=serving[0]["launches"]["paged_attention"],
                     max_abs_err=err)
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "

@@ -2,8 +2,10 @@
 
 A copy of the reference's config module whose dtype property yields a
 torch dtype (`torch_dtype`). The port registers only the configs it
-serves (llama2-7b, yi-9b); `smoke()` is unchanged, so the reduced variant has
-the reference's exact shapes.
+serves, the decoder-only dense and MoE family (llama2-7b/13b/70b, yi-9b,
+qwen2-72b, command-r-35b, mistral-large-123b, dbrx-132b, grok-1-314b);
+`smoke()` is unchanged, so the reduced variant has the reference's exact
+shapes.
 """
 from __future__ import annotations
 

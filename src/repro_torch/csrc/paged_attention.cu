@@ -30,11 +30,12 @@
 //    registers. A score is the sum over the L = pow2(hd / 8) lanes of a
 //    head (xor shuffles), so every lane of the head holds it and no score
 //    goes through shared memory. Slot groups tg = 0 .. TG-1 take the
-//    slots t = tg (mod TG) of each page, TG chosen so a block has >= 256
-//    threads (G = 8: 2 slot groups, G = 1: 16), each with its own running
-//    max / sum,
-//    merged at the end in tg order. Sums run in a fixed order: results
-//    repeat bitwise.
+//    slots t = tg (mod TG) of each page, TG = kMaxThreads / (G * L) slot
+//    groups (G = 8: 2, G = 1: 16; G = 6 or 12, hd 128: 2 or 1), each with
+//    its own running max / sum, merged at the end in tg order. A block
+//    holds every (g, c) of its group: the kernel takes G * L <=
+//    kMaxThreads (rt_paged_attention_fits), e.g. G <= 16 at hd 128. Sums
+//    run in a fixed order: results repeat bitwise.
 #include "common.cuh"
 
 namespace {
@@ -273,6 +274,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// 1 when the kernel takes GQA group G at head dim hd: one thread per
+// (query head, 8 columns of hd rounded up to a power of two) in a block.
+extern "C" int rt_paged_attention_fits(int G, int hd) {
+  if (G < 1 || hd < rt::kVec || hd % rt::kVec != 0 || hd > 32 * rt::kVec)
+    return 0;
+  int L = 1;
+  while (L < hd / rt::kVec) L *= 2;
+  return G * L <= kMaxThreads ? 1 : 0;
+}
+
 // nsplit >= 1 runs of block-table columns a row; ws: f32 workspace of
 // B * KV * nsplit * (H / KV) * (hd + 2) floats, unused (may be null) when
 // nsplit == 1.
@@ -283,8 +294,8 @@ extern "C" int rt_paged_attention(const void* q, const void* k_pages,
                                   int P, int ps, int hd, int W, int nsplit,
                                   int dtype, void* stream) {
   if (B == 0) return 0;
-  if (KV <= 0 || H % KV != 0 || (H / KV) * hd > 1024 || hd % rt::kVec != 0 ||
-      hd > 32 * rt::kVec || ps <= 0 || W < 0 || nsplit < 1 ||
+  if (KV <= 0 || H % KV != 0 || !rt_paged_attention_fits(H / KV, hd) ||
+      ps <= 0 || W < 0 || nsplit < 1 ||
       nsplit > (W > 1 ? W : 1) || (nsplit > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -43,6 +43,8 @@ _SIGNATURES = {
     # q, k_pages, v_pages, pos_pages, block_table, pos, out, ws,
     # B, H, KV, P, ps, hd, W, nsplit, dtype, stream
     "rt_paged_attention": [_P] * 8 + [_I] * 9 + [_P],
+    # G (query heads a KV head), hd -> 1 if the paged kernel takes them
+    "rt_paged_attention_fits": [_I, _I],
     # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, dtype,
     # stream
     "rt_lora_shrink": [_P] * 5 + [_I] * 7 + [_P],

@@ -64,10 +64,12 @@ def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
     if not q.is_cuda:
         return ref.paged_attention_ref(q, k_pages, v_pages, pos_pages,
                                        block_table, pos)
-    if (H // KV) * hd > 1024 or hd % 8 or hd > 256:
-        raise ValueError(f"paged_attention: the kernel takes GQA group x hd "
-                         f"<= 1024, hd <= 256 and hd % 8 == 0, got group "
-                         f"{H // KV}, hd {hd}")
+    lib = build.library()
+    if not lib.rt_paged_attention_fits(H // KV, hd):
+        raise ValueError(f"paged_attention: the kernel takes hd a multiple "
+                         f"of 8 up to 256 and GQA group x pow2(hd / 8) <= "
+                         f"256 (one thread per query head and 8 columns), "
+                         f"got group {H // KV}, hd {hd}")
     build.require(q, "q", dtypes=_FLOATS, ndim=3)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         build.require(t, name, dtypes=(q.dtype,), ndim=4, device=q.device)
@@ -76,7 +78,6 @@ def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
         build.require(t, name, dtypes=(torch.int32,), device=q.device)
     build.require_aligned(k_pages, "k_pages")
     build.require_aligned(v_pages, "v_pages")
-    lib = build.library()
     out = torch.empty_like(q)
     nsplit = split_plan(B, KV, W, sm_count(q.device))
     # per split: (m, l, acc) of each query head, combined by the kernel

@@ -5,10 +5,15 @@ three metrics.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
+      --arch dbrx-132b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --cluster 4 \\
       --policy rank_aware
 
-`--arch` names a config the port serves: llama2-7b (default) or yi-9b.
+`--arch` names a config the port serves: llama2-7b (default), llama2-13b,
+llama2-70b, yi-9b, qwen2-72b, command-r-35b, mistral-large-123b, or the
+MoE configs dbrx-132b and grok-1-314b. One card holds llama2-13b whole;
+the larger ones fit it only with `--smoke` or cut in depth.
 
 The timeline is the analytic simulator, so every latency and rate printed
 here is *simulated*. On one server the tokens are computed for real on

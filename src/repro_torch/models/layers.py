@@ -1,7 +1,8 @@
-"""Shared neural building blocks of the dense family: RoPE, GQA attention
-(direct / chunked online-softmax / decode over a cache), the dense and
-paged KV caches, and the MLP. Mirrors `repro.models.layers` (dense,
-int8-quantized and paged caches; no recurrent blocks).
+"""Shared neural building blocks of the decoder family: RoPE, GQA
+attention (direct / chunked online-softmax / decode over a cache, full or
+sliding-window), the dense and paged KV caches, and the gated MLP.
+Mirrors `repro.models.layers` (dense, int8-quantized and paged caches; no
+recurrent blocks).
 
 Conventions:
   activations x: (B, L, D)
@@ -305,36 +306,52 @@ def paged_kv_for_attn(cache, block_table):
     return k, v, kpos.reshape(b, w * ps)
 
 
-def paged_attn_decode(q, cache, block_table, pos):
+def paged_attn_decode(q, cache, block_table, pos, window=None):
     """One-token decode attention straight off the paged cache. q:
     (B, 1, H, hd); block_table (B, W); pos (B,). The device decides: on
     CUDA the paged-attention kernel runs (it reads only the row's claimed
-    pages); on the CPU the pages are gathered and attended densely."""
-    if q.is_cuda:
+    pages); on the CPU the pages are gathered and attended densely.
+    Windowed attention takes the gather path on every device, as in the
+    reference (its kernel has no sliding-window mask)."""
+    if q.is_cuda and window is None:
         out = ops.paged_attention(q[:, 0], cache["k"], cache["v"],
                                   cache["pos"], block_table, pos)
         return out[:, None]
     ck, cv, cpos = paged_kv_for_attn(cache, block_table)
-    return attn_decode(q, ck, cv, cpos, pos)
+    return attn_decode(q, ck, cv, cpos, pos, window=window)
 
 
-def paged_attn_chunk(q, cache, block_table, positions):
+def paged_attn_chunk(q, cache, block_table, positions, window=None):
     """A prefill chunk's attention over its row's pages, the chunk's own K/V
     already written. q (1, C, H, hd); block_table (1, W) the row's pages;
     positions (1, C) absolute. Each query attends the cached slots whose
-    position is >= 0 and <= its own, as the reference's `prefill_chunk`
-    does with `attn_direct`. Plain PyTorch on every device: the reference
-    computes this outside any Pallas kernel."""
+    position is >= 0 and <= its own (and, with a `window`, less than
+    `window` behind it), as the reference's `prefill_chunk` does with
+    `attn_direct`. Plain PyTorch on every device: the reference computes
+    this outside any Pallas kernel."""
     ck, cv, cpos = paged_kv_for_attn(cache, block_table)
     kp = cpos[:, None, :]
-    valid = (kp >= 0) & (kp <= positions[..., None])
+    qp = positions[..., None]
+    valid = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        valid &= (qp - kp) < window
     return attn_direct(q, ck.transpose(1, 2), cv.transpose(1, 2),
                        valid[:, None, None])
 
 
 # ------------------------------------------------------------------ MLP ----
 
+def gate_act(cfg, a, b3):
+    """The gated MLP's activation: SwiGLU (`mlp_act="silu"`) or GeGLU
+    (`"geglu"`, grok's experts). GeGLU's gelu is the tanh approximation:
+    `jax.nn.gelu`'s default, not torch's."""
+    if cfg.mlp_act == "silu":
+        return F.silu(a) * b3
+    if cfg.mlp_act == "geglu":
+        return F.gelu(a, approximate="tanh") * b3
+    raise NotImplementedError(f"mlp_act {cfg.mlp_act!r}")
+
+
 def mlp_apply(cfg, p, x):
-    """SwiGLU (`mlp_act="silu"`, the family's checked activation)."""
-    h = F.silu(dense_apply(p.w1, x)) * dense_apply(p.w3, x)
+    h = gate_act(cfg, dense_apply(p.w1, x), dense_apply(p.w3, x))
     return dense_apply(p.w2, h)

@@ -1,13 +1,14 @@
-"""Family dispatch, dense family only: mirrors `repro.models.model`.
+"""Family dispatch, decoder-only dense and MoE family: mirrors
+`repro.models.model`.
 
   prefill(cfg, params, batch, ...) -> (logits, row caches)
   prefill_chunk(cfg, params, ...)  -> logits of the final chunk, or None
   decode(cfg, params, cache, ...)  -> (logits, cache)
   cache_abstract(cfg, batch, ...)  -> meta-device stand-ins of the cache
 
-The dense family decodes over the dense per-row cache (bf16/f32 or int8
-KV) or the paged pool. Other families raise NotImplementedError
-(ROADMAP.md queue 1).
+The family decodes over the dense per-row cache (bf16/f32 or int8 KV)
+or the paged pool, with full or sliding-window attention. Other families
+raise NotImplementedError (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -45,30 +46,34 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
 
 
 def prefill_chunk(cfg, params, tokens_c, start, clen, cache, page_ids, *,
-                  lora=None, last=False):
+                  lora=None, last=False, window=None):
     """One chunk of an incremental prefill, written into the row's pages of
     the paged pool in place; see transformer.prefill_chunk."""
     if not supports_chunked_prefill(cfg):
         raise ValueError(f"chunked prefill unsupported for {cfg.name}")
     return transformer.prefill_chunk(cfg, params, tokens_c, start, clen,
-                                     cache, page_ids, lora=lora, last=last)
+                                     cache, page_ids, lora=lora, last=last,
+                                     window=window)
 
 
-def prefill(cfg, params, batch, *, lora=None, cache_slots=None,
+def prefill(cfg, params, batch, *, lora=None, cache_slots=None, window=None,
             last_only=False, last_pos=None):
-    """batch: {tokens}. -> (logits, row caches). Full causal attention:
-    the sliding-window variant is not ported yet (ROADMAP.md queue 1)."""
+    """batch: {tokens}. -> (logits, row caches). `window`: sliding-window
+    causal attention (the flash kernel on the card), else full causal."""
     return transformer.prefill(
         cfg, params, batch["tokens"], lora=lora, cache_slots=cache_slots,
-        last_only=last_only, last_pos=last_pos)
+        window=window, last_only=last_only, last_pos=last_pos)
 
 
-def decode(cfg, params, cache, tokens_t, pos, *, lora=None,
+def decode(cfg, params, cache, tokens_t, pos, *, lora=None, window=None,
            write_mask=None, block_table=None):
     """block_table (B, W): the cache is the paged page-pool layout;
-    write_mask (B,) bool: rows with False skip the cache write."""
+    write_mask (B,) bool: rows with False skip the cache write; `window`:
+    sliding-window attention, plain PyTorch on both planes (the paged
+    kernel is full-attention only, as the reference's)."""
     return transformer.decode_step(cfg, params, cache, tokens_t, pos,
-                                   lora=lora, write_mask=write_mask,
+                                   lora=lora, window=window,
+                                   write_mask=write_mask,
                                    block_table=block_table)
 
 
@@ -78,6 +83,12 @@ def decode_cache_slots(cfg: ModelConfig, seq_len: int) -> Optional[int]:
     if cfg.sliding_window and seq_len > 65536:
         return cfg.sliding_window
     return seq_len
+
+
+def decode_window(cfg: ModelConfig, seq_len: int) -> Optional[int]:
+    """The decode window that goes with `decode_cache_slots`."""
+    return cfg.sliding_window if (cfg.sliding_window and seq_len > 65536) \
+        else None
 
 
 def cache_abstract(cfg: ModelConfig, batch: int, seq_len: int):

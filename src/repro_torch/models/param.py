@@ -16,12 +16,13 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """A weight `w` of any layout (the dense family the port serves has no
-    biases)."""
+    """A weight `w` of any layout and an optional bias `b` (only qwen2's
+    q/k/v projections carry one, `cfg.qkv_bias`)."""
 
-    def __init__(self, w: torch.Tensor):
+    def __init__(self, w: torch.Tensor, b: torch.Tensor = None):
         super().__init__()
         self.w = _param(w)
+        self.b = None if b is None else _param(b)
 
 
 class Norm(nn.Module):
@@ -31,7 +32,8 @@ class Norm(nn.Module):
 
 
 def dense_apply(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    return x @ p.w
+    y = x @ p.w
+    return y if p.b is None else y + p.b
 
 
 def norm_apply(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,8 +1,8 @@
-"""Decoder-only dense transformer with LoRA hooks on W_q/W_k/W_v (paper
-sec 7.1): the modules, and the prefill / chunked-prefill / decode
-functions over them, against the dense per-row KV cache (bf16/f32 or
-int8) or the paged pool. Mirrors the dense branch of
-`repro.models.transformer`.
+"""Decoder-only transformer (dense or MoE feed-forward) with LoRA hooks on
+W_q/W_k/W_v (paper sec 7.1): the modules, and the prefill /
+chunked-prefill / decode functions over them, full or sliding-window,
+against the dense per-row KV cache (bf16/f32 or int8) or the paged pool.
+Mirrors the non-hybrid branch of `repro.models.transformer`.
 
 QKV projections are stored 3-D — (d_model, heads, head_dim) — and the
 output projection (heads, head_dim, d_model), the reference's layouts.
@@ -24,6 +24,7 @@ from repro_torch.models.layers import (apply_rope, attn_decode,
                                        cache_write_token_paged, mlp_apply,
                                        paged_attn_chunk, paged_attn_decode,
                                        paged_write_index, rope_tables)
+from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.param import Dense, Norm, norm_apply
 
 ROADMAP_FAMILIES = ("model family or variant not ported to repro_torch yet "
@@ -45,9 +46,16 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, norm1: Norm, attn: Attention, norm2: Norm, mlp: MLP):
+    """The feed-forward is `mlp` (an MLP) or `moe` (a MoE), the
+    reference's leaf name."""
+
+    def __init__(self, norm1: Norm, attn: Attention, norm2: Norm, ffn):
         super().__init__()
-        self.norm1, self.attn, self.norm2, self.mlp = norm1, attn, norm2, mlp
+        self.norm1, self.attn, self.norm2 = norm1, attn, norm2
+        if isinstance(ffn, MoE):
+            self.moe = ffn
+        else:
+            self.mlp = ffn
 
 
 class Transformer(nn.Module):
@@ -65,9 +73,11 @@ class Transformer(nn.Module):
 # ------------------------------------------------------------ attention ----
 
 def _proj(p: Dense, x):
-    """x (B, L, d) @ w (d, n, h) -> (B, L, n, h), as one matmul."""
+    """x (B, L, d) @ w (d, n, h) [+ b (n, h)] -> (B, L, n, h), as one
+    matmul."""
     d, n, h = p.w.shape
-    return (x @ p.w.reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
+    y = (x @ p.w.reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
+    return y if p.b is None else y + p.b
 
 
 def _lora_heads(xn, lora_layer, tgt, idx, ranks, mode, rank_block, live,
@@ -85,9 +95,12 @@ def _plus(y, delta):
 
 def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
                lora_layer=None, lora_idx=None, lora_ranks=None,
-               lora_mode="bgmv", lora_live=None, decode=False, cache=None,
-               write_mask=None, block_table=None, write_index=None):
+               lora_mode="bgmv", lora_live=None, window=None, decode=False,
+               cache=None, write_mask=None, block_table=None,
+               write_index=None):
     """Returns (out, kv). positions: (B, L) prefill / (B,) decode.
+    `window`: keys at or more than `window` positions behind the query
+    are masked (sliding-window attention).
 
     Decode writes the token's K/V into one layer's cache, in place, and
     attends over it; `write_mask` (B,) bool drops the write of frozen
@@ -114,19 +127,21 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
         cache_write_token(cache, k, v, positions, write_mask=write_mask,
                           slot=write_index)
         ck, cv = cache_kv_for_attn(cache, cfg.torch_dtype)
-        out = attn_decode(q, ck, cv, cache["pos"], positions)
+        out = attn_decode(q, ck, cv, cache["pos"], positions, window=window)
     elif decode:
         cache_write_token_paged(cache, k, v, positions, block_table,
                                 write_mask=write_mask, index=write_index)
-        out = paged_attn_decode(q, cache, block_table, positions)
+        out = paged_attn_decode(q, cache, block_table, positions,
+                                window=window)
     elif cache is not None:
         # each of the chunk's tokens written as a one-token row of its own
         cache_write_token_paged(cache, k.transpose(0, 1), v.transpose(0, 1),
                                 positions[0], block_table,
                                 index=write_index)
-        out = paged_attn_chunk(q, cache, block_table, positions)
+        out = paged_attn_chunk(q, cache, block_table, positions,
+                               window=window)
     else:
-        out = attn_prefill(q, k, v)
+        out = attn_prefill(q, k, v, window=window)
     B, L = out.shape[0], out.shape[1]
     y = out.reshape(B, L, H * hd) @ p.wo.w.reshape(H * hd, -1)
     return y, (k, v)
@@ -136,18 +151,21 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
 
 def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
                 lora_idx, lora_ranks, lora_mode, decode,
-                lora_live=None, cache=None, write_mask=None,
+                lora_live=None, window=None, cache=None, write_mask=None,
                 block_table=None, write_index=None):
-    """Returns (y, (k, v)) — the layer's rotated K/V for prefill."""
+    """Returns (y, (k, v)) — the layer's rotated K/V for prefill. A MoE
+    layer takes the MLP's place (its aux loss is dropped: serving)."""
     xn = norm_apply(p.norm1, x)
     a, kv = attn_apply(
         cfg, p.attn, xn, positions, lora_layer=lora_layer,
         lora_idx=lora_idx, lora_ranks=lora_ranks, lora_mode=lora_mode,
-        lora_live=lora_live, decode=decode, cache=cache,
+        lora_live=lora_live, window=window, decode=decode, cache=cache,
         write_mask=write_mask, block_table=block_table, rope_cs=rope_cs,
         write_index=write_index)
     h = x + a
     hn = norm_apply(p.norm2, h)
+    if cfg.moe:
+        return h + moe_apply(cfg, p.moe, hn)[0], kv
     return h + mlp_apply(cfg, p.mlp, hn), kv
 
 
@@ -181,16 +199,19 @@ def _lora_live(cfg, lora):
 
 
 def _check_family(cfg):
-    """The port serves the llama-style dense family: RMSNorm, SwiGLU,
-    RoPE, no biases, untied embeddings."""
-    if (cfg.family != "dense" or cfg.moe or cfg.hybrid or cfg.qkv_bias
-            or cfg.norm != "rmsnorm" or cfg.mlp_act != "silu"
-            or cfg.pos != "rope" or cfg.tie_embeddings):
+    """The port serves the llama-style decoder family: RMSNorm, RoPE,
+    untied embeddings, a SwiGLU or GeGLU MLP or MoE, q/k/v biases or
+    none."""
+    dense = cfg.family == "dense" and not cfg.moe
+    moe = cfg.family == "moe" and cfg.moe is not None
+    if (not (dense or moe) or cfg.hybrid or cfg.norm != "rmsnorm"
+            or cfg.mlp_act not in ("silu", "geglu") or cfg.pos != "rope"
+            or cfg.tie_embeddings):
         raise NotImplementedError(f"{cfg.name}: {ROADMAP_FAMILIES}")
 
 
 def prefill(cfg, params: Transformer, tokens, *, lora=None,
-            cache_slots=None, positions=None, last_only=False,
+            cache_slots=None, window=None, positions=None, last_only=False,
             last_pos=None):
     """Returns (logits, cache). cache_slots=None -> no cache; else the row
     caches {"k"/"v": (L, B, KV, cache_slots, hd), "pos": (L, B,
@@ -200,7 +221,8 @@ def prefill(cfg, params: Transformer, tokens, *, lora=None,
     than the cache, its last cache_slots tokens in ring order
     (`layers.cache_write_prefill`). last_pos: optional (B,) per-row
     positions — the residual stream is gathered there *before* the
-    unembed, so the (B, L, vocab) logits are never materialized."""
+    unembed, so the (B, L, vocab) logits are never materialized.
+    `window`: sliding-window attention (flash on the card)."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens)
     B, L = x.shape[0], x.shape[1]
@@ -220,7 +242,7 @@ def prefill(cfg, params: Transformer, tokens, *, lora=None,
         x, (k, v) = block_apply(
             cfg, p_l, x, positions, lora_layer=ll, lora_idx=lora_idx,
             lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
-            decode=False, rope_cs=rope_cs)
+            window=window, decode=False, rope_cs=rope_cs)
         if cache is not None:
             cache_write_prefill({n: t[i] for n, t in cache.items()}, k, v,
                                 positions)
@@ -232,7 +254,8 @@ def prefill(cfg, params: Transformer, tokens, *, lora=None,
 
 
 def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
-                  clen: int, cache, page_ids, *, lora=None, last=False):
+                  clen: int, cache, page_ids, *, lora=None, last=False,
+                  window=None):
     """One chunk of an incremental prefill, written into the row's pages
     in place (the reference gathers the row into a dense view and returns
     a new one).
@@ -249,7 +272,8 @@ def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
     cached absolute positions (`layers.paged_attn_chunk`, plain PyTorch on
     every device, as the reference computes it outside Pallas). Returns
     the (1, 1, vocab) logits of the chunk's last real token when `last`,
-    else None."""
+    else None. `window` masks keys `window` or more positions behind each
+    query."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens_c)
     C = x.shape[1]
@@ -266,21 +290,23 @@ def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
         x, _ = block_apply(
             cfg, p_l, x, positions, lora_layer=ll, lora_idx=lora_idx,
             lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
-            decode=False, cache=cache_l, block_table=bt, rope_cs=rope_cs,
-            write_index=windex)
+            window=window, decode=False, cache=cache_l, block_table=bt,
+            rope_cs=rope_cs, write_index=windex)
     if not last:
         return None
     return unembed(cfg, params, x[:, max(clen - 1, 0)][:, None])
 
 
 def decode_step(cfg, params: Transformer, cache, tokens_t, pos, *,
-                lora=None, write_mask=None, block_table=None):
+                lora=None, window=None, write_mask=None, block_table=None):
     """tokens_t: (B, 1); pos: (B,) current absolute position. With a
     `block_table` (B, W) the cache is the paged pool {"k"/"v": (L, P + 1,
     KV, ps, hd), "pos": (L, P + 1, ps)}; without one it is the dense
     per-row cache of `prefill` (k/v (L, B, KV, S, hd), pos (L, B, S), and
     the scales when int8), the token written at ring slot pos % S. Either
     is updated in place; write_mask (B,) bool drops frozen rows' writes.
+    `window`: sliding-window attention, plain PyTorch on both planes (the
+    paged kernel has no window mask, as the reference's has none).
     Returns (logits, cache)."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens_t)
@@ -297,7 +323,7 @@ def decode_step(cfg, params: Transformer, cache, tokens_t, pos, *,
         x, _ = block_apply(
             cfg, p_l, x, pos, lora_layer=ll, lora_idx=lora_idx,
             lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
-            decode=True, cache=cache_l,
+            window=window, decode=True, cache=cache_l,
             write_mask=write_mask, block_table=block_table,
             rope_cs=rope_cs, write_index=windex)
     return unembed(cfg, params, x), cache

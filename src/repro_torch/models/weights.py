@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.moe import MoE
 from repro_torch.models.param import Dense, Norm
 from repro_torch.models.transformer import (MLP, Attention, Block,
                                             Transformer, _check_family)
@@ -21,16 +22,17 @@ from repro_torch.models.transformer import (MLP, Attention, Block,
 
 def _build(cfg, embed, final_scale, lm_head_w, layer):
     """layer(i) -> dict of the i-th layer's tensors under the reference's
-    leaf names."""
+    leaf names (q/k/v biases as "bq"/"bk"/"bv", the MoE router as
+    "router")."""
     blocks = []
     for i in range(cfg.n_layers):
         t = layer(i)
-        mlp = MLP(Dense(t["w1"]), Dense(t["w2"]), Dense(t["w3"]))
+        ffn = [Dense(t[n]) for n in ("w1", "w2", "w3")]
+        ffn = MoE(Dense(t["router"]), *ffn) if cfg.moe else MLP(*ffn)
+        qkv = [Dense(t[n], t.get("b" + n[1])) for n in ("wq", "wk", "wv")]
         blocks.append(Block(
-            Norm(t["norm1"]),
-            Attention(Dense(t["wq"]), Dense(t["wk"]), Dense(t["wv"]),
-                      Dense(t["wo"])),
-            Norm(t["norm2"]), mlp))
+            Norm(t["norm1"]), Attention(*qkv, Dense(t["wo"])),
+            Norm(t["norm2"]), ffn))
     return Transformer(embed, blocks, Norm(final_scale), Dense(lm_head_w))
 
 
@@ -45,20 +47,29 @@ def init_params(cfg, seed: int = 0, device=None) -> Transformer:
         cfg.d_ff
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=g, device=dev, dtype=dt) * scale
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=dt).mul_(scale)
 
     def ones(n):
         return torch.ones(n, device=dev, dtype=dt)
+
+    E = (cfg.moe.n_experts,) if cfg.moe else ()
 
     def layer(_):
         t = {"norm1": ones(d), "norm2": ones(d),
              "wq": normal((d, H, hd), d ** -0.5),
              "wk": normal((d, KV, hd), d ** -0.5),
              "wv": normal((d, KV, hd), d ** -0.5),
-             "wo": normal((H, hd, d), (H * hd) ** -0.5),
-             "w1": normal((d, f), d ** -0.5),
-             "w2": normal((f, d), f ** -0.5),
-             "w3": normal((d, f), d ** -0.5)}
+             "wo": normal((H, hd, d), (H * hd) ** -0.5)}
+        if cfg.qkv_bias:
+            t.update(bq=torch.zeros((H, hd), device=dev, dtype=dt),
+                     bk=torch.zeros((KV, hd), device=dev, dtype=dt),
+                     bv=torch.zeros((KV, hd), device=dev, dtype=dt))
+        if cfg.moe:
+            t["router"] = normal((d, cfg.moe.n_experts), d ** -0.5)
+        t.update(w1=normal(E + (d, f), d ** -0.5),
+                 w2=normal(E + (f, d), f ** -0.5),
+                 w3=normal(E + (d, f), d ** -0.5))
         return t
 
     embed = normal((cfg.vocab, d), 0.02)
@@ -78,13 +89,17 @@ def params_from_jax(cfg, tree, device=None) -> Transformer:
             dev, cfg.torch_dtype)
 
     blk = tree["blocks"]
-    att, mlp = blk["attn"], blk["mlp"]
+    att, ffn = blk["attn"], blk["moe" if cfg.moe else "mlp"]
 
     def layer(i):
         out = {"norm1": t(blk["norm1"]["scale"][i]),
                "norm2": t(blk["norm2"]["scale"][i]),
                **{n: t(att[n]["w"][i]) for n in ("wq", "wk", "wv", "wo")},
-               **{n: t(mlp[n]["w"][i]) for n in ("w1", "w2", "w3")}}
+               **{n: t(ffn[n]["w"][i]) for n in ("w1", "w2", "w3")}}
+        out.update({"b" + n[1]: t(att[n]["b"][i])
+                    for n in ("wq", "wk", "wv") if "b" in att[n]})
+        if cfg.moe:
+            out["router"] = t(ffn["router"]["w"][i])
         return out
 
     return _build(cfg, t(tree["embed"]), t(tree["final_norm"]["scale"]),

@@ -384,17 +384,24 @@ def test_lora_expand_paths_match_plain(card, mode, rows, seg, d_out,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,H,KV,split", [
-    (8, 32, 4, True), (2, 8, 1, True), (8, 32, 32, False)])
-def test_paged_attention_splits_match_plain(card, dtype, B, H, KV, split):
+@pytest.mark.parametrize("B,H,KV,hd,split", [
+    (8, 32, 4, 128, True), (2, 8, 1, 128, True), (8, 32, 32, 128, False),
+    (8, 96, 8, 128, True), (20, 96, 8, 128, False), (8, 48, 8, 128, True),
+    (8, 128, 8, 128, True), (20, 128, 8, 128, False), (4, 32, 1, 64, True),
+    (4, 8, 1, 256, True), (4, 16, 1, 96, True)])
+def test_paged_attention_splits_match_plain(card, dtype, B, H, KV, hd,
+                                            split):
     """The paged kernel with each row's block table split over blocks
-    (few rows x KV heads: yi-9b's 8 x 4, GQA group 8) and in one block
-    (8 x 32, llama2-7b's, group 1): a 2,300-token row beside short rows,
+    (few rows x KV heads: yi-9b's 8 x 4, GQA group 8; mistral-large's 8 x
+    8, group 12; dbrx/grok's, group 6) and in one block (8 x 32, llama2-
+    7b's, group 1; 20 x 8 at group 12), and at the edge of what the kernel
+    takes (GQA group x pow2(hd / 8) = 256: group 16 at hd 128, 32 at hd
+    64, 8 at hd 256, 16 at hd 96): a 2,300-token row beside short rows,
     a row with no claimed page, unclaimed holes; each row within 1e-2
     (bf16) / 1e-5 (f32) of its max |plain|, NaN in every page a row does
     not own leaves its output bitwise unchanged, and a second run is
     bitwise equal."""
-    hd, ps, W = 128, 32, 80
+    ps, W = 32, 80
     P = B * W + 1
     g = torch.Generator(device=card).manual_seed(B * H + KV)
     q = torch.randn(B, H, hd, generator=g, device=card).to(dtype)
@@ -434,6 +441,23 @@ def test_paged_attention_splits_match_plain(card, dtype, B, H, KV, split):
         assert torch.equal(out[b], got[b]), b
 
 
+@pytest.mark.parametrize("H,KV,hd", [(136, 8, 128), (33, 1, 64),
+                                     (9, 1, 256), (17, 1, 96)])
+def test_paged_attention_refuses_groups_past_one_block(card, H, KV, hd):
+    """One past the edge (GQA group x pow2(hd / 8) > 256) the wrapper
+    raises, launching nothing."""
+    B, P, ps = 2, 4, 32
+    q = torch.zeros(B, H, hd, device=card, dtype=torch.bfloat16)
+    k = torch.zeros(P, KV, ps, hd, device=card, dtype=torch.bfloat16)
+    pp = torch.zeros(P, ps, dtype=torch.int32, device=card)
+    bt = torch.zeros(B, 2, dtype=torch.int32, device=card)
+    pos = torch.zeros(B, dtype=torch.int32, device=card)
+    n = paged.paged_attention.launches
+    with pytest.raises(ValueError, match="GQA group"):
+        paged.paged_attention(q, k, k, pp, bt, pos)
+    assert paged.paged_attention.launches == n
+
+
 @pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
 @pytest.mark.parametrize("rows,dtype", [(8, torch.bfloat16),
                                         (300, torch.bfloat16),
@@ -458,3 +482,77 @@ def test_lora_expand_ranks_past_64_match_plain(card, mode, rows, dtype):
     _rows_close(out, ref.lora_expand_ref(y, b, idx, live), tol,
                 0.0 if dtype == torch.bfloat16 else 1.0)
     assert torch.equal(out, bgmv.lora_expand(y, b, idx, live))
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+@pytest.mark.parametrize("rows,seg", [(8, 0), (2048, 256)])
+@pytest.mark.parametrize("d_in,d_out", [(5120, 5120), (12288, 12288),
+                                        (12288, 1024)])
+def test_lora_pair_at_family_widths(card, mode, rows, seg, d_in, d_out):
+    """The shrink and the expand at llama2-13b's d 5,120 and mistral-
+    large's d 12,288 (q: d_out 12,288; k/v over 8 KV heads: 1,024), on
+    the decode path (8 rows) and the row tiles (2,048 rows in runs of 256
+    per slot), bf16, ranks 8/16/32/64: each row within 1e-5 x max(1, its
+    max |plain|) (shrink, f32 out) / 1e-2 x its max |plain| (expand), and
+    a second run bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(rows + d_in + d_out)
+    ranks = [8, 16, 32, 64] * 2
+    bf = torch.bfloat16
+    a = torch.zeros(8, d_in, 64, device=card, dtype=bf)
+    b = torch.zeros(8, 64, d_out, device=card, dtype=bf)
+    for s, r in enumerate(ranks):
+        a[s, :, :r] = (torch.randn(d_in, r, generator=g, device=card)
+                       * d_in ** -0.5).to(bf)
+        b[s, :r] = (torch.randn(r, d_out, generator=g, device=card)
+                    * r ** -0.5).to(bf)
+    x = torch.randn(rows, d_in, generator=g, device=card).to(bf)
+    if seg:
+        idx = torch.arange(rows, device=card) // seg % 9 - 1
+    else:
+        idx = torch.randint(-1, 8, (rows,), generator=g, device=card)
+    idx = idx.to(torch.int32)
+    live = ref.bgmv_live(idx, 64) if mode == "bgmv" else ref.mbgmv_live(
+        idx, torch.tensor(ranks, dtype=torch.int32, device=card), 16)
+    y = bgmv.lora_shrink(x, a, idx, live)
+    _rows_close(y, ref.lora_shrink_ref(x, a, idx, live), 1e-5, 1.0)
+    assert torch.equal(y, bgmv.lora_shrink(x, a, idx, live))
+    yd = y.to(bf)
+    out = bgmv.lora_expand(yd, b, idx, live)
+    _rows_close(out, ref.lora_expand_ref(yd, b, idx, live), 1e-2, 0.0)
+    assert bool((out[idx < 0] == 0).all())
+    assert torch.equal(out, bgmv.lora_expand(yd, b, idx, live))
+
+
+def test_windowed_paged_decode_on_card_takes_the_plain_path(card):
+    """yi-9b-smoke (f32) at 24 tokens past its window of 16: a windowed
+    decode step over the paged pool on the card launches no paged kernel
+    (the kernel has no window mask, as the reference's has none) and
+    gives the CPU's logits; without the window the kernel launches."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.weights import init_params
+    from repro_torch.serving import cache as cache_lib
+    cfg = get_config("yi-9b").smoke()
+    win, L, S, ps = cfg.sliding_window, 24, 32, 8
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, L)).astype(np.int32))
+    ids = np.arange(8, dtype=np.int32).reshape(2, 4)
+    cpu = init_params(cfg, 0, "cpu")
+    logits = {}
+    for dev, params in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to(card))):
+        lg, rc = model_lib.prefill(cfg, params, {"tokens": toks.to(dev)},
+                                   cache_slots=S, window=win)
+        pool = cache_lib.scatter_pages(
+            cache_lib.zeros_paged(model_lib.cache_abstract(cfg, 1, S), 8,
+                                  ps, dev), rc, ids)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((2,), L, dtype=torch.int32, device=dev)
+        n = paged.paged_attention.launches
+        out, _ = model_lib.decode(cfg, params, pool, tok, pos, window=win,
+                                  block_table=torch.from_numpy(ids).to(dev))
+        assert paged.paged_attention.launches == n
+        logits[dev] = out.cpu()
+    np.testing.assert_allclose(logits["cuda"].numpy(), logits["cpu"].numpy(),
+                               atol=1e-4, rtol=1e-4)
+    model_lib.decode(cfg, cpu.to(card), pool, tok, pos,
+                     block_table=torch.from_numpy(ids).to(card))
+    assert paged.paged_attention.launches == n + cfg.n_layers
