@@ -24,8 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      and yi-9b's 32,768 rows: row tiles), the expand on both of its (1, 8
      and 64 rows: decode; 65 to 32,768 rows: row tiles), d_out 512 / 4,096
      and a ragged 136 (f32), both at llama2-13b's d 5,120 and mistral-
-     large's d 12,288 (d_out 12,288 and 1,024), every kernel repeatable
-     bitwise; flash attention at
+     large's d 12,288 (d_out 12,288 and 1,024) and at mamba2's in_proj
+     (768 -> 3,352) and out_proj (1,536 -> 768), decode and prefill rows,
+     every kernel repeatable bitwise; flash attention at
      yi-9b's long prompt (bf16, B 2, H 32 over KV 4, hd 128, L 4096,
      causal), at llama2-7b's (H = KV = 32, L 256), llama2-13b's (H = KV =
      40), mistral-large's (96 over 8) and dbrx/grok's (48 over 8), all on
@@ -33,7 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      views as the model passes them, in bf16 at hd 32/64/128 with Lq !=
      Lk, lengths no multiple of the 128-key tile, windows, causal=False
      and GQA groups 1/4/8, and at smoke shapes in f32 (non-causal,
-     window, Lq != Lk, ragged L, GQA groups 1/2/8);
+     window, Lq != Lk, ragged L, GQA groups 1/2/8); at hd 96
+     (phi-3-vision: H 32 MHA, L 576 + 256, and ragged) and hd 256
+     (recurrentgemma: H 10 over 1, L 3,000 with window 2,048, and ragged)
+     and whisper's cross-attention (hd 64, 64 queries over 1,500 keys,
+     non-causal), in bf16 and f32;
   3a. serve full-width llama2-7b (32 layers, d_model 4096, bf16, seeded
      random weights on the card) through `InferenceServer`: 16 requests
      with kernel="bgmv", then 6 with kernel="mbgmv"; every request must
@@ -112,9 +117,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      printed; the llama2-13b and dbrx decode steps are profiled; paged
      attention is timed at layer 0 of mistral-large's first decode step
      (phase 5a's row);
+  G. the non-decoder families at full width and full depth, one at a
+     time (seeded bf16 weights, each freed before the next): mamba2-130m
+     (SSM) and recurrentgemma-2b (hybrid) served on the dense plane,
+     phi-3-vision-4.2b (VLM, text-only requests) on the paged plane, 8
+     requests of 32-256 prompt tokens and 16 new each under "bgmv"
+     (mamba2 also "mbgmv"), every request finishing and every kernel of
+     the path launching; then a 2-row prefill (recurrentgemma: 3,000
+     tokens, past its window; phi-3-vision: after 576 seeded patch
+     embeddings) and one decode step through the kernels vs the plain
+     versions within 5e-2 of max |logit| on every row (recurrentgemma's
+     step profiled); whisper-tiny through model.prefill / model.decode
+     (4 rows, seeded frame embeddings (4, 1,500, 384), 16 greedy tokens,
+     LoRA q/k/v) held to the same rule at every step; flash is timed at
+     hd 96 and 256 at layer 0 of phi-3-vision's and recurrentgemma's
+     largest served prefill (phase 5b's rows);
   then one {"kernels": [...]} line (the six TPU kernels' rows, the
-  prefill shrink and expand rows and the yi-9b and mistral-large paged
-  rows) and the last line {"ok": true, "device": {...}}.
+  prefill shrink and expand rows, the yi-9b and mistral-large paged
+  rows and the hd 96 / hd 256 flash rows) and the last line
+  {"ok": true, "device": {...}}.
 
 Tolerances (kernel vs plain version on the same inputs), per output row b
 (per query row (b, h, i) for attention): bf16 max|kernel[b] - plain[b]|
@@ -208,7 +229,8 @@ def main() -> int:
     prefill = prefill_phase(torch, yi, yi_params)
     lora_args = prefill.pop("prefill_lora")
     report.update(prefill)
-    kernels.append(flash_timing(torch, capture["args"], errs, yi_serving))
+    kernels.append(flash_timing(torch, capture["args"],
+                                errs["flash_attention"], yi_serving))
     kernels.append(shrink_prefill_timing(torch, lora_args, yi_serving))
     kernels.append(expand_prefill_timing(torch, lora_args, yi_serving))
     kernels.append(paged_capture_timing(
@@ -220,6 +242,8 @@ def main() -> int:
     report["yi_f32_arms"] = f32_arms_phase(torch, yi)
     report["families"], mistral_row = family_phase(torch)
     kernels.append(mistral_row)
+    report["other_families"], g_rows = other_families_phase(torch, errs)
+    kernels.extend(g_rows)
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -326,7 +350,8 @@ def kernel_checks(torch):
     print("phase 2: kernels vs plain versions on the card", flush=True)
     rng = np.random.default_rng(SEED)
     worst = {"paged_attention": 0.0, "lora_shrink": 0.0,
-             "lora_expand": 0.0, "flash_attention": 0.0}
+             "lora_expand": 0.0, "flash_attention": 0.0,
+             "flash_attention[hd 96]": 0.0, "flash_attention[hd 256]": 0.0}
 
     def note(name, err, full):
         if full:
@@ -434,6 +459,16 @@ def kernel_checks(torch):
                12288, 64, y8, 16, bf, True, 256),
               ("mistral-large prefill 2048 rows d_out 1024 bf16", 2048,
                12288, 1024, 64, y8, 16, bf, True, 256),
+              # mamba2's in_proj (d 768 -> 3,352: a ragged last column
+              # block) and out_proj (1,536 -> 768), decode and prefill
+              ("mamba2 in_proj decode bf16", 8, 768, 3352, 64, y8, 16, bf,
+               True, 0),
+              ("mamba2 out_proj decode bf16", 8, 1536, 768, 64, y8, 16, bf,
+               True, 0),
+              ("mamba2 in_proj prefill 2048 rows bf16", 2048, 768, 3352, 64,
+               y8, 16, bf, True, 256),
+              ("mamba2 out_proj prefill 2048 rows bf16", 2048, 1536, 768,
+               64, y8, 16, bf, True, 256),
               ("smoke f32", 8, 128, 128, 8, [8, 3, 5, 1], 4, f32, False, 0),
               ("smoke prefill f32", 96, 128, 128, 8, [8, 3, 5, 1], 4, f32,
                False, 0),
@@ -516,7 +551,29 @@ def kernel_checks(torch):
               ("smoke Lq < Lk GQA 8 f32", 1, 8, 1, 96, 160, 64, True, None,
                f32, False),
               ("smoke Lq > Lk non-causal window GQA 2 f32", 1, 4, 2, 160, 96,
-               16, False, 48, f32, False)]
+               16, False, 48, f32, False),
+              # phi-3-vision (hd 96, MHA at H 32: 576 patches + 256
+              # tokens), recurrentgemma (hd 256, H 10 over 1 KV head,
+              # window 2,048 cutting a 3,000-token prompt), whisper's
+              # cross-attention (hd 64, 64 queries over 1,500 frames)
+              ("phi-3-vision hd 96 MHA L 832 bf16", 2, 32, 32, 832, 832, 96,
+               True, None, bf, True),
+              ("hd 96 MHA ragged view bf16", 2, 32, 32, 333, 333, 96, True,
+               None, bf, False),
+              ("recurrentgemma hd 256 MQA 10 L 3000 window 2048 bf16", 2,
+               10, 1, 3000, 3000, 256, True, 2048, bf, True),
+              ("hd 256 MQA 10 ragged view bf16", 2, 10, 1, 301, 301, 256,
+               True, 2048, bf, False),
+              ("hd 256 GQA 5 Lq < Lk window 100 non-causal view bf16", 1, 10,
+               2, 129, 400, 256, False, 100, bf, False),
+              ("whisper cross hd 64 Lq 64 Lk 1500 non-causal bf16", 4, 6, 6,
+               64, 1500, 64, False, None, bf, True),
+              ("hd 96 MHA ragged f32", 2, 32, 32, 200, 200, 96, True, None,
+               f32, False),
+              ("hd 256 MQA 10 window 100 ragged f32", 1, 10, 1, 300, 300,
+               256, True, 100, f32, False),
+              ("whisper cross hd 64 Lq 64 Lk 1500 non-causal f32", 2, 6, 6,
+               64, 1500, 64, False, None, f32, False)]
     for label, B, H, KV, Lq, Lk, hd, causal, window, dt, full in fcases:
         g = torch.Generator(device="cuda").manual_seed(Lq + H)
         q = torch.randn(B, Lq, H, hd, generator=g, device="cuda").to(dt)
@@ -529,9 +586,10 @@ def kernel_checks(torch):
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         # each query row (b, h, i) to its own limit: the first queries
         # attend a few keys (outputs ~3), late ones thousands (~0.05)
-        note("flash_attention", check_close(
-            f"flash_attention {label}", got.reshape(-1, hd),
-            want.reshape(-1, hd), dt), full)
+        note(f"flash_attention[hd {hd}]" if hd in (96, 256)
+             else "flash_attention", check_close(
+                 f"flash_attention {label}", got.reshape(-1, hd),
+                 want.reshape(-1, hd), dt), full)
         check(torch.equal(got, flash_attention(q, k, v, causal=causal,
                                                window=window)),
               f"flash_attention {label}: two runs differ")
@@ -685,18 +743,18 @@ def serve_phase(torch, cfg, runs, phase, params=None):
             check(all(0 <= t < cfg.vocab for t in st.generated),
                   f"{label}: request {st.req.rid} token out of range")
         check(len(srv.states) == len(reqs), f"{label}: lost requests")
+        n_attn = attention_layers(cfg)
         for n, c in launches.items():
             if n == "paged_attention" and srv.memory == "dense":
                 check(c == 0, f"{label}: paged attention launched {c} "
                       "times on the dense plane")
-            else:
+            elif n != "flash_attention" or n_attn:
                 check(c > 0, f"{label}: kernel {n} never launched on the "
                       "path")
-        check(launches["flash_attention"]
-              == cfg.n_layers * len(times["prefill"]),
+        check(launches["flash_attention"] == n_attn * len(times["prefill"]),
               f"{label}: {launches['flash_attention']} flash launches for "
-              f"{len(times['prefill'])} prefill calls of {cfg.n_layers} "
-              "layers")
+              f"{len(times['prefill'])} prefill calls of {n_attn} "
+              "attention layers")
         stats = dict(be.transfer_stats)
         if server_kw.get("chunk_budget"):
             check(stats["prefill_chunks"] > 0, f"{label}: no prefill chunk")
@@ -743,6 +801,17 @@ def serve_phase(torch, cfg, runs, phase, params=None):
         gc.collect()
         torch.cuda.empty_cache()
     return out, params
+
+
+def attention_layers(cfg):
+    """Layers that run prefill attention: none in the SSM, the local-
+    attention layers of the hybrid, every layer elsewhere."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.hybrid:
+        from repro_torch.models.transformer import hybrid_layer_kinds
+        return hybrid_layer_kinds(cfg).count("attn")
+    return cfg.n_layers
 
 
 def arms_agree(records):
@@ -1282,6 +1351,361 @@ def family_phase(torch):
     return out, row
 
 
+# ------------------------------------------------------------ phase G ----
+
+# (config, kernels of its serving runs, dtype of its logits check): every
+# config whole, at its published widths; whisper-tiny goes through the
+# model API only. mamba2's logits are held in float32: in bf16 a rounding-
+# level change of the plain path alone moves its logits by up to half of
+# max |logit| (the control of `g_logits_bf16_diagnostic`; PERF.md, PR 18)
+FAMILY_G = [("mamba2-130m", ("bgmv", "mbgmv"), "float32"),
+            ("recurrentgemma-2b", ("bgmv",), "bfloat16"),
+            ("phi-3-vision-4.2b", ("bgmv",), "bfloat16")]
+G_REQUESTS = {"n": 8, "seed": SEED + 6, "max_new": 16}
+G_LONG = 3000                  # recurrentgemma's logits prompt: > window
+WHISPER_PROMPT, WHISPER_NEW, WHISPER_ROWS = 64, 16, 4
+
+
+def other_families_phase(torch, errs):
+    """Phase G: the non-decoder families at full width and full depth, one
+    config at a time, each freed before the next: seeded bf16 weights on
+    the card; mamba2-130m and recurrentgemma-2b served on the dense plane,
+    phi-3-vision-4.2b on the paged plane (8 requests of 32-256 prompt
+    tokens, 16 new, bgmv; mamba2 also mbgmv), every request finishing and
+    every kernel of the path launching; then one 2-row prefill and one
+    decode step's logits through the kernels against the plain versions
+    (`g_logits`), and whisper-tiny through the model API (`whisper_g`).
+    Returns the per-config summaries and phase 5b's flash rows at hd 96
+    and 256 (layer 0 of the largest captured serving prefill)."""
+    from repro_torch.configs.base import get_config
+    print(f"phase G: mamba2, recurrentgemma, phi-3-vision and whisper at "
+          f"full width on {smi_reading()}", flush=True)
+    from repro_torch.models.weights import init_params
+    out, rows = [], []
+    for name, kernels, logits_dtype in FAMILY_G:
+        cfg = get_config(name)
+        runs = [(k, k, {}, G_REQUESTS) for k in kernels]
+        capture = {}
+        with capture_largest_attention(capture):
+            recs, params = serve_phase(torch, cfg, runs, "G")
+        weights = sum(t.numel() * t.element_size()
+                      for t in params.parameters()) / 2 ** 30
+        if logits_dtype == cfg.dtype:
+            logits = g_logits(torch, cfg, params,
+                              profile=name == "recurrentgemma-2b")
+        else:
+            logits = {"bf16_diagnostic": g_logits_bf16_diagnostic(
+                torch, cfg, params)}
+            cfg_s = dataclasses.replace(cfg, dtype=logits_dtype)
+            params_s = init_params(cfg_s, SEED, "cuda")
+            logits.update(g_logits(torch, cfg_s, params_s))
+            del params_s
+        if cfg.hd in (96, 256) and "args" in capture:
+            rows.append(flash_timing(
+                torch, capture["args"], errs[f"flash_attention[hd {cfg.hd}]"],
+                recs,
+                name=f"flash_attention[hd {cfg.hd}]",
+                path=f"{name} prefill", window=(cfg.hybrid.window
+                                                if cfg.hybrid else None)))
+        out.append({
+            "model": name, "layers": cfg.n_layers, "weights_gib": weights,
+            "memory": recs[0]["memory"],
+            "runs": [{k: r[k] for k in SUMMARY_RUN_KEYS} for r in recs],
+            "logits": logits})
+        print(f"  {name}: {cfg.n_layers} layers (whole), {weights:.2f} GiB "
+              f"of weights, peak "
+              f"{max(r['peak_mem_gib'] for r in recs):.2f} GiB", flush=True)
+        del params, capture, recs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out.append(whisper_g(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def g_pool(torch, cfg, ranks=(16, 64)):
+    """A LoRA slot pool on the card holding one adapter a rank, drawn from
+    a seeded generator at `make_adapter_weights`' scales (the hash-seeded
+    adapters differ from process to process), so the check sees the same
+    adapters in every run and in either dtype."""
+    from repro_torch.core import lora as lora_lib
+    pool = lora_lib.pool_init(cfg, len(ranks), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    L, r_max = cfg.n_layers + cfg.n_enc_layers, cfg.lora.max_rank
+    for s, r in enumerate(ranks):
+        w, r = {}, min(r, r_max)
+        for tgt in cfg.lora.targets:
+            d_in, d_out = lora_lib.lora_target_dims(cfg, tgt)
+            a = torch.zeros(L, d_in, r_max, device="cuda")
+            b = torch.zeros(L, r_max, d_out, device="cuda")
+            a[:, :, :r] = torch.randn(L, d_in, r, generator=g,
+                                      device="cuda") * d_in ** -0.5
+            b[:, :r] = torch.randn(L, r, d_out, generator=g,
+                                   device="cuda") * r ** -0.5
+            w[tgt] = {"a": a.to(cfg.torch_dtype), "b": b.to(cfg.torch_dtype)}
+        lora_lib.pool_insert(pool, cfg, w, s, r)
+    return pool
+
+
+def logits_close(torch, what, lk, lp, verbose=True, strict=True):
+    """Every row of `lk` within LOGIT_TOL x max |lp| of `lp` (with
+    `strict` False: measured and printed, not held)."""
+    check(bool(torch.isfinite(lk).all()), f"{what}: non-finite logits")
+    scale = float(lp.abs().max())
+    err = (lk - lp).abs().flatten(1).amax(1)
+    bad = (err > LOGIT_TOL * scale).nonzero()
+    check(not (strict and bad.numel()),
+          f"{what}: row {int(bad[0]) if bad.numel() else 0}"
+          f" max abs err {float(err.max()):.3e} > {LOGIT_TOL} * "
+          f"{scale:.3e}")
+    same = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    if verbose:
+        print(f"  {what}: logits max abs err {float(err.max()):.4e}, max "
+              f"|logit| {scale:.4e}, relative {float(err.max()) / scale:.3e}"
+              f" (limit {LOGIT_TOL}); greedy agree {same}/{lk.shape[0]}",
+              flush=True)
+    return {"max_abs_err": float(err.max()), "max_abs_logit": scale,
+            "rel_err": float(err.max()) / scale, "rows": lk.shape[0],
+            "greedy_agree": same}
+
+
+def g_logits(torch, cfg, params, profile=False, strict=True, label="",
+             kernels=True):
+    """One prefill of 2 rows (LoRA slots of rank 16 and 64) and one decode
+    step from its caches, through the kernels and through the plain
+    versions (the decode step's input token is the kernel pass's in both):
+    the prefill's last-position logits and the step's logits of every row
+    within LOGIT_TOL x max |logit|. recurrentgemma's prompt has G_LONG
+    tokens, past its 2,048-token window, so the window cuts inside the
+    flash kernel and the local-attention ring wraps; phi-3-vision's rows
+    start with its 576 patch embeddings (seeded) and decode on the paged
+    pool (the paged kernel). Kernel launches are counted over the kernel
+    pass. With `profile`, one decode step is profiled; with `strict`
+    False the logits are measured, not held (a diagnostic); `kernels`
+    False: the first pass is routed elsewhere by the caller, and its
+    launches are not checked."""
+    import numpy as np
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import cache as cache_lib
+    rng = np.random.default_rng(SEED + 12)
+    B = 2
+    L = G_LONG if cfg.hybrid else 256
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, L)),
+                           dtype=torch.int32, device="cuda")
+    batch = {"tokens": toks}
+    P0 = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    if P0:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        batch["prefix_embeds"] = torch.randn(
+            B, P0, cfg.d_model, generator=g, device="cuda").to(
+            cfg.torch_dtype)
+    lora = {"pool": g_pool(torch, cfg),
+            "idx": torch.arange(B, dtype=torch.int32, device="cuda"),
+            "mode": "bgmv"}
+    paged = model_lib.supports_paged(cfg)
+    ps = 32
+    S = -(-(P0 + L + 16) // ps) * ps
+    pos = torch.full((B,), P0 + L, dtype=torch.int32, device="cuda")
+    state = {}
+
+    def prefill():
+        with torch.no_grad():
+            lg, cache = model_lib.prefill(cfg, params, batch, lora=lora,
+                                          cache_slots=S, last_only=True)
+        bt = None
+        if paged:
+            W = S // ps
+            bt = torch.arange(B * W, dtype=torch.int32,
+                              device="cuda").reshape(B, W)
+            pool = cache_lib.zeros_paged(model_lib.cache_abstract(cfg, 1, S),
+                                         B * W, ps, "cuda")
+            cache = cache_lib.scatter_pages(pool, cache, bt.cpu().numpy())
+        return lg[:, -1].float(), cache, bt
+
+    def decode(cache, bt, tok):
+        with torch.no_grad():
+            lg, _ = model_lib.decode(cfg, params, cache, tok[:, None], pos,
+                                     lora=lora, block_table=bt)
+        return lg[:, -1].float()
+
+    def clone(cache):
+        if isinstance(cache, list):
+            return [{n: t.clone() for n, t in c.items()} for c in cache]
+        return {n: t.clone() for n, t in cache.items()}
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    pk, cache_k, bt = prefill()
+    tok = pk.argmax(-1).to(torch.int32)
+    dk = decode(clone(cache_k), bt, tok)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    with plain_ops(), plain_attention():
+        pp, cache_p, bt_p = prefill()
+        dp = decode(cache_p, bt_p, tok)
+    torch.cuda.synchronize()
+    n_attn = attention_layers(cfg)
+    check(launches["flash_attention"] == n_attn,
+          f"phase G {cfg.name}: {launches['flash_attention']} flash "
+          f"launches for {n_attn} attention layers")
+    check(not kernels or (launches["lora_shrink"] > 0
+                          and launches["lora_expand"] > 0),
+          f"phase G {cfg.name}: the LoRA kernels did not launch")
+    check((launches["paged_attention"] > 0) == paged,
+          f"phase G {cfg.name}: paged attention launched "
+          f"{launches['paged_attention']} times (paged plane: {paged})")
+    print(f"phase G: {cfg.name} logits{label} ({cfg.dtype}), prefill of {B}"
+          f" x {P0 + L} tokens and one decode step, kernels vs plain "
+          f"versions; launches {launches}", flush=True)
+    state["prefill"] = logits_close(torch, f"{cfg.name} prefill", pk, pp,
+                                    strict=strict)
+    state["decode"] = logits_close(torch, f"{cfg.name} decode step", dk, dp,
+                                   strict=strict)
+    state["launches"] = launches
+    state["prompt_tokens"] = P0 + L
+    if profile:
+        state["profile"] = profile_step(
+            torch, lambda: decode(clone(cache_k), bt, tok),
+            f"one {cfg.name} decode step ({B} rows, pos {P0 + L})")
+    return state
+
+
+@contextlib.contextmanager
+def lora_without_cast():
+    """Route the model's LoRA delta to the plain version with the f32
+    shrink fed to the expand uncast (the reference's `lora_delta_ref`
+    rounding; the kernels and `plain_ops` cast it to x's dtype first): the
+    same function, rounded elsewhere."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.lora_delta
+
+    def nocast(x, a, b, idx, ranks=None, mode="bgmv", rank_block=16,
+               live=None):
+        if live is None:
+            live = ops.lora_live(idx, ranks, mode, a.shape[-1], rank_block)
+        return ref.lora_expand_ref(ref.lora_shrink_ref(x, a, idx, live), b,
+                                   idx, live)
+
+    ops.lora_delta = nocast
+    try:
+        yield
+    finally:
+        ops.lora_delta = saved
+
+
+def g_logits_bf16_diagnostic(torch, cfg, params):
+    """mamba2 in bf16: the kernels-vs-plain logit gap of `g_logits`,
+    measured, beside a control that changes only the plain path's
+    rounding (`lora_without_cast` vs `plain_ops`): where the control moves
+    the logits as much as the kernels do, the bf16 comparison cannot tell
+    a kernel fault from the model's sensitivity to rounding, and the
+    check is held in float32 instead (FAMILY_G)."""
+    out = {"kernels_vs_plain": g_logits(torch, cfg, params, strict=False)}
+    with lora_without_cast():
+        ctl = g_logits(torch, cfg, params, strict=False, kernels=False,
+                       label=" control: plain without the LoRA cast")
+    out["control"] = {k: ctl[k] for k in ("prefill", "decode")}
+    return out
+
+
+def whisper_g(torch):
+    """whisper-tiny through the model API, as its callers drive it (the
+    serving engine has no encoder input to pass): WHISPER_ROWS rows of
+    seeded frame embeddings (enc_seq 1,500 x d 384) and WHISPER_PROMPT
+    prompt tokens, LoRA q/k/v on (ranks 16 and 64, and a row without),
+    then WHISPER_NEW greedy tokens. The kernel pass's tokens are fed to a
+    plain pass too; the prefill's and every step's logits within
+    LOGIT_TOL x max |logit|. Prefill and decode are timed with CUDA
+    events."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.weights import init_params
+    cfg = get_config("whisper-tiny")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, SEED, "cuda")
+    weights = sum(t.numel() * t.element_size()
+                  for t in params.parameters()) / 2 ** 30
+    B = WHISPER_ROWS
+    rng = np.random.default_rng(SEED + 14)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, WHISPER_PROMPT)),
+                           dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    enc = torch.randn(B, cfg.enc_seq, cfg.d_model, generator=g,
+                      device="cuda").to(cfg.torch_dtype)
+    lora = {"pool": g_pool(torch, cfg),
+            "idx": torch.tensor([0, 1, -1, 1][:B], dtype=torch.int32,
+                                device="cuda"), "mode": "bgmv"}
+    slots = WHISPER_PROMPT + WHISPER_NEW
+
+    def run(feed=None):
+        """Greedy generation (or, given `feed`, those tokens as inputs);
+        returns (stacked logits, tokens, prefill ms, decode ms)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.no_grad():
+            ev[0].record()
+            lg, cache = model_lib.prefill(
+                cfg, params, {"tokens": toks, "enc_embeds": enc}, lora=lora,
+                cache_slots=slots, last_only=True)
+            ev[1].record()
+            out, new = [lg[:, -1].float()], []
+            for t in range(WHISPER_NEW):
+                tok = out[-1].argmax(-1).to(torch.int32) if feed is None \
+                    else feed[t]
+                new.append(tok)
+                pos = torch.full((B,), WHISPER_PROMPT + t,
+                                 dtype=torch.int32, device="cuda")
+                lg, cache = model_lib.decode(cfg, params, cache,
+                                             tok[:, None], pos, lora=lora)
+                out.append(lg[:, -1].float())
+            ev[2].record()
+        torch.cuda.synchronize()
+        return (torch.stack(out), new, ev[0].elapsed_time(ev[1]),
+                ev[1].elapsed_time(ev[2]))
+
+    print("phase G: whisper-tiny through model.prefill / model.decode "
+          f"({B} rows x {WHISPER_PROMPT} tokens over {cfg.enc_seq} frames, "
+          f"{WHISPER_NEW} greedy tokens)", flush=True)
+    run()                                  # warm-up (first calls)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    lk, new, pre_ms, dec_ms = run()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    with plain_ops(), plain_attention():
+        lp, _, _, _ = run(feed=new)
+    # the encoder's layers, the decoder's self- and cross-attention
+    want = cfg.n_enc_layers + 2 * cfg.n_layers
+    check(launches["flash_attention"] == want,
+          f"phase G whisper: {launches['flash_attention']} flash launches, "
+          f"{want} expected")
+    check(launches["lora_shrink"] > 0 and launches["lora_expand"] > 0,
+          "phase G whisper: the LoRA kernels did not launch")
+    check(launches["paged_attention"] == 0,
+          "phase G whisper: paged attention launched")
+    errs = [logits_close(torch, f"whisper-tiny step {t}", lk[t], lp[t],
+                         verbose=False) for t in range(lk.shape[0])]
+    worst = max(errs, key=lambda e: e["rel_err"])
+    rec = {"model": cfg.name, "layers": cfg.n_layers,
+           "enc_layers": cfg.n_enc_layers, "weights_gib": weights,
+           "rows": B, "prompt_tokens": WHISPER_PROMPT,
+           "new_tokens": WHISPER_NEW, "prefill_ms": pre_ms,
+           "decode_ms": dec_ms,
+           "decode_tok_s": 1e3 * B * WHISPER_NEW / dec_ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "logits_worst": worst,
+           "generated": [[int(t[b]) for t in new] for b in range(B)]}
+    print(f"  whisper-tiny: prefill {pre_ms:.1f} ms, decode "
+          f"{rec['decode_tok_s']:.1f} tok/s ({dec_ms:.1f} ms for "
+          f"{WHISPER_NEW} steps), peak {rec['peak_mem_gib']:.2f} GiB, "
+          f"{weights:.3f} GiB of weights; launches {launches}; worst step "
+          f"relative err {worst['rel_err']:.3e}", flush=True)
+    del params
+    return rec
+
+
 # ------------------------------------------------------------ phase 4 ----
 
 @contextlib.contextmanager
@@ -1770,26 +2194,31 @@ def timing_phase(torch, step, errs, serving):
     return rows
 
 
-def flash_timing(torch, args, errs, serving):
-    """Phase 5b: the flash kernel at layer 0 of the largest captured yi-9b
-    prefill call, beside its bound, the plain version and SDPA over K/V
-    repeated across each GQA group (timed only, never called by the port).
-    Launch counts are the monolithic arm's; the chunked arm's and
-    llama2-7b's are listed beside them. Each timing runs for about a
-    second or a few launches, whichever is more."""
+def flash_timing(torch, args, err, serving, name="flash_attention",
+                 path="yi-9b prefill", window=None):
+    """Phase 5b: the flash kernel at layer 0 of the largest captured
+    (causal) prefill call of a path (yi-9b; phase G's phi-3-vision at hd 96
+    and recurrentgemma at hd 256, `window` its local window), beside its
+    bound, the plain version and SDPA over K/V repeated across each GQA
+    group, with the window as a mask (timed only, never called by the
+    port). Launch counts are the first run's; the other runs' are listed
+    beside them. Each timing runs for about a second or a few launches,
+    whichever is more. `err`: the kernel's worst phase-2 error at
+    full-width shapes of this head dim."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash import flash_attention
-    print("phase 5b: flash attention timing at the captured yi-9b prefill "
-          "shape", flush=True)
+    print(f"phase 5b: flash attention timing at the captured {path} shape",
+          flush=True)
     q, k, v = args
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
-    # causal (query, key) pairs the kernel is given, pad positions of the
-    # packed batch included (the kernel cannot tell them apart)
-    pairs = sum(min(i + 1, Lk) for i in range(Lq))
+    # causal (query, key) pairs the kernel is given, inside the window,
+    # pad positions of the packed batch included (the kernel cannot tell
+    # them apart)
+    pairs = sum(min(i + 1, Lk, window or Lk) for i in range(Lq))
     esz = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz
     b_ms, b_by = bound(nbytes, 4 * B * H * hd * pairs, "bfloat16")
@@ -1806,25 +2235,32 @@ def flash_timing(torch, args, errs, serving):
                                                       1e-3))))
 
     def kern():
-        return flash_attention(q, k, v)
+        return flash_attention(q, k, v, window=window)
 
     def plain():
-        return ref.flash_attention_ref(q, k, v)
+        return ref.flash_attention_ref(q, k, v, window=window)
 
     kr = k.repeat_interleave(H // KV, dim=1)
     vr = v.repeat_interleave(H // KV, dim=1)
+    mask = None
+    if window is not None and window < Lq:
+        d = torch.arange(Lq, device="cuda")[:, None] \
+            - torch.arange(Lk, device="cuda")[None]
+        mask = (d >= 0) & (d < window)
 
     def library():
-        return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+        if mask is None:
+            return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+        return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
 
     by_run = {f"{r['model']} {r['run']}": r["launches"]["flash_attention"]
               for r in serving}
-    row = {"name": "flash_attention", "route": "cuda",
+    row = {"name": name, "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash.py:110",
-           "path": "yi-9b prefill",
+           "path": path,
            "launches": serving[0]["launches"]["flash_attention"],
-           "max_abs_err": errs["flash_attention"],
+           "max_abs_err": err,
            "ms": time_ms(torch, kern, flush, n=auto_n(kern), warm=1),
            "plain_ms": time_ms(torch, plain, flush, n=auto_n(plain), warm=0),
            "bound_ms": b_ms, "bound_by": b_by,
@@ -1833,9 +2269,10 @@ def flash_timing(torch, args, errs, serving):
            "bytes": nbytes, "ops": 4 * B * H * hd * pairs,
            "launches_by_run": by_run,
            "shape": {"B": B, "H": H, "KV": KV, "Lq": Lq, "Lk": Lk, "hd": hd,
-                     "causal_pairs": pairs, "dtype": str(q.dtype)}}
+                     "window": window, "causal_pairs": pairs,
+                     "dtype": str(q.dtype)}}
     row["tflop_s"] = row["ops"] / row["ms"] / 1e9
-    print(f"  flash_attention: {row['ms']:.3f} ms (bound {b_ms:.3f} ms by "
+    print(f"  {name}: {row['ms']:.3f} ms (bound {b_ms:.3f} ms by "
           f"{b_by}, {row['tflop_s']:.1f} TFLOP/s), plain "
           f"{row['plain_ms']:.1f} ms, library (SDPA) "
           f"{row['library_ms']:.3f} ms, launches {by_run}", flush=True)

@@ -1,11 +1,12 @@
 """Config system: ModelConfig dataclass, input-shape specs, registry.
 
 A copy of the reference's config module whose dtype property yields a
-torch dtype (`torch_dtype`). The port registers only the configs it
-serves, the decoder-only dense and MoE family (llama2-7b/13b/70b, yi-9b,
-qwen2-72b, command-r-35b, mistral-large-123b, dbrx-132b, grok-1-314b);
-`smoke()` is unchanged, so the reduced variant has the reference's exact
-shapes.
+torch dtype (`torch_dtype`). The port registers every config of the
+reference: the decoder-only dense and MoE family (llama2-7b/13b/70b,
+yi-9b, qwen2-72b, command-r-35b, mistral-large-123b, dbrx-132b,
+grok-1-314b), phi-3-vision-4.2b (vlm), recurrentgemma-2b (hybrid),
+mamba2-130m (ssm) and whisper-tiny (encoder-decoder); `smoke()` is
+unchanged, so the reduced variant has the reference's exact shapes.
 """
 from __future__ import annotations
 
@@ -214,12 +215,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         mod = name.replace("-", "_").replace(".", "_")
-        try:
-            importlib.import_module(f"repro_torch.configs.{mod}")
-        except ModuleNotFoundError:
-            raise NotImplementedError(
-                f"config {name!r} is not ported to repro_torch yet "
-                "(ROADMAP.md queue 1, other model families)") from None
+        importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[name]
 
 

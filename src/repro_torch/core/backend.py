@@ -66,6 +66,22 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _mask_pad_slots(row_caches, lens):
+    """Invalidate, in place, every `pos` slot at or past each row's true
+    prompt length (`lens`, one a batch row), so the packed call's pad
+    tokens never become attendable. As the reference's, only `pos` leaves
+    are touched: a recurrent family's state (SSM state, conv tails,
+    RG-LRU h) keeps what the bucket's pad tokens wrote, so its tokens
+    depend on the bucket padding (ROADMAP.md section 3)."""
+    for name, x in cache_lib.tree_leaves(row_caches):
+        if name == "pos":
+            live = torch.arange(x.shape[-1], device=x.device)[None] \
+                < lens[:, None]
+            while live.dim() < x.dim():        # stacked: (L, B, slots)
+                live = live[None]
+            x.masked_fill_(~live, -1)
+
+
 class DecodePipeline:
     """Device-resident per-row decode state + the async readback queue.
 
@@ -190,6 +206,13 @@ class NumericsBackend:
                 "pipeline='perstep' is the greedy-only legacy baseline; "
                 "temperature sampling needs the fused pipeline (its "
                 "generator lives in the device-resident step state)")
+        if cfg.family in ("audio", "encdec"):
+            raise ValueError(
+                f"{cfg.name}: the server passes each request's tokens only, "
+                "and an encoder-decoder model needs its encoder input "
+                "(enc_embeds) at prefill; drive it through model.prefill / "
+                "model.decode (the reference's server cannot serve it "
+                "either)")
         self.paged = memory == "paged"
         if self.paged:
             if pipeline != "fused":
@@ -409,10 +432,7 @@ class NumericsBackend:
             lora=lora, cache_slots=Sp, last_pos=lens_d - 1)
         toks_out = sample(logits[:, 0], temperature=self.temperature,
                           generator=pipe.gen)
-        # slots past each request's true length never become attendable
-        live = torch.arange(Sp, device=self.device)[None, None] \
-            < lens_d[None, :, None]
-        row_caches["pos"] = torch.where(live, row_caches["pos"], -1)
+        _mask_pad_slots(row_caches, lens_d)
         if self.paged:
             self._scatter_pages(states, row_caches, Sp // ps, Nb)
         else:

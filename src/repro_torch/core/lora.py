@@ -44,9 +44,14 @@ def lora_target_dims(cfg: ModelConfig, target: str) -> Tuple[int, int]:
         return d, cfg.n_heads * cfg.hd
     if target in ("k", "v"):
         return d, cfg.n_kv_heads * cfg.hd
-    raise NotImplementedError(
-        f"LoRA target {target!r} belongs to a model family not ported to "
-        "repro_torch yet (ROADMAP.md queue 1, other model families)")
+    if target == "in_proj":              # mamba2: full in-projection
+        s = cfg.ssm
+        d_in_total = 2 * s.expand * d + 2 * s.n_groups * s.state_dim \
+            + (s.expand * d) // s.head_dim
+        return d, d_in_total
+    if target == "out_proj":
+        return cfg.ssm.expand * d, d
+    raise ValueError(target)
 
 
 def make_adapter_weights(cfg: ModelConfig, spec: AdapterSpec,

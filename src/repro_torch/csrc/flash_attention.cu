@@ -20,8 +20,9 @@
 // heaviest causal tiles launched first, warp-specialised into three
 // warpgroups.
 //  - Producer (warpgroup 2, one thread, 24 registers): TMA loads Q once
-//    and K/V tiles of 128 keys into a 3-stage ring guarded by full and
-//    empty mbarriers per K and per V (a K buffer is free once S is done).
+//    and K/V tiles of 128 keys into a 3-stage ring (hd 256: 64 keys, 2
+//    stages; see Tile) guarded by full and empty mbarriers per K and per V
+//    (a K buffer is free once S is done).
 //    The loop starts and ends at the tiles the causal / window mask lets
 //    the query tile see, so a tile the mask excludes is never read. K/V rows at or past Lk come in as zeros (the
 //    tensor map's L extent is Lk), so ragged lengths need no padded copy.
@@ -29,9 +30,10 @@
 //    (4-D: hd, L, heads, batch), so the model's (B, L, H, hd) tensors pass
 //    as (B, H, L, hd) views without a copy.
 //  - Two consumers (warpgroups 0 and 1, 64 query rows each, 240
-//    registers via setmaxnreg): S = Q K^T as wgmma m64n128k16 with Q and K
-//    K-major in swizzled shared memory (128-byte swizzle; a 128-wide head
-//    is two 64-column boxes; hd 32 uses the 64-byte swizzle); online
+//    registers via setmaxnreg): S = Q K^T as wgmma m64n{kBK}k16 with Q
+//    and K K-major in swizzled shared memory (128-byte swizzle; a 128-wide
+//    head is two 64-column boxes, a 256-wide one four; hd 32 and 96 use
+//    32-column boxes with the 64-byte swizzle); online
 //    softmax in registers with exp2 (a quad of lanes shares a row); P is
 //    rounded to bf16 in registers and is the register A operand of
 //    O += P V, wgmma m64n{hd}k16 with V read MN-major through the
@@ -95,8 +97,7 @@ __device__ __forceinline__ bool tile_full(const Problem& p, int q0, int bq,
 // -------------------------------------------------------------- bf16 ----
 
 constexpr int kBQ = 128;                 // query rows a block (2 x 64)
-constexpr int kBK = 128;                 // keys a K/V tile
-constexpr int kStages = 3;               // K/V ring depth
+constexpr int kMaxStages = 3;            // K/V ring depth (Tile::kStages)
 constexpr int kWG = 128;                 // threads a warpgroup
 constexpr int kBf16Threads = 3 * kWG;    // consumers 0, 1; producer 2
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
@@ -163,24 +164,40 @@ __device__ __forceinline__ void p_fragments(const float (&s)[NS * 4],
 }
 
 // Shared-memory layout of a (rows x HD) bf16 tile as TMA writes it with
-// swizzle: HD / kBox column boxes, each `rows` rows of kSwz bytes.
+// swizzle: HD / kBox column boxes, each `rows` rows of kSwz bytes. A head
+// dim that is a multiple of 64 takes 64-column boxes (128-byte swizzle),
+// hd 32 and 96 take 32-column ones (64-byte swizzle): 96 = 3 x 32. Every
+// k-step of 16 columns then lies inside one box (koff). The K/V tile and
+// the ring depth follow the head dim: hd 256 takes tiles of 64 keys in 2
+// stages (Q 64 KiB + 2 x (K + V) x 32 KiB = 192 KiB of the 227 KiB a
+// block may use; at 128 keys and 3 stages it would need 448 KiB), and S
+// (kBK / 2 f32 a thread) beside O (128) and P (kBK / 4) stays within
+// setmaxnreg's 240 registers.
 template <int HD>
 struct Tile {
-  static constexpr int kBox = HD < 64 ? HD : 64;   // columns a box
+  static_assert(HD % 32 == 0 && HD <= 256, "head dim: a multiple of 32");
+  static constexpr int kBox = HD % 64 == 0 ? 64 : 32;   // columns a box
   static constexpr int kBoxes = HD / kBox;
+  static_assert(kBoxes * kBox == HD && kBox % 16 == 0,
+                "a k-step must not straddle two boxes");
   static constexpr int kSwz = kBox * 2;            // bytes a row: 64 or 128
   static constexpr int kAtom = 8 * kSwz;           // 8 rows: the SBO
   static constexpr unsigned kLayout = kSwz == 128 ? 1 : 2;
+  static constexpr int kBK = HD > 128 ? 64 : 128;  // keys a K/V tile
+  static constexpr int kStages = HD > 128 ? 2 : 3;
+  static_assert(kStages <= kMaxStages, "barrier arrays");
   static constexpr int kQBytes = kBQ * HD * 2;
   static constexpr int kKVBytes = kBK * HD * 2;
   // Q, then kStages K tiles, then kStages V tiles, then the barriers
   static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes;
+  static_assert(kSmem + 2 * 8 * (1 + 4 * kMaxStages) + 1024 <= 232448,
+                "shared memory a block may use");
 };
 
 struct Barriers {
   uint64_t q_full;
-  uint64_t k_full[kStages], v_full[kStages];
-  uint64_t k_empty[kStages], v_empty[kStages];
+  uint64_t k_full[kMaxStages], v_full[kMaxStages];
+  uint64_t k_empty[kMaxStages], v_empty[kMaxStages];
 };
 
 // Offset of k-step kk (16 columns of hd) in a swizzled tile of `rows`
@@ -195,26 +212,28 @@ __device__ __forceinline__ unsigned koff(int kk, int rows) {
 
 // S = Q K^T over stage st (Q and K K-major: transpose bits 0)
 template <int HD>
-__device__ __forceinline__ void issue_s(float (&s)[kBK / 2], uint64_t dq,
-                                        uint64_t dk, int st) {
-  const unsigned kb = (st * Tile<HD>::kKVBytes) >> 4;
+__device__ __forceinline__ void issue_s(float (&s)[Tile<HD>::kBK / 2],
+                                        uint64_t dq, uint64_t dk, int st) {
+  using T = Tile<HD>;
+  const unsigned kb = (st * T::kKVBytes) >> 4;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    rt::Wgmma<kBK>::template ss<0, 0>(s, dq + koff<HD>(kk, kBQ),
-                                      dk + kb + koff<HD>(kk, kBK), kk > 0);
+    rt::Wgmma<T::kBK>::template ss<0, 0>(s, dq + koff<HD>(kk, kBQ),
+                                         dk + kb + koff<HD>(kk, T::kBK),
+                                         kk > 0);
   rt::wgmma_commit();
 }
 
 // O += P V over stage st (V MN-major: transpose bit 1; a 16-key k-step
 // is 16 rows further)
 template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&pf)[kBK / 16][4],
-                                         uint64_t dv, int st) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[HD / 2], const uint32_t (&pf)[Tile<HD>::kBK / 16][4],
+    uint64_t dv, int st) {
   using T = Tile<HD>;
   const unsigned vb = (st * T::kKVBytes) >> 4;
 #pragma unroll
-  for (int tt = 0; tt < kBK / 16; ++tt)
+  for (int tt = 0; tt < T::kBK / 16; ++tt)
     rt::Wgmma<HD>::template rs<1>(o, pf[tt],
                                   dv + vb + ((tt * 16 * T::kSwz) >> 4), 1);
   rt::wgmma_commit();
@@ -228,10 +247,10 @@ __device__ __forceinline__ void fence_frags(uint32_t (&pf)[NP][4]) {
 
 // O *= corr row-wise, then P -> bf16 A fragments
 template <int HD>
-__device__ __forceinline__ void rescale(float (&o)[HD / 2],
-                                        const float (&corr)[2],
-                                        const float (&s)[kBK / 2],
-                                        uint32_t (&pf)[kBK / 16][4]) {
+__device__ __forceinline__ void rescale(
+    float (&o)[HD / 2], const float (&corr)[2],
+    const float (&s)[Tile<HD>::kBK / 2],
+    uint32_t (&pf)[Tile<HD>::kBK / 16][4]) {
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
     o[4 * n] *= corr[0];
@@ -239,7 +258,7 @@ __device__ __forceinline__ void rescale(float (&o)[HD / 2],
     o[4 * n + 2] *= corr[1];
     o[4 * n + 3] *= corr[1];
   }
-  p_fragments<kBK / 8>(s, pf);
+  p_fragments<Tile<HD>::kBK / 8>(s, pf);
 }
 
 template <int HD>
@@ -249,6 +268,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1) flash_bf16_kernel(
     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
     Problem p) {
   using T = Tile<HD>;
+  constexpr int kBK = T::kBK, kStages = T::kStages;
   extern __shared__ unsigned char smem_raw[];
   // swizzle atoms must sit on 1024-byte boundaries
   unsigned char* base =
@@ -570,6 +590,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, const Problem& p, int B, cudaStream_t st) {
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
+  constexpr int kBK = Tile<HD>::kBK;
   if (!tensor_map<HD>(&tq, q, B, p.H, p.Lq, p.qb, p.qh, p.ql, kBQ) ||
       !tensor_map<HD>(&tk, k, B, p.KV, p.Lk, p.kb, p.kh, p.kl, kBK) ||
       !tensor_map<HD>(&tv, v, B, p.KV, p.Lk, p.vb, p.vh, p.vl, kBK))
@@ -611,14 +632,18 @@ extern "C" int rt_flash_attention(const void* q, const void* k,
     switch (hd) {
       case 32: return (int)launch_bf16<32>(q, k, v, out, p, B, st);
       case 64: return (int)launch_bf16<64>(q, k, v, out, p, B, st);
+      case 96: return (int)launch_bf16<96>(q, k, v, out, p, B, st);
       case 128: return (int)launch_bf16<128>(q, k, v, out, p, B, st);
+      case 256: return (int)launch_bf16<256>(q, k, v, out, p, B, st);
     }
   } else if (dtype == rt::kF32) {
     switch (hd) {
       case 16: return (int)launch_f32<16>(q, k, v, out, p, B, st);
       case 32: return (int)launch_f32<32>(q, k, v, out, p, B, st);
       case 64: return (int)launch_f32<64>(q, k, v, out, p, B, st);
+      case 96: return (int)launch_f32<96>(q, k, v, out, p, B, st);
       case 128: return (int)launch_f32<128>(q, k, v, out, p, B, st);
+      case 256: return (int)launch_f32<256>(q, k, v, out, p, B, st);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -16,8 +16,10 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# head dims the kernel is instantiated for (csrc/flash_attention.cu)
-HEAD_DIMS = {torch.bfloat16: (32, 64, 128), torch.float32: (16, 32, 64, 128)}
+# head dims the kernel is instantiated for (csrc/flash_attention.cu): 96 is
+# phi-3-vision's, 256 recurrentgemma's
+HEAD_DIMS = {torch.bfloat16: (32, 64, 96, 128, 256),
+             torch.float32: (16, 32, 64, 96, 128, 256)}
 NOT_SUPPORTED = 801            # cudaErrorNotSupported: no TMA encoder
 
 

@@ -11,9 +11,14 @@ three metrics.
       --policy rank_aware
 
 `--arch` names a config the port serves: llama2-7b (default), llama2-13b,
-llama2-70b, yi-9b, qwen2-72b, command-r-35b, mistral-large-123b, or the
-MoE configs dbrx-132b and grok-1-314b. One card holds llama2-13b whole;
-the larger ones fit it only with `--smoke` or cut in depth.
+llama2-70b, yi-9b, qwen2-72b, command-r-35b, mistral-large-123b, the
+MoE configs dbrx-132b and grok-1-314b, phi-3-vision-4.2b (text-only
+requests, as the reference's server sends), recurrentgemma-2b and
+mamba2-130m (on the dense plane). One card holds llama2-13b and the last
+three whole; the larger ones fit it only with `--smoke` or cut in depth.
+whisper-tiny is refused on one server: a request carries no encoder
+input (it runs through `models.model.prefill` / `decode`); a timing-only
+`--cluster` takes it.
 
 The timeline is the analytic simulator, so every latency and rate printed
 here is *simulated*. On one server the tokens are computed for real on
@@ -64,6 +69,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.family in ("audio", "encdec") and not args.cluster:
+        ap.error(f"{cfg.name} is an encoder-decoder model: a served request "
+                 "carries tokens only, not the encoder input (enc_embeds) "
+                 "its prefill needs; drive it through models.model.prefill "
+                 "/ decode, or time it with --cluster")
     serve_cfg = cfg.smoke() if args.smoke else cfg
     rng = np.random.default_rng(args.seed)
     adapters = gen.make_adapters(args.n_adapters, cfg.name, rng,

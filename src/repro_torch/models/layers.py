@@ -1,8 +1,8 @@
-"""Shared neural building blocks of the decoder family: RoPE, GQA
-attention (direct / chunked online-softmax / decode over a cache, full or
-sliding-window), the dense and paged KV caches, and the gated MLP.
-Mirrors `repro.models.layers` (dense, int8-quantized and paged caches; no
-recurrent blocks).
+"""Shared neural building blocks: RoPE, GQA attention (direct / chunked
+online-softmax / decode over a cache, full or sliding-window), the dense
+and paged KV caches, and the MLPs (gated, or the plain 2-matrix gelu
+MLP). Mirrors `repro.models.layers` (dense, int8-quantized and paged
+caches; the recurrent blocks are in `ssm.py` and `rglru.py`).
 
 Conventions:
   activations x: (B, L, D)
@@ -341,17 +341,26 @@ def paged_attn_chunk(q, cache, block_table, positions, window=None):
 
 # ------------------------------------------------------------------ MLP ----
 
+def gelu(x):
+    """The tanh approximation: `jax.nn.gelu`'s default, not torch's."""
+    return F.gelu(x, approximate="tanh")
+
+
 def gate_act(cfg, a, b3):
     """The gated MLP's activation: SwiGLU (`mlp_act="silu"`) or GeGLU
-    (`"geglu"`, grok's experts). GeGLU's gelu is the tanh approximation:
-    `jax.nn.gelu`'s default, not torch's."""
+    (`"geglu"`, grok's experts)."""
     if cfg.mlp_act == "silu":
         return F.silu(a) * b3
     if cfg.mlp_act == "geglu":
-        return F.gelu(a, approximate="tanh") * b3
-    raise NotImplementedError(f"mlp_act {cfg.mlp_act!r}")
+        return gelu(a) * b3
+    raise ValueError(f"mlp_act {cfg.mlp_act!r} is not gated")
 
 
 def mlp_apply(cfg, p, x):
-    h = gate_act(cfg, dense_apply(p.w1, x), dense_apply(p.w3, x))
+    """Gated (silu / geglu: w1, w3, w2) or, for any other `mlp_act`, the
+    plain 2-matrix gelu MLP (w1, w2), as the reference's `mlp_apply`."""
+    if cfg.mlp_act in ("silu", "geglu"):
+        h = gate_act(cfg, dense_apply(p.w1, x), dense_apply(p.w3, x))
+    else:
+        h = gelu(dense_apply(p.w1, x))
     return dense_apply(p.w2, h)

@@ -1,21 +1,26 @@
-"""Family dispatch, decoder-only dense and MoE family: mirrors
-`repro.models.model`.
+"""Family dispatch: one interface over dense / MoE / VLM, SSM, hybrid and
+encoder-decoder models. Mirrors `repro.models.model`.
 
   prefill(cfg, params, batch, ...) -> (logits, row caches)
   prefill_chunk(cfg, params, ...)  -> logits of the final chunk, or None
   decode(cfg, params, cache, ...)  -> (logits, cache)
   cache_abstract(cfg, batch, ...)  -> meta-device stand-ins of the cache
 
-The family decodes over the dense per-row cache (bf16/f32 or int8 KV)
-or the paged pool, with full or sliding-window attention. Other families
-raise NotImplementedError (ROADMAP.md queue 1).
+The decoder-only families decode over the dense per-row cache (bf16/f32
+or int8 KV) or the paged pool, with full or sliding-window attention;
+the SSM and the hybrid over the dense rows of their recurrent state (and,
+for the hybrid, local-attention KV); whisper over its per-layer self and
+cross caches, through the model API only.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, layers, rglru, ssm as ssm_mod, \
+    transformer
 
 
 def supports_last_pos(cfg: ModelConfig) -> bool:
@@ -58,23 +63,87 @@ def prefill_chunk(cfg, params, tokens_c, start, clen, cache, page_ids, *,
 
 def prefill(cfg, params, batch, *, lora=None, cache_slots=None, window=None,
             last_only=False, last_pos=None):
-    """batch: {tokens}. -> (logits, row caches). `window`: sliding-window
-    causal attention (the flash kernel on the card), else full causal."""
+    """batch: {tokens, [enc_embeds], [prefix_embeds]}. -> (logits, row
+    caches). `window`: sliding-window causal attention (the flash kernel
+    on the card), else full causal."""
+    if cfg.family in ("audio", "encdec"):
+        if last_pos is not None:
+            raise ValueError("last_pos unsupported for encdec families")
+        return encdec.prefill(cfg, params, batch["tokens"],
+                              batch["enc_embeds"], lora=lora,
+                              cache_slots=cache_slots, last_only=last_only)
+    if cfg.family == "ssm":
+        return _ssm_prefill(cfg, params, batch["tokens"], lora=lora,
+                            need_cache=cache_slots is not None,
+                            last_only=last_only, last_pos=last_pos)
     return transformer.prefill(
-        cfg, params, batch["tokens"], lora=lora, cache_slots=cache_slots,
-        window=window, last_only=last_only, last_pos=last_pos)
+        cfg, params, batch["tokens"],
+        prefix_embeds=batch.get("prefix_embeds"), lora=lora,
+        cache_slots=cache_slots, window=window, last_only=last_only,
+        last_pos=last_pos)
+
+
+def _ssm_prefill(cfg, params, tokens, *, lora=None, need_cache=False,
+                 last_only=False, last_pos=None):
+    """The SSM stack's prefill; the cache stacks each layer's state on a
+    leading layer axis: {"state": (L, B, H, P, N), "conv": (L, B, W - 1,
+    conv_dim)}."""
+    x = transformer.embed_tokens(cfg, params, tokens)
+    live = transformer._lora_live(cfg, lora)
+    caches = []
+    for i, p_l in enumerate(params.blocks):
+        ll, idx, ranks, mode = transformer._lora_slice(lora, i)
+        x, c = ssm_mod.ssm_block_apply(cfg, p_l, x, lora_layer=ll,
+                                       lora_idx=idx, lora_ranks=ranks,
+                                       lora_mode=mode, lora_live=live)
+        caches.append(c)
+    if last_pos is not None:
+        x = x[torch.arange(x.shape[0], device=x.device),
+              last_pos.long()][:, None]
+    elif last_only:
+        x = x[:, -1:]
+    cache = {n: torch.stack([c[n] for c in caches]) for n in caches[0]} \
+        if need_cache else None
+    return transformer.unembed(cfg, params, x), cache
 
 
 def decode(cfg, params, cache, tokens_t, pos, *, lora=None, window=None,
            write_mask=None, block_table=None):
     """block_table (B, W): the cache is the paged page-pool layout;
-    write_mask (B,) bool: rows with False skip the cache write; `window`:
-    sliding-window attention, plain PyTorch on both planes (the paged
-    kernel is full-attention only, as the reference's)."""
+    write_mask (B,) bool: rows with False skip the cache write (recurrent
+    state keeps its old rows); `window`: sliding-window attention, plain
+    PyTorch on both planes (the paged kernel is full-attention only, as
+    the reference's). The cache is updated in place and returned."""
+    if cfg.family in ("audio", "encdec"):
+        if write_mask is not None:
+            raise ValueError("write_mask unsupported for encdec")
+        if block_table is not None:
+            raise ValueError("paged cache unsupported for encdec")
+        return encdec.decode_step(cfg, params, cache, tokens_t, pos,
+                                  lora=lora)
+    if cfg.family == "ssm":
+        if block_table is not None:
+            raise ValueError("paged cache unsupported for ssm")
+        return _ssm_decode(cfg, params, cache, tokens_t, pos, lora=lora,
+                           write_mask=write_mask)
     return transformer.decode_step(cfg, params, cache, tokens_t, pos,
                                    lora=lora, window=window,
                                    write_mask=write_mask,
                                    block_table=block_table)
+
+
+def _ssm_decode(cfg, params, cache, tokens_t, pos, *, lora=None,
+                write_mask=None):
+    x = transformer.embed_tokens(cfg, params, tokens_t)
+    live = transformer._lora_live(cfg, lora)
+    for i, p_l in enumerate(params.blocks):
+        ll, idx, ranks, mode = transformer._lora_slice(lora, i)
+        c_l = {n: t[i] for n, t in cache.items()}
+        x, c = ssm_mod.ssm_block_step(cfg, p_l, x, c_l, lora_layer=ll,
+                                      lora_idx=idx, lora_ranks=ranks,
+                                      lora_mode=mode, lora_live=live)
+        transformer.write_state(c_l, c, write_mask)
+    return transformer.unembed(cfg, params, x), cache
 
 
 def decode_cache_slots(cfg: ModelConfig, seq_len: int) -> Optional[int]:
@@ -92,13 +161,34 @@ def decode_window(cfg: ModelConfig, seq_len: int) -> Optional[int]:
 
 
 def cache_abstract(cfg: ModelConfig, batch: int, seq_len: int):
-    """Meta-device tensors matching the dense decode cache layout:
-    k/v (L, batch, KV, slots, hd), pos (L, batch, slots) int32; with
-    int8 KV the k/v payload is int8 and k_scale/v_scale (L, batch, KV,
-    slots) f32 ride beside it."""
+    """Meta-device tensors matching the dense decode cache layout. The
+    decoder-only families: k/v (L, batch, KV, slots, hd), pos (L, batch,
+    slots) int32, and with int8 KV an int8 payload beside k_scale/v_scale
+    (L, batch, KV, slots) f32. The SSM: state (L, batch, H, P, N), conv
+    (L, batch, W - 1, conv_dim). The hybrid: a list, {h (batch, w), conv
+    (batch, 3, w)} a recurrent layer, a window-deep kv cache (no layer
+    axis) an attention layer. Enc-dec: a list of {self, cross} kv
+    caches."""
     transformer._check_family(cfg)
-    return layers.cache_init(batch, cfg.n_kv_heads,
-                             decode_cache_slots(cfg, seq_len), cfg.hd,
-                             cfg.torch_dtype,
-                             quantized=cfg.kv_cache_dtype == "int8",
-                             layers=cfg.n_layers, device="meta")
+    quant = cfg.kv_cache_dtype == "int8"
+
+    def kv(slots, allow_quant=True, **kw):
+        return layers.cache_init(batch, cfg.n_kv_heads, slots, cfg.hd,
+                                 cfg.torch_dtype,
+                                 quantized=quant and allow_quant,
+                                 device="meta", **kw)
+
+    if cfg.family == "ssm":
+        return {n: t[None].expand(cfg.n_layers, *t.shape)
+                for n, t in ssm_mod.ssm_cache_init(cfg, batch,
+                                                   "meta").items()}
+    if cfg.hybrid:
+        return [rglru.rglru_cache_init(cfg, batch, "meta")
+                if kind == "rglru"
+                else kv(min(seq_len, cfg.hybrid.window))
+                for kind in transformer.hybrid_layer_kinds(cfg)]
+    if cfg.family in ("audio", "encdec"):
+        return [{"self": kv(min(seq_len, cfg.max_ctx), allow_quant=False),
+                 "cross": kv(cfg.enc_seq, allow_quant=False)}
+                for _ in range(cfg.n_layers)]
+    return kv(decode_cache_slots(cfg, seq_len), layers=cfg.n_layers)

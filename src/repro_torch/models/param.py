@@ -16,8 +16,8 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """A weight `w` of any layout and an optional bias `b` (only qwen2's
-    q/k/v projections carry one, `cfg.qkv_bias`)."""
+    """A weight `w` of any layout and an optional bias `b` (q/k/v with
+    `cfg.qkv_bias`, the RG-LRU gates)."""
 
     def __init__(self, w: torch.Tensor, b: torch.Tensor = None):
         super().__init__()
@@ -26,9 +26,12 @@ class Dense(nn.Module):
 
 
 class Norm(nn.Module):
-    def __init__(self, scale: torch.Tensor):
+    """`scale`, and `bias` for a layernorm (`cfg.norm`)."""
+
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor = None):
         super().__init__()
         self.scale = _param(scale)
+        self.bias = None if bias is None else _param(bias)
 
 
 def dense_apply(p: Dense, x: torch.Tensor) -> torch.Tensor:
@@ -36,9 +39,15 @@ def dense_apply(p: Dense, x: torch.Tensor) -> torch.Tensor:
     return y if p.b is None else y + p.b
 
 
-def norm_apply(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm computed in float32, cast back to x's dtype."""
+def norm_apply(p: Norm, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm or LayerNorm (`kind`) computed in float32, cast back to x's
+    dtype."""
     xf = x.float()
+    if kind == "layernorm":
+        xf = xf - xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * p.scale.float()
+    if kind == "layernorm" and p.bias is not None:
+        y = y + p.bias.float()
     return y.to(x.dtype)

@@ -1,8 +1,9 @@
-"""Decoder-only transformer (dense or MoE feed-forward) with LoRA hooks on
-W_q/W_k/W_v (paper sec 7.1): the modules, and the prefill /
+"""Decoder-only transformer (dense, MoE or VLM feed-forward stack, or the
+RecurrentGemma hybrid of RG-LRU and local-attention layers) with LoRA
+hooks on W_q/W_k/W_v (paper sec 7.1): the modules, and the prefill /
 chunked-prefill / decode functions over them, full or sliding-window,
 against the dense per-row KV cache (bf16/f32 or int8) or the paged pool.
-Mirrors the non-hybrid branch of `repro.models.transformer`.
+Mirrors `repro.models.transformer`.
 
 QKV projections are stored 3-D — (d_model, heads, head_dim) — and the
 output projection (heads, head_dim, d_model), the reference's layouts.
@@ -16,6 +17,7 @@ from torch import nn
 
 from repro_torch.core.lora import lora_apply
 from repro_torch.kernels.ops import lora_live
+from repro_torch.models import rglru
 from repro_torch.models.layers import (apply_rope, attn_decode,
                                        attn_prefill, cache_init,
                                        cache_kv_for_attn,
@@ -27,8 +29,7 @@ from repro_torch.models.layers import (apply_rope, attn_decode,
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.param import Dense, Norm, norm_apply
 
-ROADMAP_FAMILIES = ("model family or variant not ported to repro_torch yet "
-                    "(ROADMAP.md queue 1, other model families)")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio", "encdec")
 
 
 # --------------------------------------------------------------- modules ----
@@ -40,7 +41,9 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, w1: Dense, w2: Dense, w3: Dense):
+    """w1, w2, and w3 for a gated MLP (`cfg.mlp_act` silu / geglu)."""
+
+    def __init__(self, w1: Dense, w2: Dense, w3: Dense = None):
         super().__init__()
         self.w1, self.w2, self.w3 = w1, w2, w3
 
@@ -59,10 +62,13 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """embed (vocab, d); blocks[i]; final_norm; lm_head.w (d, vocab)."""
+    """embed (vocab, d); blocks[i]; final_norm; lm_head.w (d, vocab), or
+    None with tied embeddings (the unembed is embed^T). Also the container
+    of the SSM stack (`models/ssm.py` blocks) and, with blocks of both
+    kinds, of the hybrid."""
 
     def __init__(self, embed: torch.Tensor, blocks, final_norm: Norm,
-                 lm_head: Dense):
+                 lm_head: Dense = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
@@ -97,10 +103,14 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
                lora_layer=None, lora_idx=None, lora_ranks=None,
                lora_mode="bgmv", lora_live=None, window=None, decode=False,
                cache=None, write_mask=None, block_table=None,
-               write_index=None):
+               write_index=None, causal=True, kv_override=None):
     """Returns (out, kv). positions: (B, L) prefill / (B,) decode.
     `window`: keys at or more than `window` positions behind the query
-    are masked (sliding-window attention).
+    are masked (sliding-window attention). `rope_cs` None: no RoPE
+    (learned positions). `kv_override`: precomputed (k, v) (whisper's
+    cross-attention), or (None, None) in decode, where the cross cache is
+    attended at an unbounded position and nothing is written; `causal`
+    False: bidirectional prefill (whisper's encoder and cross-attention).
 
     Decode writes the token's K/V into one layer's cache, in place, and
     attends over it; `write_mask` (B,) bool drops the write of frozen
@@ -119,11 +129,22 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     lora = (lora_idx, lora_ranks, lora_mode, cfg.lora.rank_block, lora_live)
     q = _plus(_proj(p.wq, x), _lora_heads(x, lora_layer, "q", *lora, H, hd))
-    k = _plus(_proj(p.wk, x), _lora_heads(x, lora_layer, "k", *lora, KV, hd))
-    v = _plus(_proj(p.wv, x), _lora_heads(x, lora_layer, "v", *lora, KV, hd))
-    q = apply_rope(q, *rope_cs)
-    k = apply_rope(k, *rope_cs)
-    if decode and block_table is None:
+    if kv_override is None:
+        k = _plus(_proj(p.wk, x),
+                  _lora_heads(x, lora_layer, "k", *lora, KV, hd))
+        v = _plus(_proj(p.wv, x),
+                  _lora_heads(x, lora_layer, "v", *lora, KV, hd))
+        if rope_cs is not None:
+            k = apply_rope(k, *rope_cs)
+    else:
+        k, v = kv_override
+    if rope_cs is not None:
+        q = apply_rope(q, *rope_cs)
+    if decode and kv_override is not None:
+        ck, cv = cache_kv_for_attn(cache, cfg.torch_dtype)
+        out = attn_decode(q, ck, cv, cache["pos"],
+                          torch.full_like(cache["pos"][:, 0], 2 ** 30))
+    elif decode and block_table is None:
         cache_write_token(cache, k, v, positions, write_mask=write_mask,
                           slot=write_index)
         ck, cv = cache_kv_for_attn(cache, cfg.torch_dtype)
@@ -141,7 +162,7 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
         out = paged_attn_chunk(q, cache, block_table, positions,
                                window=window)
     else:
-        out = attn_prefill(q, k, v, window=window)
+        out = attn_prefill(q, k, v, causal=causal, window=window)
     B, L = out.shape[0], out.shape[1]
     y = out.reshape(B, L, H * hd) @ p.wo.w.reshape(H * hd, -1)
     return y, (k, v)
@@ -155,7 +176,7 @@ def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
                 block_table=None, write_index=None):
     """Returns (y, (k, v)) — the layer's rotated K/V for prefill. A MoE
     layer takes the MLP's place (its aux loss is dropped: serving)."""
-    xn = norm_apply(p.norm1, x)
+    xn = norm_apply(p.norm1, x, cfg.norm)
     a, kv = attn_apply(
         cfg, p.attn, xn, positions, lora_layer=lora_layer,
         lora_idx=lora_idx, lora_ranks=lora_ranks, lora_mode=lora_mode,
@@ -163,7 +184,7 @@ def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
         write_mask=write_mask, block_table=block_table, rope_cs=rope_cs,
         write_index=write_index)
     h = x + a
-    hn = norm_apply(p.norm2, h)
+    hn = norm_apply(p.norm2, h, cfg.norm)
     if cfg.moe:
         return h + moe_apply(cfg, p.moe, hn)[0], kv
     return h + mlp_apply(cfg, p.mlp, hn), kv
@@ -171,12 +192,31 @@ def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
 
 # ------------------------------------------------------------- top level ----
 
-def embed_tokens(cfg, params: Transformer, tokens):
-    return params.embed[tokens.long()].to(cfg.torch_dtype)
+def embed_tokens(cfg, params: Transformer, tokens, prefix_embeds=None):
+    """Token embeddings, after `prefix_embeds` (B, P, d) when given (the
+    VLM's stubbed patch embeddings)."""
+    x = params.embed[tokens.long()].to(cfg.torch_dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(cfg, params: Transformer, x):
-    return norm_apply(params.final_norm, x) @ params.lm_head.w
+    xn = norm_apply(params.final_norm, x, cfg.norm)
+    if params.lm_head is None:               # tied embeddings
+        return xn @ params.embed.t()
+    return xn @ params.lm_head.w
+
+
+def hybrid_layer_kinds(cfg):
+    pat = cfg.hybrid.pattern
+    return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+
+
+def _rope(cfg, positions):
+    """RoPE tables at `positions`, or None for learned positions."""
+    return rope_tables(positions, cfg.hd, cfg.rope_theta) \
+        if cfg.pos == "rope" else None
 
 
 def _lora_slice(lora, i):
@@ -199,58 +239,93 @@ def _lora_live(cfg, lora):
 
 
 def _check_family(cfg):
-    """The port serves the llama-style decoder family: RMSNorm, RoPE,
-    untied embeddings, a SwiGLU or GeGLU MLP or MoE, q/k/v biases or
-    none."""
-    dense = cfg.family == "dense" and not cfg.moe
-    moe = cfg.family == "moe" and cfg.moe is not None
-    if (not (dense or moe) or cfg.hybrid or cfg.norm != "rmsnorm"
-            or cfg.mlp_act not in ("silu", "geglu") or cfg.pos != "rope"
-            or cfg.tie_embeddings):
-        raise NotImplementedError(f"{cfg.name}: {ROADMAP_FAMILIES}")
+    """Every family of the reference is ported; expert parallelism over
+    devices (`moe_ep`) is not (ROADMAP.md queue 1, multi-device)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r}")
+    if cfg.moe_ep:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_ep (expert parallelism over devices) is not "
+            "ported to repro_torch yet (ROADMAP.md queue 1, multi-device)")
 
 
-def prefill(cfg, params: Transformer, tokens, *, lora=None,
-            cache_slots=None, window=None, positions=None, last_only=False,
-            last_pos=None):
+def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
+            lora=None, cache_slots=None, window=None, positions=None,
+            last_only=False, last_pos=None):
     """Returns (logits, cache). cache_slots=None -> no cache; else the row
     caches {"k"/"v": (L, B, KV, cache_slots, hd), "pos": (L, B,
     cache_slots)[, "k_scale"/"v_scale": (L, B, KV, cache_slots) f32]}
     (int8 payload and scales when cfg.kv_cache_dtype == "int8"): the
     prompt in slots [0, L) and pos -1 past it, or, for a prompt longer
     than the cache, its last cache_slots tokens in ring order
-    (`layers.cache_write_prefill`). last_pos: optional (B,) per-row
+    (`layers.cache_write_prefill`). The hybrid's cache is a list, one
+    entry a layer: {"h", "conv"} for an RG-LRU layer, and for a local-
+    attention layer {"k"/"v": (B, KV, S, hd), "pos": (B, S)} with S =
+    min(cache_slots, window) (its attention is windowed at
+    `cfg.hybrid.window`). `prefix_embeds` (B, P, d): the VLM's patch
+    embeddings, placed before the tokens. last_pos: optional (B,) per-row
     positions — the residual stream is gathered there *before* the
     unembed, so the (B, L, vocab) logits are never materialized.
     `window`: sliding-window attention (flash on the card)."""
     _check_family(cfg)
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, prefix_embeds)
     B, L = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(L, dtype=torch.int32,
                                  device=x.device).expand(B, L)
-    cache = None
-    if cache_slots is not None:
-        cache = cache_init(B, cfg.n_kv_heads, cache_slots, cfg.hd,
-                           cfg.torch_dtype,
-                           quantized=cfg.kv_cache_dtype == "int8",
-                           layers=cfg.n_layers, device=x.device)
-    rope_cs = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    rope_cs = _rope(cfg, positions)
     live = _lora_live(cfg, lora)
-    for i, p_l in enumerate(params.blocks):
-        ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
-        x, (k, v) = block_apply(
-            cfg, p_l, x, positions, lora_layer=ll, lora_idx=lora_idx,
-            lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
-            window=window, decode=False, rope_cs=rope_cs)
-        if cache is not None:
-            cache_write_prefill({n: t[i] for n, t in cache.items()}, k, v,
-                                positions)
+    if cfg.hybrid:
+        x, cache = _hybrid_prefill(cfg, params, x, positions, rope_cs, lora,
+                                   live, cache_slots)
+    else:
+        cache = None
+        if cache_slots is not None:
+            cache = cache_init(B, cfg.n_kv_heads, cache_slots, cfg.hd,
+                               cfg.torch_dtype,
+                               quantized=cfg.kv_cache_dtype == "int8",
+                               layers=cfg.n_layers, device=x.device)
+        for i, p_l in enumerate(params.blocks):
+            ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
+            x, (k, v) = block_apply(
+                cfg, p_l, x, positions, lora_layer=ll, lora_idx=lora_idx,
+                lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
+                window=window, decode=False, rope_cs=rope_cs)
+            if cache is not None:
+                cache_write_prefill({n: t[i] for n, t in cache.items()}, k,
+                                    v, positions)
     if last_pos is not None:
         x = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
     elif last_only:
         x = x[:, -1:]
     return unembed(cfg, params, x), cache
+
+
+def _hybrid_prefill(cfg, params, x, positions, rope_cs, lora, live,
+                    cache_slots):
+    """The hybrid stack's prefill: returns (x, per-layer caches or None).
+    An attention layer's cache holds min(cache_slots, window) slots, as
+    the reference's (its `or window` when cache_slots is 0 included)."""
+    B, win = x.shape[0], cfg.hybrid.window
+    caches = []
+    for i, (kind, p_l) in enumerate(zip(hybrid_layer_kinds(cfg),
+                                        params.blocks)):
+        if kind == "rglru":
+            x, c = rglru.rglru_block_apply(cfg, p_l, x)
+        else:
+            ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
+            x, (k, v) = block_apply(
+                cfg, p_l, x, positions, lora_layer=ll, lora_idx=lora_idx,
+                lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
+                window=win, decode=False, rope_cs=rope_cs)
+            c = None
+            if cache_slots is not None:
+                c = cache_init(B, cfg.n_kv_heads,
+                               min(cache_slots, win) or win, cfg.hd,
+                               cfg.torch_dtype, device=x.device)
+                cache_write_prefill(c, k, v, positions)
+        caches.append(c)
+    return x, (caches if cache_slots is not None else None)
 
 
 def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
@@ -282,7 +357,7 @@ def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
     bt = page_ids.to(torch.int32).reshape(1, -1)
     windex = paged_write_index(cache["k"], bt.expand(C, -1), positions[0],
                                write_mask=offs < clen)
-    rope_cs = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    rope_cs = _rope(cfg, positions)
     live = _lora_live(cfg, lora)
     for i, p_l in enumerate(params.blocks):
         ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
@@ -303,20 +378,39 @@ def decode_step(cfg, params: Transformer, cache, tokens_t, pos, *,
     `block_table` (B, W) the cache is the paged pool {"k"/"v": (L, P + 1,
     KV, ps, hd), "pos": (L, P + 1, ps)}; without one it is the dense
     per-row cache of `prefill` (k/v (L, B, KV, S, hd), pos (L, B, S), and
-    the scales when int8), the token written at ring slot pos % S. Either
-    is updated in place; write_mask (B,) bool drops frozen rows' writes.
-    `window`: sliding-window attention, plain PyTorch on both planes (the
-    paged kernel has no window mask, as the reference's has none).
+    the scales when int8; the hybrid's per-layer list), the token written
+    at ring slot pos % S. Either is updated in place; write_mask (B,) bool
+    drops frozen rows' writes (an RG-LRU layer's state keeps its old
+    rows). `window`: sliding-window attention, plain PyTorch on both
+    planes (the paged kernel has no window mask, as the reference's has
+    none); the hybrid's attention layers always use `cfg.hybrid.window`.
     Returns (logits, cache)."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens_t)
     # per-step values every layer shares
-    rope_cs = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
+    rope_cs = _rope(cfg, pos[:, None])
+    live = _lora_live(cfg, lora)
+    if cfg.hybrid:
+        if block_table is not None:
+            raise ValueError("paged cache unsupported for hybrid")
+        for i, (kind, p_l, c_l) in enumerate(
+                zip(hybrid_layer_kinds(cfg), params.blocks, cache)):
+            if kind == "rglru":
+                x, c = rglru.rglru_block_step(cfg, p_l, x, c_l)
+                write_state(c_l, c, write_mask)
+                continue
+            ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
+            x, _ = block_apply(
+                cfg, p_l, x, pos, lora_layer=ll, lora_idx=lora_idx,
+                lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
+                window=cfg.hybrid.window, decode=True, cache=c_l,
+                write_mask=write_mask, rope_cs=rope_cs,
+                write_index=pos.long() % c_l["k"].shape[2])
+        return unembed(cfg, params, x), cache
     if block_table is not None:
         windex = paged_write_index(cache["k"], block_table, pos, write_mask)
     else:
         windex = pos.long() % cache["k"].shape[3]
-    live = _lora_live(cfg, lora)
     for i, p_l in enumerate(params.blocks):
         ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
         cache_l = {name: t[i] for name, t in cache.items()}
@@ -327,3 +421,15 @@ def decode_step(cfg, params: Transformer, cache, tokens_t, pos, *,
             write_mask=write_mask, block_table=block_table,
             rope_cs=rope_cs, write_index=windex)
     return unembed(cfg, params, x), cache
+
+
+def write_state(old, new, write_mask=None, batch_axis=0):
+    """Copy a recurrent layer's new state leaves into `old` in place; rows
+    whose write_mask is False keep their old values (recurrent state has
+    no slot to drop a write into: the reference selects per row)."""
+    for name, t in new.items():
+        if write_mask is not None:
+            shape = [1] * t.dim()
+            shape[batch_axis] = -1
+            t = torch.where(write_mask.reshape(shape), t, old[name])
+        old[name].copy_(t)

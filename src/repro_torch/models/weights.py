@@ -1,10 +1,14 @@
 """The port's model state: seeded random init on the device, and the
 bridge from the reference's parameter tree.
 
-`init_params` draws every weight from one seeded `torch.Generator` on the
-target device (the full-width model is built on the card, where no JAX
-exists). The draws differ from `jax.random`'s, so parity tests go through
-`params_from_jax`, which takes the reference's value tree
+Both paths first make the reference's value tree with torch tensors as
+leaves, one entry a layer (the reference stacks the layers of its
+uniform stacks on a leading axis), and `_build` turns that tree into the
+family's modules. `init_params` draws every weight from one seeded
+`torch.Generator` on the target device (the full-width model is built on
+the card, where no JAX exists), at the reference's scales. The draws
+differ from `jax.random`'s, so parity tests go through `params_from_jax`,
+which takes the reference's value tree
 (`repro.models.param.split(init_params(...))[0]`, every leaf turned into
 numpy by the caller) and copies it leaf for leaf.
 """
@@ -14,93 +18,217 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec, rglru, ssm
 from repro_torch.models.moe import MoE
 from repro_torch.models.param import Dense, Norm
 from repro_torch.models.transformer import (MLP, Attention, Block,
-                                            Transformer, _check_family)
+                                            Transformer, _check_family,
+                                            hybrid_layer_kinds)
+
+# leaves the reference keeps in float32 whatever the model's dtype
+F32_LEAVES = ("a_log", "dt_bias", "d_skip", "lam")
 
 
-def _build(cfg, embed, final_scale, lm_head_w, layer):
-    """layer(i) -> dict of the i-th layer's tensors under the reference's
-    leaf names (q/k/v biases as "bq"/"bk"/"bv", the MoE router as
-    "router")."""
-    blocks = []
-    for i in range(cfg.n_layers):
-        t = layer(i)
-        ffn = [Dense(t[n]) for n in ("w1", "w2", "w3")]
-        ffn = MoE(Dense(t["router"]), *ffn) if cfg.moe else MLP(*ffn)
-        qkv = [Dense(t[n], t.get("b" + n[1])) for n in ("wq", "wk", "wv")]
-        blocks.append(Block(
-            Norm(t["norm1"]), Attention(*qkv, Dense(t["wo"])),
-            Norm(t["norm2"]), ffn))
-    return Transformer(embed, blocks, Norm(final_scale), Dense(lm_head_w))
+# -------------------------------------------------------------- modules ----
+
+def _dense(t):
+    return Dense(t["w"], t.get("b"))
 
 
-def init_params(cfg, seed: int = 0, device=None) -> Transformer:
+def _norm(t):
+    return Norm(t["scale"], t.get("bias"))
+
+
+def _attn(t):
+    return Attention(*(_dense(t[n]) for n in ("wq", "wk", "wv", "wo")))
+
+
+def _mlp(t):
+    return MLP(_dense(t["w1"]), _dense(t["w2"]),
+               _dense(t["w3"]) if "w3" in t else None)
+
+
+def _block(t):
+    ffn = MoE(_dense(t["moe"]["router"]),
+              *(_dense(t["moe"][n]) for n in ("w1", "w2", "w3"))) \
+        if "moe" in t else _mlp(t["mlp"])
+    return Block(_norm(t["norm1"]), _attn(t["attn"]), _norm(t["norm2"]),
+                 ffn)
+
+
+def _rglru_block(t):
+    return rglru.RGLRUBlock(_norm(t["norm"]), _dense(t["w_x"]),
+                            _dense(t["w_gate"]), t["conv_w"], t["conv_b"],
+                            _dense(t["w_a"]), _dense(t["w_i"]), t["lam"],
+                            _dense(t["w_out"]))
+
+
+def _ssm_block(t):
+    return ssm.SSMBlock(_norm(t["norm"]), _dense(t["in_proj"]), t["conv_w"],
+                        t["conv_b"], t["a_log"], t["dt_bias"], t["d_skip"],
+                        _norm(t["gate_norm"]), _dense(t["out_proj"]))
+
+
+def _build(cfg, tree):
+    """The reference's value tree (torch leaves, one dict a layer) -> the
+    family's modules."""
+    if cfg.family in ("audio", "encdec"):
+        return encdec.EncDec(
+            tree["enc_pos"],
+            [encdec.EncBlock(_norm(b["norm1"]), _attn(b["attn"]),
+                             _norm(b["norm2"]), _mlp(b["mlp"]))
+             for b in tree["enc_blocks"]],
+            _norm(tree["enc_norm"]), tree["embed"], tree["dec_pos"],
+            [encdec.DecBlock(_norm(b["norm1"]), _attn(b["attn"]),
+                             _norm(b["norm_x"]), _attn(b["xattn"]),
+                             _norm(b["norm2"]), _mlp(b["mlp"]))
+             for b in tree["dec_blocks"]],
+            _norm(tree["final_norm"]), _dense(tree["lm_head"]))
+    if cfg.family == "ssm":
+        blocks = [_ssm_block(b) for b in tree["blocks"]]
+    elif cfg.hybrid:
+        blocks = [_rglru_block(b) if kind == "rglru" else _block(b)
+                  for kind, b in zip(hybrid_layer_kinds(cfg),
+                                     tree["blocks"])]
+    else:
+        blocks = [_block(b) for b in tree["blocks"]]
+    head = _dense(tree["lm_head"]) if "lm_head" in tree else None
+    return Transformer(tree["embed"], blocks, _norm(tree["final_norm"]),
+                       head)
+
+
+# ---------------------------------------------------------- random init ----
+
+def init_params(cfg, seed: int = 0, device=None):
     """Random weights at the reference's scales, drawn on `device`
     (None: the card)."""
     _check_family(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
-    d, H, KV, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
-        cfg.d_ff
+    d = cfg.d_model
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=dt):
         return torch.randn(shape, generator=g, device=dev,
-                           dtype=dt).mul_(scale)
+                           dtype=dtype).mul_(scale)
 
-    def ones(n):
-        return torch.ones(n, device=dev, dtype=dt)
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, device=dev, dtype=dtype)
 
-    E = (cfg.moe.n_experts,) if cfg.moe else ()
+    def dense(d_in, d_out, bias=False):
+        p = {"w": normal((d_in, d_out), d_in ** -0.5)}
+        if bias:
+            p["b"] = full((d_out,), 0.0)
+        return p
 
-    def layer(_):
-        t = {"norm1": ones(d), "norm2": ones(d),
-             "wq": normal((d, H, hd), d ** -0.5),
-             "wk": normal((d, KV, hd), d ** -0.5),
-             "wv": normal((d, KV, hd), d ** -0.5),
-             "wo": normal((H, hd, d), (H * hd) ** -0.5)}
+    def norm(n, kind=cfg.norm):
+        p = {"scale": full((n,), 1.0)}
+        if kind == "layernorm":
+            p["bias"] = full((n,), 0.0)
+        return p
+
+    def attn():
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        t = {n: {"w": normal((d, nh, hd), d ** -0.5)}
+             for n, nh in (("wq", H), ("wk", KV), ("wv", KV))}
+        t["wo"] = {"w": normal((H, hd, d), (H * hd) ** -0.5)}
         if cfg.qkv_bias:
-            t.update(bq=torch.zeros((H, hd), device=dev, dtype=dt),
-                     bk=torch.zeros((KV, hd), device=dev, dtype=dt),
-                     bv=torch.zeros((KV, hd), device=dev, dtype=dt))
-        if cfg.moe:
-            t["router"] = normal((d, cfg.moe.n_experts), d ** -0.5)
-        t.update(w1=normal(E + (d, f), d ** -0.5),
-                 w2=normal(E + (f, d), f ** -0.5),
-                 w3=normal(E + (d, f), d ** -0.5))
+            for n, nh in (("wq", H), ("wk", KV), ("wv", KV)):
+                t[n]["b"] = full((nh, hd), 0.0)
         return t
 
-    embed = normal((cfg.vocab, d), 0.02)
-    return _build(cfg, embed, ones(d), normal((d, cfg.vocab), d ** -0.5),
-                  layer)
+    def ffn():
+        f = cfg.d_ff
+        gated = cfg.mlp_act in ("silu", "geglu")
+        if not cfg.moe:
+            t = {"w1": dense(d, f), "w2": dense(f, d)}
+            if gated:
+                t["w3"] = dense(d, f)
+            return t
+        E = cfg.moe.n_experts
+        return {"router": dense(d, E),
+                "w1": {"w": normal((E, d, f), d ** -0.5)},
+                "w2": {"w": normal((E, f, d), f ** -0.5)},
+                "w3": {"w": normal((E, d, f), d ** -0.5)}}
+
+    def block():
+        t = {"norm1": norm(d), "norm2": norm(d), "attn": attn()}
+        t["moe" if cfg.moe else "mlp"] = ffn()
+        return t
+
+    def rglru_block():
+        w = cfg.hybrid.lru_width or d
+        return {"norm": norm(d), "w_x": dense(d, w), "w_gate": dense(d, w),
+                "conv_w": normal((4, w), 0.3), "conv_b": full((w,), 0.0),
+                "w_a": dense(w, w, bias=True), "w_i": dense(w, w, bias=True),
+                "lam": torch.linspace(0.5, 4.0, w, device=dev),
+                "w_out": dense(w, d)}
+
+    def ssm_block():
+        s = cfg.ssm
+        d_in, H, conv_dim, in_total = ssm.ssm_dims(cfg)
+        f32 = torch.float32
+        return {"norm": norm(d), "in_proj": dense(d, in_total),
+                "conv_w": normal((s.conv_width, conv_dim), 0.3),
+                "conv_b": full((conv_dim,), 0.0),
+                "a_log": torch.log(torch.linspace(1.0, 16.0, H, device=dev)),
+                "dt_bias": full((H,), 0.0, f32),
+                "d_skip": full((H,), 1.0, f32),
+                "gate_norm": norm(d_in, "rmsnorm"),
+                "out_proj": dense(d_in, d)}
+
+    if cfg.family in ("audio", "encdec"):
+        return _build(cfg, {
+            "enc_pos": normal((cfg.enc_seq, d), 0.02),
+            "enc_blocks": [{"norm1": norm(d), "attn": attn(),
+                            "norm2": norm(d), "mlp": ffn()}
+                           for _ in range(cfg.n_enc_layers)],
+            "enc_norm": norm(d), "embed": normal((cfg.vocab, d), 0.02),
+            "dec_pos": normal((cfg.max_ctx, d), 0.02),
+            "dec_blocks": [{"norm1": norm(d), "attn": attn(),
+                            "norm_x": norm(d), "xattn": attn(),
+                            "norm2": norm(d), "mlp": ffn()}
+                           for _ in range(cfg.n_layers)],
+            "final_norm": norm(d), "lm_head": dense(d, cfg.vocab)})
+    tree = {"embed": normal((cfg.vocab, d), 0.02)}
+    if not cfg.tie_embeddings and cfg.family != "ssm":
+        tree["lm_head"] = dense(d, cfg.vocab)
+    if cfg.family == "ssm":
+        tree["blocks"] = [ssm_block() for _ in range(cfg.n_layers)]
+    elif cfg.hybrid:
+        tree["blocks"] = [rglru_block() if kind == "rglru" else block()
+                          for kind in hybrid_layer_kinds(cfg)]
+    else:
+        tree["blocks"] = [block() for _ in range(cfg.n_layers)]
+    tree["final_norm"] = norm(d)
+    return _build(cfg, tree)
 
 
-def params_from_jax(cfg, tree, device=None) -> Transformer:
-    """The reference's parameter value tree (numpy leaves, blocks stacked
-    on a leading layer axis) -> the port's Transformer on `device`
-    (None: the card)."""
+# ------------------------------------------------------ from the reference ----
+
+def params_from_jax(cfg, tree, device=None):
+    """The reference's parameter value tree (numpy leaves; the blocks of a
+    uniform stack on a leading layer axis, a hybrid's or enc-dec's as a
+    list) -> the port's modules on `device` (None: the card)."""
     _check_family(cfg)
     dev = resolve_device(device)
 
-    def t(a):
-        return torch.from_numpy(np.array(a, np.float32)).to(
-            dev, cfg.torch_dtype)
+    def conv(x, name=""):
+        if isinstance(x, dict):
+            return {k: conv(v, k) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v, name) for v in x]
+        dtype = torch.float32 if name in F32_LEAVES else cfg.torch_dtype
+        return torch.from_numpy(np.array(x, np.float32)).to(dev, dtype)
 
-    blk = tree["blocks"]
-    att, ffn = blk["attn"], blk["moe" if cfg.moe else "mlp"]
+    out = dict(tree)
+    if isinstance(tree.get("blocks"), dict):      # a stacked uniform stack
+        out["blocks"] = [_index(tree["blocks"], i)
+                         for i in range(cfg.n_layers)]
+    return _build(cfg, conv(out))
 
-    def layer(i):
-        out = {"norm1": t(blk["norm1"]["scale"][i]),
-               "norm2": t(blk["norm2"]["scale"][i]),
-               **{n: t(att[n]["w"][i]) for n in ("wq", "wk", "wv", "wo")},
-               **{n: t(ffn[n]["w"][i]) for n in ("w1", "w2", "w3")}}
-        out.update({"b" + n[1]: t(att[n]["b"][i])
-                    for n in ("wq", "wk", "wv") if "b" in att[n]})
-        if cfg.moe:
-            out["router"] = t(ffn["router"]["w"][i])
-        return out
 
-    return _build(cfg, t(tree["embed"]), t(tree["final_norm"]["scale"]),
-                  t(tree["lm_head"]["w"]), layer)
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]

@@ -1,11 +1,15 @@
 """KV-cache memory plane for continuous batching. Mirrors
 `repro.serving.cache`; every pool is updated in place. Two layouts:
 
-* **Dense rows**: a fixed ``max_batch`` slab of ``cache_slots``-deep rows
-  (k/v ``(L, max_batch, KV, S, hd)``, pos ``(L, max_batch, S)``, and with
-  int8 KV the f32 scales ``(L, max_batch, KV, S)``); a request owns one
-  whole row, and its prefill cache is scattered into that row
-  (``zeros_like_batched`` / ``scatter_rows`` / ``gather_row``).
+* **Dense rows**: a fixed ``max_batch`` slab of ``cache_slots``-deep rows;
+  a request owns one whole row, and its prefill cache is scattered into
+  that row (``zeros_like_batched`` / ``scatter_rows`` / ``gather_row``).
+  The slab has the tree of the family's row cache (`models.model.
+  cache_abstract`): the layered dict of the decoder-only families (k/v
+  ``(L, max_batch, KV, S, hd)``, pos ``(L, max_batch, S)``, with int8 KV
+  the f32 scales ``(L, max_batch, KV, S)``) and the SSM's stacked state,
+  batch on axis 1; the hybrid's per-layer list, batch on axis 0 (the
+  reference's ``_batch_axis``).
 
 * **Paged**: a fixed pool of ``(page_size, kv_heads, head_dim)`` pages
   shared by every request, plus a per-row *block table* mapping logical
@@ -27,44 +31,79 @@ import torch
 
 # ------------------------------------------------------------ dense rows ----
 
+def _batch_axis(cache) -> int:
+    return 0 if isinstance(cache, list) else 1
+
+
+def tree_leaves(cache):
+    """(name, tensor) of every leaf of a cache tree: a dict, or a list of
+    dicts (names repeat across layers)."""
+    if isinstance(cache, list):
+        return [leaf for c in cache for leaf in tree_leaves(c)]
+    return list(cache.items())
+
+
+def _slot_axis(name: str, ax: int):
+    """The slot axis of a KV leaf (k/v/scales: after the KV-head axis,
+    pos: right after the batch axis); None for recurrent state, which has
+    no slots."""
+    if name == "pos":
+        return ax + 1
+    if name in ("k", "v", "k_scale", "v_scale"):
+        return ax + 2
+    return None
+
+
 def zeros_like_batched(row_cache_abstract, max_batch: int, device=None):
-    """The dense slab from a batch-1 cache stand-in of the layered layout
-    (`models.model.cache_abstract`): batch axis 1 widened to `max_batch`;
-    int32 leaves (pos) filled with -1, the others with zeros."""
-    out = {}
-    for name, x in row_cache_abstract.items():
+    """The dense slab from a batch-1 cache stand-in
+    (`models.model.cache_abstract`): the batch axis widened to
+    `max_batch`; int32 leaves (pos) filled with -1, the others with
+    zeros."""
+    ax = _batch_axis(row_cache_abstract)
+
+    def mk(x):
         shape = list(x.shape)
-        shape[1] = max_batch
+        shape[ax] = max_batch
         fill = -1 if x.dtype == torch.int32 else 0
-        out[name] = torch.full(shape, fill, dtype=x.dtype, device=device)
-    return out
+        return torch.full(shape, fill, dtype=x.dtype, device=device)
+
+    if isinstance(row_cache_abstract, list):
+        return [{n: mk(x) for n, x in c.items()} for c in row_cache_abstract]
+    return {n: mk(x) for n, x in row_cache_abstract.items()}
 
 
 def scatter_rows(pool_cache, row_caches, rows: Sequence[int]):
-    """Write request i's prefill cache (batch entry i of `row_caches`,
-    batch axis 1) into slab row rows[i], in place, replacing the whole
-    row: slots [0, Sp) from the row cache, slots past its depth Sp <= S
-    cleared (payload and scales 0, pos -1), as the reference's full-depth
-    row write leaves them. Entries outside [0, max_batch) are dropped
-    (the reference's out-of-bounds mode), so padding rows of a bucketed
+    """Write request i's prefill cache (batch entry i of `row_caches`)
+    into slab row rows[i], in place, replacing the whole row. A KV leaf's
+    slots [0, Sp) come from the row cache and the slots past its depth
+    Sp <= S are cleared (payload and scales 0, pos -1), as the
+    reference's full-depth row write leaves them; a recurrent-state leaf
+    is copied whole. Entries outside [0, max_batch) are dropped (the
+    reference's out-of-bounds mode), so padding rows of a bucketed
     prefill need no select."""
-    max_batch = pool_cache["pos"].shape[1]
+    ax = _batch_axis(pool_cache)
+    leaves = tree_leaves(pool_cache)
+    max_batch = leaves[0][1].shape[ax]
     keep = [i for i, r in enumerate(rows) if 0 <= int(r) < max_batch]
     if not keep:
         return pool_cache
-    dev = pool_cache["pos"].device
+    dev = leaves[0][1].device
     dst_rows = torch.as_tensor([int(rows[i]) for i in keep],
                                dtype=torch.long).to(dev)
     prefix = keep == list(range(len(keep)))     # no copy of the sources
     src_rows = None if prefix else torch.as_tensor(keep).to(dev)
-    for name, dst in pool_cache.items():
-        src = row_caches[name]
-        src = src[:, :len(keep)] if prefix else src.index_select(1, src_rows)
-        ax = 2 if name == "pos" else 3                   # the slot axis
-        sp = src.shape[ax]
-        lead = (slice(None), dst_rows) + (slice(None),) * (ax - 2)
-        dst[lead + (slice(0, sp),)] = src
-        dst[lead + (slice(sp, None),)] = -1 if name == "pos" else 0
+    for (name, dst), (_, src) in zip(leaves, tree_leaves(row_caches)):
+        src = src.narrow(ax, 0, len(keep)) if prefix \
+            else src.index_select(ax, src_rows)
+        lead = (slice(None),) * ax + (dst_rows,)
+        sax = _slot_axis(name, ax)
+        if sax is None:
+            dst[lead] = src
+            continue
+        mid = (slice(None),) * (sax - ax - 1)
+        sp = src.shape[sax]
+        dst[lead + mid + (slice(0, sp),)] = src
+        dst[lead + mid + (slice(sp, None),)] = -1 if name == "pos" else 0
     return pool_cache
 
 
@@ -75,7 +114,11 @@ def scatter_row(pool_cache, row_cache, row: int):
 
 def gather_row(pool_cache, row: int):
     """Slab row `row` as a batch-1 cache (views, no copy)."""
-    return {name: x[:, row:row + 1] for name, x in pool_cache.items()}
+    ax = _batch_axis(pool_cache)
+    if isinstance(pool_cache, list):
+        return [{n: x.narrow(ax, row, 1) for n, x in c.items()}
+                for c in pool_cache]
+    return {n: x.narrow(ax, row, 1) for n, x in pool_cache.items()}
 
 
 # ----------------------------------------------------------------- paged ----

@@ -116,7 +116,9 @@ def test_lora_kernels_match_plain(card, mode):
 
 @pytest.mark.parametrize("causal,window,group,Lq,Lk,hd", [
     (True, None, 1, 130, 130, 32), (True, 48, 2, 257, 257, 64),
-    (False, None, 4, 96, 160, 16), (False, 48, 8, 160, 96, 128)])
+    (False, None, 4, 96, 160, 16), (False, 48, 8, 160, 96, 128),
+    (True, None, 1, 150, 150, 96), (True, 40, 5, 170, 170, 256),
+    (False, None, 1, 64, 150, 256)])
 def test_flash_kernel_matches_plain(card, causal, window, group, Lq, Lk, hd):
     """f32 (the CUDA-core path): ragged lengths, Lq != Lk, GQA groups 1 to
     8, causal or not, with and without a window."""
@@ -319,16 +321,18 @@ def test_lora_shrink_paths_match_plain(card, mode, rows, seg, d_in):
     assert torch.equal(y, bgmv.lora_shrink(x, a, idx, live))
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("causal,window,group,Lq,Lk", [
     (True, None, 1, 200, 333), (True, 64, 4, 515, 515),
-    (False, None, 8, 300, 190), (False, 100, 4, 777, 777)])
+    (False, None, 8, 300, 190), (False, 100, 4, 777, 777),
+    (True, 100, 10, 400, 400)])
 def test_flash_kernel_bf16_head_dims(card, hd, causal, window, group, Lq,
                                      Lk):
-    """The wgmma kernel at every bf16 head dim, on (B, H, L, hd) views of
-    (B, L, H, hd) tensors: lengths no multiple of its 128-key tile,
-    Lq != Lk, windows, causal=False, GQA groups 1/4/8; each query row
-    within 1e-2 of its largest plain value."""
+    """The wgmma kernel at every bf16 head dim (96: 32-column boxes; 256:
+    64-key tiles in 2 stages), on (B, H, L, hd) views of (B, L, H, hd)
+    tensors: lengths no multiple of its key tile, Lq != Lk, windows,
+    causal=False, GQA groups 1/4/8/10; each query row within 1e-2 of its
+    largest plain value."""
     g = torch.Generator(device=card).manual_seed(Lq + hd)
     KV = 2
     q = torch.randn(2, Lq, KV * group, hd, generator=g, device=card)
@@ -340,6 +344,18 @@ def test_flash_kernel_bf16_head_dims(card, hd, causal, window, group, Lq,
     assert flash.flash_attention.launches == n + 1
     want = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window)
     _rows_close(got.reshape(-1, hd), want.reshape(-1, hd), 1e-2, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [80, 48])
+def test_flash_kernel_raises_for_other_head_dims(card, dtype, hd):
+    """A head dim the kernel is not instantiated for raises on the card
+    (no plain fallback), and nothing launches."""
+    q = torch.zeros(1, 2, 8, hd, device=card, dtype=dtype)
+    n = flash.flash_attention.launches
+    with pytest.raises(ValueError, match="the kernel takes hd"):
+        flash.flash_attention(q, q, q)
+    assert flash.flash_attention.launches == n
 
 
 @pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])

@@ -2,11 +2,14 @@
 the smoke size in f32: llama2-13b (MHA), llama2-70b, qwen2-72b (q/k/v
 bias), command-r-35b, mistral-large-123b (the GQA group of the full
 config is 12; the smoke one keeps the reference's smoke shapes),
-dbrx-132b (MoE, SwiGLU experts) and grok-1-314b (MoE, GeGLU experts).
+dbrx-132b (MoE, SwiGLU experts), grok-1-314b (MoE, GeGLU experts) and
+phi-3-vision-4.2b (the VLM: stubbed patch embeddings before the tokens).
 The same weights (the reference's tree through `params_from_jax`), the
 same adapters and inputs made with numpy; logits and caches within
 atol = rtol = 1e-4, greedy tokens identical. Also the sliding window
-(`window=`) on prefill and on dense and paged decode."""
+(`window=`) on prefill and on dense and paged decode, and the four layer
+variants of the other families (layernorm, learned positions, tied
+embeddings, the plain gelu MLP) on the decoder-only stack."""
 import dataclasses
 
 import numpy as np
@@ -27,7 +30,8 @@ from repro_torch.serving import cache as tcache  # noqa: E402
 from test_torch_model import TOL, _both, _lora, _prefill_and_decode, _t  # noqa: E402,E501
 
 ARCHS = ["llama2-13b", "llama2-70b", "qwen2-72b", "command-r-35b",
-         "mistral-large-123b", "dbrx-132b", "grok-1-314b"]
+         "mistral-large-123b", "dbrx-132b", "grok-1-314b",
+         "phi-3-vision-4.2b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -208,11 +212,74 @@ def test_moe_chunked_prefill_refused():
         tmodel.prefill_chunk(cfg, None, None, 0, 1, None, None)
 
 
-def test_unported_variants_still_raise():
-    """The family check still refuses what is not ported: layernorm,
-    learned positions, tied embeddings, a plain gelu MLP."""
-    base = tget("llama2-13b").smoke()
-    for kw in ({"norm": "layernorm"}, {"pos": "learned"},
-               {"tie_embeddings": True}, {"mlp_act": "gelu"}):
-        with pytest.raises(NotImplementedError):
-            init_params(dataclasses.replace(base, **kw), 0, "cpu")
+VARIANTS = {"layernorm": {"norm": "layernorm"},
+            "learned_positions": {"pos": "learned"},
+            "tied_embeddings": {"tie_embeddings": True},
+            "gelu_mlp": {"mlp_act": "gelu"}}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_layer_variant_initialises_and_matches_reference(variant):
+    """Each layer variant of the other families on llama2-13b-smoke: the
+    seeded init has the reference's leaves (layernorm biases, no lm_head
+    when tied, no w3 in the plain MLP), and every position's prefill
+    logits with LoRA equal the reference's."""
+    from repro.models.param import split
+    kw = VARIANTS[variant]
+    cj = dataclasses.replace(jget("llama2-13b").smoke(), **kw)
+    ct = dataclasses.replace(tget("llama2-13b").smoke(), **kw)
+    pj = split(jmodel.init_params(cj, jax.random.PRNGKey(1)))[0]
+    pt = params_from_jax(ct, jax.tree.map(np.asarray, pj), device="cpu")
+    own = init_params(ct, 0, "cpu")
+    assert {n: tuple(p.shape) for n, p in own.named_parameters()
+            if not n.startswith("blocks.") or n.startswith("blocks.0.")} \
+        == {n: tuple(p.shape) for n, p in pt.named_parameters()
+            if not n.startswith("blocks.") or n.startswith("blocks.0.")}
+    assert ("lm_head" in pj) == (own.lm_head is not None)
+    toks = np.random.default_rng(6).integers(0, cj.vocab, (2, 14))
+    toks = toks.astype(np.int32)
+    want, _ = jmodel.prefill(cj, pj, {"tokens": jnp.asarray(toks)})
+    got, _ = tmodel.prefill(ct, pt, {"tokens": _t(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# --------------------------------------------------------- phi-3-vision ----
+
+@pytest.fixture(scope="module")
+def phi():
+    return _both("phi-3-vision-4.2b")
+
+
+def _patches(cfg, B, seed=3):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(B, cfg.n_prefix_tokens,
+                            cfg.d_model)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+def test_vlm_prefix_prefill_matches_reference(phi, mode):
+    """prefix_embeds (4 patch embeddings a row) before 9 tokens: every
+    position's logits and the row caches (prefix positions included)
+    equal the reference's."""
+    cj, ct, pj, pt, _, _ = phi
+    toks = np.random.default_rng(2).integers(0, cj.vocab, (2, 9))
+    toks = toks.astype(np.int32)
+    pre = _patches(cj, 2)
+    lj, lt = _lora(phi, mode, [1, -1])
+    want, cw = jmodel.prefill(cj, pj, {"tokens": jnp.asarray(toks),
+                                       "prefix_embeds": jnp.asarray(pre)},
+                              lora=lj, cache_slots=16)
+    got, cg = tmodel.prefill(ct, pt, {"tokens": _t(toks),
+                                      "prefix_embeds": _t(pre)},
+                             lora=lt, cache_slots=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for name in ("k", "v", "pos"):
+        np.testing.assert_allclose(cg[name].numpy(), np.asarray(cw[name]),
+                                   **TOL)
+
+
+def test_vlm_decode_consistency_through_the_port(phi):
+    from test_torch_ssm import decode_consistency
+    ct, pt = phi[1], phi[3]
+    decode_consistency(ct, pt, {"prefix_embeds": _t(_patches(ct, 2, 5))},
+                       offset=ct.n_prefix_tokens)

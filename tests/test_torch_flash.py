@@ -84,6 +84,39 @@ def test_flash_plain_matches_pallas_long_ragged(L):
                                rtol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("hd,H,KV,Lq,Lk,causal,window", [
+    (96, 4, 4, 150, 150, True, None),       # phi-3-vision: MHA, hd 96
+    (96, 4, 4, 70, 130, False, None),
+    (256, 10, 1, 150, 150, True, 40),       # recurrentgemma: MQA 10 / 1
+    (256, 10, 1, 96, 70, True, None),
+    (64, 6, 6, 20, 150, False, None)])      # whisper's cross-attention
+def test_flash_plain_matches_pallas_new_head_dims(dtype, hd, H, KV, Lq, Lk,
+                                                  causal, window):
+    """The head dims this port's flash kernel added (96, 256) and
+    whisper's non-causal Lq != Lk shape: the plain version equals the
+    Pallas kernel in interpret mode, which takes any head dim."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrs = _inputs(hd + Lq + Lk, 1, H, KV, Lq, Lk, hd)
+    want = jflash(*_to_jax(arrs, jdt), causal=causal, window=window,
+                  bq=64, bk=64)
+    got = flash.flash_attention(*_to_torch(arrs, tdt), causal=causal,
+                                window=window)
+    assert got.dtype == tdt and tuple(got.shape) == (1, H, Lq, hd)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+def test_flash_head_dims_of_the_kernel():
+    """The kernel's head dims in each dtype (csrc/flash_attention.cu):
+    every hd the served families use, 96 and 256 among them."""
+    assert set(flash.HEAD_DIMS[torch.bfloat16]) == {32, 64, 96, 128, 256}
+    assert set(flash.HEAD_DIMS[torch.float32]) == {16, 32, 64, 96, 128, 256}
+    from repro_torch.configs.base import get_config
+    for arch in ("phi-3-vision-4.2b", "recurrentgemma-2b", "whisper-tiny",
+                 "llama2-7b", "yi-9b"):
+        assert get_config(arch).hd in flash.HEAD_DIMS[torch.bfloat16]
+
+
 def test_flash_plain_query_blocks_change_nothing():
     """The plain version takes queries `block` at a time to bound its score
     tensor; the block size must not change the result."""

@@ -4,6 +4,8 @@ parameter tree through `params_from_jax`), the same adapters (one process,
 so the hash-seeded adapter weights agree) and the same inputs, made with
 numpy. Logits and caches agree within rtol = atol = 1e-4 (f32, other
 matmul kernels and summation orders); greedy tokens must be identical."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,7 @@ torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import base as jbase  # noqa: E402
 from repro.configs.base import get_config as jget  # noqa: E402
 from repro.core import lora as jlora  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
@@ -107,9 +110,19 @@ def _params_layout(both):
                                   np.asarray(blk["attn"]["wo"]["w"][1]))
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError):
-        tget("mamba2-130m")
+@pytest.mark.parametrize("arch", jbase.ARCH_IDS)
+def test_reference_config_loads_in_the_port(arch):
+    """Every config of the reference loads in the port with the
+    reference's fields (its dtype as a torch dtype), and so does its
+    smoke variant."""
+    for cj, ct in ((jget(arch), tget(arch)),
+                   (jget(arch).smoke(), tget(arch).smoke())):
+        fj = dataclasses.asdict(cj)
+        ft = dataclasses.asdict(ct)
+        assert ft == fj
+        assert ct.torch_dtype == getattr(torch, cj.dtype)
+        assert ct.hd == cj.hd
+        assert ct.param_count() == cj.param_count()
 
 
 def test_rope_matches_reference():
