@@ -23,7 +23,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      32/64/4,096 per slot, a ragged last tile, whole tiles of idx -1 rows,
      and yi-9b's 32,768 rows: row tiles), the expand on both of its (1, 8
      and 64 rows: decode; 65 to 32,768 rows: row tiles), d_out 512 / 4,096
-     and a ragged 136 (f32), both at llama2-13b's d 5,120 and mistral-
+     and a ragged 136 (f32), r_max 48 and 24 on both paths of each,
+     both at llama2-13b's d 5,120 and mistral-
      large's d 12,288 (d_out 12,288 and 1,024) and at mamba2's in_proj
      (768 -> 3,352) and out_proj (1,536 -> 768), decode and prefill rows,
      every kernel repeatable bitwise; flash attention at
@@ -82,7 +83,32 @@ Phases, in order; any failure raises and the script exits non-zero:
   4c. one decode step's logits after one prefill of 8 rows of 32-480
      tokens, over the same row caches in a dense bf16 slab, an int8 slab
      and the paged pool: paged vs dense bf16 within 5e-2 and int8 vs bf16
-     within 0.08 of max |logit|; then llama2-7b is freed;
+     within 0.08 of max |logit|;
+  T. training on the same llama2-7b weights. T1: each kernel autograd
+     Function's gradients against autograd through the plain versions on
+     the card, per output row with phase 2's rule, a second backward
+     bitwise equal: flash dq / dk / dv on (B, L, H, hd) views at llama2-
+     7b's B 2 x L 512, yi-9b's 1 x 4,096 (32 heads over 4), a window of
+     256, a ragged L 777 (bf16) and at smoke shapes in f32; the LoRA
+     delta's dx / dA / dB at 4,096 rows x d 4,096, r_max 64 (bgmv and
+     mbgmv live widths, idx -1 rows; bf16) and at r_max 48 (f32). T2:
+     LoRA training of full-width llama2-7b (all 32 layers, bf16, rank 64
+     on q/k/v, `packed_batches` at 8 x 512, seed 0) through the training
+     launcher's `Trainer` and `run`: (a) one step's loss within 1e-2 and
+     every adapter gradient, per layer and target, within 5e-2 of its
+     max |plain|, kernels vs plain versions, at an adapter with a seeded
+     nonzero B; (b) 3 steps on one fixed batch at the launcher's lr
+     (1e-3): the loss must fall; (c) 10 steps on fresh batches: ms/step (CUDA events), tokens/s,
+     peak memory and each kernel's launches (flash and the LoRA pair must
+     launch, paged attention must not); (d) a checkpoint of the adapter
+     and optimizer state loads back bitwise; one step profiled (device
+     time, idle share, the flash forward, the flash backward's range, the
+     LoRA kernels, the GEMMs); the flash forward and the LoRA pair timed
+     at the step's shapes. T3: full fine-tuning of llama2-7b cut to 4 of
+     32 layers at full width (1.07 B parameters), one step's loss and
+     every parameter gradient held to the plain path as in T2(a), then 3
+     steps with accum 2 at 8 x 512, losses finite; then llama2-7b is
+     freed;
   3b. serve full-width yi-9b (48 layers, 32 heads over 4 KV heads, bf16,
      seeded random weights): 8 requests, three of 2,049-4,000 prompt
      tokens and five of 32-256, 16 new tokens each, in two arms on the same
@@ -134,13 +160,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      largest served prefill (phase 5b's rows);
   then one {"kernels": [...]} line (the six TPU kernels' rows, the
   prefill shrink and expand rows, the yi-9b and mistral-large paged
-  rows and the hd 96 / hd 256 flash rows) and the last line
+  rows, the hd 96 / hd 256 flash rows and phase T's rows at the training
+  step's shapes) and the last line
   {"ok": true, "device": {...}}.
 
 Tolerances (kernel vs plain version on the same inputs), per output row b
 (per query row (b, h, i) for attention): bf16 max|kernel[b] - plain[b]|
 <= 1e-2 * max|plain[b]|; f32 <= 1e-5 * max(1, max|plain[b]|).
 Decode-step and prefill logits: max|kernels - plain| <= 5e-2 * max|plain|.
+Training (phase T): the loss within 1e-2 * |plain|, each gradient leaf
+within 5e-2 * max|plain| of that leaf.
 """
 from __future__ import annotations
 
@@ -216,6 +245,9 @@ def main() -> int:
     report["perf_model_fit"] = perf_model_phase(torch, llama, step)
     report["dense_serving"] = dense_phase(torch, llama, params)
     report["dense_logits"] = dense_logits_phase(torch, llama, params)
+    report["training"], train_kernel_rows = training_phase(torch, llama,
+                                                           params)
+    kernels.extend(train_kernel_rows)
     del step, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -469,6 +501,18 @@ def kernel_checks(torch):
                y8, 16, bf, True, 256),
               ("mamba2 out_proj prefill 2048 rows bf16", 2048, 1536, 768,
                64, y8, 16, bf, True, 256),
+              # r_max a multiple of 8 that is no power-of-two multiple
+              # of it (the split path's d-groups fit beside 6 or 3 lanes)
+              ("r_max 48 decode bf16", 8, 4096, 4096, 48,
+               [48, 16, 33, 8] * 2, 16, bf, False, 0),
+              ("r_max 48 prefill runs of 512 bf16", 2048 + 37, 4096, 4096,
+               48, [48, 16, 33, 8] * 2, 16, bf, False, 512),
+              ("r_max 24 decode bf16", 8, 4096, 1024, 24, [24, 8, 17, 5] * 2,
+               8, bf, False, 0),
+              ("r_max 24 prefill runs of 17 bf16", 1100, 4096, 1024, 24,
+               [24, 8, 17, 5] * 2, 8, bf, False, 17),
+              ("r_max 24 decode f32", 8, 128, 136, 24, [24, 3, 9, 1], 8, f32,
+               False, 0),
               ("smoke f32", 8, 128, 128, 8, [8, 3, 5, 1], 4, f32, False, 0),
               ("smoke prefill f32", 96, 128, 128, 8, [8, 3, 5, 1], 4, f32,
                False, 0),
@@ -975,6 +1019,463 @@ def dense_logits_phase(torch, cfg, params):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ phase T ----
+
+T_BATCH, T_SEQ, T_RANK, T_STEPS = 8, 512, 64, 10
+T3_LAYERS, T3_ACCUM = 4, 2       # T3: full fine-tuning, depth cut
+GRAD_TOL = 5e-2                  # a model gradient leaf vs the plain path
+# T1 flash cases: (label, B, H, KV, L, hd, window, dtype, full-width)
+T1_FLASH = [("llama2-7b B 2 L 512", 2, 32, 32, 512, 128, None, "bf16", True),
+            ("yi-9b B 1 L 4096 GQA 8", 1, 32, 4, 4096, 128, None, "bf16",
+             True),
+            ("window 256 GQA 4 L 1024", 2, 16, 4, 1024, 128, 256, "bf16",
+             False),
+            ("ragged L 777 GQA 2", 2, 8, 4, 777, 128, None, "bf16", False),
+            ("smoke window 48 GQA 2 ragged f32", 2, 4, 2, 130, 32, 48, "f32",
+             False)]
+
+
+def grad_checks(torch):
+    """Phase T1: each kernel Function's gradients (flash: dq, dk, dv; the
+    LoRA delta's shrink and expand: dx, dA, dB) against autograd through
+    the plain versions on the card, per output row with phase 2's rule,
+    and a second backward bitwise equal. Flash takes (B, L, H, hd) leaves
+    passed as (B, H, L, hd) views, as the model passes them. Returns the
+    worst error per gradient at full-width shapes."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash import flash_attention
+    print("phase T1: gradients through the kernels' autograd Functions vs "
+          "autograd through the plain versions", flush=True)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    worst = {}
+
+    def note(name, err, full):
+        if full:
+            worst[name] = max(worst.get(name, 0.0), err)
+
+    for label, B, H, KV, L, hd, window, dt, full in T1_FLASH:
+        dt = dts[dt]
+        g = torch.Generator(device="cuda").manual_seed(L + H)
+        leaves = [torch.randn(B, L, n, hd, generator=g, device="cuda")
+                  .to(dt).requires_grad_() for n in (H, KV, KV)]
+        views = [t.transpose(1, 2) for t in leaves]
+        dout = torch.randn(B, L, H, hd, generator=g, device="cuda").to(dt)
+        dout = dout.transpose(1, 2)            # non-contiguous, as served
+        out = flash_attention(*views, window=window)
+        check(out.grad_fn is not None, "flash: no grad_fn")
+        got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        again = torch.autograd.grad(out, leaves, dout)
+        plain = ref.flash_attention_ref(*views, window=window)
+        want = torch.autograd.grad(plain, leaves, dout)
+        for n, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+            check(a.dtype == dt and a.shape == w.shape,
+                  f"flash {label}: {n} dtype / shape")
+            note(f"flash_attention {n}", check_close(
+                f"flash_attention {n} {label}", a.reshape(-1, hd),
+                w.reshape(-1, hd), dt), full)
+            check(torch.equal(a, b), f"flash {label}: {n}: two backward "
+                  "runs differ")
+        del leaves, views, dout, out, got, again, plain, want
+        torch.cuda.empty_cache()
+
+    # LoRA: 4,096 rows (8 x 512 tokens) x d 4,096, r_max 64, four slots
+    # of ranks 64/16/32/8 in runs of 512 rows (prefill's layout) cycling
+    # through -1, bf16; and r_max 48 in f32 at smoke widths
+    for label, rows, d, r_max, ranks, rb, dt, full in (
+            ("llama2-7b 4096 rows d 4096", 4096, 4096, 64, [64, 16, 32, 8],
+             16, torch.bfloat16, True),
+            ("r_max 48 f32", 300, 128, 48, [48, 5, 16], 16, torch.float32,
+             False)):
+        g = torch.Generator(device="cuda").manual_seed(rows + r_max)
+        a = torch.zeros(len(ranks), d, r_max, device="cuda")
+        b = torch.zeros(len(ranks), r_max, d, device="cuda")
+        for s, r in enumerate(ranks):
+            a[s, :, :r] = torch.randn(d, r, generator=g, device="cuda") \
+                * d ** -0.5
+            b[s, :r] = torch.randn(r, d, generator=g, device="cuda") \
+                * r ** -0.5
+        x = torch.randn(rows, d, generator=g, device="cuda").to(dt)
+        a, b = a.to(dt), b.to(dt)
+        seg = 512 if rows >= 512 else 17
+        idx = (torch.arange(rows, device="cuda") // seg % (len(ranks) + 1)
+               - 1).to(torch.int32)
+        dout = torch.randn(rows, d, generator=g, device="cuda").to(dt)
+        ranks_t = torch.tensor(ranks, dtype=torch.int32, device="cuda")
+        for mode in ("bgmv", "mbgmv"):
+            live = ops.lora_live(idx, ranks_t, mode, r_max, rb)
+            xs, as_, bs = (t.detach().requires_grad_() for t in (x, a, b))
+            out = ops.lora_delta(xs, as_, bs, idx, live=live)
+            got = torch.autograd.grad(out, (xs, as_, bs), dout,
+                                      retain_graph=True)
+            again = torch.autograd.grad(out, (xs, as_, bs), dout)
+            y = ref.lora_shrink_ref(xs, as_, idx, live)
+            want = torch.autograd.grad(ref.lora_expand_ref(
+                y.to(dt), bs, idx, live), (xs, as_, bs), dout)
+            for n, gg, g2, w, width in zip(("dx", "dA", "dB"), got, again,
+                                           want, (d, r_max, d)):
+                note(f"lora {n}", check_close(
+                    f"lora {n} {mode} {label}", gg.reshape(-1, width),
+                    w.reshape(-1, width), dt), full)
+                check(torch.equal(gg, g2), f"lora {label}: {n}: two "
+                      "backward runs differ")
+            check(bool((got[0][idx < 0] == 0).all()),
+                  "lora: an idx -1 row has a nonzero dx")
+    torch.cuda.synchronize()
+    return worst
+
+
+def train_rows(torch, cfg, launches, errs):
+    """Kernels-line rows at the LoRA training step's shapes (full-width
+    llama2-7b, 8 x 512 tokens, one slot of rank 64): flash forward at B 8,
+    H 32, L 512, hd 128, and the shrink and expand at 4,096 rows x d
+    4,096, r_max 64, where the backward's launches on B^T and A^T take
+    the same shapes. Each held per row to its plain version and timed
+    beside its bound, the plain version and a library call (SDPA; one
+    torch.matmul), which the port never calls. Launches: phase T2(c)'s
+    ten steps (forward, the remat recompute and the backward)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bgmv import lora_expand, lora_shrink
+    from repro_torch.kernels.flash import flash_attention
+    print("phase T: kernel timing at the LoRA training step's shapes",
+          flush=True)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    B, H, L, hd = T_BATCH, cfg.n_heads, T_SEQ, cfg.hd
+    q, k, v = (torch.randn(B, L, H, hd, generator=g, device="cuda")
+               .bfloat16().transpose(1, 2) for _ in range(3))
+    err = check_close("flash_attention train shape", flash_attention(
+        q, k, v).reshape(-1, hd), ref.flash_attention_ref(q, k, v).reshape(
+        -1, hd), torch.bfloat16)
+    pairs = B * H * L * (L + 1) // 2
+    nbytes = 4 * q.numel() * 2
+    b_ms, b_by = bound(nbytes, 4 * hd * pairs, "bfloat16")
+    rows = [{
+        "name": "flash_attention[llama2-7b train]", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash.py:110",
+        "path": "llama2-7b LoRA training (forward and remat recompute)",
+        "launches": launches["flash_attention"], "max_abs_err": err,
+        "ms": time_ms(torch, lambda: flash_attention(q, k, v), flush, n=50),
+        "plain_ms": time_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
+                            flush, n=10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), flush, n=50),
+        "bytes": nbytes, "ops": 4 * hd * pairs,
+        "shape": {"B": B, "H": H, "KV": H, "L": L, "hd": hd}}]
+    # LoRA at layer 0 of target q: x the normed activations' shape
+    rows_n, d, r = B * L, cfg.d_model, cfg.lora.max_rank
+    x = torch.randn(rows_n, d, generator=g, device="cuda").bfloat16()
+    a = (torch.randn(1, d, r, generator=g, device="cuda") * d ** -0.5
+         ).bfloat16()
+    bw = (torch.randn(1, r, d, generator=g, device="cuda") * r ** -0.5
+          ).bfloat16()
+    idx = torch.zeros(rows_n, dtype=torch.int32, device="cuda")
+    live = ref.bgmv_live(idx, r)
+    y = lora_shrink(x, a, idx, live)
+    yd = y.bfloat16()
+    s_err = check_close("lora_shrink train shape", y,
+                        ref.lora_shrink_ref(x, a, idx, live), torch.float32)
+    e_err = check_close("lora_expand train shape", lora_expand(
+        yd, bw, idx, live), ref.lora_expand_ref(yd, bw, idx, live),
+        torch.bfloat16)
+    s_bytes = x.numel() * 2 + a.numel() * 2 + 8 * rows_n + y.numel() * 4
+    e_bytes = yd.numel() * 2 + bw.numel() * 2 + 8 * rows_n + rows_n * d * 2
+    ops_n = 2 * d * r * rows_n
+    for name, fn, plain, lib, nb, e, src in (
+            ("lora_shrink", lambda: lora_shrink(x, a, idx, live),
+             lambda: ref.lora_shrink_ref(x, a, idx, live),
+             lambda: torch.matmul(x, a[0]), s_bytes, s_err,
+             "src/repro/kernels/bgmv.py:86"),
+            ("lora_expand", lambda: lora_expand(yd, bw, idx, live),
+             lambda: ref.lora_expand_ref(yd, bw, idx, live),
+             lambda: torch.matmul(yd, bw[0]), e_bytes, e_err,
+             "src/repro/kernels/bgmv.py:136")):
+        b_ms, b_by = bound(nb, ops_n, "bfloat16")
+        rows.append({
+            "name": f"{name}[llama2-7b train]", "route": "cuda",
+            "source": "src/repro_torch/csrc/lora.cu", "replaces": src,
+            "path": "llama2-7b LoRA training (forward, recompute and the "
+                    "backward's launches on the transposed weights)",
+            "launches": launches[name], "max_abs_err": e,
+            "ms": time_ms(torch, fn, flush),
+            "plain_ms": time_ms(torch, plain, flush, n=20),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, lib, flush),
+            "library_call": "torch.matmul with the one slot's weight",
+            "bytes": nb, "shape": {"rows": rows_n, "d": d, "r_max": r,
+                                   "slots": 1}})
+    # the flash backward (plain PyTorch, blockwise) beside autograd through
+    # the plain version, at the same shape
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    dout = torch.randn(B, H, L, hd, generator=g, device="cuda").bfloat16()
+    o_k = flash_attention(*leaves)
+    o_p = ref.flash_attention_ref(*leaves)
+    bwd = {"flash_backward_ms": time_ms(
+        torch, lambda: torch.autograd.grad(o_k, leaves, dout,
+                                           retain_graph=True), flush, n=10),
+        "plain_autograd_backward_ms": time_ms(
+            torch, lambda: torch.autograd.grad(o_p, leaves, dout,
+                                               retain_graph=True), flush,
+            n=10),
+        "grad_errors_full_width": errs}
+    for r_ in rows:
+        print(f"  {r_['name']}: {r_['ms'] * 1e3:.1f} us (bound "
+              f"{r_['bound_ms'] * 1e3:.1f} us by {r_['bound_by']}), plain "
+              f"{r_['plain_ms'] * 1e3:.1f} us, library "
+              f"{r_['library_ms'] * 1e3:.1f} us, {r_['launches']} launches",
+              flush=True)
+    print(f"  flash backward (plain PyTorch, blockwise) "
+          f"{bwd['flash_backward_ms']:.3f} ms, autograd through the plain "
+          f"version {bwd['plain_autograd_backward_ms']:.3f} ms", flush=True)
+    return rows, bwd
+
+
+def profile_train_step(torch, step_fn, what):
+    """One warm training step under torch.profiler: wall time, device
+    time (the kernels' sum), the idle share, and device time by kind: the
+    flash forward kernel, the LoRA kernels, the GEMMs (cuBLAS, the flash
+    backward's f32 products among them), the rest; and, apart, the flash
+    backward's named range (its GEMMs and element-wise kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    step_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kinds = {"flash_forward": 0.0, "lora_kernels": 0.0, "gemm": 0.0,
+             "other": 0.0}
+    bwd_ms, top = 0.0, []
+    for ev in prof.key_averages():
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if ev.key == "flash_attention_backward":
+            # the named range (a CPU row and a device row): its kernels
+            # are counted below by kind, so it is read, not added
+            bwd_ms = max(bwd_ms, ms, getattr(
+                ev, "device_time_total", 0.0) / 1e3)
+            continue
+        if "CUDA" not in str(ev.device_type) or "Buffer" in ev.key:
+            continue
+        if ms <= 0:
+            continue
+        name = ev.key.lower()
+        kind = ("flash_forward" if "flash_bf16" in name or "flash_f32" in name
+                else "lora_kernels" if "lora_" in name else "gemm" if any(
+                    s in name for s in ("gemm", "xmma", "cutlass", "nvjet",
+                                        "sm90_", "sm80_")) else "other")
+        kinds[kind] += ms
+        top.append({"name": ev.key[:80], "calls": ev.count, "device_ms": ms})
+    device_ms = sum(kinds.values())
+    top.sort(key=lambda r: -r["device_ms"])
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "device_idle_share": 1.0 - device_ms / wall_ms if device_ms
+           else None, "flash_backward_range_ms": bwd_ms,
+           "by_kind_ms": kinds, "top": top[:16]}
+    print(f"  {what}, profiled: {wall_ms:.1f} ms wall, {device_ms:.1f} ms "
+          f"of device kernels (idle share {out['device_idle_share']}); "
+          f"flash forward {kinds['flash_forward']:.1f} ms, LoRA kernels "
+          f"{kinds['lora_kernels']:.1f} ms, GEMMs {kinds['gemm']:.1f} ms, "
+          f"other {kinds['other']:.1f} ms; of all these, the flash backward "
+          f"(plain PyTorch range) {bwd_ms:.1f} ms", flush=True)
+    for r in top[:16]:
+        print(f"    {r['device_ms']:8.3f} ms {r['calls']:5d}x {r['name']}",
+              flush=True)
+    return out
+
+
+def grads_close(what, got, want, names, tol=GRAD_TOL):
+    """Each gradient leaf within tol x its max |plain|; returns the worst
+    ratio."""
+    worst, at = 0.0, None
+    for n, g, w in zip(names, got, want):
+        check(bool(g.isfinite().all()), f"{what}: {n}: non-finite gradient")
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        check(err <= tol * scale, f"{what}: {n}: max abs err {err:.3e} > "
+              f"{tol} x {scale:.3e}")
+        if scale and err / scale > worst:
+            worst, at = err / scale, n
+    print(f"  {what}: {len(names)} gradient leaves, worst error "
+          f"{worst:.3e} of the leaf's max |plain| at {at} (limit {tol})",
+          flush=True)
+    return worst
+
+
+def training_phase(torch, cfg, params):
+    """Phase T: LoRA training of full-width llama2-7b on the phase-3a
+    weights, through the training launcher's `Trainer` and `run`, then
+    full fine-tuning at a depth cut. See the module docstring."""
+    import tempfile
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.weights import init_params
+    from repro_torch.training import checkpoint, train as train_lib
+    from repro_torch.training import tree as tree_lib
+    errs = grad_checks(torch)
+    counters = _counters()
+    print(f"phase T2: LoRA training, full-width {cfg.name} ({cfg.n_layers} "
+          f"layers, bf16), rank {T_RANK} on {list(cfg.lora.targets)}, "
+          f"batch {T_BATCH} x {T_SEQ}", flush=True)
+    trainer = train_launch.Trainer(cfg, lora_rank=T_RANK, steps=T_STEPS,
+                                   seed=SEED, device="cuda", params=params)
+    data = trainer.batches(T_BATCH, T_SEQ, SEED)
+    batch = next(data)
+    out = {"grad_checks": errs}
+
+    # (a) one step's loss and adapter gradients at a nonzero B: kernels vs
+    # plain versions
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    adapter = {t: {"a": ab["a"], "b": (torch.randn(
+        ab["b"].shape, generator=g, device="cuda") * T_RANK ** -0.5 * 0.1
+        ).to(ab["b"].dtype)} for t, ab in trainer.adapter.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    lk, gk = train_lib.lora_loss_and_grads(cfg, params, adapter, batch,
+                                           T_RANK)
+    launches_a = {n: fn.launches for n, fn in counters.items()}
+    for n in ("flash_attention", "lora_shrink", "lora_expand"):
+        check(launches_a[n] > 0, f"phase T2(a): {n} never launched")
+    with plain_ops(), plain_attention():
+        lp, gp = train_lib.lora_loss_and_grads(cfg, params, adapter, batch,
+                                               T_RANK)
+    lk, lp = float(lk), float(lp)
+    check(abs(lk - lp) <= 1e-2 * abs(lp), f"phase T2(a): loss {lk} vs "
+          f"plain {lp}")
+    names, got, want = [], [], []
+    for t in gk:
+        for ab in ("a", "b"):
+            for layer in range(cfg.n_layers):
+                names.append(f"{t}.{ab}[{layer}]")
+                got.append(gk[t][ab][layer])
+                want.append(gp[t][ab][layer])
+    out["T2a"] = {"loss": lk, "plain_loss": lp, "launches": launches_a,
+                  "worst_grad_ratio": grads_close(
+                      "phase T2(a) adapter gradients, kernels vs plain",
+                      got, want, names)}
+    print(f"  loss {lk:.5f} through the kernels, {lp:.5f} plain; "
+          f"launches {launches_a}", flush=True)
+    del gk, gp, got, want
+
+    # (b) three steps on one fixed batch: the loss falls
+    fixed = train_launch.Trainer(cfg, lora_rank=T_RANK, steps=3, seed=SEED,
+                                 device="cuda", params=params)
+    losses = [float(fixed.step(batch)["loss"]) for _ in range(3)]
+    check(all(map(lambda v: v == v and abs(v) < 1e9, losses)),
+          f"phase T2(b): non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"phase T2(b): the loss did not fall on "
+          f"a fixed batch: {losses}")
+    out["T2b_fixed_batch_losses"] = losses
+    print(f"  3 steps on one fixed batch (lr {fixed.opt_cfg.lr}): losses "
+          f"{losses}", flush=True)
+    del fixed
+
+    # (c) ten steps on fresh batches, through the launcher's run()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    recs = train_launch.run(trainer, data, T_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for n in ("flash_attention", "lora_shrink", "lora_expand"):
+        check(launches[n] > 0, f"phase T2(c): {n} never launched")
+    check(launches["paged_attention"] == 0,
+          "phase T2(c): paged attention launched in training")
+    check(all(r["loss"] == r["loss"] for r in recs),
+          "phase T2(c): non-finite loss")
+    steady = recs[1:]
+    ms = sum(r["ms"] for r in steady) / len(steady)
+    out["T2c"] = {"steps": recs, "ms_per_step_after_first": ms,
+                  "tok_s_after_first": 1e3 * T_BATCH * T_SEQ / ms,
+                  "peak_mem_gib": peak, "launches": launches}
+    print(f"  {T_STEPS} steps: {ms:.1f} ms/step after the first "
+          f"({out['T2c']['tok_s_after_first']:.0f} tok/s), peak "
+          f"{peak:.2f} GiB; launches {launches}", flush=True)
+
+    # (d) a checkpoint of {"model": adapter, "opt": state} loads back
+    # bitwise
+    with tempfile.TemporaryDirectory() as d:
+        path = checkpoint.step_path(d, T_STEPS)
+        tree = {"model": trainer.adapter, "opt": trainer.state}
+        checkpoint.save(path, tree, step=T_STEPS)
+        back, man = checkpoint.load(path, tree)
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(tree), tree_lib.leaves(back)))
+        check(same and man["step"] == T_STEPS,
+              "phase T2(d): the checkpoint did not load back bitwise")
+        out["T2d_checkpoint_leaves"] = len(tree_lib.leaves(tree))
+    print(f"  checkpoint of {out['T2d_checkpoint_leaves']} leaves loads "
+          "back bitwise", flush=True)
+    prof = profile_train_step(
+        torch, lambda: trainer.step(batch),
+        f"one {cfg.name} LoRA training step ({T_BATCH} x {T_SEQ})")
+    # the profiler slows the host: the idle share against (c)'s step time
+    prof["idle_share_vs_step"] = 1.0 - prof["device_ms"] / ms
+    print(f"  device kernels {prof['device_ms']:.1f} ms of the "
+          f"{ms:.1f} ms unprofiled step: idle share "
+          f"{prof['idle_share_vs_step']:.3f}", flush=True)
+    out["T2_profile"] = prof
+    rows, out["train_kernel_timing"] = train_rows(torch, cfg, launches,
+                                                  errs)
+    del trainer, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # T3: full fine-tuning, cut to T3_LAYERS layers at full width
+    cut = dataclasses.replace(cfg, n_layers=T3_LAYERS)
+    print(f"phase T3: full fine-tuning of {cfg.name} cut to {T3_LAYERS} of "
+          f"{cfg.n_layers} layers (d {cut.d_model}, bf16), accum "
+          f"{T3_ACCUM}, batch {T_BATCH} x {T_SEQ}", flush=True)
+    p3 = init_params(cut, SEED + 23, "cuda")
+    n_params = sum(p.numel() for p in p3.parameters())
+    full = train_launch.Trainer(cut, steps=3, seed=SEED, device="cuda",
+                                params=p3, accum=T3_ACCUM)
+    data3 = full.batches(T_BATCH, T_SEQ, SEED + 1)
+    b3 = next(data3)
+    tree = tree_lib.param_tree(p3)
+    leaves, names = tree_lib.leaves(tree), tree_lib.paths(tree)
+
+    def full_grads():
+        with train_lib.trainable(leaves):
+            loss, _ = model_lib.loss(cut, p3, b3)
+            return float(loss.detach()), train_lib.grads(loss, leaves,
+                                                         names)
+
+    for fn in counters.values():
+        fn.launches = 0
+    lk, gk = full_grads()
+    check(counters["flash_attention"].launches > 0,
+          "phase T3: flash never launched")
+    with plain_ops(), plain_attention():
+        lp, gp = full_grads()
+    check(abs(lk - lp) <= 1e-2 * abs(lp), f"phase T3: loss {lk} vs plain "
+          f"{lp}")
+    worst3 = grads_close("phase T3 parameter gradients, kernels vs plain",
+                         gk, gp, names)
+    del gk, gp
+    torch.cuda.reset_peak_memory_stats()
+    recs3 = train_launch.run(full, data3, 3, log_every=1)
+    check(all(r["loss"] == r["loss"] and abs(r["loss"]) < 1e9
+              for r in recs3), "phase T3: non-finite loss")
+    out["T3"] = {"layers": T3_LAYERS, "params": n_params, "loss": lk,
+                 "plain_loss": lp, "worst_grad_ratio": worst3,
+                 "steps": recs3,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"  {n_params / 1e9:.3f} B parameters; 3 steps with accum "
+          f"{T3_ACCUM}: losses {[r['loss'] for r in recs3]}, peak "
+          f"{out['T3']['peak_mem_gib']:.2f} GiB", flush=True)
+    del full, p3, tree, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
 
 
 # ----------------------------------------------------------- phase 3d ----

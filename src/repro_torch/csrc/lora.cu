@@ -72,10 +72,10 @@ constexpr int kSplit = 8;                // blocks a row: a portable cluster
 
 // y[row, r] for r < live[row]: block `part` of the row's cluster reduces
 // d in [part * d_chunk, (part + 1) * d_chunk). Threads are r_max/8 rank
-// lanes of 8 columns x (blockDim / lanes) d-groups; a lane reads its 8
-// columns of one d row of A in a single 16-byte load, up to 8 loads a
-// thread in flight. The d-groups are reduced through shared memory by a
-// fixed tree, the blocks by rank 0.
+// lanes of 8 columns x (blockDim / lanes) d-groups, a power of two; a
+// lane reads its 8 columns of one d row of A in a single 16-byte load, up
+// to 8 loads a thread in flight. The d-groups are reduced through shared
+// memory by a fixed tree, the blocks by rank 0.
 template <typename T>
 __global__ void __cluster_dims__(kSplit, 1, 1) lora_shrink_split_kernel(
     const T* __restrict__ x, const T* __restrict__ a,
@@ -408,9 +408,14 @@ cudaError_t launch_split(const void* x, const void* a, const int* idx,
                          int r_max, int slots, int d_chunk, cudaStream_t st) {
   const int lanes = r_max / rt::kVec;
   // a handful of rows is bound by latency: 512 threads keep more loads in
-  // flight; from 17 rows on, rows x kSplit blocks fill the card at 256
-  const int threads = max(rows <= 16 ? 512 : 256, lanes);
-  const size_t smem = (size_t)(threads / lanes) * r_max * sizeof(float);
+  // flight; from 17 rows on, rows x kSplit blocks fill the card at 256.
+  // The d-groups are the largest power of two that fits beside the lanes
+  // (the tree reduction halves them), so any r_max = 8 x lanes is taken
+  const int target = rows <= 16 ? 512 : 256;
+  int ngrp = 1;
+  while (2 * ngrp * lanes <= target) ngrp *= 2;
+  const int threads = ngrp * lanes;
+  const size_t smem = (size_t)ngrp * r_max * sizeof(float);
   lora_shrink_split_kernel<T><<<rows * kSplit, threads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(a), idx, live, y, d_in,
       r_max, slots, d_chunk);
@@ -833,11 +838,11 @@ extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
                               int r_max, int slots, int tile, int d_chunk,
                               int dtype, void* stream) {
   if (rows == 0) return 0;
-  // r_max = 8 x a power of two, so the split path's d-groups tree-reduce
-  // evenly; d_in a multiple of 8 for 16-byte copies of x
+  // r_max a multiple of 8 (one 8-column lane each, at most 1,024 lanes a
+  // block); d_in a multiple of 8 for 16-byte copies of x
   const int lanes = r_max / rt::kVec;
-  if (r_max <= 0 || r_max % rt::kVec != 0 || lanes > 1024 ||
-      (lanes & (lanes - 1)) != 0 || d_in <= 0 || d_in % rt::kVec != 0)
+  if (r_max <= 0 || r_max % rt::kVec != 0 || lanes > 1024 || d_in <= 0 ||
+      d_in % rt::kVec != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = dtype == rt::kBF16;

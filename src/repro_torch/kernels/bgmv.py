@@ -20,6 +20,18 @@ the rank rows split over RANK_SPLIT warps; more rows go in tiles of
 EXPAND_ROWS consecutive rows x EXPAND_COLS columns, each block walking
 every n-th tile of its columns and visiting each tile's distinct slots
 in turn.
+
+Gradients: when an operand requires grad (and grad mode is on), each
+wrapper goes through its `torch.autograd.Function` (`LoRAShrink`,
+`LoRAExpand`), whose forward is the same launch. The backward of a
+gathered matvec is a gathered matvec, so the data gradients run the
+port's own kernels on transposed, contiguous operands: the shrink's dx is
+the expand of dy over A^T (slots, r_max, d_in), the expand's dy the
+shrink of dout over B^T (slots, d_out, r_max). The weight gradients
+dA[s] = sum over the rows of slot s of x^T dy, and dB[s] likewise, are
+f32 matmuls, one a slot, as XLA computes them outside any Pallas kernel
+in the reference; only each row's live columns count, and idx -1 rows
+add nothing.
 """
 from __future__ import annotations
 
@@ -30,7 +42,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 _FLOATS = (torch.float32, torch.bfloat16)
-MAX_R = 8 * 1024               # r_max = 8 x a power of two up to this
+MAX_R = 8 * 1024               # r_max: a multiple of 8 up to this
 SPLIT = 8                      # csrc/lora.cu: kSplit, blocks a row (cluster)
 SPLIT_MAX_ROWS = 64            # split path up to here (decode batches)
 TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the shrink takes
@@ -101,21 +113,33 @@ def _check_rows(name, idx, live, rows):
                          f"{tuple(live.shape)} must be ({rows},)")
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def lora_shrink(x, a, idx, live):
     """x (rows, d_in); a (slots, d_in, r_max); idx, live (rows,) int32 ->
     (rows, r_max) float32."""
     rows, d_in = x.shape
-    slots, a_d_in, r_max = a.shape
-    if a_d_in != d_in:
+    if a.shape[1] != d_in:
         raise ValueError(f"lora_shrink: x {tuple(x.shape)} and a "
                          f"{tuple(a.shape)} disagree on d_in")
     _check_rows("lora_shrink", idx, live, rows)
+    if _needs_grad(x, a):
+        return LoRAShrink.apply(x, a, idx, live)
+    return _shrink(x, a, idx, live)
+
+
+def _shrink(x, a, idx, live):
+    """The shrink kernel's launch on a CUDA tensor, the plain version on a
+    CPU one."""
+    rows, d_in = x.shape
+    slots, _, r_max = a.shape
     if not x.is_cuda:
         return ref.lora_shrink_ref(x, a, idx, live)
-    lanes = r_max // 8
-    if r_max % 8 or lanes & (lanes - 1) or r_max > MAX_R:
-        raise ValueError(f"lora_shrink: the kernel takes r_max = 8 x a power "
-                         f"of two <= {MAX_R}, got {r_max}")
+    if r_max % 8 or r_max > MAX_R:
+        raise ValueError(f"lora_shrink: the kernel takes r_max a multiple "
+                         f"of 8 up to {MAX_R}, got {r_max}")
     if d_in % 8:
         raise ValueError(f"lora_shrink: the kernel takes d_in a multiple of "
                          f"8 (16-byte copies of x), got {d_in}")
@@ -150,6 +174,16 @@ def lora_expand(y, b, idx, live):
         raise ValueError(f"lora_expand: y ({y.dtype}) must have b's dtype "
                          f"({b.dtype})")
     _check_rows("lora_expand", idx, live, rows)
+    if _needs_grad(y, b):
+        return LoRAExpand.apply(y, b, idx, live)
+    return _expand(y, b, idx, live)
+
+
+def _expand(y, b, idx, live):
+    """The expand kernel's launch on a CUDA tensor, the plain version on a
+    CPU one."""
+    rows, r_max = y.shape
+    slots, _, d_out = b.shape
     if not y.is_cuda:
         return ref.lora_expand_ref(y, b, idx, live)
     if r_max % 8 or d_out % 8 or r_max > MAX_R:
@@ -177,6 +211,65 @@ def lora_expand(y, b, idx, live):
 
 lora_shrink.launches = 0
 lora_expand.launches = 0
+
+
+def _slot_masks(idx, slots):
+    """(slots, rows, 1) bool: row b belongs to slot s (idx -1: to none)."""
+    return (idx[None] == torch.arange(slots, device=idx.device)[:, None]
+            )[..., None]
+
+
+class LoRAShrink(torch.autograd.Function):
+    """`lora_shrink` with gradients in x and A."""
+
+    @staticmethod
+    def forward(ctx, x, a, idx, live):
+        ctx.save_for_backward(x, a, idx, live)
+        return _shrink(x, a, idx, live)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, idx, live = ctx.saved_tensors
+        dx = da = None
+        if ctx.needs_input_grad[0]:
+            # dx[b] = dy[b, :live] A[idx[b]][:, :live]^T: the expand over A^T
+            dx = lora_expand(dy.to(x.dtype), a.transpose(1, 2).contiguous(),
+                             idx, live)
+        if ctx.needs_input_grad[1]:
+            acc = ref.accum_dtype(x.dtype)
+            g = torch.where(ref.live_mask(live, a.shape[-1]), dy.to(acc),
+                            0.0)
+            xt = x.to(acc).t()
+            da = torch.stack([xt @ torch.where(m, g, 0.0) for m in
+                              _slot_masks(idx, a.shape[0])]).to(a.dtype)
+        return dx, da, None, None
+
+
+class LoRAExpand(torch.autograd.Function):
+    """`lora_expand` with gradients in y and B."""
+
+    @staticmethod
+    def forward(ctx, y, b, idx, live):
+        ctx.save_for_backward(y, b, idx, live)
+        return _expand(y, b, idx, live)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, b, idx, live = ctx.saved_tensors
+        dout = dout.contiguous()
+        dy = db = None
+        if ctx.needs_input_grad[0]:
+            # dy[b, :live] = dout[b] B[idx[b]][:live]^T: the shrink over B^T
+            dy = lora_shrink(dout, b.transpose(1, 2).contiguous(), idx,
+                             live).to(y.dtype)
+        if ctx.needs_input_grad[1]:
+            acc = ref.accum_dtype(b.dtype)
+            yk = torch.where(ref.live_mask(live, b.shape[1]), y.to(acc),
+                             0.0)
+            g = dout.to(acc)
+            db = torch.stack([torch.where(m, yk, 0.0).t() @ g for m in
+                              _slot_masks(idx, b.shape[0])]).to(b.dtype)
+        return dy, db, None, None
 
 
 def bgmv_shrink(x, a_pool, idx):

@@ -7,6 +7,14 @@ tensor launches the kernel or raises. `flash_attention.launches` counts
 kernel launches. The kernel reads q/k/v through their strides (last dim
 contiguous), so a (B, L, H, hd) tensor can be passed as its (B, H, L, hd)
 transpose without a copy; the output has q's strides.
+
+Gradients: when q, k or v requires grad (and grad mode is on), the call
+goes through `FlashAttention`, a `torch.autograd.Function` whose forward
+is the same launch (or plain version) and whose backward is
+`flash_attention_backward`, plain PyTorch over blocks of queries. The
+reference has no backward kernel either: its training path
+differentiates plain attention with XLA (`attn_chunked` under
+`jax.checkpoint`), outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -55,6 +63,17 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got "
                          f"{window}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _forward(q, k, v, causal, window):
+    """The kernel's launch on a CUDA tensor, the plain version on a CPU
+    one."""
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if hd not in HEAD_DIMS.get(q.dtype, ()):
@@ -81,3 +100,85 @@ def flash_attention(q, k, v, *, causal=True, window=None):
 
 
 flash_attention.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` with gradients in q, k and v. Saves q, k and v
+    (the views the caller passed: no copy); the backward recomputes each
+    block's scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        # a named range, so a profile can sum the backward's device time
+        with torch.profiler.record_function("flash_attention_backward"):
+            dq, dk, dv = flash_attention_backward(
+                q, k, v, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_backward(q, k, v, dout, *, causal=True, window=None,
+                             block=512):
+    """dq, dk, dv of `flash_attention` for the output gradient `dout`
+    (B, H, Lq, hd), in plain PyTorch, accumulating in f32 (f64 for f64
+    inputs). Queries are taken `block` at a time, each against the keys
+    its causal mask and window can reach: the block's scores are
+    recomputed from q and k, its rows' log-sum-exp taken over the valid
+    keys, and P, dP = dO V^T and dS = P (dP - rowsum(P dP)) formed, so no
+    (B, H, Lq, Lk) tensor exists. rowsum(P dP) is computed from this P
+    rather than from the (bf16) output, so the gradient carries no rounding
+    of the forward. dk and dv sum over each GQA group's heads. Returns
+    gradients in the inputs' dtypes and strides (dense views of the
+    (B, L, H, hd) tensors the model passes stay so)."""
+    B, H, Lq, hd = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    G = H // KV
+    acc = ref.accum_dtype(q.dtype)
+    dense = torch.contiguous_format
+    scale = hd ** -0.5
+    kf = k.to(acc, memory_format=dense)
+    vf = v.to(acc, memory_format=dense)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(B, KV, Lk, hd, dtype=acc, device=q.device)
+    dv = torch.zeros_like(dk)
+    for s0 in range(0, Lq, block):
+        n = min(block, Lq - s0)
+        # keys any query of the block may see: kpos > qpos - window, and
+        # kpos <= qpos when causal
+        lo = 0 if window is None else min(max(0, s0 - window + 1), Lk)
+        hi = min(Lk, s0 + n) if causal else Lk
+        if hi <= lo:
+            dq[:, :, s0:s0 + n] = 0
+            continue
+        qb = q[:, :, s0:s0 + n].to(acc, memory_format=dense)
+        qb = qb.reshape(B, KV, G * n, hd)
+        dob = dout[:, :, s0:s0 + n].to(acc, memory_format=dense)
+        dob = dob.reshape(B, KV, G * n, hd)
+        kb, vb = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        qpos = torch.arange(s0, s0 + n, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None]
+        valid = torch.ones(n, hi - lo, dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= kpos <= qpos
+        if window is not None:
+            valid &= qpos - kpos < window
+        s = (qb @ kb.transpose(-1, -2)).view(B, KV, G, n, hi - lo) * scale
+        s = torch.where(valid, s, ref.NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        lse = m + torch.log(torch.where(valid, torch.exp(s - m), 0.0)
+                            .sum(-1, keepdim=True).clamp(min=1e-30))
+        p = torch.where(valid, torch.exp(s - lse), 0.0)
+        p = p.view(B, KV, G * n, hi - lo)
+        dv[:, :, lo:hi] += p.transpose(-1, -2) @ dob
+        dp = dob @ vb.transpose(-1, -2)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dq[:, :, s0:s0 + n] = ((ds @ kb) * scale).view(
+            B, KV, G, n, hd).reshape(B, H, n, hd)
+        dk[:, :, lo:hi] += (ds.transpose(-1, -2) @ qb) * scale
+    return dq, torch.empty_like(k).copy_(dk), torch.empty_like(v).copy_(dv)

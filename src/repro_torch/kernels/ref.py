@@ -13,6 +13,12 @@ import torch
 NEG_INF = -1e30
 
 
+def accum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation type: float32, or float64 for float64 inputs (the
+    gradient checks)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 # --------------------------------------------------------------- LoRA ----
 
 def bgmv_live(idx: torch.Tensor, r_max: int) -> torch.Tensor:
@@ -30,20 +36,22 @@ def mbgmv_live(idx: torch.Tensor, ranks: torch.Tensor,
     return torch.where(idx >= 0, nblk, 0).to(torch.int32)
 
 
-def _live_mask(live: torch.Tensor, r: int) -> torch.Tensor:
+def live_mask(live: torch.Tensor, r: int) -> torch.Tensor:
     return torch.arange(r, device=live.device)[None] < live[:, None]
 
 
 def lora_shrink_ref(x, a, idx, live):
-    """y[b, :live[b]] = x[b] @ A[idx[b]][:, :live[b]], f32; other columns
-    and rows with idx < 0 are zero. x (rows, d_in); a (S, d_in, r)."""
+    """y[b, :live[b]] = x[b] @ A[idx[b]][:, :live[b]], f32 (f64 for f64
+    inputs); other columns and rows with idx < 0 are zero. x (rows, d_in);
+    a (S, d_in, r)."""
     rows, r = x.shape[0], a.shape[-1]
-    y = torch.zeros(rows, r, dtype=torch.float32, device=x.device)
+    acc = accum_dtype(x.dtype)
+    y = torch.zeros(rows, r, dtype=acc, device=x.device)
     for s in range(a.shape[0]):
         m = idx == s
         if bool(m.any()):
-            y[m] = x[m].float() @ a[s].float()
-    return torch.where(_live_mask(live, r), y, 0.0)
+            y[m] = x[m].to(acc) @ a[s].to(acc)
+    return torch.where(live_mask(live, r), y, 0.0)
 
 
 def lora_expand_ref(y, b, idx, live):
@@ -51,13 +59,13 @@ def lora_expand_ref(y, b, idx, live):
     cast to B's dtype; rows with idx < 0 are zero. y (rows, r);
     b (S, r, d_out)."""
     rows, r = y.shape
-    yk = torch.where(_live_mask(live, r), y.float(), 0.0)
-    out = torch.zeros(rows, b.shape[-1], dtype=torch.float32,
-                      device=y.device)
+    acc = accum_dtype(b.dtype)
+    yk = torch.where(live_mask(live, r), y.to(acc), 0.0)
+    out = torch.zeros(rows, b.shape[-1], dtype=acc, device=y.device)
     for s in range(b.shape[0]):
         m = idx == s
         if bool(m.any()):
-            out[m] = yk[m] @ b[s].float()
+            out[m] = yk[m] @ b[s].to(acc)
     return out.to(b.dtype)
 
 
@@ -135,18 +143,19 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, block=512):
     repro/kernels/flash.py, not its JAX oracle's decode-style
     qpos = i + Lk - Lq). A key counts iff kpos <= qpos when causal and
     qpos - kpos < window when a window is given; GQA maps head h to KV head
-    h // (H / KV). Scores, softmax and PV run in f32 with the mask applied
-    to p, so a query with no valid key returns zeros. Queries are taken
-    `block` at a time, which bounds the f32 score tensor and changes
-    nothing else."""
+    h // (H / KV). Scores, softmax and PV run in f32 (f64 for f64 inputs)
+    with the mask applied to p, so a query with no valid key returns
+    zeros. Queries are taken `block` at a time, which bounds the f32 score
+    tensor and changes nothing else."""
     b, h, lq, hd = q.shape
     kv, lk = k.shape[1], k.shape[2]
-    kt = k.float().transpose(-1, -2)[:, :, None]        # (B, KV, 1, hd, Lk)
-    vf = v.float()[:, :, None]                          # (B, KV, 1, Lk, hd)
+    acc = accum_dtype(q.dtype)
+    kt = k.to(acc).transpose(-1, -2)[:, :, None]        # (B, KV, 1, hd, Lk)
+    vf = v.to(acc)[:, :, None]                          # (B, KV, 1, Lk, hd)
     kpos = torch.arange(lk, device=q.device)[None]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     for s0 in range(0, lq, block):
-        qg = q[:, :, s0:s0 + block].float()
+        qg = q[:, :, s0:s0 + block].to(acc)
         n = qg.shape[2]
         s = (qg.reshape(b, kv, h // kv, n, hd) @ kt) * hd ** -0.5
         qpos = torch.arange(s0, s0 + n, device=q.device)[:, None]

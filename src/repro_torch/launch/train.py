@@ -1,0 +1,158 @@
+"""Training launcher: full fine-tuning or LoRA-adapter training on the
+synthetic pipeline, with checkpointing. Mirrors `repro.launch.train`; runs
+on the card unless `--device cpu` is given.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --lora-rank 8 --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b \\
+      --lora-rank 64 --seq 512            # full width, on the card
+
+Each logged step prints its loss, gradient norm, learning rate, time
+(CUDA events on the card, the host clock on the CPU) and tokens/s.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Iterator, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.data.pipeline import DataConfig, packed_batches
+from repro_torch.device import resolve_device
+from repro_torch.models.weights import init_params
+from repro_torch.training import checkpoint, optim, train as train_lib
+from repro_torch.training import tree as tree_lib
+
+
+class Trainer:
+    """One training run: the model, what is trained (a LoRA adapter of
+    `lora_rank` > 0, else every parameter), the optimizer state and the
+    step. `params`: weights already on the device (else seeded ones)."""
+
+    def __init__(self, cfg: ModelConfig, *, lora_rank: int = 0,
+                 lr: float = 1e-3, steps: int = 100, seed: int = 0,
+                 device=None, params=None, accum: int = 1):
+        self.cfg, self.rank = cfg, lora_rank
+        self.device = resolve_device(device)
+        self.params = params if params is not None \
+            else init_params(cfg, seed, self.device)
+        self.opt_cfg = optim.AdamWConfig(lr=lr,
+                                         warmup_steps=max(steps // 10, 1),
+                                         total_steps=steps)
+        if lora_rank > 0:
+            g = torch.Generator(device=self.device).manual_seed(seed + 1)
+            self.adapter = train_lib.init_lora_adapter(cfg, lora_rank, g)
+            self.state = optim.init(self.adapter)
+            self._step = train_lib.make_lora_train_step(cfg, self.opt_cfg,
+                                                        lora_rank)
+        else:
+            self.adapter = None
+            self.state = optim.init(tree_lib.param_tree(self.params))
+            self._step = train_lib.make_train_step(cfg, self.opt_cfg,
+                                                   accum=accum)
+
+    def trained(self):
+        """The tree being trained: the adapter, or the parameter tree."""
+        return self.adapter if self.adapter is not None \
+            else tree_lib.param_tree(self.params)
+
+    def step(self, batch) -> dict:
+        if self.adapter is not None:
+            self.adapter, self.state, m = self._step(
+                self.adapter, self.state, self.params, batch)
+        else:
+            self.params, self.state, m = self._step(self.params, self.state,
+                                                    batch)
+        return m
+
+    def batches(self, batch: int, seq: int, seed: int = 0
+                ) -> Iterator[dict]:
+        """`packed_batches` as tensors on the device."""
+        for b in packed_batches(DataConfig(vocab=self.cfg.vocab,
+                                           seq_len=seq, batch=batch,
+                                           seed=seed)):
+            yield {k: torch.from_numpy(v).to(self.device)
+                   for k, v in b.items()}
+
+
+def run(trainer: Trainer, data, steps: int, *, log_every: int = 10,
+        ckpt_dir: Optional[str] = None, ckpt_every: int = 50) -> list:
+    """`steps` steps on batches from `data`; returns one record a step
+    (loss, grad_norm, lr, ms, tok_s). On the card a step's time is taken
+    with CUDA events around it (the host queues ahead; logged steps
+    synchronize to print), on the CPU with the host clock."""
+    cuda = trainer.device.type == "cuda"
+    marks, recs = [], []
+    for step in range(1, steps + 1):
+        batch = next(data)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        m = trainer.step(batch)
+        if cuda:
+            end.record()
+            marks.append((start, end))
+        else:
+            marks.append(1e3 * (time.perf_counter() - t0))
+        recs.append({"step": step, "tokens": batch["tokens"].numel(), **m})
+        if step % log_every == 0 or step == 1:
+            r = _record(recs[-1], marks[-1])
+            print(f"step {step:5d} loss {r['loss']:.4f} "
+                  f"gnorm {r['grad_norm']:.3f} lr {r['lr']:.2e} "
+                  f"{r['ms']:.1f} ms/step {r['tok_s']:.0f} tok/s",
+                  flush=True)
+        if ckpt_dir and step % ckpt_every == 0:
+            checkpoint.save(checkpoint.step_path(ckpt_dir, step),
+                            {"model": trainer.trained(),
+                             "opt": trainer.state}, step=step)
+            checkpoint.retain(ckpt_dir, keep=3)
+    return [_record(r, mk) for r, mk in zip(recs, marks)]
+
+
+def _record(r, mark) -> dict:
+    if isinstance(mark, tuple):
+        mark[1].synchronize()
+        mark = mark[0].elapsed_time(mark[1])
+    return {"step": r["step"], "loss": float(r["loss"]),
+            "grad_norm": float(r["grad_norm"]), "lr": float(r["lr"]),
+            "ms": mark, "tok_s": 1e3 * r["tokens"] / mark}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help=">0: train a LoRA adapter instead of full params")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    trainer = Trainer(cfg, lora_rank=args.lora_rank, lr=args.lr,
+                      steps=args.steps, seed=args.seed, device=args.device)
+    t0 = time.time()
+    recs = run(trainer, trainer.batches(args.batch, args.seq, args.seed),
+               args.steps, log_every=args.log_every, ckpt_dir=args.ckpt_dir,
+               ckpt_every=args.ckpt_every)
+    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s, final loss "
+          f"{recs[-1]['loss']:.4f}")
+    return recs
+
+
+if __name__ == "__main__":
+    main()

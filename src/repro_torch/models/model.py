@@ -4,6 +4,7 @@ encoder-decoder models. Mirrors `repro.models.model`.
   prefill(cfg, params, batch, ...) -> (logits, row caches)
   prefill_chunk(cfg, params, ...)  -> logits of the final chunk, or None
   decode(cfg, params, cache, ...)  -> (logits, cache)
+  loss(cfg, params, batch, ...)    -> (scalar, {"ce": ...})
   cache_abstract(cfg, batch, ...)  -> meta-device stand-ins of the cache
 
 The decoder-only families decode over the dense per-row cache (bf16/f32
@@ -90,12 +91,16 @@ def _ssm_prefill(cfg, params, tokens, *, lora=None, need_cache=False,
     conv_dim)}."""
     x = transformer.embed_tokens(cfg, params, tokens)
     live = transformer._lora_live(cfg, lora)
-    caches = []
-    for i, p_l in enumerate(params.blocks):
+
+    def layer(x, i, p_l):
         ll, idx, ranks, mode = transformer._lora_slice(lora, i)
-        x, c = ssm_mod.ssm_block_apply(cfg, p_l, x, lora_layer=ll,
+        return ssm_mod.ssm_block_apply(cfg, p_l, x, lora_layer=ll,
                                        lora_idx=idx, lora_ranks=ranks,
                                        lora_mode=mode, lora_live=live)
+
+    caches = []
+    for i, p_l in enumerate(params.blocks):
+        x, c = transformer.remat_layer(cfg, layer, x, i, p_l)
         caches.append(c)
     if last_pos is not None:
         x = x[torch.arange(x.shape[0], device=x.device),
@@ -105,6 +110,35 @@ def _ssm_prefill(cfg, params, tokens, *, lora=None, need_cache=False,
     cache = {n: torch.stack([c[n] for c in caches]) for n in caches[0]} \
         if need_cache else None
     return transformer.unembed(cfg, params, x), cache
+
+
+def loss(cfg, params, batch, *, lora=None, aux_weight=0.01):
+    """Next-token cross-entropy under `loss_mask` (+ aux_weight x the MoE
+    load-balance loss summed over layers), as `repro.models.model.loss`:
+    batch {tokens, [loss_mask], [prefix_embeds], [enc_embeds]}; the VLM's
+    logits at its `n_prefix_tokens` patch positions are dropped. The
+    log-sum-exp runs in f32 with the row max taken out (no gradient
+    through it); the label's logit is gathered, which equals the
+    reference's one-hot contraction. Returns (loss, {"ce": ce})."""
+    if cfg.moe:
+        logits, _, aux = transformer.prefill(
+            cfg, params, batch["tokens"],
+            prefix_embeds=batch.get("prefix_embeds"), lora=lora,
+            return_aux=True)
+    else:
+        logits, _ = prefill(cfg, params, batch, lora=lora)
+        aux = 0.0
+    if cfg.family == "vlm" and cfg.n_prefix_tokens:
+        logits = logits[:, cfg.n_prefix_tokens:]
+    targets = batch["tokens"][:, 1:].long()
+    lg = logits[:, :-1].float()
+    shifted = lg - lg.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(-1))
+    nll = lse - shifted.gather(-1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = mask[:, 1:].float() if mask is not None else torch.ones_like(nll)
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux_weight * aux, {"ce": ce}
 
 
 def decode(cfg, params, cache, tokens_t, pos, *, lora=None, window=None,

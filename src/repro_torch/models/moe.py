@@ -65,10 +65,11 @@ def capacity(cfg, S: int) -> int:
     return -(-c // 4) * 4
 
 
-def moe_apply(cfg, p: MoE, x):
+def moe_apply(cfg, p: MoE, x, need_aux=True):
     """x (B, T, d) -> (y (B, T, d), aux): aux is the Switch-style
-    load-balance loss (serving ignores it). The router's product runs in
-    x's dtype, its softmax and gates in f32."""
+    load-balance loss of the training loss, or None without `need_aux`
+    (serving computes none). The router's product runs in x's dtype, its
+    softmax and gates in f32."""
     if cfg.moe_ep:
         raise NotImplementedError(
             f"{cfg.name}: moe_ep (expert parallelism over devices) is not "
@@ -104,6 +105,8 @@ def moe_apply(cfg, p: MoE, x):
     g = out[e_flat, g_flat, p_flat.clamp(max=C - 1)].reshape(G, S, k, d)
     w = (keep.reshape(G, S, k) * gate_vals).to(g.dtype)
     y = (g * w[..., None]).sum(2).reshape(B, T, d)
+    if not need_aux:
+        return y, None
 
     frac = onehot.sum((1, 2)).float() / (S * k)               # (G, E)
     aux = E * (frac * probs.mean(1)).sum(-1).mean()

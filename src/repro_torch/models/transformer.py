@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.lora import lora_apply
 from repro_torch.kernels.ops import lora_live
@@ -173,9 +174,11 @@ def attn_apply(cfg, p: Attention, x, positions, *, rope_cs,
 def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
                 lora_idx, lora_ranks, lora_mode, decode,
                 lora_live=None, window=None, cache=None, write_mask=None,
-                block_table=None, write_index=None):
-    """Returns (y, (k, v)) — the layer's rotated K/V for prefill. A MoE
-    layer takes the MLP's place (its aux loss is dropped: serving)."""
+                block_table=None, write_index=None, need_aux=False):
+    """Returns (y, (k, v)) — the layer's rotated K/V for prefill — or,
+    with `need_aux`, (y, (k, v), aux): a MoE layer's load-balance loss
+    (None for an MLP layer). A MoE layer takes the MLP's place; serving
+    computes no aux."""
     xn = norm_apply(p.norm1, x, cfg.norm)
     a, kv = attn_apply(
         cfg, p.attn, xn, positions, lora_layer=lora_layer,
@@ -185,9 +188,13 @@ def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
         write_index=write_index)
     h = x + a
     hn = norm_apply(p.norm2, h, cfg.norm)
+    aux = None
     if cfg.moe:
-        return h + moe_apply(cfg, p.moe, hn)[0], kv
-    return h + mlp_apply(cfg, p.mlp, hn), kv
+        m, aux = moe_apply(cfg, p.moe, hn, need_aux=need_aux)
+        y = h + m
+    else:
+        y = h + mlp_apply(cfg, p.mlp, hn)
+    return (y, kv, aux) if need_aux else (y, kv)
 
 
 # ------------------------------------------------------------- top level ----
@@ -238,6 +245,17 @@ def _lora_live(cfg, lora):
                      cfg.lora.rank_block)
 
 
+def remat_layer(cfg, fn, *args):
+    """One layer, `fn(*args)`: under activation checkpointing when
+    `cfg.remat` and grad mode is on (the reference's `jax.checkpoint` of
+    its layer body), so the backward recomputes the layer from its input
+    instead of keeping its activations. Under `torch.no_grad()` (serving)
+    it is a plain call."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _check_family(cfg):
     """Every family of the reference is ported; expert parallelism over
     devices (`moe_ep`) is not (ROADMAP.md queue 1, multi-device)."""
@@ -251,7 +269,7 @@ def _check_family(cfg):
 
 def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
             lora=None, cache_slots=None, window=None, positions=None,
-            last_only=False, last_pos=None):
+            last_only=False, last_pos=None, return_aux=False):
     """Returns (logits, cache). cache_slots=None -> no cache; else the row
     caches {"k"/"v": (L, B, KV, cache_slots, hd), "pos": (L, B,
     cache_slots)[, "k_scale"/"v_scale": (L, B, KV, cache_slots) f32]}
@@ -266,7 +284,12 @@ def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
     embeddings, placed before the tokens. last_pos: optional (B,) per-row
     positions — the residual stream is gathered there *before* the
     unembed, so the (B, L, vocab) logits are never materialized.
-    `window`: sliding-window attention (flash on the card)."""
+    `window`: sliding-window attention (flash on the card).
+    `return_aux`: return (logits, cache, aux), aux the sum over layers of
+    the MoE load-balance loss (f32, 0 without MoE), as the reference's
+    layer scan carries it. With `cfg.remat` and grad mode on, each layer
+    of the uniform stack runs under activation checkpointing
+    (`remat_layer`)."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens, prefix_embeds)
     B, L = x.shape[0], x.shape[1]
@@ -275,6 +298,8 @@ def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
                                  device=x.device).expand(B, L)
     rope_cs = _rope(cfg, positions)
     live = _lora_live(cfg, lora)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if return_aux else None
     if cfg.hybrid:
         x, cache = _hybrid_prefill(cfg, params, x, positions, rope_cs, lora,
                                    live, cache_slots)
@@ -285,12 +310,19 @@ def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
                                cfg.torch_dtype,
                                quantized=cfg.kv_cache_dtype == "int8",
                                layers=cfg.n_layers, device=x.device)
-        for i, p_l in enumerate(params.blocks):
+
+        def layer(x, i, p_l):
             ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
-            x, (k, v) = block_apply(
+            return block_apply(
                 cfg, p_l, x, positions, lora_layer=ll, lora_idx=lora_idx,
                 lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
-                window=window, decode=False, rope_cs=rope_cs)
+                window=window, decode=False, rope_cs=rope_cs,
+                need_aux=return_aux)
+
+        for i, p_l in enumerate(params.blocks):
+            x, (k, v), *a = remat_layer(cfg, layer, x, i, p_l)
+            if a and a[0] is not None:
+                aux = aux + a[0]
             if cache is not None:
                 cache_write_prefill({n: t[i] for n, t in cache.items()}, k,
                                     v, positions)
@@ -298,6 +330,8 @@ def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
         x = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
     elif last_only:
         x = x[:, -1:]
+    if return_aux:
+        return unembed(cfg, params, x), cache, aux
     return unembed(cfg, params, x), cache
 
 

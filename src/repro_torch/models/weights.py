@@ -24,6 +24,7 @@ from repro_torch.models.param import Dense, Norm
 from repro_torch.models.transformer import (MLP, Attention, Block,
                                             Transformer, _check_family,
                                             hybrid_layer_kinds)
+from repro_torch.training.optim import AdamWState
 
 # leaves the reference keeps in float32 whatever the model's dtype
 F32_LEAVES = ("a_log", "dt_bias", "d_skip", "lam")
@@ -226,6 +227,49 @@ def params_from_jax(cfg, tree, device=None):
         out["blocks"] = [_index(tree["blocks"], i)
                          for i in range(cfg.n_layers)]
     return _build(cfg, conv(out))
+
+
+def adapter_from_jax(cfg, tree, device=None):
+    """The reference's trainable adapter ({target: {a: (L, d_in, r_max),
+    b: (L, r_max, d_out)}}, numpy leaves) -> the port's, in the config's
+    dtype on `device` (None: the card)."""
+    dev = resolve_device(device)
+    return {t: {n: torch.from_numpy(np.array(x, np.float32)).to(
+        dev, cfg.torch_dtype) for n, x in ab.items()}
+        for t, ab in tree.items()}
+
+
+def opt_state_from_jax(cfg, state, device=None):
+    """The reference's `AdamWState` (step, mu, nu; numpy leaves) -> the
+    port's `training.optim.AdamWState`, the moments in their own dtype
+    (float32, or bfloat16 with `moments_dtype="bfloat16"`) on `device`
+    (None: the card). Moments of an adapter keep its tree; moments of the
+    model's parameters take the port's layout, a uniform stack's layers
+    as a list (`params_from_jax`), so they line up with
+    `training.tree.param_tree`."""
+    dev = resolve_device(device)
+    step, mu, nu = state
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        dt = torch.bfloat16 if str(np.asarray(x).dtype) == "bfloat16" \
+            else torch.float32
+        return torch.from_numpy(np.array(x, np.float32)).to(dev, dt)
+
+    def layout(tree):
+        out = dict(tree)
+        if isinstance(tree.get("blocks"), dict):   # a stacked uniform stack
+            out["blocks"] = [_index(tree["blocks"], i)
+                             for i in range(cfg.n_layers)]
+        return conv(out)
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        mu=layout(mu), nu=layout(nu))
 
 
 def _index(tree, i):

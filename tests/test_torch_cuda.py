@@ -572,3 +572,105 @@ def test_windowed_paged_decode_on_card_takes_the_plain_path(card):
     model_lib.decode(cfg, cpu.to(card), pool, tok, pos,
                      block_table=torch.from_numpy(ids).to(card))
     assert paged.paged_attention.launches == n + cfg.n_layers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,H,KV,L", [
+    (True, None, 8, 8, 300), (True, 64, 8, 2, 515), (False, 100, 4, 1, 257)])
+def test_flash_function_grads_on_card_match_plain(card, dtype, causal,
+                                                  window, H, KV, L):
+    """dq, dk, dv through the flash Function (the kernel forward, the
+    blockwise backward) on (B, L, H, hd) views against autograd through the
+    plain version on the card: f32 within 1e-5, bf16 per row within 1e-2
+    of its max |plain|; the kernel launched; a second backward bitwise
+    equal."""
+    g = torch.Generator(device=card).manual_seed(L + H)
+    leaves = [torch.randn(2, L, n, 128, generator=g, device=card).to(dtype)
+              .requires_grad_() for n in (H, KV, KV)]
+    views = [t.transpose(1, 2) for t in leaves]
+    dout = torch.randn(2, H, L, 128, generator=g, device=card).to(dtype)
+    n = flash.flash_attention.launches
+    out = flash.flash_attention(*views, causal=causal, window=window)
+    assert flash.flash_attention.launches == n + 1
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, dout)
+    plain = ref.flash_attention_ref(*views, causal=causal, window=window)
+    want = torch.autograd.grad(plain, leaves, dout)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, **TOL)
+        else:
+            _rows_close(a.reshape(-1, 128), w.reshape(-1, 128), 1e-2, 0.0)
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+@pytest.mark.parametrize("rows,r_max", [(8, 64), (4096, 64), (300, 48),
+                                        (40, 24)])
+def test_lora_function_grads_on_card_match_plain(card, mode, rows, r_max):
+    """dx, dA, dB of the LoRA delta through the shrink / expand Functions
+    (the data gradients through the kernels on A^T and B^T) against
+    autograd through the plain versions, in f32, with idx -1 rows, on both
+    launch paths of each kernel and at r_max 48 and 24 (multiples of 8
+    that are no power-of-two multiple of it). Each row within 1e-5 x
+    max(1, its max |plain|), the f32 rule: dA and dB sum up to thousands
+    of rows whose dy / y come from the kernels in another order."""
+    g = torch.Generator(device=card).manual_seed(rows + r_max)
+    ranks = [r_max, r_max // 2, 8, r_max - 8]
+    a = torch.zeros(4, 256, r_max, device=card)
+    b = torch.zeros(4, r_max, 384, device=card)
+    for s, r in enumerate(ranks):
+        a[s, :, :r] = torch.randn(256, r, generator=g, device=card) / 16
+        b[s, :r] = torch.randn(r, 384, generator=g, device=card) / 8
+    x = torch.randn(rows, 256, generator=g, device=card)
+    idx = torch.randint(-1, 4, (rows,), generator=g, device=card).to(
+        torch.int32)
+    live = ops.lora_live(idx, torch.tensor(ranks, dtype=torch.int32,
+                                           device=card), mode, r_max, 8)
+    x, a, b = (t.requires_grad_() for t in (x, a, b))
+    dout = torch.randn(rows, 384, generator=g, device=card)
+    n = (bgmv.lora_shrink.launches, bgmv.lora_expand.launches)
+    got = torch.autograd.grad(ops.lora_delta(x, a, b, idx, live=live),
+                              (x, a, b), dout)
+    # forward and backward: each kernel twice
+    assert (bgmv.lora_shrink.launches, bgmv.lora_expand.launches) == \
+        (n[0] + 2, n[1] + 2)
+    y = ref.lora_shrink_ref(x, a, idx, live)
+    want = torch.autograd.grad(ref.lora_expand_ref(y, b, idx, live),
+                               (x, a, b), dout)
+    for gt, w in zip(got, want):
+        _rows_close(gt.reshape(-1, gt.shape[-1]), w.reshape(-1, w.shape[-1]),
+                    1e-5, 1.0)
+    assert bool((got[0][idx < 0] == 0).all())
+
+
+def test_lora_train_grads_on_card_match_cpu(card):
+    """The loss and adapter gradients of llama2-7b-smoke (f32, nonzero B)
+    on the card, through the flash and LoRA kernels and their Functions,
+    against the same on the CPU: each leaf within 1e-4 x its max."""
+    from repro_torch.models.weights import init_params
+    from repro_torch.training import train
+    cfg = get_config("llama2-7b").smoke()
+    g = torch.Generator().manual_seed(1)
+    ad = train.init_lora_adapter(cfg, 8, g)
+    for t in ad:
+        ad[t]["b"] = torch.randn(ad[t]["b"].shape, generator=g) * 0.1
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (4, 64)).astype(np.int32))}
+    params = init_params(cfg, 0, "cpu")
+    lc, gc = train.lora_loss_and_grads(cfg, params, ad, batch, 8)
+    n = flash.flash_attention.launches
+    to = lambda tr: {t: {k: v.to(card) for k, v in ab.items()}  # noqa
+                     for t, ab in tr.items()}
+    lg, gg = train.lora_loss_and_grads(
+        cfg, params.to(card), to(ad), {"tokens": batch["tokens"].to(card)},
+        8)
+    # the forward and the remat recompute, each layer
+    assert flash.flash_attention.launches == n + 2 * cfg.n_layers
+    assert float(lg) == pytest.approx(float(lc), rel=1e-5)
+    for t in gc:
+        for k in ("a", "b"):
+            w = gc[t][k]
+            err = float((gg[t][k].cpu() - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), (t, k, err)

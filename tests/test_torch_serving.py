@@ -42,12 +42,19 @@ RANKS = (8, 4, 2, 8)
 REF_HW = Hardware(**dataclasses.asdict(V5E))
 
 
-def _pair(kernel="bgmv", ranks=RANKS, arch="llama2-7b", kv="", **kw):
+def _pair(kernel="bgmv", ranks=RANKS, arch="llama2-7b", kv="",
+          max_rank=None, **kw):
     """A reference server and a port server with the same weights,
-    adapters and timeline hardware; kv="int8" quantizes both KV caches."""
+    adapters and timeline hardware; kv="int8" quantizes both KV caches;
+    `max_rank` pads both adapter pools to that rank."""
     cj, ct = jget(arch).smoke(), tget(arch).smoke()
     cj = dataclasses.replace(cj, kv_cache_dtype=kv)
     ct = dataclasses.replace(ct, kv_cache_dtype=kv)
+    if max_rank is not None:
+        cj = dataclasses.replace(cj, lora=dataclasses.replace(
+            cj.lora, max_rank=max_rank))
+        ct = dataclasses.replace(ct, lora=dataclasses.replace(
+            ct.lora, max_rank=max_rank))
     kw = dict({"mode": "caraserve", "kernel": kernel, "max_batch": 4,
                "cache_slots": 64, "seed": 0}, **kw)
     js = JServer(cj, **kw)
@@ -92,6 +99,21 @@ def test_yi9b_server_tokens_match_reference(kernel):
     same staggered trace: every request's tokens equal the reference's."""
     js, ts = _pair(kernel, arch="yi-9b")
     trace = _trace(seed=2)
+    js.run([JReq(*t) for t in trace])
+    ts.run([TReq(*t) for t in trace])
+    assert _tokens(ts) == _tokens(js)
+    assert all(len(s.generated) == s.req.max_new_tokens for s in ts.states)
+
+
+@pytest.mark.parametrize("kernel", ["bgmv", "mbgmv"])
+def test_server_tokens_match_reference_at_max_rank_48(kernel):
+    """A pool padded to max_rank 48, a multiple of 8 and no power-of-two
+    multiple of it (the kernels take it since their rank reduction was
+    generalised), with adapters of ranks up to 48: tokens equal the
+    reference's."""
+    js, ts = _pair(kernel, ranks=(48, 20, 8, 33), max_rank=48)
+    assert ts.cfg.lora.max_rank == 48
+    trace = _trace(seed=5)
     js.run([JReq(*t) for t in trace])
     ts.run([TReq(*t) for t in trace])
     assert _tokens(ts) == _tokens(js)
