@@ -233,14 +233,16 @@ def main() -> int:
     print_build_info(build.build_log)
 
     errs = kernel_checks(torch)
+    tooling = kernel_tooling_phase(torch)
     from repro_torch.configs.base import get_config
     llama = get_config("llama2-7b")
     serving, params = serve_phase(torch, llama, LLAMA_RUNS, "3a")
+    tooling.update(sanitized_serving_phase(torch, llama, params))
     step = logits_phase(torch, llama, params)
     kernels = timing_phase(torch, step, errs, serving)
     report = {"serving": serving, "decode_logits": step["logits"],
               "decode_profile": step["profile"],
-              "lora_rank_sweep": step["rank_sweep"]}
+              "lora_rank_sweep": step["rank_sweep"], "tooling": tooling}
     report["cluster"] = cluster_phase(torch, llama, params)
     report["perf_model_fit"] = perf_model_phase(torch, llama, step)
     report["dense_serving"] = dense_phase(torch, llama, params)
@@ -292,10 +294,10 @@ KERNEL_NAMES = ("flash_bf16", "flash_f32", "lora_shrink_tile",
 
 def print_build_info(log):
     """Registers, static shared memory and spills of each kernel, from
-    nvcc's `-Xptxas -v` report of the build that ran."""
+    nvcc's `-Xptxas -v` report of the library's build."""
     import re
     if not log:
-        print("  (library found built: no ptxas report)", flush=True)
+        print("  (no ptxas report)", flush=True)
         return
     name, spill = None, "spills ?"
     for line in log.splitlines():
@@ -377,7 +379,8 @@ def kernel_checks(torch):
     """Phase 2. Returns the worst error per kernel at llama2-7b shapes."""
     import numpy as np
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bgmv import lora_expand, lora_shrink
+    from repro_torch.kernels.bgmv import lora_expand, lora_shrink, padded_rank
+    from repro_torch.kernels.ops import lora_live
     from repro_torch.kernels.paged import paged_attention
     print("phase 2: kernels vs plain versions on the card", flush=True)
     rng = np.random.default_rng(SEED)
@@ -513,6 +516,15 @@ def kernel_checks(torch):
                [24, 8, 17, 5] * 2, 8, bf, False, 17),
               ("r_max 24 decode f32", 8, 128, 136, 24, [24, 3, 9, 1], 8, f32,
                False, 0),
+              # max_rank 12 and 20, no multiple of 8: the pool pads them
+              # to 16 and 24 columns (bgmv.padded_rank), zero past each
+              # rank; MBGMV's live width is clamped to the pool (20 at
+              # rank_block 16 -> 32 -> 24), as `ops.lora_live` does
+              *[(f"max_rank {m} {kind} bf16", rows, 4096, 4096,
+                 padded_rank(m), [m, 5, m - 3, 8] * 2, 16, bf, False, seg)
+                for m in (12, 20)
+                for kind, rows, seg in (("decode", 8, 0),
+                                        ("prefill runs of 17", 1100, 17))],
               ("smoke f32", 8, 128, 128, 8, [8, 3, 5, 1], 4, f32, False, 0),
               ("smoke prefill f32", 96, 128, 128, 8, [8, 3, 5, 1], 4, f32,
                False, 0),
@@ -541,8 +553,9 @@ def kernel_checks(torch):
                                   dtype=torch.int32, device="cuda")
             idx[0] = -1
         ranks_t = torch.as_tensor(ranks, dtype=torch.int32, device="cuda")
-        for mode, live in (("bgmv", ref.bgmv_live(idx, r_max)),
-                           ("mbgmv", ref.mbgmv_live(idx, ranks_t, rb))):
+        for mode, live in (("bgmv", lora_live(idx, None, "bgmv", r_max)),
+                           ("mbgmv", lora_live(idx, ranks_t, "mbgmv", r_max,
+                                               rb))):
             y = lora_shrink(x, a, idx, live)
             note("lora_shrink", check_close(
                 f"lora_shrink {mode} {label}", y,
@@ -2965,6 +2978,357 @@ def rank_sweep(torch, a, b, x, flush):
                   f"{out[-1]['shrink_ms'] * 1e3:.1f} us, expand "
                   f"{out[-1]['expand_ms'] * 1e3:.1f} us", flush=True)
     return out
+
+
+# ------------------------------------------------------------ phase S ----
+
+def kernel_tooling_phase(torch):
+    """Phase S1-S3 (repro_torch.analysis.kernel_verify): the footprint of
+    every launch at every registered config against the card's limits,
+    the paged shape rule's Python copy against the library's, the
+    canaries on every launch path of the six kernels, and the mutants,
+    each of which the checks must catch. Any finding fails the run."""
+    from repro_torch.analysis import kernel_verify
+    from repro_torch.kernels import build
+    lib = build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t0 = time.perf_counter()
+    print("phase S1: launch footprints at every registered config",
+          flush=True)
+    rows, lim, found = kernel_verify.footprint(lib, build.build_log, sms)
+    print(f"  card limits: {lim}", flush=True)
+    groups = {}
+    for fp in rows:
+        key = (fp.launch.kernel, fp.part, fp.launch.path,
+               str(fp.launch.dtype).replace("torch.", ""), fp.threads,
+               fp.dyn_smem, fp.registers, fp.static_smem, fp.local_bytes,
+               fp.blocks_per_sm)
+        groups.setdefault(key, []).append(fp.launch.case)
+    table = []
+    for key, cases in sorted(groups.items()):
+        kernel, part, path, dt, thr, dyn, regs, st, loc, blk = key
+        occ = blk * thr / lim["threads_sm"]
+        table.append({"kernel": kernel, "part": part, "path": path,
+                      "dtype": dt, "threads": thr, "dyn_smem": dyn,
+                      "registers": regs, "static_smem": st,
+                      "local_bytes": loc, "blocks_per_sm": blk,
+                      "occupancy": occ, "configs": sorted(set(cases))})
+        print(f"  {kernel}[{path}]{'' if part == kernel else ' ' + part} "
+              f"{dt}: {thr} threads, dyn smem {dyn} B, {regs} registers, "
+              f"static smem {st} B, local {loc} B, {blk} blocks/SM "
+              f"(occupancy {occ:.2f}) — {len(set(cases))} configs",
+              flush=True)
+    found += kernel_verify.paged_rule_findings(lib)
+    check(not found, "phase S1 findings:\n  " + "\n  ".join(found))
+    print(f"  {len(rows)} launches of {len(groups)} distinct footprints "
+          "within the limits; paged.fits equals rt_paged_attention_fits",
+          flush=True)
+    print("phase S2: canaries (fills, guard bands, poisoned inputs, a "
+          "concurrent stream)", flush=True)
+    paths, found = kernel_verify.canaries(lib, sms)
+    check(not found, "phase S2 findings:\n  " + "\n  ".join(found))
+    print(f"  {len(paths)} launch paths clean: {paths}", flush=True)
+    print("phase S3: mutants at the ctypes boundary", flush=True)
+    caught = []
+    for name, f in kernel_verify.mutants(lib, sms):
+        check(bool(f), f"phase S3: mutant '{name}' was not caught")
+        print(f"  caught {name}: {f[0]}", flush=True)
+        caught.append(name)
+    secs = time.perf_counter() - t0
+    print(f"  phase S1-S3 took {secs:.1f} s", flush=True)
+    return {"footprints": table, "limits": lim, "canary_paths": paths,
+            "mutants_caught": caught, "seconds": secs}
+
+
+S_RANKS = (8, 16)              # phase S's adapters: 1 page each
+S_REQUESTS = {"n": 6, "seed": SEED + 7, "max_new": 48}
+# 4 rows of 40-72 prompt tokens (2-3 pages) fill 14 pages with the two
+# adapters' 2; growing past 96 tokens preempts
+S_SERVER = {"max_batch": 4, "cache_slots": 512, "total_pages": 14,
+            "chunk_budget": 0}
+S_LENGTHS = (40, 73)
+# phase S6: (max_rank, the adapters' ranks). The pools pad to 16 and 24
+# columns; MBGMV's live widths are 16 / 16 and 24 (32 clamped) / 16, so at
+# 20 it reads fewer columns than BGMV
+S_MAX_RANKS = ((12, (12, 5)), (20, (20, 5)))
+S_LOGIT_PROMPT = 40            # phase S6: tokens a row of the logit check
+
+
+def s_requests(cfg, uids, n, seed, max_new):
+    """n requests over the adapters, prompts of S_LENGTHS tokens, one
+    every 4 ms; the second adapter's first request arrives after the
+    first has decoded (its upload runs mid-run)."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, adapter_uid=uids[0 if i < 2 else i % len(uids)],
+                    prompt=rng.integers(0, cfg.vocab, int(rng.integers(
+                        *S_LENGTHS))).astype(np.int32),
+                    max_new_tokens=max_new, arrival_ms=4.0 * i)
+            for i in range(n)]
+
+
+def s_server(torch, cfg, params, kernel, preempt, ranks=S_RANKS):
+    from repro_torch.core.engine import InferenceServer
+    from repro_torch.core.lora import AdapterSpec
+    srv = InferenceServer(cfg, mode="caraserve", kernel=kernel,
+                          page_size=32, params=params, seed=SEED,
+                          device="cuda", preempt=preempt, **S_SERVER)
+    uids = []
+    for i, r in enumerate(ranks):
+        spec = AdapterSpec(f"s-r{r}-{i}", r, cfg.name)
+        srv.register_adapter(spec)
+        uids.append(spec.uid)
+    return srv, uids
+
+
+def _sync_sites(torch, be, records):
+    """Wrap `be.decode` / `be.megastep` so that each call runs under
+    torch.cuda.set_sync_debug_mode("warn") and appends (kind, steady,
+    [(file, line), ...]) to `records`: steady when the call uploaded
+    nothing (the batch did not change)."""
+    import warnings
+
+    def wrap(fn, kind):
+        def run(*a, **kw):
+            h2d = be.transfer_stats["h2d"]
+            with warnings.catch_warnings(record=True) as ws:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            sites = [(os.path.realpath(w.filename), w.lineno) for w in ws
+                     if "synchroniz" in str(w.message)]
+            records.append((kind, be.transfer_stats["h2d"] == h2d, sites))
+            return res
+        return run
+
+    be.decode = wrap(be.decode, "decode")
+    be.megastep = wrap(be.megastep, "megastep")
+
+
+def sanitized_serving_phase(torch, cfg, params):
+    """Phase S4-S6 on the phase-3a weights: the port's lint clean (strict
+    waivers); full-width serving under a page pool small enough to preempt
+    (swap, then recompute) with an adapter upload mid-run, once as
+    served and once with the sanitizers forced on (PageSan, LinkSan):
+    tokens equal, sanitizers clean and live, wall times side by side;
+    every device->host sync PyTorch reports in the decode steps and
+    megasteps on a line the lint waives; servers of max_rank 12 and 20
+    (pools padded to 16 and 24 columns) under bgmv and mbgmv, each one's
+    prefill and decode logits held against the plain LoRA path on its own
+    pool (`s6_logits`)."""
+    import dataclasses
+    import inspect
+    import linecache
+    from repro_torch.analysis import lint, sanitizers
+    from repro_torch.kernels import bgmv
+    t0 = time.perf_counter()
+    print("phase S4: lint of src/repro_torch (--strict-waivers)", flush=True)
+    report = lint.run_lint_report()
+    check(not report.findings and not report.unused_waivers,
+          "phase S4: lint findings: " + "; ".join(
+              f.render() for f in report.findings + report.unused_waivers))
+    waived = {(os.path.realpath(f.path), f.line): f for f in report.waived}
+    for f in report.waived:
+        print(f"  waived {os.path.relpath(f.path, ROOT)}:{f.line} "
+              f"[{f.rule}]", flush=True)
+    out = {"lint_waived": [f"{os.path.relpath(f.path, ROOT)}:{f.line}"
+                           for f in report.waived], "arms": []}
+    print(f"phase S5: {cfg.name} serving under a {S_SERVER['total_pages']}"
+          "-page pool, as served and with the sanitizers forced on",
+          flush=True)
+    sync_records = []
+    for preempt in ("swap", "recompute"):
+        toks = {}
+        # the arm that runs first pays the warm-up: alternate the order
+        for sanitize in ((False, True) if preempt == "swap"
+                         else (True, False)):
+            with sanitizers.force(sanitize):
+                srv, uids = s_server(torch, cfg, params, "bgmv", preempt)
+                if not sanitize and preempt == "swap":
+                    _sync_sites(torch, srv.backend, sync_records)
+                reqs = s_requests(cfg, uids, **S_REQUESTS)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                srv.run(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            san_p, san_l = srv.allocator.san, srv.cold.tracker.san
+            check((san_p is not None) == sanitize
+                  and (san_l is not None) == sanitize,
+                  f"S5 {preempt}: sanitizers live = {sanitize} expected")
+            ps = dict(srv.preempt_stats)
+            check(ps[f"{preempt}_preemptions"] > 0,
+                  f"S5 {preempt}: no {preempt} preemption ({ps})")
+            demand = srv.cold.tracker.stats["demand"]
+            check(demand >= len(S_RANKS), f"S5 {preempt}: {demand} uploads")
+            for st in srv.states:
+                check(len(st.generated) == st.req.max_new_tokens,
+                      f"S5 {preempt}: request {st.req.rid} unfinished")
+            toks[sanitize] = {st.req.rid: list(map(int, st.generated))
+                              for st in srv.states}
+            rec = {"preempt": preempt, "sanitized": sanitize, "wall_s": wall,
+                   "preempt_stats": ps, "uploads": demand,
+                   "free_pages_after": srv.allocator.free_pages}
+            if sanitize:
+                rec.update(pagesan_claims=san_p.claims,
+                           pagesan_frees=san_p.frees,
+                           pagesan_access_checks=san_p.access_checks,
+                           linksan_checks=san_l.checks)
+                check(san_p.access_checks > 0 and san_l.checks > 0,
+                      f"S5 {preempt}: a sanitizer checked nothing")
+            out["arms"].append(rec)
+            print(f"  {preempt} {'sanitized' if sanitize else 'as served'}"
+                  f": {wall:.2f} s wall, {ps[f'{preempt}_preemptions']} "
+                  f"{preempt} preemptions, {demand} uploads"
+                  + (f", PageSan {san_p.access_checks} access checks / "
+                     f"{san_p.claims} claims, LinkSan {san_l.checks} checks"
+                     if sanitize else ""), flush=True)
+            del srv
+            gc.collect()
+        check(toks[True] == toks[False],
+              f"S5 {preempt}: sanitized tokens differ from the served ones")
+    walls = {(r["preempt"], r["sanitized"]): r["wall_s"] for r in out["arms"]}
+    print(f"  {smi_reading()}: wall s as served / sanitized: swap "
+          f"{walls[('swap', False)]:.2f} / {walls[('swap', True)]:.2f}, "
+          f"recompute {walls[('recompute', False)]:.2f} / "
+          f"{walls[('recompute', True)]:.2f}", flush=True)
+    # the instrumentation's own switch (torch.cuda.set_sync_debug_mode)
+    # can report itself; it is no line of the port
+    src, first = inspect.getsourcelines(torch.cuda.set_sync_debug_mode)
+    switch = {(os.path.realpath(inspect.getsourcefile(
+        torch.cuda.set_sync_debug_mode)), first + i)
+        for i in range(len(src))}
+    steady = {k: next((s for kind, st, s in sync_records
+                       if kind == k and st), None)
+              for k in ("decode", "megastep")}
+    for kind, sites in steady.items():
+        check(sites is not None, f"S5: no steady-state {kind} call")
+        print(f"  steady-state {kind}: syncs PyTorch reports at "
+              f"{[f'{os.path.relpath(p, ROOT)}:{n}' for p, n in sites]}",
+              flush=True)
+    every, bad = {}, set()
+    for kind, st, sites in sync_records:
+        for site in sites:
+            p_, n = site
+            key = (f"{os.path.relpath(p_, ROOT)}:{n} "
+                   f"`{linecache.getline(p_, n).strip()}`")
+            every[key] = every.get(key, 0) + 1
+            if site not in waived and site not in switch:
+                bad.add(key)
+    print(f"  syncs over all {len(sync_records)} decode / megastep calls "
+          f"(by line, calls): {every}", flush=True)
+    check(not bad, f"S5: syncs at lines the lint does not waive: "
+          f"{sorted(bad)}")
+    print("  every one on a waived line (or the debug mode's own switch)",
+          flush=True)
+    out["syncs_all_calls"] = every
+    out["syncs_steady"] = {k: [f"{os.path.relpath(p_, ROOT)}:{n}"
+                               for p_, n in v] for k, v in steady.items()}
+
+    counters = _counters()
+    out["max_rank"] = []
+    for max_rank, ranks in S_MAX_RANKS:
+        r_pad = bgmv.padded_rank(max_rank)
+        print(f"phase S6: max_rank {max_rank} (pool {r_pad} columns), "
+              f"adapters of ranks {ranks}, bgmv and mbgmv", flush=True)
+        c_r = dataclasses.replace(cfg, lora=dataclasses.replace(
+            cfg.lora, max_rank=max_rank))
+        for kernel in ("bgmv", "mbgmv"):
+            srv, uids = s_server(torch, c_r, params, kernel, "recompute",
+                                 ranks=ranks)
+            check(srv.backend.pool.pool["q"]["a"].shape[-1] == r_pad,
+                  f"S6 {max_rank} {kernel}: pool not padded to {r_pad}")
+            for fn in counters.values():
+                fn.launches = 0
+            srv.run(s_requests(c_r, uids, **S_REQUESTS))
+            torch.cuda.synchronize()
+            for n in ("lora_shrink", "lora_expand"):
+                check(counters[n].launches > 0,
+                      f"S6 {max_rank} {kernel}: {n} not launched")
+            check(all(len(st.generated) == S_REQUESTS["max_new"]
+                      for st in srv.states),
+                  f"S6 {max_rank} {kernel}: unfinished")
+            rec = {"max_rank": max_rank, "kernel": kernel,
+                   **s6_logits(torch, c_r, params, srv.backend, uids,
+                               kernel)}
+            out["max_rank"].append(rec)
+            print(f"  {kernel}: {len(srv.states)} requests served; live "
+                  f"widths {rec['live']}; logits vs the plain LoRA path: "
+                  f"prefill rel err {rec['prefill_rel_err']:.3e}, decode "
+                  f"{rec['decode_rel_err']:.3e} (limit {LOGIT_TOL}; the "
+                  f"LoRA itself moves them {rec['lora_moves']:.3e}), "
+                  f"greedy agree {rec['greedy_agree']}", flush=True)
+            del srv
+            gc.collect()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase S4-S6 took {out['seconds']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def s6_logits(torch, cfg, params, be, uids, kernel):
+    """Prefill and decode logits on the served pool `be.pool` (two rows an
+    adapter, S_LOGIT_PROMPT tokens, one decode step on each pass's own
+    cache with the kernel pass's greedy token), through the LoRA kernels
+    and through the plain LoRA path (`plain_ops`); each within LOGIT_TOL
+    of max |logit|. The prefill without LoRA must move further than that,
+    or the comparison could not see the LoRA path."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    slots = [be.pool.lookup(u) for u in uids]
+    check(None not in slots, f"S6 {kernel}: an adapter left the pool")
+    pool, dev = be.pool.pool, be.device
+    idx = torch.as_tensor(slots * 2, dtype=torch.int32, device=dev)
+    lora = {"pool": pool, "idx": idx, "mode": kernel}
+    rng = np.random.default_rng(SEED + 17)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (len(idx),
+                                                       S_LOGIT_PROMPT)),
+                           dtype=torch.int32, device=dev)
+    pos = torch.full((len(idx),), S_LOGIT_PROMPT, dtype=torch.int32,
+                     device=dev)
+
+    def prefill(with_lora=True):
+        with torch.no_grad():
+            lg, cache = model_lib.prefill(cfg, params, {"tokens": toks},
+                                          lora=lora if with_lora else None,
+                                          cache_slots=2 * S_LOGIT_PROMPT)
+        return lg[:, -1].float(), cache
+
+    def decode(cache, tok):
+        with torch.no_grad():
+            lg, _ = model_lib.decode(cfg, params, cache, tok, pos, lora=lora)
+        return lg[:, -1].float()
+
+    pk, ck = prefill()
+    with plain_ops():
+        pp, cp = prefill()
+    tok = pk.argmax(-1).to(torch.int32)[:, None]
+    dk = decode(ck, tok)
+    with plain_ops():
+        dp = decode(cp, tok)
+    rec = {"live": ops.lora_live(idx, pool["ranks"], kernel,
+                                 pool["q"]["a"].shape[-1],
+                                 cfg.lora.rank_block).tolist()}
+    for name, k, p_ in (("prefill", pk, pp), ("decode", dk, dp)):
+        check(bool(torch.isfinite(k).all()),
+              f"S6 {kernel}: non-finite {name} logits")
+        err, scale = float((k - p_).abs().max()), float(p_.abs().max())
+        check(err <= LOGIT_TOL * scale,
+              f"S6 {kernel}: {name} logits max abs err {err:.3e} > "
+              f"{LOGIT_TOL} * {scale:.3e}")
+        rec[f"{name}_rel_err"] = err / scale
+    rec["greedy_agree"] = int((dk.argmax(-1) == dp.argmax(-1)).sum())
+    rec["lora_moves"] = float((pk - prefill(False)[0]).abs().max()) / float(
+        pp.abs().max())
+    check(rec["lora_moves"] > LOGIT_TOL,
+          f"S6 {kernel}: the LoRA moves the prefill logits by "
+          f"{rec['lora_moves']:.3e} of max |logit|, within the limit")
+    return rec
 
 
 if __name__ == "__main__":

@@ -1,0 +1,531 @@
+"""Checks of the port's CUDA kernels on the card (chip_smoke.py, phase S).
+
+The reference's `repro.analysis.kernel_verify` proves five TPU invariants
+statically, over the BlockSpec models of `kernel_model`. The port's
+kernels run on the real card, so each rule has a counterpart that runs
+them, or reads what the compiler and the CUDA runtime report:
+
+* ``kernel-vmem`` -> `footprint`: every launch `kernel_model` gives for
+  every registered config, described by the library itself
+  (`rt_*_info`: the launch the entry point would make, no kernel runs):
+  threads, dynamic shared memory (the launch code's own number), and the
+  kernel's registers, static shared memory and local memory
+  (`cudaFuncGetAttributes`), its resident blocks an SM
+  (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) and spills (the ptxas
+  report of the build, `build.build_log`). Held to the card's limits
+  (`rt_device_limits`): shared memory a block may opt in to, 65,536
+  registers an SM and a block, threads a block; a spill fails unless
+  `ALLOWED_SPILLS` gives its reason.
+* ``kernel-scratch`` -> the canaries' fills: each launch runs with its
+  outputs and workspace filled with NaN, then with another pattern; the
+  results must be bitwise equal (an element the kernel does not write
+  keeps the fill).
+* ``kernel-bounds`` -> guard bands and poisoned inputs: sentinels before
+  and after every output and workspace must survive; NaN in every input
+  region the launch must not read (pages of no row, the rows of idx -1,
+  slots no row uses, rank columns past a slot's live width under MBGMV,
+  rows past the end) must leave the result bitwise equal.
+* ``kernel-race`` -> phase 2's bitwise repeat, and here each launch
+  repeated beside a matrix product on a second stream (which changes
+  which blocks run when): bitwise equal.
+* ``kernel-dtype`` -> phase 2's f32 tolerances (the kernels accumulate in
+  f32 and cast once).
+
+`mutants` proves the checks fire, at the ctypes boundary with no change
+to any .cu: a launch told one row more than its output holds must trip
+the guard band, one told a row fewer the fill check, and an idx that
+points at a poisoned slot the poison check. Every function here returns
+its findings (strings); chip_smoke.py fails the run on any.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import re
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from repro_torch.analysis import kernel_model
+from repro_torch.kernels import bgmv, build, paged, ref
+from repro_torch.kernels.flash import HEAD_DIMS
+
+REGS_PER_SM = 65536
+# kernels (ptxas entry names, by substring) allowed to spill, with why
+# (PERF.md lists them with the spill sizes of the last card run)
+ALLOWED_SPILLS: Dict[str, str] = {
+    "flash_f32_kernel": (
+        "the f32 flash kernel on CUDA cores spills 16-32 B a thread at hd "
+        "32 / 64 / 128; it runs only in f32 (the accuracy arms and tests), "
+        "never on a registered config's bf16 path"),
+}
+GUARD = 4096                   # sentinel elements before and after a buffer
+SENTINEL_BITS = {torch.float32: 0x7FA5A5A5, torch.bfloat16: 0x7FA5}
+PATTERN = -12288.0             # the second fill (exact in bf16)
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+# ----------------------------------------------------------- footprint ----
+
+@dataclass
+class Footprint:
+    launch: kernel_model.Launch
+    part: str                  # the launch's kernel, or "combine"
+    threads: int
+    dyn_smem: int
+    registers: int
+    static_smem: int
+    local_bytes: int
+    blocks_per_sm: int
+
+
+def device_limits(lib, device: int = 0) -> Dict[str, int]:
+    out = (ctypes.c_longlong * 6)()
+    build.check_launch(lib.rt_device_limits(device, out), "rt_device_limits")
+    keys = ("smem_block_optin", "smem_sm", "regs_sm", "regs_block",
+            "threads_sm", "sms")
+    return dict(zip(keys, (int(v) for v in out)))
+
+
+def _describe(lib, launch: kernel_model.Launch) -> List[Dict[str, int]]:
+    a, dt = launch.args, build.DTYPE_CODE[launch.dtype]
+    n = len(build.INFO_FIELDS)
+    out = (ctypes.c_longlong * (2 * n))()
+    if launch.kernel == "lora_shrink":
+        rc = lib.rt_lora_shrink_info(a["rows"], a["d_in"], a["r_max"],
+                                     a["slots"], a["tile"], a["d_chunk"], dt,
+                                     out)
+    elif launch.kernel == "lora_expand":
+        rc = lib.rt_lora_expand_info(a["rows"], a["r_max"], a["d_out"],
+                                     a["row_blocks"], dt, out)
+    elif launch.kernel == "paged_attention":
+        rc = lib.rt_paged_attention_info(a["B"], a["H"], a["KV"], a["ps"],
+                                         a["hd"], a["W"], a["nsplit"], dt,
+                                         out)
+    else:
+        rc = lib.rt_flash_attention_info(a["B"], a["H"], a["Lq"], a["hd"],
+                                         dt, out)
+    build.check_launch(rc, f"{launch.label}: describe")
+    recs = [dict(zip(build.INFO_FIELDS, out[:n]))]
+    if launch.kernel == "paged_attention" and a["nsplit"] > 1:
+        recs.append(dict(zip(build.INFO_FIELDS, out[n:])))
+    return recs
+
+
+def ptxas_spills(log: str) -> Dict[str, Tuple[int, int]]:
+    """(spill store bytes, spill load bytes) per compiled entry function,
+    from nvcc's `-Xptxas -v` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return out
+
+
+def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
+                                                Dict[str, int], List[str]]:
+    """Every accepted launch of every config case, described and held to
+    the card's limits. Returns (footprints, the limits, findings)."""
+    lim = device_limits(lib)
+    rows, findings = [], []
+    for case in kernel_model.config_cases():
+        for launch in kernel_model.launches(case, sms):
+            if launch.refusal:
+                findings.append(f"{launch.label}: the wrapper refuses a "
+                                f"registered config: {launch.refusal}")
+                continue
+            for i, r in enumerate(_describe(lib, launch)):
+                fp = Footprint(
+                    launch, "combine" if i else launch.kernel,
+                    r["threads"], r["dyn_smem"], r["registers"],
+                    r["static_smem"], r["local_bytes"], r["blocks_per_sm"])
+                rows.append(fp)
+                where = f"{launch.label} ({fp.part})"
+                smem = fp.dyn_smem + fp.static_smem
+                if fp.threads > r["max_threads_per_block"]:
+                    findings.append(f"{where}: {fp.threads} threads > the "
+                                    f"kernel's {r['max_threads_per_block']}")
+                if smem > lim["smem_block_optin"]:
+                    findings.append(f"{where}: {smem} B of shared memory > "
+                                    f"{lim['smem_block_optin']}")
+                regs = fp.registers * fp.threads
+                if regs > min(REGS_PER_SM, lim["regs_sm"],
+                              lim["regs_block"]):
+                    findings.append(f"{where}: {regs} registers a block > "
+                                    f"{min(REGS_PER_SM, lim['regs_block'])}")
+                if fp.blocks_per_sm == 0:
+                    findings.append(f"{where}: no block fits on an SM")
+    if not log:
+        findings.append("no ptxas report (build.build_log is empty), so "
+                        "spills cannot be read")
+    for name, (st, ld) in ptxas_spills(log).items():
+        if (st or ld) and not any(k in name for k in ALLOWED_SPILLS):
+            findings.append(f"{name}: spills {st} B stored / {ld} B loaded "
+                            "with no recorded reason (ALLOWED_SPILLS)")
+    return rows, lim, findings
+
+
+def paged_rule_findings(lib) -> List[str]:
+    """`paged.fits` (the CPU's copy) against `rt_paged_attention_fits` over
+    a grid of (G, hd)."""
+    bad = [(G, hd) for G in range(0, 70) for hd in range(0, 300, 4)
+           if bool(lib.rt_paged_attention_fits(G, hd)) != paged.fits(G, hd)]
+    return [f"paged.fits disagrees with rt_paged_attention_fits at (G, hd) "
+            f"in {bad[:8]}"] if bad else []
+
+
+# ------------------------------------------------------------ canaries ----
+
+class Guarded:
+    """A tensor of `shape` inside a buffer with GUARD sentinel elements
+    before and after it."""
+
+    def __init__(self, shape, dtype, device):
+        n = math.prod(shape)
+        self.dtype = dtype
+        self.buf = torch.empty(2 * GUARD + n, dtype=dtype, device=device)
+        self.t = self.buf[GUARD:GUARD + n].view(shape)
+
+    def fill(self, value: float) -> None:
+        self.buf.fill_(value)
+        bits = self.buf.view(_BITS[self.dtype])
+        bits[:GUARD] = SENTINEL_BITS[self.dtype]
+        bits[-GUARD:] = SENTINEL_BITS[self.dtype]
+
+    def guards_intact(self) -> bool:
+        bits = self.buf.view(_BITS[self.dtype])
+        s = SENTINEL_BITS[self.dtype]
+        return bool((bits[:GUARD] == s).all()) and \
+            bool((bits[-GUARD:] == s).all())
+
+    def bits(self) -> torch.Tensor:
+        return self.t.reshape(-1).view(_BITS[self.dtype]).clone()
+
+
+@dataclass
+class Path:
+    """One launch path of one kernel: `launch(ins, outs)` calls the C entry
+    point on `ins` (tensors) into `outs` (Guarded) on the current stream;
+    `poisoned` is `ins` with NaN in every region the launch must not
+    read."""
+    name: str
+    launch: Callable
+    ins: dict
+    poisoned: dict
+    outs: Dict[str, Guarded]
+
+
+def _run(path: Path, ins: dict, fill: float) -> Dict[str, torch.Tensor]:
+    for g in path.outs.values():
+        g.fill(fill)
+    path.launch(ins, path.outs)
+    torch.cuda.synchronize()
+    return {k: g.bits() for k, g in path.outs.items()}
+
+
+def _same(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def check_path(path: Path, busy: Callable) -> List[str]:
+    """The canary protocol on one path (module docstring); its findings."""
+    found = []
+    first = _run(path, path.ins, float("nan"))
+    broke = [k for k, g in path.outs.items() if not g.guards_intact()]
+    if broke:
+        found.append(f"{path.name}: wrote past its output ({broke})")
+    second = _run(path, path.ins, PATTERN)
+    if not _same(first, second):
+        found.append(f"{path.name}: left output elements unwritten (the "
+                     "result depends on the fill)")
+    for g in path.outs.values():
+        g.fill(float("nan"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        busy()
+    path.launch(path.ins, path.outs)
+    torch.cuda.synchronize()
+    if not _same(first, {k: g.bits() for k, g in path.outs.items()}):
+        found.append(f"{path.name}: differs when repeated beside a kernel "
+                     "on a second stream")
+    if not _same(first, _run(path, path.poisoned, float("nan"))):
+        found.append(f"{path.name}: read a region it must not (NaN there "
+                     "changed the result)")
+    return found
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _nan_rows(t: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    t = t.clone()
+    t[rows] = float("nan")
+    return t
+
+
+def lora_inputs(rows, d_in, d_out, r_max, ranks, rank_block, dtype, seg,
+                seed=0):
+    """Shrink and expand inputs with one slot more than the rows use (the
+    poisoned one) and one row more than the launch takes (the '+1'
+    mutant's), MBGMV live widths, idx -1 rows, and `pad` rows past the
+    end; returns (clean, poisoned) dicts."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    slots = len(ranks) + 1
+    pad = 8
+    a = torch.zeros(slots, d_in, r_max, dtype=dtype, device="cuda")
+    b = torch.zeros(slots, r_max, d_out, dtype=dtype, device="cuda")
+    for s, r in enumerate(ranks):
+        a[s, :, :r] = (torch.randn(d_in, r, generator=g, device="cuda")
+                       * d_in ** -0.5).to(dtype)
+        b[s, :r] = (torch.randn(r, d_out, generator=g, device="cuda")
+                    * r ** -0.5).to(dtype)
+    n = rows + 1 + pad
+    x = torch.randn(n, d_in, generator=g, device="cuda").to(dtype)
+    y = torch.randn(n, r_max, generator=g, device="cuda").to(dtype)
+    ar = torch.arange(n, device="cuda")
+    idx = (ar // seg % slots - 1).to(torch.int32)      # -1 and slots 0..S-2
+    ranks_t = torch.tensor(list(ranks) + [r_max], dtype=torch.int32,
+                           device="cuda")
+    live = ref.mbgmv_live(idx, ranks_t, rank_block).clamp(max=r_max)
+    live = live.to(torch.int32)
+    clean = dict(x=x, y=y, a=a, b=b, idx=idx, live=live, rows=rows,
+                 slots=slots)
+    # poison: the unused slot, rows of idx -1 and past the end, and the
+    # columns (A) / rank rows (B) past each slot's live width, 8-aligned
+    pa, pb = a.clone(), b.clone()
+    pa[-1] = float("nan")
+    pb[-1] = float("nan")
+    for s in range(slots - 1):
+        w = -(-int(ref.mbgmv_live(torch.tensor([s]), ranks_t.cpu(),
+                                  rank_block)) // 8) * 8
+        pa[s, :, w:] = float("nan")
+        pb[s, w:] = float("nan")
+    dead = (idx < 0) | (ar >= rows + 1)
+    poisoned = dict(clean, x=_nan_rows(x, dead), y=_nan_rows(y, dead),
+                    a=pa, b=pb)
+    return clean, poisoned
+
+
+def shrink_path(lib, name, ins, poisoned, tile, d_chunk, rows_told=None):
+    rows, r_max = ins["rows"], ins["a"].shape[-1]
+    told = rows if rows_told is None else rows_told
+
+    def launch(i, outs):
+        rc = lib.rt_lora_shrink(
+            i["x"].data_ptr(), i["a"].data_ptr(), i["idx"].data_ptr(),
+            i["live"].data_ptr(), outs["y"].t.data_ptr(), told,
+            i["x"].shape[1], r_max, i["slots"], tile, d_chunk,
+            build.DTYPE_CODE[i["x"].dtype], _stream())
+        build.check_launch(rc, name)
+
+    return Path(name, launch, ins, poisoned,
+                {"y": Guarded((rows, r_max), torch.float32, "cuda")})
+
+
+def expand_path(lib, name, ins, poisoned, row_blocks, rows_told=None):
+    rows, (_, r_max, d_out) = ins["rows"], ins["b"].shape
+    told = rows if rows_told is None else rows_told
+
+    def launch(i, outs):
+        rc = lib.rt_lora_expand(
+            i["y"].data_ptr(), i["b"].data_ptr(), i["idx"].data_ptr(),
+            i["live"].data_ptr(), outs["out"].t.data_ptr(), told, r_max,
+            d_out, i["slots"], row_blocks, build.DTYPE_CODE[i["y"].dtype],
+            _stream())
+        build.check_launch(rc, name)
+
+    return Path(name, launch, ins, poisoned,
+                {"out": Guarded((rows, d_out), ins["b"].dtype, "cuda")})
+
+
+def lora_paths(lib, sms) -> List[Path]:
+    """Every launch path of the shrink and the expand: split and row tiles
+    of 64 and 128 (shrink), decode and row tiles with one rank pass and
+    several (expand), bf16 and f32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    out = []
+    # (label, rows, d_in, d_out, r_max, ranks, rank_block, dtype, seg)
+    cases = [("decode bf16", 8, 4096, 4096, 64, (64, 16, 33, 8), 16, bf, 1),
+             ("prefill bf16", 300, 1024, 1024, 64, (64, 16, 33, 8), 16, bf,
+              17),
+             ("prefill many tiles bf16", 128 * sms + 77, 512, 512, 64,
+              (64, 16, 33, 8), 16, bf, 4096),
+             ("prefill r_max 128 bf16", 300, 512, 1024, 128,
+              (128, 16, 100, 8), 16, bf, 17),
+             ("decode f32", 8, 256, 136, 24, (24, 3, 9, 1), 8, f32, 1),
+             ("prefill f32", 300, 256, 136, 24, (24, 3, 9, 1), 8, f32, 17)]
+    for label, rows, d_in, d_out, r_max, ranks, rb, dt, seg in cases:
+        clean, pois = lora_inputs(rows, d_in, d_out, r_max, ranks, rb, dt,
+                                  seg, seed=rows)
+        sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms)
+        kind = "split" if sp.tile == 0 else f"tile {sp.tile}"
+        out.append(shrink_path(lib, f"lora_shrink[{kind}] {label}", clean,
+                               pois, sp.tile, sp.d_chunk))
+        rb_ = bgmv.expand_plan(rows, d_out, sms)
+        kind = "decode" if rb_ == 0 else f"row tiles r_max {r_max}"
+        out.append(expand_path(lib, f"lora_expand[{kind}] {label}", clean,
+                               pois, rb_))
+    return out
+
+
+def paged_paths(lib, sms) -> List[Path]:
+    """One split and many (with the combine), bf16 and f32: NaN in every
+    page no row's table names."""
+    bf, f32 = torch.bfloat16, torch.float32
+    out = []
+    # (label, B, H, KV, hd, ps, W, P, dtype, tokens a row)
+    cases = [("one split bf16", 8, 32, 32, 128, 32, 16, 140, bf,
+              [0, 1, 500, 37, 256, 100, 31, 511]),
+             ("splits bf16", 3, 12, 2, 128, 32, 96, 120, bf, [0, 2500, 9]),
+             ("splits f32", 3, 8, 1, 64, 16, 160, 200, f32, [2400, 0, 30]),
+             ("one split f32", 4, 4, 2, 32, 8, 5, 24, f32, [0, 1, 33, 40])]
+    for label, B, H, KV, hd, ps, W, P, dt, ctx in cases:
+        g = torch.Generator(device="cuda").manual_seed(B * H + W)
+        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(P, KV, ps, hd, generator=g, device="cuda").to(dt)
+        v = torch.randn(P, KV, ps, hd, generator=g, device="cuda").to(dt)
+        pp = torch.full((P, ps), -1, dtype=torch.int32)
+        bt = torch.full((B, W), -1, dtype=torch.int32)
+        pos = torch.zeros(B, dtype=torch.int32)
+        free = list(range(P))
+        for b_, n_tok in enumerate(ctx):
+            for j in range(-(-n_tok // ps)):
+                pg = free.pop((b_ * 7 + j * 3) % len(free))
+                bt[b_, j] = pg
+                pp[pg] = torch.where(torch.arange(ps) + j * ps < n_tok,
+                                     torch.arange(ps) + j * ps, -1).int()
+            pos[b_] = max(n_tok - 1, 0)
+        owned = torch.zeros(P, dtype=torch.bool)
+        owned[bt[bt >= 0].long()] = True
+        ins = dict(q=q, k=k, v=v, pp=pp.cuda(), bt=bt.cuda(), pos=pos.cuda())
+        foreign = ~owned.cuda()
+        nan = float("nan")
+        pois = dict(ins, k=torch.where(foreign[:, None, None, None], nan, k),
+                    v=torch.where(foreign[:, None, None, None], nan, v),
+                    pp=torch.where(foreign[:, None], 0, ins["pp"]))
+        nsplit = paged.split_plan(B, KV, W, sms)
+        outs = {"out": Guarded((B, H, hd), dt, "cuda")}
+        if nsplit > 1:
+            outs["ws"] = Guarded((B * H * nsplit * (hd + 2),), f32, "cuda")
+
+        def launch(i, o, B=B, H=H, KV=KV, P=P, ps=ps, hd=hd, W=W,
+                   nsplit=nsplit, name=label):
+            rc = lib.rt_paged_attention(
+                i["q"].data_ptr(), i["k"].data_ptr(), i["v"].data_ptr(),
+                i["pp"].data_ptr(), i["bt"].data_ptr(), i["pos"].data_ptr(),
+                o["out"].t.data_ptr(),
+                o["ws"].t.data_ptr() if "ws" in o else None, B, H, KV, P,
+                ps, hd, W, nsplit, build.DTYPE_CODE[i["q"].dtype],
+                _stream())
+            build.check_launch(rc, name)
+
+        kind = "one split" if nsplit == 1 else f"{nsplit} splits + combine"
+        out.append(Path(f"paged_attention[{kind}] {label}", launch, ins,
+                        pois, outs))
+    return out
+
+
+def flash_paths(lib) -> List[Path]:
+    """bf16 (wgmma + TMA) at hd 64 / 96 / 128 / 256 and f32 (CUDA cores):
+    q / k / v views of buffers PAD rows longer a head, NaN there."""
+    pad = 40
+    out = []
+    cases = [(torch.bfloat16, hd, True, None) for hd in (64, 96, 128, 256)]
+    cases += [(torch.float32, 64, True, 48), (torch.float32, 128, False,
+                                              None)]
+    for dt, hd, causal, window in cases:
+        if hd not in HEAD_DIMS[dt]:
+            continue
+        B, H, KV, L = 2, 4, 2, 300
+        g = torch.Generator(device="cuda").manual_seed(hd)
+
+        def mk(heads):
+            full = torch.randn(B, heads, L + pad, hd, generator=g,
+                               device="cuda").to(dt)
+            return full, full[:, :, :L]
+
+        (qf, q), (kf, k), (vf, v) = mk(H), mk(KV), mk(KV)
+        ins = dict(q=q, k=k, v=v)
+        pf = [t.clone() for t in (qf, kf, vf)]
+        for t in pf:
+            t[:, :, L:] = float("nan")
+        pois = dict(q=pf[0][:, :, :L], k=pf[1][:, :, :L], v=pf[2][:, :, :L])
+        outs = {"out": Guarded((B, H, L, hd), dt, "cuda")}
+
+        def launch(i, o, B=B, H=H, KV=KV, L=L, hd=hd, causal=causal,
+                   window=window):
+            t_out = o["out"].t
+            strides = (ctypes.c_longlong * 12)(
+                *i["q"].stride()[:3], *i["k"].stride()[:3],
+                *i["v"].stride()[:3], *t_out.stride()[:3])
+            rc = lib.rt_flash_attention(
+                i["q"].data_ptr(), i["k"].data_ptr(), i["v"].data_ptr(),
+                t_out.data_ptr(), strides, B, H, KV, L, L, hd, int(causal),
+                window or 0, build.DTYPE_CODE[i["q"].dtype], _stream())
+            build.check_launch(rc, "flash_attention")
+
+        kind = "bf16 wgmma" if dt == torch.bfloat16 else "f32"
+        out.append(Path(f"flash_attention[{kind}] hd {hd}", launch, ins,
+                        pois, outs))
+    return out
+
+
+def busy_kernel() -> Callable:
+    a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    return lambda: a @ a
+
+
+def canaries(lib, sms) -> Tuple[List[str], List[str]]:
+    """Every launch path of the six TPU kernels' counterparts through the
+    canary protocol. Returns (paths checked, findings)."""
+    busy = busy_kernel()
+    names, found = [], []
+    for path in lora_paths(lib, sms) + paged_paths(lib, sms) + \
+            flash_paths(lib):
+        names.append(path.name)
+        found += check_path(path, busy)
+    return names, found
+
+
+# ------------------------------------------------------------- mutants ----
+
+def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
+    """Each mutant and what the checks found; a mutant with no finding
+    means a check that does not fire."""
+    busy = busy_kernel()
+    out = []
+    for label, rows, d_in, d_out, seg in (("decode", 8, 1024, 1024, 1),
+                                          ("prefill", 300, 512, 512, 17)):
+        clean, pois = lora_inputs(rows, d_in, d_out, 64, (64, 16, 33, 8),
+                                  16, torch.bfloat16, seg, seed=rows + 1)
+        sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms)
+        rb = bgmv.expand_plan(rows, d_out, sms)
+        for told, what in ((rows + 1, "one row more"),
+                           (rows - 1, "one row fewer")):
+            out.append((f"lora_shrink {label}: told {what}", check_path(
+                shrink_path(lib, "shrink", clean, pois, sp.tile, sp.d_chunk,
+                            told), busy)))
+            out.append((f"lora_expand {label}: told {what}", check_path(
+                expand_path(lib, "expand", clean, pois, rb, told), busy)))
+        # a row (of slot 0) pointed at the poisoned slot, with a live width
+        bad = dict(pois, idx=pois["idx"].clone(), live=pois["live"].clone())
+        row = int((clean["idx"][:rows] == 0).nonzero()[0])
+        bad["idx"][row] = clean["slots"] - 1
+        bad["live"][row] = 16
+        out.append((f"lora_shrink {label}: idx at the poisoned slot",
+                    check_path(shrink_path(lib, "shrink", clean, bad,
+                                           sp.tile, sp.d_chunk), busy)))
+        out.append((f"lora_expand {label}: idx at the poisoned slot",
+                    check_path(expand_path(lib, "expand", clean, bad, rb),
+                               busy)))
+    return out

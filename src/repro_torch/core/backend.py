@@ -63,6 +63,10 @@ def bucket(n: int, lo: int = 8) -> int:
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    # lint: allow-host-sync — the step's host-built metadata (token ids,
+    # positions, slots, block table) goes up when the batch changes: a
+    # blocking copy from pageable memory, left until CUDA graphs bring
+    # pinned staging (ROADMAP.md queue 1, item 2)
     return torch.from_numpy(arr).to(device)
 
 
@@ -175,7 +179,11 @@ class DecodePipeline:
     def _drain_one(self):
         host, ev, entries = self._pending.pop(0)
         if ev is not None:
+            # lint: allow-host-sync — the readback drain: waits only for
+            # the event of a step already one behind the one queued now
             ev.synchronize()
+        # lint: allow-host-sync — `host` is the pinned host copy the event
+        # guarded; reading it moves nothing across the link
         arr = host.numpy()
         self.stats["d2h"] += 1
         self.stats["d2h_bytes"] += arr.nbytes
@@ -258,6 +266,14 @@ class NumericsBackend:
                                     on_upload=self._count_upload,
                                     device=self.device)
 
+    def _san_check(self, ids, prefix: str, op: str) -> None:
+        """PageSan access check (REPRO_SANITIZE=1) for host-known page id
+        lists (no device sync: every id list here is host-built)."""
+        san = getattr(self.allocator, "san", None) \
+            if self.allocator is not None else None
+        if san is not None:
+            san.check_access(ids, prefix, op)
+
     def _mode_str(self):
         return "bgmv" if self.kernel == "bgmv" else "mbgmv"
 
@@ -274,6 +290,7 @@ class NumericsBackend:
     def swap_out(self, pages: List[int]):
         """Copy a preemption victim's KV pages to host memory; returns the
         payload `swap_in` restores from."""
+        self._san_check(pages, "kv:", "swap-out extract")
         payload = cache_lib.extract_pages(self.cache, pages)
         self.transfer_stats["d2h"] += 1
         self.transfer_stats["d2h_bytes"] += cache_lib.tree_nbytes(payload)
@@ -286,6 +303,7 @@ class NumericsBackend:
         pipe = self.pipe
         for st in states:
             payload, st.swap_payload = st.swap_payload, None
+            self._san_check(st.kv_pages, "kv:", "swap-in insert")
             cache_lib.insert_pages(self.cache, payload, st.kv_pages)
             self.transfer_stats["h2d"] += 1
             self.transfer_stats["h2d_bytes"] += \
@@ -298,6 +316,7 @@ class NumericsBackend:
     def clear_pages(self, ids: List[int]):
         """Scrub freshly grown pages (pos = -1): a page claimed mid-decode
         may carry a previous tenant's positions."""
+        self._san_check(ids, "kv:", "page scrub")
         cache_lib.clear_pages(self.cache, ids)
 
     def restore_pages(self, st: RequestState):
@@ -306,6 +325,7 @@ class NumericsBackend:
         re-seed — the row has no sampled token yet; its next chunk simply
         continues from st.prefill_pos against the restored pages."""
         payload, st.swap_payload = st.swap_payload, None
+        self._san_check(st.kv_pages, "kv:", "chunk swap-in insert")
         cache_lib.insert_pages(self.cache, payload, st.kv_pages)
         self.transfer_stats["h2d"] += 1
         self.transfer_stats["h2d_bytes"] += cache_lib.tree_nbytes(payload)
@@ -332,6 +352,7 @@ class NumericsBackend:
         toks = np.zeros((1, Cb), np.int32)
         toks[0, :n_tokens] = st.req.prompt[start:start + n_tokens]
         ids = np.asarray(row_pages, np.int32)
+        self._san_check(list(row_pages), "kv:", "chunk scatter")
         lora = self._lora_arg_stacked([st.req.adapter_uid])
         lora["mode"] = self._mode_str()
         self.transfer_stats["h2d"] += 2            # tokens, page ids
@@ -460,6 +481,7 @@ class NumericsBackend:
         for i, st in enumerate(states):
             page_ids[i, :min(len(st.kv_pages), npr)] = st.kv_pages[:npr]
             claimed.extend(st.kv_pages)
+        self._san_check(claimed, "kv:", "prefill scatter")
         self.transfer_stats["h2d"] += 2    # page ids, clear list
         self.transfer_stats["h2d_bytes"] += page_ids.nbytes \
             + 8 * len(claimed)
@@ -500,6 +522,9 @@ class NumericsBackend:
         if self.pipeline == "perstep":
             return self._decode_perstep(ready, row_slot, row_pos)
         pipe = self.pipe
+        if self.paged and row_pages is not None:
+            self._san_check([p for st in ready for p in row_pages[st.row]],
+                            "kv:", "decode block table")
         pipe.refresh(ready, row_slot, row_pages)
         toks = self._fused_step(self._lora_arg(), pipe.active)
         pipe.stash(toks, [(st, st.row, 1) for st in ready])
@@ -519,6 +544,9 @@ class NumericsBackend:
         self.transfer_stats["megasteps"] += 1
         self.transfer_stats["megastep_iters"] += K
         pipe = self.pipe
+        if self.paged and row_pages is not None:
+            self._san_check([p for st in ready for p in row_pages[st.row]],
+                            "kv:", "megastep block table")
         pipe.refresh(ready, row_slot, row_pages)
         lora = self._lora_arg()
         ys = torch.stack([self._fused_step(lora, pipe.active)
@@ -547,6 +575,8 @@ class NumericsBackend:
         logits, _ = model_lib.decode(
             self.cfg, self.params, self.cache, _upload(toks, self.device),
             _upload(pos, self.device), lora=lora)
+        # lint: allow-host-sync — the per-step pipeline's synchronous
+        # readback, by design (the pre-pipeline baseline it keeps)
         new = sample(logits[:, -1]).cpu().numpy()
         self.transfer_stats["d2h"] += 1
         self.transfer_stats["d2h_bytes"] += new.nbytes

@@ -47,8 +47,7 @@ final attempt cannot fail and no request is ever stranded on a flaky
 link. `brownouts` windows scale transfer times of uploads *starting*
 inside the window (`_xfer_ms`), and `cancel_all` models a fail-stop crash
 of the device the link feeds: every upload — queued or mid-transfer — is
-aborted and must never retire. (The reference's LinkSan checks of these
-invariants are not ported yet: ROADMAP.md queue 1, tooling.)
+aborted and must never retire (LinkSan enforces both invariants).
 
 ``ColdStartManager.admit`` — returns the admission timeline for a newly
 admitted request under the engine's operating mode:
@@ -74,6 +73,7 @@ import dataclasses
 import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
+from repro_torch.analysis import sanitizers
 from repro_torch.core.lora import AdapterSpec, DevicePool, HostLoRAStore
 from repro_torch.core.timing import TimingModel
 
@@ -169,6 +169,11 @@ class LoadTracker:
         self.retry_seed = 0
         self.brownouts: List[Tuple[float, float, float]] = []
         self._gave_up: List[LoadEvent] = []
+        # LinkSan (REPRO_SANITIZE=1): happens-before checks on the link
+        # schedule — started uploads frozen, retirements monotone, and the
+        # preempt policy's demand-never-behind-prefetch guarantee enforced
+        # at every manager-mediated demand begin.
+        self.san = sanitizers.LinkSan() if sanitizers.enabled() else None
 
     # --------------------------------------------------------- schedule ----
     @property
@@ -230,6 +235,8 @@ class LoadTracker:
                                                        ev.start_ms)
             ev.started = True
             self._running.append(ev)
+            if self.san is not None:
+                self.san.on_start(ev)
 
     def _advance(self, now_ms: float):
         self._now = max(self._now, now_ms)
@@ -244,6 +251,8 @@ class LoadTracker:
             ev.start_ms = self._take(free, ev)
             ev.finish_ms = ev.start_ms + self._xfer_ms(ev.nbytes,
                                                        ev.start_ms)
+        if self.san is not None:
+            self.san.check_schedule(self)
 
     def _undelayed_start(self, ev: LoadEvent) -> float:
         """Start time `ev` would get with no queued prefetch ahead of it —
@@ -343,6 +352,8 @@ class LoadTracker:
         dropped (parked on `_gave_up` until the manager releases their slot
         reservation). Returns True when a retry was requeued."""
         self.stats["upload_failures"] += 1
+        if self.san is not None:
+            self.san.on_fail(ev)
         if ev.cls == CLS_PREFETCH:
             ev.canceled = True
             self.stats["prefetch_dropped"] += 1
@@ -355,6 +366,8 @@ class LoadTracker:
         self._seq += 1
         self._queued.append(retry)
         self.stats["retries"] += 1
+        if self.san is not None:
+            self.san.on_retry(ev, retry)
         return True
 
     def complete_until(self, now_ms: float) -> List[LoadEvent]:
@@ -378,6 +391,8 @@ class LoadTracker:
                     self._reschedule()
                 self._dispatch()
             else:
+                if self.san is not None:
+                    self.san.on_retire(ev)
                 done.append(ev)
         return done
 
@@ -400,6 +415,8 @@ class LoadTracker:
         self._queued = []
         self._lane_free_ms = [self._now] * len(self._lane_free_ms)
         self.stats["crash_canceled"] += len(out)
+        if self.san is not None:
+            self.san.on_cancel(out)
         return out
 
     def pending_for(self, uid: str) -> Optional[LoadEvent]:
@@ -537,7 +554,11 @@ class ColdStartManager:
                                          nbytes=nbytes)
         if slot is None:
             return None
+        delayed_before = self.tracker.stats["demand_delayed_by_prefetch"]
         ev = self.tracker.begin(uid, slot, nbytes, now_ms, demand=demand)
+        if demand and self.tracker.san is not None:
+            self.tracker.san.on_demand_begin(self.tracker, ev,
+                                             delayed_before)
         return ev
 
     def upload_kv(self, rid: int, nbytes: int, now_ms: float) -> LoadEvent:
@@ -548,8 +569,12 @@ class ColdStartManager:
         link time exactly like an adapter cold start."""
         if self.tracker.policy == "preempt":
             self._cancel_queued_prefetch()
+        delayed_before = self.tracker.stats["demand_delayed_by_prefetch"]
         ev = self.tracker.begin(f"kvswap:{rid}", -1, nbytes, now_ms,
                                 demand=True)
+        if self.tracker.san is not None:
+            self.tracker.san.on_demand_begin(self.tracker, ev,
+                                             delayed_before)
         return ev
 
     def _insert(self, uid: str, pinned=()) -> Optional[int]:

@@ -8,6 +8,12 @@ each adapter's true rank, so the padding path (BGMV: compute r_max) and the
 rank-block-skip path (MBGMV: compute ceil(rank/rank_block) blocks) produce
 identical numerics — only their cost differs (max-rank law vs sum-rank law,
 paper sec 2.3/ sec 5).
+
+The port's rank axis is `padded_rank(max_rank)` wide, the next multiple of
+8 (the kernels read 16-byte rows), where the reference's is max_rank: the
+extra columns are zero like every column past an adapter's rank, so every
+delta is the reference's. Trees crossing between the packages are padded
+on the way in and trimmed on the way out (`pad_adapter`, `trim_adapter`).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.bgmv import padded_rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,18 +66,20 @@ def make_adapter_weights(cfg: ModelConfig, spec: AdapterSpec,
     """Synthesize adapter weights exactly as the reference does (same numpy
     stream, seeded from hash((uid, seed)) — Python salts string hashes per
     process, so the two packages agree only inside one process). Padded to
-    max_rank with zeros. Returns {target: {a: (L, d_in, r_max),
-    b: (L, r_max, d_out)}} as CPU tensors in `dtype` (the config's)."""
+    the pool's padded rank with zeros. Returns {target: {a: (L, d_in,
+    r_pad), b: (L, r_pad, d_out)}} as CPU tensors in `dtype` (the
+    config's), r_pad = padded_rank(max_rank)."""
     dtype = dtype or cfg.torch_dtype
     r_max = cfg.lora.max_rank
+    r_pad = padded_rank(r_max)
     L = cfg.n_layers + cfg.n_enc_layers
     rng = np.random.default_rng(abs(hash((spec.uid, spec.seed))) % (2 ** 31))
     r = min(spec.rank, r_max)      # pool is sized for max_rank
     out = {}
     for tgt in cfg.lora.targets:
         d_in, d_out = lora_target_dims(cfg, tgt)
-        a = np.zeros((L, d_in, r_max), np.float32)
-        b = np.zeros((L, r_max, d_out), np.float32)
+        a = np.zeros((L, d_in, r_pad), np.float32)
+        b = np.zeros((L, r_pad, d_out), np.float32)
         a[:, :, :r] = rng.normal(0, d_in ** -0.5, (L, d_in, r))
         b[:, :r, :] = rng.normal(0, r ** -0.5, (L, r, d_out))
         out[tgt] = {"a": torch.from_numpy(a).to(dtype),
@@ -82,9 +91,11 @@ def make_adapter_weights(cfg: ModelConfig, spec: AdapterSpec,
 
 def pool_init(cfg: ModelConfig, n_slots: Optional[int] = None,
               device=None):
-    """Zero device pool: {target: {a: (L, slots, d_in, r_max),
-    b: (L, slots, r_max, d_out)}, ranks: (slots,) int32}."""
-    r_max, slots = cfg.lora.max_rank, n_slots or cfg.lora.n_slots
+    """Zero device pool: {target: {a: (L, slots, d_in, r_pad),
+    b: (L, slots, r_pad, d_out)}, ranks: (slots,) int32}, r_pad =
+    padded_rank(max_rank). Allocated once: uploads write into it."""
+    r_max, slots = padded_rank(cfg.lora.max_rank), \
+        n_slots or cfg.lora.n_slots
     L = cfg.n_layers + cfg.n_enc_layers
     dt = cfg.torch_dtype
     pool = {}
@@ -108,6 +119,42 @@ def pool_insert(pool, cfg, weights, slot: int, rank: int):
         pool[tgt]["b"][:, slot].copy_(ab["b"])
     pool["ranks"][slot] = rank
     return pool
+
+
+def pad_adapter(cfg: ModelConfig, tree):
+    """An adapter-shaped tree ({target: {a: (L, d_in, r), b: (L, r,
+    d_out)}}, tensors) with r = max_rank, as the reference holds it ->
+    the port's r_pad columns, the new ones zero (a max_rank that is a
+    multiple of 8 needs none)."""
+    r_pad = padded_rank(cfg.lora.max_rank)
+
+    def pad(x, axis):
+        extra = r_pad - x.shape[axis]
+        if extra <= 0:
+            return x
+        shape = list(x.shape)
+        shape[axis] = extra
+        return torch.cat([x, x.new_zeros(shape)], axis)
+
+    return {t: {"a": pad(ab["a"], -1), "b": pad(ab["b"], -2)}
+            for t, ab in tree.items()}
+
+
+def trim_adapter(cfg: ModelConfig, tree):
+    """The inverse of `pad_adapter`: the reference's max_rank columns
+    (views, no copies)."""
+    r = cfg.lora.max_rank
+    return {t: {"a": ab["a"][..., :r], "b": ab["b"][..., :r, :]}
+            for t, ab in tree.items()}
+
+
+def is_adapter_tree(cfg: ModelConfig, tree) -> bool:
+    """True for a {target: {a, b}} tree over the config's LoRA targets (an
+    adapter, or the optimizer moments of one)."""
+    return isinstance(tree, dict) and bool(tree) \
+        and set(tree) <= set(cfg.lora.targets) \
+        and all(isinstance(v, dict) and set(v) == {"a", "b"}
+                for v in tree.values())
 
 
 # --------------------------------------------------------- batched delta ----

@@ -120,4 +120,64 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ------------------------------------------------------------ launches ----
+
+// One kernel launch: the kernel, its grid, its block and its dynamic shared
+// memory. Every entry point builds its launches with one function, which
+// serves both the launch (`launch`) and its description (`describe`, for the
+// rt_*_info entry points): the footprint checks read the launch that runs.
+struct Launch {
+  const void* fn;
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+// Raise the kernel's dynamic shared memory limit where the launch needs more
+// than the default 48 KB.
+inline cudaError_t prepare(const Launch& l) {
+  if (l.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+}
+
+// `args`: a pointer to each of the kernel's arguments, in order.
+inline cudaError_t launch(const Launch& l, void** args, cudaStream_t st) {
+  cudaError_t e = prepare(l);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernel(l.fn, l.grid, dim3(l.threads), args, l.smem, st);
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? e : last;
+}
+
+constexpr int kInfoFields = 10;
+
+// kInfoFields numbers of launch `l`: grid x, y, z, threads, dynamic shared
+// memory, registers a thread, static shared memory, local memory a thread
+// (bytes), the kernel's most threads a block, and resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus its error code
+// where the query fails).
+inline cudaError_t describe(const Launch& l, long long* out) {
+  cudaError_t e = prepare(l);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, l.fn);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  const cudaError_t oe = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, l.fn, l.threads, l.smem);
+  cudaGetLastError();   // a failed query must not surface at a later launch
+  out[0] = l.grid.x;
+  out[1] = l.grid.y;
+  out[2] = l.grid.z;
+  out[3] = l.threads;
+  out[4] = (long long)l.smem;
+  out[5] = a.numRegs;
+  out[6] = (long long)a.sharedSizeBytes;
+  out[7] = (long long)a.localSizeBytes;
+  out[8] = a.maxThreadsPerBlock;
+  out[9] = oe == cudaSuccess ? blocks : -(long long)oe;
+  return cudaSuccess;
+}
+
 }  // namespace rt

@@ -518,21 +518,18 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
 // ------------------------------------------------------------ launch ----
 
 template <int HD>
+rt::Launch f32_launch(int B, int H, int Lq) {
+  return {(const void*)flash_f32_kernel<HD>,
+          dim3((Lq + kFB - 1) / kFB, H, B), kThreads,
+          sizeof(float) *
+              ((size_t)3 * kFB * (HD + 1) + (size_t)kFB * (kFB + 1))};
+}
+
+template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, const Problem& p, int B, cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * ((size_t)3 * kFB * (HD + 1) + (size_t)kFB * (kFB + 1));
-  auto kern = flash_f32_kernel<HD>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((p.Lq + kFB - 1) / kFB, p.H, B);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), p);
-  return cudaGetLastError();
+                       void* out, Problem p, int B, cudaStream_t st) {
+  void* args[] = {&q, &k, &v, &out, &p};
+  return rt::launch(f32_launch<HD>(B, p.H, p.Lq), args, st);
 }
 
 // cuTensorMapEncodeTiled is a driver-API function. It is looked up at run
@@ -585,9 +582,17 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int heads, int L,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// + 1024 for aligning the base to a swizzle atom
+template <int HD>
+rt::Launch bf16_launch(int B, int H, int Lq) {
+  return {(const void*)flash_bf16_kernel<HD>,
+          dim3((Lq + kBQ - 1) / kBQ, H, B), kBf16Threads,
+          Tile<HD>::kSmem + sizeof(Barriers) + 1024};
+}
+
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, const Problem& p, int B, cudaStream_t st) {
+                        void* out, Problem p, int B, cudaStream_t st) {
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   constexpr int kBK = Tile<HD>::kBK;
@@ -595,17 +600,57 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       !tensor_map<HD>(&tk, k, B, p.KV, p.Lk, p.kb, p.kh, p.kl, kBK) ||
       !tensor_map<HD>(&tv, v, B, p.KV, p.Lk, p.vb, p.vh, p.vl, kBK))
     return cudaErrorInvalidValue;
-  // + 1024 for aligning the base to a swizzle atom
-  const size_t smem = Tile<HD>::kSmem + sizeof(Barriers) + 1024;
-  auto kern = flash_bf16_kernel<HD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.Lq + kBQ - 1) / kBQ, p.H, B);
-  kern<<<grid, kBf16Threads, smem, st>>>(tq, tk, tv, static_cast<bf16*>(out),
-                                         p);
-  return cudaGetLastError();
+  void* args[] = {&tq, &tk, &tv, &out, &p};
+  return rt::launch(bf16_launch<HD>(B, p.H, p.Lq), args, st);
 }
+
+// f.run<HD, bf16>() for the head dims each kernel is built for, or
+// cudaErrorInvalidValue: the one list of them, for launch and description.
+template <typename F>
+cudaError_t for_head_dim(int hd, int dtype, const F& f) {
+  if (dtype == rt::kBF16) {
+    switch (hd) {
+      case 32: return f.template run<32, true>();
+      case 64: return f.template run<64, true>();
+      case 96: return f.template run<96, true>();
+      case 128: return f.template run<128, true>();
+      case 256: return f.template run<256, true>();
+    }
+  } else if (dtype == rt::kF32) {
+    switch (hd) {
+      case 16: return f.template run<16, false>();
+      case 32: return f.template run<32, false>();
+      case 64: return f.template run<64, false>();
+      case 96: return f.template run<96, false>();
+      case 128: return f.template run<128, false>();
+      case 256: return f.template run<256, false>();
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+struct Launcher {
+  const void *q, *k, *v;
+  void* out;
+  Problem p;
+  int B;
+  cudaStream_t st;
+  template <int HD, bool kBF16>
+  cudaError_t run() const {
+    if constexpr (kBF16) return launch_bf16<HD>(q, k, v, out, p, B, st);
+    else return launch_f32<HD>(q, k, v, out, p, B, st);
+  }
+};
+
+struct Describer {
+  int B, H, Lq;
+  long long* out;
+  template <int HD, bool kBF16>
+  cudaError_t run() const {
+    if constexpr (kBF16) return rt::describe(bf16_launch<HD>(B, H, Lq), out);
+    else return rt::describe(f32_launch<HD>(B, H, Lq), out);
+  }
+};
 
 }  // namespace
 
@@ -627,24 +672,15 @@ extern "C" int rt_flash_attention(const void* q, const void* k,
   p.vb = strides[6]; p.vh = strides[7]; p.vl = strides[8];
   p.ob = strides[9]; p.oh = strides[10]; p.ol = strides[11];
   p.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kBF16) {
-    switch (hd) {
-      case 32: return (int)launch_bf16<32>(q, k, v, out, p, B, st);
-      case 64: return (int)launch_bf16<64>(q, k, v, out, p, B, st);
-      case 96: return (int)launch_bf16<96>(q, k, v, out, p, B, st);
-      case 128: return (int)launch_bf16<128>(q, k, v, out, p, B, st);
-      case 256: return (int)launch_bf16<256>(q, k, v, out, p, B, st);
-    }
-  } else if (dtype == rt::kF32) {
-    switch (hd) {
-      case 16: return (int)launch_f32<16>(q, k, v, out, p, B, st);
-      case 32: return (int)launch_f32<32>(q, k, v, out, p, B, st);
-      case 64: return (int)launch_f32<64>(q, k, v, out, p, B, st);
-      case 96: return (int)launch_f32<96>(q, k, v, out, p, B, st);
-      case 128: return (int)launch_f32<128>(q, k, v, out, p, B, st);
-      case 256: return (int)launch_f32<256>(q, k, v, out, p, B, st);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
+  const Launcher run{q, k, v, out, p, B, static_cast<cudaStream_t>(stream)};
+  return (int)for_head_dim(hd, dtype, run);
+}
+
+// rt_flash_attention's launch, described (rt::describe) into
+// out[0 : rt::kInfoFields]; no kernel runs.
+extern "C" int rt_flash_attention_info(int B, int H, int Lq, int hd,
+                                       int dtype, long long* out) {
+  if (B <= 0 || H <= 0 || Lq <= 0) return (int)cudaErrorInvalidValue;
+  const Describer d{B, H, Lq, out};
+  return (int)for_head_dim(hd, dtype, d);
 }

@@ -385,41 +385,26 @@ __global__ void __launch_bounds__(2 * BM) lora_shrink_tile_kernel(
   }
 }
 
+// a tile holds at most min(slots, BM) distinct slots: one block each
 template <typename T, int BM>
-cudaError_t launch_tile(const void* x, const void* a, const int* idx,
-                        const int* live, float* y, int rows, int d_in,
-                        int r_max, int slots, cudaStream_t st) {
-  auto kern = lora_shrink_tile_kernel<T, BM>;
-  constexpr size_t smem = tile_smem<T, BM>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  // a tile holds at most min(slots, BM) distinct slots: one block each
-  const dim3 grid((rows + BM - 1) / BM, max(1, min(slots, BM)));
-  kern<<<grid, 2 * BM, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a), idx, live, y, rows,
-      d_in, r_max, slots);
-  return cudaGetLastError();
+rt::Launch tile_launch(int rows, int slots) {
+  return {(const void*)lora_shrink_tile_kernel<T, BM>,
+          dim3((rows + BM - 1) / BM, max(1, min(slots, BM))), 2 * BM,
+          tile_smem<T, BM>()};
 }
 
+// a handful of rows is bound by latency: 512 threads keep more loads in
+// flight; from 17 rows on, rows x kSplit blocks fill the card at 256.
+// The d-groups are the largest power of two that fits beside the lanes
+// (the tree reduction halves them), so any r_max = 8 x lanes is taken
 template <typename T>
-cudaError_t launch_split(const void* x, const void* a, const int* idx,
-                         const int* live, float* y, int rows, int d_in,
-                         int r_max, int slots, int d_chunk, cudaStream_t st) {
+rt::Launch split_launch(int rows, int r_max) {
   const int lanes = r_max / rt::kVec;
-  // a handful of rows is bound by latency: 512 threads keep more loads in
-  // flight; from 17 rows on, rows x kSplit blocks fill the card at 256.
-  // The d-groups are the largest power of two that fits beside the lanes
-  // (the tree reduction halves them), so any r_max = 8 x lanes is taken
   const int target = rows <= 16 ? 512 : 256;
   int ngrp = 1;
   while (2 * ngrp * lanes <= target) ngrp *= 2;
-  const int threads = ngrp * lanes;
-  const size_t smem = (size_t)ngrp * r_max * sizeof(float);
-  lora_shrink_split_kernel<T><<<rows * kSplit, threads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a), idx, live, y, d_in,
-      r_max, slots, d_chunk);
-  return cudaGetLastError();
+  return {(const void*)lora_shrink_split_kernel<T>, dim3(rows * kSplit),
+          ngrp * lanes, (size_t)ngrp * r_max * sizeof(float)};
 }
 
 // ------------------------------------------------ expand: row tiles ----
@@ -739,21 +724,11 @@ __global__ void __launch_bounds__(
 }
 
 template <typename T>
-cudaError_t launch_expand_tile(const void* y, const void* b, const int* idx,
-                               const int* live, void* out, int rows,
-                               int r_max, int d_out, int slots,
-                               int row_blocks, cudaStream_t st) {
-  auto kern = r_max > kER ? lora_expand_tile_kernel<T, true>
-                          : lora_expand_tile_kernel<T, false>;
-  constexpr size_t smem = expand_tile_smem<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((d_out + kEN - 1) / kEN, row_blocks);
-  kern<<<grid, kEThr, smem, st>>>(
-      static_cast<const T*>(y), static_cast<const T*>(b), idx, live,
-      static_cast<T*>(out), rows, r_max, d_out, slots);
-  return cudaGetLastError();
+rt::Launch expand_tile_launch(int r_max, int d_out, int row_blocks) {
+  return {r_max > kER ? (const void*)lora_expand_tile_kernel<T, true>
+                      : (const void*)lora_expand_tile_kernel<T, false>,
+          dim3((d_out + kEN - 1) / kEN, row_blocks), kEThr,
+          expand_tile_smem<T>()};
 }
 
 // --------------------------------------------------- expand: decode ----
@@ -810,22 +785,58 @@ __global__ void __launch_bounds__(kRankSplit * 32) lora_expand_decode_kernel(
 }
 
 template <typename T>
-cudaError_t launch_expand_decode(const void* y, const void* b,
-                                 const int* idx, const int* live, void* out,
-                                 int rows, int r_max, int d_out, int slots,
-                                 cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)kRankSplit * kDecCols + r_max);
-  auto kern = lora_expand_decode_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+rt::Launch expand_decode_launch(int rows, int r_max, int d_out) {
+  return {(const void*)lora_expand_decode_kernel<T>,
+          dim3(rows, (d_out + kDecCols - 1) / kDecCols), kRankSplit * 32,
+          sizeof(float) * ((size_t)kRankSplit * kDecCols + r_max)};
+}
+
+// The shrink's launch for these arguments (see rt_lora_shrink), or the
+// error the entry point returns.
+cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
+                          int d_chunk, int dtype, rt::Launch* l) {
+  // r_max a multiple of 8 (one 8-column lane each, at most 1,024 lanes a
+  // block); d_in a multiple of 8 for 16-byte copies of x
+  const int lanes = r_max / rt::kVec;
+  if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || lanes > 1024 ||
+      d_in <= 0 || d_in % rt::kVec != 0)
+    return cudaErrorInvalidValue;
+  const bool bf = dtype == rt::kBF16;
+  if (!bf && dtype != rt::kF32) return cudaErrorInvalidValue;
+  if (tile == 0) {
+    if (d_chunk <= 0 || d_chunk % rt::kVec != 0 ||
+        (long long)d_chunk * kSplit < d_in)
+      return cudaErrorInvalidValue;
+    *l = bf ? split_launch<bf16>(rows, r_max)
+            : split_launch<float>(rows, r_max);
+  } else if (tile == 64) {
+    *l = bf ? tile_launch<bf16, 64>(rows, slots)
+            : tile_launch<float, 64>(rows, slots);
+  } else if (tile == 128) {
+    *l = bf ? tile_launch<bf16, 128>(rows, slots)
+            : tile_launch<float, 128>(rows, slots);
+  } else {
+    return cudaErrorInvalidValue;
   }
-  const dim3 grid(rows, (d_out + kDecCols - 1) / kDecCols);
-  kern<<<grid, kRankSplit * 32, smem, st>>>(
-      static_cast<const T*>(y), static_cast<const T*>(b), idx, live,
-      static_cast<T*>(out), r_max, d_out, slots);
-  return cudaGetLastError();
+  return cudaSuccess;
+}
+
+// The expand's launch for these arguments (see rt_lora_expand).
+cudaError_t expand_launch(int rows, int r_max, int d_out, int row_blocks,
+                          int dtype, rt::Launch* l) {
+  // 16-byte copies of y's rows and B's rows, 16-byte stores of out's
+  if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || d_out <= 0 ||
+      d_out % rt::kVec != 0 || row_blocks < 0)
+    return cudaErrorInvalidValue;
+  const bool bf = dtype == rt::kBF16;
+  if (!bf && dtype != rt::kF32) return cudaErrorInvalidValue;
+  if (row_blocks == 0)
+    *l = bf ? expand_decode_launch<bf16>(rows, r_max, d_out)
+            : expand_decode_launch<float>(rows, r_max, d_out);
+  else
+    *l = bf ? expand_tile_launch<bf16>(r_max, d_out, row_blocks)
+            : expand_tile_launch<float>(r_max, d_out, row_blocks);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -838,38 +849,27 @@ extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
                               int r_max, int slots, int tile, int d_chunk,
                               int dtype, void* stream) {
   if (rows == 0) return 0;
-  // r_max a multiple of 8 (one 8-column lane each, at most 1,024 lanes a
-  // block); d_in a multiple of 8 for 16-byte copies of x
-  const int lanes = r_max / rt::kVec;
-  if (r_max <= 0 || r_max % rt::kVec != 0 || lanes > 1024 || d_in <= 0 ||
-      d_in % rt::kVec != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool bf = dtype == rt::kBF16;
-  if (!bf && dtype != rt::kF32) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if (tile == 0) {
-    if (d_chunk <= 0 || d_chunk % rt::kVec != 0 ||
-        (long long)d_chunk * kSplit < d_in)
-      return (int)cudaErrorInvalidValue;
-    e = bf ? launch_split<bf16>(x, a, idx, live, y, rows, d_in, r_max, slots,
-                                d_chunk, st)
-           : launch_split<float>(x, a, idx, live, y, rows, d_in, r_max,
-                                 slots, d_chunk, st);
-  } else if (tile == 64) {
-    e = bf ? launch_tile<bf16, 64>(x, a, idx, live, y, rows, d_in, r_max,
-                                   slots, st)
-           : launch_tile<float, 64>(x, a, idx, live, y, rows, d_in, r_max,
-                                    slots, st);
-  } else if (tile == 128) {
-    e = bf ? launch_tile<bf16, 128>(x, a, idx, live, y, rows, d_in, r_max,
-                                    slots, st)
-           : launch_tile<float, 128>(x, a, idx, live, y, rows, d_in, r_max,
-                                     slots, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)e;
+  rt::Launch l;
+  const cudaError_t e = shrink_launch(rows, d_in, r_max, slots, tile,
+                                      d_chunk, dtype, &l);
+  if (e != cudaSuccess) return (int)e;
+  void* split_args[] = {&x, &a, &idx, &live, &y, &d_in, &r_max, &slots,
+                        &d_chunk};
+  void* tile_args[] = {&x, &a, &idx, &live, &y, &rows, &d_in, &r_max,
+                       &slots};
+  return (int)rt::launch(l, tile == 0 ? split_args : tile_args,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// rt_lora_shrink's launch, described (rt::describe) into
+// out[0 : rt::kInfoFields]; no kernel runs.
+extern "C" int rt_lora_shrink_info(int rows, int d_in, int r_max, int slots,
+                                   int tile, int d_chunk, int dtype,
+                                   long long* out) {
+  rt::Launch l;
+  const cudaError_t e = shrink_launch(rows, d_in, r_max, slots, tile,
+                                      d_chunk, dtype, &l);
+  return (int)(e != cudaSuccess ? e : rt::describe(l, out));
 }
 
 // row_blocks = 0: the decode path, one block per (row, kDecCols columns);
@@ -880,23 +880,23 @@ extern "C" int rt_lora_expand(const void* y, const void* b, const int* idx,
                               int d_out, int slots, int row_blocks, int dtype,
                               void* stream) {
   if (rows == 0) return 0;
-  // 16-byte copies of y's rows and B's rows, 16-byte stores of out's
-  if (r_max <= 0 || r_max % rt::kVec != 0 || d_out <= 0 ||
-      d_out % rt::kVec != 0 || row_blocks < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool bf = dtype == rt::kBF16;
-  if (!bf && dtype != rt::kF32) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if (row_blocks == 0)
-    e = bf ? launch_expand_decode<bf16>(y, b, idx, live, out, rows, r_max,
-                                        d_out, slots, st)
-           : launch_expand_decode<float>(y, b, idx, live, out, rows, r_max,
-                                         d_out, slots, st);
-  else
-    e = bf ? launch_expand_tile<bf16>(y, b, idx, live, out, rows, r_max,
-                                      d_out, slots, row_blocks, st)
-           : launch_expand_tile<float>(y, b, idx, live, out, rows, r_max,
-                                       d_out, slots, row_blocks, st);
-  return (int)e;
+  rt::Launch l;
+  const cudaError_t e = expand_launch(rows, r_max, d_out, row_blocks, dtype,
+                                      &l);
+  if (e != cudaSuccess) return (int)e;
+  void* decode_args[] = {&y, &b, &idx, &live, &out, &r_max, &d_out, &slots};
+  void* tile_args[] = {&y, &b, &idx, &live, &out, &rows, &r_max, &d_out,
+                       &slots};
+  return (int)rt::launch(l, row_blocks == 0 ? decode_args : tile_args,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// rt_lora_expand's launch, described into out[0 : rt::kInfoFields].
+extern "C" int rt_lora_expand_info(int rows, int r_max, int d_out,
+                                   int row_blocks, int dtype,
+                                   long long* out) {
+  rt::Launch l;
+  const cudaError_t e = expand_launch(rows, r_max, d_out, row_blocks, dtype,
+                                      &l);
+  return (int)(e != cudaSuccess ? e : rt::describe(l, out));
 }

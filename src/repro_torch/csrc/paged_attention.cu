@@ -235,41 +235,47 @@ __global__ void paged_combine_kernel(const float* __restrict__ ws,
   }
 }
 
+// The attention kernel's launch, and the combine's (used with nsplit > 1),
+// with the attention kernel's lanes a head (L) and slot groups (TG).
+struct PagedPlan {
+  rt::Launch attn, combine;
+  int L, TG;
+};
+
+template <typename T>
+PagedPlan paged_plan(int B, int H, int KV, int ps, int hd, int nsplit) {
+  const int G = H / KV;
+  PagedPlan p;
+  p.L = 1;
+  while (p.L < hd / rt::kVec) p.L *= 2;
+  p.TG = G * p.L >= kMaxThreads ? 1 : kMaxThreads / (G * p.L);
+  const int threads = (G * p.L * p.TG + 31) / 32 * 32;
+  const size_t ring = (size_t)kStages * (2 * (size_t)ps * hd * sizeof(T) +
+                                         (size_t)ps * sizeof(int));
+  const size_t merge = sizeof(float) * ((size_t)threads * rt::kVec +
+                                        2 * (size_t)p.TG * G);
+  p.attn = {(const void*)paged_attention_kernel<T>, dim3(B, KV, nsplit),
+            threads, ring > merge ? ring : merge};
+  const int ct = G * hd < 1024 ? (G * hd + 31) / 32 * 32 : 1024;
+  p.combine = {(const void*)paged_combine_kernel<T>, dim3(B, KV), ct, 0};
+  return p;
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* pos_pages, const int* block_table,
                    const int* pos, void* out, float* ws, int B, int H, int KV,
                    int P, int ps, int hd, int W, int nsplit,
                    cudaStream_t stream) {
-  const int G = H / KV;
-  int L = 1;
-  while (L < hd / rt::kVec) L *= 2;
-  const int TG = G * L >= kMaxThreads ? 1 : kMaxThreads / (G * L);
-  const int threads = (G * L * TG + 31) / 32 * 32;
-  const size_t ring = (size_t)kStages * (2 * (size_t)ps * hd * sizeof(T) +
-                                         (size_t)ps * sizeof(int));
-  const size_t merge = sizeof(float) * ((size_t)threads * rt::kVec +
-                                        2 * (size_t)TG * G);
-  const size_t smem = ring > merge ? ring : merge;
-  auto kern = paged_attention_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<dim3(B, KV, nsplit), threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos_pages, block_table, pos,
-      static_cast<T*>(out), ws, H, KV, P, ps, hd, W, nsplit, L, TG,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(hd))));
-  if (nsplit > 1) {
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    const int ct = G * hd < 1024 ? (G * hd + 31) / 32 * 32 : 1024;
-    paged_combine_kernel<T><<<dim3(B, KV), ct, 0, stream>>>(
-        ws, static_cast<T*>(out), H, KV, hd, nsplit);
-  }
-  return cudaGetLastError();
+  const PagedPlan pl = paged_plan<T>(B, H, KV, ps, hd, nsplit);
+  int L = pl.L, TG = pl.TG;
+  float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  void* args[] = {&q, &k, &v, &pos_pages, &block_table, &pos, &out, &ws,
+                  &H, &KV, &P, &ps, &hd, &W, &nsplit, &L, &TG, &scale};
+  const cudaError_t e = rt::launch(pl.attn, args, stream);
+  if (e != cudaSuccess || nsplit == 1) return e;
+  void* cargs[] = {&ws, &out, &H, &KV, &hd, &nsplit};
+  return rt::launch(pl.combine, cargs, stream);
 }
 
 }  // namespace
@@ -284,6 +290,18 @@ extern "C" int rt_paged_attention_fits(int G, int hd) {
   return G * L <= kMaxThreads ? 1 : 0;
 }
 
+namespace {
+
+bool paged_args_ok(int B, int H, int KV, int ps, int hd, int W, int nsplit,
+                   int dtype) {
+  return B > 0 && KV > 0 && H % KV == 0 &&
+         rt_paged_attention_fits(H / KV, hd) && ps > 0 && W >= 0 &&
+         nsplit >= 1 && nsplit <= (W > 1 ? W : 1) &&
+         (dtype == rt::kBF16 || dtype == rt::kF32);
+}
+
+}  // namespace
+
 // nsplit >= 1 runs of block-table columns a row; ws: f32 workspace of
 // B * KV * nsplit * (H / KV) * (hd + 2) floats, unused (may be null) when
 // nsplit == 1.
@@ -294,9 +312,8 @@ extern "C" int rt_paged_attention(const void* q, const void* k_pages,
                                   int P, int ps, int hd, int W, int nsplit,
                                   int dtype, void* stream) {
   if (B == 0) return 0;
-  if (KV <= 0 || H % KV != 0 || !rt_paged_attention_fits(H / KV, hd) ||
-      ps <= 0 || W < 0 || nsplit < 1 ||
-      nsplit > (W > 1 ? W : 1) || (nsplit > 1 && ws == nullptr))
+  if (!paged_args_ok(B, H, KV, ps, hd, W, nsplit, dtype) ||
+      (nsplit > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kBF16)
@@ -308,4 +325,22 @@ extern "C" int rt_paged_attention(const void* q, const void* k_pages,
                               pos, out, ws, B, H, KV, P, ps, hd, W, nsplit,
                               st);
   return (int)cudaErrorInvalidValue;
+}
+
+// rt_paged_attention's launches, described (rt::describe): the attention
+// kernel into out[0 : rt::kInfoFields] and, with nsplit > 1, the combine
+// into out[rt::kInfoFields : 2 * rt::kInfoFields]; no kernel runs.
+extern "C" int rt_paged_attention_info(int B, int H, int KV, int ps, int hd,
+                                       int W, int nsplit, int dtype,
+                                       long long* out) {
+  if (!paged_args_ok(B, H, KV, ps, hd, W, nsplit, dtype))
+    return (int)cudaErrorInvalidValue;
+  const PagedPlan pl =
+      dtype == rt::kBF16
+          ? paged_plan<__nv_bfloat16>(B, H, KV, ps, hd, nsplit)
+          : paged_plan<float>(B, H, KV, ps, hd, nsplit);
+  cudaError_t e = rt::describe(pl.attn, out);
+  if (e == cudaSuccess && nsplit > 1)
+    e = rt::describe(pl.combine, out + rt::kInfoFields);
+  return (int)e;
 }

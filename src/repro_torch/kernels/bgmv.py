@@ -35,14 +35,15 @@ add nothing.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 _FLOATS = (torch.float32, torch.bfloat16)
-MAX_R = 8 * 1024               # r_max: a multiple of 8 up to this
+RANK_ALIGN = 8                 # r_max: a multiple of this (16-byte rows)
+MAX_R = 8 * 1024               # ... up to this
 SPLIT = 8                      # csrc/lora.cu: kSplit, blocks a row (cluster)
 SPLIT_MAX_ROWS = 64            # split path up to here (decode batches)
 TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the shrink takes
@@ -96,6 +97,34 @@ def expand_plan(rows: int, d_out: int, sms: int) -> int:
     return max(1, min(tiles, EXPAND_BLOCKS_PER_SM * sms // col_blocks))
 
 
+def padded_rank(max_rank: int) -> int:
+    """The rank columns of a pool that holds adapters of up to `max_rank`:
+    the next multiple of RANK_ALIGN, so any max_rank runs on the kernels.
+    The columns past an adapter's rank are zero, which changes no delta."""
+    return -(-max_rank // RANK_ALIGN) * RANK_ALIGN
+
+
+def shrink_refusal(d_in: int, r_max: int) -> Optional[str]:
+    """Why the shrink kernel refuses these widths, or None: 16-byte rows of
+    x and of A."""
+    if r_max % RANK_ALIGN or not 0 < r_max <= MAX_R:
+        return (f"the kernel takes r_max a multiple of {RANK_ALIGN} up to "
+                f"{MAX_R}, got {r_max}")
+    if d_in % 8:
+        return (f"the kernel takes d_in a multiple of 8 (16-byte copies of "
+                f"x), got {d_in}")
+    return None
+
+
+def expand_refusal(r_max: int, d_out: int) -> Optional[str]:
+    """Why the expand kernel refuses these widths, or None: 16-byte rows of
+    y, B and out."""
+    if r_max % RANK_ALIGN or d_out % 8 or not 0 < r_max <= MAX_R:
+        return (f"the kernel takes r_max <= {MAX_R} and d_out multiples of "
+                f"8 (16-byte copies), got r_max {r_max}, d_out {d_out}")
+    return None
+
+
 _SMS: dict = {}
 
 
@@ -137,12 +166,9 @@ def _shrink(x, a, idx, live):
     slots, _, r_max = a.shape
     if not x.is_cuda:
         return ref.lora_shrink_ref(x, a, idx, live)
-    if r_max % 8 or r_max > MAX_R:
-        raise ValueError(f"lora_shrink: the kernel takes r_max a multiple "
-                         f"of 8 up to {MAX_R}, got {r_max}")
-    if d_in % 8:
-        raise ValueError(f"lora_shrink: the kernel takes d_in a multiple of "
-                         f"8 (16-byte copies of x), got {d_in}")
+    why = shrink_refusal(d_in, r_max)
+    if why:
+        raise ValueError(f"lora_shrink: {why}")
     build.require(x, "x", dtypes=_FLOATS, ndim=2)
     build.require(a, "a", dtypes=(x.dtype,), ndim=3, device=x.device)
     build.require_aligned(x, "x")
@@ -186,10 +212,9 @@ def _expand(y, b, idx, live):
     slots, _, d_out = b.shape
     if not y.is_cuda:
         return ref.lora_expand_ref(y, b, idx, live)
-    if r_max % 8 or d_out % 8 or r_max > MAX_R:
-        raise ValueError(f"lora_expand: the kernel takes r_max <= {MAX_R} "
-                         f"and d_out multiples of 8 (16-byte copies), got "
-                         f"r_max {r_max}, d_out {d_out}")
+    why = expand_refusal(r_max, d_out)
+    if why:
+        raise ValueError(f"lora_expand: {why}")
     build.require(y, "y", dtypes=_FLOATS, ndim=2)
     build.require(b, "b", dtypes=(y.dtype,), ndim=3, device=y.device)
     build.require_aligned(y, "y")

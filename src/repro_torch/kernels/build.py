@@ -15,7 +15,10 @@ the CUDA runtime's driver entry point (`cudaGetDriverEntryPoint`), so
 nothing beyond the runtime is linked; a driver without it makes the bf16
 flash call raise (`flash_attention`: CUDA error 801, not supported).
 nvcc runs with `-Xptxas -v`; its report (registers, shared memory and
-spills of each kernel) is kept in `build_log`.
+spills of each kernel) is written beside the library as
+`libkernels-<hash>.log` and held in `build_log`, whether this process built
+the library or found it built (a library found without its report is built
+again).
 """
 from __future__ import annotations
 
@@ -54,12 +57,28 @@ _SIGNATURES = {
     # q, k, v, out, strides (12 int64 on the host),
     # B, H, KV, Lq, Lk, hd, causal, window, dtype, stream
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
+    # the launches the entry points above would make, described (no
+    # kernel runs): the same shape arguments, then an int64 out array of
+    # INFO_FIELDS a launch (csrc/common.cuh: rt::describe)
+    "rt_lora_shrink_info": [_I] * 7 + [_P],
+    "rt_lora_expand_info": [_I] * 5 + [_P],
+    # B, H, KV, ps, hd, W, nsplit, dtype: the attention kernel, then the
+    # combine with nsplit > 1
+    "rt_paged_attention_info": [_I] * 8 + [_P],
+    # B, H, Lq, hd, dtype
+    "rt_flash_attention_info": [_I] * 5 + [_P],
+    # device, out: csrc/device.cu
+    "rt_device_limits": [_I, _P],
 }
+# rt::describe's fields, in order
+INFO_FIELDS = ("grid_x", "grid_y", "grid_z", "threads", "dyn_smem",
+               "registers", "static_smem", "local_bytes",
+               "max_threads_per_block", "blocks_per_sm")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None    # set by the build that ran
-build_log: str = ""                      # nvcc's output of the build that ran
+build_log: str = ""                      # nvcc's report of the library loaded
 
 
 def _nvcc() -> str:
@@ -84,6 +103,11 @@ def library_path() -> Path:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libkernels-{h.hexdigest()[:16]}.so"
+
+
+def log_path(lib_path: Path) -> Path:
+    """Where the build of `lib_path` keeps nvcc's report."""
+    return lib_path.with_suffix(".log")
 
 
 def _build(out: Path) -> None:
@@ -112,20 +136,27 @@ def _build(out: Path) -> None:
         if link.returncode != 0:
             raise RuntimeError("repro_torch kernels: link failed:\n"
                                + link.stdout.decode(errors="replace"))
+        report = "\n".join(f"--- {cu.name}\n{log}"
+                           for cu, log in zip(cus, logs))
+        # the report first: a library on disk always has its report
+        tmp_log = Path(tmp) / log_path(out).name
+        tmp_log.write_text(report)
+        os.replace(tmp_log, log_path(out))
         os.replace(tmp_so, out)
     build_seconds = time.perf_counter() - t0
-    build_log = "\n".join(f"--- {cu.name}\n{log}"
-                          for cu, log in zip(cus, logs))
+    build_log = report
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib
+    global _lib, build_log
     with _lock:
         if _lib is None:
             path = library_path()
-            if not path.exists():
+            if not (path.exists() and log_path(path).exists()):
                 _build(path)
+            else:
+                build_log = log_path(path).read_text()
             lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

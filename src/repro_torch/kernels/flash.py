@@ -19,6 +19,7 @@ differentiates plain attention with XLA (`attn_chunked` under
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -29,6 +30,14 @@ from repro_torch.kernels import build, ref
 HEAD_DIMS = {torch.bfloat16: (32, 64, 96, 128, 256),
              torch.float32: (16, 32, 64, 96, 128, 256)}
 NOT_SUPPORTED = 801            # cudaErrorNotSupported: no TMA encoder
+
+
+def shape_refusal(hd: int, dtype: torch.dtype) -> Optional[str]:
+    """Why the kernel refuses this head dim and dtype, or None."""
+    if hd in HEAD_DIMS.get(dtype, ()):
+        return None
+    return (f"the kernel takes hd in {HEAD_DIMS.get(dtype, ())} for "
+            f"{dtype}, got {hd}")
 
 
 def _require_strided(t, name, dtype, device):
@@ -66,20 +75,19 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window)
+    return _forward(q, k, v, causal=causal, window=window)
 
 
-def _forward(q, k, v, causal, window):
+def _forward(q, k, v, *, causal, window):
     """The kernel's launch on a CUDA tensor, the plain version on a CPU
     one."""
     B, H, Lq, hd = q.shape
     KV, Lk = k.shape[1], k.shape[2]
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    if hd not in HEAD_DIMS.get(q.dtype, ()):
-        raise ValueError(f"flash_attention: the kernel takes hd in "
-                         f"{HEAD_DIMS.get(q.dtype, ())} for {q.dtype}, got "
-                         f"{hd}")
+    why = shape_refusal(hd, q.dtype)
+    if why:
+        raise ValueError(f"flash_attention: {why}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require_strided(t, name, q.dtype, q.device)
     lib = build.library()
@@ -111,7 +119,7 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return _forward(q, k, v, causal, window)
+        return _forward(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, dout):

@@ -4,7 +4,10 @@ Runs the same two CUDA kernels as BGMV (kernels/bgmv.py) with
 `live[b] = ceil(rank[idx[b]] / rank_block) * rank_block`, so only the live
 rank blocks are read and computed and dead blocks are exactly zero — the
 function of the Pallas TPU kernels `repro/kernels/mbgmv.py::mbgmv_shrink`
-/ `::mbgmv_expand`.
+/ `::mbgmv_expand`. The TPU kernels need r_max to hold whole rank blocks;
+these take any pool the LoRA kernels take (r_max a multiple of 8, as the
+pool pads it) and clamp a live width to r_max (`ops.lora_live`), as the
+model's own calls do.
 """
 from __future__ import annotations
 

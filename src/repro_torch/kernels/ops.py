@@ -19,17 +19,16 @@ def attention(q, k, v, causal=True, window=None):
 
 def lora_live(idx, ranks=None, mode="bgmv", r_max=None, rank_block=16):
     """Live rank columns per row: all r_max under "bgmv" (max-rank law),
-    each adapter's rank rounded up to whole rank blocks under "mbgmv"
-    (sum-rank law). A model step computes this once for all its layers."""
+    each adapter's rank rounded up to whole rank blocks, at most r_max,
+    under "mbgmv" (sum-rank law; a pool padded to a multiple of 8 need not
+    hold whole rank blocks, as the reference's masked delta does not). A
+    model step computes this once for all its layers."""
     if mode == "bgmv":
         return ref.bgmv_live(idx, r_max)
     if mode == "mbgmv":
         if ranks is None:
             raise ValueError("mode='mbgmv' needs per-slot ranks")
-        if r_max % rank_block:
-            raise ValueError(f"r_max ({r_max}) must be a multiple of "
-                             f"rank_block ({rank_block})")
-        return ref.mbgmv_live(idx, ranks, rank_block)
+        return ref.mbgmv_live(idx, ranks, rank_block).clamp(max=r_max)
     raise ValueError(f"unknown LoRA kernel mode {mode!r}")
 
 

@@ -12,6 +12,8 @@ here from shapes alone (no device sync).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import build, ref
@@ -20,6 +22,30 @@ from repro_torch.kernels.bgmv import sm_count
 _FLOATS = (torch.float32, torch.bfloat16)
 SPLIT_PAGES = 4                # block-table columns a split at least
 MAX_SPLIT_BLOCKS_PER_SM = 8    # blocks of all splits, an SM at most
+MAX_THREADS = 256              # csrc/paged_attention.cu: kMaxThreads
+
+
+def fits(G: int, hd: int) -> bool:
+    """The kernel's shape rule, `rt_paged_attention_fits` of
+    csrc/paged_attention.cu, for the CPU (the wrapper asks the library; the
+    card checks hold the two equal over a grid of G and hd): one thread per
+    (query head of the group, 8 columns of hd rounded up to a power of
+    two) in a block."""
+    if G < 1 or hd < 8 or hd % 8 or hd > 32 * 8:
+        return False
+    L = 1
+    while L < hd // 8:
+        L *= 2
+    return G * L <= MAX_THREADS
+
+
+def shape_refusal(G: int, hd: int) -> Optional[str]:
+    """Why the kernel refuses GQA group G at head dim hd, or None."""
+    if fits(G, hd):
+        return None
+    return (f"the kernel takes hd a multiple of 8 up to 256 and GQA group x "
+            f"pow2(hd / 8) <= {MAX_THREADS} (one thread per query head and "
+            f"8 columns), got group {G}, hd {hd}")
 
 
 def split_plan(B: int, KV: int, W: int, sms: int) -> int:
@@ -66,10 +92,8 @@ def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
                                        block_table, pos)
     lib = build.library()
     if not lib.rt_paged_attention_fits(H // KV, hd):
-        raise ValueError(f"paged_attention: the kernel takes hd a multiple "
-                         f"of 8 up to 256 and GQA group x pow2(hd / 8) <= "
-                         f"256 (one thread per query head and 8 columns), "
-                         f"got group {H // KV}, hd {hd}")
+        raise ValueError(
+            f"paged_attention: {shape_refusal(H // KV, hd) or 'refused'}")
     build.require(q, "q", dtypes=_FLOATS, ndim=3)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         build.require(t, name, dtypes=(q.dtype,), ndim=4, device=q.device)

@@ -19,6 +19,7 @@ from typing import Iterator, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core.lora import pad_adapter, trim_adapter
 from repro_torch.data.pipeline import DataConfig, packed_batches
 from repro_torch.device import resolve_device
 from repro_torch.models.weights import init_params
@@ -57,6 +58,32 @@ class Trainer:
         """The tree being trained: the adapter, or the parameter tree."""
         return self.adapter if self.adapter is not None \
             else tree_lib.param_tree(self.params)
+
+    def checkpoint_tree(self):
+        """What a checkpoint holds: the trained tree and the optimizer
+        state, an adapter's (and its moments') rank axis trimmed to
+        max_rank, as the reference writes it (`core.lora.trim_adapter`;
+        `load_checkpoint` pads it back)."""
+        return self._map_adapter(trim_adapter, {"model": self.trained(),
+                                                "opt": self.state})
+
+    def load_checkpoint(self, path: str):
+        """(tree, manifest) of a checkpoint that either package wrote, in
+        this trainer's layout: loaded (shapes checked) into
+        `checkpoint_tree`'s max_rank-wide structure, then an adapter's rank
+        axis padded (`core.lora.pad_adapter`)."""
+        tree, manifest = checkpoint.load(path, self.checkpoint_tree())
+        return self._map_adapter(pad_adapter, tree), manifest
+
+    def _map_adapter(self, fn, tree):
+        """`fn(cfg, .)` on the adapter and its moments of a {"model",
+        "opt"} tree; a full fine-tune's tree as it is."""
+        if self.adapter is None:
+            return tree
+        st = tree["opt"]
+        return {"model": fn(self.cfg, tree["model"]),
+                "opt": optim.AdamWState(st.step, fn(self.cfg, st.mu),
+                                        fn(self.cfg, st.nu))}
 
     def step(self, batch) -> dict:
         if self.adapter is not None:
@@ -107,8 +134,7 @@ def run(trainer: Trainer, data, steps: int, *, log_every: int = 10,
                   flush=True)
         if ckpt_dir and step % ckpt_every == 0:
             checkpoint.save(checkpoint.step_path(ckpt_dir, step),
-                            {"model": trainer.trained(),
-                             "opt": trainer.state}, step=step)
+                            trainer.checkpoint_tree(), step=step)
             checkpoint.retain(ckpt_dir, keep=3)
     return [_record(r, mk) for r, mk in zip(recs, marks)]
 

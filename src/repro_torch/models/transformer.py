@@ -17,6 +17,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.lora import lora_apply
+from repro_torch.kernels.bgmv import padded_rank
 from repro_torch.kernels.ops import lora_live
 from repro_torch.models import rglru
 from repro_torch.models.layers import (apply_rope, attn_decode,
@@ -241,7 +242,7 @@ def _lora_live(cfg, lora):
     if lora is None:
         return None
     return lora_live(lora["idx"], lora["pool"]["ranks"],
-                     lora.get("mode", "bgmv"), cfg.lora.max_rank,
+                     lora.get("mode", "bgmv"), padded_rank(cfg.lora.max_rank),
                      cfg.lora.rank_block)
 
 

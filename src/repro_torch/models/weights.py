@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.lora import is_adapter_tree, pad_adapter
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, rglru, ssm
 from repro_torch.models.moe import MoE
@@ -232,11 +233,12 @@ def params_from_jax(cfg, tree, device=None):
 def adapter_from_jax(cfg, tree, device=None):
     """The reference's trainable adapter ({target: {a: (L, d_in, r_max),
     b: (L, r_max, d_out)}}, numpy leaves) -> the port's, in the config's
-    dtype on `device` (None: the card)."""
+    dtype on `device` (None: the card), its rank axis padded to
+    `padded_rank(max_rank)` with zeros (`core.lora.pad_adapter`)."""
     dev = resolve_device(device)
-    return {t: {n: torch.from_numpy(np.array(x, np.float32)).to(
-        dev, cfg.torch_dtype) for n, x in ab.items()}
-        for t, ab in tree.items()}
+    return pad_adapter(cfg, {t: {n: torch.from_numpy(
+        np.array(x, np.float32)).to(dev, cfg.torch_dtype)
+        for n, x in ab.items()} for t, ab in tree.items()})
 
 
 def opt_state_from_jax(cfg, state, device=None):
@@ -246,7 +248,8 @@ def opt_state_from_jax(cfg, state, device=None):
     (None: the card). Moments of an adapter keep its tree; moments of the
     model's parameters take the port's layout, a uniform stack's layers
     as a list (`params_from_jax`), so they line up with
-    `training.tree.param_tree`."""
+    `training.tree.param_tree`; moments of an adapter are padded as the
+    adapter (`adapter_from_jax`)."""
     dev = resolve_device(device)
     step, mu, nu = state
 
@@ -260,6 +263,8 @@ def opt_state_from_jax(cfg, state, device=None):
         return torch.from_numpy(np.array(x, np.float32)).to(dev, dt)
 
     def layout(tree):
+        if is_adapter_tree(cfg, tree):
+            return pad_adapter(cfg, conv(tree))
         out = dict(tree)
         if isinstance(tree.get("blocks"), dict):   # a stacked uniform stack
             out["blocks"] = [_index(tree["blocks"], i)

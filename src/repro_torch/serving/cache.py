@@ -28,6 +28,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.analysis import sanitizers
+
 
 # ------------------------------------------------------------ dense rows ----
 
@@ -88,10 +90,9 @@ def scatter_rows(pool_cache, row_caches, rows: Sequence[int]):
     if not keep:
         return pool_cache
     dev = leaves[0][1].device
-    dst_rows = torch.as_tensor([int(rows[i]) for i in keep],
-                               dtype=torch.long).to(dev)
+    dst_rows = _device_index([int(rows[i]) for i in keep], dev)
     prefix = keep == list(range(len(keep)))     # no copy of the sources
-    src_rows = None if prefix else torch.as_tensor(keep).to(dev)
+    src_rows = None if prefix else _device_index(keep, dev)
     for (name, dst), (_, src) in zip(leaves, tree_leaves(row_caches)):
         src = src.narrow(ax, 0, len(keep)) if prefix \
             else src.index_select(ax, src_rows)
@@ -139,8 +140,7 @@ class PageAllocator:
     page was claimed under (``kv:<rid>`` / ``adapter:<uid>``) for tests and
     telemetry. ``on_free`` (optional callback, invoked after every free)
     lets the admission plane re-check deferred requests on each page-free
-    event instead of only on its own admit attempts. (The reference's
-    PageSan shadow is not ported yet: ROADMAP.md queue 1, tooling.)"""
+    event instead of only on its own admit attempts."""
 
     def __init__(self, n_pages: int):
         if n_pages <= 0:
@@ -149,10 +149,20 @@ class PageAllocator:
         self._free: List[int] = list(range(n_pages - 1, -1, -1))
         self._owner: Dict[int, str] = {}
         self.on_free = None
+        # PageSan (REPRO_SANITIZE=1): shadow ownership + quarantine. Freed
+        # pages sit in quarantine instead of the free list until capacity
+        # pressure, so stale block-table references hit a dead page and are
+        # reported as use-after-free. Capacity-neutral: `free_pages` counts
+        # quarantined pages and `claim` recycles them on demand.
+        self.san = (sanitizers.PageSan(n_pages)
+                    if sanitizers.enabled() else None)
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        n = len(self._free)
+        if self.san is not None:
+            n += len(self.san.quarantine)
+        return n
 
     @property
     def used_pages(self) -> int:
@@ -165,17 +175,27 @@ class PageAllocator:
             raise ValueError(f"cannot claim a negative page count ({n})")
         if n > self.free_pages:
             return None
+        if self.san is not None and n > len(self._free):
+            # capacity pressure: recycle quarantined pages, oldest first
+            self._free[:0] = self.san.take_quarantined(n - len(self._free))
         ids = [self._free.pop() for _ in range(n)]
         for i in ids:
             self._owner[i] = owner
+        if self.san is not None:
+            self.san.on_claim(ids, owner)
         return ids
 
     def free(self, ids: Sequence[int]) -> None:
+        if self.san is not None:
+            self.san.pre_free(ids)
         for i in ids:
             if i not in self._owner:
                 raise ValueError(f"page {i} freed but not claimed")
             del self._owner[i]
-            self._free.append(i)
+            if self.san is None:
+                self._free.append(i)
+        if self.san is not None:
+            self.san.on_free(ids)   # -> quarantine, not the free list
         if ids and self.on_free is not None:
             self.on_free()
 
@@ -208,11 +228,19 @@ def zeros_paged(row_cache_abstract, n_pages: int, page_size: int,
     return out
 
 
+def _device_index(idx, device) -> torch.Tensor:
+    """A host-built index (rows, page ids) as an int64 device tensor."""
+    # lint: allow-host-sync — the rows and page ids of a prefill, a page
+    # scrub or a swap are built on the host (allocator, admission) and
+    # uploaded once per such operation, never per decode step: a blocking
+    # copy of a few bytes from pageable memory
+    return torch.as_tensor(idx, dtype=torch.long).to(device)
+
+
 def _ids(pool_cache, page_ids) -> torch.Tensor:
     """Page ids as a device index; entries < 0 go to the sink page."""
     sink = pool_cache["pos"].shape[1] - 1
-    ids = torch.as_tensor(page_ids, dtype=torch.long).to(
-        pool_cache["pos"].device)
+    ids = _device_index(page_ids, pool_cache["pos"].device)
     return torch.where(ids >= 0, ids, sink)
 
 
@@ -271,6 +299,8 @@ def extract_pages(pool_cache, page_ids):
     """Swap-out: device -> host copy of a row's claimed pages (k/v payload
     and pos), keyed by position in `page_ids`."""
     ids = _ids(pool_cache, page_ids)
+    # lint: allow-host-sync — swap-out copies the victim's pages to host
+    # memory: the preemption policy's designed device->host transfer
     return {name: x[:, ids].cpu() for name, x in pool_cache.items()}
 
 
@@ -294,8 +324,7 @@ def gather_pages(pool_cache, page_ids):
     """Reconstruct one row's cache in the dense batch-1 layout from its
     block-table pages. `page_ids` is the row's (W,) logical->physical map;
     unclaimed (< 0) logical pages come back as empty (k/v zeros, pos -1)."""
-    raw = torch.as_tensor(page_ids, dtype=torch.long).to(
-        pool_cache["pos"].device)
+    raw = _device_index(page_ids, pool_cache["pos"].device)
     safe, valid = raw.clamp(min=0), raw >= 0
     out = {}
     for name, x in pool_cache.items():

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import lora_target_dims
+from repro_torch.kernels.bgmv import padded_rank
 from repro_torch.models import model as model_lib
 from repro_torch.training import optim
 from repro_torch.training import tree as tree_lib
@@ -164,15 +165,16 @@ def make_lora_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
 
 def init_lora_adapter(cfg: ModelConfig, rank: int,
                       generator: torch.Generator):
-    """Trainable adapter {target: {a: (L, d_in, r_max), b: (L, r_max,
-    d_out)}} in the config's dtype, on the generator's device: A ~ N(0,
-    d_in^-1/2) with the columns past `rank` zeroed, B zero (standard LoRA:
-    training starts at the base model). The draws differ from
-    `jax.random`'s; parity tests carry the reference's adapter across
-    (`models.weights.adapter_from_jax`)."""
+    """Trainable adapter {target: {a: (L, d_in, r_pad), b: (L, r_pad,
+    d_out)}} (r_pad = `padded_rank(max_rank)`, as the serving pool) in the
+    config's dtype, on the generator's device: A ~ N(0, d_in^-1/2) with
+    the columns past `rank` zeroed, B zero (standard LoRA: training starts
+    at the base model). The columns past `rank` get zero gradients and stay
+    zero. The draws differ from `jax.random`'s; parity tests carry the
+    reference's adapter across (`models.weights.adapter_from_jax`)."""
     L = cfg.n_layers + cfg.n_enc_layers
-    r_max = cfg.lora.max_rank
-    rank = min(rank, r_max)
+    r_max = padded_rank(cfg.lora.max_rank)
+    rank = min(rank, cfg.lora.max_rank)
     dev = generator.device
     out = {}
     for tgt in cfg.lora.targets:

@@ -1,0 +1,326 @@
+"""The kernels' launch model (`repro_torch.analysis.kernel_model`): every
+registered config is taken by every kernel on its path; mutated configs
+are refused by the rule the wrapper raises on; and max_rank 12, no
+multiple of 8, runs after the pool pads it to 16 columns — it serves
+token for token with the reference (bgmv and mbgmv, f32) and a rank-12
+LoRA step's gradients equal the reference's. The card checks of
+`kernel_verify` (canaries, mutants) are marked `cuda` and skip here."""
+import dataclasses
+import importlib
+import inspect
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.analysis import kernel_model  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core.engine import InferenceServer  # noqa: E402
+from repro_torch.core.lora import AdapterSpec  # noqa: E402
+from repro_torch.core.timing import Hardware  # noqa: E402
+from repro_torch.kernels import bgmv, flash, paged  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.models.weights import (adapter_from_jax,  # noqa: E402
+                                        opt_state_from_jax, params_from_jax)
+from repro_torch.serving.request import Request  # noqa: E402
+from repro_torch.training import checkpoint as tckpt  # noqa: E402
+from repro_torch.training import train as ttrain  # noqa: E402
+from repro_torch.training import tree as ttree  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference package (JAX on the CPU), for the parity tests only:
+    this file also holds a card test, and the card's machine has no JAX."""
+    pytest.importorskip("jax")
+    mods = {"jax": "jax", "jnp": "jax.numpy",
+            "base": "repro.configs.base", "engine": "repro.core.engine",
+            "lora": "repro.core.lora", "timing": "repro.core.timing",
+            "model": "repro.models.model", "param": "repro.models.param",
+            "request": "repro.serving.request",
+            "ckpt": "repro.training.checkpoint",
+            "optim": "repro.training.optim", "train": "repro.training.train"}
+    return SimpleNamespace(**{k: importlib.import_module(v)
+                              for k, v in mods.items()})
+
+
+CONFIGS = list(kernel_model.CONFIGS) + [
+    "whisper-tiny", "recurrentgemma-2b", "dbrx-132b", "mistral-large-123b",
+    "phi-3-vision-4.2b", "command-r-35b", "yi-9b", "grok-1-314b",
+    "mamba2-130m", "qwen2-72b"]
+
+
+def _case(name):
+    return kernel_model.case_from_config(get_config(name))
+
+
+def test_config_cases_cover_every_registered_config():
+    assert [c.config for c in kernel_model.config_cases()] == CONFIGS
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_every_kernel_on_the_path_takes_the_config(name):
+    case = _case(name)
+    launches = kernel_model.launches(case)
+    assert [x.label for x in launches if x.refusal] == []
+    kinds = {x.kernel for x in launches}
+    assert {"lora_shrink", "lora_expand"} <= kinds
+    assert ("flash_attention" in kinds) == case.attention
+    assert ("paged_attention" in kinds) == case.paged
+    # both launch paths of each LoRA kernel, from the wrappers' own plans
+    paths = {(x.kernel, x.path) for x in launches}
+    assert {("lora_shrink", "split"), ("lora_shrink", "tile 64"),
+            ("lora_shrink", "tile 128"), ("lora_expand", "decode"),
+            ("lora_expand", "row tiles")} <= paths
+
+
+def _refused(case, kernel):
+    return [x for x in kernel_model.launches(case) if x.kernel == kernel
+            and x.refusal]
+
+
+@pytest.mark.parametrize("mutation", ["hd 80", "GQA 32 at hd 128",
+                                      "d_in 4100"])
+def test_mutated_configs_are_refused_by_the_wrappers_rule(mutation):
+    """Each mutation is refused by the named rule, and that function is
+    the one the wrapper raises through on the card."""
+    case = _case("llama2-7b")
+    if mutation == "hd 80":
+        case = dataclasses.replace(case, hd=80)
+        kernel, rule, wrapper = "flash_attention", flash.shape_refusal, \
+            flash._forward
+        want = rule(80, torch.bfloat16)
+    elif mutation == "GQA 32 at hd 128":
+        case = dataclasses.replace(case, n_heads=32, n_kv_heads=1)
+        kernel, rule, wrapper = "paged_attention", paged.shape_refusal, \
+            paged.paged_attention
+        want = rule(32, 128)
+    else:
+        case = dataclasses.replace(case, lora=(("q", 4100, 4096),))
+        kernel, rule, wrapper = "lora_shrink", bgmv.shrink_refusal, \
+            bgmv._shrink
+        want = rule(4100, case.r_pad)
+    bad = _refused(case, kernel)
+    assert bad and want
+    assert {(x.rule, x.refusal) for x in bad} == {
+        (f"{rule.__module__.rsplit('.', 1)[1]}.{rule.__name__}", want)}
+    assert f"{rule.__name__}(" in inspect.getsource(wrapper)
+    others = [x.label for x in kernel_model.launches(case)
+              if x.refusal and x.kernel != kernel]
+    assert others == []
+
+
+def test_paged_rule_copy_matches_its_documented_edge():
+    """`paged.fits` (the CPU's copy of rt_paged_attention_fits): group x
+    pow2(hd / 8) <= 256, hd a multiple of 8 up to 256. The card holds the
+    copy equal to the library's over a grid."""
+    assert paged.fits(16, 128) and not paged.fits(17, 128)
+    assert paged.fits(32, 64) and not paged.fits(33, 64)
+    assert paged.fits(8, 256) and not paged.fits(9, 256)
+    assert paged.fits(16, 96) and not paged.fits(17, 96)
+    assert not paged.fits(1, 260) and not paged.fits(1, 12)
+
+
+def test_max_rank_12_is_taken_after_the_pad():
+    """The kernels' 16-byte rows need r_max a multiple of 8: 12 itself is
+    refused, the pool's padded 16 columns are taken on every path."""
+    case = dataclasses.replace(_case("llama2-7b"), max_rank=12,
+                               r_pad=bgmv.padded_rank(12))
+    assert case.r_pad == 16 and bgmv.padded_rank(20) == 24
+    assert bgmv.shrink_refusal(4096, 12) and bgmv.expand_refusal(12, 4096)
+    lora = [x for x in kernel_model.launches(case)
+            if x.kernel.startswith("lora")]
+    assert len(lora) == 6 and not [x for x in lora if x.refusal]
+    assert {x.args["r_max"] for x in lora} == {16}
+
+
+@pytest.mark.cuda
+def test_canaries_and_mutants_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc (CUDA kernels have no "
+                    "CPU mode)")
+    from repro_torch.analysis import kernel_verify
+    from repro_torch.kernels import build
+    lib = build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, found = kernel_verify.canaries(lib, sms)
+    assert found == []
+    assert kernel_verify.paged_rule_findings(lib) == []
+    assert all(f for _, f in kernel_verify.mutants(lib, sms))
+
+
+FAKE_NVCC = """#!/bin/sh
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then : > "$2"; fi
+  shift
+done
+echo "ptxas info    : Used 40 registers, 0 bytes spill stores"
+"""
+
+
+class _FakeLibrary:
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, name):
+        return SimpleNamespace()
+
+
+def test_a_library_found_built_still_gives_its_ptxas_report(tmp_path,
+                                                            monkeypatch):
+    """The footprint's spill check reads nvcc's report: the build writes it
+    beside the library, a later process that finds the library built (a
+    second run in one checkout) loads it, and a library found without its
+    report is built again. nvcc and the loader are stand-ins here."""
+    import ctypes
+    from repro_torch.kernels import build
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "ctypes", SimpleNamespace(
+        CDLL=_FakeLibrary, c_int=ctypes.c_int))
+
+    def fresh_process(find_nvcc):
+        monkeypatch.setattr(build, "_lib", None)
+        monkeypatch.setattr(build, "build_log", "")
+        monkeypatch.setattr(build, "build_seconds", None)
+        monkeypatch.setattr(build, "_nvcc", find_nvcc)
+
+    def no_nvcc():
+        raise AssertionError("a library found built was built again")
+
+    fresh_process(lambda: str(nvcc))
+    build.library()
+    report = build.build_log
+    assert "Used 40 registers" in report and build.build_seconds is not None
+    assert build.log_path(build.library_path()).read_text() == report
+    fresh_process(no_nvcc)
+    build.library()
+    assert build.build_log == report and build.build_seconds is None
+    build.log_path(build.library_path()).unlink()
+    fresh_process(lambda: str(nvcc))
+    build.library()
+    assert build.build_log == report and build.build_seconds is not None
+
+
+# ----------------------------------------------- max_rank 12, on the CPU ----
+
+def _with_max_rank(cfg, r):
+    return dataclasses.replace(cfg, lora=dataclasses.replace(
+        cfg.lora, max_rank=r))
+
+
+def _trace(seed=5, n=6):
+    rng = np.random.default_rng(seed)
+    return [(i, f"ad{i % 4}",
+             rng.integers(0, 512, int(rng.integers(4, 16))).astype(np.int32),
+             int(rng.integers(3, 14)), float(i * 3)) for i in range(n)]
+
+
+@pytest.mark.parametrize("kernel", ["bgmv", "mbgmv"])
+def test_max_rank_12_serves_the_references_tokens(ref, kernel):
+    """A pool of max_rank 12 (the reference's 12 columns, the port's 16)
+    with adapters of ranks up to 12: every request's tokens equal the
+    reference's."""
+    cj = _with_max_rank(ref.base.get_config("llama2-7b").smoke(), 12)
+    ct = _with_max_rank(get_config("llama2-7b").smoke(), 12)
+    kw = {"mode": "caraserve", "kernel": kernel, "max_batch": 4,
+          "cache_slots": 64, "seed": 0}
+    js = ref.engine.InferenceServer(cj, **kw)
+    hw = Hardware(**dataclasses.asdict(ref.timing.V5E))
+    ts = InferenceServer(ct, device="cpu", hw=hw, params=params_from_jax(
+        ct, ref.jax.tree.map(np.asarray, js.params), device="cpu"), **kw)
+    for i, r in enumerate((12, 5, 8, 3)):
+        js.register_adapter(ref.lora.AdapterSpec(f"ad{i}", r, cj.name))
+        ts.register_adapter(AdapterSpec(f"ad{i}", r, ct.name))
+    assert ts.backend.pool.pool["q"]["a"].shape[-1] == 16
+    trace = _trace()
+    js.run([ref.request.Request(*t) for t in trace])
+    ts.run([Request(*t) for t in trace])
+    assert {s.req.rid: s.generated for s in ts.states} == \
+        {s.req.rid: s.generated for s in js.states}
+
+
+def test_rank_12_lora_step_gradients_equal_the_references(ref):
+    """From the reference's adapter after one step (nonzero B), carried
+    across (padded to 16 columns): the loss and every adapter gradient
+    equal the reference's on its 12 columns, and the 4 pad columns get
+    zero gradients."""
+    rank = 12
+    jax, jnp = ref.jax, ref.jnp
+    cj = _with_max_rank(ref.base.get_config("llama2-7b").smoke(), rank)
+    ct = _with_max_rank(get_config("llama2-7b").smoke(), rank)
+    pj = ref.param.split(ref.model.init_params(cj, jax.random.PRNGKey(0)))[0]
+    pt = params_from_jax(ct, jax.tree.map(np.asarray, pj), device="cpu")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, ct.vocab, (4, 16)).astype(np.int32)
+    mask = (rng.random((4, 16)) > 0.2).astype(np.int32)
+    bj = {"tokens": jnp.asarray(toks), "loss_mask": jnp.asarray(mask)}
+    bt = {"tokens": torch.from_numpy(toks),
+          "loss_mask": torch.from_numpy(mask)}
+    step_j = jax.jit(ref.train.make_lora_train_step(
+        cj, ref.optim.AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=10),
+        rank))
+    ad = ref.train.init_lora_adapter(cj, rank, jax.random.PRNGKey(1))
+    ad, _, _ = step_j(ad, ref.optim.init(ad), pj, bj)
+
+    def loss_fn(adapter):
+        pool = {t: {"a": adapter[t]["a"][:, None],
+                    "b": adapter[t]["b"][:, None]} for t in adapter}
+        pool["ranks"] = jnp.full((1,), rank, jnp.int32)
+        lora = {"pool": pool, "idx": jnp.zeros((4,), jnp.int32),
+                "mode": "bgmv"}
+        return ref.model.loss(cj, pj, bj, lora=lora)[0]
+
+    lj, gj = jax.value_and_grad(loss_fn)(ad)
+    at = adapter_from_jax(ct, jax.tree.map(np.asarray, ad), device="cpu")
+    assert at["q"]["a"].shape[-1] == 16 and at["q"]["b"].shape[1] == 16
+    lt, gt = ttrain.lora_loss_and_grads(ct, pt, at, bt, rank)
+    assert float(lt) == pytest.approx(float(lj), rel=1e-4)
+    for t in gt:
+        for n, axis in (("a", -1), ("b", 1)):
+            g = gt[t][n].double().numpy()
+            w = np.asarray(gj[t][n], np.float64)
+            lim = 1e-4 * max(np.abs(w).max(), 1e-30)
+            assert np.abs(np.take(g, range(rank), axis) - w).max() <= lim
+            assert not np.take(g, range(rank, 16), axis).any()
+
+
+def test_rank_12_checkpoints_cross_between_the_packages(ref, tmp_path):
+    """The port writes an adapter and its moments trimmed to max_rank (the
+    reference loads them), and `Trainer.load_checkpoint` reads both
+    packages' back padded; `checkpoint.load` itself still refuses any
+    shape that differs."""
+    rank, jax = 12, ref.jax
+    cj = _with_max_rank(ref.base.get_config("llama2-7b").smoke(), rank)
+    ct = _with_max_rank(get_config("llama2-7b").smoke(), rank)
+    trainer = tlaunch.Trainer(ct, lora_rank=rank, device="cpu", steps=4)
+    trainer.step(next(trainer.batches(4, 16)))
+    p = str(tmp_path / "ckpt_1.npz")
+    tckpt.save(p, trainer.checkpoint_tree(), step=1)
+    ad = ref.train.init_lora_adapter(cj, rank, jax.random.PRNGKey(1))
+    like = {"model": ad, "opt": ref.optim.init(ad)}
+    got, _ = ref.ckpt.load(p, jax.tree.map(ref.jnp.zeros_like, like))
+    np.testing.assert_array_equal(
+        np.asarray(got["model"]["q"]["a"]),
+        trainer.adapter["q"]["a"][..., :rank].numpy())
+    held = {"model": trainer.adapter, "opt": trainer.state}
+    back, _ = trainer.load_checkpoint(p)
+    for a, b in zip(ttree.leaves(back), ttree.leaves(held)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tckpt.load(p, held)
+    # the reference's own file (12 columns) reads back into 16
+    pj = str(tmp_path / "ckpt_2.npz")
+    ref.ckpt.save(pj, got, step=2)
+    back, man = trainer.load_checkpoint(pj)
+    assert man["step"] == 2
+    for a, b in zip(ttree.leaves(back), ttree.leaves(held)):
+        assert torch.equal(a, b)
+    st = opt_state_from_jax(ct, jax.tree.map(np.asarray, got["opt"]),
+                            device="cpu")
+    assert st.mu["q"]["a"].shape[-1] == 16

@@ -252,9 +252,12 @@ def test_lora_wrappers_shape_validation():
     with pytest.raises(ValueError):
         mbgmv.mbgmv_shrink(x, _t(a), idx, torch.zeros(2, dtype=torch.int32),
                            rank_block=4)                     # ranks
-    with pytest.raises(ValueError):
-        mbgmv.mbgmv_shrink(x, _t(a), idx, torch.zeros(3, dtype=torch.int32),
-                           rank_block=3)                     # r_max % rb
+    # r_max 8 holds no whole rank block of 3: taken, live widths clamped
+    # to the pool (the TPU kernels' whole-block rule is not the port's)
+    ranks = torch.tensor([8, 4, 2], dtype=torch.int32)
+    torch.testing.assert_close(
+        mbgmv.mbgmv_shrink(x, _t(a), idx, ranks, rank_block=3),
+        ref.mbgmv_shrink_ref(x, _t(a), idx, ranks, 3), rtol=0, atol=0)
 
 
 def test_cpu_tensors_never_build_or_count(monkeypatch):
