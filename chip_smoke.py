@@ -158,6 +158,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      LoRA q/k/v) held to the same rule at every step; flash is timed at
      hd 96 and 256 at layer 0 of phi-3-vision's and recurrentgemma's
      largest served prefill (phase 5b's rows);
+  M. the multi-device plane, in a process of its own (`--phase-m`): M1
+     an NCCL group of one rank (a FileStore in a temporary directory) and
+     a 1 x 1 ("data", "model") DeviceMesh on the card; M2 `moe_apply_ep`
+     against `moe_apply` for one full-width layer of dbrx-132b (16
+     experts top-4) and grok-1-314b (8 top-2, GeGLU) in f32, 4,096
+     tokens, no expert over its capacity (checked): each output row
+     within 1e-5 x max(1, its max |plain|), each weight gradient within
+     1e-4 of its leaf's max; M3 dbrx-132b at full width, 6 of 40 layers,
+     `moe_ep` under the mesh against the same weights without it: an
+     8 x 512 packed prefill (mbgmv pool) and one decode step, logits
+     within 5e-2 of max |logit|, a 2 x 512 LoRA loss within 1e-2 and
+     its cross-entropy's adapter gradients within 5e-2 of their max, no
+     drop, flash and the LoRA kernels launched under the mesh; M4 the
+     port's dry run (`launch/dryrun.py`) of whisper-tiny decode_32k and
+     dbrx / grok `moe_ep` decode_32k and train_4k on pod16x16 in a
+     subprocess within 300 s, every record ok, its peak bytes a chip,
+     fits_80g and dominant roofline term printed;
   then one {"kernels": [...]} line (the six TPU kernels' rows, the
   prefill shrink and expand rows, the yi-9b and mistral-large paged
   rows, the hd 96 / hd 256 flash rows and phase T's rows at the training
@@ -278,6 +295,7 @@ def main() -> int:
     kernels.append(mistral_row)
     report["other_families"], g_rows = other_families_phase(torch, errs)
     kernels.extend(g_rows)
+    report["multi_device"] = multi_device_phase(torch)
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3331,5 +3349,304 @@ def s6_logits(torch, cfg, params, be, uids, kernel):
     return rec
 
 
+# ------------------------------------------------------------ phase M ----
+
+M_TOKENS = 4096                # phase M2: tokens through one MoE layer
+M2_CONFIGS = ("dbrx-132b", "grok-1-314b")
+M2_CAPACITY = 2.0              # twice an expert's mean load (no drop: checked)
+M2_GRAD_TOL = 1e-4             # a weight gradient vs moe_apply's, of its max
+M3_LAYERS = 6                  # dbrx-132b's depth cut, as in phase F
+M3_ROWS, M3_LEN = 8, 512       # the packed prefill
+M3_TRAIN = (2, 512)            # the LoRA loss + backward
+M3_RANK = 16
+M4_COMBOS = [("whisper-tiny", "decode_32k", ()),
+             ("dbrx-132b", "decode_32k", ("moe_ep",)),
+             ("grok-1-314b", "decode_32k", ("moe_ep",)),
+             ("dbrx-132b", "train_4k", ("moe_ep",)),
+             ("grok-1-314b", "train_4k", ("moe_ep",))]
+M4_TIMEOUT = 300
+M_TIMEOUT = 500
+M_DEVICE, M_BACKEND = "cuda", "nccl"
+
+
+def multi_device_phase(torch):
+    """Phase M in a process of its own (`--phase-m`), so its process group
+    starts and ends there: M1 an NCCL group of one rank on cuda:0 and a
+    1 x 1 ("data", "model") DeviceMesh; M2 `moe_apply_ep` against
+    `moe_apply` for one full-width layer of dbrx-132b and grok-1-314b in
+    f32; M3 dbrx-132b at full width cut to 6 layers, `moe_ep` under the
+    mesh against the same weights without it (prefill, decode, a LoRA
+    loss and its adapter gradients), flash and the LoRA kernels launched;
+    M4 the port's dry run of five combos in a process of its own. Its
+    failure fails the run. Returns its report."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = run_group([sys.executable, str(Path(__file__).resolve()),
+                     "--phase-m"], M_TIMEOUT)
+    sys.stdout.write(out.stdout)
+    check(out.returncode == 0, "phase M failed (exit "
+          f"{out.returncode}): {out.stderr[-4000:]}")
+    line = [x for x in out.stdout.splitlines() if x.startswith("PHASE_M=")]
+    check(len(line) == 1, "phase M printed no report")
+    report = json.loads(line[0][len("PHASE_M="):])
+    report["seconds"] = time.perf_counter() - t0
+    print(f"phase M: {report['seconds']:.1f} s on {smi_reading()}",
+          flush=True)
+    return report
+
+
+def run_group(cmd, timeout, env=None):
+    """`cmd` in a process group of its own, its output captured; past
+    `timeout` s the whole group is killed (what it started included) and
+    the run fails."""
+    import signal
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"{cmd[1:3]} did not end within {timeout} s")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def phase_m_child() -> int:
+    """The process of phase M (see `multi_device_phase`)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_debug_mesh
+    print(f"phase M on {smi_reading()}", flush=True)
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # M1: one rank; its group over a FileStore, no port
+        if M_DEVICE == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            M_BACKEND, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh(1, 1, device_type=M_DEVICE)
+            print(f"  M1: {M_BACKEND} group of {dist.get_world_size()} "
+                  f"rank, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  f" on {M_DEVICE}", flush=True)
+            report["M2"] = [m2_moe_layer(torch, name, mesh)
+                            for name in M2_CONFIGS]
+            report["M3"] = m3_dbrx(torch, mesh)
+        finally:
+            dist.destroy_process_group()
+    report["M4"] = m4_dryrun()
+    print("PHASE_M=" + json.dumps(report), flush=True)
+    return 0
+
+
+def _m_config(name, **kw):
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(name), moe_ep=True,
+                               moe_ep_shards=1, **kw)
+
+
+def m2_moe_layer(torch, name, mesh):
+    """M2: one MoE layer at full width in f32, M_TOKENS seeded tokens,
+    through `moe_apply_ep` on the mesh and through `moe_apply`: every
+    output row within F32_TOL x max(1, max |plain row|), every weight
+    gradient (of a seeded cotangent) within M2_GRAD_TOL x its leaf's
+    max."""
+    from repro_torch.models import moe, moe_ep
+    from repro_torch.models.param import Dense
+    full = _m_config(name, dtype="float32")
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=M2_CAPACITY))
+    E, k, d, f = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=M_DEVICE).manual_seed(SEED + 21)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=M_DEVICE) * scale
+
+    w = {"router": randn(d, E, scale=d ** -0.5),
+         "w1": randn(E, d, f, scale=d ** -0.5),
+         "w2": randn(E, f, d, scale=f ** -0.5),
+         "w3": randn(E, d, f, scale=d ** -0.5)}
+    x, cot = randn(1, M_TOKENS, d), randn(1, M_TOKENS, d)
+    # no assignment drops: every expert's load within both capacities
+    with torch.no_grad():
+        idx = moe.top_k(torch.softmax(x[0] @ w["router"], -1), k)[1]
+        load = int(torch.bincount(idx.flatten(), minlength=E).max())
+    cap = moe.capacity(cfg, M_TOKENS)
+    check(load <= cap, f"M2 {name}: an expert takes {load} > {cap} slots")
+
+    def run(ep):
+        p = moe.MoE(*(Dense(w[n]) for n in ("router", "w1", "w2", "w3")))
+        leaves = [getattr(p, n).w.requires_grad_(True)
+                  for n in ("router", "w1", "w2", "w3")]
+        if ep:
+            y, _ = moe_ep.moe_apply_ep(cfg, p, x, mesh)
+        else:
+            with moe.record_routing() as routes:
+                y, _ = moe.moe_apply(cfg, p, x)
+            check(int(routes[0]["dropped"]) == 0, f"M2 {name}: drops")
+        gs = torch.autograd.grad((y * cot).sum(), leaves)
+        return y.detach(), gs
+
+    y_ep, g_ep = run(True)
+    g_ep = [t.cpu() for t in g_ep]          # room for the second pass
+    y_ref, g_ref = run(False)
+    err = check_close(f"M2 {name} moe_apply_ep", y_ep[0], y_ref[0],
+                      torch.float32)
+    worst = max(grads_close(f"M2 {name} {n} gradient", [a.to(b.device)],
+                            [b], [n], tol=M2_GRAD_TOL)
+                for n, a, b in zip(("router", "w1", "w2", "w3"), g_ep,
+                                   g_ref))
+    print(f"  M2 {name}: E {E} top-{k} d {d} f {f}, {M_TOKENS} tokens, "
+          f"max load {load} of capacity {cap}; output err {err:.3e}",
+          flush=True)
+    return {"model": name, "max_abs_err": err, "grad_worst": worst,
+            "max_load": load, "capacity": cap}
+
+
+def m3_dbrx(torch, mesh):
+    """M3: dbrx-132b at full width, M3_LAYERS layers, moe_ep over the
+    mesh against the same weights without a mesh: a packed prefill
+    (M3_ROWS x M3_LEN, mbgmv pool) and one decode step, logits within
+    LOGIT_TOL of max |logit|; a LoRA loss (M3_TRAIN) within 1e-2, and
+    each adapter gradient of its cross-entropy within GRAD_TOL of its
+    max.
+    The capacity factor E / top-k never drops (an expert takes at most
+    every token of a group once); flash and the LoRA kernels must launch
+    under the mesh."""
+    from repro_torch import sharding as shd
+    from repro_torch.models import model, moe
+    from repro_torch.models.weights import init_params
+    from repro_torch.training import train as train_lib
+    full = _m_config("dbrx-132b", n_layers=M3_LAYERS)
+    cfg = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=full.moe.n_experts / full.moe.top_k))
+    params = init_params(cfg, SEED, M_DEVICE)
+    pool = g_pool(torch, cfg)
+    g = torch.Generator(device=M_DEVICE).manual_seed(SEED + 22)
+    toks = torch.randint(0, cfg.vocab, (M3_ROWS, M3_LEN), generator=g,
+                         device=M_DEVICE, dtype=torch.int32)
+    idx = torch.arange(M3_ROWS, device=M_DEVICE, dtype=torch.int32) % 2
+    lora = {"pool": pool, "idx": idx, "mode": "mbgmv"}
+    nxt = torch.randint(0, cfg.vocab, (M3_ROWS, 1), generator=g,
+                        device=M_DEVICE, dtype=torch.int32)
+    pos = torch.full((M3_ROWS,), M3_LEN, device=M_DEVICE, dtype=torch.int32)
+
+    def serve():
+        with torch.no_grad():
+            lp, cache = model.prefill(cfg, params, {"tokens": toks},
+                                      lora=lora, cache_slots=M3_LEN + 1,
+                                      last_only=True)
+            ld, _ = model.decode(cfg, params, cache, nxt, pos, lora=lora)
+        return lp[:, 0].float(), ld[:, 0].float()
+
+    adapter = train_lib.init_lora_adapter(cfg, M3_RANK, g)
+    for t in adapter.values():
+        t["b"].copy_(torch.randn(t["b"].shape, generator=g,
+                                 device=M_DEVICE) * 0.02)
+    B, L = M3_TRAIN
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, L), generator=g,
+                                     device=M_DEVICE, dtype=torch.int32)}
+
+    def train():
+        """(the loss, the cross-entropy's adapter gradients). The MoE aux
+        term is an estimator of its own on each path, in both packages
+        (one group of a data shard's tokens under moe_ep, one group a
+        sequence without), so the gradients are held on the
+        cross-entropy (aux_weight 0) and the loss with its aux."""
+        flat = [t.detach().requires_grad_()
+                for t in train_lib.tree_lib.leaves(adapter)]
+        lora = {"pool": train_lib.lora_pool(
+            train_lib.tree_lib.unflatten(adapter, flat), M3_RANK),
+            "idx": torch.zeros(B, dtype=torch.int32, device=M_DEVICE),
+            "mode": "bgmv"}
+        with torch.no_grad():
+            loss, _ = model.loss(cfg, params, batch, lora=lora)
+        ce, _ = model.loss(cfg, params, batch, lora=lora, aux_weight=0.0)
+        return float(loss), torch.autograd.grad(ce, flat)
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with shd.use_mesh(mesh):
+        lp_m, ld_m = serve()
+        loss_m, g_m = train()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    for n in ("flash_attention", "lora_shrink", "lora_expand"):
+        check(M_DEVICE != "cuda" or launches[n] > 0,
+              f"M3: {n} did not launch under the mesh")
+    with moe.record_routing() as routes:
+        lp, ld = serve()
+    check(all(int(r["dropped"]) == 0 for r in routes), "M3: drops")
+    loss, g_p = train()
+    out = {"prefill": logits_close(torch, "M3 prefill (mesh vs none)",
+                                   lp_m, lp),
+           "decode": logits_close(torch, "M3 decode (mesh vs none)",
+                                  ld_m, ld)}
+    check(abs(loss_m - loss) <= 1e-2 * abs(loss),
+          f"M3: LoRA loss {loss_m} under the mesh, {loss} without")
+    names = train_lib.tree_lib.paths(adapter)
+    out["grad_worst"] = grads_close(
+        "M3 adapter gradients of the cross-entropy (mesh vs none)", g_m,
+        g_p, names)
+    print(f"  M3 dbrx-132b: {cfg.n_layers}/{full.n_layers} layers, moe_ep "
+          f"over a 1 x 1 mesh; loss {loss_m:.6f} vs {loss:.6f}; launches "
+          f"under the mesh {launches}", flush=True)
+    out.update(loss_mesh=loss_m, loss=loss, launches=launches,
+               layers=cfg.n_layers)
+    return out
+
+
+M4_SCRIPT = r"""
+import json, sys, time
+from repro_torch.launch.dryrun import run_combo
+for arch, shape, opts in json.loads(sys.argv[1]):
+    t0 = time.time()
+    r = run_combo(arch, shape, opts=tuple(opts))
+    r["wall_s"] = time.time() - t0
+    print("M4=" + json.dumps(r, default=str), flush=True)
+"""
+
+
+def m4_dryrun():
+    """M4: the port's dry run of M4_COMBOS on pod16x16 in a process of its
+    own, within M4_TIMEOUT: every record ok; its peak bytes a chip, fits
+    and dominant roofline term printed."""
+    t0 = time.perf_counter()
+    out = run_group([sys.executable, "-c", M4_SCRIPT, json.dumps(M4_COMBOS)],
+                    M4_TIMEOUT, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    check(out.returncode == 0, f"M4: the dry run failed: "
+          f"{out.stderr[-3000:]}")
+    recs = [json.loads(x[3:]) for x in out.stdout.splitlines()
+            if x.startswith("M4=")]
+    check(len(recs) == len(M4_COMBOS), "M4: records missing")
+    rows = []
+    for r in recs:
+        check(r["status"] == "ok", f"M4: {r['arch']} {r['shape']} "
+              f"{r['status']}")
+        t = r["roofline"]
+        print(f"  M4 {r['arch']} {r['shape']} {r['mesh']}: bytes_per_chip "
+              f"{r['bytes_per_chip'] / 2 ** 30:.3f} GiB (inputs "
+              f"{r['analytic_input_bytes_per_chip'] / 2 ** 30:.3f} GiB), "
+              f"fits_80g {r['fits_80g']}, dominant {t['dominant']} "
+              f"(compute {t['compute_s']:.4g} s, memory {t['memory_s']:.4g}"
+              f" s, collective {t['collective_s']:.4g} s), "
+              f"{r['wall_s']:.1f} s", flush=True)
+        rows.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "bytes_per_chip", "fits_80g",
+            "analytic_input_bytes_per_chip", "hlo_flops_per_dev",
+            "collective_bytes", "roofline", "model_flops",
+            "useful_flops_ratio", "wall_s")})
+    print(f"  M4: {len(rows)} records in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase_m_child() if sys.argv[1:] == ["--phase-m"] else main())

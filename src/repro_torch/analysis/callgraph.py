@@ -42,10 +42,13 @@ HOST_TORCH = ("torch.cuda.", "torch.backends.", "torch.profiler.",
               "torch.utils.", "torch.is_", "torch.get_", "torch.set_",
               "torch.device", "torch.dtype", "torch.Generator",
               "torch.no_grad", "torch.enable_grad", "torch.promote_types",
-              "torch.finfo", "torch.iinfo", "torch.Size")
+              "torch.finfo", "torch.iinfo", "torch.Size",
+              "torch.distributed.device_mesh.", "torch.distributed.get_",
+              "torch.distributed.is_")
 # attributes and methods of a tensor that are host values (no sync)
 STATIC_ATTRS = {"shape", "dtype", "device", "is_cuda", "ndim", "nbytes",
-                "requires_grad", "layout", "grad_fn", "itemsize"}
+                "requires_grad", "layout", "grad_fn", "itemsize",
+                "device_mesh", "placements"}
 STATIC_METHODS = {"size", "dim", "numel", "stride", "data_ptr",
                   "element_size", "is_contiguous", "storage_offset",
                   "get_device", "nelement", "ndimension", "is_floating_point",

@@ -23,9 +23,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.bgmv import padded_rank
+from repro_torch.models.param import Box, split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,26 +91,41 @@ def make_adapter_weights(cfg: ModelConfig, spec: AdapterSpec,
 
 # ------------------------------------------------------------- pool ----
 
-def pool_init(cfg: ModelConfig, n_slots: Optional[int] = None,
-              device=None):
-    """Zero device pool: {target: {a: (L, slots, d_in, r_pad),
-    b: (L, slots, r_pad, d_out)}, ranks: (slots,) int32}, r_pad =
-    padded_rank(max_rank). Allocated once: uploads write into it."""
+def pool_abstract(cfg: ModelConfig, n_slots: Optional[int] = None):
+    """The device pool's `Box` tree on the meta device (shapes and logical
+    axes, no allocation): {target: {a: (L, slots, d_in, r_pad), b: (L,
+    slots, r_pad, d_out)}, ranks: (slots,) int32}, r_pad =
+    padded_rank(max_rank) where the reference's rank axis is max_rank."""
     r_max, slots = padded_rank(cfg.lora.max_rank), \
         n_slots or cfg.lora.n_slots
     L = cfg.n_layers + cfg.n_enc_layers
-    dt = cfg.torch_dtype
+
+    def meta(shape, dtype=cfg.torch_dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
     pool = {}
     for tgt in cfg.lora.targets:
         d_in, d_out = lora_target_dims(cfg, tgt)
         pool[tgt] = {
-            "a": torch.zeros((L, slots, d_in, r_max), dtype=dt,
-                             device=device),
-            "b": torch.zeros((L, slots, r_max, d_out), dtype=dt,
-                             device=device),
+            "a": Box(meta((L, slots, d_in, r_max)),
+                     ("layers", "slots", "lora_in", "lora_rank")),
+            "b": Box(meta((L, slots, r_max, d_out)),
+                     ("layers", "slots", "lora_rank", "qkv")),
         }
-    pool["ranks"] = torch.zeros((slots,), dtype=torch.int32, device=device)
+    pool["ranks"] = Box(meta((slots,), torch.int32), ("slots",))
     return pool
+
+
+def pool_init(cfg: ModelConfig, n_slots: Optional[int] = None,
+              device=None):
+    """Zero device pool of `pool_abstract`'s shapes. Allocated once:
+    uploads write into it."""
+    def zeros(t):
+        if isinstance(t, dict):
+            return {k: zeros(v) for k, v in t.items()}
+        return torch.zeros(t.shape, dtype=t.dtype, device=device)
+
+    return zeros(split(pool_abstract(cfg, n_slots))[0])
 
 
 def pool_insert(pool, cfg, weights, slot: int, rank: int):
@@ -170,6 +187,8 @@ def lora_apply(x, lora_layer, target, lora_idx, ranks, mode="bgmv",
     if lora_layer is None or target not in lora_layer:
         return None
     ab = lora_layer[target]
+    if shd.is_dtensor(x):
+        return _lora_apply_dist(x, ab, lora_idx, ranks, mode, rank_block)
     B, T, d_in = x.shape
     if T > 1:
         lora_idx = lora_idx.repeat_interleave(T)
@@ -178,6 +197,29 @@ def lora_apply(x, lora_layer, target, lora_idx, ranks, mode="bgmv",
                            lora_idx, ranks=ranks, mode=mode,
                            rank_block=rank_block, live=live)
     return delta.reshape(B, T, -1)
+
+
+def _lora_apply_dist(x, ab, lora_idx, ranks, mode, rank_block):
+    """The kernels' custom ops on each rank's rows: A's d_in and B's d_out
+    cut over "model" as the pool is (`lora_in`, `qkv`), x's columns cut
+    with A's rows, the shrink's partial sums added across that cut."""
+    mesh = shd.current_mesh()
+
+    def local(placed, x, a, b, idx, ranks):
+        B, T, d_in = x.shape
+        idx = idx.repeat_interleave(T)
+        live = ops.lora_live(idx, ranks, mode, a.shape[-1], rank_block)
+        y = ops.lora_shrink_op(x.reshape(B * T, d_in), a, idx, live)
+        if placed.get("lora_in"):
+            y = shd.sum_over(y, shd.group_of(mesh, placed["lora_in"]))
+        return ops.lora_expand_op(y.to(x.dtype), b, idx, live).reshape(
+            B, T, -1)
+
+    return shd.local_call(
+        local, (x, ab["a"], ab["b"], lora_idx, ranks),
+        (("batch", None, "lora_in"), ("slots", "lora_in", "lora_rank"),
+         ("slots", "lora_rank", "qkv"), ("batch",), ("slots",)),
+        ("batch", None, "qkv"))
 
 
 # --------------------------------------------------------- host store ----

@@ -22,7 +22,8 @@ from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core.lora import pad_adapter, trim_adapter
 from repro_torch.data.pipeline import DataConfig, packed_batches
 from repro_torch.device import resolve_device
-from repro_torch.models.weights import init_params
+from repro_torch.models.weights import (init_params, stack_layers,
+                                        unstack_layers)
 from repro_torch.training import checkpoint, optim, train as train_lib
 from repro_torch.training import tree as tree_lib
 
@@ -61,25 +62,28 @@ class Trainer:
 
     def checkpoint_tree(self):
         """What a checkpoint holds: the trained tree and the optimizer
-        state, an adapter's (and its moments') rank axis trimmed to
-        max_rank, as the reference writes it (`core.lora.trim_adapter`;
-        `load_checkpoint` pads it back)."""
-        return self._map_adapter(trim_adapter, {"model": self.trained(),
-                                                "opt": self.state})
+        state in the reference's layout, as it writes them: an adapter's
+        (and its moments') rank axis trimmed to max_rank
+        (`core.lora.trim_adapter`), a full fine-tune's uniform stack (and
+        its moments) stacked on a leading layer axis
+        (`models.weights.stack_layers`). `load_checkpoint` maps back."""
+        return self._map_layout(trim_adapter, stack_layers,
+                                {"model": self.trained(), "opt": self.state})
 
     def load_checkpoint(self, path: str):
         """(tree, manifest) of a checkpoint that either package wrote, in
         this trainer's layout: loaded (shapes checked) into
-        `checkpoint_tree`'s max_rank-wide structure, then an adapter's rank
-        axis padded (`core.lora.pad_adapter`)."""
+        `checkpoint_tree`'s structure, then an adapter's rank axis padded
+        (`core.lora.pad_adapter`) or a uniform stack's layers listed
+        (`models.weights.unstack_layers`)."""
         tree, manifest = checkpoint.load(path, self.checkpoint_tree())
-        return self._map_adapter(pad_adapter, tree), manifest
+        return self._map_layout(pad_adapter, unstack_layers, tree), manifest
 
-    def _map_adapter(self, fn, tree):
-        """`fn(cfg, .)` on the adapter and its moments of a {"model",
-        "opt"} tree; a full fine-tune's tree as it is."""
-        if self.adapter is None:
-            return tree
+    def _map_layout(self, on_adapter, on_params, tree):
+        """`on_adapter(cfg, .)` (or, for a full fine-tune,
+        `on_params(cfg, .)`) on the trained tree and its moments of a
+        {"model", "opt"} tree."""
+        fn = on_adapter if self.adapter is not None else on_params
         st = tree["opt"]
         return {"model": fn(self.cfg, tree["model"]),
                 "opt": optim.AdamWState(st.step, fn(self.cfg, st.mu),

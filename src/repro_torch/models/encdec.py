@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.layers import (cache_init, cache_write_prefill,
-                                       mlp_apply)
+from repro_torch.models.layers import (cache_init_like, cache_write_prefill,
+                                       embed_lookup, mlp_apply)
 from repro_torch.models.param import Dense, Norm, _param, norm_apply
 from repro_torch.models.transformer import (MLP, Attention, _lora_live,
                                             _lora_slice, _proj, attn_apply)
@@ -106,7 +106,7 @@ def prefill(cfg, params: EncDec, tokens, enc_embeds, *, lora=None,
     when `cache_slots` is given, self a kv-cache of cache_slots slots."""
     enc_out = encode(cfg, params, enc_embeds)
     B, L = tokens.shape
-    x = params.embed[tokens.long()].to(cfg.torch_dtype)
+    x = embed_lookup(params.embed, tokens).to(cfg.torch_dtype)
     idxs = torch.clamp(torch.arange(L, device=x.device), max=cfg.max_ctx - 1)
     x = x + params.dec_pos[idxs][None]
     positions = torch.arange(L, dtype=torch.int32,
@@ -115,8 +115,8 @@ def prefill(cfg, params: EncDec, tokens, enc_embeds, *, lora=None,
     caches = []
     for i, p_l in enumerate(params.dec_blocks):
         ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
-        c0 = {"self": cache_init(B, cfg.n_kv_heads, cache_slots, cfg.hd,
-                                 cfg.torch_dtype, device=x.device),
+        c0 = {"self": cache_init_like(x, B, cfg.n_kv_heads, cache_slots,
+                                      cfg.hd, cfg.torch_dtype),
               "cross": None} if cache_slots else None
         x, c = _dec_block(cfg, p_l, x, positions, enc_out, lora_layer=ll,
                           lora_idx=lora_idx, lora_ranks=lora_ranks,
@@ -132,9 +132,9 @@ def prefill(cfg, params: EncDec, tokens, enc_embeds, *, lora=None,
 def decode_step(cfg, params: EncDec, cache, tokens_t, pos, *, lora=None):
     """tokens_t: (B, 1); pos: (B,). The self caches are written in place.
     Returns (logits, cache)."""
-    x = params.embed[tokens_t.long()].to(cfg.torch_dtype)
+    x = embed_lookup(params.embed, tokens_t).to(cfg.torch_dtype)
     pidx = torch.clamp(pos.long(), max=cfg.max_ctx - 1)
-    x = x + params.dec_pos[pidx][:, None]
+    x = x + embed_lookup(params.dec_pos, pidx, ("seq", "embed"))[:, None]
     live = _lora_live(cfg, lora)
     for i, (p_l, c_l) in enumerate(zip(params.dec_blocks, cache)):
         ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)

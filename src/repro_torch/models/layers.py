@@ -15,16 +15,47 @@ Conventions:
   out of bounds lands there instead, so no row's pages are touched and no
   host sync is needed to filter the rows.
   RoPE is applied at write time, so cached k never needs re-rotation.
+
+Given DTensors (the dry run), attention and the cache writes run as
+regions on each rank's shards (`sharding.local_call`): the batch over the
+data axes; query and key heads over "model" when both counts divide it,
+else the cache's slots, with the softmax combined across those ranks.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models.param import dense_apply
 
 NEG_INF = -1e30
+
+
+# ----------------------------------------------------------- embedding ----
+
+def embed_lookup(table, ids, table_axes=("vocab", "embed")):
+    """table[ids]: the rows of an embedding table. Given DTensors, each
+    rank looks its rows up in its slice of a table cut over its first dim
+    (`table_axes`) and the slices' rows are summed across the cut."""
+    if not shd.is_dtensor(table):
+        return table[ids.long()]
+    mesh = shd.current_mesh()
+
+    def local(placed, table, ids):
+        cut = placed.get(table_axes[0])
+        if not cut:
+            return table[ids.long()]
+        n = table.shape[0]
+        rel = ids.long() - n * shd.coordinate(mesh, cut)
+        hit = (rel >= 0) & (rel < n)
+        rows = table[rel.clamp(0, n - 1)] * hit[..., None].to(table.dtype)
+        return shd.sum_over(rows, shd.group_of(mesh, cut))
+
+    ids_axes = ("batch",) + (None,) * (ids.dim() - 1)
+    return shd.local_call(local, (table, ids), (table_axes, ids_axes),
+                          ids_axes + (table_axes[1],))
 
 
 # ---------------------------------------------------------------- RoPE ----
@@ -133,6 +164,8 @@ def attn_prefill(q, k, v, *, causal=True, window=None, block=512,
     output whose transpose is contiguous (B, L, H, hd); on the CPU, direct
     attention up to `direct_threshold` keys and chunked beyond, as in the
     reference's `attn_prefill`."""
+    if shd.is_dtensor(q):
+        return _attn_prefill_dist(q, k, v, causal, window)
     if q.is_cuda:
         out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window)
@@ -148,9 +181,63 @@ def attn_prefill(q, k, v, *, causal=True, window=None, block=512,
     return attn_chunked(q, k, v, causal=causal, window=window, block=block)
 
 
+def _attn_prefill_dist(q, k, v, causal, window):
+    """The flash kernel's custom op on each rank's batch rows and heads."""
+    def local(placed, q, k, v):
+        return ops.attention_op(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal,
+                                window).transpose(1, 2)
+
+    ax = ("batch", None, "kv_heads", None)
+    return shd.local_call(local, (q, k, v), (ax, ax, ax), ax)
+
+
 def attn_decode(q, cache_k, cache_v, cache_pos, pos, window=None):
     """One-token attention over a dense cache. q: (B,1,H,hd); cache_k/v:
     (B,KV,S,hd); cache_pos: (B,S) abs positions (-1 empty); pos: (B,)."""
+    if shd.is_dtensor(q):
+        return _attn_decode_dist(q, cache_k, cache_v, cache_pos, pos, window)
+    return _attn_decode(q, cache_k, cache_v, cache_pos, pos, window)
+
+
+# the logical axes of one layer's dense KV cache (`model.cache_logical_axes`
+# puts a stack's "layers" axis before them)
+CACHE_AXES = {"k": ("batch", "kv_heads", "cache_seq", None),
+              "v": ("batch", "kv_heads", "cache_seq", None),
+              "pos": ("batch", "cache_seq"),
+              "k_scale": ("batch", "kv_heads", "cache_seq"),
+              "v_scale": ("batch", "kv_heads", "cache_seq")}
+TOKEN_KV = ("batch", None, "kv_heads", None)
+
+
+def _attn_decode_dist(q, ck, cv, cpos, pos, window):
+    """`attn_decode` on each rank's rows: over its heads, or, when the
+    cache's slots are cut over some mesh axes, over its slots, the softmax
+    combined across them (its max, its sum and the weighted values)."""
+    mesh = shd.current_mesh()
+
+    def local(placed, q, ck, cv, cpos, pos):
+        seq = placed.get("cache_seq")
+        if not seq:
+            return _attn_decode(q, ck, cv, cpos, pos, window)
+        group = shd.group_of(mesh, seq)
+        s, valid = _decode_scores(q, ck, cpos, pos, window)
+        m = shd.max_over(s.amax(-1, keepdim=True), group)
+        p = torch.where(valid[:, None, None], torch.exp(s - m), 0.0)
+        den = shd.sum_over(p.sum(-1, keepdim=True), group)
+        out = shd.sum_over(torch.einsum("bkgs,bksh->bkgh",
+                                        p.to(cv.dtype), cv).float(), group)
+        b, _, h, hd = q.shape
+        return (out / den.clamp(min=1e-30)).to(cv.dtype).reshape(b, 1, h,
+                                                                  hd)
+
+    return shd.local_call(local, (q, ck, cv, cpos, pos),
+                          (TOKEN_KV, CACHE_AXES["k"], CACHE_AXES["v"],
+                           CACHE_AXES["pos"], ("batch",)), TOKEN_KV)
+
+
+def _decode_scores(q, cache_k, cache_pos, pos, window):
+    """(B, KV, G, S) f32 scores and the (B, S) valid slots."""
     b, _, h, hd = q.shape
     kv = cache_k.shape[1]
     qg = q.reshape(b, kv, h // kv, hd)
@@ -158,6 +245,12 @@ def attn_decode(q, cache_k, cache_v, cache_pos, pos, window=None):
     valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])           # (B,S)
     if window is not None:
         valid &= (pos[:, None] - cache_pos) < window
+    return s, valid
+
+
+def _attn_decode(q, cache_k, cache_v, cache_pos, pos, window=None):
+    b, _, h, hd = q.shape
+    s, valid = _decode_scores(q, cache_k, cache_pos, pos, window)
     s = torch.where(valid[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(cache_v.dtype)
     out = torch.einsum("bkgs,bksh->bkgh", p, cache_v)
@@ -206,6 +299,8 @@ def cache_write_prefill(cache, k, v, positions):
     layer's cache, in place. L <= S: slots [0, L), the rest untouched.
     L > S: the last S tokens, rolled by L % S so that slot(p) = p % S and
     later decode writes evict the oldest token."""
+    if shd.is_dtensor(k):
+        return _cache_write_prefill_dist(cache, k, v, positions)
     slots = cache["k"].shape[2]
     L = k.shape[1]
     kT, vT = k.transpose(1, 2), v.transpose(1, 2)          # (B, KV, L, hd)
@@ -223,12 +318,82 @@ def cache_write_prefill(cache, k, v, positions):
     return cache
 
 
+def _cache_axes(cache):
+    return {n: CACHE_AXES[n] for n in cache}
+
+
+def _cache_write_prefill_dist(cache, k, v, positions):
+    """Each rank writes its rows and heads; a prompt as long as the cache
+    also its slots when they are cut, any other prompt its rows with their
+    slots whole. A leaf cut otherwise than the region cuts it (`pos` has
+    no heads to cut, so its slots may be) takes the written values back
+    (`sharding.write_back`)."""
+    def local(placed, cache, k, v, positions):
+        return cache_write_prefill(cache, k, v, positions)
+
+    axes = _cache_axes(cache)
+    if k.shape[1] == cache["k"].shape[2]:
+        kv = ("batch", "cache_seq", "kv_heads", None)
+        in_axes = (axes, kv, kv, ("batch", "cache_seq"))
+    else:
+        axes = {n: tuple(None if a == "cache_seq" else a for a in ax)
+                for n, ax in axes.items()}
+        in_axes = (axes, TOKEN_KV, TOKEN_KV, ("batch", None))
+    shd.write_back(cache, shd.local_call(local, (cache, k, v, positions),
+                                         in_axes, axes))
+    return cache
+
+
+def cache_init_like(x, batch, kv_heads, slots, hd, dtype, quantized=False,
+                    *, layers=None):
+    """`cache_init` on x's device; for a DTensor x, laid out by the cache's
+    logical axes on its mesh (each rank allocating its shard)."""
+    if not shd.is_dtensor(x):
+        return cache_init(batch, kv_heads, slots, hd, dtype, quantized,
+                          layers=layers, device=x.device)
+    meta = cache_init(batch, kv_heads, slots, hd, dtype, quantized,
+                      layers=layers, device="meta")
+    lead = () if layers is None else ("layers",)
+    c = shd.distribute_empty(meta, {n: lead + CACHE_AXES[n] for n in meta},
+                             x.device_mesh)
+    for n, t in c.items():
+        t.fill_(-1 if n == "pos" else 0)
+    return c
+
+
+def _cache_write_token_dist(cache, k_t, v_t, pos, write_mask, slot):
+    """Each rank writes its rows and heads; when the cache's slots are
+    cut, only the rank holding a row's slot writes it."""
+    mesh = shd.current_mesh()
+    slot = pos.long() % cache["k"].shape[2] if slot is None else slot
+    mask = torch.ones_like(pos, dtype=torch.bool) if write_mask is None \
+        else write_mask
+
+    def local(placed, cache, k_t, v_t, pos, mask, slot):
+        seq = placed.get("cache_seq")
+        if seq:
+            n = cache["k"].shape[2]
+            mask = mask & (slot // n == shd.coordinate(mesh, seq))
+            slot = slot % n
+        return cache_write_token(cache, k_t, v_t, pos, write_mask=mask,
+                                 slot=slot)
+
+    b, axes = ("batch",), _cache_axes(cache)
+    shd.write_back(cache, shd.local_call(
+        local, (cache, k_t, v_t, pos, mask, slot),
+        (axes, TOKEN_KV, TOKEN_KV, b, b, b), axes))
+    return cache
+
+
 def cache_write_token(cache, k_t, v_t, pos, write_mask=None, slot=None):
     """Write one token at ring slot pos % S, in place. k_t/v_t:
     (B, 1, KV, hd); pos: (B,). Rows with write_mask False get their slot's
     old contents written back, so every leaf stays bitwise untouched for
     them (the reference drops their write by indexing out of bounds).
     `slot`: a precomputed pos % S, shared by the step's layers."""
+    if shd.is_dtensor(k_t):
+        return _cache_write_token_dist(cache, k_t, v_t, pos, write_mask,
+                                       slot)
     if slot is None:
         slot = pos.long() % cache["k"].shape[2]
     rows = torch.arange(k_t.shape[0], device=k_t.device)

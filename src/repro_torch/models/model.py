@@ -6,6 +6,9 @@ encoder-decoder models. Mirrors `repro.models.model`.
   decode(cfg, params, cache, ...)  -> (logits, cache)
   loss(cfg, params, batch, ...)    -> (scalar, {"ce": ...})
   cache_abstract(cfg, batch, ...)  -> meta-device stand-ins of the cache
+  abstract_params(cfg)             -> meta parameters + logical axes
+  input_specs(cfg, shape)          -> meta stand-ins of a shape's inputs
+  cache_logical_axes / batch_logical_axes -> their logical axes
 
 The decoder-only families decode over the dense per-row cache (bf16/f32
 or int8 KV) or the paged pool, with full or sliding-window attention;
@@ -19,9 +22,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import sharding as shd
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import encdec, layers, rglru, ssm as ssm_mod, \
     transformer
+from repro_torch.models.param import split
 
 
 def supports_last_pos(cfg: ModelConfig) -> bool:
@@ -128,17 +133,65 @@ def loss(cfg, params, batch, *, lora=None, aux_weight=0.01):
     else:
         logits, _ = prefill(cfg, params, batch, lora=lora)
         aux = 0.0
-    if cfg.family == "vlm" and cfg.n_prefix_tokens:
-        logits = logits[:, cfg.n_prefix_tokens:]
-    targets = batch["tokens"][:, 1:].long()
-    lg = logits[:, :-1].float()
-    shifted = lg - lg.amax(-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(shifted).sum(-1))
-    nll = lse - shifted.gather(-1, targets[..., None])[..., 0]
-    mask = batch.get("loss_mask")
-    mask = mask[:, 1:].float() if mask is not None else torch.ones_like(nll)
-    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    skip = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    ce = _cross_entropy(logits, batch["tokens"], batch.get("loss_mask"),
+                        skip)
     return ce + aux_weight * aux, {"ce": ce}
+
+
+def _cross_entropy(logits, tokens, mask, skip):
+    """The masked mean of -log p(token t+1) over the logits after `skip`
+    positions. Given DTensors, each rank takes its rows and its slice of
+    the vocab, the vocab's max, exp-sum and label logit are combined
+    across the ranks that hold the slices, and the masked sums across the
+    rows' ranks."""
+    if not shd.is_dtensor(logits):
+        return _ce(logits, tokens, mask, skip)
+    mesh = shd.current_mesh()
+
+    def local(placed, logits, tokens, mask):
+        cut, rows = placed.get("vocab"), placed.get("batch")
+        vocab = None if not cut else (shd.group_of(mesh, cut),
+                                      logits.shape[-1]
+                                      * shd.coordinate(mesh, cut))
+        return _ce(logits, tokens, mask, skip, vocab,
+                   shd.group_of(mesh, rows) if rows else None)
+
+    mask = torch.ones_like(tokens) if mask is None else mask
+    return shd.local_call(local, (logits, tokens, mask),
+                          (("batch", None, "vocab"), ("batch", None),
+                           ("batch", None)), ())
+
+
+def _ce(logits, tokens, mask, skip, vocab=None, rows=None):
+    """`_cross_entropy` on one rank: `vocab` (group, offset of this
+    rank's slice) when the vocab is cut, `rows` the group the rows are cut
+    over. The log-sum-exp runs in f32 with the row max taken out (no
+    gradient through it); the label's logit is gathered, which equals the
+    reference's one-hot contraction."""
+    lg = logits[:, skip:][:, :-1].float()
+    targets = tokens[:, 1:].long()
+    top = lg.amax(-1, keepdim=True).detach()
+    if vocab is not None:
+        top = shd.max_over(top, vocab[0])
+    shifted = lg - top
+    sums = torch.exp(shifted).sum(-1)
+    if vocab is None:
+        label = shifted.gather(-1, targets[..., None])[..., 0]
+    else:
+        n = lg.shape[-1]
+        rel = targets - vocab[1]
+        hit = (rel >= 0) & (rel < n)
+        label = torch.where(hit, shifted.gather(
+            -1, rel.clamp(0, n - 1)[..., None])[..., 0], 0.0)
+        sums = shd.sum_over(sums, vocab[0])
+        label = shd.sum_over(label, vocab[0])
+    nll = torch.log(sums) - label
+    mask = mask[:, 1:].float() if mask is not None else torch.ones_like(nll)
+    num, den = (nll * mask).sum(), mask.sum()
+    if rows is not None:
+        num, den = shd.sum_over(num, rows), shd.sum_over(den, rows)
+    return num / torch.clamp(den, min=1.0)
 
 
 def decode(cfg, params, cache, tokens_t, pos, *, lora=None, window=None,
@@ -172,7 +225,7 @@ def _ssm_decode(cfg, params, cache, tokens_t, pos, *, lora=None,
     live = transformer._lora_live(cfg, lora)
     for i, p_l in enumerate(params.blocks):
         ll, idx, ranks, mode = transformer._lora_slice(lora, i)
-        c_l = {n: t[i] for n, t in cache.items()}
+        c_l = {n: shd.take_layer(t, i) for n, t in cache.items()}
         x, c = ssm_mod.ssm_block_step(cfg, p_l, x, c_l, lora_layer=ll,
                                       lora_idx=idx, lora_ranks=ranks,
                                       lora_mode=mode, lora_live=live)
@@ -226,3 +279,73 @@ def cache_abstract(cfg: ModelConfig, batch: int, seq_len: int):
                  "cross": kv(cfg.enc_seq, allow_quant=False)}
                 for _ in range(cfg.n_layers)]
     return kv(decode_cache_slots(cfg, seq_len), layers=cfg.n_layers)
+
+
+# ------------------------------------------------- logical axes, dry run ----
+
+def abstract_params(cfg: ModelConfig):
+    """(meta-device value tree, logical axes tree) of the parameters
+    without allocation, keyed as `models.weights.params_from_jax` keys
+    the reference's tree. Two layouts differ from the reference's: a
+    uniform stack's layers are a list, each leaf without the reference's
+    leading "layers" axis; the rest is leaf for leaf (the MoE's EP-native
+    layout under `cfg.moe_ep` included)."""
+    from repro_torch.models.weights import init_tree
+    transformer._check_family(cfg)
+    return split(init_tree(cfg, 0, torch.device("meta")))
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Meta-device stand-ins for every model input of a dry-run shape:
+    {"batch": {tokens (B, L) int32, [loss_mask], [enc_embeds],
+    [prefix_embeds]}} for train / prefill, {"tokens_t" (B, 1), "pos" (B,),
+    "cache"} for decode (one new token against a seq_len-deep cache)."""
+    B, L = shape.global_batch, shape.seq_len
+
+    def sd(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": sd((B, L))}
+        if shape.kind == "train":
+            batch["loss_mask"] = sd((B, L))
+        if cfg.family in ("audio", "encdec"):
+            batch["enc_embeds"] = sd((B, cfg.enc_seq, cfg.d_model),
+                                     cfg.torch_dtype)
+        if cfg.family == "vlm" and cfg.n_prefix_tokens:
+            batch["prefix_embeds"] = sd((B, cfg.n_prefix_tokens,
+                                         cfg.d_model), cfg.torch_dtype)
+        return {"batch": batch}
+    return {"tokens_t": sd((B, 1)), "pos": sd((B,)),
+            "cache": cache_abstract(cfg, B, L)}
+
+
+def cache_logical_axes(cfg: ModelConfig, cache_tree):
+    """Logical axes of every cache leaf, by its name and rank."""
+    def axes_of(name, nd):
+        if name in layers.CACHE_AXES:              # a KV cache's leaves
+            base = layers.CACHE_AXES[name]
+            return ("layers",) * (nd - len(base)) + base
+        if name == "state":
+            return ("layers",) * (nd - 4) + ("batch", "heads", None, None)
+        if name == "conv":
+            return ("layers",) * (nd - 3) + ("batch", None, "mlp")
+        if name == "h":
+            return ("batch", "mlp")
+        return ("batch",) + (None,) * (nd - 1)
+
+    def walk(t, name=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v, name) for v in t]
+        return axes_of(name, t.dim())
+
+    return walk(cache_tree)
+
+
+def batch_logical_axes(batch_tree):
+    """Batch inputs: dim 0 over ("pod", "data")."""
+    if isinstance(batch_tree, dict):
+        return {k: batch_logical_axes(v) for k, v in batch_tree.items()}
+    return ("batch",) + (None,) * (batch_tree.dim() - 1)

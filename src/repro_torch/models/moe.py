@@ -12,17 +12,21 @@ slot in its expert is the count of earlier (token, k) assignments to that
 expert; those at or past the capacity are dropped.
 
 `moe_2d_ff` and `moe_gather_weights` only change the reference's sharding
-or layout, so they compute this same function; `moe_ep` is multi-device
-expert parallelism, not ported.
+or layout, so they compute this same function; `moe_ep` under a mesh with
+a data axis is `models.moe_ep.moe_apply_ep` (`transformer.block_apply`
+chooses), and without one this function over the EP-native weights,
+which are this layout when each expert is one f-slice.
 """
 from __future__ import annotations
 
 import contextlib
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.models.layers import gate_act
 from repro_torch.models.param import Dense
 
@@ -69,11 +73,37 @@ def moe_apply(cfg, p: MoE, x, need_aux=True):
     """x (B, T, d) -> (y (B, T, d), aux): aux is the Switch-style
     load-balance loss of the training loss, or None without `need_aux`
     (serving computes none). The router's product runs in x's dtype, its
-    softmax and gates in f32."""
-    if cfg.moe_ep:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_ep (expert parallelism over devices) is not "
-            "ported to repro_torch yet (ROADMAP.md queue 1, multi-device)")
+    softmax and gates in f32. Given DTensors, see `_moe_apply_dist`."""
+    if shd.is_dtensor(x):
+        return _moe_apply_dist(cfg, p, x, need_aux)
+    return _moe_apply(cfg, p, x, need_aux)
+
+
+def _moe_apply_dist(cfg, p: MoE, x, need_aux):
+    """Each rank routes its rows with every expert whole: a prefill's
+    groups (its sequences) are the rank's own; a decode step's one group
+    of all rows is formed on every rank. The aux loss is averaged over
+    the data axes. (Expert parallelism is `moe_ep`.)"""
+    mesh = shd.current_mesh()
+    x_axes = ("batch", None, None) if x.shape[1] > 1 else (None, None, None)
+    w = [p.router.w, p.w1.w, p.w2.w, p.w3.w]
+
+    def local(placed, x, *w):
+        r, w1, w2, w3 = (SimpleNamespace(w=t) for t in w)
+        y, aux = _moe_apply(cfg, SimpleNamespace(router=r, w1=w1, w2=w2,
+                                                 w3=w3), x, need_aux)
+        rows = placed.get("batch")
+        if aux is not None and rows:
+            aux = shd.sum_over(aux, shd.group_of(mesh, rows),
+                               1.0 / shd.shard_count((rows,), mesh))
+        return y, aux
+
+    return shd.local_call(local, (x, *w),
+                          (x_axes, *((None,) * t.dim() for t in w)),
+                          (x_axes, () if need_aux else None))
+
+
+def _moe_apply(cfg, p: MoE, x, need_aux=True):
     B, T, d = x.shape
     E, k = cfg.moe.n_experts, cfg.moe.top_k
     G, S = (B, T) if T > 1 else (1, B * T)

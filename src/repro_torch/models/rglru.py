@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.models.layers import gelu
 from repro_torch.models.param import Dense, Norm, _param, dense_apply, \
     norm_apply
@@ -36,14 +37,16 @@ class RGLRUBlock(nn.Module):
             w_out
 
 
-def _gates(p: RGLRUBlock, u):
-    """u: (..., w) conv output -> (a, b) of h_t = a*h_{t-1} + b, f32."""
-    r = torch.sigmoid(dense_apply(p.w_a, u).float())
-    i = torch.sigmoid(dense_apply(p.w_i, u).float())
-    log_a = -_C * F.softplus(p.lam) * r
+def _gates(u, w_a, b_a, w_i, b_i, lam, own=slice(None)):
+    """u: (..., w) conv output -> (a, b) of h_t = a*h_{t-1} + b, f32, for
+    the channels `own` (w_a / w_i's columns, b_a, b_i and lam are given
+    for those)."""
+    r = torch.sigmoid((u @ w_a + b_a).float())
+    i = torch.sigmoid((u @ w_i + b_i).float())
+    log_a = -_C * F.softplus(lam) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
-        * i * u.float()
+        * i * u[..., own].float()
     return a, b
 
 
@@ -80,13 +83,56 @@ def rglru_block_apply(cfg, p: RGLRUBlock, x):
     xn = norm_apply(p.norm, x, cfg.norm)
     gate = gelu(dense_apply(p.w_gate, xn))
     ux_pre = dense_apply(p.w_x, xn)
-    u = F.silu(causal_conv(ux_pre, p.conv_w, p.conv_b))
-    a, b = _gates(p, u)
-    h = linear_scan(a, b)
-    y = dense_apply(p.w_out, (gate.float() * h).to(x.dtype))
-    cache = {"h": h[:, -1].to(cfg.torch_dtype),
-             "conv": conv_tail(ux_pre, p.conv_w.shape[0])}
-    return x + y, cache
+    gh, h_last, tail = _region(_recur, cfg, p, (gate, ux_pre),
+                               (CUT3, ROWS3), (CUT3, CUT2, ROWS3))
+    return x + dense_apply(p.w_out, gh), {"h": h_last, "conv": tail}
+
+
+CUT3, CUT2, ROWS3 = ("batch", None, "mlp"), ("batch", "mlp"), \
+    ("batch", None, None)
+
+
+def _weights(p: RGLRUBlock):
+    return (p.conv_w, p.conv_b, p.w_a.w, p.w_a.b, p.w_i.w, p.w_i.b, p.lam)
+
+
+W_AXES = ((None, None), (None,), (None, "mlp"), ("mlp",), (None, "mlp"),
+          ("mlp",), ("mlp",))
+
+
+def _region(fn, cfg, p: RGLRUBlock, acts, act_axes, out_axes):
+    """fn(cfg, *acts, *weights, own) -> (gate * h, h, conv state). Given
+    DTensors, each rank runs it on its rows and its slice of the
+    recurrence's channels (over "model" where w divides), the conv's
+    input whole: the gates' products need every channel of u
+    (`sharding.local_call`)."""
+    w = _weights(p)
+    if not shd.is_dtensor(acts[0]):
+        return fn(cfg, *acts, *w)
+    mesh = shd.current_mesh()
+
+    def local(placed, *a):
+        cut = placed.get("mlp")
+        if not cut:
+            return fn(cfg, *a)
+        n, c = a[-1].shape[0], shd.coordinate(mesh, cut)   # lam's channels
+        group = shd.group_of(mesh, cut)
+        return fn(cfg, *a, own=slice(c * n, (c + 1) * n),
+                  enter=lambda u: shd.enter_sliced(u, group))
+
+    return shd.local_call(local, (*acts, *w), act_axes + W_AXES, out_axes)
+
+
+def _recur(cfg, gate, ux_pre, conv_w, conv_b, w_a, b_a, w_i, b_i, lam,
+           own=slice(None), enter=None):
+    """The conv, gates and scan of a full sequence, for the channels
+    `own` of the gates and the state (the conv over all). `enter`: u as
+    it enters the channel-cut part (its gradient summed over the cut)."""
+    u = F.silu(causal_conv(ux_pre, conv_w, conv_b))
+    u = u if enter is None else enter(u)
+    h = linear_scan(*_gates(u, w_a, b_a, w_i, b_i, lam, own))
+    return ((gate.float() * h).to(gate.dtype), h[:, -1].to(cfg.torch_dtype),
+            conv_tail(ux_pre, conv_w.shape[0]))
 
 
 def rglru_block_step(cfg, p: RGLRUBlock, x_t, cache):
@@ -95,15 +141,25 @@ def rglru_block_step(cfg, p: RGLRUBlock, x_t, cache):
     xn = norm_apply(p.norm, x_t, cfg.norm)
     gate = gelu(dense_apply(p.w_gate, xn))               # (B, 1, w)
     ux_pre = dense_apply(p.w_x, xn)                      # (B, 1, w)
-    conv_in = torch.cat([cache["conv"], ux_pre], dim=1)
-    W = p.conv_w.shape[0]
-    u = F.silu(sum(conv_in[:, i] * p.conv_w[i] for i in range(W))
-               + p.conv_b)                               # (B, w)
-    a, b = _gates(p, u[:, None])                         # (B, 1, w) f32
-    h = a[:, 0] * cache["h"].float() + b[:, 0]
-    y = dense_apply(p.w_out, (gate[:, 0].float() * h).to(x_t.dtype))
-    return x_t + y[:, None], {"h": h.to(cfg.torch_dtype),
-                              "conv": conv_in[:, 1:]}
+    gh, h, conv = _region(_recur_step, cfg, p,
+                          (gate, ux_pre, cache["h"], cache["conv"]),
+                          (CUT3, ROWS3, CUT2, ROWS3), (CUT2, CUT2, ROWS3))
+    return x_t + dense_apply(p.w_out, gh)[:, None], {"h": h, "conv": conv}
+
+
+def _recur_step(cfg, gate, ux_pre, h, conv, conv_w, conv_b, w_a, b_a, w_i,
+                b_i, lam, own=slice(None), enter=None):
+    """One token of the conv, gates and recurrence (the channels `own` of
+    the gates and the state, the conv over all; `enter` as `_recur`)."""
+    conv_in = torch.cat([conv, ux_pre], dim=1)
+    W = conv_w.shape[0]
+    u = F.silu(sum(conv_in[:, i] * conv_w[i] for i in range(W))
+               + conv_b)                                 # (B, w)
+    u = u if enter is None else enter(u)
+    a, b = _gates(u[:, None], w_a, b_a, w_i, b_i, lam, own)  # (B, 1, w) f32
+    h = a[:, 0] * h.float() + b[:, 0]
+    return ((gate[:, 0].float() * h).to(gate.dtype), h.to(cfg.torch_dtype),
+            conv_in[:, 1:])
 
 
 def rglru_cache_init(cfg, batch, device=None):

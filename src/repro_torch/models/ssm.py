@@ -6,10 +6,13 @@ in_proj / out_proj (the paper's q/k/v do not exist here).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.core.lora import lora_apply
 from repro_torch.models.param import Dense, Norm, _param, dense_apply, \
     norm_apply
@@ -131,29 +134,55 @@ def ssm_block_apply(cfg, p: SSMBlock, x, *, lora_layer=None, lora_idx=None,
                     lora_ranks=None, lora_mode="bgmv", lora_live=None):
     """Full-sequence (prefill) pass. x: (B, L, d). Returns (y, cache
     {state (B, H, P, N), conv (B, W - 1, conv_dim)})."""
-    s = cfg.ssm
-    B_, L, _ = x.shape
-    d_in, H, _, _ = ssm_dims(cfg)
-    gn = s.n_groups * s.state_dim
     lora = (lora_idx, lora_ranks, lora_mode, cfg.lora.rank_block, lora_live)
     xn = norm_apply(p.norm, x, cfg.norm)
     zxbcdt = _plus(dense_apply(p.in_proj, xn),
                    lora_apply(xn, lora_layer, "in_proj", *lora))
+    y, S_final, tail = _mixer(cfg, p, zxbcdt)
+    out = _plus(dense_apply(p.out_proj, y),
+                lora_apply(y, lora_layer, "out_proj", *lora))
+    return x + out, {"state": S_final, "conv": tail}
+
+
+def _mixer_weights(p: SSMBlock):
+    return (p.conv_w, p.conv_b, p.a_log, p.dt_bias, p.d_skip,
+            p.gate_norm.scale)
+
+
+def _mixer(cfg, p: SSMBlock, zxbcdt):
+    """The SSD mixer between the projections: (y (B, L, d_in), final state,
+    conv tail). Given DTensors, each rank mixes its rows with the block's
+    weights whole (`sharding.local_call`)."""
+    if not shd.is_dtensor(zxbcdt):
+        return _mix(cfg, zxbcdt, *_mixer_weights(p))
+    w = _mixer_weights(p)
+    return shd.local_call(
+        lambda placed, z, *w: _mix(cfg, z, *w), (zxbcdt, *w),
+        (ROWS3,) + tuple((None,) * t.dim() for t in w),
+        (ROWS3, ("batch", None, None, None), ROWS3))
+
+
+ROWS3 = ("batch", None, None)
+
+
+def _mix(cfg, zxbcdt, conv_w, conv_b, a_log, dt_bias, d_skip, gn_scale):
+    s = cfg.ssm
+    B_, L, _ = zxbcdt.shape
+    d_in, H, _, _ = ssm_dims(cfg)
+    gn = s.n_groups * s.state_dim
     z, xbc_pre, dt = _split_in_proj(cfg, zxbcdt)
-    xbc = F.silu(causal_conv(xbc_pre, p.conv_w, p.conv_b))
+    xbc = F.silu(causal_conv(xbc_pre, conv_w, conv_b))
     xs = xbc[..., :d_in].reshape(B_, L, H, s.head_dim)
     Bm = xbc[..., d_in:d_in + gn].reshape(B_, L, s.n_groups, s.state_dim)
     Cm = xbc[..., d_in + gn:].reshape(B_, L, s.n_groups, s.state_dim)
-    dt_f = F.softplus(dt.float() + p.dt_bias)
-    A = -torch.exp(p.a_log)
-    y, S_final = ssd_chunked(xs, dt_f.to(x.dtype), A, Bm, Cm, p.d_skip,
+    dt_f = F.softplus(dt.float() + dt_bias)
+    A = -torch.exp(a_log)
+    y, S_final = ssd_chunked(xs, dt_f.to(zxbcdt.dtype), A, Bm, Cm, d_skip,
                              s.chunk)
     y = y.reshape(B_, L, d_in)
-    y = norm_apply(p.gate_norm, y * F.silu(z), "rmsnorm")
-    out = _plus(dense_apply(p.out_proj, y),
-                lora_apply(y, lora_layer, "out_proj", *lora))
-    cache = {"state": S_final, "conv": conv_tail(xbc_pre, s.conv_width)}
-    return x + out, cache
+    y = norm_apply(SimpleNamespace(scale=gn_scale, bias=None),
+                   y * F.silu(z), "rmsnorm")
+    return y, S_final, conv_tail(xbc_pre, s.conv_width)
 
 
 def ssm_block_step(cfg, p: SSMBlock, x_t, cache, *, lora_layer=None,
@@ -162,30 +191,47 @@ def ssm_block_step(cfg, p: SSMBlock, x_t, cache, *, lora_layer=None,
     """Decode step. x_t: (B, 1, d); cache: {state (B, H, P, N), conv
     (B, W - 1, conv_dim)}. Returns (y, new cache) with new tensors (the
     caller writes them)."""
-    s = cfg.ssm
-    B_ = x_t.shape[0]
-    d_in, H, _, _ = ssm_dims(cfg)
-    gn = s.n_groups * s.state_dim
     lora = (lora_idx, lora_ranks, lora_mode, cfg.lora.rank_block, lora_live)
     xn = norm_apply(p.norm, x_t, cfg.norm)
     zxbcdt = _plus(dense_apply(p.in_proj, xn),
                    lora_apply(xn, lora_layer, "in_proj", *lora))
+    args = (zxbcdt, cache["conv"], cache["state"], *_mixer_weights(p))
+    if shd.is_dtensor(zxbcdt):
+        y, state, conv = shd.local_call(
+            lambda placed, *a: _mix_step(cfg, *a), args,
+            (ROWS3, ROWS3, ("batch", None, None, None))
+            + tuple((None,) * t.dim() for t in args[3:]),
+            (ROWS3, ("batch", None, None, None), ROWS3))
+    else:
+        y, state, conv = _mix_step(cfg, *args)
+    out = _plus(dense_apply(p.out_proj, y),
+                lora_apply(y, lora_layer, "out_proj", *lora))
+    return x_t + out, {"state": state, "conv": conv}
+
+
+def _mix_step(cfg, zxbcdt, conv_state, state, conv_w, conv_b, a_log,
+              dt_bias, d_skip, gn_scale):
+    """One token of the mixer: (y (B, 1, d_in), new state, new conv
+    state)."""
+    s = cfg.ssm
+    B_ = zxbcdt.shape[0]
+    d_in, H, _, _ = ssm_dims(cfg)
+    gn = s.n_groups * s.state_dim
     z, xbc_pre, dt = _split_in_proj(cfg, zxbcdt)
-    conv_in = torch.cat([cache["conv"], xbc_pre], dim=1)  # (B, W, conv)
-    xbc = sum(conv_in[:, i] * p.conv_w[i] for i in range(s.conv_width))
-    xbc = F.silu(xbc + p.conv_b)                          # (B, conv_dim)
+    conv_in = torch.cat([conv_state, xbc_pre], dim=1)     # (B, W, conv)
+    xbc = sum(conv_in[:, i] * conv_w[i] for i in range(s.conv_width))
+    xbc = F.silu(xbc + conv_b)                            # (B, conv_dim)
     xs = xbc[..., :d_in].reshape(B_, H, s.head_dim)
     Bm = xbc[..., d_in:d_in + gn].reshape(B_, s.n_groups, s.state_dim)
     Cm = xbc[..., d_in + gn:].reshape(B_, s.n_groups, s.state_dim)
-    dt_f = F.softplus(dt[:, 0].float() + p.dt_bias)
-    A = -torch.exp(p.a_log)
-    y_t, state = ssd_step(xs, dt_f.to(x_t.dtype), A, Bm, Cm, p.d_skip,
-                          cache["state"])
+    dt_f = F.softplus(dt[:, 0].float() + dt_bias)
+    A = -torch.exp(a_log)
+    y_t, state = ssd_step(xs, dt_f.to(zxbcdt.dtype), A, Bm, Cm, d_skip,
+                          state)
     y = y_t.reshape(B_, 1, d_in)
-    y = norm_apply(p.gate_norm, y * F.silu(z), "rmsnorm")
-    out = _plus(dense_apply(p.out_proj, y),
-                lora_apply(y, lora_layer, "out_proj", *lora))
-    return x_t + out, {"state": state, "conv": conv_in[:, 1:]}
+    y = norm_apply(SimpleNamespace(scale=gn_scale, bias=None),
+                   y * F.silu(z), "rmsnorm")
+    return y, state, conv_in[:, 1:]
 
 
 def ssm_cache_init(cfg, batch, device=None):

@@ -12,23 +12,29 @@ decode loop indexes a layer's weights without slicing copies.
 """
 from __future__ import annotations
 
+import contextlib
+from types import SimpleNamespace
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.core.lora import lora_apply
 from repro_torch.kernels.bgmv import padded_rank
 from repro_torch.kernels.ops import lora_live
 from repro_torch.models import rglru
 from repro_torch.models.layers import (apply_rope, attn_decode,
-                                       attn_prefill, cache_init,
+                                       attn_prefill, cache_init_like,
                                        cache_kv_for_attn,
                                        cache_write_prefill,
                                        cache_write_token,
-                                       cache_write_token_paged, mlp_apply,
+                                       cache_write_token_paged,
+                                       embed_lookup, mlp_apply,
                                        paged_attn_chunk, paged_attn_decode,
                                        paged_write_index, rope_tables)
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.moe_ep import moe_apply_ep
 from repro_torch.models.param import Dense, Norm, norm_apply
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio", "encdec")
@@ -83,9 +89,31 @@ class Transformer(nn.Module):
 def _proj(p: Dense, x):
     """x (B, L, d) @ w (d, n, h) [+ b (n, h)] -> (B, L, n, h), as one
     matmul."""
+    if shd.is_dtensor(x):
+        return _proj_dist(p, x)
     d, n, h = p.w.shape
     y = (x @ p.w.reshape(d, n * h)).reshape(*x.shape[:-1], n, h)
     return y if p.b is None else y + p.b
+
+
+def _proj_dist(p: Dense, x):
+    """`_proj` on each rank's rows and heads (heads over "model" where
+    their count divides it, never a head cut), the weight's d_model whole:
+    the reference's column-parallel projection, its FSDP gather
+    included."""
+    mesh = shd.current_mesh()
+
+    def local(placed, x, w, b=None):
+        if placed.get("heads"):       # x's gradient: a sum over the heads'
+            x = shd.enter_sliced(x, shd.group_of(mesh, placed["heads"]))
+        return _proj(SimpleNamespace(w=w, b=b), x)
+
+    rows = ("batch",) + (None,) * (x.dim() - 1)
+    w = (p.w,) if p.b is None else (p.w, p.b)
+    return shd.local_call(
+        local, (x, *w),
+        (rows, (None, "heads", None), ("heads", None))[:len(w) + 1],
+        rows[:-1] + ("heads", None))
 
 
 def _lora_heads(xn, lora_layer, tgt, idx, ranks, mode, rank_block, live,
@@ -179,7 +207,10 @@ def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
     """Returns (y, (k, v)) — the layer's rotated K/V for prefill — or,
     with `need_aux`, (y, (k, v), aux): a MoE layer's load-balance loss
     (None for an MLP layer). A MoE layer takes the MLP's place; serving
-    computes no aux."""
+    computes no aux. With `cfg.moe_ep` and a current mesh
+    (`sharding.use_mesh`) that has a "data" axis, the MoE is expert-
+    parallel over the data axes (`moe_ep.moe_apply_ep`), as the
+    reference's."""
     xn = norm_apply(p.norm1, x, cfg.norm)
     a, kv = attn_apply(
         cfg, p.attn, xn, positions, lora_layer=lora_layer,
@@ -191,7 +222,14 @@ def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
     hn = norm_apply(p.norm2, h, cfg.norm)
     aux = None
     if cfg.moe:
-        m, aux = moe_apply(cfg, p.moe, hn, need_aux=need_aux)
+        mesh = shd.current_mesh()
+        if cfg.moe_ep and mesh is not None and \
+                "data" in shd.axis_names(mesh):
+            m, aux = moe_apply_ep(cfg, p.moe, hn, mesh,
+                                  data_axes=shd.batch_axes(mesh),
+                                  need_aux=need_aux)
+        else:
+            m, aux = moe_apply(cfg, p.moe, hn, need_aux=need_aux)
         y = h + m
     else:
         y = h + mlp_apply(cfg, p.mlp, hn)
@@ -203,10 +241,15 @@ def block_apply(cfg, p: Block, x, positions, *, rope_cs, lora_layer,
 def embed_tokens(cfg, params: Transformer, tokens, prefix_embeds=None):
     """Token embeddings, after `prefix_embeds` (B, P, d) when given (the
     VLM's stubbed patch embeddings)."""
-    x = params.embed[tokens.long()].to(cfg.torch_dtype)
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    return x
+    x = embed_lookup(params.embed, tokens).to(cfg.torch_dtype)
+    if prefix_embeds is None:
+        return x
+    if shd.is_dtensor(x):        # each rank joins its rows (DTensor's cat
+        rows = ("batch", None, None)    # gathers them)
+        return shd.local_call(lambda placed, p, x: torch.cat([p, x], dim=1),
+                              (prefix_embeds.to(x.dtype), x), (rows, rows),
+                              rows)
+    return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
 
 
 def unembed(cfg, params: Transformer, x):
@@ -232,7 +275,8 @@ def _lora_slice(lora, i):
     if lora is None:
         return None, None, None, "none"
     pool, idx, mode = lora["pool"], lora["idx"], lora.get("mode", "bgmv")
-    per_layer = {t: {"a": pool[t]["a"][i], "b": pool[t]["b"][i]}
+    per_layer = {t: {"a": shd.take_layer(pool[t]["a"], i),
+                     "b": shd.take_layer(pool[t]["b"], i)}
                  for t in pool if t != "ranks"}
     return per_layer, idx, pool["ranks"], mode
 
@@ -251,21 +295,19 @@ def remat_layer(cfg, fn, *args):
     `cfg.remat` and grad mode is on (the reference's `jax.checkpoint` of
     its layer body), so the backward recomputes the layer from its input
     instead of keeping its activations. Under `torch.no_grad()` (serving)
-    it is a plain call."""
+    it is a plain call. The recompute runs under the forward's current
+    mesh (the backward may run on another thread, which sees none)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        mesh = shd.current_mesh()
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              shd.use_mesh(mesh)))
     return fn(*args)
 
 
 def _check_family(cfg):
-    """Every family of the reference is ported; expert parallelism over
-    devices (`moe_ep`) is not (ROADMAP.md queue 1, multi-device)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r}")
-    if cfg.moe_ep:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_ep (expert parallelism over devices) is not "
-            "ported to repro_torch yet (ROADMAP.md queue 1, multi-device)")
 
 
 def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
@@ -307,10 +349,10 @@ def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
     else:
         cache = None
         if cache_slots is not None:
-            cache = cache_init(B, cfg.n_kv_heads, cache_slots, cfg.hd,
-                               cfg.torch_dtype,
-                               quantized=cfg.kv_cache_dtype == "int8",
-                               layers=cfg.n_layers, device=x.device)
+            cache = cache_init_like(x, B, cfg.n_kv_heads, cache_slots,
+                                    cfg.hd, cfg.torch_dtype,
+                                    quantized=cfg.kv_cache_dtype == "int8",
+                                    layers=cfg.n_layers)
 
         def layer(x, i, p_l):
             ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
@@ -325,8 +367,9 @@ def prefill(cfg, params: Transformer, tokens, *, prefix_embeds=None,
             if a and a[0] is not None:
                 aux = aux + a[0]
             if cache is not None:
-                cache_write_prefill({n: t[i] for n, t in cache.items()}, k,
-                                    v, positions)
+                cache_write_prefill(
+                    {n: shd.take_layer(t, i) for n, t in cache.items()}, k, v,
+                    positions)
     if last_pos is not None:
         x = x[torch.arange(B, device=x.device), last_pos.long()][:, None]
     elif last_only:
@@ -355,9 +398,9 @@ def _hybrid_prefill(cfg, params, x, positions, rope_cs, lora, live,
                 window=win, decode=False, rope_cs=rope_cs)
             c = None
             if cache_slots is not None:
-                c = cache_init(B, cfg.n_kv_heads,
-                               min(cache_slots, win) or win, cfg.hd,
-                               cfg.torch_dtype, device=x.device)
+                c = cache_init_like(x, B, cfg.n_kv_heads,
+                                    min(cache_slots, win) or win, cfg.hd,
+                                    cfg.torch_dtype)
                 cache_write_prefill(c, k, v, positions)
         caches.append(c)
     return x, (caches if cache_slots is not None else None)
@@ -396,7 +439,7 @@ def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
     live = _lora_live(cfg, lora)
     for i, p_l in enumerate(params.blocks):
         ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
-        cache_l = {name: t[i] for name, t in cache.items()}
+        cache_l = {name: shd.take_layer(t, i) for name, t in cache.items()}
         x, _ = block_apply(
             cfg, p_l, x, positions, lora_layer=ll, lora_idx=lora_idx,
             lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,
@@ -448,7 +491,7 @@ def decode_step(cfg, params: Transformer, cache, tokens_t, pos, *,
         windex = pos.long() % cache["k"].shape[3]
     for i, p_l in enumerate(params.blocks):
         ll, lora_idx, lora_ranks, lora_mode = _lora_slice(lora, i)
-        cache_l = {name: t[i] for name, t in cache.items()}
+        cache_l = {name: shd.take_layer(t, i) for name, t in cache.items()}
         x, _ = block_apply(
             cfg, p_l, x, pos, lora_layer=ll, lora_idx=lora_idx,
             lora_ranks=lora_ranks, lora_mode=lora_mode, lora_live=live,

@@ -21,7 +21,8 @@ from repro_torch.core.lora import is_adapter_tree, pad_adapter
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, rglru, ssm
 from repro_torch.models.moe import MoE
-from repro_torch.models.param import Dense, Norm
+from repro_torch.models.moe_ep import ep_factors
+from repro_torch.models.param import Box, Dense, Norm, split
 from repro_torch.models.transformer import (MLP, Attention, Block,
                                             Transformer, _check_family,
                                             hybrid_layer_kinds)
@@ -106,52 +107,75 @@ def init_params(cfg, seed: int = 0, device=None):
     (None: the card)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    return _build(cfg, split(init_tree(cfg, seed, dev))[0])
+
+
+def init_tree(cfg, seed: int, dev: torch.device):
+    """The reference's init tree in the port's layout: every leaf a
+    `Box` of its value and its logical axes (the reference's, with the
+    leading "layers" axis of a uniform stack dropped, since the port lists
+    the layers). On the "meta" device the values are shapes only."""
+    meta = dev.type == "meta"
+    g = None if meta else torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
     d = cfg.d_model
+    ew = "embed_fsdp" if cfg.fsdp_weights else "embed"
 
-    def normal(shape, scale, dtype=dt):
-        return torch.randn(shape, generator=g, device=dev,
-                           dtype=dtype).mul_(scale)
+    def normal(shape, scale, axes, dtype=dt):
+        return Box(torch.randn(shape, generator=g, device=dev,
+                               dtype=dtype).mul_(scale), axes)
 
-    def full(shape, value, dtype=dt):
-        return torch.full(shape, value, device=dev, dtype=dtype)
+    def full(shape, value, axes, dtype=dt):
+        return Box(torch.full(shape, value, device=dev, dtype=dtype), axes)
 
-    def dense(d_in, d_out, bias=False):
-        p = {"w": normal((d_in, d_out), d_in ** -0.5)}
+    def dense(d_in, d_out, axes, bias=False):
+        p = {"w": normal((d_in, d_out), d_in ** -0.5, axes)}
         if bias:
-            p["b"] = full((d_out,), 0.0)
+            p["b"] = full((d_out,), 0.0, axes[-1:])
         return p
 
     def norm(n, kind=cfg.norm):
-        p = {"scale": full((n,), 1.0)}
+        p = {"scale": full((n,), 1.0, ("embed",))}
         if kind == "layernorm":
-            p["bias"] = full((n,), 0.0)
+            p["bias"] = full((n,), 0.0, ("embed",))
         return p
 
     def attn():
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        t = {n: {"w": normal((d, nh, hd), d ** -0.5)}
-             for n, nh in (("wq", H), ("wk", KV), ("wv", KV))}
-        t["wo"] = {"w": normal((H, hd, d), (H * hd) ** -0.5)}
+        t = {n: {"w": normal((d, nh, hd), d ** -0.5, (
+            ew, "kv_heads" if nh == KV and nh != H else "heads", None))}
+            for n, nh in (("wq", H), ("wk", KV), ("wv", KV))}
+        t["wo"] = {"w": normal((H, hd, d), (H * hd) ** -0.5,
+                               ("heads", None, ew))}
         if cfg.qkv_bias:
             for n, nh in (("wq", H), ("wk", KV), ("wv", KV)):
-                t[n]["b"] = full((nh, hd), 0.0)
+                t[n]["b"] = full((nh, hd), 0.0, ("heads", None))
         return t
 
     def ffn():
         f = cfg.d_ff
         gated = cfg.mlp_act in ("silu", "geglu")
         if not cfg.moe:
-            t = {"w1": dense(d, f), "w2": dense(f, d)}
+            t = {"w1": dense(d, f, (ew, "mlp")), "w2": dense(f, d, ("mlp", ew))}
             if gated:
-                t["w3"] = dense(d, f)
+                t["w3"] = dense(d, f, (ew, "mlp"))
             return t
         E = cfg.moe.n_experts
-        return {"router": dense(d, E),
-                "w1": {"w": normal((E, d, f), d ** -0.5)},
-                "w2": {"w": normal((E, f, d), f ** -0.5)},
-                "w3": {"w": normal((E, d, f), d ** -0.5)}}
+        if cfg.moe_ep:
+            # the EP-native layout, (E*s, d, f/s): s f-slices an expert
+            # over the expert-parallel width (`moe_ep.ep_factors`)
+            s, _ = ep_factors(E, cfg.moe_ep_shards)
+            E, f_in, f_out = E * s, f // s, f
+            ax1, ax2 = ("experts_ep", None, "mlp"), ("experts_ep", "mlp", None)
+        else:
+            f_in = f_out = f
+            ax1, ax2 = (("experts", None, "mlp_fsdp"),
+                        ("experts", "mlp_fsdp", None)) if cfg.moe_2d_ff \
+                else (("experts", ew, "mlp"), ("experts", "mlp", ew))
+        return {"router": dense(d, cfg.moe.n_experts, ("embed", None)),
+                "w1": {"w": normal((E, d, f_in), d ** -0.5, ax1)},
+                "w2": {"w": normal((E, f_in, d), f_out ** -0.5, ax2)},
+                "w3": {"w": normal((E, d, f_in), d ** -0.5, ax1)}}
 
     def block():
         t = {"norm1": norm(d), "norm2": norm(d), "attn": attn()}
@@ -160,41 +184,46 @@ def init_params(cfg, seed: int = 0, device=None):
 
     def rglru_block():
         w = cfg.hybrid.lru_width or d
-        return {"norm": norm(d), "w_x": dense(d, w), "w_gate": dense(d, w),
-                "conv_w": normal((4, w), 0.3), "conv_b": full((w,), 0.0),
-                "w_a": dense(w, w, bias=True), "w_i": dense(w, w, bias=True),
-                "lam": torch.linspace(0.5, 4.0, w, device=dev),
-                "w_out": dense(w, d)}
+        return {"norm": norm(d), "w_x": dense(d, w, ("embed", "mlp")),
+                "w_gate": dense(d, w, ("embed", "mlp")),
+                "conv_w": normal((4, w), 0.3, (None, "mlp")),
+                "conv_b": full((w,), 0.0, ("mlp",)),
+                "w_a": dense(w, w, ("mlp", None), bias=True),
+                "w_i": dense(w, w, ("mlp", None), bias=True),
+                "lam": Box(torch.linspace(0.5, 4.0, w, device=dev), (None,)),
+                "w_out": dense(w, d, ("mlp", "embed"))}
 
     def ssm_block():
         s = cfg.ssm
         d_in, H, conv_dim, in_total = ssm.ssm_dims(cfg)
         f32 = torch.float32
-        return {"norm": norm(d), "in_proj": dense(d, in_total),
-                "conv_w": normal((s.conv_width, conv_dim), 0.3),
-                "conv_b": full((conv_dim,), 0.0),
-                "a_log": torch.log(torch.linspace(1.0, 16.0, H, device=dev)),
-                "dt_bias": full((H,), 0.0, f32),
-                "d_skip": full((H,), 1.0, f32),
+        return {"norm": norm(d), "in_proj": dense(d, in_total, ("embed", "mlp")),
+                "conv_w": normal((s.conv_width, conv_dim), 0.3, (None, "mlp")),
+                "conv_b": full((conv_dim,), 0.0, ("mlp",)),
+                "a_log": Box(torch.log(torch.linspace(1.0, 16.0, H,
+                                                      device=dev)), (None,)),
+                "dt_bias": full((H,), 0.0, (None,), f32),
+                "d_skip": full((H,), 1.0, (None,), f32),
                 "gate_norm": norm(d_in, "rmsnorm"),
-                "out_proj": dense(d_in, d)}
+                "out_proj": dense(d_in, d, ("mlp", "embed"))}
 
     if cfg.family in ("audio", "encdec"):
-        return _build(cfg, {
-            "enc_pos": normal((cfg.enc_seq, d), 0.02),
+        return {
+            "enc_pos": normal((cfg.enc_seq, d), 0.02, ("seq", "embed")),
             "enc_blocks": [{"norm1": norm(d), "attn": attn(),
                             "norm2": norm(d), "mlp": ffn()}
                            for _ in range(cfg.n_enc_layers)],
-            "enc_norm": norm(d), "embed": normal((cfg.vocab, d), 0.02),
-            "dec_pos": normal((cfg.max_ctx, d), 0.02),
+            "enc_norm": norm(d),
+            "embed": normal((cfg.vocab, d), 0.02, ("vocab", "embed")),
+            "dec_pos": normal((cfg.max_ctx, d), 0.02, ("seq", "embed")),
             "dec_blocks": [{"norm1": norm(d), "attn": attn(),
                             "norm_x": norm(d), "xattn": attn(),
                             "norm2": norm(d), "mlp": ffn()}
                            for _ in range(cfg.n_layers)],
-            "final_norm": norm(d), "lm_head": dense(d, cfg.vocab)})
-    tree = {"embed": normal((cfg.vocab, d), 0.02)}
+            "final_norm": norm(d), "lm_head": dense(d, cfg.vocab, (ew, "vocab"))}
+    tree = {"embed": normal((cfg.vocab, d), 0.02, ("vocab", "embed"))}
     if not cfg.tie_embeddings and cfg.family != "ssm":
-        tree["lm_head"] = dense(d, cfg.vocab)
+        tree["lm_head"] = dense(d, cfg.vocab, (ew, "vocab"))
     if cfg.family == "ssm":
         tree["blocks"] = [ssm_block() for _ in range(cfg.n_layers)]
     elif cfg.hybrid:
@@ -203,7 +232,7 @@ def init_params(cfg, seed: int = 0, device=None):
     else:
         tree["blocks"] = [block() for _ in range(cfg.n_layers)]
     tree["final_norm"] = norm(d)
-    return _build(cfg, tree)
+    return tree
 
 
 # ------------------------------------------------------ from the reference ----
@@ -223,11 +252,7 @@ def params_from_jax(cfg, tree, device=None):
         dtype = torch.float32 if name in F32_LEAVES else cfg.torch_dtype
         return torch.from_numpy(np.array(x, np.float32)).to(dev, dtype)
 
-    out = dict(tree)
-    if isinstance(tree.get("blocks"), dict):      # a stacked uniform stack
-        out["blocks"] = [_index(tree["blocks"], i)
-                         for i in range(cfg.n_layers)]
-    return _build(cfg, conv(out))
+    return _build(cfg, conv(unstack_layers(cfg, tree)))
 
 
 def adapter_from_jax(cfg, tree, device=None):
@@ -265,16 +290,39 @@ def opt_state_from_jax(cfg, state, device=None):
     def layout(tree):
         if is_adapter_tree(cfg, tree):
             return pad_adapter(cfg, conv(tree))
-        out = dict(tree)
-        if isinstance(tree.get("blocks"), dict):   # a stacked uniform stack
-            out["blocks"] = [_index(tree["blocks"], i)
-                             for i in range(cfg.n_layers)]
-        return conv(out)
+        return conv(unstack_layers(cfg, tree))
 
     return AdamWState(
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=dev),
         mu=layout(mu), nu=layout(nu))
+
+
+def unstack_layers(cfg, tree):
+    """A params-shaped tree in the reference's layout (a uniform stack's
+    layers on a leading axis of each leaf) -> the port's (a list of
+    layers, each leaf indexed, no copies). A hybrid's or enc-dec's layers
+    are a list in both, and pass as they are."""
+    if not isinstance(tree.get("blocks"), dict):
+        return tree
+    return dict(tree, blocks=[_index(tree["blocks"], i)
+                              for i in range(cfg.n_layers)])
+
+
+def stack_layers(cfg, tree):
+    """The inverse of `unstack_layers`: a uniform stack's list of layers
+    stacked leaf by leaf on a leading axis (a copy), as the reference
+    holds it."""
+    blocks = tree.get("blocks")
+    if cfg.hybrid or not isinstance(blocks, list):
+        return tree
+    return dict(tree, blocks=_stack(blocks))
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([t[k] for t in layers]) for k in layers[0]}
+    return torch.stack(layers)
 
 
 def _index(tree, i):

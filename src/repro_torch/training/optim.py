@@ -46,11 +46,12 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params, moments_dtype="float32") -> AdamWState:
-    """Zero moments shaped like `params`, on the device of its first
-    leaf."""
+    """Zero moments shaped and laid out like `params` (a DTensor
+    parameter's moments are DTensors of its placements), on the device of
+    its first leaf."""
     dt = getattr(torch, moments_dtype)
     dev = tree_lib.leaves(params)[0].device
-    z = lambda p: torch.zeros(p.shape, dtype=dt, device=dev)
+    z = lambda p: torch.zeros_like(p, dtype=dt, device=dev)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_lib.map_(z, params),
                       nu=tree_lib.map_(z, params))

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import lora_target_dims
 from repro_torch.kernels.bgmv import padded_rank
@@ -31,19 +32,25 @@ from repro_torch.training import tree as tree_lib
 
 
 def _microbatches(batch, accum: int):
-    """(B, ...) -> accum batches of B / accum rows, in order."""
+    """(B, ...) -> accum batches of B / accum rows, in order. A DTensor
+    batch is gathered whole, and each microbatch's rows laid out over the
+    data axes again."""
     for x in batch.values():
         if x.shape[0] % accum:
             raise ValueError(
                 f"batch ({x.shape[0]}) must be a multiple of accum ({accum})")
-    return [{k: v.reshape(accum, -1, *v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(accum)]
+    whole = {k: shd.constrain(v, *(None,) * v.dim())
+             for k, v in batch.items()}
+    return [{k: shd.constrain(v.reshape(accum, -1, *v.shape[1:])[i],
+                              "batch", *(None,) * (v.dim() - 1))
+             for k, v in whole.items()} for i in range(accum)]
 
 
 def grads(loss: torch.Tensor, leaves, names):
-    """d loss / d leaf for each leaf; raises, naming the leaves, if the
-    graph does not reach some of them (a kernel without a gradient would
-    cut it)."""
+    """d loss / d leaf for each leaf, laid out as the leaf (a DTensor
+    leaf's gradient is reduce-scattered to its layout); raises, naming the
+    leaves, if the graph does not reach some of them (a kernel without a
+    gradient would cut it)."""
     if not loss.requires_grad:
         raise RuntimeError("training: the loss has no gradient at all (no "
                            "leaf is reachable from it)")
@@ -52,7 +59,7 @@ def grads(loss: torch.Tensor, leaves, names):
     if missing:
         raise RuntimeError(f"training: no gradient reaches {len(missing)} "
                            f"leaves requiring one, e.g. {missing[:4]}")
-    return list(out)
+    return [shd.like(g, p) for g, p in zip(out, leaves)]
 
 
 @contextlib.contextmanager
@@ -95,8 +102,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
         leaves, names = tree_lib.leaves(tree), tree_lib.paths(tree)
         with trainable(leaves):
             if accum > 1:
-                g_acc = [torch.zeros(p.shape, dtype=acc_dtype,
-                                     device=p.device) for p in leaves]
+                g_acc = [torch.zeros_like(p, dtype=acc_dtype)
+                         for p in leaves]
                 loss = 0.0
                 for mb in _microbatches(batch, accum):
                     l, _ = model_lib.loss(cfg, params, mb)

@@ -2,7 +2,7 @@
 (repro.models.moe.moe_apply) at the smoke configs of dbrx-132b and
 grok-1-314b (4 experts, top-2) and their own capacity factor 1.25, with
 tokens dropped; the GeGLU activation against jax.nn.gelu; top-k ties; and
-the refusals (chunked prefill, expert parallelism). f32, atol = rtol =
+the refusal of chunked prefill, and a moe_ep config without a mesh. f32, atol = rtol =
 1e-4."""
 import dataclasses
 
@@ -141,10 +141,20 @@ def test_moe_chunk_budget_raises_as_reference():
 
 
 def test_moe_ep_is_not_ported():
-    cfg = dataclasses.replace(tget("dbrx-132b").smoke(), moe_ep=True)
-    _, _, _, pt = _layer("dbrx-132b")
-    with pytest.raises(NotImplementedError, match="moe_ep"):
-        tmoe.moe_apply(cfg, pt, torch.zeros(1, 2, cfg.d_model))
+    """Expert parallelism is ported (models/moe_ep.py, held to the
+    reference in test_torch_moe_ep.py); without a mesh a moe_ep config
+    computes the default path's function over its EP-native weights, as
+    the reference's does (one f-slice an expert: moe_ep_shards 1)."""
+    kw = dict(moe_ep=True, moe_ep_shards=1)
+    cj = dataclasses.replace(jget("dbrx-132b").smoke(), **kw)
+    ct = dataclasses.replace(tget("dbrx-132b").smoke(), **kw)
+    pj = split(jmoe.moe_init(cj, jax.random.PRNGKey(5)))[0]
+    pt = tmoe.MoE(*(Dense(_t(pj[n]["w"])) for n in
+                    ("router", "w1", "w2", "w3")))
+    x = _tokens(2, 12, ct.d_model, seed=6, spread=0.5)
+    want, _ = jmoe.moe_apply(cj, pj, jnp.asarray(x))
+    got, _ = tmoe.moe_apply(ct, pt, _t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("flag", ["moe_2d_ff", "moe_gather_weights"])

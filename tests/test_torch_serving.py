@@ -150,6 +150,47 @@ def test_chunked_server_tokens_match_reference_and_monolithic(arch):
     assert all(len(s.generated) == s.req.max_new_tokens for s in ts.states)
 
 
+def _chunked_port_server(chunk_budget, prompt_len, max_new=2):
+    """The reference test's server (llama2-7b-smoke, f32, cached mode,
+    paged pool of 16-token pages) on the port, one request;
+    chunk_budget=0 is the monolithic arm."""
+    ct = tget("llama2-7b").smoke()
+    ts = TServer(ct, mode="cached", max_batch=4, cache_slots=64, seed=0,
+                 device="cpu", pipeline="fused", megastep=0,
+                 memory="paged", page_size=16, chunk_budget=chunk_budget)
+    ts.register_adapter(TSpec("ad0", 8, ct.name))
+    prompt = np.random.default_rng(23).integers(0, ct.vocab, prompt_len)
+    ts.run([TReq(0, "ad0", prompt.astype(np.int32), max_new, 0.0)])
+    return ts
+
+
+@pytest.mark.parametrize("prompt_len,n_chunks", [(24, 2), (61, 4)])
+def test_chunked_prefill_kv_bitwise_matches_monolithic(prompt_len,
+                                                       n_chunks):
+    """The property of the reference's
+    test_chunked_prefill_bitwise_matches_monolithic, held on the port: a
+    prompt prefilled in 16-token chunks (the last one partial) leaves the
+    same tokens and, gathered into position order, bitwise the same K/V
+    in its pages as one monolithic prefill. One request per server, so
+    its pages are never reused after it retires."""
+    from repro_torch.serving.cache import gather_pages
+    chunk = _chunked_port_server(16, prompt_len)
+    mono = _chunked_port_server(0, prompt_len)
+    assert chunk.backend.transfer_stats["prefill_chunks"] == n_chunks
+    assert mono.backend.transfer_stats["prefill_chunks"] == 0
+    (a,), (b,) = mono.states, chunk.states
+    assert len(a.generated) == a.req.max_new_tokens
+    assert a.generated == b.generated
+    ga = gather_pages(mono.backend.cache, a.kv_pages)
+    gb = gather_pages(chunk.backend.cache, b.kv_pages)
+    assert torch.equal(ga["pos"], gb["pos"])
+    assert int((ga["pos"][0] >= 0).sum()) >= prompt_len
+    written = (ga["pos"] >= 0)[:, :, None, :, None]
+    for leaf in ("k", "v"):
+        assert torch.equal(torch.where(written, ga[leaf], 0),
+                           torch.where(written, gb[leaf], 0)), leaf
+
+
 @pytest.mark.parametrize("policy", ["swap", "recompute"])
 def test_half_prefilled_row_preempted_resumes_token_exact(policy):
     """A 48-token prompt in 16-token chunks is preempted after two chunks

@@ -263,6 +263,67 @@ def test_checkpoint_written_by_the_port_loads_in_the_reference(tmp_path):
                                       np.asarray(b, np.float32))
 
 
+def _full_ft_pair(arch):
+    """A reference full fine-tune's {"model", "opt"} tree (the moments
+    made nonzero) and a port trainer holding the same parameters and
+    state in its own layout (`params_from_jax`, `opt_state_from_jax`)."""
+    cj, ct, pj, pt = _both(arch)
+    st = joptim.init(pj)
+    st = joptim.AdamWState(jnp.array(3, jnp.int32),
+                           jax.tree.map(lambda m: m + 0.01, st.mu),
+                           jax.tree.map(lambda m: m + 0.02, st.nu))
+    trainer = tlaunch.Trainer(ct, device="cpu", params=pt)
+    trainer.state = opt_state_from_jax(ct, _np_tree(st), device="cpu")
+    return {"model": pj, "opt": st}, trainer
+
+
+def _assert_port_tree_equals(ct, got, tj):
+    """A port-layout {"model", "opt"} tree bitwise equal to the
+    reference's after the layout map (its uniform stack unstacked)."""
+    want = {"model": _unstack(ct, tj["model"]),
+            "opt": joptim.AdamWState(tj["opt"].step,
+                                     _unstack(ct, tj["opt"].mu),
+                                     _unstack(ct, tj["opt"].nu))}
+    g, w = ttree.leaves(got), jax.tree.leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        np.testing.assert_array_equal(a.detach().float().numpy(),
+                                      np.asarray(b, np.float32))
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "dbrx-132b"])
+def test_full_ft_checkpoint_written_by_the_reference_loads_in_the_port(
+        tmp_path, arch):
+    tj, trainer = _full_ft_pair(arch)
+    p = str(tmp_path / "ckpt_3.npz")
+    jckpt.save(p, tj, step=3)
+    got, man = trainer.load_checkpoint(p)
+    assert man["step"] == 3 and int(got["opt"].step) == 3
+    assert isinstance(got["model"]["blocks"], list)
+    _assert_port_tree_equals(trainer.cfg, got, tj)
+    # and equal to the trainer's own tree, leaf for leaf
+    for a, b in zip(ttree.leaves(got), ttree.leaves(
+            {"model": trainer.trained(), "opt": trainer.state})):
+        assert a.dtype == b.dtype and torch.equal(a, b.detach())
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "dbrx-132b"])
+def test_full_ft_checkpoint_written_by_the_port_loads_in_the_reference(
+        tmp_path, arch):
+    tj, trainer = _full_ft_pair(arch)
+    p = str(tmp_path / "ckpt_3.npz")
+    tckpt.save(p, trainer.checkpoint_tree(), step=3)
+    got, man = jckpt.load(p, jax.tree.map(jnp.zeros_like, tj))
+    assert man["step"] == 3
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(tj)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      np.asarray(b, np.float32))
+    # a round trip through the port's own loader gives the trainer's tree
+    back, _ = trainer.load_checkpoint(p)
+    _assert_port_tree_equals(trainer.cfg, back, tj)
+
+
 # ----------------------------------------------------------------- loss ----
 
 @pytest.mark.parametrize("arch", LOSS_ARCHS)
