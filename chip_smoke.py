@@ -54,7 +54,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      flushed between launches) beside its bound, the plain version and a
      PyTorch library call (paged attention is also timed at yi-9b's
      decode shape after phase 5b: layer 0 of the first decode step of
-     phase 3b's monolithic arm, a row at pos >= 2,048);
+     phase 3b's monolithic arm, a row at pos >= 2,048); the decode LoRA
+     kernels and their `torch.bmm` also as a graphed step launches them
+     (`graph_ms`: launches replayed from one CUDA graph);
   3d. on the same llama2-7b weights, a cluster (`core.cluster.Cluster`) of
      two servers sharing the weights, each with its own page and adapter
      pools, behind the router, 24 requests of 32-256 prompt tokens and 32
@@ -84,6 +86,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      tokens, over the same row caches in a dense bf16 slab, an int8 slab
      and the paged pool: paged vs dense bf16 within 5e-2 and int8 vs bf16
      within 0.08 of max |logit|;
+  D. the compiled decode step on the same llama2-7b weights (every
+     served phase, 3a-3d, S5, F and G, runs decode and megastep[K=k] as
+     CUDA graphs, `core.graphs`, and checks that some graph replayed and
+     none was re-captured): D1 phase 3a's bgmv and mbgmv requests and
+     phase 3c's dense bf16 and int8 arms served again with graphs=False,
+     greedy tokens and launch counts equal to the graphed runs'; D2 phase
+     3c's temperature-0.8 arm (seed 0) eagerly, whether its streams equal
+     the graphed ones; D3 RetraceSan (sanitizers forced on): a steady
+     replay of a served schedule is clean, a LoRA pool leaf rebound after
+     steady state raises; D4 decode ms a call graphed vs eager, one
+     profiled decode and megastep[K=8] call of each arm, the syncs of
+     each call (none outside a capture), each graph's capture time and
+     the graph pool's bytes;
   T. training on the same llama2-7b weights. T1: each kernel autograd
      Function's gradients against autograd through the plain versions on
      the card, per output row with phase 2's rule, a second backward
@@ -264,6 +279,8 @@ def main() -> int:
     report["perf_model_fit"] = perf_model_phase(torch, llama, step)
     report["dense_serving"] = dense_phase(torch, llama, params)
     report["dense_logits"] = dense_logits_phase(torch, llama, params)
+    report["graphs"] = graphs_phase(torch, llama, params, serving,
+                                    report["dense_serving"])
     report["training"], train_kernel_rows = training_phase(torch, llama,
                                                            params)
     kernels.extend(train_kernel_rows)
@@ -771,6 +788,33 @@ def time_backend_calls(torch, be, spans, decode_tokens):
                         lambda ready, nsteps, *a: sum(nsteps))
 
 
+def graph_check(be, label):
+    """The backend's step graphs after a run (`core.graphs`): on the fused
+    pipeline with graphs on, some key must have replayed and none may
+    have been built twice (a buffer rebound); with graphs off (or the
+    per-step pipeline), nothing may have been captured. Returns
+    `StepGraphs.stats()`."""
+    stats = be.graphs.stats()
+    replays = sum(g["replays"] for g in stats.values())
+    if be.graphs.capture and be.pipeline == "fused":
+        check(replays > 0, f"{label}: the decode step never replayed a "
+              "CUDA graph")
+        check(all(g["builds"] == 1 for g in stats.values()),
+              f"{label}: a step graph was re-captured: {stats}")
+    else:
+        check(replays == 0 and not any(g["captures"]
+                                       for g in stats.values()),
+              f"{label}: graphs off, yet captured: {stats}")
+    return stats
+
+
+def graph_summary(stats):
+    if not any(g["captures"] for g in stats.values()):
+        return "eager (no graph)"
+    return "graphs " + ", ".join(
+        f"{k} {g['replays']} replays" for k, g in stats.items())
+
+
 def serve_phase(torch, cfg, runs, phase, params=None):
     """Phase 3a/3b/3c: drive a path through InferenceServer, once per run,
     with every launch count zeroed just before and read just after: each
@@ -833,6 +877,7 @@ def serve_phase(torch, cfg, runs, phase, params=None):
         stats = dict(be.transfer_stats)
         if server_kw.get("chunk_budget"):
             check(stats["prefill_chunks"] > 0, f"{label}: no prefill chunk")
+        graphs = graph_check(be, label)
         tokens = sum(len(st.generated) for st in srv.states)
         rec = {"model": cfg.name, "run": label, "kernel": kernel,
                "memory": srv.memory, "pipeline": be.pipeline,
@@ -858,7 +903,7 @@ def serve_phase(torch, cfg, runs, phase, params=None):
                "tok_s_wall": tokens / wall,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "launches": launches,
-               "transfer_stats": stats,
+               "transfer_stats": stats, "graphs": graphs,
                "generated": {st.req.rid: list(map(int, st.generated))
                              for st in srv.states}}
         chunks = (f"; {rec['chunk_calls']} chunks, median "
@@ -868,9 +913,10 @@ def serve_phase(torch, cfg, runs, phase, params=None):
               f"in {wall:.2f} s wall ({rec['tok_s_wall']:.1f} tok/s); "
               f"prefill median {rec['prefill_ms_median']:.1f} ms over "
               f"{rec['prefill_calls']} calls{chunks}; decode "
-              f"{rec['decode_tok_s']:.1f} tok/s; peak "
-              f"{rec['peak_mem_gib']:.1f} GiB; launches {launches}",
-              flush=True)
+              f"{rec['decode_tok_s']:.1f} tok/s, median "
+              f"{rec['decode_call_ms_median']:.2f} ms a call; peak "
+              f"{rec['peak_mem_gib']:.1f} GiB; launches {launches}; "
+              f"{graph_summary(graphs)}", flush=True)
         out.append(rec)
         del srv, be
         gc.collect()
@@ -1050,6 +1096,216 @@ def dense_logits_phase(torch, cfg, params):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ phase D ----
+
+D_WATCH = {"n": 8, "seed": SEED + 8, "max_new": 32}
+D_PROFILE = {"n": 8, "seed": SEED + 9, "max_new": 64}
+D_PROFILE_K = 8                # the megastep[K] profiled in phase D4
+
+
+def graphs_phase(torch, cfg, params, serving, dense):
+    """Phase D on the phase-3a llama2-7b weights, at full width: the
+    compiled decode step (`core.graphs`: CUDA graphs of decode and
+    megastep[K=k], replayed over step state written in place) against the
+    same servers with graphs=False, in this one process (the adapters are
+    the same). D1: phase 3a's 16 (bgmv) and 6 (mbgmv) requests and phase
+    3c's 12 on the dense plane in bf16 and int8 served eagerly: every
+    request's greedy tokens and every kernel's launch count must equal
+    the graphed run's. D2: phase 3c's temperature-0.8 requests (seed
+    SEED) eagerly: whether the streams equal the graphed ones. D3: under
+    the sanitizers, 8 requests, `mark_steady`, the same schedule again:
+    RetraceSan must stay clean; then a LoRA pool leaf rebound and the
+    schedule once more: `assert_clean` must raise. D4: decode ms a call
+    (phase 3a's CUDA-event spans) graphed vs eager; one profiled decode
+    call and megastep[K=8] call of each arm (device ms, wall ms, idle
+    share); the syncs PyTorch reports in each call; each graph's capture
+    time and the graph pool's bytes."""
+    from repro_torch.analysis import sanitizers
+    from repro_torch.analysis.retrace import RetraceError
+    t0 = time.perf_counter()
+    smi = smi_reading()
+    switch = debug_switch_lines(torch)
+    temp_label = f"(iv) paged T={TEMPERATURE} seed {SEED}"
+    print("phase D1: the graphed runs of phases 3a / 3c served again with "
+          "graphs=False", flush=True)
+    eager, _ = serve_phase(torch, cfg, [
+        (f"{label} eager", kernel, dict(kw, graphs=False), req)
+        for label, kernel, kw, req in LLAMA_RUNS] + [
+        ("(i) dense bgmv eager", "bgmv",
+         {"memory": "dense", "graphs": False}, DENSE_REQUESTS),
+        (temp_label + " eager", "bgmv",
+         {"temperature": TEMPERATURE, "graphs": False}, DENSE_TEMP)],
+        "D1", params=params)
+    int8, _ = serve_phase(
+        torch, dataclasses.replace(cfg, kv_cache_dtype="int8"),
+        [("(ii) dense int8 bgmv eager", "bgmv", {"graphs": False},
+          DENSE_REQUESTS)], "D1", params=params)
+    graphed = {r["run"]: r for r in serving + dense}
+    out = {"d1": []}
+    for g, e in [(graphed["bgmv"], eager[0]), (graphed["mbgmv"], eager[1]),
+                 (graphed["(i) dense bgmv"], eager[2]),
+                 (graphed["(ii) dense int8 bgmv"], int8[0])]:
+        n = len(g["generated"])
+        same = sum(g["generated"][r] == e["generated"][r]
+                   for r in g["generated"])
+        rec = {"run": g["run"], "requests": n, "tokens_equal": same,
+               "launches_graphed": g["launches"],
+               "launches_eager": e["launches"],
+               "decode_call_ms_median_graphed": g["decode_call_ms_median"],
+               "decode_call_ms_median_eager": e["decode_call_ms_median"],
+               "decode_tok_s_graphed": g["decode_tok_s"],
+               "decode_tok_s_eager": e["decode_tok_s"],
+               "wall_s_graphed": g["wall_s"], "wall_s_eager": e["wall_s"]}
+        out["d1"].append(rec)
+        print(f"  D1 {g['run']}: tokens equal on {same}/{n} requests; "
+              f"launches graphed {g['launches']} / eager {e['launches']}; "
+              f"decode median {g['decode_call_ms_median']:.2f} / "
+              f"{e['decode_call_ms_median']:.2f} ms a call, "
+              f"{g['decode_tok_s']:.1f} / {e['decode_tok_s']:.1f} tok/s "
+              f"(graphed / eager; {smi})", flush=True)
+        check(same == n, f"D1 {g['run']}: graphed tokens differ from the "
+              f"eager ones on {n - same} of {n} requests")
+        check(g["launches"] == e["launches"], f"D1 {g['run']}: launches "
+              f"graphed {g['launches']} != eager {e['launches']}")
+
+    g, e = graphed[temp_label], eager[3]
+    parts = {r: next((i for i, (a, b) in enumerate(zip(g["generated"][r],
+                                                         e["generated"][r]))
+                      if a != b), None) for r in g["generated"]}
+    equal = all(p is None for p in parts.values())
+    out["d2"] = {"streams_equal": equal, "first_difference": parts}
+    print(f"  D2 temperature {TEMPERATURE}, seed {SEED}: graphed and eager "
+          f"streams {'equal' if equal else 'differ'} (first differing "
+          f"token by request: {parts})", flush=True)
+    check(all(p != 0 for p in parts.values()), "D2: a first token (sampled "
+          "eagerly at prefill in both arms) differs")
+
+    print("phase D3: RetraceSan over the graphed step", flush=True)
+    with sanitizers.force(True):
+        srv, uids = make_server(torch, cfg, "bgmv", params)
+        be = srv.backend
+        san = be.retrace_san
+        check(san is not None, "D3: no RetraceSan under the sanitizers")
+        reqs = make_requests(cfg, uids, **D_WATCH)
+
+        def again(rid0):
+            return [dataclasses.replace(r, rid=rid0 + r.rid,
+                                        arrival_ms=srv.clock + r.arrival_ms)
+                    for r in reqs]
+
+        srv.run(reqs)
+        warm = dict(san._sizes)
+        san.mark_steady()
+        srv.run(again(100))
+        san.assert_clean()
+        steady = graph_check(be, "D3 steady")
+        q = be.pool.pool["q"]
+        q["a"] = q["a"].clone()          # rebound: not written in place
+        srv.run(again(200))
+        caught = None
+        try:
+            san.assert_clean()
+        except RetraceError as err:
+            caught = str(err)
+        check(caught is not None, "D3: a LoRA pool leaf rebound after "
+              "steady state went unseen")
+        check(all(len(st.generated) == st.req.max_new_tokens
+                  for st in srv.states), "D3: unfinished requests")
+    out["d3"] = {"warm_sizes": warm, "steady_graphs": steady,
+                 "rebound_raised": caught}
+    print(f"  D3: warm-up builds {warm}; the same schedule after "
+          f"mark_steady: clean ({graph_summary(steady)}); a pool leaf "
+          f"rebound: raised ({caught})", flush=True)
+    del srv, be, san, q
+    gc.collect()
+
+    print(f"phase D4: what a decode step costs, graphed and eager ({smi})",
+          flush=True)
+    out["d4"] = {}
+    for graphs in (True, False):
+        arm = "graphed" if graphs else "eager"
+        srv, uids = make_server(torch, cfg, "bgmv", params, graphs=graphs)
+        be, adm = srv.backend, srv.admission
+        records = []
+        _sync_sites(torch, be, records)
+        for r in make_requests(cfg, uids, spacing_ms=0.0, **D_PROFILE):
+            srv.submit(r)
+        while be.transfer_stats["decode_steps"] < 2 * D_PROFILE_K:
+            srv.step()
+        ready = [r for r in adm.rows if r is not None and not r.done]
+        check(len(ready) == D_PROFILE["n"], f"D4: {len(ready)} rows ready")
+
+        def dec():
+            be.decode(ready, adm.row_slot, adm.row_pos, adm.row_pages)
+
+        def mega():
+            be.megastep(ready, [D_PROFILE_K] * len(ready), D_PROFILE_K,
+                        adm.row_slot, adm.row_pages)
+
+        for fn in (dec, mega):
+            fn()
+            fn()          # a key's first call runs eagerly, its second
+        p_dec = profile_step(torch, dec, f"one {arm} llama2-7b decode call")
+        p_mega = profile_step(torch, mega, f"one {arm} llama2-7b "
+                              f"megastep[K={D_PROFILE_K}] call")
+        be.flush_readback()
+        stats = graph_check(be, f"D4 {arm}")
+        plain = [(k, st, [x for x in sites if x not in switch], cap)
+                 for k, st, sites, cap in records if not cap]
+        rec = {"decode_call": p_dec, "megastep_call": p_mega,
+               "calls": len(records), "calls_outside_a_capture": len(plain),
+               "calls_that_uploaded": sum(not r[1] for r in records),
+               "sync_sites_outside_a_capture": sorted(
+                   {f"{os.path.relpath(p_, ROOT)}:{n_}"
+                    for r in plain for p_, n_ in r[2]}),
+               "graphs": stats}
+        if graphs:
+            rec["pool_bytes"] = graph_pool_bytes(torch, be.graphs.pool)
+        out["d4"][arm] = rec
+        print(f"  D4 {arm}: decode call {p_dec['wall_ms']:.2f} ms wall, "
+              f"{p_dec['device_ms']:.2f} ms device, idle "
+              f"{share(p_dec)}; megastep[K={D_PROFILE_K}] "
+              f"{p_mega['wall_ms']:.2f} ms wall, {p_mega['device_ms']:.2f} "
+              f"ms device, idle {share(p_mega)}; "
+              f"{len(records)} calls ({rec['calls_that_uploaded']} "
+              f"uploaded), syncs outside a capture at "
+              f"{rec['sync_sites_outside_a_capture']}", flush=True)
+        if graphs:
+            print("  D4 capture s by key: " + ", ".join(
+                f"{k} {[round(x, 3) for x in v['capture_s']]}"
+                for k, v in stats.items())
+                + f"; graph pool {rec['pool_bytes']} B", flush=True)
+            check(not rec["sync_sites_outside_a_capture"],
+                  "D4: a graphed decode / megastep call synced")
+        del srv, be, adm, ready
+        gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase D took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def debug_switch_lines(torch):
+    """The lines of torch.cuda.set_sync_debug_mode: the instrumentation's
+    own switch can report itself; it is no line of the port."""
+    import inspect
+    fn = torch.cuda.set_sync_debug_mode
+    src, first = inspect.getsourcelines(fn)
+    return {(os.path.realpath(inspect.getsourcefile(fn)), first + i)
+            for i in range(len(src))}
+
+
+def share(profile):
+    x = profile["device_idle_share"]
+    return "not measured (no device time)" if x is None else f"{x:.3f}"
+
+
+def graph_pool_bytes(torch, pool):
+    """Bytes of the allocator's segments in a CUDA graph pool."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
 
 
 # ------------------------------------------------------------ phase T ----
@@ -1620,6 +1876,8 @@ def cluster_phase(torch, cfg, params):
         else:
             check(min(arrivals) > 0, f"{label}: routes {arrivals}: a "
                   "server took no request")
+        graphs = [graph_check(x.backend, f"{label} server {i}")
+                  for i, x in enumerate(servers)]
         rec_ = {"run": label, "policy": policy, "kernel": kernel,
                 "requests": len(reqs), "slo_ms_simulated": slo,
                 "routes_per_server": arrivals,
@@ -1633,7 +1891,7 @@ def cluster_phase(torch, cfg, params):
                 "tok_s_wall": sum(len(st.generated) for st in states) / wall,
                 "peak_mem_bytes": peak, "peak_mem_gib": peak / 2 ** 30,
                 "kv_pool_bytes": pool_bytes, "launches": launches,
-                "fault_stats": dict(cl.fault_stats),
+                "graphs": graphs, "fault_stats": dict(cl.fault_stats),
                 "simulated_h100_timeline": {k: summary[k]
                                             for k in SUMMARY_KEYS},
                 "generated": {st.req.rid: list(map(int, st.generated))
@@ -1656,7 +1914,9 @@ def cluster_phase(torch, cfg, params):
               f"{len(rec_['failover_routes'])} failovers; decode "
               f"{rec_['decode_tok_s']:.1f} tok/s over both servers; "
               f"{wall:.2f} s wall; peak {rec_['peak_mem_gib']:.2f} GiB; "
-              f"launches {launches}", flush=True)
+              f"launches {launches}; "
+              + "; ".join(f"server {i} {graph_summary(g)}"
+                          for i, g in enumerate(graphs)), flush=True)
         print(f"    simulated on the H100 timeline (not measured): SLO "
               f"{slo:.2f} ms/token, attainment {sim['slo_attainment']:.3f}, "
               f"TTFT mean {sim['ttft_mean']:.1f} ms, TPT mean "
@@ -2262,6 +2522,19 @@ def plain_ops():
         ops.paged_attention, ops.lora_delta = saved
 
 
+def eager_call(what, key, store):
+    """A hook that records a Python call must see an eager one: a CUDA
+    graph's replay runs no Python, and a capture executes nothing, so a
+    record made under a capture would hold no values. Raise if `store`
+    still lacks `key` under a capture."""
+    import torch
+    if key not in store:
+        check(not torch.cuda.is_current_stream_capturing(),
+              f"{what}: the first call is under a CUDA-graph capture")
+        return True
+    return False
+
+
 @contextlib.contextmanager
 def capture_first_calls(store):
     """Record the arguments of the first paged-attention and LoRA-delta
@@ -2270,11 +2543,13 @@ def capture_first_calls(store):
     saved = ops.paged_attention, ops.lora_delta
 
     def pa(*a):
-        store.setdefault("paged_attention", a)
+        if eager_call("capture_first_calls", "paged_attention", store):
+            store["paged_attention"] = a
         return saved[0](*a)
 
     def ld(*a, **kw):
-        store.setdefault("lora_delta", (a, kw))
+        if eager_call("capture_first_calls", "lora_delta", store):
+            store["lora_delta"] = (a, kw)
         return saved[1](*a, **kw)
 
     ops.paged_attention, ops.lora_delta = pa, ld
@@ -2288,10 +2563,14 @@ def capture_first_calls(store):
 def capture_largest_attention(store):
     """Record the arguments of the largest prefill-attention call (its
     first layer) while serving, for phase 5b's timing."""
+    import torch
     from repro_torch.kernels import ops
     saved = ops.attention
 
     def attn(q, k, v, **kw):
+        check(not q.is_cuda or not torch.cuda.is_current_stream_capturing(),
+              "capture_largest_attention: a prefill call under a CUDA-"
+              "graph capture")
         if "args" not in store or q.numel() > store["args"][0].numel():
             store["args"] = (q, k, v)
         return saved(q, k, v, **kw)
@@ -2310,13 +2589,14 @@ YI_LONG_POS = 2048            # phase 5a's yi-9b decode call holds a row here
 def capture_first_decode(store):
     """Clone the arguments of the first paged-attention call while serving
     (layer 0 of the first decode step of the first run: the yi-9b
-    monolithic arm), for phase 5a's yi-9b row; the pool and tables change
-    in place afterwards."""
+    monolithic arm; a key's first call runs eagerly, so a graphed server's
+    first decode is seen), for phase 5a's yi-9b row; the pool and tables
+    change in place afterwards."""
     from repro_torch.kernels import ops
     saved = ops.paged_attention
 
     def pa(*a):
-        if "decode" not in store:
+        if eager_call("capture_first_decode", "decode", store):
             store["decode"] = tuple(t.clone() for t in a)
         return saved(*a)
 
@@ -2592,6 +2872,39 @@ def time_ms(torch, fn, flush, n=100, warm=3):
     return total / n
 
 
+def graph_ms(torch, fn, flush, n=20, reps=5):
+    """Mean device time of fn as a graphed step launches it: n launches,
+    each after an L2 flush, captured in one CUDA graph and replayed
+    `reps` times (CUDA events), less the same graph of flushes alone. No
+    wrapper host work lies between the launches, as in a replay."""
+    stream = torch.cuda.Stream()
+    per = []
+    for body in (lambda: (flush(), fn()), flush):
+        body()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        gc.collect()
+        gc.disable()          # a graph destroyed mid-capture voids it
+        try:
+            with torch.cuda.graph(g, stream=stream):
+                for _ in range(n):
+                    body()
+        finally:
+            gc.enable()
+        g.replay()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            g.replay()
+        e.record()
+        e.synchronize()
+        per.append(s.elapsed_time(e) / (reps * n))
+        del g
+    return per[0] - per[1]
+
+
 def bound(nbytes, ops, dtype_name):
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = ops / PEAK_OPS_PER_S[dtype_name]
@@ -2704,6 +3017,10 @@ def timing_phase(torch, step, errs, serving):
             "bound_ms": s_ms, "bound_by": s_by,
             "library_ms": time_ms(torch, lambda: torch.bmm(
                 x[:, None, :], a_g), flush),
+            "graph_ms": graph_ms(torch, lambda: lora_shrink(x, a, idx, live),
+                                 flush),
+            "library_graph_ms": graph_ms(torch, lambda: torch.bmm(
+                x[:, None, :], a_g), flush),
             "bytes": s_bytes, **common})
         rows.append({
             "name": f"lora_expand[{mode}]", "replaces": src_line[1],
@@ -2715,14 +3032,21 @@ def timing_phase(torch, step, errs, serving):
             "bound_ms": e_ms, "bound_by": e_by,
             "library_ms": time_ms(torch, lambda: torch.bmm(
                 yd[:, None, :], b_g), flush),
+            "graph_ms": graph_ms(torch, lambda: lora_expand(yd, b, idx, live),
+                                 flush),
+            "library_graph_ms": graph_ms(torch, lambda: torch.bmm(
+                yd[:, None, :], b_g), flush),
             "bytes": e_bytes, **common})
     step["rank_sweep"] = rank_sweep(torch, a, b, x, flush)
     for r in rows:
+        graphed = (f"; in a CUDA graph {r['graph_ms'] * 1e3:.1f} us, "
+                   f"library {r['library_graph_ms'] * 1e3:.1f} us"
+                   if "graph_ms" in r else "")
         print(f"  {r['name']}: {r['ms'] * 1e3:.1f} us (bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), plain "
               f"{r['plain_ms'] * 1e3:.1f} us, library "
-              f"{r['library_ms'] * 1e3:.1f} us, {r['launches']} launches",
-              flush=True)
+              f"{r['library_ms'] * 1e3:.1f} us, {r['launches']} "
+              f"launches{graphed}", flush=True)
     return rows
 
 
@@ -3103,13 +3427,15 @@ def s_server(torch, cfg, params, kernel, preempt, ranks=S_RANKS):
 def _sync_sites(torch, be, records):
     """Wrap `be.decode` / `be.megastep` so that each call runs under
     torch.cuda.set_sync_debug_mode("warn") and appends (kind, steady,
-    [(file, line), ...]) to `records`: steady when the call uploaded
-    nothing (the batch did not change)."""
+    [(file, line), ...], captured) to `records`: steady when the call
+    uploaded nothing (the batch did not change), captured when it captured
+    a CUDA graph (a key's second call)."""
     import warnings
 
     def wrap(fn, kind):
         def run(*a, **kw):
             h2d = be.transfer_stats["h2d"]
+            caps = sum(e.captures for e in be.graphs.entries.values())
             with warnings.catch_warnings(record=True) as ws:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
@@ -3119,7 +3445,9 @@ def _sync_sites(torch, be, records):
                     torch.cuda.set_sync_debug_mode(0)
             sites = [(os.path.realpath(w.filename), w.lineno) for w in ws
                      if "synchroniz" in str(w.message)]
-            records.append((kind, be.transfer_stats["h2d"] == h2d, sites))
+            records.append((kind, be.transfer_stats["h2d"] == h2d, sites,
+                            sum(e.captures for e in be.graphs.entries.values())
+                            > caps))
             return res
         return run
 
@@ -3205,6 +3533,7 @@ def sanitized_serving_phase(torch, cfg, params):
                   + (f", PageSan {san_p.access_checks} access checks / "
                      f"{san_p.claims} claims, LinkSan {san_l.checks} checks"
                      if sanitize else ""), flush=True)
+            rec["graphs"] = graph_check(srv.backend, f"S5 {preempt}")
             del srv
             gc.collect()
         check(toks[True] == toks[False],
@@ -3216,20 +3545,32 @@ def sanitized_serving_phase(torch, cfg, params):
           f"{walls[('recompute', True)]:.2f}", flush=True)
     # the instrumentation's own switch (torch.cuda.set_sync_debug_mode)
     # can report itself; it is no line of the port
-    src, first = inspect.getsourcelines(torch.cuda.set_sync_debug_mode)
-    switch = {(os.path.realpath(inspect.getsourcefile(
-        torch.cuda.set_sync_debug_mode)), first + i)
-        for i in range(len(src))}
-    steady = {k: next((s for kind, st, s in sync_records
-                       if kind == k and st), None)
+    switch = debug_switch_lines(torch)
+    steady = {k: next((s for kind, st, s, cap in sync_records
+                       if kind == k and st and not cap), None)
               for k in ("decode", "megastep")}
     for kind, sites in steady.items():
         check(sites is not None, f"S5: no steady-state {kind} call")
         print(f"  steady-state {kind}: syncs PyTorch reports at "
               f"{[f'{os.path.relpath(p, ROOT)}:{n}' for p, n in sites]}",
               flush=True)
+    # the graphed step: no call that replays (or runs its warm-up) may
+    # sync, uploads included (they go through pinned staging)
+    uploading = [r for r in sync_records if not r[1]]
+    blocked = [r for r in uploading if set(r[2]) - switch]
+    synced = [r for r in sync_records if set(r[2]) - switch and not r[3]]
+    out["upload_calls"] = len(uploading)
+    out["upload_calls_that_synced"] = len(blocked)
+    out["calls_that_synced_outside_a_capture"] = len(synced)
+    print(f"  {len(blocked)} of {len(uploading)} decode / megastep calls "
+          f"that uploaded reported a sync (run 59, before pinned staging: "
+          f"57 of 65); {len(synced)} of "
+          f"{sum(not r[3] for r in sync_records)} calls outside a capture "
+          "synced", flush=True)
+    check(not synced, "S5: a decode / megastep call outside a capture "
+          f"synced: {[sorted(set(r[2]) - switch) for r in synced][:4]}")
     every, bad = {}, set()
-    for kind, st, sites in sync_records:
+    for kind, st, sites, _ in sync_records:
         for site in sites:
             p_, n = site
             key = (f"{os.path.relpath(p_, ROOT)}:{n} "

@@ -14,7 +14,8 @@ the port's rules need:
   class (a class brings its methods), a method call `x.m(...)` reaches
   every method `m` of those modules, and a call of a value that is no
   known function (a layer held in a list) reaches every `forward` and
-  `__call__` there.
+  `__call__` there. `reachable` follows the same edges from other roots
+  (the captured decode step, for `lint`'s tracer-if).
 * **Tensor expressions** (`TensorScope`): `torch.*` calls other than the
   host queries in `HOST_TORCH`, methods, indexing and arithmetic of a
   tensor, names bound to one, `self.x` attributes a method of the class
@@ -33,7 +34,7 @@ from typing import Dict, Iterator, List, Optional, Set
 
 PACKAGE = "repro_torch"
 HOT_MODULES = ("repro_torch.core.backend", "repro_torch.core.engine",
-               "repro_torch.serving.cache")
+               "repro_torch.core.graphs", "repro_torch.serving.cache")
 HOT_PREFIXES = ("repro_torch.kernels.",)
 REACHED_PREFIXES = ("repro_torch.models.", "repro_torch.core.lora",
                     "repro_torch.serving.sampling")
@@ -186,6 +187,13 @@ def _reached_module(fq: str) -> bool:
 
 def hot_functions(project: Project) -> Set[FuncInfo]:
     """The functions of the serving hot path (see the module docstring)."""
+    return reachable(project, [f for f in project.funcs.values()
+                               if is_hot_module(f.module.fq)])
+
+
+def reachable(project: Project, roots) -> Set[FuncInfo]:
+    """`roots` and every function of the hot and reached modules that
+    they reach (as `hot_functions` follows calls)."""
     scope = [f for f in project.funcs.values()
              if _reached_module(f.module.fq)]
     by_method: Dict[str, List[FuncInfo]] = {}
@@ -226,8 +234,7 @@ def hot_functions(project: Project) -> Set[FuncInfo]:
             if g.parent is f:
                 yield g
 
-    seen: Set[FuncInfo] = {f for f in project.funcs.values()
-                           if is_hot_module(f.module.fq)}
+    seen: Set[FuncInfo] = set(roots)
     todo = list(seen)
     while todo:
         f = todo.pop()

@@ -26,9 +26,25 @@ reference's `repro.analysis.lint`):
   ``kernels/ref.py`` of the same positional parameters (the counterpart
   of the reference's ``pallas-oracle``).
 
-The reference's ``jit-spec``, ``donated-reuse`` and ``tracer-if`` have no
-object in an eager port; they return with the CUDA graphs of ROADMAP.md
-queue 1, item 2. Its kernel-* rules have their counterparts in
+* ``jit-spec``      — a CUDA-graph capture (``torch.cuda.graph``,
+  ``torch.cuda.CUDAGraph``, ``torch.cuda.make_graphed_callables``)
+  outside ``core/graphs.py``: every capture goes through the one place
+  that declares its static inputs (the port's counterpart of a jit
+  without an explicit static / donate spec).
+* ``donated-reuse`` — rebinding, by assignment, a buffer that the
+  captured decode step reads: the decode pipeline's buffers
+  (``pipe.last_tok = ...``, ``pipe.active = ...``), the backend's KV
+  plane (``self.cache``, or one of its leaves) or the LoRA pool
+  (``DevicePool.pool``, or one of its leaves). The graph replays the old
+  address; the write must go in place (the counterpart of reading a
+  donated buffer). ``__init__`` allocates them and is exempt.
+* ``tracer-if``     — ``if`` / ``while`` / a conditional expression /
+  ``int()`` / ``bool()`` / ``float()`` / ``.item()`` on a tensor inside a
+  function reachable from the captured step (`callgraph.reachable` from
+  ``NumericsBackend._fused_step``): a graph would bake one value in. A
+  ``host-sync`` waiver does not waive it.
+
+The reference's kernel-* rules have their counterparts in
 `kernel_model` and `kernel_verify`.
 
 Waivers are audited: one that matched no finding in the run, or that
@@ -62,6 +78,13 @@ REF_MODULE = "repro_torch.kernels.ref"
 LAUNCH_PREFIX = "rt_"
 QUERY_SUFFIXES = ("_fits", "_info")        # lib queries that launch nothing
 SRC = str(Path(__file__).resolve().parents[2])
+# the captured decode step (`core.graphs`) and the buffers it reads
+GRAPH_MODULE = "repro_torch.core.graphs"
+GRAPH_FQS = {f"torch.cuda.{m}{n}" for m in ("", "graphs.")
+             for n in ("graph", "CUDAGraph", "make_graphed_callables")}
+STEP_ROOT = "repro_torch.core.backend.NumericsBackend._fused_step"
+PIPE_BUFFERS = {"last_tok", "pos", "target", "active", "idx",
+                "block_table", "gen"}
 
 
 @dataclass
@@ -125,9 +148,14 @@ class Linter:
         self.findings.append(f)
 
     def run(self) -> List[Finding]:
+        self.hot = cg.hot_functions(self.project)
+        self.scopes = cg.tensor_scopes(self.project, self.hot)
         self.rule_bare_assert()
         self.rule_host_sync()
         self.rule_kernel_oracle()
+        self.rule_jit_spec()
+        self.rule_donated_reuse()
+        self.rule_tracer_if()
         self.findings.sort(key=lambda f: (f.path, f.line, f.col))
         return self.findings
 
@@ -194,8 +222,7 @@ class Linter:
         return None
 
     def rule_host_sync(self) -> None:
-        hot = cg.hot_functions(self.project)
-        scopes = cg.tensor_scopes(self.project, hot)
+        hot, scopes = self.hot, self.scopes
         for f in sorted(hot, key=lambda g: g.qname):
             mod, sc = f.module, scopes[f]
             where = f"in {f.qname[len(mod.fq) + 1:]}, on the hot path"
@@ -253,6 +280,75 @@ class Linter:
                                    f"{f.positional_params} differ from "
                                    f"`{name}` {oracle.positional_params}")
 
+    def rule_jit_spec(self) -> None:
+        for mod in self.project.modules.values():
+            if mod.fq == GRAPH_MODULE:
+                continue
+            for node in ast.walk(mod.tree):
+                if isinstance(node, (ast.Name, ast.Attribute)) and \
+                        isinstance(node.ctx, ast.Load) and \
+                        self.project.resolve(mod, node) in GRAPH_FQS:
+                    self._emit(mod, node, "jit-spec",
+                               f"`{self.project.resolve(mod, node)}` "
+                               "outside core/graphs.py — capture through "
+                               "`core.graphs.StepGraphs`, which declares "
+                               "the step's static inputs")
+
+    def rule_donated_reuse(self) -> None:
+        for mod in self.project.modules.values():
+            for f in mod.funcs.values():
+                if f.name == "__init__":
+                    continue
+                for node in cg.own_nodes(f.node):
+                    if isinstance(node, ast.Assign):
+                        targets = node.targets
+                    elif isinstance(node, ast.AnnAssign):
+                        targets = [node.target]
+                    else:
+                        continue
+                    for t in targets:
+                        for sub in _unpacked(t):
+                            what = _step_buffer(f, sub)
+                            if what:
+                                self._emit(
+                                    mod, sub, "donated-reuse",
+                                    f"{what} rebound by assignment in "
+                                    f"`{f.name}` — the captured decode "
+                                    "step replays the old address; write "
+                                    "it in place (copy_, an indexed "
+                                    "write)")
+
+    def rule_tracer_if(self) -> None:
+        root = self.project.funcs.get(STEP_ROOT)
+        if root is None:
+            return
+        step = cg.reachable(self.project, [root])
+        for f in sorted(step, key=lambda g: g.qname):
+            mod, sc = f.module, self.scopes[f]
+            for node in cg.own_nodes(f.node):
+                kind = None
+                if isinstance(node, (ast.If, ast.While, ast.IfExp)) and \
+                        sc.expr(node.test):
+                    kind = {ast.If: "if", ast.While: "while",
+                            ast.IfExp: "a conditional expression"}[
+                                type(node)]
+                elif isinstance(node, ast.Call):
+                    fn = node.func
+                    if isinstance(fn, ast.Name) and \
+                            fn.id in ("int", "bool", "float") and \
+                            any(sc.expr(a) for a in node.args):
+                        kind = f"{fn.id}()"
+                    elif isinstance(fn, ast.Attribute) and \
+                            fn.attr == "item" and sc.expr(fn.value):
+                        kind = ".item()"
+                if kind is not None:
+                    self._emit(mod, node, "tracer-if",
+                               f"{kind} on a tensor in "
+                               f"`{f.qname[len(mod.fq) + 1:]}`, reachable "
+                               "from the captured decode step — a CUDA "
+                               "graph bakes in the value of its capture; "
+                               "compute it on the device (torch.where)")
+
     # ------------------------------------------------------------ waivers --
     def unused_waivers(self) -> List[Finding]:
         """Waiver comments that matched no finding in this run, or that
@@ -279,6 +375,71 @@ class Linter:
                                    "unused-waiver", msg))
         out.sort(key=lambda f: (f.path, f.line, f.col))
         return out
+
+
+def _unpacked(t: ast.AST) -> List[ast.AST]:
+    if isinstance(t, (ast.Tuple, ast.List)):
+        return [x for e in t.elts for x in _unpacked(e)]
+    if isinstance(t, ast.Starred):
+        return _unpacked(t.value)
+    return [t]
+
+
+def _self_of(f: cg.FuncInfo, e: ast.AST, cls: str) -> bool:
+    return isinstance(e, ast.Name) and e.id == "self" and f.cls_name == cls
+
+
+def _is_pipe(f, e) -> bool:
+    """The decode pipeline: `pipe`, `<x>.pipe`, or `self` in it."""
+    return (isinstance(e, ast.Name) and e.id == "pipe") or \
+        (isinstance(e, ast.Attribute) and e.attr == "pipe") or \
+        _self_of(f, e, "DecodePipeline")
+
+
+def _is_backend(f, e) -> bool:
+    return (isinstance(e, ast.Name) and e.id in ("be", "backend")) or \
+        (isinstance(e, ast.Attribute) and e.attr == "backend") or \
+        _self_of(f, e, "NumericsBackend")
+
+
+def _is_device_pool(f, e) -> bool:
+    """A `DevicePool`: `<x>.pool` (whose `.pool` is the tree), or `self`
+    in the class."""
+    return (isinstance(e, ast.Attribute) and e.attr == "pool") or \
+        _self_of(f, e, "DevicePool")
+
+
+def _tree_root(f, e) -> Optional[str]:
+    """What `e` is, if it is a tree the captured step reads."""
+    if isinstance(e, ast.Attribute):
+        if e.attr == "cache" and _is_backend(f, e.value):
+            return "the backend's KV plane"
+        if e.attr == "pool" and _is_device_pool(f, e.value):
+            return "the LoRA pool"
+    return None
+
+
+def _step_buffer(f: cg.FuncInfo, t: ast.AST) -> Optional[str]:
+    """The step buffer an assignment target rebinds, or None: a pipeline
+    buffer, a tree (`cache`, `pool`), or a leaf of one (keys that are all
+    strings, or one key: a dict's entry; an index into a tensor writes it
+    in place)."""
+    if isinstance(t, ast.Attribute):
+        if t.attr in PIPE_BUFFERS and _is_pipe(f, t.value):
+            return f"the decode pipeline's `{t.attr}`"
+        return _tree_root(f, t)
+    if not isinstance(t, ast.Subscript):
+        return None
+    keys = []
+    while isinstance(t, ast.Subscript):
+        keys.append(t.slice)
+        t = t.value
+    root = _tree_root(f, t)
+    if root and (len(keys) == 1 or all(
+            isinstance(k, ast.Constant) and isinstance(k.value, str)
+            for k in keys)):
+        return f"a leaf of {root}"
+    return None
 
 
 @dataclass

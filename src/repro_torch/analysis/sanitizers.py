@@ -32,9 +32,9 @@ else.
   canceled by a crash (or failed outright) must never retire.
 
 A copy of `repro.analysis.sanitizers`, changed only in its imports. The
-reference's third sanitizer, RetraceSan, watches jit trace caches; the port
-runs eagerly and has none (its counterpart, a CUDA-graph re-capture watch,
-waits for the CUDA graphs of ROADMAP.md queue 1, item 2).
+third sanitizer, RetraceSan (`analysis.retrace`), watches the decode
+step's CUDA graphs for a re-capture after steady state, where the
+reference's watches jit trace caches.
 """
 from __future__ import annotations
 

@@ -23,11 +23,21 @@ pinned memory while the current step runs). Entry points:
     changes: zero host->device transfers in steady state.
   * `megastep` — K decode iterations in one call: a Python loop over the
     same `_fused_step`, so it equals K single steps exactly, temperature
-    draws included. (A CUDA graph per K is later work.)
+    draws included.
   * `prefill_chunk` — one chunk of a long prompt's prefill for one row
     (chunked prefill, paged plane only), written into the row's claimed
     pages in place; only the final chunk samples and seeds the row's
     pipeline state.
+
+On the card `decode` and each `megastep[K=k]` run as CUDA graphs
+(`core.graphs.StepGraphs`, the counterpart of the reference's jitted,
+donated steps): every tensor the step reads keeps its storage, and the
+step, `refresh`, prefill and swap-in write it in place; host-built
+metadata goes up through pinned staging without blocking the host.
+`graphs=False` runs the step eagerly (a comparison arm). Under the
+sanitizers (``REPRO_SANITIZE=1``) `retrace_san` watches the graphs for a
+re-capture after steady state, as the reference's RetraceSan watches its
+trace caches.
 
 `pipeline="perstep"` keeps the reference's pre-pipeline baseline on the
 dense plane: host-built token and position arrays each step, greedy
@@ -42,7 +52,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import retrace, sanitizers
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.graphs import StepGraphs, leaves
 from repro_torch.core.lora import DevicePool, HostLoRAStore, StagingCache
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
@@ -62,12 +74,20 @@ def bucket(n: int, lo: int = 8) -> int:
     return b
 
 
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    # lint: allow-host-sync — the step's host-built metadata (token ids,
-    # positions, slots, block table) goes up when the batch changes: a
-    # blocking copy from pageable memory, left until CUDA graphs bring
-    # pinned staging (ROADMAP.md queue 1, item 2)
-    return torch.from_numpy(arr).to(device)
+def _upload(arr: np.ndarray, device: torch.device,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A host-built array (token ids, positions, slots, block table) onto
+    the device: staged through pinned host memory and copied with
+    non_blocking=True on the current stream, so the host never waits for
+    it. Into `out` in place where given (a buffer a captured step reads
+    keeps its storage), else into a new tensor. The pinned stage goes back
+    to PyTorch's host allocator, which reuses it only once the copy ran."""
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        src = src.pin_memory()
+    if out is None:
+        out = torch.empty(src.shape, dtype=src.dtype, device=device)
+    return out.copy_(src, non_blocking=True)
 
 
 def _mask_pad_slots(row_caches, lens):
@@ -101,7 +121,9 @@ class DecodePipeline:
 
     `active`/`idx`/`block_table` change only on events (admission,
     retirement, a boundary page claim); `refresh` re-uploads them only
-    when their host signature changes. `gen` is the sampling generator
+    when their host signature changes. Every buffer keeps its storage for
+    the pipeline's life (a captured step reads it by address): writes go
+    in place. `gen` is the sampling generator
     (the reference threads a PRNG key through its step state).
 
     Readback: `stash` starts a non-blocking copy of the step's tokens into
@@ -132,7 +154,8 @@ class DecodePipeline:
     # ------------------------------------------------------- row state ----
     def refresh(self, ready: List[RequestState], row_slot, row_pages):
         """Sync the active mask, LoRA slot map and block table with the
-        engine's ready set; uploads only when the composition changed."""
+        engine's ready set; uploads, in place, only when the composition
+        changed."""
         active = np.zeros((self.max_batch,), bool)
         for st in ready:
             active[st.row] = True
@@ -147,13 +170,13 @@ class DecodePipeline:
                 bt[st.row, :len(pg)] = pg
             sig += bt.tobytes()
         if sig != self._sig:
-            self.active = _upload(active, self.device)
-            self.idx = _upload(idx.astype(np.int32), self.device)
+            _upload(active, self.device, out=self.active)
+            _upload(idx.astype(np.int32), self.device, out=self.idx)
             self._sig = sig
             self.stats["h2d"] += 2
             self.stats["h2d_bytes"] += active.nbytes + 4 * self.max_batch
             if bt is not None:
-                self.block_table = _upload(bt, self.device)
+                _upload(bt, self.device, out=self.block_table)
                 self.stats["h2d"] += 1
                 self.stats["h2d_bytes"] += bt.nbytes
 
@@ -204,7 +227,8 @@ class NumericsBackend:
                  params=None, seed: int = 0, pipeline: str = "fused",
                  megastep: int = MEGASTEP_MAX, temperature: float = 0.0,
                  staging_slots: int = 16, memory: str = "paged",
-                 page_size: int = 32, allocator=None, device=None):
+                 page_size: int = 32, allocator=None, device=None,
+                 graphs: bool = True):
         if pipeline not in PIPELINES:
             raise ValueError(f"unknown pipeline {pipeline!r}")
         if memory not in ("dense", "paged"):
@@ -265,6 +289,12 @@ class NumericsBackend:
         self.staging = StagingCache(staging_slots,
                                     on_upload=self._count_upload,
                                     device=self.device)
+        # the fused pipeline's decode / megastep[K=k] graphs (captured on
+        # the card only); RetraceSan (REPRO_SANITIZE=1) watches them for a
+        # re-capture after steady state
+        self.graphs = StepGraphs(self.device, capture=graphs)
+        self.retrace_san = (retrace.RetraceSan()
+                            if sanitizers.enabled() else None)
 
     def _san_check(self, ids, prefix: str, op: str) -> None:
         """PageSan access check (REPRO_SANITIZE=1) for host-known page id
@@ -497,6 +527,7 @@ class NumericsBackend:
         fused iterations equal K single calls. Rows that are inactive or at
         their stop target drop their KV write (the sink page, or their
         dense slot written back unchanged), keep their token and position.
+        Writes the pipeline's state in place (it runs under a CUDA graph).
         Returns the step's (max_batch,) tokens."""
         pipe = self.pipe
         act = active & (pipe.pos < pipe.target)
@@ -506,13 +537,28 @@ class NumericsBackend:
             block_table=pipe.block_table)
         toks = sample(logits[:, -1], temperature=self.temperature,
                       generator=pipe.gen)
-        pipe.last_tok = torch.where(act, toks, pipe.last_tok)
-        pipe.pos = torch.where(act, pipe.pos + 1, pipe.pos)
+        pipe.last_tok.copy_(torch.where(act, toks, pipe.last_tok))
+        pipe.pos.add_(act.to(pipe.pos.dtype))
         return toks
 
     def _lora_arg(self):
         return {"pool": self.pool.pool, "idx": self.pipe.idx,
                 "mode": self._mode_str()}
+
+    def _run_step(self, name: str, step) -> torch.Tensor:
+        """`step` under graph key `name` (`core.graphs`): its signature
+        covers the pipeline's buffers, the KV plane's leaves and the LoRA
+        pool's leaves (the ranks included)."""
+        pipe = self.pipe
+        bufs = [pipe.last_tok, pipe.pos, pipe.target, pipe.active, pipe.idx]
+        if pipe.block_table is not None:
+            bufs.append(pipe.block_table)
+        inputs = bufs + leaves(self.cache) + leaves(self.pool.pool)
+        gens = (pipe.gen,) if self.temperature > 0.0 else ()
+        out = self.graphs.run(name, inputs, step, gens)
+        if self.retrace_san is not None:
+            self.retrace_san.observe(name, self.graphs.entries[name])
+        return out
 
     @torch.no_grad()
     def decode(self, ready: List[RequestState], row_slot, row_pos,
@@ -526,7 +572,9 @@ class NumericsBackend:
             self._san_check([p for st in ready for p in row_pages[st.row]],
                             "kv:", "decode block table")
         pipe.refresh(ready, row_slot, row_pages)
-        toks = self._fused_step(self._lora_arg(), pipe.active)
+        lora = self._lora_arg()
+        toks = self._run_step(
+            "decode", lambda: self._fused_step(lora, pipe.active))
         pipe.stash(toks, [(st, st.row, 1) for st in ready])
 
     @torch.no_grad()
@@ -549,8 +597,8 @@ class NumericsBackend:
                             "kv:", "megastep block table")
         pipe.refresh(ready, row_slot, row_pages)
         lora = self._lora_arg()
-        ys = torch.stack([self._fused_step(lora, pipe.active)
-                          for _ in range(K)])
+        ys = self._run_step(f"megastep[K={K}]", lambda: torch.stack(
+            [self._fused_step(lora, pipe.active) for _ in range(K)]))
         pipe.stash(ys, [(st, st.row, n) for st, n in zip(ready, nsteps)])
 
     # ------------------------------------------------ legacy (perstep) ----

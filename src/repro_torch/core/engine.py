@@ -66,7 +66,8 @@ class InferenceServer:
                  total_pages: Optional[int] = None,
                  admit_footprint: str = "prompt",
                  preempt: str = "recompute", chunk_budget: int = 0,
-                 shed_late_slo: float = 0.0, device=None):
+                 shed_late_slo: float = 0.0, device=None,
+                 graphs: bool = True):
         self.device = resolve_device(device) if numerics else None
         self.cfg = cfg
         self.mode = mode
@@ -154,8 +155,8 @@ class InferenceServer:
             store=self.store, pool=self.pool, params=params, seed=seed,
             pipeline=pipeline, megastep=megastep, temperature=temperature,
             staging_slots=staging_slots, memory=memory, page_size=page_size,
-            allocator=self.allocator, device=self.device) if numerics \
-            else None
+            allocator=self.allocator, device=self.device,
+            graphs=graphs) if numerics else None
         self.clock = 0.0
         self.states: List[RequestState] = []
         self.avg_ctx = avg_ctx

@@ -408,8 +408,8 @@ class DevicePool:
                 self.allocator.free(self.slot_pages[slot])
             self.slot_pages[slot] = self.allocator.claim(
                 need, f"adapter:{uid}")
-        if self.materialize:
-            self.pool = pool_insert(self.pool, self.cfg, weights, slot, rank)
+        if self.materialize:     # in place: a captured step reads it
+            pool_insert(self.pool, self.cfg, weights, slot, rank)
         self.slot_uid[slot] = uid
         self.slot_ready[slot] = False
         self._touch(slot)

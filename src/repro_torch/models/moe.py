@@ -46,7 +46,8 @@ def record_routing():
     """Collect each `moe_apply` call's routing into the yielded list, as
     device tensors (no host sync): {"probs": (G, S, E) f32, "idx": (G, S,
     k) experts chosen, "keep": (G, S, k) bool, False where dropped,
-    "dropped": 0-d count of dropped assignments}."""
+    "dropped": 0-d count of dropped assignments}. A call under a CUDA-graph
+    capture raises: a replay runs no Python and would record nothing."""
     global _routes
     saved, _routes = _routes, []
     try:
@@ -118,6 +119,10 @@ def _moe_apply(cfg, p: MoE, x, need_aux=True):
     pos = ((oh.cumsum(1) - oh) * oh).sum(-1)                  # (G, S*k)
     keep = pos < C
     if _routes is not None:
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "record_routing under a CUDA-graph capture: the graph's "
+                "replays would append nothing (record an eager call)")
         _routes.append({"probs": probs, "idx": gate_idx,
                         "keep": keep.reshape(G, S, k),
                         "dropped": (~keep).sum()})

@@ -233,6 +233,34 @@ def test_temperature_streams_on_card_repeat_under_one_seed(card, memory):
     assert all(0 <= t < cfg.vocab for st in a.states for t in st.generated)
 
 
+@pytest.mark.parametrize("memory", ["paged", "dense"])
+def test_graphed_step_on_card_matches_eager(card, memory):
+    """The fused pipeline's decode and megastep[K=k] CUDA graphs: the
+    replayed steps give the eager steps' tokens, every key is captured
+    once and replayed, and the launch counters move by exactly what the
+    eager run launches (each replay adds its capture's count)."""
+    counters = (paged.paged_attention, bgmv.lora_shrink, bgmv.lora_expand,
+                flash.flash_attention)
+    runs, params = [], None
+    for graphs in (False, True):
+        before = [f.launches for f in counters]
+        srv = _serve("cuda", params=params, memory=memory, graphs=graphs)
+        params = srv.params
+        runs.append(([f.launches - n for f, n in zip(counters, before)],
+                     {s.req.rid: s.generated for s in srv.states},
+                     srv.backend.graphs.stats()))
+    (l_eager, t_eager, s_eager), (l_graph, t_graph, s_graph) = runs
+    assert t_graph == t_eager
+    assert l_graph == l_eager
+    assert any(k.startswith("megastep[K=") for k in s_graph)
+    for s in s_graph.values():
+        assert s["builds"] == 1 and s["captures"] <= 1
+        assert s["replays"] >= s["captures"]
+    assert sum(s["replays"] for s in s_graph.values()) > 0
+    assert all(s["captures"] == s["replays"] == 0
+               for s in s_eager.values())
+
+
 def _smoke_cluster(device, params=None, crash=None):
     """Two llama2-7b-smoke servers (f32) over one weight set behind the
     rank-aware router; `crash` = (crash, restart) times of server 1."""

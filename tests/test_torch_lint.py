@@ -65,9 +65,10 @@ LAYERS = "def g(x):\n    return x.tolist()\n"
 
 
 def _package(root: Path, backend: str, kernel_ref: str = "",
-             kernel: str = "") -> str:
+             kernel: str = "", extra=None) -> str:
     src = root / "src"
-    files = {"repro_torch/__init__.py": "",
+    files = {**(extra or {}),
+             "repro_torch/__init__.py": "",
              "repro_torch/core/__init__.py": "",
              "repro_torch/core/backend.py": BACKEND_HEAD + backend,
              "repro_torch/models/__init__.py": "",
@@ -125,6 +126,76 @@ def test_kernel_oracle(tmp_path, oracle, fires):
     assert _rules(report) == (["kernel-oracle"] if fires else [])
 
 
+STEP = """\
+class NumericsBackend:
+    def _fused_step(self, pipe, t):
+{}
+
+    def other(self, t):
+{}
+"""
+# the captured step's rules: (rule, a body that must fire, one that must
+# not); a body is (the step's lines, other's lines), in backend.py
+STEP_CASES = {
+    # a host-sync waiver does not waive the captured step's rule
+    "tracer-if": ("tracer-if",
+                  ("        t = torch.ones(3)\n"
+                   "        # lint: allow-host-sync — a designed read\n"
+                   "        if (t > 0).any():\n            return t",
+                   "        return t"),
+                  ("        return t",
+                   "        t = torch.ones(3)\n"
+                   "        # lint: allow-host-sync — off the step\n"
+                   "        if (t > 0).any():\n            return t")),
+    "tracer-if-item": ("tracer-if",
+                       ("        t = torch.ones(3)\n"
+                        "        # lint: allow-host-sync — a designed read\n"
+                        "        return t.sum().item()",
+                        "        return t"),
+                       ("        t = torch.ones(3)\n"
+                        "        return t.sum()",
+                        "        return t")),
+    "rebind-pipe": ("donated-reuse",
+                    ("        pipe.last_tok = t", "        return t"),
+                    ("        pipe.last_tok.copy_(t)", "        return t")),
+    "rebind-cache": ("donated-reuse",
+                     ("        return t", "        self.cache = t"),
+                     ("        return t", "        self.cache[0] += t")),
+    "rebind-pool-leaf": ("donated-reuse",
+                         ("        return t",
+                          "        self.pool.pool['q']['a'] = t"),
+                         ("        return t",
+                          "        self.pool.pool['ranks'][t] = 3")),
+    "capture-outside-graphs": ("jit-spec",
+                               ("        return torch.cuda.CUDAGraph()",
+                                "        return t"),
+                               ("        return t", "        return t")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_captured_step_rules(tmp_path, case):
+    rule, pos, neg = STEP_CASES[case]
+    report = lint.run_lint_report(_package(tmp_path / "pos",
+                                           STEP.format(*pos)))
+    assert _rules(report) == [rule], report.findings
+    assert report.findings[0].path.endswith("backend.py")
+    report = lint.run_lint_report(_package(tmp_path / "neg",
+                                           STEP.format(*neg)))
+    assert report.findings == [], report.findings
+
+
+def test_capture_in_core_graphs_and_init_allocations_pass(tmp_path):
+    """core/graphs.py is where captures go; __init__ allocates the step's
+    buffers."""
+    graphs = "import torch\n\n\ndef g():\n    return torch.cuda.CUDAGraph()\n"
+    init = ("class DecodePipeline:\n    def __init__(self, t):\n"
+            "        self.last_tok = t\n        self.pos = t\n")
+    report = lint.run_lint_report(_package(
+        tmp_path, init, extra={"repro_torch/core/graphs.py": graphs}))
+    assert report.findings == []
+
+
 def test_waivers_suppress_and_are_audited(tmp_path):
     body = ("def f(x):\n"
             "    # lint: allow-host-sync — the designed readback\n"
@@ -162,8 +233,9 @@ def test_cli_refuses_a_missing_path(tmp_path):
 def test_the_port_lints_clean_with_strict_waivers(capsys):
     """No finding, no stale waiver, a reason on every waiver; the designed
     syncs are the waived ones: the readback drain, the per-step pipeline's
-    readback, swap-out, and the two uploads of host-built indices (the
-    backend's step metadata, the cache's rows and page ids)."""
+    readback, swap-out, and the cache's upload of host-built rows and page
+    ids (the backend's step metadata goes up through pinned staging,
+    without a sync)."""
     assert lint.main([str(ROOT / "src"), "--strict-waivers"]) == 0
     report = lint.run_lint_report()
     sites = sorted({(Path(f.path).name, f.rule) for f in report.waived})
@@ -172,4 +244,4 @@ def test_the_port_lints_clean_with_strict_waivers(capsys):
              for f in report.waived}
     assert names == {"DecodePipeline._drain_one",
                      "NumericsBackend._decode_perstep", "extract_pages",
-                     "_upload", "_device_index"}
+                     "_device_index"}
