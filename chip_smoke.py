@@ -99,6 +99,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      profiled decode and megastep[K=8] call of each arm, the syncs of
      each call (none outside a capture), each graph's capture time and
      the graph pool's bytes;
+  P. the compiled prefill and chunk steps (since PR 23 every served
+     phase runs its prefill buckets of at most 4,096 tokens, and every
+     chunk, as CUDA graphs too; larger buckets run eagerly, counted): P1
+     on the llama2-7b weights, phase 3a's bgmv and mbgmv requests served
+     three times on one server, graphed and with graphs=False: tokens
+     and launch counts equal, every prefill key built once, every one
+     called twice or more replayed, the median prefill ms of each arm
+     over all calls and over the calls that replayed (each call is the
+     same call in both arms: the schedule is simulated); P2 after phase
+     5b on the yi-9b weights, phase 3b's chunk_budget=512 arm with
+     graphs=False against 3b's graphed one (tokens, launches, median
+     chunk ms), the monolithic arm's buckets past the cap counted as
+     eager, and its requests served twice with the cap lifted (the graph
+     pool's bytes without the cap); P3 in phase G, mamba2-130m and
+     phi-3-vision served twice, graphed and with graphs=False (tokens,
+     launches, median prefill ms); P4 one profiled graphed and eager
+     call of a llama2-7b prefill (8 x 256), a yi-9b chunk (512 tokens)
+     and a mamba2 prefill: device
+     ms, wall ms, idle share, the syncs of every call (none outside a
+     capture), each key's capture seconds and the pool's bytes;
   T. training on the same llama2-7b weights. T1: each kernel autograd
      Function's gradients against autograd through the plain versions on
      the card, per output row with phase 2's rule, a second backward
@@ -121,9 +141,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      LoRA kernels, the GEMMs); the flash forward and the LoRA pair timed
      at the step's shapes. T3: full fine-tuning of llama2-7b cut to 4 of
      32 layers at full width (1.07 B parameters), one step's loss and
-     every parameter gradient held to the plain path as in T2(a), then 3
-     steps with accum 2 at 8 x 512, losses finite; then llama2-7b is
-     freed;
+     every parameter gradient held to the plain path as in T2(a), then 5
+     steps with accum 2 at 8 x 512, losses finite. Every `Trainer`
+     step runs as a CUDA graph (key `train`) since PR 23. T4: T2(c)'s ten
+     steps and T3's five run again with graphs=False from the same init
+     on the same batches: each step's loss within 1e-2, each trained
+     leaf within 5e-2 of its max after the last step; the median ms a
+     step of each arm from step 3 (the graphed arm's first two are its
+     warm-up and capture), peak memory, the graph pool's bytes; then
+     llama2-7b is freed;
   3b. serve full-width yi-9b (48 layers, 32 heads over 4 KV heads, bf16,
      seeded random weights): 8 requests, three of 2,049-4,000 prompt
      tokens and five of 32-256, 16 new tokens each, in two arms on the same
@@ -281,6 +307,7 @@ def main() -> int:
     report["dense_logits"] = dense_logits_phase(torch, llama, params)
     report["graphs"] = graphs_phase(torch, llama, params, serving,
                                     report["dense_serving"])
+    report["prefill_graphs"] = prefill_graphs_phase(torch, llama, params)
     report["training"], train_kernel_rows = training_phase(torch, llama,
                                                            params)
     kernels.extend(train_kernel_rows)
@@ -304,6 +331,8 @@ def main() -> int:
     kernels.append(paged_capture_timing(
         torch, capture["decode"], yi_serving, "paged_attention[yi-9b]",
         "yi-9b decode", min_pos=YI_LONG_POS))
+    report["chunk_graphs"] = chunk_graphs_phase(torch, yi, yi_params,
+                                                yi_serving)
     del yi_params, capture, lora_args
     gc.collect()
     torch.cuda.empty_cache()
@@ -765,17 +794,30 @@ def _counters():
 def time_backend_calls(torch, be, spans, decode_tokens):
     """Wrap a server's backend calls so each records a CUDA event on the
     stream at its start and its end into `spans` (by kind: prefill, chunk,
-    decode), with no host synchronization added, and counts the decode
-    tokens each decode or megastep call produces into decode_tokens[0].
-    Several servers may share one `spans`."""
+    decode), with no host synchronization added, tagged with what the
+    call's step graph did (`capture`: captured and replayed once,
+    `replay`, `capped`: eager by the prefill cap, `eager`: a key's warm-up
+    or graphs off), and counts the decode tokens each decode or megastep
+    call produces into decode_tokens[0]. Several servers may share one
+    `spans`."""
+    def counts():
+        es = be.graphs.entries.values()
+        return tuple(sum(getattr(e, n) for e in es)
+                     for n in ("captures", "replays", "eager"))
+
     def timed(fn, kind, count):
         def run(*a, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            before = counts()
             start.record()
             res = fn(*a, **kw)
             end.record()
-            spans[kind].append((start, end))
+            after = counts()
+            tag = "capture" if after[0] > before[0] else \
+                "replay" if after[1] > before[1] else \
+                "capped" if after[2] > before[2] else "eager"
+            spans[kind].append((start, end, tag))
             decode_tokens[0] += count(*a)
             return res
         return run
@@ -791,7 +833,8 @@ def time_backend_calls(torch, be, spans, decode_tokens):
 def graph_check(be, label):
     """The backend's step graphs after a run (`core.graphs`): on the fused
     pipeline with graphs on, some key must have replayed and none may
-    have been built twice (a buffer rebound); with graphs off (or the
+    have been built twice (a buffer rebound); a key that built nothing
+    ran eagerly by the prefill cap (counted); with graphs off (or the
     per-step pipeline), nothing may have been captured. Returns
     `StepGraphs.stats()`."""
     stats = be.graphs.stats()
@@ -799,7 +842,8 @@ def graph_check(be, label):
     if be.graphs.capture and be.pipeline == "fused":
         check(replays > 0, f"{label}: the decode step never replayed a "
               "CUDA graph")
-        check(all(g["builds"] == 1 for g in stats.values()),
+        check(all(g["builds"] == 1 or (g["builds"] == 0 and g["eager"])
+                  for g in stats.values()),
               f"{label}: a step graph was re-captured: {stats}")
     else:
         check(replays == 0 and not any(g["captures"]
@@ -812,10 +856,22 @@ def graph_summary(stats):
     if not any(g["captures"] for g in stats.values()):
         return "eager (no graph)"
     return "graphs " + ", ".join(
-        f"{k} {g['replays']} replays" for k, g in stats.items())
+        f"{k} {g['replays']} replays"
+        + (f" ({g['eager']} calls eager by the cap)" if g["eager"] else "")
+        for k, g in stats.items())
 
 
-def serve_phase(torch, cfg, runs, phase, params=None):
+def again(srv, reqs, rep):
+    """`reqs` once more on `srv`: rids offset by 1,000 a repetition,
+    arrivals shifted past the server's clock, so the schedule (and every
+    prefill bucket and chunk width) repeats."""
+    return [dataclasses.replace(r, rid=1000 * rep + r.rid,
+                                arrival_ms=srv.clock + r.arrival_ms)
+            for r in reqs]
+
+
+def serve_phase(torch, cfg, runs, phase, params=None, repeat=1,
+                graph_tokens=None):
     """Phase 3a/3b/3c: drive a path through InferenceServer, once per run,
     with every launch count zeroed just before and read just after: each
     kernel must have launched, except paged attention on the dense plane,
@@ -828,7 +884,10 @@ def serve_phase(torch, cfg, runs, phase, params=None):
     reaches its first work (or the host records the start, if the card is
     idle) to when its last work ends, so host gaps inside a call count and
     gaps between calls do not; `wall_s` covers the whole run. Runs with
-    the same request kwargs serve the same requests."""
+    the same request kwargs serve the same requests. `repeat`: serve them
+    that many times on one server (`again`), so that every prefill bucket
+    and chunk width is called again; `graph_tokens`: the backend's cap on
+    the prefill buckets it graphs, where not the default."""
     import numpy as np
     print(f"phase {phase}: serving full-width {cfg.name} on the card",
           flush=True)
@@ -841,6 +900,8 @@ def serve_phase(torch, cfg, runs, phase, params=None):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t_init
         be = srv.backend
+        if graph_tokens is not None:
+            be.graph_tokens = graph_tokens
         spans = {"prefill": [], "chunk": [], "decode": []}
         decode_tokens = [0]
         time_backend_calls(torch, be, spans, decode_tokens)
@@ -850,18 +911,22 @@ def serve_phase(torch, cfg, runs, phase, params=None):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         srv.run(reqs)
+        for rep in range(1, repeat):
+            srv.run(again(srv, reqs, rep))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in counters.items()}
-        times = {k: [s.elapsed_time(e) for s, e in v]
+        times = {k: [s.elapsed_time(e) for s, e, _ in v]
                  for k, v in spans.items()}
+        tags = {k: [t for *_, t in v] for k, v in spans.items()}
         for st in srv.states:
             check(len(st.generated) == st.req.max_new_tokens,
                   f"{label}: request {st.req.rid} produced "
                   f"{len(st.generated)} of {st.req.max_new_tokens} tokens")
             check(all(0 <= t < cfg.vocab for t in st.generated),
                   f"{label}: request {st.req.rid} token out of range")
-        check(len(srv.states) == len(reqs), f"{label}: lost requests")
+        check(len(srv.states) == repeat * len(reqs),
+              f"{label}: lost requests")
         n_attn = attention_layers(cfg)
         for n, c in launches.items():
             if n == "paged_attention" and srv.memory == "dense":
@@ -883,11 +948,13 @@ def serve_phase(torch, cfg, runs, phase, params=None):
                "memory": srv.memory, "pipeline": be.pipeline,
                "kv_cache_dtype": cfg.kv_cache_dtype or str(cfg.torch_dtype),
                "temperature": be.temperature,
-               "requests": len(reqs), "tokens": tokens,
+               "requests": repeat * len(reqs), "tokens": tokens,
                "prompt_tokens": [int(st.req.prompt_len) for st in srv.states],
                "wall_s": wall, "setup_s": init_s,
                "prefill_calls": len(times["prefill"]),
                "prefill_ms": times["prefill"],
+               "prefill_tags": tags["prefill"],
+               "chunk_ms": times["chunk"], "chunk_tags": tags["chunk"],
                "prefill_ms_median": float(np.median(times["prefill"])),
                "prefill_ms_max": float(np.max(times["prefill"])),
                "chunk_calls": len(times["chunk"]),
@@ -909,7 +976,8 @@ def serve_phase(torch, cfg, runs, phase, params=None):
         chunks = (f"; {rec['chunk_calls']} chunks, median "
                   f"{rec['chunk_ms_median']:.1f} ms"
                   if rec["chunk_calls"] else "")
-        print(f"  {cfg.name} {label}: {len(reqs)} requests, {tokens} tokens "
+        print(f"  {cfg.name} {label}: {rec['requests']} requests, {tokens} "
+              f"tokens "
               f"in {wall:.2f} s wall ({rec['tok_s_wall']:.1f} tok/s); "
               f"prefill median {rec['prefill_ms_median']:.1f} ms over "
               f"{rec['prefill_calls']} calls{chunks}; decode "
@@ -1189,21 +1257,15 @@ def graphs_phase(torch, cfg, params, serving, dense):
         san = be.retrace_san
         check(san is not None, "D3: no RetraceSan under the sanitizers")
         reqs = make_requests(cfg, uids, **D_WATCH)
-
-        def again(rid0):
-            return [dataclasses.replace(r, rid=rid0 + r.rid,
-                                        arrival_ms=srv.clock + r.arrival_ms)
-                    for r in reqs]
-
         srv.run(reqs)
         warm = dict(san._sizes)
         san.mark_steady()
-        srv.run(again(100))
+        srv.run(again(srv, reqs, 1))
         san.assert_clean()
         steady = graph_check(be, "D3 steady")
         q = be.pool.pool["q"]
         q["a"] = q["a"].clone()          # rebound: not written in place
-        srv.run(again(200))
+        srv.run(again(srv, reqs, 2))
         caught = None
         try:
             san.assert_clean()
@@ -1262,7 +1324,7 @@ def graphs_phase(torch, cfg, params, serving, dense):
                     for r in plain for p_, n_ in r[2]}),
                "graphs": stats}
         if graphs:
-            rec["pool_bytes"] = graph_pool_bytes(torch, be.graphs.pool)
+            rec["pool_bytes"] = be.graphs.pool_bytes()
         out["d4"][arm] = rec
         print(f"  D4 {arm}: decode call {p_dec['wall_ms']:.2f} ms wall, "
               f"{p_dec['device_ms']:.2f} ms device, idle "
@@ -1287,6 +1349,276 @@ def graphs_phase(torch, cfg, params, serving, dense):
     return out
 
 
+# ------------------------------------------------------------ phase P ----
+
+P1_PASSES = 3                         # P1 serves 3a's requests 3 times
+P_PROFILE = {"n": 8, "len": 256}      # P4's profiled prefill: 8 x 256
+P_CHUNK = 512                         # P4's profiled yi-9b chunk
+
+
+def p_compare(phase, graphed, eager, smi, kind="prefill"):
+    """Graphed and eager records of one run (`serve_phase`): every
+    request's tokens and every kernel's launch count must be equal; prints
+    the median `kind` (prefill / chunk) ms of each arm. Returns the
+    summary."""
+    import numpy as np
+    n = len(graphed["generated"])
+    same = sum(graphed["generated"][r] == eager["generated"][r]
+               for r in graphed["generated"])
+    key = f"{kind}_ms_median"
+    ms_g, ms_e = graphed[f"{kind}_ms"], eager[f"{kind}_ms"]
+    tags = graphed[f"{kind}_tags"]
+    # both arms serve one schedule (the timeline is simulated), so call i
+    # is the same call in each: the medians over the calls that replayed
+    paired = [i for i, t in enumerate(tags) if t == "replay"] \
+        if len(ms_g) == len(ms_e) else []
+    rec = {"run": graphed["run"], "requests": n, "tokens_equal": same,
+           "launches_graphed": graphed["launches"],
+           "launches_eager": eager["launches"],
+           f"{kind}_calls": graphed[f"{kind}_calls"],
+           f"{kind}_tags": {t: tags.count(t) for t in set(tags)},
+           f"{key}_graphed": graphed[key], f"{key}_eager": eager[key],
+           "replayed_calls": len(paired),
+           f"{key}_replayed": float(np.median([ms_g[i] for i in paired]))
+           if paired else None,
+           f"{key}_replayed_eager": float(np.median([ms_e[i]
+                                                     for i in paired]))
+           if paired else None,
+           "wall_s_graphed": graphed["wall_s"],
+           "wall_s_eager": eager["wall_s"],
+           "graphs": graphed["graphs"]}
+    over = (f"; over the {len(paired)} calls that replayed "
+            f"{rec[key + '_replayed']:.2f} / "
+            f"{rec[key + '_replayed_eager']:.2f} ms") if paired else \
+        "; no call replayed"
+    print(f"  {phase} {graphed['model']} {graphed['run']}: tokens equal on "
+          f"{same}/{n} requests; launches graphed {graphed['launches']} / "
+          f"eager {eager['launches']}; median {kind} "
+          f"{graphed[key]:.2f} / {eager[key]:.2f} ms over "
+          f"{graphed[f'{kind}_calls']} calls ({rec[f'{kind}_tags']}){over} "
+          f"(graphed / eager; {smi})", flush=True)
+    check(same == n, f"{phase} {graphed['run']}: graphed tokens differ from "
+          f"the eager ones on {n - same} of {n} requests")
+    check(graphed["launches"] == eager["launches"], f"{phase} "
+          f"{graphed['run']}: launches graphed {graphed['launches']} != "
+          f"eager {eager['launches']}")
+    return rec
+
+
+def p_keys_replayed(phase, stats, prefix):
+    """The graphed keys named `prefix...`: each built once; each captured
+    one (called twice or more) replayed; some replayed. A key called once
+    ran its warm-up only: the served passes' schedules differ where the
+    first pass's cold starts change which requests share a bucket.
+    Returns (replayed keys, keys called once)."""
+    keys = {k: g for k, g in stats.items()
+            if k.startswith(prefix) and not g["eager"]}
+    bad = {k: (g["builds"], g["captures"], g["replays"])
+           for k, g in keys.items() if g["builds"] != 1
+           or g["replays"] < g["captures"]}
+    check(not bad, f"{phase}: keys not built once and replayed: {bad}")
+    replayed = sorted(k for k, g in keys.items() if g["replays"])
+    check(replayed, f"{phase}: no {prefix}...] key replayed: {keys}")
+    return replayed, sorted(k for k, g in keys.items() if not g["replays"])
+
+
+def pool_summary(stats):
+    """The graph pool's bytes after the last capture, and each key's
+    capture seconds."""
+    after = [b for g in stats.values() for b in g["pool_bytes"]
+             if b is not None]
+    return {"pool_bytes": max(after) if after else None,
+            "capture_s": {k: g["capture_s"] for k, g in stats.items()
+                          if g["capture_s"]}}
+
+
+def prefill_graphs_phase(torch, cfg, params):
+    """Phase P1 on the phase-3a llama2-7b weights, at full width: phase
+    3a's 16 (bgmv) and 6 (mbgmv) requests served P1_PASSES times on one
+    server (so that prefill buckets come again), graphed and with
+    graphs=False, in this one process (the adapters are the same): every
+    request's greedy tokens and every kernel's launch count equal, every
+    graphed prefill key built once, every one called twice or more
+    replayed; the median prefill ms of each arm, over all calls and over
+    the calls that replayed. P4: one profiled graphed and eager prefill
+    call (`profile_prefill`)."""
+    smi = smi_reading()
+    t0 = time.perf_counter()
+    print(f"phase P1: phase 3a's requests served {P1_PASSES} times, "
+          "graphed and eager", flush=True)
+    arms = {}
+    for graphs in (True, False):
+        arm = "graphed" if graphs else "eager"
+        arms[arm], _ = serve_phase(torch, cfg, [
+            (f"{label} x{P1_PASSES} {arm}", kernel, dict(kw, graphs=graphs),
+             req) for label, kernel, kw, req in LLAMA_RUNS], "P1",
+            params=params, repeat=P1_PASSES)
+    out = {"p1": []}
+    for g, e in zip(arms["graphed"], arms["eager"]):
+        rec = p_compare("P1", g, e, smi)
+        rec["keys"], rec["keys_called_once"] = p_keys_replayed(
+            f"P1 {g['run']}", g["graphs"], "prefill[")
+        rec.update(pool_summary(g["graphs"]))
+        out["p1"].append(rec)
+        print(f"  P1 {g['run']}: prefill keys built once and replayed "
+              f"{rec['keys']}, called once {rec['keys_called_once']}; "
+              f"graph pool {rec['pool_bytes']} B", flush=True)
+    out["p4"] = {arm: profile_prefill(torch, cfg, params, graphs=arm ==
+                                      "graphed", smi=smi)
+                 for arm in ("graphed", "eager")}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phases P1 / P4 (llama2-7b) took {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def profile_prefill(torch, cfg, params, graphs, smi, **server_kw):
+    """Phase P4: one packed prefill call of P_PROFILE's rows, profiled
+    (device ms, wall ms, idle share) after the key's warm-up and capture,
+    the syncs of every prefill call (none outside a capture), each key's
+    capture seconds and the graph pool's bytes."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    arm = "graphed" if graphs else "eager"
+    srv, uids = make_server(torch, cfg, "bgmv", params, graphs=graphs,
+                            **server_kw)
+    be = srv.backend
+    records = []
+    _sync_sites(torch, be, records, kinds=("prefill_admitted",))
+    rng = np.random.default_rng(SEED + 12)
+    for i in range(P_PROFILE["n"]):
+        srv.submit(Request(rid=i, adapter_uid=uids[i % len(uids)],
+                           prompt=rng.integers(0, cfg.vocab, P_PROFILE["len"]
+                                               ).astype(np.int32),
+                           max_new_tokens=4, arrival_ms=0.0))
+    while be.transfer_stats["prefills"] == 0:
+        srv.step()
+    states = [st for st in srv.states if st.row is not None]
+    check(len(states) == P_PROFILE["n"], f"P4: {len(states)} rows admitted")
+
+    def call():
+        be.prefill_admitted(states)
+
+    call()                   # a key's second call is its capture
+    prof = profile_step(torch, call, f"one {arm} {cfg.name} prefill call "
+                        f"({P_PROFILE['n']} x {P_PROFILE['len']})")
+    be.flush_readback()
+    return p4_record(torch, be, prof, records, arm, f"{cfg.name} prefill",
+                     smi)
+
+
+def p4_record(torch, be, prof, records, arm, what, smi):
+    """P4's record of one profiled arm; checks that no call synced outside
+    a capture."""
+    switch = debug_switch_lines(torch)
+    plain = [(k, st, [x for x in sites if x not in switch], cap)
+             for k, st, sites, cap in records if not cap]
+    stats = be.graphs.stats()
+    rec = {"call": prof, "calls": len(records),
+           "sync_sites_outside_a_capture": sorted(
+               {f"{os.path.relpath(p_, ROOT)}:{n_}"
+                for r in plain for p_, n_ in r[2]}),
+           **pool_summary(stats)}
+    print(f"  P4 {what} {arm}: {prof['wall_ms']:.2f} ms wall, "
+          f"{prof['device_ms']:.2f} ms device, idle {share(prof)}; "
+          f"{len(records)} calls, syncs outside a capture at "
+          f"{rec['sync_sites_outside_a_capture']}; capture s "
+          f"{rec['capture_s']}; graph pool {rec['pool_bytes']} B ({smi})",
+          flush=True)
+    check(not rec["sync_sites_outside_a_capture"],
+          f"P4 {what} {arm}: a call synced")
+    return rec
+
+
+def chunk_graphs_phase(torch, cfg, params, serving):
+    """Phase P2 on the phase-3b yi-9b weights (bf16, full width): phase
+    3b's 8 requests with chunk_budget=512 served with graphs=False, their
+    tokens and launch counts equal to 3b's graphed arm's, each arm's
+    median chunk ms; the monolithic arm's buckets past the cap counted as
+    eager; the monolithic requests served twice with the cap lifted
+    (every bucket graphed) for the graph pool's bytes without the cap;
+    P4: one profiled graphed and eager chunk (`profile_chunk`)."""
+    from repro_torch.core.backend import PREFILL_GRAPH_TOKENS
+    smi = smi_reading()
+    t0 = time.perf_counter()
+    graphed = {r["run"]: r for r in serving}
+    print("phase P2: yi-9b chunked prefill graphed and eager", flush=True)
+    (mono_label, kernel, mono_kw, req), (label, _, chunk_kw, _) = YI_RUNS
+    eager, _ = serve_phase(torch, cfg, [
+        (f"{label} eager", kernel, dict(chunk_kw, graphs=False), req)],
+        "P2", params=params)
+    g = graphed[label]
+    out = {"p2": p_compare("P2", g, eager[0], smi, kind="chunk")}
+    for kind in ("prefill_chunk[", "prefill_chunk_final["):
+        keys = [k for k, v in g["graphs"].items()
+                if k.startswith(kind) and v["replays"]]
+        check(keys, f"P2: no {kind}...] key replayed: {g['graphs']}")
+    mono = graphed[mono_label]["graphs"]
+    capped = {k: v["eager"] for k, v in mono.items() if v["eager"]}
+    past = {k for k in mono if k.startswith("prefill[") and
+            bucket_tokens(k) > PREFILL_GRAPH_TOKENS}
+    check(past and set(capped) == past, f"P2: the monolithic arm's "
+          f"buckets past the cap {sorted(past)} vs those run eagerly "
+          f"{capped}")
+    out["capped_buckets"] = capped
+    out["pool_capped"] = pool_summary(mono)
+    lifted, _ = serve_phase(torch, cfg, [
+        (f"{mono_label} x2, no cap", kernel, mono_kw, req)], "P2",
+        params=params, repeat=2, graph_tokens=float("inf"))
+    out["pool_uncapped"] = pool_summary(lifted[0]["graphs"])
+    out["uncapped_prefill_ms_median"] = lifted[0]["prefill_ms_median"]
+    print(f"  P2 monolithic arm: buckets eager by the cap (calls) {capped}; "
+          f"graph pool {out['pool_capped']['pool_bytes']} B with the cap "
+          f"of {PREFILL_GRAPH_TOKENS} tokens, "
+          f"{out['pool_uncapped']['pool_bytes']} B without it (keys "
+          f"captured: {sorted(out['pool_uncapped']['capture_s'])}; {smi})",
+          flush=True)
+    out["p4"] = {arm: profile_chunk(torch, cfg, params, arm == "graphed",
+                                    smi) for arm in ("graphed", "eager")}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phases P2 / P4 (yi-9b) took {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def bucket_tokens(key):
+    """Nb x Lp of a `prefill[Nb=n,Lp=l]` key."""
+    nb, lp = (int(x.split("=")[1]) for x in key[8:-1].split(","))
+    return nb * lp
+
+
+def profile_chunk(torch, cfg, params, graphs, smi):
+    """Phase P4: one yi-9b chunk of P_CHUNK tokens (the first chunk of a
+    long prompt, run again over its own pages), profiled after the key's
+    warm-up and capture, with P4's sync check."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    arm = "graphed" if graphs else "eager"
+    srv, uids = make_server(torch, cfg, "bgmv", params, graphs=graphs,
+                            **dict(YI_SERVER, chunk_budget=P_CHUNK))
+    be, adm = srv.backend, srv.admission
+    records = []
+    _sync_sites(torch, be, records, kinds=("prefill_chunk",))
+    rng = np.random.default_rng(SEED + 14)
+    srv.submit(Request(rid=0, adapter_uid=uids[0],
+                       prompt=rng.integers(0, cfg.vocab, YI_LONG[1] - 1
+                                           ).astype(np.int32),
+                       max_new_tokens=4, arrival_ms=0.0))
+    while be.transfer_stats["prefill_chunks"] == 0:
+        srv.step()
+    st = srv.states[0]
+
+    def call():
+        be.prefill_chunk(st, adm.row_pages[st.row], 0, P_CHUNK, False)
+
+    call()
+    call()                   # the key's capture (the first was its warm-up)
+    prof = profile_step(torch, call, f"one {arm} {cfg.name} chunk of "
+                        f"{P_CHUNK} tokens")
+    return p4_record(torch, be, prof, records, arm, f"{cfg.name} chunk",
+                     smi)
+
+
 def debug_switch_lines(torch):
     """The lines of torch.cuda.set_sync_debug_mode: the instrumentation's
     own switch can report itself; it is no line of the port."""
@@ -1302,16 +1634,11 @@ def share(profile):
     return "not measured (no device time)" if x is None else f"{x:.3f}"
 
 
-def graph_pool_bytes(torch, pool):
-    """Bytes of the allocator's segments in a CUDA graph pool."""
-    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
-
-
 # ------------------------------------------------------------ phase T ----
 
 T_BATCH, T_SEQ, T_RANK, T_STEPS = 8, 512, 64, 10
 T3_LAYERS, T3_ACCUM = 4, 2       # T3: full fine-tuning, depth cut
+T3_STEPS = 5                     # T3's steps (T4: the last 3 replay)
 GRAD_TOL = 5e-2                  # a model gradient leaf vs the plain path
 # T1 flash cases: (label, B, H, KV, L, hd, window, dtype, full-width)
 T1_FLASH = [("llama2-7b B 2 L 512", 2, 32, 32, 512, 128, None, "bf16", True),
@@ -1701,6 +2028,8 @@ def training_phase(torch, cfg, params):
         out["T2d_checkpoint_leaves"] = len(tree_lib.leaves(tree))
     print(f"  checkpoint of {out['T2d_checkpoint_leaves']} leaves loads "
           "back bitwise", flush=True)
+    out["T4"] = t4_arms(torch, cfg, params, trainer, recs, peak,
+                        lora_rank=T_RANK, steps=T_STEPS, data_seed=SEED)
     prof = profile_train_step(
         torch, lambda: trainer.step(batch),
         f"one {cfg.name} LoRA training step ({T_BATCH} x {T_SEQ})")
@@ -1723,8 +2052,8 @@ def training_phase(torch, cfg, params):
           f"{T3_ACCUM}, batch {T_BATCH} x {T_SEQ}", flush=True)
     p3 = init_params(cut, SEED + 23, "cuda")
     n_params = sum(p.numel() for p in p3.parameters())
-    full = train_launch.Trainer(cut, steps=3, seed=SEED, device="cuda",
-                                params=p3, accum=T3_ACCUM)
+    full = train_launch.Trainer(cut, steps=T3_STEPS, seed=SEED,
+                                device="cuda", params=p3, accum=T3_ACCUM)
     data3 = full.batches(T_BATCH, T_SEQ, SEED + 1)
     b3 = next(data3)
     tree = tree_lib.param_tree(p3)
@@ -1749,20 +2078,88 @@ def training_phase(torch, cfg, params):
                          gk, gp, names)
     del gk, gp
     torch.cuda.reset_peak_memory_stats()
-    recs3 = train_launch.run(full, data3, 3, log_every=1)
+    recs3 = train_launch.run(full, data3, T3_STEPS, log_every=1)
     check(all(r["loss"] == r["loss"] and abs(r["loss"]) < 1e9
               for r in recs3), "phase T3: non-finite loss")
     out["T3"] = {"layers": T3_LAYERS, "params": n_params, "loss": lk,
                  "plain_loss": lp, "worst_grad_ratio": worst3,
                  "steps": recs3,
                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    print(f"  {n_params / 1e9:.3f} B parameters; 3 steps with accum "
-          f"{T3_ACCUM}: losses {[r['loss'] for r in recs3]}, peak "
+    print(f"  {n_params / 1e9:.3f} B parameters; {T3_STEPS} steps with "
+          f"accum {T3_ACCUM}: losses {[r['loss'] for r in recs3]}, peak "
           f"{out['T3']['peak_mem_gib']:.2f} GiB", flush=True)
+    out["T4_full"] = t4_arms(torch, cut, None, full, recs3,
+                             out["T3"]["peak_mem_gib"], lora_rank=0,
+                             steps=T3_STEPS, data_seed=SEED + 1,
+                             init_seed=SEED + 23)
     del full, p3, tree, leaves
     gc.collect()
     torch.cuda.empty_cache()
     return out, rows
+
+
+def t4_arms(torch, cfg, params, graphed, graphed_recs, graphed_peak, *,
+            lora_rank, steps, data_seed, init_seed=None):
+    """Phase T4: the graphed trainer's `steps` steps (T2(c), or T3's) run
+    again with graphs=False from the same init (the adapter's seeded
+    draw; a full fine-tune's parameters from `init_seed`) on the same
+    batches (the stream's first batch skipped, as phase T2(a) / T3 took
+    it): each step's loss within 1e-2 of the eager one's and, after the
+    last step, each trained leaf within 5e-2 of its max |eager|; the
+    median ms a step of each arm, peak memory, the graph pool's bytes."""
+    import numpy as np
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.weights import init_params
+    from repro_torch.training import tree as tree_lib
+    smi = smi_reading()
+    what = f"LoRA rank {lora_rank}" if lora_rank else \
+        f"full fine-tuning ({cfg.n_layers} layers, accum {T3_ACCUM})"
+    print(f"phase T4: {cfg.name} {what}, graphed vs eager, {steps} steps "
+          f"of {T_BATCH} x {T_SEQ}", flush=True)
+    if params is None:
+        params = init_params(cfg, init_seed, "cuda")
+    eager = train_launch.Trainer(
+        cfg, lora_rank=lora_rank, steps=graphed.opt_cfg.total_steps,
+        seed=SEED, device="cuda", params=params, graphs=False,
+        accum=T3_ACCUM if not lora_rank else 1)
+    data = eager.batches(T_BATCH, T_SEQ, data_seed)
+    next(data)
+    torch.cuda.reset_peak_memory_stats()
+    recs = train_launch.run(eager, data, steps, log_every=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for g, e in zip(graphed_recs, recs):
+        check(abs(g["loss"] - e["loss"]) <= 1e-2 * abs(e["loss"]),
+              f"phase T4 {what}: step {e['step']} loss graphed "
+              f"{g['loss']} vs eager {e['loss']}")
+    tg, te = graphed.trained(), eager.trained()
+    worst = grads_close(f"phase T4 {what}: trained leaves after step "
+                        f"{steps}, graphed vs eager", tree_lib.leaves(tg),
+                        tree_lib.leaves(te), tree_lib.paths(te))
+    # the graphed arm's first step is its warm-up, its second its capture:
+    # both arms' medians over the steps after them
+    ms = {"graphed": float(np.median([r["ms"] for r in graphed_recs[2:]])),
+          "eager": float(np.median([r["ms"] for r in recs[2:]]))}
+    stats = graphed.graphs.stats().get("train", {})
+    rec = {"losses_graphed": [r["loss"] for r in graphed_recs],
+           "losses_eager": [r["loss"] for r in recs],
+           "worst_leaf_ratio": worst, "ms_per_step_median": ms,
+           "peak_mem_gib": {"graphed": graphed_peak, "eager": peak},
+           "pool_bytes": graphed.graphs.pool_bytes(),
+           "capture_s": stats.get("capture_s"),
+           "replays": stats.get("replays")}
+    check(graphed.graphs.capture and rec["replays"],
+          f"phase T4 {what}: the graphed trainer never replayed")
+    print(f"  T4 {what}: losses graphed {rec['losses_graphed']} / eager "
+          f"{rec['losses_eager']}; median {ms['graphed']:.1f} / "
+          f"{ms['eager']:.1f} ms a step from step 3 (graphed / eager); peak "
+          f"{graphed_peak:.2f} / {peak:.2f} GiB; graph pool "
+          f"{rec['pool_bytes']} B; capture {rec['capture_s']} s; {smi}",
+          flush=True)
+    del eager, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ----------------------------------------------------------- phase 3d ----
@@ -1849,7 +2246,8 @@ def cluster_phase(torch, cfg, params):
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         launches = {n: fn.launches for n, fn in counters.items()}
-        decode_ms = float(sum(s.elapsed_time(e) for s, e in spans["decode"]))
+        decode_ms = float(sum(s.elapsed_time(e)
+                              for s, e, _ in spans["decode"]))
         arrivals = [sum(1 for _, i, fresh in routes if fresh and i == k)
                     for k in range(2)]
         check(summary["n"] == len(reqs) and summary["shed"] == 0,
@@ -2182,6 +2580,9 @@ def other_families_phase(torch, errs):
             recs, params = serve_phase(torch, cfg, runs, "G")
         weights = sum(t.numel() * t.element_size()
                       for t in params.parameters()) / 2 ** 30
+        graphs = None
+        if name in P3_MODELS:
+            graphs = p3_arms(torch, cfg, params, kernels[0])
         if logits_dtype == cfg.dtype:
             logits = g_logits(torch, cfg, params,
                               profile=name == "recurrentgemma-2b")
@@ -2203,7 +2604,7 @@ def other_families_phase(torch, errs):
             "model": name, "layers": cfg.n_layers, "weights_gib": weights,
             "memory": recs[0]["memory"],
             "runs": [{k: r[k] for k in SUMMARY_RUN_KEYS} for r in recs],
-            "logits": logits})
+            "logits": logits, "graphed_vs_eager": graphs})
         print(f"  {name}: {cfg.n_layers} layers (whole), {weights:.2f} GiB "
               f"of weights, peak "
               f"{max(r['peak_mem_gib'] for r in recs):.2f} GiB", flush=True)
@@ -2214,6 +2615,30 @@ def other_families_phase(torch, errs):
     gc.collect()
     torch.cuda.empty_cache()
     return out, rows
+
+
+# phase P3: the phase-G configs served again with graphs=False; P4
+# profiles mamba2's prefill
+P3_MODELS = ("mamba2-130m", "phi-3-vision-4.2b")
+
+
+def p3_arms(torch, cfg, params, kernel):
+    """Phase P3: phase G's requests of `cfg` served twice on one server
+    (so that prefill buckets come again), graphed and with graphs=False,
+    on the same weights: tokens and launch counts equal, the median
+    prefill ms of each arm over all calls and over the calls that
+    replayed; on mamba2 also P4's profiled prefill of each arm."""
+    smi = smi_reading()
+    arms = [serve_phase(torch, cfg, [
+        (f"{kernel} x2 {arm}", kernel, {"graphs": arm == "graphed"},
+         G_REQUESTS)], "P3", params=params, repeat=2)[0][0]
+        for arm in ("graphed", "eager")]
+    out = {"p3": p_compare("P3", *arms, smi)}
+    if cfg.family == "ssm":
+        out["p4"] = {arm: profile_prefill(torch, cfg, params,
+                                          graphs=arm == "graphed", smi=smi)
+                     for arm in ("graphed", "eager")}
+    return out
 
 
 def g_pool(torch, cfg, ranks=(16, 64)):
@@ -2568,10 +2993,11 @@ def capture_largest_attention(store):
     saved = ops.attention
 
     def attn(q, k, v, **kw):
-        check(not q.is_cuda or not torch.cuda.is_current_stream_capturing(),
-              "capture_largest_attention: a prefill call under a CUDA-"
-              "graph capture")
-        if "args" not in store or q.numel() > store["args"][0].numel():
+        # a graphed prefill key's eager first call was seen already; its
+        # capture records no values
+        if not (q.is_cuda and torch.cuda.is_current_stream_capturing()) \
+                and ("args" not in store
+                     or q.numel() > store["args"][0].numel()):
             store["args"] = (q, k, v)
         return saved(q, k, v, **kw)
 
@@ -3424,8 +3850,9 @@ def s_server(torch, cfg, params, kernel, preempt, ranks=S_RANKS):
     return srv, uids
 
 
-def _sync_sites(torch, be, records):
-    """Wrap `be.decode` / `be.megastep` so that each call runs under
+def _sync_sites(torch, be, records, kinds=("decode", "megastep")):
+    """Wrap the backend's calls `kinds` (`be.decode` / `be.megastep`, or
+    `prefill_admitted` / `prefill_chunk`) so that each call runs under
     torch.cuda.set_sync_debug_mode("warn") and appends (kind, steady,
     [(file, line), ...], captured) to `records`: steady when the call
     uploaded nothing (the batch did not change), captured when it captured
@@ -3451,8 +3878,8 @@ def _sync_sites(torch, be, records):
             return res
         return run
 
-    be.decode = wrap(be.decode, "decode")
-    be.megastep = wrap(be.megastep, "megastep")
+    for kind in kinds:
+        setattr(be, kind, wrap(getattr(be, kind), kind))
 
 
 def sanitized_serving_phase(torch, cfg, params):

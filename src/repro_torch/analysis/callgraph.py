@@ -15,7 +15,8 @@ the port's rules need:
   every method `m` of those modules, and a call of a value that is no
   known function (a layer held in a list) reaches every `forward` and
   `__call__` there. `reachable` follows the same edges from other roots
-  (the captured decode step, for `lint`'s tracer-if).
+  (the captured steps, for `lint`'s tracer-if), into the training
+  modules too where asked.
 * **Tensor expressions** (`TensorScope`): `torch.*` calls other than the
   host queries in `HOST_TORCH`, methods, indexing and arithmetic of a
   tensor, names bound to one, `self.x` attributes a method of the class
@@ -191,11 +192,16 @@ def hot_functions(project: Project) -> Set[FuncInfo]:
                                if is_hot_module(f.module.fq)])
 
 
-def reachable(project: Project, roots) -> Set[FuncInfo]:
-    """`roots` and every function of the hot and reached modules that
-    they reach (as `hot_functions` follows calls)."""
-    scope = [f for f in project.funcs.values()
-             if _reached_module(f.module.fq)]
+def reachable(project: Project, roots, also=()) -> Set[FuncInfo]:
+    """`roots` and every function of the hot and reached modules, and of
+    the modules under the prefixes `also`, that they reach (as
+    `hot_functions` follows calls)."""
+    also = tuple(also)
+
+    def followed(fq: str) -> bool:
+        return _reached_module(fq) or (bool(also) and fq.startswith(also))
+
+    scope = [f for f in project.funcs.values() if followed(f.module.fq)]
     by_method: Dict[str, List[FuncInfo]] = {}
     for f in scope:
         if f.cls_name is not None:
@@ -240,7 +246,7 @@ def reachable(project: Project, roots) -> Set[FuncInfo]:
         f = todo.pop()
         for g in targets(f):
             if g not in seen and (is_hot_module(g.module.fq)
-                                  or _reached_module(g.module.fq)):
+                                  or followed(g.module.fq)):
                 seen.add(g)
                 todo.append(g)
     return seen

@@ -78,13 +78,23 @@ REF_MODULE = "repro_torch.kernels.ref"
 LAUNCH_PREFIX = "rt_"
 QUERY_SUFFIXES = ("_fits", "_info")        # lib queries that launch nothing
 SRC = str(Path(__file__).resolve().parents[2])
-# the captured decode step (`core.graphs`) and the buffers it reads
+# the captured steps (`core.graphs`) and the buffers they read
 GRAPH_MODULE = "repro_torch.core.graphs"
 GRAPH_FQS = {f"torch.cuda.{m}{n}" for m in ("", "graphs.")
              for n in ("graph", "CUDAGraph", "make_graphed_callables")}
-STEP_ROOT = "repro_torch.core.backend.NumericsBackend._fused_step"
+STEP_ROOTS = tuple(f"repro_torch.{q}" for q in (
+    "core.backend.NumericsBackend._fused_step",
+    "core.backend.NumericsBackend._prefill_step",
+    "core.backend.NumericsBackend._chunk_step",
+    "launch.train.Trainer._captured_step",
+    "training.train.make_train_step_",
+    "training.train.make_lora_train_step_"))
+# modules the training step's capture reaches beyond the hot path's
+STEP_MODULES = ("repro_torch.training.", "repro_torch.launch.train")
 PIPE_BUFFERS = {"last_tok", "pos", "target", "active", "idx",
                 "block_table", "gen"}
+# a trainer's leaves the captured training step writes in place
+TRAINER_BUFFERS = {"adapter", "state", "metrics", "batch", "params"}
 
 
 @dataclass
@@ -149,7 +159,10 @@ class Linter:
 
     def run(self) -> List[Finding]:
         self.hot = cg.hot_functions(self.project)
-        self.scopes = cg.tensor_scopes(self.project, self.hot)
+        roots = [self.project.funcs[q] for q in STEP_ROOTS
+                 if q in self.project.funcs]
+        self.step = cg.reachable(self.project, roots, also=STEP_MODULES)
+        self.scopes = cg.tensor_scopes(self.project, self.hot | self.step)
         self.rule_bare_assert()
         self.rule_host_sync()
         self.rule_kernel_oracle()
@@ -313,17 +326,13 @@ class Linter:
                                 self._emit(
                                     mod, sub, "donated-reuse",
                                     f"{what} rebound by assignment in "
-                                    f"`{f.name}` — the captured decode "
-                                    "step replays the old address; write "
+                                    f"`{f.name}` — a captured step "
+                                    "replays the old address; write "
                                     "it in place (copy_, an indexed "
                                     "write)")
 
     def rule_tracer_if(self) -> None:
-        root = self.project.funcs.get(STEP_ROOT)
-        if root is None:
-            return
-        step = cg.reachable(self.project, [root])
-        for f in sorted(step, key=lambda g: g.qname):
+        for f in sorted(self.step, key=lambda g: g.qname):
             mod, sc = f.module, self.scopes[f]
             for node in cg.own_nodes(f.node):
                 kind = None
@@ -345,7 +354,7 @@ class Linter:
                     self._emit(mod, node, "tracer-if",
                                f"{kind} on a tensor in "
                                f"`{f.qname[len(mod.fq) + 1:]}`, reachable "
-                               "from the captured decode step — a CUDA "
+                               "from a captured step — a CUDA "
                                "graph bakes in the value of its capture; "
                                "compute it on the device (torch.where)")
 
@@ -409,24 +418,39 @@ def _is_device_pool(f, e) -> bool:
         _self_of(f, e, "DevicePool")
 
 
+def _is_trainer(f, e) -> bool:
+    """A `launch.train.Trainer`: `trainer`, or `self` in the class."""
+    return (isinstance(e, ast.Name) and e.id == "trainer") or \
+        _self_of(f, e, "Trainer")
+
+
 def _tree_root(f, e) -> Optional[str]:
-    """What `e` is, if it is a tree the captured step reads."""
+    """What `e` is, if it is a tree a captured step reads."""
     if isinstance(e, ast.Attribute):
         if e.attr == "cache" and _is_backend(f, e.value):
             return "the backend's KV plane"
+        if e.attr == "stage" and _is_backend(f, e.value):
+            return "the prefill's LoRA staging pool"
         if e.attr == "pool" and _is_device_pool(f, e.value):
             return "the LoRA pool"
+        if e.attr in TRAINER_BUFFERS and _is_trainer(f, e.value):
+            return f"the trainer's `{e.attr}`"
+        if e.attr == "views":
+            return "a captured step's static inputs"
     return None
 
 
 def _step_buffer(f: cg.FuncInfo, t: ast.AST) -> Optional[str]:
     """The step buffer an assignment target rebinds, or None: a pipeline
-    buffer, a tree (`cache`, `pool`), or a leaf of one (keys that are all
-    strings, or one key: a dict's entry; an index into a tensor writes it
-    in place)."""
+    buffer, a static inputs' `flat`, a tree (`cache`, `stage`, `pool`, a
+    trainer's leaves, a static inputs' `views`), or a leaf of one (keys
+    that are all strings, or one key: a dict's entry; an index into a
+    tensor writes it in place)."""
     if isinstance(t, ast.Attribute):
         if t.attr in PIPE_BUFFERS and _is_pipe(f, t.value):
             return f"the decode pipeline's `{t.attr}`"
+        if t.attr == "flat":
+            return "a captured step's static inputs"
         return _tree_root(f, t)
     if not isinstance(t, ast.Subscript):
         return None

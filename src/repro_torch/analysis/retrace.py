@@ -1,21 +1,24 @@
-"""RetraceSan — steady-state re-capture detector of the decode step's
-CUDA graphs.
+"""RetraceSan — steady-state re-capture detector of the port's CUDA
+graphs (`core.graphs`).
 
 A copy of the reference's `repro.analysis.retrace`, with the port's
 meaning: where the reference's jitted step retraces on a new (shape,
-dtype, static-arg) signature, the port's graphed step (`core.graphs`)
-re-captures when the signature of the tensors it reads changes: a new
-shape, or a buffer rebound instead of written in place, whose stale
-graph would otherwise read freed memory. `RetraceSan.observe(name, fn)`
-samples ``fn._cache_size()`` (the signatures a `core.graphs` entry was
-built for) after each dispatch; once `mark_steady()` is called, any
-growth of a previously observed entry is recorded as a violation and
+dtype, static-arg) signature, the port's graphed step re-captures when
+the signature of the tensors it reads changes: a new shape, or a buffer
+rebound instead of written in place, whose stale graph would otherwise
+read freed memory. `RetraceSan.observe(name, fn)` samples
+``fn._cache_size()`` (the signatures a `core.graphs` entry was built for)
+after each dispatch; once `mark_steady()` is called, any growth of a
+previously observed entry is recorded as a violation and
 `assert_clean()` raises. Warm-up captures (before `mark_steady`) are
-expected and ignored: the pipeline captures once per key (`decode`,
-`megastep[K=k]`) and must then stay capture-stable.
+expected and ignored: the server captures once per key (`decode`,
+`megastep[K=k]`, `prefill[Nb=n,Lp=l]`, and `prefill_chunk[C=c]` /
+`prefill_chunk_final[C=c]`, named as the reference's keys), the trainer
+once (`train`), and each must then stay capture-stable.
 
-Hooked into `core.backend.NumericsBackend` behind `sanitizers.enabled()`;
-tests drive `mark_steady`/`assert_clean` directly.
+Hooked into `core.backend.NumericsBackend` and `launch.train.Trainer`
+behind `sanitizers.enabled()`; tests drive `mark_steady`/`assert_clean`
+directly.
 """
 from __future__ import annotations
 

@@ -11,8 +11,9 @@ pinned memory while the current step runs). Entry points:
 
   * `prefill_admitted` — **batched multi-request prefill**: every request
     admitted in one iteration is packed into one padded (N, L) call
-    (per-request LoRA weights come from the device `StagingCache`, stacked
-    along the slot dim), bucketed to powers of two like the reference. The
+    (per-request LoRA weights come from the device `StagingCache`, copied
+    into a staging pool of `max_batch` slots), bucketed to powers of two
+    like the reference. The
     residual stream is gathered at each row's last position before the
     unembed, the first token is sampled on the device, and the row caches
     land in their claimed pages (paged) or their slab rows (dense) with
@@ -29,12 +30,16 @@ pinned memory while the current step runs). Entry points:
     pages in place; only the final chunk samples and seeds the row's
     pipeline state.
 
-On the card `decode` and each `megastep[K=k]` run as CUDA graphs
-(`core.graphs.StepGraphs`, the counterpart of the reference's jitted,
-donated steps): every tensor the step reads keeps its storage, and the
-step, `refresh`, prefill and swap-in write it in place; host-built
-metadata goes up through pinned staging without blocking the host.
-`graphs=False` runs the step eagerly (a comparison arm). Under the
+On the card `decode`, each `megastep[K=k]`, each prefill bucket of at
+most `graph_tokens` tokens (`prefill[Nb=n,Lp=l]`; larger buckets run
+eagerly, counted) and each chunk width (`prefill_chunk[C=c]`,
+`prefill_chunk_final[C=c]`) run as CUDA graphs (`core.graphs.StepGraphs`,
+the counterpart of the reference's jitted, donated steps): every tensor
+a step reads keeps its storage, and the steps, `refresh`, swap-in and
+the staging of adapters write it in place; host-built metadata goes up
+through pinned staging without blocking the host, a prefill's or a
+chunk's into its static inputs (`core.graphs.StaticInputs`).
+`graphs=False` runs every step eagerly (a comparison arm). Under the
 sanitizers (``REPRO_SANITIZE=1``) `retrace_san` watches the graphs for a
 re-capture after steady state, as the reference's RetraceSan watches its
 trace caches.
@@ -54,9 +59,10 @@ import torch
 
 from repro_torch.analysis import retrace, sanitizers
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.graphs import StepGraphs, leaves
-from repro_torch.core.lora import DevicePool, HostLoRAStore, StagingCache
-from repro_torch.device import resolve_device
+from repro_torch.core.graphs import StaticInputs, StepGraphs, leaves
+from repro_torch.core.lora import (DevicePool, HostLoRAStore, StagingCache,
+                                   pool_init, pool_insert)
+from repro_torch.device import resolve_device, upload
 from repro_torch.models import model as model_lib
 from repro_torch.models.weights import init_params
 from repro_torch.serving import cache as cache_lib
@@ -65,6 +71,11 @@ from repro_torch.serving.sampling import sample
 
 PIPELINES = ("fused", "perstep")
 MEGASTEP_MAX = 8          # default cap on iterations fused into one call
+# the largest prefill bucket (Nb x Lp tokens) run as a CUDA graph; larger
+# ones run eagerly, counted in `StepGraphs.stats()` (PERF.md section 6,
+# PR 23: a graph keeps its activations in the pool for good, and a bucket
+# this large is device-bound)
+PREFILL_GRAPH_TOKENS = 4096
 
 
 def bucket(n: int, lo: int = 8) -> int:
@@ -72,22 +83,6 @@ def bucket(n: int, lo: int = 8) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def _upload(arr: np.ndarray, device: torch.device,
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A host-built array (token ids, positions, slots, block table) onto
-    the device: staged through pinned host memory and copied with
-    non_blocking=True on the current stream, so the host never waits for
-    it. Into `out` in place where given (a buffer a captured step reads
-    keeps its storage), else into a new tensor. The pinned stage goes back
-    to PyTorch's host allocator, which reuses it only once the copy ran."""
-    src = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        src = src.pin_memory()
-    if out is None:
-        out = torch.empty(src.shape, dtype=src.dtype, device=device)
-    return out.copy_(src, non_blocking=True)
 
 
 def _mask_pad_slots(row_caches, lens):
@@ -170,13 +165,13 @@ class DecodePipeline:
                 bt[st.row, :len(pg)] = pg
             sig += bt.tobytes()
         if sig != self._sig:
-            _upload(active, self.device, out=self.active)
-            _upload(idx.astype(np.int32), self.device, out=self.idx)
+            upload(active, self.device, out=self.active)
+            upload(idx.astype(np.int32), self.device, out=self.idx)
             self._sig = sig
             self.stats["h2d"] += 2
             self.stats["h2d_bytes"] += active.nbytes + 4 * self.max_batch
             if bt is not None:
-                _upload(bt, self.device, out=self.block_table)
+                upload(bt, self.device, out=self.block_table)
                 self.stats["h2d"] += 1
                 self.stats["h2d_bytes"] += bt.nbytes
 
@@ -289,7 +284,13 @@ class NumericsBackend:
         self.staging = StagingCache(staging_slots,
                                     on_upload=self._count_upload,
                                     device=self.device)
-        # the fused pipeline's decode / megastep[K=k] graphs (captured on
+        # the prefill's and chunk's LoRA staging pool: slot i holds the
+        # staged adapter of the call's i-th request, written in place
+        self.stage = pool_init(cfg, max_batch, self.device)
+        # the static inputs of each prefill bucket and chunk width
+        self.inputs: Dict[str, StaticInputs] = {}
+        self.graph_tokens = PREFILL_GRAPH_TOKENS
+        # the decode / megastep[K=k] / prefill / chunk graphs (captured on
         # the card only); RetraceSan (REPRO_SANITIZE=1) watches them for a
         # re-capture after steady state
         self.graphs = StepGraphs(self.device, capture=graphs)
@@ -360,6 +361,13 @@ class NumericsBackend:
         self.transfer_stats["h2d"] += 1
         self.transfer_stats["h2d_bytes"] += cache_lib.tree_nbytes(payload)
 
+    def _static(self, key: str, shapes) -> StaticInputs:
+        """The static inputs under `key`, allocated on first use."""
+        si = self.inputs.get(key)
+        if si is None:
+            si = self.inputs[key] = StaticInputs(shapes, self.device)
+        return si
+
     @torch.no_grad()
     def prefill_chunk(self, st: RequestState, row_pages: List[int],
                       start: int, n_tokens: int, final: bool):
@@ -370,7 +378,11 @@ class NumericsBackend:
         pipeline seed as `prefill_admitted`; its token reaches
         `st.generated` through the readback queue. The chunk width is
         bucketed (powers of two, capped at cache_slots) like the
-        reference's."""
+        reference's, and each (width, final) runs as a graph
+        (`prefill_chunk[C=c]`, `prefill_chunk_final[C=c]`): the tokens,
+        start, length, row, the row's page ids (padded to the block
+        table's width with -1, as the reference pads them) and the stop
+        target go up in one upload into the width's static inputs."""
         if not self.paged:
             raise RuntimeError("chunked prefill rides the paged memory "
                                "plane (memory='paged')")
@@ -379,41 +391,67 @@ class NumericsBackend:
                 f"request {st.req.rid}: chunk [{start}, {start + n_tokens})"
                 f" exceeds the {self.cache_slots}-slot block table")
         Cb = min(bucket(n_tokens), self.cache_slots)
-        toks = np.zeros((1, Cb), np.int32)
-        toks[0, :n_tokens] = st.req.prompt[start:start + n_tokens]
-        ids = np.asarray(row_pages, np.int32)
+        si = self._static(f"chunk[C={Cb}]", {
+            "tokens": (1, Cb), "start": (), "clen": (), "row": (1,),
+            "plen": (1,), "tgt": (1,), "ids": (self.bt_width,),
+            "idx": (1,)})
+        h = si.host
+        h["tokens"][:] = 0
+        h["tokens"][0, :n_tokens] = st.req.prompt[start:start + n_tokens]
+        h["start"][...], h["clen"][...] = start, n_tokens
+        h["row"][0], h["plen"][0] = st.row, st.req.prompt_len
+        h["tgt"][0] = st.req.prompt_len + st.req.max_new_tokens - 1
+        h["ids"][:] = -1
+        h["ids"][:len(row_pages)] = row_pages
         self._san_check(list(row_pages), "kv:", "chunk scatter")
-        lora = self._lora_arg_stacked([st.req.adapter_uid])
-        lora["mode"] = self._mode_str()
-        self.transfer_stats["h2d"] += 2            # tokens, page ids
-        self.transfer_stats["h2d_bytes"] += toks.nbytes + ids.nbytes
+        self._stage_adapters([st.req.adapter_uid])
+        self.transfer_stats["h2d"] += 1    # tokens, positions, page ids
+        self.transfer_stats["h2d_bytes"] += si.upload()
         self.transfer_stats["prefill_chunks"] += 1
+        name = "prefill_chunk_final" if final else "prefill_chunk"
+        tok = self._run(f"{name}[C={Cb}]", leaves(self.stage) + [si.flat],
+                        lambda: self._chunk_step(si, final))
+        if final:
+            self.pipe.stash(tok, [(st, 0, 1)])
+
+    def _chunk_step(self, si: StaticInputs, final: bool):
+        """The captured chunk step: the chunk through the stack into the
+        row's pages; the final chunk samples and seeds the row's pipeline
+        state (its row, from the static inputs)."""
+        lora = {"pool": self.stage, "idx": si["idx"],
+                "mode": self._mode_str()}
         logits = model_lib.prefill_chunk(
-            self.cfg, self.params, _upload(toks, self.device), start,
-            n_tokens, self.cache, _upload(ids, self.device), lora=lora,
-            last=final)
+            self.cfg, self.params, si["tokens"], si["start"], si["clen"],
+            self.cache, si["ids"], lora=lora, last=final)
         if not final:
-            return
-        pipe, r = self.pipe, st.row
+            return None
+        pipe = self.pipe
         tok = sample(logits[:, 0], temperature=self.temperature,
                      generator=pipe.gen)
-        pipe.last_tok[r] = tok[0]
-        pipe.pos[r] = st.req.prompt_len
-        pipe.target[r] = st.req.prompt_len + st.req.max_new_tokens - 1
-        pipe.stash(tok, [(st, 0, 1)])
+        r = si["row"].long()
+        pipe.last_tok[r] = tok
+        pipe.pos[r] = si["plen"]
+        pipe.target[r] = si["tgt"]
+        return tok
 
     # ---------------------------------------------------------- prefill ----
+    def _stage_adapters(self, uids: List[str]) -> None:
+        """Write request i's adapter (its staged device copy) into slot i
+        of the staging pool, and its rank, in place."""
+        if len(uids) > self.max_batch:
+            raise ValueError(f"{len(uids)} adapters for a staging pool of "
+                             f"{self.max_batch} slots")
+        for i, u in enumerate(uids):
+            pool_insert(self.stage, self.cfg, self.staging.get(u, self.store),
+                        i, min(self.store.specs[u].rank,
+                               self.cfg.lora.max_rank))
+
     def _lora_arg_stacked(self, uids: List[str]):
         """Batch-N lora arg (CPU-assist path numerics): request i reads
-        pseudo-slot i of a pool stacked from the staged device copies."""
-        ws = [self.staging.get(u, self.store) for u in uids]
-        pool = {t: {"a": torch.stack([w[t]["a"] for w in ws], 1),
-                    "b": torch.stack([w[t]["b"] for w in ws], 1)}
-                for t in ws[0]}
-        ranks = [min(self.store.specs[u].rank, self.cfg.lora.max_rank)
-                 for u in uids]
-        pool["ranks"] = _upload(np.asarray(ranks, np.int32), self.device)
-        return {"pool": pool,
+        slot i of the staging pool, written from the staged device
+        copies."""
+        self._stage_adapters(uids)
+        return {"pool": self.stage,
                 "idx": torch.arange(len(uids), dtype=torch.int32,
                                     device=self.device)}
 
@@ -424,6 +462,16 @@ class NumericsBackend:
         every row cache into its pages, and seeds the decode pipeline's
         last-token / position / stop-target state; tokens reach
         `st.generated` through the async readback queue.
+
+        The call is bucketed to (Nb, Lp) like the reference's, and a
+        bucket of at most `graph_tokens` tokens runs as a graph
+        (`prefill[Nb=n,Lp=l]`); larger buckets run eagerly, counted in
+        the key's `eager`. The host-built tokens, lengths, rows, stop
+        targets, LoRA slots and page ids go up in one upload into the
+        bucket's static inputs. The N requests fill the first N of Nb
+        entries; a pad entry repeats entry 0's row, slot, target and
+        batch entry (its writes repeat entry 0's values), its tokens are
+        0, its length 1, and its pages the sink.
 
         Recompute resumes (`st.preempted`) ride the same call: the row
         prefills prompt + generated[:-1] and, under greedy, re-samples
@@ -446,10 +494,20 @@ class NumericsBackend:
         Lp = min(bucket(int(lens.max())), self.cache_slots)
         Nb = bucket(len(states), lo=1)
         N = len(states)
-        toks = np.zeros((Nb, Lp), np.int32)
-        lens_b = np.ones((Nb,), np.int32)
-        rows = np.zeros((N,), np.int64)
-        tgts = np.zeros((N,), np.int32)
+        ps = self.page_size
+        # the row caches' depth: page-tiled on the paged plane; on the
+        # dense plane the slab row past Lp is cleared by scatter_rows
+        Sp = -(-Lp // ps) * ps if self.paged else Lp
+        npr = Sp // ps if self.paged else 0
+        shapes = {"tokens": (Nb, Lp), "lens": (Nb,), "rows": (Nb,),
+                  "sel": (Nb,), "tgts": (Nb,), "idx": (Nb,)}
+        if self.paged:
+            shapes.update(page_ids=(Nb, npr), clear=(Nb * self.bt_width,))
+        name = f"prefill[Nb={Nb},Lp={Lp}]"
+        si = self._static(name, shapes)
+        h = si.host
+        h["tokens"][:] = 0
+        h["lens"][:] = 1
         for i, st in enumerate(states):
             if st.preempted:
                 seq = np.asarray(
@@ -458,68 +516,76 @@ class NumericsBackend:
                     raise RuntimeError(
                         f"resume length mismatch for {st.req.rid}: "
                         f"{len(seq)} != {lens[i]}")
-                toks[i, :lens[i]] = seq
+                h["tokens"][i, :lens[i]] = seq
             else:
-                toks[i, :lens[i]] = st.req.prompt
-            lens_b[i] = lens[i]
-            rows[i] = st.row
+                h["tokens"][i, :lens[i]] = st.req.prompt
+            h["lens"][i] = lens[i]
+            h["rows"][i] = st.row
             # a resumed row owes the remaining tokens, not max_new more
-            tgts[i] = st.req.prompt_len + st.req.max_new_tokens - 1
-        uids = [st.req.adapter_uid for st in states]
-        lora = self._lora_arg_stacked(uids + [uids[0]] * (Nb - N))
-        lora["mode"] = self._mode_str()
-        self.transfer_stats["h2d"] += 4    # toks, lens, rows, targets
-        self.transfer_stats["h2d_bytes"] += (
-            toks.nbytes + lens_b.nbytes + rows.nbytes + tgts.nbytes)
-        self.transfer_stats["prefills"] += 1
-        ps = self.page_size
-        # the row caches' depth: page-tiled on the paged plane; on the
-        # dense plane the slab row past Lp is cleared by scatter_rows
-        Sp = -(-Lp // ps) * ps if self.paged else Lp
-        lens_d = _upload(lens_b, self.device)
-        pipe = self.pipe
-        logits, row_caches = model_lib.prefill(
-            self.cfg, self.params, {"tokens": _upload(toks, self.device)},
-            lora=lora, cache_slots=Sp, last_pos=lens_d - 1)
-        toks_out = sample(logits[:, 0], temperature=self.temperature,
-                          generator=pipe.gen)
-        _mask_pad_slots(row_caches, lens_d)
+            h["tgts"][i] = st.req.prompt_len + st.req.max_new_tokens - 1
+        h["sel"][:N] = np.arange(N)
+        h["idx"][:N] = np.arange(N)
+        for k in ("rows", "sel", "tgts", "idx"):
+            h[k][N:] = h[k][0]
         if self.paged:
-            self._scatter_pages(states, row_caches, Sp // ps, Nb)
-        else:
-            cache_lib.scatter_rows(self.cache, row_caches, rows)
-        rows_d = _upload(rows, self.device)
-        pipe.last_tok[rows_d] = toks_out[:N]
-        pipe.pos[rows_d] = lens_d[:N]
-        pipe.target[rows_d] = _upload(tgts, self.device)
+            self._page_ids(states, h["page_ids"], h["clear"], npr)
+        self._stage_adapters([st.req.adapter_uid for st in states])
+        self.transfer_stats["h2d"] += 1    # every input in one upload
+        self.transfer_stats["h2d_bytes"] += si.upload()
+        self.transfer_stats["prefills"] += 1
+        toks = self._run(name, leaves(self.stage) + [si.flat],
+                         lambda: self._prefill_step(si, Sp),
+                         graph=Nb * Lp <= self.graph_tokens)
         for st in states:
             if not st.preempted:
                 st.token_times_ms.append(st.first_token_ms)
         # resumed rows re-sample a token they already emitted — exclude
         # them from the stash so the readback never appends it again
-        pipe.stash(toks_out, [(st, i, 1) for i, st in enumerate(states)
-                              if not st.preempted])
+        self.pipe.stash(toks, [(st, i, 1) for i, st in enumerate(states)
+                               if not st.preempted])
         if self.pipeline == "perstep":
-            pipe.flush()       # legacy path: synchronous readback
+            self.pipe.flush()  # legacy path: synchronous readback
 
-    def _scatter_pages(self, states, row_caches, npr: int, Nb: int):
-        """Move the packed prefill's row caches (depth npr pages) into
-        each request's claimed pages; rows and pages past a request's
-        claim land in the sink page."""
-        page_ids = np.full((Nb, npr), -1, np.int64)
-        claimed: List[int] = []
+    def _page_ids(self, states, page_ids, clear, npr: int):
+        """Fill a bucket's page ids (each request's first npr claimed
+        pages, where its row caches land) and its scrub list (every
+        claimed page), the rest -1: the sink."""
+        page_ids[:] = -1
+        clear[:] = -1
+        n = 0
         for i, st in enumerate(states):
             page_ids[i, :min(len(st.kv_pages), npr)] = st.kv_pages[:npr]
-            claimed.extend(st.kv_pages)
-        self._san_check(claimed, "kv:", "prefill scatter")
-        self.transfer_stats["h2d"] += 2    # page ids, clear list
-        self.transfer_stats["h2d_bytes"] += page_ids.nbytes \
-            + 8 * len(claimed)
-        # pages reclaimed from a retired row carry stale positions the
-        # attention mask would trust: scrub every claimed page first
-        if claimed:
-            cache_lib.clear_pages(self.cache, claimed)
-        cache_lib.scatter_pages(self.cache, row_caches, page_ids)
+            clear[n:n + len(st.kv_pages)] = st.kv_pages
+            n += len(st.kv_pages)
+        self._san_check([p for st in states for p in st.kv_pages], "kv:",
+                        "prefill scatter")
+
+    def _prefill_step(self, si: StaticInputs, Sp: int) -> torch.Tensor:
+        """The captured prefill step over a bucket's static inputs:
+        samples every entry's first token, writes the row caches into
+        their pages (scrubbing every claimed page first: a page reclaimed
+        from a retired row carries stale positions the attention mask
+        would trust) or slab rows, and seeds the pipeline's state."""
+        pipe = self.pipe
+        lens = si["lens"]
+        lora = {"pool": self.stage, "idx": si["idx"],
+                "mode": self._mode_str()}
+        logits, row_caches = model_lib.prefill(
+            self.cfg, self.params, {"tokens": si["tokens"]}, lora=lora,
+            cache_slots=Sp, last_pos=lens - 1)
+        toks = sample(logits[:, 0], temperature=self.temperature,
+                      generator=pipe.gen)
+        _mask_pad_slots(row_caches, lens)
+        rows, sel = si["rows"].long(), si["sel"].long()
+        if self.paged:
+            cache_lib.clear_pages(self.cache, si["clear"])
+            cache_lib.scatter_pages(self.cache, row_caches, si["page_ids"])
+        else:
+            cache_lib.scatter_rows(self.cache, row_caches, rows, sel)
+        pipe.last_tok[rows] = toks[sel]
+        pipe.pos[rows] = lens[sel]
+        pipe.target[rows] = si["tgts"]
+        return toks
 
     # ----------------------------------------------------------- decode ----
     def _fused_step(self, lora, active):
@@ -545,20 +611,27 @@ class NumericsBackend:
         return {"pool": self.pool.pool, "idx": self.pipe.idx,
                 "mode": self._mode_str()}
 
-    def _run_step(self, name: str, step) -> torch.Tensor:
+    def _run(self, name: str, reads: List[torch.Tensor], step,
+             graph: bool = True) -> torch.Tensor:
         """`step` under graph key `name` (`core.graphs`): its signature
-        covers the pipeline's buffers, the KV plane's leaves and the LoRA
-        pool's leaves (the ranks included)."""
+        covers the pipeline's buffers, the KV plane's leaves and `reads`
+        (the LoRA pool's leaves, the ranks included; a prefill's or a
+        chunk's staging pool and static inputs)."""
         pipe = self.pipe
         bufs = [pipe.last_tok, pipe.pos, pipe.target, pipe.active, pipe.idx]
         if pipe.block_table is not None:
             bufs.append(pipe.block_table)
-        inputs = bufs + leaves(self.cache) + leaves(self.pool.pool)
+        inputs = bufs + leaves(self.cache) + reads
         gens = (pipe.gen,) if self.temperature > 0.0 else ()
-        out = self.graphs.run(name, inputs, step, gens)
+        out = self.graphs.run(name, inputs, step, gens, graph=graph)
         if self.retrace_san is not None:
             self.retrace_san.observe(name, self.graphs.entries[name])
         return out
+
+    def _run_step(self, name: str, step) -> torch.Tensor:
+        """A decode / megastep call under key `name`: it reads the LoRA
+        device pool."""
+        return self._run(name, leaves(self.pool.pool), step)
 
     @torch.no_grad()
     def decode(self, ready: List[RequestState], row_slot, row_pos,
@@ -615,14 +688,14 @@ class NumericsBackend:
             pos[st.row] = row_pos[st.row]
             live[st.row] = True
         idx[~live] = -1
-        lora = {"pool": self.pool.pool, "idx": _upload(idx, self.device),
+        lora = {"pool": self.pool.pool, "idx": upload(idx, self.device),
                 "mode": self._mode_str()}
         self.transfer_stats["h2d"] += 3
         self.transfer_stats["h2d_bytes"] += (toks.nbytes + pos.nbytes
                                              + idx.nbytes)
         logits, _ = model_lib.decode(
-            self.cfg, self.params, self.cache, _upload(toks, self.device),
-            _upload(pos, self.device), lora=lora)
+            self.cfg, self.params, self.cache, upload(toks, self.device),
+            upload(pos, self.device), lora=lora)
         # lint: allow-host-sync — the per-step pipeline's synchronous
         # readback, by design (the pre-pipeline baseline it keeps)
         new = sample(logits[:, -1]).cpu().numpy()

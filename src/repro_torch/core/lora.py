@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import sharding as shd
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import upload
 from repro_torch.kernels import ops
 from repro_torch.kernels.bgmv import padded_rank
 from repro_torch.models.param import Box, split
@@ -134,7 +135,9 @@ def pool_insert(pool, cfg, weights, slot: int, rank: int):
     for tgt, ab in weights.items():
         pool[tgt]["a"][:, slot].copy_(ab["a"])
         pool[tgt]["b"][:, slot].copy_(ab["b"])
-    pool["ranks"][slot] = rank
+    # a fill kernel: an indexed write of a host int would copy it from the
+    # host, which waits for the device
+    pool["ranks"][slot].fill_(rank)
     return pool
 
 
@@ -269,7 +272,8 @@ class StagingCache:
     benchmark and tests; ``on_upload(nbytes)`` lets the owner count the
     host-link transfers the misses cost."""
 
-    def __init__(self, slots: int = 16, on_upload=None, device=None):
+    def __init__(self, slots: int = 16, on_upload=None,
+                 device=torch.device("cpu")):
         if slots < 1:
             raise ValueError(f"need at least one adapter slot, got {slots}")
         self.slots = slots
@@ -297,8 +301,9 @@ class StagingCache:
             self._order.remove(stale)
             del self._entries[stale]
         w = store.weights(uid)
-        ent = {t: {"a": w[t]["a"].to(self.device),
-                   "b": w[t]["b"].to(self.device)} for t in w}
+        # through pinned staging: the host does not wait for the copy
+        ent = {t: {ab: upload(w[t][ab], self.device) for ab in ("a", "b")}
+               for t in w}
         if self._on_upload is not None:
             self._on_upload(sum(int(w[t][ab].nbytes) for t in w
                                 for ab in ("a", "b")))

@@ -8,20 +8,26 @@ on the card unless `--device cpu` is given.
       --lora-rank 64 --seq 512            # full width, on the card
 
 Each logged step prints its loss, gradient norm, learning rate, time
-(CUDA events on the card, the host clock on the CPU) and tokens/s.
+(CUDA events on the card, the host clock on the CPU) and tokens/s. On the
+card each step runs as a CUDA graph (`core.graphs.StepGraphs`, key
+`train`: the counterpart of the reference's jitted step); a `Trainer`
+made with `graphs=False` runs it eagerly, the comparison arm.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.analysis import retrace, sanitizers
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core.graphs import StepGraphs
 from repro_torch.core.lora import pad_adapter, trim_adapter
 from repro_torch.data.pipeline import DataConfig, packed_batches
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, upload
 from repro_torch.models.weights import (init_params, stack_layers,
                                         unstack_layers)
 from repro_torch.training import checkpoint, optim, train as train_lib
@@ -31,11 +37,19 @@ from repro_torch.training import tree as tree_lib
 class Trainer:
     """One training run: the model, what is trained (a LoRA adapter of
     `lora_rank` > 0, else every parameter), the optimizer state and the
-    step. `params`: weights already on the device (else seeded ones)."""
+    step. `params`: weights already on the device (else seeded ones).
+
+    The trained leaves, the optimizer state, the step's metrics (0-d
+    buffers) and the batch (static buffers, filled in place) keep their
+    storage for the trainer's life: `step` writes them in place, so that
+    on the card it runs as a CUDA graph under key `train` (its first call
+    eagerly on the capture's side stream, its second captured, then
+    replayed); `graphs=False` runs every step eagerly."""
 
     def __init__(self, cfg: ModelConfig, *, lora_rank: int = 0,
                  lr: float = 1e-3, steps: int = 100, seed: int = 0,
-                 device=None, params=None, accum: int = 1):
+                 device=None, params=None, accum: int = 1,
+                 graphs: bool = True):
         self.cfg, self.rank = cfg, lora_rank
         self.device = resolve_device(device)
         self.params = params if params is not None \
@@ -47,13 +61,22 @@ class Trainer:
             g = torch.Generator(device=self.device).manual_seed(seed + 1)
             self.adapter = train_lib.init_lora_adapter(cfg, lora_rank, g)
             self.state = optim.init(self.adapter)
-            self._step = train_lib.make_lora_train_step(cfg, self.opt_cfg,
-                                                        lora_rank)
+            self._step = train_lib.make_lora_train_step_(cfg, self.opt_cfg,
+                                                         lora_rank)
         else:
             self.adapter = None
             self.state = optim.init(tree_lib.param_tree(self.params))
-            self._step = train_lib.make_train_step(cfg, self.opt_cfg,
-                                                   accum=accum)
+            self._step = train_lib.make_train_step_(cfg, self.opt_cfg,
+                                                    accum=accum)
+        self.metrics = {k: torch.zeros((), dtype=torch.float32,
+                                       device=self.device)
+                        for k in ("loss", "grad_norm", "lr")}
+        self.batch: Dict[str, torch.Tensor] = {}
+        self.graphs = StepGraphs(self.device, capture=graphs)
+        # under the sanitizers (REPRO_SANITIZE=1) RetraceSan watches the
+        # step's graph for a re-capture after steady state
+        self.retrace_san = (retrace.RetraceSan()
+                            if sanitizers.enabled() else None)
 
     def trained(self):
         """The tree being trained: the adapter, or the parameter tree."""
@@ -75,9 +98,16 @@ class Trainer:
         this trainer's layout: loaded (shapes checked) into
         `checkpoint_tree`'s structure, then an adapter's rank axis padded
         (`core.lora.pad_adapter`) or a uniform stack's layers listed
-        (`models.weights.unstack_layers`)."""
+        (`models.weights.unstack_layers`). The trainer's own leaves take
+        its values in place (a graphed step reads them by address)."""
         tree, manifest = checkpoint.load(path, self.checkpoint_tree())
-        return self._map_layout(pad_adapter, unstack_layers, tree), manifest
+        tree = self._map_layout(pad_adapter, unstack_layers, tree)
+        with torch.no_grad():
+            for dst, src in zip(tree_lib.leaves(
+                    {"model": self.trained(), "opt": self.state}),
+                    tree_lib.leaves(tree)):
+                dst.copy_(src)
+        return tree, manifest
 
     def _map_layout(self, on_adapter, on_params, tree):
         """`on_adapter(cfg, .)` (or, for a full fine-tune,
@@ -90,22 +120,56 @@ class Trainer:
                                         fn(self.cfg, st.nu))}
 
     def step(self, batch) -> dict:
+        """One training step on `batch` (host arrays, or tensors), copied
+        into the trainer's static batch buffers. Returns the step's
+        metrics, copies queued on the stream (no synchronization)."""
+        self._stage_batch(batch)
+        inputs = list(self.batch.values()) + tree_lib.leaves(
+            {"model": self.trained(), "opt": self.state})
+        self.graphs.run("train", inputs, self._captured_step)
+        if self.retrace_san is not None:
+            self.retrace_san.observe("train", self.graphs.entries["train"])
+        return {k: v.clone() for k, v in self.metrics.items()}
+
+    def _captured_step(self) -> torch.Tensor:
+        """The step `StepGraphs` runs or captures: trained leaves, optimizer
+        state and metrics written in place."""
         if self.adapter is not None:
-            self.adapter, self.state, m = self._step(
-                self.adapter, self.state, self.params, batch)
+            m = self._step(self.adapter, self.state, self.params,
+                           self.batch)
         else:
-            self.params, self.state, m = self._step(self.params, self.state,
-                                                    batch)
-        return m
+            m = self._step(self.params, self.state, self.batch)
+        for k, buf in self.metrics.items():
+            buf.copy_(m[k])
+        return self.metrics["loss"]
+
+    def _stage_batch(self, batch) -> None:
+        """Copy `batch` into the static buffers: host arrays through pinned
+        staging, device tensors on the stream; a new shape or dtype takes
+        new buffers (a new signature of the step)."""
+        for k, v in batch.items():
+            if not torch.is_tensor(v):
+                v = torch.from_numpy(np.ascontiguousarray(v))
+            buf = self.batch.get(k)
+            if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+                # lint: allow-donated-reuse — a batch of a new shape or
+                # dtype is a new signature of the step (re-captured), as
+                # the reference's jitted step retraces on a new shape
+                buf = self.batch[k] = torch.empty(
+                    v.shape, dtype=v.dtype, device=self.device)
+            if v.device == buf.device:
+                buf.copy_(v)
+            else:
+                upload(v, self.device, out=buf)
 
     def batches(self, batch: int, seq: int, seed: int = 0
                 ) -> Iterator[dict]:
-        """`packed_batches` as tensors on the device."""
+        """`packed_batches` as tensors on the device, uploaded through
+        pinned staging (the host does not wait)."""
         for b in packed_batches(DataConfig(vocab=self.cfg.vocab,
                                            seq_len=seq, batch=batch,
                                            seed=seed)):
-            yield {k: torch.from_numpy(v).to(self.device)
-                   for k, v in b.items()}
+            yield {k: upload(v, self.device) for k, v in b.items()}
 
 
 def run(trainer: Trainer, data, steps: int, *, log_every: int = 10,

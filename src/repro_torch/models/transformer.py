@@ -296,10 +296,14 @@ def remat_layer(cfg, fn, *args):
     its layer body), so the backward recomputes the layer from its input
     instead of keeping its activations. Under `torch.no_grad()` (serving)
     it is a plain call. The recompute runs under the forward's current
-    mesh (the backward may run on another thread, which sees none)."""
+    mesh (the backward may run on another thread, which sees none). The
+    layers draw no random numbers, so the RNG state is not saved and
+    restored around the recompute (reading a CUDA generator's state is
+    refused under a CUDA graph capture of the training step)."""
     if cfg.remat and torch.is_grad_enabled():
         mesh = shd.current_mesh()
         return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
                           context_fn=lambda: (contextlib.nullcontext(),
                                               shd.use_mesh(mesh)))
     return fn(*args)
@@ -406,32 +410,35 @@ def _hybrid_prefill(cfg, params, x, positions, rope_cs, lora, live,
     return x, (caches if cache_slots is not None else None)
 
 
-def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
-                  clen: int, cache, page_ids, *, lora=None, last=False,
-                  window=None):
+def prefill_chunk(cfg, params: Transformer, tokens_c, start, clen, cache,
+                  page_ids, *, lora=None, last=False, window=None):
     """One chunk of an incremental prefill, written into the row's pages
     in place (the reference gathers the row into a dense view and returns
     a new one).
 
     tokens_c: (1, C) token slice padded to C; `start`: absolute position
-    of the chunk's first token; `clen`: real tokens in the chunk. cache is
-    the paged pool {"k"/"v": (L, P + 1, KV, ps, hd), "pos": (L, P + 1,
-    ps)}; page_ids (W,) int32 the row's claimed pages in logical order,
-    covering slots [0, start + clen). Token j of the chunk lands in slot
-    start + j; pad tokens (j >= clen) write into the sink page, so the
-    row's pad slots keep pos -1, as the reference's dropped scatter does.
-    Every per-position op (projection + LoRA, RoPE, norms, MLP, residuals)
-    is the sequence of `attn_apply` / `block_apply`; attention masks by the
-    cached absolute positions (`layers.paged_attn_chunk`, plain PyTorch on
-    every device, as the reference computes it outside Pallas). Returns
-    the (1, 1, vocab) logits of the chunk's last real token when `last`,
-    else None. `window` masks keys `window` or more positions behind each
-    query."""
+    of the chunk's first token; `clen`: real tokens in the chunk; each an
+    int or a 0-d int32 tensor on the device (a captured chunk step reads
+    them from its static inputs, so one graph serves every start and
+    length). cache is the paged pool {"k"/"v": (L, P + 1, KV, ps, hd),
+    "pos": (L, P + 1, ps)}; page_ids (W,) int32 the row's claimed pages in
+    logical order, covering slots [0, start + clen), -1 past them (the
+    server pads them to the block table's width). Token j of the chunk
+    lands in slot start + j; pad tokens (j >= clen) write into the sink
+    page, so the row's pad slots keep pos -1, as the reference's dropped
+    scatter does. Every per-position op (projection + LoRA, RoPE, norms,
+    MLP, residuals) is the sequence of `attn_apply` / `block_apply`;
+    attention masks by the cached absolute positions
+    (`layers.paged_attn_chunk`, plain PyTorch on every device, as the
+    reference computes it outside Pallas; it reads all W pages). Returns
+    the (1, 1, vocab) logits of the chunk's last real token (gathered at
+    a device index) when `last`, else None. `window` masks keys `window`
+    or more positions behind each query."""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens_c)
     C = x.shape[1]
     offs = torch.arange(C, dtype=torch.int32, device=x.device)
-    positions = (start + offs)[None]
+    positions = (offs + start)[None]
     bt = page_ids.to(torch.int32).reshape(1, -1)
     windex = paged_write_index(cache["k"], bt.expand(C, -1), positions[0],
                                write_mask=offs < clen)
@@ -447,7 +454,9 @@ def prefill_chunk(cfg, params: Transformer, tokens_c, start: int,
             rope_cs=rope_cs, write_index=windex)
     if not last:
         return None
-    return unembed(cfg, params, x[:, max(clen - 1, 0)][:, None])
+    # the last real token: offs == max(clen - 1, 0), as a device index
+    at = torch.clamp(offs.new_zeros(()) + clen - 1, min=0).reshape(1)
+    return unembed(cfg, params, x.index_select(1, at.long()))
 
 
 def decode_step(cfg, params: Transformer, cache, tokens_t, pos, *,

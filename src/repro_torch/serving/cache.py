@@ -26,9 +26,11 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.analysis import sanitizers
+from repro_torch.device import upload
 
 
 # ------------------------------------------------------------ dense rows ----
@@ -74,28 +76,30 @@ def zeros_like_batched(row_cache_abstract, max_batch: int, device=None):
     return {n: mk(x) for n, x in row_cache_abstract.items()}
 
 
-def scatter_rows(pool_cache, row_caches, rows: Sequence[int]):
+def scatter_rows(pool_cache, row_caches, rows, sel=None):
     """Write request i's prefill cache (batch entry i of `row_caches`)
     into slab row rows[i], in place, replacing the whole row. A KV leaf's
     slots [0, Sp) come from the row cache and the slots past its depth
     Sp <= S are cleared (payload and scales 0, pos -1), as the
     reference's full-depth row write leaves them; a recurrent-state leaf
-    is copied whole. Entries outside [0, max_batch) are dropped (the
-    reference's out-of-bounds mode), so padding rows of a bucketed
-    prefill need no select."""
+    is copied whole. Host-built `rows`: entries outside [0, max_batch)
+    are dropped (the reference's out-of-bounds mode). With `sel`, `rows`
+    and `sel` are index tensors of one length (a captured prefill's
+    static buffers): entry j writes batch entry sel[j] into row rows[j],
+    every row in range; a padded prefill repeats a real entry (its row
+    and its batch entry), which writes the same values twice."""
     ax = _batch_axis(pool_cache)
     leaves = tree_leaves(pool_cache)
-    max_batch = leaves[0][1].shape[ax]
-    keep = [i for i, r in enumerate(rows) if 0 <= int(r) < max_batch]
-    if not keep:
-        return pool_cache
     dev = leaves[0][1].device
-    dst_rows = _device_index([int(rows[i]) for i in keep], dev)
-    prefix = keep == list(range(len(keep)))     # no copy of the sources
-    src_rows = None if prefix else _device_index(keep, dev)
+    if sel is None:
+        max_batch = leaves[0][1].shape[ax]
+        sel = [i for i, r in enumerate(rows) if 0 <= int(r) < max_batch]
+        if not sel:
+            return pool_cache
+        rows = [int(rows[i]) for i in sel]
+    dst_rows, src_rows = _device_index(rows, dev), _device_index(sel, dev)
     for (name, dst), (_, src) in zip(leaves, tree_leaves(row_caches)):
-        src = src.narrow(ax, 0, len(keep)) if prefix \
-            else src.index_select(ax, src_rows)
+        src = src.index_select(ax, src_rows)
         lead = (slice(None),) * ax + (dst_rows,)
         sax = _slot_axis(name, ax)
         if sax is None:
@@ -104,7 +108,10 @@ def scatter_rows(pool_cache, row_caches, rows: Sequence[int]):
         mid = (slice(None),) * (sax - ax - 1)
         sp = src.shape[sax]
         dst[lead + mid + (slice(0, sp),)] = src
-        dst[lead + mid + (slice(sp, None),)] = -1 if name == "pos" else 0
+        # a fill kernel, not an indexed write of a host scalar (a copy
+        # from the host, which a CUDA graph capture refuses)
+        dst.narrow(sax, sp, dst.shape[sax] - sp).index_fill_(
+            ax, dst_rows, -1 if name == "pos" else 0)
     return pool_cache
 
 
@@ -229,16 +236,17 @@ def zeros_paged(row_cache_abstract, n_pages: int, page_size: int,
 
 
 def _device_index(idx, device) -> torch.Tensor:
-    """A host-built index (rows, page ids) as an int64 device tensor."""
-    # lint: allow-host-sync — the rows and page ids of a prefill, a page
-    # scrub or a swap are built on the host (allocator, admission) and
-    # uploaded once per such operation, never per decode step: a blocking
-    # copy of a few bytes from pageable memory
-    return torch.as_tensor(idx, dtype=torch.long).to(device)
+    """An index (rows, page ids) as an int64 tensor on `device`: a tensor
+    already there as it is, a host-built one uploaded through pinned
+    staging (`repro_torch.device.upload`), so the host never waits."""
+    if torch.is_tensor(idx) and idx.device.type == device.type:
+        return idx.long()
+    return upload(np.asarray(idx, np.int64), device)
 
 
 def _ids(pool_cache, page_ids) -> torch.Tensor:
-    """Page ids as a device index; entries < 0 go to the sink page."""
+    """Page ids (host-built, or an index tensor on the pool's device) as a
+    device index; entries < 0 go to the sink page."""
     sink = pool_cache["pos"].shape[1] - 1
     ids = _device_index(page_ids, pool_cache["pos"].device)
     return torch.where(ids >= 0, ids, sink)
@@ -291,7 +299,7 @@ def clear_pages(pool_cache, page_ids):
     slots (pos = -1), in place: stale positions of a previous tenant would
     become attendable once the new row's clock passes them. k/v payload
     can stay — it is masked by pos < 0."""
-    pool_cache["pos"][:, _ids(pool_cache, page_ids)] = -1
+    pool_cache["pos"].index_fill_(1, _ids(pool_cache, page_ids), -1)
     return pool_cache
 
 
@@ -307,10 +315,14 @@ def extract_pages(pool_cache, page_ids):
 def insert_pages(pool_cache, payload, page_ids):
     """Swap-in: write an `extract_pages` payload into freshly claimed pages
     (ids may differ from the originals), in place. Every slot of the
-    destination pages is overwritten."""
+    destination pages is overwritten. On the card the payload goes up
+    through pinned staging, so the host does not wait for the copy."""
     ids = _ids(pool_cache, page_ids)
     for name, dst in pool_cache.items():
-        dst[:, ids] = payload[name].to(dst.device, dst.dtype)
+        src = payload[name]
+        if dst.is_cuda:
+            src = src.pin_memory()
+        dst[:, ids] = src.to(dst.device, dst.dtype, non_blocking=True)
     return pool_cache
 
 

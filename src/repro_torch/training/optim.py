@@ -57,19 +57,22 @@ def init(params, moments_dtype="float32") -> AdamWState:
                       nu=tree_lib.map_(z, params))
 
 
+def clone(state: AdamWState) -> AdamWState:
+    """A copy of `state`, leaf for leaf."""
+    return AdamWState(state.step.clone(), tree_lib.map_(torch.clone, state.mu),
+                      tree_lib.map_(torch.clone, state.nu))
+
+
 def global_norm(tree) -> torch.Tensor:
     sq = [torch.sum(torch.square(x.float())) for x in tree_lib.leaves(tree)]
     return torch.sqrt(sum(sq))
 
 
-def apply(cfg: AdamWConfig, params, grads, state: AdamWState, decay=None):
-    """Returns (new_params, new_state, stats). Weight decay applies to the
-    leaves with ndim >= 2, or, given `decay` (a tree of bools like
-    `params`), to the leaves it marks: the port keeps a uniform stack's
-    layers as a list where the reference stacks them, so a layer's leaf
-    has one dimension fewer than the reference's (`train.decay_mask`).
-    Clipped gradients are float32, as the reference's bf16 gradient times
-    its f32 scale promotes to float32."""
+def _updates(cfg: AdamWConfig, params, grads, state: AdamWState,
+             decay=None):
+    """The step's shared terms and, leaf by leaf, (param, its new value,
+    mu, new mu, nu, new nu): the one arithmetic of `apply` and `apply_`.
+    Returns (step + 1, stats, generator of those tuples)."""
     gnorm = global_norm(grads)
     flat_g = [g.float() for g in tree_lib.leaves(grads)]
     if cfg.clip_norm is not None:
@@ -81,24 +84,52 @@ def apply(cfg: AdamWConfig, params, grads, state: AdamWState, decay=None):
     b1c = 1 - torch.pow(cfg.b1, step.float())
     b2c = 1 - torch.pow(cfg.b2, step.float())
     mdt = getattr(torch, cfg.moments_dtype)
+    flat_p = tree_lib.leaves(params)
+    flat_d = [p.dim() >= 2 for p in flat_p] if decay is None \
+        else tree_lib.leaves(decay)
 
-    def upd(p, g32, mu, nu, dec):
+    def leaf(p, g32, mu, nu, dec):
         mu_n = cfg.b1 * mu.float() + (1 - cfg.b1) * g32
         nu_n = cfg.b2 * nu.float() + (1 - cfg.b2) * g32 * g32
         delta = (mu_n / b1c) / (torch.sqrt(nu_n / b2c) + cfg.eps)
         p32 = p.float()
         if dec:
             delta = delta + cfg.weight_decay * p32
-        return (p32 - lr * delta).to(p.dtype), mu_n.to(mdt), nu_n.to(mdt)
+        return (p, (p32 - lr * delta).to(p.dtype), mu, mu_n.to(mdt), nu,
+                nu_n.to(mdt))
 
-    flat_p = tree_lib.leaves(params)
-    flat_d = [p.dim() >= 2 for p in flat_p] if decay is None \
-        else tree_lib.leaves(decay)
-    out = [upd(p, g, m, n, d) for p, g, m, n, d in zip(
+    gen = (leaf(p, g, m, n, d) for p, g, m, n, d in zip(
         flat_p, flat_g, tree_lib.leaves(state.mu),
-        tree_lib.leaves(state.nu), flat_d)]
-    new_p = tree_lib.unflatten(params, [o[0] for o in out])
-    new_mu = tree_lib.unflatten(params, [o[1] for o in out])
-    new_nu = tree_lib.unflatten(params, [o[2] for o in out])
-    return new_p, AdamWState(step, new_mu, new_nu), \
-        {"grad_norm": gnorm, "lr": lr}
+        tree_lib.leaves(state.nu), flat_d))
+    return step, {"grad_norm": gnorm, "lr": lr}, gen
+
+
+def apply(cfg: AdamWConfig, params, grads, state: AdamWState, decay=None):
+    """Returns (new_params, new_state, stats); `params` and `state` are
+    left as they are. Weight decay applies to the leaves with ndim >= 2,
+    or, given `decay` (a tree of bools like `params`), to the leaves it
+    marks: the port keeps a uniform stack's layers as a list where the
+    reference stacks them, so a layer's leaf has one dimension fewer than
+    the reference's (`train.decay_mask`). Clipped gradients are float32,
+    as the reference's bf16 gradient times its f32 scale promotes to
+    float32."""
+    step, stats, gen = _updates(cfg, params, grads, state, decay)
+    out = list(gen)
+    new_p = tree_lib.unflatten(params, [o[1] for o in out])
+    new_mu = tree_lib.unflatten(params, [o[3] for o in out])
+    new_nu = tree_lib.unflatten(params, [o[5] for o in out])
+    return new_p, AdamWState(step, new_mu, new_nu), stats
+
+
+def apply_(cfg: AdamWConfig, params, grads, state: AdamWState, decay=None):
+    """`apply` written in place: each parameter, moment and the step
+    counter keep their storage (a captured training step reads them by
+    address), one leaf at a time, so no second copy of the trees exists.
+    The arithmetic is `apply`'s. Returns the stats."""
+    step, stats, gen = _updates(cfg, params, grads, state, decay)
+    for p, p_n, mu, mu_n, nu, nu_n in gen:
+        p.copy_(p_n)
+        mu.copy_(mu_n)
+        nu.copy_(nu_n)
+    state.step.copy_(step)
+    return stats

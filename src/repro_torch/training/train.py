@@ -11,9 +11,11 @@ a zero gradient.
 
 The parameters of the port's model are `nn.Parameter`s that do not
 require grad (the port serves). Full fine-tuning switches them on for
-its step only, and writes the optimizer's update into them in place; the
-adapter of LoRA training is a tree of plain tensors, updated functionally
-as the reference's.
+its step only. The steps (`make_train_step_`, `make_lora_train_step_`)
+write the optimizer's update into the trained leaves and the optimizer
+state in place (`optim.apply_`), so that they can run as a CUDA graph
+(`launch.train.Trainer`); `make_train_step` and `make_lora_train_step`
+give the reference's functional signatures over the same arithmetic.
 """
 from __future__ import annotations
 
@@ -87,17 +89,18 @@ def decay_mask(cfg: ModelConfig, tree):
     return out
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
-                    accum: Optional[int] = None):
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics): full fine-tuning of every parameter of the model `params`
-    (updated in place), with the gradients of `accum` microbatches summed
-    in `cfg.opt_moments_dtype` and divided by `accum`. `opt_state` is over
-    `tree.param_tree(params)`."""
+def make_train_step_(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
+                     accum: Optional[int] = None):
+    """Returns train_step_(params, opt_state, batch) -> metrics: full
+    fine-tuning of every parameter of the model `params`, with the
+    gradients of `accum` microbatches summed in `cfg.opt_moments_dtype`
+    and divided by `accum`; the parameters and `opt_state` (over
+    `tree.param_tree(params)`) are updated in place (`optim.apply_`), so
+    the step can run as a CUDA graph."""
     accum = accum or cfg.accum_steps
     acc_dtype = getattr(torch, cfg.opt_moments_dtype)
 
-    def train_step(params, opt_state, batch):
+    def train_step_(params, opt_state, batch):
         tree = tree_lib.param_tree(params)
         leaves, names = tree_lib.leaves(tree), tree_lib.paths(tree)
         with trainable(leaves):
@@ -117,12 +120,23 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
                 gs = grads(loss, leaves, names)
                 loss = loss.detach()
         with torch.no_grad():
-            new, opt_state, stats = optim.apply(
-                opt_cfg, tree, tree_lib.unflatten(tree, gs), opt_state,
-                decay=decay_mask(cfg, tree))
-            for p, n in zip(leaves, tree_lib.leaves(new)):
-                p.copy_(n)
-        return params, opt_state, {"loss": loss, **stats}
+            stats = optim.apply_(opt_cfg, tree, tree_lib.unflatten(tree, gs),
+                                 opt_state, decay=decay_mask(cfg, tree))
+        return {"loss": loss, **stats}
+
+    return train_step_
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
+                    accum: Optional[int] = None):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): `make_train_step_`'s step with the parameters updated in
+    place and a new optimizer state (`opt_state` is left as it is)."""
+    step_ = make_train_step_(cfg, opt_cfg, accum)
+
+    def train_step(params, opt_state, batch):
+        opt_state = optim.clone(opt_state)
+        return params, opt_state, step_(params, opt_state, batch)
 
     return train_step
 
@@ -154,18 +168,33 @@ def lora_loss_and_grads(cfg: ModelConfig, params, adapter, batch,
     return loss.detach(), tree_lib.unflatten(adapter, gs)
 
 
-def make_lora_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
-                         rank: int):
-    """LoRA fine-tuning: base params frozen; gradients flow only to the
-    adapter. Returns train_step(adapter, opt_state, params, batch) ->
-    (adapter, opt_state, metrics)."""
+def make_lora_train_step_(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
+                          rank: int):
+    """LoRA fine-tuning in place: base params frozen; gradients flow only
+    to the adapter, which `optim.apply_` updates in place with the
+    optimizer state, so the step can run as a CUDA graph. Returns
+    train_step_(adapter, opt_state, params, batch) -> metrics."""
 
-    def train_step(adapter, opt_state, params, batch):
+    def train_step_(adapter, opt_state, params, batch):
         loss, g = lora_loss_and_grads(cfg, params, adapter, batch, rank)
         with torch.no_grad():
-            adapter, opt_state, stats = optim.apply(opt_cfg, adapter, g,
-                                                    opt_state)
-        return adapter, opt_state, {"loss": loss, **stats}
+            stats = optim.apply_(opt_cfg, adapter, g, opt_state)
+        return {"loss": loss, **stats}
+
+    return train_step_
+
+
+def make_lora_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig,
+                         rank: int):
+    """`make_lora_train_step_`'s step, functional as the reference's:
+    train_step(adapter, opt_state, params, batch) -> (adapter, opt_state,
+    metrics), new trees, the arguments left as they are."""
+    step_ = make_lora_train_step_(cfg, opt_cfg, rank)
+
+    def train_step(adapter, opt_state, params, batch):
+        adapter = tree_lib.map_(torch.clone, adapter)
+        opt_state = optim.clone(opt_state)
+        return adapter, opt_state, step_(adapter, opt_state, params, batch)
 
     return train_step
 

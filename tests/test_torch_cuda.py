@@ -261,6 +261,79 @@ def test_graphed_step_on_card_matches_eager(card, memory):
                for s in s_eager.values())
 
 
+@pytest.mark.parametrize("memory,chunk_budget", [("paged", 0),
+                                                  ("paged", 16),
+                                                  ("dense", 0)])
+def test_graphed_prefill_and_chunks_on_card_match_eager(card, memory,
+                                                        chunk_budget):
+    """The prefill[Nb,Lp] and prefill_chunk[_final][C] CUDA graphs: a
+    trace served twice on one server (every bucket and chunk width comes
+    again) gives the eager server's tokens and launch counts, and every
+    such key is built once and replayed."""
+    cfg = get_config("llama2-7b").smoke()
+    counters = (paged.paged_attention, bgmv.lora_shrink, bgmv.lora_expand,
+                flash.flash_attention)
+    rng = np.random.default_rng(2)
+    trace = [(i, f"ad{i % 4}",
+              rng.integers(0, cfg.vocab, int(rng.integers(4, 40))
+                           ).astype(np.int32),
+              int(rng.integers(3, 12)), float(3 * i)) for i in range(8)]
+    runs, params = [], None
+    for graphs in (False, True):
+        srv = InferenceServer(cfg, mode="caraserve", max_batch=4,
+                              cache_slots=64, seed=0, device="cuda",
+                              params=params, memory=memory, graphs=graphs,
+                              chunk_budget=chunk_budget)
+        params = srv.params
+        for i, r in enumerate((8, 4, 2, 8)):
+            srv.register_adapter(AdapterSpec(f"ad{i}", r, cfg.name))
+        before = [f.launches for f in counters]
+        for rep in range(2):
+            srv.run([Request(1000 * rep + t[0], *t[1:4],
+                             srv.clock + t[4]) for t in trace])
+        runs.append(([f.launches - n for f, n in zip(counters, before)],
+                     {s.req.rid: s.generated for s in srv.states},
+                     srv.backend.graphs.stats()))
+    (l_eager, t_eager, _), (l_graph, t_graph, s_graph) = runs
+    assert t_graph == t_eager
+    assert l_graph == l_eager
+    kinds = ("prefill_chunk[", "prefill_chunk_final[") if chunk_budget \
+        else ("prefill[",)
+    for kind in kinds:
+        keys = {k: g for k, g in s_graph.items() if k.startswith(kind)}
+        assert keys and all(g["builds"] == 1 for g in keys.values())
+        assert any(g["replays"] for g in keys.values()), keys
+
+
+@pytest.mark.parametrize("lora_rank", [8, 0])
+def test_graphed_training_step_on_card_matches_eager(card, lora_rank):
+    """`Trainer.step` as a CUDA graph (key `train`: captured on its second
+    call, then replayed) against the same trainer with graphs=False, from
+    the same init on the same batches: the metrics and every trained
+    leaf after four steps agree."""
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.weights import init_params
+    from repro_torch.training import tree as ttree
+    cfg = get_config("llama2-7b").smoke()
+    out = []
+    for graphs in (True, False):
+        trainer = tlaunch.Trainer(cfg, lora_rank=lora_rank, steps=4,
+                                  device="cuda", graphs=graphs, accum=2,
+                                  params=init_params(cfg, 0, "cuda"))
+        data = trainer.batches(4, 32)
+        ms = [trainer.step(next(data)) for _ in range(4)]
+        out.append(([float(m["loss"]) for m in ms],
+                    [t.detach().clone() for t in ttree.leaves(
+                        trainer.trained())], trainer.graphs.stats()))
+    (lg, tg, sg), (le, te, se) = out
+    assert lg == pytest.approx(le, rel=1e-5)
+    for a, b in zip(tg, te):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert (sg["train"]["builds"], sg["train"]["captures"],
+            sg["train"]["replays"]) == (1, 1, 3)
+    assert se["train"]["captures"] == se["train"]["replays"] == 0
+
+
 def _smoke_cluster(device, params=None, crash=None):
     """Two llama2-7b-smoke servers (f32) over one weight set behind the
     rank-aware router; `crash` = (crash, restart) times of server 1."""

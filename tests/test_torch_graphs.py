@@ -38,13 +38,17 @@ PIPE = ("last_tok", "pos", "target", "active", "idx", "block_table")
 
 
 def _addresses(be):
-    """The address of every tensor the captured step reads, by name."""
+    """The address of every tensor the captured steps read, by name: the
+    pipeline's buffers, the KV plane, the LoRA pool and the prefill's
+    staging pool (a bucket's static inputs are checked as they appear)."""
     out = {f"pipe.{n}": getattr(be.pipe, n).data_ptr() for n in PIPE
            if getattr(be.pipe, n) is not None}
     out.update({f"cache[{i}]": t.data_ptr()
                 for i, t in enumerate(leaves(be.cache))})
     out.update({f"pool[{i}]": t.data_ptr()
                 for i, t in enumerate(leaves(be.pool.pool))})
+    out.update({f"stage[{i}]": t.data_ptr()
+                for i, t in enumerate(leaves(be.stage))})
     return out
 
 
@@ -71,14 +75,19 @@ def _requests(cfg, n=6, seed=1):
 
 @pytest.mark.parametrize("memory,extra", [
     ("paged", dict(total_pages=6, preempt="swap")),
-    ("dense", {})])
+    ("dense", {}),
+    ("paged", dict(chunk_budget=16))])
 def test_step_buffers_keep_their_storage(memory, extra):
-    """Every buffer the step reads keeps its address across decode,
-    megastep, a refresh with a changed batch, prefill, swap-in (paged)
-    and adapter loads; so every graph key is built once."""
+    """Every buffer the steps read keeps its address across decode,
+    megastep, a refresh with a changed batch, prefill, prefill chunks,
+    swap-in (paged) and adapter loads, the staging pool and each bucket's
+    static inputs included; so every graph key (decode, megastep,
+    prefill[...], prefill_chunk[...], prefill_chunk_final[...]) is built
+    once."""
     srv = _server(memory, **extra)
     be = srv.backend
     want = _addresses(be)
+    inputs = {}
     seen = []
 
     def watch(obj, name):
@@ -87,11 +96,17 @@ def test_step_buffers_keep_their_storage(memory, extra):
         def run(*a, **kw):
             out = fn(*a, **kw)
             assert _addresses(be) == want, f"{name} moved a buffer"
+            for key, si in be.inputs.items():
+                addr = [si.flat.data_ptr()] + [v.data_ptr()
+                                               for v in si.views.values()]
+                assert inputs.setdefault(key, addr) == addr, \
+                    f"{name} moved the static inputs of {key}"
             seen.append(name)
             return out
         setattr(obj, name, run)
 
-    for name in ("decode", "megastep", "prefill_admitted", "swap_in"):
+    for name in ("decode", "megastep", "prefill_admitted", "swap_in",
+                 "prefill_chunk"):
         watch(be, name)
     watch(be.pipe, "refresh")
     for name in ("reserve", "insert"):
@@ -106,14 +121,22 @@ def test_step_buffers_keep_their_storage(memory, extra):
     be.pipe.refresh = counted
     srv.run(_requests(srv.cfg))
     need = {"decode", "megastep", "prefill_admitted", "refresh", "reserve"}
-    if memory == "paged":
+    if extra.get("preempt"):
         need.add("swap_in")
         assert srv.preempt_stats["swap_preemptions"] > 0
+    keys = set(be.graphs.entries)
+    if extra.get("chunk_budget"):
+        need.add("prefill_chunk")
+        for kind in ("prefill_chunk[C=", "prefill_chunk_final[C="):
+            assert any(k.startswith(kind) for k in keys), keys
     assert need <= set(seen), set(seen)
     assert sum(h2d) > 1                   # the batch changed, uploads ran
-    assert {"decode"} < set(be.graphs.entries)
+    assert {"decode"} < keys
+    # the buckets and chunk widths changed too
+    assert len([k for k in keys if k.startswith("prefill")]) > 1, keys
     assert all(e.builds == 1 for e in be.graphs.entries.values()), \
         be.graphs.stats()
+    assert not any(g["eager"] for g in be.graphs.stats().values())
     assert all(len(st.generated) == st.req.max_new_tokens
                for st in srv.states)
 
@@ -211,6 +234,48 @@ def test_retrace_catches_a_pool_leaf_rebound_after_steady():
             san.assert_clean()
 
 
+def test_retrace_catches_a_staging_pool_leaf_rebound_after_steady():
+    """A leaf of the prefill's staging pool rebound after steady state
+    changes every prefill key's signature: the watch raises, naming a
+    prefill key."""
+    with sanitizers.force(True):
+        srv, reqs = _retrace_server()
+        srv.run(reqs(0))
+        san = srv.backend.retrace_san
+        assert any(k.startswith("prefill[Nb=") for k in san._sizes)
+        san.mark_steady()
+        srv.run(reqs(10))
+        san.assert_clean()
+        q = srv.backend.stage["q"]
+        q["a"] = q["a"].clone()
+        srv.run(reqs(20))
+        with pytest.raises(RetraceError, match=r"prefill\[Nb=.*grew 1 -> 2"):
+            san.assert_clean()
+
+
+def test_prefill_buckets_past_the_cap_run_eagerly_and_are_counted():
+    """A bucket of more than `graph_tokens` tokens runs eagerly by the
+    stated cap: its key builds nothing and counts its calls as eager;
+    the tokens are the uncapped server's."""
+    out = {}
+    for cap in (10 ** 9, 16):
+        srv = _server("paged")
+        srv.backend.graph_tokens = cap
+        srv.run(_requests(srv.cfg))
+        out[cap] = ({s.req.rid: s.generated for s in srv.states},
+                    srv.backend.graphs.stats())
+    assert out[16][0] == out[10 ** 9][0]
+    capped = {k: g for k, g in out[16][1].items()
+              if k.startswith("prefill[")}
+    big = [k for k in capped
+           if np.prod([int(x.split("=")[1]) for x in
+                       k[len("prefill["):-1].split(",")]) > 16]
+    assert big and all(capped[k]["eager"] > 0 and capped[k]["builds"] == 0
+                       for k in big), capped
+    assert all(g["eager"] == 0 for k, g in capped.items() if k not in big)
+    assert not any(g["eager"] for g in out[10 ** 9][1].values())
+
+
 def test_retrace_is_off_without_the_sanitizers():
     with sanitizers.force(False):
         srv, _ = _retrace_server()
@@ -218,6 +283,38 @@ def test_retrace_is_off_without_the_sanitizers():
 
 
 # --------------------------------------------------- against the reference --
+
+@pytest.mark.parametrize("kernel", ["bgmv", "mbgmv"])
+def test_chunked_graphed_server_tokens_match_reference(kernel):
+    """Chunked prefill through the chunk graphs (page ids padded to the
+    block table's width, start and length as device scalars): the
+    reference's tokens at llama2-7b-smoke in f32, every chunk key built
+    once."""
+    cj, ct = jget("llama2-7b").smoke(), get_config("llama2-7b").smoke()
+    kw = dict(mode="caraserve", kernel=kernel, max_batch=4, cache_slots=64,
+              seed=0, memory="paged", chunk_budget=16)
+    js = JServer(cj, **kw)
+    ts = InferenceServer(ct, device="cpu", hw=REF_HW, graphs=True,
+                         params=params_from_jax(
+                             ct, jax.tree.map(np.asarray, js.params),
+                             device="cpu"), **kw)
+    for i, r in enumerate((8, 4, 2, 8)):
+        js.register_adapter(JSpec(f"ad{i}", r, cj.name))
+        ts.register_adapter(AdapterSpec(f"ad{i}", r, ct.name))
+    rng = np.random.default_rng(5)
+    trace = [(i, f"ad{i % 4}",
+              rng.integers(0, 512, int(rng.integers(10, 50))).astype(np.int32),
+              int(rng.integers(3, 10)), float(i * 3)) for i in range(6)]
+    js.run([JReq(*t) for t in trace])
+    ts.run([Request(*t) for t in trace])
+    assert {s.req.rid: s.generated for s in ts.states} == \
+        {s.req.rid: s.generated for s in js.states}
+    be = ts.backend
+    assert be.transfer_stats["prefill_chunks"] > 0
+    keys = set(be.graphs.entries)
+    assert any(k.startswith("prefill_chunk_final[C=") for k in keys), keys
+    assert all(e.builds == 1 for e in be.graphs.entries.values())
+
 
 @pytest.mark.parametrize("kernel,memory", [("bgmv", "paged"),
                                            ("mbgmv", "paged"),

@@ -166,6 +166,24 @@ STEP_CASES = {
                           "        self.pool.pool['q']['a'] = t"),
                          ("        return t",
                           "        self.pool.pool['ranks'][t] = 3")),
+    "rebind-static-input": ("donated-reuse",
+                            ("        return t", "        si.flat = t"),
+                            ("        return t", "        si.flat.copy_(t)")),
+    "rebind-static-input-view": ("donated-reuse",
+                                 ("        return t",
+                                  "        si.views['tokens'] = t"),
+                                 ("        return t",
+                                  "        si.views['tokens'][0] = t")),
+    "rebind-staging-pool-leaf": ("donated-reuse",
+                                 ("        return t",
+                                  "        self.stage['q']['a'] = t"),
+                                 ("        return t",
+                                  "        self.stage['q']['a'][t] = 3")),
+    "rebind-trainer-adapter": ("donated-reuse",
+                               ("        return t",
+                                "        trainer.adapter = t"),
+                               ("        return t",
+                                "        trainer.adapter['q']['a'].copy_(t)")),
     "capture-outside-graphs": ("jit-spec",
                                ("        return torch.cuda.CUDAGraph()",
                                 "        return t"),
@@ -183,6 +201,36 @@ def test_captured_step_rules(tmp_path, case):
     report = lint.run_lint_report(_package(tmp_path / "neg",
                                            STEP.format(*neg)))
     assert report.findings == [], report.findings
+
+
+CAPTURED = """\
+class {}:
+    def {}(self, t):
+        t = torch.ones(3)
+        # lint: allow-host-sync — a designed read
+        if (t > 0).any():
+            return t
+"""
+
+
+@pytest.mark.parametrize("where,cls,method", [
+    ("core/backend.py", "NumericsBackend", "_prefill_step"),
+    ("core/backend.py", "NumericsBackend", "_chunk_step"),
+    ("launch/train.py", "Trainer", "_captured_step")])
+def test_tracer_if_covers_every_captured_step(tmp_path, where, cls,
+                                              method):
+    """The prefill, chunk and training graphs' closures are roots of the
+    captured-step rules, as the decode step is."""
+    body = CAPTURED.format(cls, method)
+    if where == "core/backend.py":
+        root = _package(tmp_path, body)
+    else:
+        root = _package(tmp_path, "def f(x):\n    return x\n", extra={
+            "repro_torch/launch/__init__.py": "",
+            "repro_torch/launch/train.py": "import torch\n\n\n" + body})
+    report = lint.run_lint_report(root)
+    assert _rules(report) == ["tracer-if"], report.findings
+    assert report.findings[0].path.endswith(where.split("/")[-1])
 
 
 def test_capture_in_core_graphs_and_init_allocations_pass(tmp_path):
@@ -233,15 +281,16 @@ def test_cli_refuses_a_missing_path(tmp_path):
 def test_the_port_lints_clean_with_strict_waivers(capsys):
     """No finding, no stale waiver, a reason on every waiver; the designed
     syncs are the waived ones: the readback drain, the per-step pipeline's
-    readback, swap-out, and the cache's upload of host-built rows and page
-    ids (the backend's step metadata goes up through pinned staging,
-    without a sync)."""
+    readback and swap-out (the backend's step metadata, and the rows and
+    page ids of the cache's writes, go up through pinned staging, without
+    a sync); the one designed rebinding is a trainer's batch buffer for a
+    batch of a new shape (a new signature of the step)."""
     assert lint.main([str(ROOT / "src"), "--strict-waivers"]) == 0
     report = lint.run_lint_report()
     sites = sorted({(Path(f.path).name, f.rule) for f in report.waived})
-    assert sites == [("backend.py", "host-sync"), ("cache.py", "host-sync")]
+    assert sites == [("backend.py", "host-sync"), ("cache.py", "host-sync"),
+                     ("train.py", "donated-reuse")]
     names = {f.message.split("(in ")[1].split(",")[0]
-             for f in report.waived}
+             for f in report.waived if f.rule == "host-sync"}
     assert names == {"DecodePipeline._drain_one",
-                     "NumericsBackend._decode_perstep", "extract_pages",
-                     "_device_index"}
+                     "NumericsBackend._decode_perstep", "extract_pages"}

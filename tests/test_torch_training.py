@@ -442,6 +442,107 @@ def test_full_finetuning_step_matches_reference(llama):
         np.testing.assert_allclose(a.numpy(), b, atol=5e-3)
 
 
+@pytest.mark.parametrize("kind", ["lora", "full"])
+def test_in_place_steps_equal_the_functional_ones_and_the_reference(
+        llama, kind):
+    """Three steps through `Trainer.step` (the in-place step a card runs
+    as a CUDA graph, its batch in static buffers, its metrics in 0-d
+    buffers) equal three of the functional step bitwise on the CPU, and
+    the reference's jitted step within this file's tolerances (as in
+    test_lora_step_matches_reference / test_full_finetuning_step_matches_
+    reference: losses rel 1e-3 / 1e-4, leaves atol 5e-3); the trainer's
+    leaves and batch buffers keep their storage."""
+    cj, ct, pj, pt = llama
+    rank = 4
+    batches = [_batch(ct, seed=30 + i) for i in range(3)]
+    trainer = tlaunch.Trainer(ct, lora_rank=rank if kind == "lora" else 0,
+                              steps=3, lr=1e-2, device="cpu",
+                              params=params_from_jax(ct, _np_tree(pj),
+                                                     device="cpu"))
+    o = trainer.opt_cfg
+    ocfg = dict(lr=o.lr, warmup_steps=o.warmup_steps,
+                total_steps=o.total_steps)
+    if kind == "lora":
+        ad = jtrain.init_lora_adapter(cj, rank, jax.random.PRNGKey(1))
+        step_j = jax.jit(jtrain.make_lora_train_step(
+            cj, joptim.AdamWConfig(**ocfg), rank))
+        ad, sj, _ = step_j(ad, joptim.init(ad), pj, batches[0][0])
+        with torch.no_grad():      # the reference's state, in place
+            for dst, src in zip(
+                    ttree.leaves({"a": trainer.adapter, "s": trainer.state}),
+                    ttree.leaves({"a": adapter_from_jax(
+                        ct, _np_tree(ad), device="cpu"),
+                        "s": opt_state_from_jax(ct, _np_tree(sj),
+                                                device="cpu")})):
+                dst.copy_(src)
+        fn_t = ttrain.make_lora_train_step(ct, toptim.AdamWConfig(**ocfg),
+                                           rank)
+        fn_tree = ttree.map_(torch.clone, trainer.adapter)
+        fn_state = toptim.clone(trainer.state)
+        ref = (ad, sj)
+    else:
+        step_j = jax.jit(jtrain.make_train_step(
+            cj, joptim.AdamWConfig(**ocfg), accum=1))
+        ref = (pj, joptim.init(pj))
+        fn_t = ttrain.make_train_step(ct, toptim.AdamWConfig(**ocfg),
+                                      accum=1)
+        fn_params = params_from_jax(ct, _np_tree(pj), device="cpu")
+        fn_state = toptim.clone(trainer.state)
+    held = [t.data_ptr() for t in ttree.leaves(
+        {"m": trainer.trained(), "o": trainer.state})] + \
+        [t.data_ptr() for t in trainer.metrics.values()]
+    for bj, bt in batches:
+        m = trainer.step({k: v.numpy() for k, v in bt.items()})
+        if kind == "lora":
+            fn_tree, fn_state, mf = fn_t(fn_tree, fn_state, pt, bt)
+            aj, stj, mj = step_j(*ref, pj, bj)
+            rel = 1e-3
+        else:
+            fn_params, fn_state, mf = fn_t(fn_params, fn_state, bt)
+            aj, stj, mj = step_j(*ref, bj)
+            rel = 1e-4
+        ref = (aj, stj)
+        for k in ("loss", "grad_norm", "lr"):
+            assert torch.equal(m[k], mf[k].reshape(())), k
+        assert float(m["loss"]) == pytest.approx(float(mj["loss"]), rel=rel)
+    got = ttree.leaves({"m": trainer.trained(), "o": trainer.state})
+    fn = ttree.leaves({"m": fn_tree if kind == "lora"
+                       else ttree.param_tree(fn_params), "o": fn_state})
+    assert len(got) == len(fn)
+    assert all(torch.equal(a, b) for a, b in zip(got, fn))
+    want = ref[0] if kind == "lora" else _unstack(cj, _np_tree(ref[0]))
+    for a, b in zip(ttree.leaves(trainer.trained()), jax.tree.leaves(want)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   atol=5e-3)
+    assert int(trainer.state.step) == int(ref[1].step)
+    assert held == [t.data_ptr() for t in ttree.leaves(
+        {"m": trainer.trained(), "o": trainer.state})] + \
+        [t.data_ptr() for t in trainer.metrics.values()]
+    e = trainer.graphs.entries["train"]
+    assert (e.builds, e.calls) == (1, 3)
+
+
+def test_trainer_retrace_catches_a_rebound_adapter_leaf(llama):
+    """Under the sanitizers the trainer's `train` key is watched: an
+    adapter leaf rebound after steady state is a re-capture that raises."""
+    from repro_torch.analysis import sanitizers
+    from repro_torch.analysis.retrace import RetraceError
+    _, ct, _, pt = llama
+    with sanitizers.force(True):
+        trainer = tlaunch.Trainer(ct, lora_rank=4, steps=4, device="cpu",
+                                  params=pt)
+    batch = {k: v.numpy() for k, v in _batch(ct, seed=3)[1].items()}
+    trainer.step(batch)
+    trainer.retrace_san.mark_steady()
+    trainer.step(batch)
+    trainer.retrace_san.assert_clean()
+    q = trainer.adapter["q"]
+    q["b"] = q["b"].clone()
+    trainer.step(batch)
+    with pytest.raises(RetraceError, match=r"train: graph cache grew 1 -> 2"):
+        trainer.retrace_san.assert_clean()
+
+
 def test_decay_mask_follows_the_reference_layout(llama):
     """A layer's norm scale is 1-D in the port and 2-D (stacked) in the
     reference, so it is decayed; the final norm is not."""
