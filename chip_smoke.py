@@ -27,7 +27,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      both at llama2-13b's d 5,120 and mistral-
      large's d 12,288 (d_out 12,288 and 1,024) and at mamba2's in_proj
      (768 -> 3,352) and out_proj (1,536 -> 768), decode and prefill rows,
-     every kernel repeatable bitwise; flash attention at
+     and at widths that are no multiple of 8 (d_in 4,100 -> d_out 1,000
+     and 1,000 -> 4,100 on decode rows, 2,048 / 1,100 / 32,768 prefill
+     rows; 131 -> 37 in f32), every kernel repeatable bitwise; paged
+     attention over group tiles (MQA: group 32 at hd 128, and 71 at hd 64
+     with long rows and splits, NaN in foreign pages at group 32) and at
+     hd 80, 100 and 12 (bf16 and f32); flash attention at
      yi-9b's long prompt (bf16, B 2, H 32 over KV 4, hd 128, L 4096,
      causal), at llama2-7b's (H = KV = 32, L 256), llama2-13b's (H = KV =
      40), mistral-large's (96 over 8) and dbrx/grok's (48 over 8), all on
@@ -39,7 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (phi-3-vision: H 32 MHA, L 576 + 256, and ragged) and hd 256
      (recurrentgemma: H 10 over 1, L 3,000 with window 2,048, and ragged)
      and whisper's cross-attention (hd 64, 64 queries over 1,500 keys,
-     non-causal), in bf16 and f32;
+     non-causal), in bf16 and f32; and at head dims with no
+     instantiation of their own (80, 72, 100, 160, 200: causal and
+     windowed, Lq != Lk, views, bf16 and f32);
   3a. serve full-width llama2-7b (32 layers, d_model 4096, bf16, seeded
      random weights on the card) through `InferenceServer`: 16 requests
      with kernel="bgmv", then 6 with kernel="mbgmv"; every request must
@@ -199,6 +206,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      LoRA q/k/v) held to the same rule at every step; flash is timed at
      hd 96 and 256 at layer 0 of phi-3-vision's and recurrentgemma's
      largest served prefill (phase 5b's rows);
+  K. shapes past the registered configs (`shapes_phase`): llama2-7b
+     with n_kv_heads=1 (K1: MQA, group 32 at hd 128) and with head_dim=80
+     (K2), whole, and with falcon-7b's 71 heads of 64 over one KV head on
+     a d_model of 4,100 (K3, 4 layers); each served graphed and with
+     graphs=False (8 requests of 32-256 prompt tokens, 32 new, bgmv, 8
+     adapters of ranks 8-64): every request finishes, the paged, flash
+     and LoRA kernels launch, graphed = eager tokens and launches; one
+     decode step's logits and a 2-row prefill's and decode step's through
+     the kernels vs the plain versions within 5e-2 of max |logit|; paged
+     attention timed at K1's and K3's decode (group tiles), flash at K2's
+     largest prefill (hd 80, run at width 96), the LoRA shrink at K3's
+     decode (d_in 4,100), each beside SDPA / torch.bmm;
   M. the multi-device plane, in a process of its own (`--phase-m`): M1
      an NCCL group of one rank (a FileStore in a temporary directory) and
      a 1 x 1 ("data", "model") DeviceMesh on the card; M2 `moe_apply_ep`
@@ -218,8 +237,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      fits_80g and dominant roofline term printed;
   then one {"kernels": [...]} line (the six TPU kernels' rows, the
   prefill shrink and expand rows, the yi-9b and mistral-large paged
-  rows, the hd 96 / hd 256 flash rows and phase T's rows at the training
-  step's shapes) and the last line
+  rows, the hd 96 / hd 256 flash rows, phase T's rows at the training
+  step's shapes and phase K's MQA, G 71, hd 80 and LoRA-tail rows) and
+  the last line
   {"ok": true, "device": {...}}.
 
 Tolerances (kernel vs plain version on the same inputs), per output row b
@@ -341,6 +361,8 @@ def main() -> int:
     kernels.append(mistral_row)
     report["other_families"], g_rows = other_families_phase(torch, errs)
     kernels.extend(g_rows)
+    report["shapes"], k_rows = shapes_phase(torch, errs)
+    kernels.extend(k_rows)
     report["multi_device"] = multi_device_phase(torch)
     print(json.dumps(report), flush=True)
     print(smi, flush=True)
@@ -450,7 +472,8 @@ def kernel_checks(torch):
     rng = np.random.default_rng(SEED)
     worst = {"paged_attention": 0.0, "lora_shrink": 0.0,
              "lora_expand": 0.0, "flash_attention": 0.0,
-             "flash_attention[hd 96]": 0.0, "flash_attention[hd 256]": 0.0}
+             "flash_attention[hd 96]": 0.0, "flash_attention[hd 256]": 0.0,
+             "flash_attention[hd 80]": 0.0}
 
     def note(name, err, full):
         if full:
@@ -480,6 +503,25 @@ def kernel_checks(torch):
              ("GQA 2 ps 8 f32", 4, 4, 2, 32, 8, 5, 24, f32, False, None),
              ("GQA 4 hd 16 f32", 4, 8, 2, 16, 8, 5, 24, f32, False, None),
              ("GQA 8 long row splits f32", 3, 8, 1, 64, 16, 160, 170, f32,
+              False, [0, 2400, 30]),
+             # group tiles: MQA at group 32 (hd 128: 2 tiles) and 71 (hd
+             # 64, falcon-7b's: 3 tiles) with long rows and splits; head
+             # dims that are no multiple of 8 (element copies into padded
+             # ring rows) and hd 80
+             ("MQA G 32 hd 128 bf16", 8, 32, 1, 128, 32, 16, 176, bf,
+              True, None),
+             ("MQA G 71 hd 64 long rows bf16", 8, 71, 1, 64, 32, 128, 200,
+              bf, True, yi_ctx),
+             ("MQA G 32 hd 128 long rows f32", 3, 32, 1, 128, 32, 96, 100,
+              f32, False, [0, 2500, 9]),
+             ("hd 80 GQA 4 bf16", 8, 32, 8, 80, 32, 16, 176, bf, False,
+              None),
+             ("hd 100 GQA 2 bf16", 8, 4, 2, 100, 32, 16, 176, bf, False,
+              None),
+             ("hd 100 GQA 2 long rows f32", 3, 4, 2, 100, 32, 96, 100, f32,
+              False, [0, 2500, 9]),
+             ("hd 12 GQA 4 f32", 4, 8, 2, 12, 8, 5, 24, f32, False, None),
+             ("hd 12 GQA 4 long rows bf16", 3, 8, 2, 12, 16, 160, 170, bf,
               False, [0, 2400, 30])]
     for label, B, H, KV, hd, ps, W, P, dt, full, ctx in cases:
         cap = W * ps
@@ -505,7 +547,7 @@ def kernel_checks(torch):
         check(torch.equal(got, paged_attention(*args)),
               f"paged_attention {label}: two runs differ")
         if full and label.startswith(("llama2-7b", "yi-9b",
-                                      "mistral-large")):
+                                      "mistral-large", "MQA")):
             # tenant isolation: NaN in every page a row does not own must
             # leave that row's output bitwise unchanged
             for b in range(B):
@@ -597,7 +639,23 @@ def kernel_checks(torch):
               ("smoke decode d_out 136 f32", 8, 128, 136, 8, [8, 3, 5, 1],
                4, f32, False, 0),
               ("smoke prefill runs of 17 d_out 136 f32", 300, 128, 136, 8,
-               [8, 3, 5, 1], 4, f32, False, 17)]
+               [8, 3, 5, 1], 4, f32, False, 17),
+              # tails: d_in (shrink) or d_out (expand) no multiple of 8, the
+              # element-copy instantiations, on every launch path
+              ("tail decode d_in 4100 d_out 1000 bf16", 8, 4100, 1000, 64,
+               y8, 16, bf, True, 0),
+              ("tail prefill 2048 rows d_in 4100 d_out 1000 bf16", 2048,
+               4100, 1000, 64, y8, 16, bf, True, 256),
+              ("tail decode d_in 1000 d_out 4100 bf16", 8, 1000, 4100, 64,
+               y8, 16, bf, True, 0),
+              ("tail prefill runs of 17 d_in 1000 d_out 4100 bf16", 1100,
+               1000, 4100, 64, y8, 16, bf, True, 17),
+              ("tail yi-9b prefill 32768 rows d_in 4100 bf16", 32768, 4100,
+               1000, 64, y8, 16, bf, True, 4096),
+              ("tail decode d_in 131 d_out 37 f32", 8, 131, 37, 24,
+               [24, 3, 9, 1], 8, f32, False, 0),
+              ("tail prefill runs of 17 d_in 131 d_out 37 f32", 300, 131, 37,
+               24, [24, 3, 9, 1], 8, f32, False, 17)]
     for label, rows, d_in, d_out, r_max, ranks, rb, dt, full, seg in lcases:
         g = torch.Generator(device="cuda").manual_seed(len(label))
         slots = len(ranks)
@@ -694,7 +752,33 @@ def kernel_checks(torch):
               ("hd 256 MQA 10 window 100 ragged f32", 1, 10, 1, 300, 300,
                256, True, 100, f32, False),
               ("whisper cross hd 64 Lq 64 Lk 1500 non-causal f32", 2, 6, 6,
-               64, 1500, 64, False, None, f32, False)]
+               64, 1500, 64, False, None, f32, False),
+              # head dims with no instantiation of their own, run at the
+              # next width (80, 72 -> 96; 100 -> 128 from a padded copy;
+              # 160, 200 -> 256): phase K2's llama2-7b at hd 80 (32 x 80),
+              # causal and windowed, Lq != Lk, views, bf16 and f32
+              ("hd 80 MHA L 256 bf16", 8, 32, 32, 256, 256, 80, True, None,
+               bf, True),
+              ("hd 80 GQA 4 window 100 Lq < Lk ragged view bf16", 2, 16, 4,
+               200, 333, 80, True, 100, bf, False),
+              ("hd 72 GQA 2 Lq > Lk non-causal view bf16", 2, 8, 4, 300, 190,
+               72, False, None, bf, False),
+              ("hd 100 GQA 2 window 64 ragged view bf16", 2, 8, 4, 333, 333,
+               100, True, 64, bf, False),
+              ("hd 160 MQA 8 Lq < Lk view bf16", 1, 8, 1, 129, 400, 160, True,
+               None, bf, False),
+              ("hd 200 GQA 4 window 128 ragged view bf16", 1, 8, 2, 515, 515,
+               200, True, 128, bf, False),
+              ("hd 80 GQA 2 window 48 ragged f32", 2, 4, 2, 257, 257, 80,
+               True, 48, f32, False),
+              ("hd 72 Lq > Lk non-causal f32", 1, 4, 4, 160, 96, 72, False,
+               None, f32, False),
+              ("hd 100 Lq < Lk view f32", 1, 4, 4, 96, 160, 100, True, None,
+               f32, False),
+              ("hd 160 window 64 f32", 1, 4, 2, 200, 200, 160, True, 64, f32,
+               False),
+              ("hd 200 MQA 4 f32", 1, 4, 1, 130, 130, 200, True, None, f32,
+               False)]
     for label, B, H, KV, Lq, Lk, hd, causal, window, dt, full in fcases:
         g = torch.Generator(device="cuda").manual_seed(Lq + H)
         q = torch.randn(B, Lq, H, hd, generator=g, device="cuda").to(dt)
@@ -707,7 +791,7 @@ def kernel_checks(torch):
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         # each query row (b, h, i) to its own limit: the first queries
         # attend a few keys (outputs ~3), late ones thousands (~0.05)
-        note(f"flash_attention[hd {hd}]" if hd in (96, 256)
+        note(f"flash_attention[hd {hd}]" if hd in (80, 96, 256)
              else "flash_attention", check_close(
                  f"flash_attention {label}", got.reshape(-1, hd),
                  want.reshape(-1, hd), dt), full)
@@ -2688,7 +2772,7 @@ def logits_close(torch, what, lk, lp, verbose=True, strict=True):
 
 
 def g_logits(torch, cfg, params, profile=False, strict=True, label="",
-             kernels=True):
+             kernels=True, phase="G"):
     """One prefill of 2 rows (LoRA slots of rank 16 and 64) and one decode
     step from its caches, through the kernels and through the plain
     versions (the decode step's input token is the kernel pass's in both):
@@ -2765,15 +2849,16 @@ def g_logits(torch, cfg, params, profile=False, strict=True, label="",
     torch.cuda.synchronize()
     n_attn = attention_layers(cfg)
     check(launches["flash_attention"] == n_attn,
-          f"phase G {cfg.name}: {launches['flash_attention']} flash "
+          f"phase {phase} {cfg.name}: {launches['flash_attention']} flash "
           f"launches for {n_attn} attention layers")
     check(not kernels or (launches["lora_shrink"] > 0
                           and launches["lora_expand"] > 0),
-          f"phase G {cfg.name}: the LoRA kernels did not launch")
+          f"phase {phase} {cfg.name}: the LoRA kernels did not launch")
     check((launches["paged_attention"] > 0) == paged,
-          f"phase G {cfg.name}: paged attention launched "
+          f"phase {phase} {cfg.name}: paged attention launched "
           f"{launches['paged_attention']} times (paged plane: {paged})")
-    print(f"phase G: {cfg.name} logits{label} ({cfg.dtype}), prefill of {B}"
+    print(f"phase {phase}: {cfg.name} logits{label} ({cfg.dtype}), prefill "
+          f"of {B}"
           f" x {P0 + L} tokens and one decode step, kernels vs plain "
           f"versions; launches {launches}", flush=True)
     state["prefill"] = logits_close(torch, f"{cfg.name} prefill", pk, pp,
@@ -3342,11 +3427,13 @@ def paged_row(torch, args, flush, **meta):
     its bound (each claimed page of K and V read once, q read and out
     written once; 4 flops a valid slot and head dim per query head), the
     plain version and SDPA over the gathered pages with K/V repeated
-    across each GQA group (timed only, never called by the port)."""
+    across each GQA group (timed only, never called by the port); also as
+    a graphed step launches it (`graph_ms`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.bgmv import sm_count
-    from repro_torch.kernels.paged import paged_attention, split_plan
+    from repro_torch.kernels.paged import (group_tiles, paged_attention,
+                                           split_plan)
     from repro_torch.models.layers import paged_kv_for_attn
     q, k, v, pp, bt, pos = args
     B, H, hd = q.shape
@@ -3373,6 +3460,8 @@ def paged_row(torch, args, flush, **meta):
         "max_abs_err": meta["max_abs_err"],
         "ms": time_ms(torch, lambda: paged_attention(q, k, v, pp, bt, pos),
                       flush),
+        "graph_ms": graph_ms(torch, lambda: paged_attention(
+            q, k, v, pp, bt, pos), flush),
         "plain_ms": time_ms(torch, lambda: ref.paged_attention_ref(
             q, k, v, pp, bt, pos), flush, n=20),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -3382,7 +3471,9 @@ def paged_row(torch, args, flush, **meta):
             "B": B, "H": H, "KV": KV, "hd": hd, "ps": ps, "W": bt.shape[1],
             "claimed_pages": int(claimed.numel()), "valid_slots": n_valid,
             "max_pos": int(pos.max()),
-            "splits": split_plan(B, KV, bt.shape[1], sm_count(q.device))}}
+            "group_tiles": group_tiles(H // KV, hd),
+            "splits": split_plan(B, KV, bt.shape[1], sm_count(q.device),
+                                 group_tiles(H // KV, hd))}}
 
 
 def timing_phase(torch, step, errs, serving):
@@ -3465,9 +3556,10 @@ def timing_phase(torch, step, errs, serving):
             "bytes": e_bytes, **common})
     step["rank_sweep"] = rank_sweep(torch, a, b, x, flush)
     for r in rows:
-        graphed = (f"; in a CUDA graph {r['graph_ms'] * 1e3:.1f} us, "
-                   f"library {r['library_graph_ms'] * 1e3:.1f} us"
+        graphed = (f"; in a CUDA graph {r['graph_ms'] * 1e3:.1f} us"
                    if "graph_ms" in r else "")
+        if "library_graph_ms" in r:
+            graphed += f", library {r['library_graph_ms'] * 1e3:.1f} us"
         print(f"  {r['name']}: {r['ms'] * 1e3:.1f} us (bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}), plain "
               f"{r['plain_ms'] * 1e3:.1f} us, library "
@@ -3715,7 +3807,8 @@ def paged_capture_timing(torch, args, serving, name, path, min_pos=0):
                     launches=serving[0]["launches"]["paged_attention"],
                     max_abs_err=err)
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
-          f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}), plain "
+          f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}), in a CUDA "
+          f"graph {row['graph_ms'] * 1e3:.1f} us, plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (SDPA) "
           f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches, "
           f"shape {row['shape']}", flush=True)
@@ -3748,6 +3841,141 @@ def rank_sweep(torch, a, b, x, flush):
     return out
 
 
+# ------------------------------------------------------------ phase K ----
+
+# llama2-7b changed to shapes the reference's kernels take and no
+# registered config reaches: (tag, label, ModelConfig changes). K1 MQA
+# (group 32 at hd 128: paged attention in 2 group tiles), K2 hd 80 (32
+# heads of 80: flash at width 96), K3 falcon-7b's attention (71 query
+# heads of 64 over one KV head: 3 group tiles) over a d_model of 4,100
+# (no multiple of 8: the LoRA shrink's tail on q, k and v), its depth cut
+# to K3_LAYERS; K1 and K2 whole.
+K3_LAYERS = 4
+K_CONFIGS = [("K1", "n_kv_heads=1", {"n_kv_heads": 1}),
+             ("K2", "head_dim=80", {"head_dim": 80}),
+             ("K3", f"71 heads of 64 over 1, d_model 4100, {K3_LAYERS} "
+              "layers", {"n_heads": 71, "n_kv_heads": 1, "head_dim": 64,
+                         "d_model": 4100, "n_layers": K3_LAYERS})]
+K_REQUESTS = {"n": 8, "seed": SEED + 10, "max_new": 32}
+
+
+def tail_shrink_row(torch, step, serving, flush):
+    """A kernels-line row for the LoRA shrink at a width that is no
+    multiple of 8: layer 0's first LoRA call (target q) of phase K3's
+    decode step, 8 rows of d_in 4,100 (the element-copy instantiation of
+    the split-d_in path), held per row against the plain version and
+    timed as phase 5a's shrink is (events, in a graph, `torch.bmm`)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bgmv import lora_shrink
+    (x, a, b, idx, *_), kw = step["lora_delta"]
+    live = kw.get("live")
+    if live is None:
+        live = ops.lora_live(idx, kw.get("ranks"), kw.get("mode", "bgmv"),
+                             a.shape[-1], kw.get("rank_block", 16))
+    rows, d_in = x.shape
+    check(d_in % 8 != 0, f"phase K3: the captured shrink's d_in {d_in} is "
+          "a multiple of 8")
+    y = lora_shrink(x, a, idx, live)
+    err = check_close(f"lora_shrink tail (K3 layer 0, d_in {d_in})", y,
+                      ref.lora_shrink_ref(x, a, idx, live), torch.float32)
+    adapted = idx >= 0
+    slot_live = dict(zip(idx[adapted].tolist(), live[adapted].tolist()))
+    e = x.element_size()
+    nbytes = (x.numel() * e + sum(slot_live.values()) * d_in * e + 8 * rows
+              + y.numel() * 4)
+    b_ms, b_by = bound(nbytes, 2 * d_in * int(live.sum()), "bfloat16")
+    a_g = a[idx.clamp(min=0).long()]
+    row = {"name": f"lora_shrink[tail, d_in {d_in}]", "route": "cuda",
+           "source": "src/repro_torch/csrc/lora.cu",
+           "replaces": "src/repro/kernels/bgmv.py:86",
+           "path": "phase K3 decode",
+           "launches": serving[0]["launches"]["lora_shrink"],
+           "max_abs_err": err,
+           "ms": time_ms(torch, lambda: lora_shrink(x, a, idx, live), flush),
+           "plain_ms": time_ms(torch, lambda: ref.lora_shrink_ref(
+               x, a, idx, live), flush, n=20),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, lambda: torch.bmm(
+               x[:, None, :], a_g), flush),
+           "graph_ms": graph_ms(torch, lambda: lora_shrink(x, a, idx, live),
+                                flush),
+           "library_graph_ms": graph_ms(torch, lambda: torch.bmm(
+               x[:, None, :], a_g), flush),
+           "bytes": nbytes,
+           "shape": {"rows": rows, "d_in": d_in, "r_max": a.shape[-1],
+                     "live_columns": int(live.sum())}}
+    print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
+          f"{b_ms * 1e3:.2f} us by {b_by}), plain "
+          f"{row['plain_ms'] * 1e3:.1f} us, library (bmm) "
+          f"{row['library_ms'] * 1e3:.1f} us, in a CUDA graph "
+          f"{row['graph_ms'] * 1e3:.1f} us (bmm "
+          f"{row['library_graph_ms'] * 1e3:.1f}), {row['launches']} "
+          "launches", flush=True)
+    return row
+
+
+def shapes_phase(torch, errs):
+    """Phase K: each of K_CONFIGS served on the card through
+    `InferenceServer` (seeded bf16 weights, mode "caraserve", bgmv, the 8
+    adapters of ranks 8-64, 8 requests of 32-256 prompt tokens and 32 new
+    tokens), graphed and with graphs=False: every request finishes, the
+    paged, flash and LoRA kernels launch, tokens and launch counts equal
+    in both arms; then one decode step's logits (8 rows) and a 2-row
+    prefill's and its decode step's (`g_logits`) through the kernels vs
+    the plain versions within LOGIT_TOL x max |logit|; then the new
+    shapes timed as phase 5a / 5b time theirs: paged attention at K1's
+    and K3's decode (group tiles), flash at K2's largest prefill (hd 80
+    at width 96), the LoRA shrink at K3's decode (d_in 4,100). Returns
+    (report, kernels-line rows)."""
+    from repro_torch.configs.base import get_config
+    base = get_config("llama2-7b")
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    report, rows = {}, []
+    for tag, label, kw in K_CONFIGS:
+        cfg = dataclasses.replace(base, **kw)
+        print(f"phase {tag}: llama2-7b with {label} (H {cfg.n_heads} over "
+              f"KV {cfg.n_kv_heads}, hd {cfg.hd}, d_model {cfg.d_model}, "
+              f"{cfg.n_layers} layers)", flush=True)
+        capture = {}
+        runs = [(f"{tag} graphed", "bgmv", {}, K_REQUESTS),
+                (f"{tag} eager", "bgmv", {"graphs": False}, K_REQUESTS)]
+        with capture_largest_attention(capture):
+            serving, params = serve_phase(torch, cfg, runs, tag)
+        graphed, eager = serving
+        check(graphed["generated"] == eager["generated"],
+              f"phase {tag}: graphed and eager tokens differ")
+        check(graphed["launches"] == eager["launches"],
+              f"phase {tag}: launches differ graphed / eager: "
+              f"{graphed['launches']} / {eager['launches']}")
+        print(f"  {tag}: graphed = eager tokens over {graphed['requests']} "
+              f"requests; launches {graphed['launches']}", flush=True)
+        step = logits_phase(torch, cfg, params, phase=tag, profile=False)
+        both = g_logits(torch, cfg, params, label=f" ({label})", phase=tag)
+        report[tag] = {"label": label, "serving": serving,
+                       "decode_logits": step["logits"],
+                       "g_logits": {k: both[k] for k in
+                                    ("prefill", "decode", "launches")}}
+        if tag == "K1":
+            rows.append(paged_capture_timing(
+                torch, step["paged_attention"], serving,
+                "paged_attention[MQA G 32, hd 128]", "K1 decode"))
+        elif tag == "K2":
+            rows.append(flash_timing(
+                torch, capture["args"], errs["flash_attention[hd 80]"],
+                serving, name="flash_attention[hd 80]",
+                path="K2 largest prefill"))
+        else:
+            rows.append(paged_capture_timing(
+                torch, step["paged_attention"], serving,
+                "paged_attention[G 71, hd 64]", "K3 decode"))
+            rows.append(tail_shrink_row(torch, step, serving, flush))
+        del step, both, capture, params, serving
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report, rows
+
+
 # ------------------------------------------------------------ phase S ----
 
 def kernel_tooling_phase(torch):
@@ -3761,8 +3989,8 @@ def kernel_tooling_phase(torch):
     lib = build.library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     t0 = time.perf_counter()
-    print("phase S1: launch footprints at every registered config",
-          flush=True)
+    print("phase S1: launch footprints at every registered config and "
+          "phase K's shapes", flush=True)
     rows, lim, found = kernel_verify.footprint(lib, build.build_log, sms)
     print(f"  card limits: {lim}", flush=True)
     groups = {}
@@ -3789,7 +4017,8 @@ def kernel_tooling_phase(torch):
     found += kernel_verify.paged_rule_findings(lib)
     check(not found, "phase S1 findings:\n  " + "\n  ".join(found))
     print(f"  {len(rows)} launches of {len(groups)} distinct footprints "
-          "within the limits; paged.fits equals rt_paged_attention_fits",
+          "within the limits; paged.fits and paged.group_tiles equal "
+          "rt_paged_attention_fits and rt_paged_attention_tiles",
           flush=True)
     print("phase S2: canaries (fills, guard bands, poisoned inputs, a "
           "concurrent stream)", flush=True)

@@ -4,12 +4,14 @@ config, and whether its wrapper takes the shape, computed on the CPU.
 The reference's `repro.analysis.kernel_model` intercepts `pl.pallas_call`
 and walks BlockSpecs; CUDA kernels have neither. Here a kernel's launch is
 what its wrapper passes to the library: the wrapper's own plan functions
-(`bgmv.shrink_plan`, `bgmv.expand_plan`, `paged.split_plan`) and shape
+(`bgmv.shrink_plan`, `bgmv.expand_plan`, `paged.split_plan`,
+`paged.group_tiles`, `flash.padded_width`) and shape
 rules (`bgmv.shrink_refusal`, `bgmv.expand_refusal`,
 `paged.shape_refusal`, `flash.shape_refusal`) are called, so there is no
 second copy of the launch math to drift. The paged rule lives in C++
 (`rt_paged_attention_fits`); `paged.fits` is its Python copy, held equal
-to it over a grid of (G, hd) by `kernel_verify` on the card.
+to it over a grid of (G, hd) by `kernel_verify` on the card, as
+`paged.group_tiles` is to `rt_paged_attention_tiles`.
 
 `config_cases()` yields one `Case` per registered config at its real
 widths (head dim, heads over KV heads, the LoRA targets' d_in / d_out
@@ -105,6 +107,22 @@ def config_cases() -> Iterator[Case]:
         yield case_from_config(get_config(name))
 
 
+def shape_cases() -> Iterator[Case]:
+    """llama2-7b at shapes the reference's kernels take and no registered
+    config reaches: an MQA group of 32 at hd 128 (`n_kv_heads=1`, paged
+    attention in group tiles), hd 80 (`head_dim=80`, flash at a padded
+    width) and LoRA targets of 4,100 -> 1,000 and 1,000 -> 4,100 (the
+    shrink's and the expand's tails)."""
+    base = get_config("llama2-7b")
+    for label, kw in (("n_kv_heads=1", dict(n_kv_heads=1)),
+                      ("head_dim=80", dict(head_dim=80))):
+        case = case_from_config(dataclasses.replace(base, **kw))
+        yield dataclasses.replace(case, config=f"{base.name} {label}")
+    yield dataclasses.replace(case_from_config(base),
+                              config=f"{base.name} LoRA 4100 <-> 1000",
+                              lora=(("q", 4100, 1000), ("o", 1000, 4100)))
+
+
 def _lora_launches(case: Case, sms: int) -> Iterator[Launch]:
     seen = set()
     for _, d_in, d_out in case.lora:
@@ -116,14 +134,16 @@ def _lora_launches(case: Case, sms: int) -> Iterator[Launch]:
             sp = bgmv.shrink_plan(rows, d_in, case.n_slots, sms)
             yield Launch(
                 case.config, "lora_shrink",
-                "split" if sp.tile == 0 else f"tile {sp.tile}", case.dtype,
+                ("split" if sp.tile == 0 else f"tile {sp.tile}")
+                + ("" if d_in % 8 == 0 else " tail"), case.dtype,
                 dict(rows=rows, d_in=d_in, r_max=case.r_pad,
                      slots=case.n_slots, tile=sp.tile, d_chunk=sp.d_chunk),
                 bgmv.shrink_refusal(d_in, case.r_pad), "bgmv.shrink_refusal")
             rb = bgmv.expand_plan(rows, d_out, sms)
             yield Launch(
                 case.config, "lora_expand",
-                "decode" if rb == 0 else "row tiles", case.dtype,
+                ("decode" if rb == 0 else "row tiles")
+                + ("" if d_out % 8 == 0 else " tail"), case.dtype,
                 dict(rows=rows, r_max=case.r_pad, d_out=d_out,
                      row_blocks=rb),
                 bgmv.expand_refusal(case.r_pad, d_out),
@@ -134,22 +154,27 @@ def launches(case: Case, sms: int = H100_SMS) -> List[Launch]:
     """Every kernel launch on `case`'s path (see the module docstring)."""
     out = list(_lora_launches(case, sms))
     if case.attention:
+        width = ("" if flash.shape_refusal(case.hd, case.dtype)
+                 or flash.padded_width(case.hd, case.dtype) == case.hd
+                 else f" at {flash.padded_width(case.hd, case.dtype)}")
         out.append(Launch(
             case.config, "flash_attention",
             ("bf16 wgmma" if case.dtype == torch.bfloat16 else "f32")
-            + f" hd {case.hd}",
+            + f" hd {case.hd}{width}",
             case.dtype, dict(B=1, H=case.n_heads, Lq=FLASH_LEN, hd=case.hd),
             flash.shape_refusal(case.hd, case.dtype), "flash.shape_refusal"))
     if case.paged:
         W = CACHE_SLOTS // PAGE_SIZE
-        nsplit = paged.split_plan(PAGED_BATCH, case.n_kv_heads, W, sms)
+        tiles = paged.group_tiles(case.group, case.hd)
+        nsplit = paged.split_plan(PAGED_BATCH, case.n_kv_heads, W, sms,
+                                  tiles)
         out.append(Launch(
             case.config, "paged_attention",
             ("one split" if nsplit == 1 else f"{nsplit} splits + combine")
-            + f" G {case.group} hd {case.hd}",
+            + f" G {case.group} hd {case.hd}"
+            + ("" if tiles == 1 else f" in {tiles} group tiles"),
             case.dtype, dict(B=PAGED_BATCH, H=case.n_heads,
                              KV=case.n_kv_heads, ps=PAGE_SIZE, hd=case.hd,
                              W=W, nsplit=nsplit),
             paged.shape_refusal(case.group, case.hd), "paged.shape_refusal"))
     return out
-

@@ -48,8 +48,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from repro_torch.analysis import kernel_model
-from repro_torch.kernels import bgmv, build, paged, ref
-from repro_torch.kernels.flash import HEAD_DIMS
+from repro_torch.kernels import bgmv, build, flash, paged, ref
 
 REGS_PER_SM = 65536
 # kernels (ptxas entry names, by substring) allowed to spill, with why
@@ -59,6 +58,16 @@ ALLOWED_SPILLS: Dict[str, str] = {
         "the f32 flash kernel on CUDA cores spills 16-32 B a thread at hd "
         "32 / 64 / 128; it runs only in f32 (the accuracy arms and tests), "
         "never on a registered config's bf16 path"),
+    # the f32 element-copy instantiations (a width that is no multiple of
+    # 8: kVec false), by their mangled template arguments
+    "paged_attention_kernelIfLb0E": (
+        "f32 paged attention at an hd that is no multiple of 8 spills 8 B "
+        "stored / 16 B loaded a thread; f32 runs only in the accuracy arms "
+        "and tests, and no registered config has such an hd"),
+    "lora_shrink_tile_kernelIfLi128ELb0E": (
+        "the f32 row-tile shrink of 128 rows at a d_in that is no multiple "
+        "of 8 spills 4 B a thread; f32 runs only in the accuracy arms and "
+        "tests, and no registered config has such a d_in"),
 }
 GUARD = 4096                   # sentinel elements before and after a buffer
 SENTINEL_BITS = {torch.float32: 0x7FA5A5A5, torch.bfloat16: 0x7FA5}
@@ -132,11 +141,12 @@ def ptxas_spills(log: str) -> Dict[str, Tuple[int, int]]:
 
 def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
                                                 Dict[str, int], List[str]]:
-    """Every accepted launch of every config case, described and held to
-    the card's limits. Returns (footprints, the limits, findings)."""
+    """Every accepted launch of every config case and every shape case
+    (`kernel_model.shape_cases`), described and held to the card's limits.
+    Returns (footprints, the limits, findings)."""
     lim = device_limits(lib)
     rows, findings = [], []
-    for case in kernel_model.config_cases():
+    for case in [*kernel_model.config_cases(), *kernel_model.shape_cases()]:
         for launch in kernel_model.launches(case, sms):
             if launch.refusal:
                 findings.append(f"{launch.label}: the wrapper refuses a "
@@ -174,37 +184,51 @@ def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
 
 
 def paged_rule_findings(lib) -> List[str]:
-    """`paged.fits` (the CPU's copy) against `rt_paged_attention_fits` over
-    a grid of (G, hd)."""
-    bad = [(G, hd) for G in range(0, 70) for hd in range(0, 300, 4)
-           if bool(lib.rt_paged_attention_fits(G, hd)) != paged.fits(G, hd)]
-    return [f"paged.fits disagrees with rt_paged_attention_fits at (G, hd) "
-            f"in {bad[:8]}"] if bad else []
+    """`paged.fits` and `paged.group_tiles` (the CPU's copies) against
+    `rt_paged_attention_fits` and `rt_paged_attention_tiles` over every
+    (G, hd) with G 0-160 and hd 0-300."""
+    grid = [(G, hd) for G in range(0, 161) for hd in range(0, 301)]
+    bad = [x for x in grid
+           if bool(lib.rt_paged_attention_fits(*x)) != paged.fits(*x)]
+    tiles = [x for x in grid if paged.fits(*x) and
+             lib.rt_paged_attention_tiles(*x) != paged.group_tiles(*x)]
+    return ([f"paged.fits disagrees with rt_paged_attention_fits at (G, hd) "
+             f"in {bad[:8]}"] if bad else []) + \
+        ([f"paged.group_tiles disagrees with rt_paged_attention_tiles at "
+          f"(G, hd) in {tiles[:8]}"] if tiles else [])
 
 
 # ------------------------------------------------------------ canaries ----
 
 class Guarded:
     """A tensor of `shape` inside a buffer with GUARD sentinel elements
-    before and after it."""
+    before and after it. With `row_pad`, each row of the last dim is
+    followed by that many sentinel elements too (the tensor is then a
+    strided view), so a write past a row's width is caught on every
+    row."""
 
-    def __init__(self, shape, dtype, device):
-        n = math.prod(shape)
+    def __init__(self, shape, dtype, device, row_pad=0):
+        n = math.prod(shape[:-1]) * (shape[-1] + row_pad)
         self.dtype = dtype
         self.buf = torch.empty(2 * GUARD + n, dtype=dtype, device=device)
-        self.t = self.buf[GUARD:GUARD + n].view(shape)
+        rows = self.buf[GUARD:GUARD + n].view(*shape[:-1],
+                                              shape[-1] + row_pad)
+        self.t = rows[..., :shape[-1]]
+        self.gaps = rows[..., shape[-1]:]
+
+    def _sentinels(self):
+        bits = self.buf.view(_BITS[self.dtype])
+        return (bits[:GUARD], bits[-GUARD:],
+                self.gaps.view(_BITS[self.dtype]))
 
     def fill(self, value: float) -> None:
         self.buf.fill_(value)
-        bits = self.buf.view(_BITS[self.dtype])
-        bits[:GUARD] = SENTINEL_BITS[self.dtype]
-        bits[-GUARD:] = SENTINEL_BITS[self.dtype]
+        for part in self._sentinels():
+            part.fill_(SENTINEL_BITS[self.dtype])
 
     def guards_intact(self) -> bool:
-        bits = self.buf.view(_BITS[self.dtype])
         s = SENTINEL_BITS[self.dtype]
-        return bool((bits[:GUARD] == s).all()) and \
-            bool((bits[-GUARD:] == s).all())
+        return all(bool((part == s).all()) for part in self._sentinels())
 
     def bits(self) -> torch.Tensor:
         return self.t.reshape(-1).view(_BITS[self.dtype]).clone()
@@ -351,7 +375,8 @@ def expand_path(lib, name, ins, poisoned, row_blocks, rows_told=None):
 def lora_paths(lib, sms) -> List[Path]:
     """Every launch path of the shrink and the expand: split and row tiles
     of 64 and 128 (shrink), decode and row tiles with one rank pass and
-    several (expand), bf16 and f32."""
+    several (expand), bf16 and f32, at widths that are multiples of 8 and
+    at tails that are not."""
     bf, f32 = torch.bfloat16, torch.float32
     out = []
     # (label, rows, d_in, d_out, r_max, ranks, rank_block, dtype, seg)
@@ -363,7 +388,14 @@ def lora_paths(lib, sms) -> List[Path]:
              ("prefill r_max 128 bf16", 300, 512, 1024, 128,
               (128, 16, 100, 8), 16, bf, 17),
              ("decode f32", 8, 256, 136, 24, (24, 3, 9, 1), 8, f32, 1),
-             ("prefill f32", 300, 256, 136, 24, (24, 3, 9, 1), 8, f32, 17)]
+             ("prefill f32", 300, 256, 136, 24, (24, 3, 9, 1), 8, f32, 17),
+             # tails: d_in and d_out no multiple of 8 (element copies)
+             *[(f"tail {kind} d_in 4100 d_out 1000 bf16", rows, 4100, 1000,
+                64, (64, 16, 33, 8), 16, bf, seg)
+               for kind, rows, seg in (("decode", 8, 1), ("prefill", 300,
+                                                          17))],
+             ("tail prefill d_in 130 d_out 131 f32", 300, 130, 131, 24,
+              (24, 3, 9, 1), 8, f32, 17)]
     for label, rows, d_in, d_out, r_max, ranks, rb, dt, seg in cases:
         clean, pois = lora_inputs(rows, d_in, d_out, r_max, ranks, rb, dt,
                                   seg, seed=rows)
@@ -378,106 +410,139 @@ def lora_paths(lib, sms) -> List[Path]:
     return out
 
 
+def paged_path(lib, label, B, H, KV, hd, ps, W, P, dt, ctx, sms,
+               rows_told=None) -> Path:
+    """One paged launch at these shapes, with row b holding ctx[b] tokens:
+    NaN in every page no row's table names. The inputs hold one row more
+    than the launch takes (all its entries unclaimed: the '+1' mutant's),
+    which `rows_told` may tell the launch to take."""
+    f32 = torch.float32
+    told = B if rows_told is None else rows_told
+    g = torch.Generator(device="cuda").manual_seed(B * H + W)
+    q = torch.randn(B + 1, H, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(P, KV, ps, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(P, KV, ps, hd, generator=g, device="cuda").to(dt)
+    pp = torch.full((P, ps), -1, dtype=torch.int32)
+    bt = torch.full((B + 1, W), -1, dtype=torch.int32)
+    pos = torch.zeros(B + 1, dtype=torch.int32)
+    free = list(range(P))
+    for b_, n_tok in enumerate(ctx):
+        for j in range(-(-n_tok // ps)):
+            pg = free.pop((b_ * 7 + j * 3) % len(free))
+            bt[b_, j] = pg
+            pp[pg] = torch.where(torch.arange(ps) + j * ps < n_tok,
+                                 torch.arange(ps) + j * ps, -1).int()
+        pos[b_] = max(n_tok - 1, 0)
+    owned = torch.zeros(P, dtype=torch.bool)
+    owned[bt[bt >= 0].long()] = True
+    ins = dict(q=q, k=k, v=v, pp=pp.cuda(), bt=bt.cuda(), pos=pos.cuda())
+    foreign = ~owned.cuda()
+    nan = float("nan")
+    pois = dict(ins, k=torch.where(foreign[:, None, None, None], nan, k),
+                v=torch.where(foreign[:, None, None, None], nan, v),
+                pp=torch.where(foreign[:, None], 0, ins["pp"]))
+    tiles = paged.group_tiles(H // KV, hd)
+    nsplit = paged.split_plan(told, KV, W, sms, tiles)
+    outs = {"out": Guarded((B, H, hd), dt, "cuda")}
+    if nsplit > 1:
+        outs["ws"] = Guarded((told * H * nsplit * (hd + 2),), f32, "cuda")
+
+    def launch(i, o):
+        rc = lib.rt_paged_attention(
+            i["q"].data_ptr(), i["k"].data_ptr(), i["v"].data_ptr(),
+            i["pp"].data_ptr(), i["bt"].data_ptr(), i["pos"].data_ptr(),
+            o["out"].t.data_ptr(),
+            o["ws"].t.data_ptr() if "ws" in o else None, told, H, KV, P,
+            ps, hd, W, nsplit, build.DTYPE_CODE[i["q"].dtype], _stream())
+        build.check_launch(rc, label)
+
+    kind = "one split" if nsplit == 1 else f"{nsplit} splits + combine"
+    if tiles > 1:
+        kind += f", {tiles} group tiles"
+    return Path(f"paged_attention[{kind}] {label}", launch, ins, pois, outs)
+
+
+# (label, B, H, KV, hd, ps, W, P, dtype, tokens a row)
+PAGED_CASES = [
+    ("one split bf16", 8, 32, 32, 128, 32, 16, 140, torch.bfloat16,
+     [0, 1, 500, 37, 256, 100, 31, 511]),
+    ("splits bf16", 3, 12, 2, 128, 32, 96, 120, torch.bfloat16,
+     [0, 2500, 9]),
+    ("splits f32", 3, 8, 1, 64, 16, 160, 200, torch.float32, [2400, 0, 30]),
+    ("one split f32", 4, 4, 2, 32, 8, 5, 24, torch.float32, [0, 1, 33, 40]),
+    # group tiles (MQA at G 32, hd 128; G 71, hd 64) and head dims that
+    # are no multiple of 8 (element copies into padded ring rows)
+    ("MQA G 32 hd 128 bf16", 8, 32, 1, 128, 32, 16, 140, torch.bfloat16,
+     [0, 1, 500, 37, 256, 100, 31, 511]),
+    ("MQA G 71 hd 64 long rows bf16", 3, 71, 1, 64, 32, 96, 120,
+     torch.bfloat16, [0, 2500, 9]),
+    ("hd 100 GQA 2 bf16", 4, 8, 4, 100, 32, 8, 40, torch.bfloat16,
+     [0, 1, 200, 77]),
+    ("hd 12 GQA 4 splits f32", 3, 8, 2, 12, 8, 64, 100, torch.float32,
+     [0, 500, 9]),
+]
+
+
 def paged_paths(lib, sms) -> List[Path]:
-    """One split and many (with the combine), bf16 and f32: NaN in every
-    page no row's table names."""
-    bf, f32 = torch.bfloat16, torch.float32
-    out = []
-    # (label, B, H, KV, hd, ps, W, P, dtype, tokens a row)
-    cases = [("one split bf16", 8, 32, 32, 128, 32, 16, 140, bf,
-              [0, 1, 500, 37, 256, 100, 31, 511]),
-             ("splits bf16", 3, 12, 2, 128, 32, 96, 120, bf, [0, 2500, 9]),
-             ("splits f32", 3, 8, 1, 64, 16, 160, 200, f32, [2400, 0, 30]),
-             ("one split f32", 4, 4, 2, 32, 8, 5, 24, f32, [0, 1, 33, 40])]
-    for label, B, H, KV, hd, ps, W, P, dt, ctx in cases:
-        g = torch.Generator(device="cuda").manual_seed(B * H + W)
-        q = torch.randn(B, H, hd, generator=g, device="cuda").to(dt)
-        k = torch.randn(P, KV, ps, hd, generator=g, device="cuda").to(dt)
-        v = torch.randn(P, KV, ps, hd, generator=g, device="cuda").to(dt)
-        pp = torch.full((P, ps), -1, dtype=torch.int32)
-        bt = torch.full((B, W), -1, dtype=torch.int32)
-        pos = torch.zeros(B, dtype=torch.int32)
-        free = list(range(P))
-        for b_, n_tok in enumerate(ctx):
-            for j in range(-(-n_tok // ps)):
-                pg = free.pop((b_ * 7 + j * 3) % len(free))
-                bt[b_, j] = pg
-                pp[pg] = torch.where(torch.arange(ps) + j * ps < n_tok,
-                                     torch.arange(ps) + j * ps, -1).int()
-            pos[b_] = max(n_tok - 1, 0)
-        owned = torch.zeros(P, dtype=torch.bool)
-        owned[bt[bt >= 0].long()] = True
-        ins = dict(q=q, k=k, v=v, pp=pp.cuda(), bt=bt.cuda(), pos=pos.cuda())
-        foreign = ~owned.cuda()
-        nan = float("nan")
-        pois = dict(ins, k=torch.where(foreign[:, None, None, None], nan, k),
-                    v=torch.where(foreign[:, None, None, None], nan, v),
-                    pp=torch.where(foreign[:, None], 0, ins["pp"]))
-        nsplit = paged.split_plan(B, KV, W, sms)
-        outs = {"out": Guarded((B, H, hd), dt, "cuda")}
-        if nsplit > 1:
-            outs["ws"] = Guarded((B * H * nsplit * (hd + 2),), f32, "cuda")
+    """One split and many (with the combine), bf16 and f32, group tiles
+    and head dims no multiple of 8: NaN in every page no row's table
+    names."""
+    return [paged_path(lib, *case, sms) for case in PAGED_CASES]
 
-        def launch(i, o, B=B, H=H, KV=KV, P=P, ps=ps, hd=hd, W=W,
-                   nsplit=nsplit, name=label):
-            rc = lib.rt_paged_attention(
-                i["q"].data_ptr(), i["k"].data_ptr(), i["v"].data_ptr(),
-                i["pp"].data_ptr(), i["bt"].data_ptr(), i["pos"].data_ptr(),
-                o["out"].t.data_ptr(),
-                o["ws"].t.data_ptr() if "ws" in o else None, B, H, KV, P,
-                ps, hd, W, nsplit, build.DTYPE_CODE[i["q"].dtype],
-                _stream())
-            build.check_launch(rc, name)
 
-        kind = "one split" if nsplit == 1 else f"{nsplit} splits + combine"
-        out.append(Path(f"paged_attention[{kind}] {label}", launch, ins,
-                        pois, outs))
-    return out
+def flash_path(lib, dt, hd, causal, window, hd_told=None) -> Path:
+    """One flash launch at head dim `hd` (tensors of hd rounded up to 8
+    columns, the pad zero, as the wrapper passes them): q / k / v views of
+    buffers PAD rows longer a head and 16 columns wider a row, NaN in
+    both margins; out a view whose rows are followed by sentinels, so a
+    write past the tensors' columns is caught on every row. `hd_told` (a
+    mutant) tells the launch another hd."""
+    pad, wide = 40, 16
+    B, H, KV, L = 2, 4, 2, 300
+    cols = -(-hd // 8) * 8
+    g = torch.Generator(device="cuda").manual_seed(hd)
+
+    def mk(heads):
+        full = torch.zeros(B, heads, L + pad, cols + wide, device="cuda",
+                           dtype=dt)
+        full[..., :hd] = torch.randn(B, heads, L + pad, hd, generator=g,
+                                     device="cuda").to(dt)
+        nan = full.clone()
+        nan[:, :, L:] = float("nan")
+        nan[..., cols:] = float("nan")
+        return full[:, :, :L, :cols], nan[:, :, :L, :cols]
+
+    (q, pq), (k, pk), (v, pv) = mk(H), mk(KV), mk(KV)
+    ins, pois = dict(q=q, k=k, v=v), dict(q=pq, k=pk, v=pv)
+    outs = {"out": Guarded((B, H, L, cols), dt, "cuda", row_pad=8)}
+    told = hd if hd_told is None else hd_told
+
+    def launch(i, o):
+        t_out = o["out"].t
+        strides = (ctypes.c_longlong * 12)(
+            *i["q"].stride()[:3], *i["k"].stride()[:3],
+            *i["v"].stride()[:3], *t_out.stride()[:3])
+        rc = lib.rt_flash_attention(
+            i["q"].data_ptr(), i["k"].data_ptr(), i["v"].data_ptr(),
+            t_out.data_ptr(), strides, B, H, KV, L, L, told, int(causal),
+            window or 0, build.DTYPE_CODE[i["q"].dtype], _stream())
+        build.check_launch(rc, "flash_attention")
+
+    kind = "bf16 wgmma" if dt == torch.bfloat16 else "f32"
+    width = flash.padded_width(hd, dt)
+    at = "" if width == hd else f" at {width}"
+    return Path(f"flash_attention[{kind}] hd {hd}{at}", launch, ins, pois,
+                outs)
 
 
 def flash_paths(lib) -> List[Path]:
-    """bf16 (wgmma + TMA) at hd 64 / 96 / 128 / 256 and f32 (CUDA cores):
-    q / k / v views of buffers PAD rows longer a head, NaN there."""
-    pad = 40
-    out = []
-    cases = [(torch.bfloat16, hd, True, None) for hd in (64, 96, 128, 256)]
-    cases += [(torch.float32, 64, True, 48), (torch.float32, 128, False,
-                                              None)]
-    for dt, hd, causal, window in cases:
-        if hd not in HEAD_DIMS[dt]:
-            continue
-        B, H, KV, L = 2, 4, 2, 300
-        g = torch.Generator(device="cuda").manual_seed(hd)
-
-        def mk(heads):
-            full = torch.randn(B, heads, L + pad, hd, generator=g,
-                               device="cuda").to(dt)
-            return full, full[:, :, :L]
-
-        (qf, q), (kf, k), (vf, v) = mk(H), mk(KV), mk(KV)
-        ins = dict(q=q, k=k, v=v)
-        pf = [t.clone() for t in (qf, kf, vf)]
-        for t in pf:
-            t[:, :, L:] = float("nan")
-        pois = dict(q=pf[0][:, :, :L], k=pf[1][:, :, :L], v=pf[2][:, :, :L])
-        outs = {"out": Guarded((B, H, L, hd), dt, "cuda")}
-
-        def launch(i, o, B=B, H=H, KV=KV, L=L, hd=hd, causal=causal,
-                   window=window):
-            t_out = o["out"].t
-            strides = (ctypes.c_longlong * 12)(
-                *i["q"].stride()[:3], *i["k"].stride()[:3],
-                *i["v"].stride()[:3], *t_out.stride()[:3])
-            rc = lib.rt_flash_attention(
-                i["q"].data_ptr(), i["k"].data_ptr(), i["v"].data_ptr(),
-                t_out.data_ptr(), strides, B, H, KV, L, L, hd, int(causal),
-                window or 0, build.DTYPE_CODE[i["q"].dtype], _stream())
-            build.check_launch(rc, "flash_attention")
-
-        kind = "bf16 wgmma" if dt == torch.bfloat16 else "f32"
-        out.append(Path(f"flash_attention[{kind}] hd {hd}", launch, ins,
-                        pois, outs))
-    return out
+    """bf16 (wgmma + TMA) at hd 64 / 96 / 128 / 256 and at widths padded to
+    them (80, 100), f32 (CUDA cores) at 64 / 128 and a padded 72."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(bf, hd, True, None) for hd in (64, 96, 128, 256, 80)]
+    cases += [(bf, 100, True, 48), (f32, 64, True, 48),
+              (f32, 128, False, None), (f32, 72, True, None)]
+    return [flash_path(lib, *case) for case in cases]
 
 
 def busy_kernel() -> Callable:
@@ -504,8 +569,10 @@ def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
     means a check that does not fire."""
     busy = busy_kernel()
     out = []
-    for label, rows, d_in, d_out, seg in (("decode", 8, 1024, 1024, 1),
-                                          ("prefill", 300, 512, 512, 17)):
+    for label, rows, d_in, d_out, seg in (
+            ("decode", 8, 1024, 1024, 1), ("prefill", 300, 512, 512, 17),
+            ("tail decode", 8, 4100, 1000, 1),
+            ("tail prefill", 300, 4100, 1000, 17)):
         clean, pois = lora_inputs(rows, d_in, d_out, 64, (64, 16, 33, 8),
                                   16, torch.bfloat16, seg, seed=rows + 1)
         sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms)
@@ -528,4 +595,15 @@ def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
         out.append((f"lora_expand {label}: idx at the poisoned slot",
                     check_path(expand_path(lib, "expand", clean, bad, rb),
                                busy)))
+    # group tiles: a launch told one row more writes past its output, one
+    # row fewer leaves a row unwritten
+    mqa = PAGED_CASES[4]
+    for told, what in ((mqa[1] + 1, "one row more"),
+                       (mqa[1] - 1, "one row fewer")):
+        out.append((f"paged_attention {mqa[0]}: told {what}", check_path(
+            paged_path(lib, *mqa, sms, rows_told=told), busy)))
+    # a padded width told 8 columns more reads the NaN margin and writes
+    # past the tensors' columns
+    out.append(("flash_attention hd 80: told hd 88", check_path(
+        flash_path(lib, torch.bfloat16, 80, True, None, hd_told=88), busy)))
     return out

@@ -48,6 +48,17 @@
 //
 // Design (f32, small shapes). Tiles of 32 x 32 on CUDA cores, one quad of
 // lanes per query row, scores and P in f32, K/V through shared memory.
+//
+// Head dims. Each kernel is built for a few widths (bf16: 32, 64, 96, 128,
+// 256; f32: 16 as well), as the Pallas kernel takes any hd
+// (src/repro/kernels/flash.py:87-135 pads Lq and Lk, not hd). Any other hd
+// up to 256 runs at the next wider width: the tensor map's column extent
+// is the tensors' width, so TMA fills the columns past it with zeros (the
+// f32 loads zero them), which leave every score unchanged and give output
+// columns that the epilogue does not store. The tensors' width is hd
+// rounded up to 8, TMA's 16-byte strides: for another hd the wrapper
+// passes zero-padded copies. Above 256 the O accumulator (64 x hd f32 a
+// warpgroup) no longer fits beside S in setmaxnreg's 240 registers.
 #include "common.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -67,6 +78,10 @@ struct Problem {
   long long vb, vh, vl;                  // v
   long long ob, oh, ol;                  // out
   float scale;
+  // columns of q/k/v/out (hd rounded up to 8). Last: an int placed
+  // between the ints and the 64-bit strides above made the bf16 kernel
+  // ~1.4x slower on the H100 (measured, parent vs change in one call).
+  int cols;
 };
 
 // KV tiles [j_lo, j_hi) a query tile of rows [q0, q0 + bq) can see: keys
@@ -409,8 +424,9 @@ __global__ void __launch_bounds__(kBf16Threads, 1) flash_bf16_kernel(
         bf16* orow = ob + (long long)row * p.ol + (lane & 3) * 2;
 #pragma unroll
         for (int n = 0; n < HD / 8; ++n)
-          *reinterpret_cast<unsigned*>(orow + n * 8) = rt::pack_bf16(
-              o[4 * n + 2 * r] * inv[r], o[4 * n + 2 * r + 1] * inv[r]);
+          if (n * 8 < p.cols)            // a padded width's zero columns
+            *reinterpret_cast<unsigned*>(orow + n * 8) = rt::pack_bf16(
+                o[4 * n + 2 * r] * inv[r], o[4 * n + 2 * r + 1] * inv[r]);
       }
     }
   }
@@ -418,17 +434,18 @@ __global__ void __launch_bounds__(kBf16Threads, 1) flash_bf16_kernel(
 
 // --------------------------------------------------------------- f32 ----
 
-// rows [row0, row0 + kFB) of a (rows, HD) f32 matrix into shared memory
-// (row stride LDS), rows at or past n_rows zeroed; 16-byte loads
+// rows [row0, row0 + kFB) of a (rows, cols) f32 matrix into shared memory
+// (row stride LDS, HD columns), rows at or past n_rows and columns at or
+// past cols (a multiple of 8) zeroed; 16-byte loads
 template <int HD, int LDS>
 __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
                                               long long ld, int row0,
-                                              int n_rows, int tid) {
+                                              int n_rows, int cols, int tid) {
   constexpr int kChunks = HD / 4;
   for (int i = tid; i < kFB * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
+    if (row0 + r < n_rows && c * 4 < cols)
       x = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * ld +
                                            c * 4);
     float* d = dst + r * LDS + c * 4;
@@ -455,7 +472,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
   const int kvh = h / (p.H / p.KV);
   const float* kb = k + b * p.kb + kvh * p.kh;
   const float* vb = v + b * p.vb + kvh * p.vh;
-  load_rows_f32<HD, LDS>(q_s, q + b * p.qb + h * p.qh, p.ql, q0, p.Lq, tid);
+  load_rows_f32<HD, LDS>(q_s, q + b * p.qb + h * p.qh, p.ql, q0, p.Lq,
+                         p.cols, tid);
   int j_lo, j_hi;
   kv_tiles(p, q0, kFB, kFB, j_lo, j_hi);
 
@@ -467,8 +485,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
   for (int j = j_lo; j < j_hi; ++j) {
     const int k0 = j * kFB;
     __syncthreads();                     // last tile consumed
-    load_rows_f32<HD, LDS>(k_s, kb, p.kl, k0, p.Lk, tid);
-    load_rows_f32<HD, LDS>(v_s, vb, p.vl, k0, p.Lk, tid);
+    load_rows_f32<HD, LDS>(k_s, kb, p.kl, k0, p.Lk, p.cols, tid);
+    load_rows_f32<HD, LDS>(v_s, vb, p.vl, k0, p.Lk, p.cols, tid);
     __syncthreads();
     float s[NC];
     float mx = rt::kNegInf;
@@ -511,7 +529,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(
     float* orow = out + b * p.ob + h * p.oh + (long long)qpos * p.ol;
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int a = 0; a < NA; ++a) orow[c4 + 4 * a] = acc[a] * inv;
+    for (int a = 0; a < NA; ++a)
+      if (c4 + 4 * a < p.cols) orow[c4 + 4 * a] = acc[a] * inv;
   }
 }
 
@@ -560,13 +579,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 4-D map (hd, L, heads, batch) of a bf16 (B, heads, L, hd) view with
-// element strides sb, sh, sl, boxes of (kBox, rows) zero-filled outside.
+// The 4-D map (cols, L, heads, batch) of a bf16 (B, heads, L, cols) view
+// with element strides sb, sh, sl, boxes of (kBox, rows) zero-filled
+// outside: a width below HD reads as HD columns, the rest zero.
 template <int HD>
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int heads, int L,
-                long long sb, long long sh, long long sl, int rows) {
+                int cols, long long sb, long long sh, long long sl,
+                int rows) {
   using T = Tile<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)max(L, 1),
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)max(L, 1),
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2,
                                  (cuuint64_t)sb * 2};
@@ -596,35 +617,40 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   constexpr int kBK = Tile<HD>::kBK;
-  if (!tensor_map<HD>(&tq, q, B, p.H, p.Lq, p.qb, p.qh, p.ql, kBQ) ||
-      !tensor_map<HD>(&tk, k, B, p.KV, p.Lk, p.kb, p.kh, p.kl, kBK) ||
-      !tensor_map<HD>(&tv, v, B, p.KV, p.Lk, p.vb, p.vh, p.vl, kBK))
+  if (!tensor_map<HD>(&tq, q, B, p.H, p.Lq, p.cols, p.qb, p.qh, p.ql,
+                      kBQ) ||
+      !tensor_map<HD>(&tk, k, B, p.KV, p.Lk, p.cols, p.kb, p.kh, p.kl,
+                      kBK) ||
+      !tensor_map<HD>(&tv, v, B, p.KV, p.Lk, p.cols, p.vb, p.vh, p.vl,
+                      kBK))
     return cudaErrorInvalidValue;
   void* args[] = {&tq, &tk, &tv, &out, &p};
   return rt::launch(bf16_launch<HD>(B, p.H, p.Lq), args, st);
 }
 
-// f.run<HD, bf16>() for the head dims each kernel is built for, or
-// cudaErrorInvalidValue: the one list of them, for launch and description.
+constexpr int kMaxHeadDim = 256;         // O: 64 x hd f32 a warpgroup
+
+// f.run<HD, bf16>() at the narrowest width HD >= hd each kernel is built
+// for (hd 1 .. kMaxHeadDim), or cudaErrorInvalidValue: the one list of
+// them, for launch and description. A head dim between two widths runs
+// at the wider one, its missing columns zero (kernels/flash.py:
+// HEAD_DIMS).
 template <typename F>
 cudaError_t for_head_dim(int hd, int dtype, const F& f) {
+  if (hd < 1 || hd > kMaxHeadDim) return cudaErrorInvalidValue;
   if (dtype == rt::kBF16) {
-    switch (hd) {
-      case 32: return f.template run<32, true>();
-      case 64: return f.template run<64, true>();
-      case 96: return f.template run<96, true>();
-      case 128: return f.template run<128, true>();
-      case 256: return f.template run<256, true>();
-    }
+    if (hd <= 32) return f.template run<32, true>();
+    if (hd <= 64) return f.template run<64, true>();
+    if (hd <= 96) return f.template run<96, true>();
+    if (hd <= 128) return f.template run<128, true>();
+    return f.template run<256, true>();
   } else if (dtype == rt::kF32) {
-    switch (hd) {
-      case 16: return f.template run<16, false>();
-      case 32: return f.template run<32, false>();
-      case 64: return f.template run<64, false>();
-      case 96: return f.template run<96, false>();
-      case 128: return f.template run<128, false>();
-      case 256: return f.template run<256, false>();
-    }
+    if (hd <= 16) return f.template run<16, false>();
+    if (hd <= 32) return f.template run<32, false>();
+    if (hd <= 64) return f.template run<64, false>();
+    if (hd <= 96) return f.template run<96, false>();
+    if (hd <= 128) return f.template run<128, false>();
+    return f.template run<256, false>();
   }
   return cudaErrorInvalidValue;
 }
@@ -655,7 +681,9 @@ struct Describer {
 }  // namespace
 
 // strides: 12 element strides on the host, (batch, head, seq) of q, k, v
-// and out in that order; the last dim of each is contiguous.
+// and out in that order; the last dim of each is contiguous and holds
+// hd rounded up to 8 columns (the wrapper pads other head dims with zero
+// columns, which change no score; the scale is hd's).
 extern "C" int rt_flash_attention(const void* q, const void* k,
                                   const void* v, void* out,
                                   const long long* strides, int B, int H,
@@ -667,6 +695,7 @@ extern "C" int rt_flash_attention(const void* q, const void* k,
   Problem p;
   p.H = H; p.KV = KV; p.Lq = Lq; p.Lk = Lk;
   p.causal = causal; p.window = window;
+  p.cols = (hd + 7) / 8 * 8;
   p.qb = strides[0]; p.qh = strides[1]; p.ql = strides[2];
   p.kb = strides[3]; p.kh = strides[4]; p.kl = strides[5];
   p.vb = strides[6]; p.vh = strides[7]; p.vl = strides[8];

@@ -54,6 +54,13 @@
 //    owns 8 columns, read from one rank row of B in a 16-byte load, and
 //    the 8 warps split the live rank rows, their partials added in warp
 //    order.
+// Widths: any d_in and d_out, as the Pallas kernels' _fit_block takes them
+// (src/repro/kernels/bgmv.py:40-47). Where d_in (shrink) or d_out (expand)
+// is a multiple of 8, x, B and out move 16 bytes at a time; otherwise the
+// row-tile and decode kernels are instantiated with element copies and
+// stores (kVec false), zero past the width, so a partial k-step of 16 sums
+// zeros. The split shrink reads x element by element on either. r_max
+// stays a multiple of 8 (the pool pads it: kernels/bgmv.py padded_rank).
 // Every sum runs in a fixed order (no atomics): results repeat bitwise.
 #include <type_traits>
 
@@ -154,7 +161,10 @@ constexpr size_t tile_smem() {
 
 // One pass: y[rows of slot s in the tile, c0 : c0 + kCols] over all of
 // d_in, with nc (a multiple of 8, >= 8) columns computed and the rest 0.
-template <typename T, int BM>
+// kVec: d_in a multiple of 8, x's rows copied in 16-byte cp.async; else
+// element by element (a row then starts anywhere), zero past d_in, so a
+// partial mma k-step of 16 sums zeros.
+template <typename T, int BM, bool kVec>
 __device__ __forceinline__ void shrink_pass(
     const T* __restrict__ x, const T* __restrict__ as_g, float* __restrict__ y,
     T* xs, T* as, const int* sidx, const int* slive, int s, int row0,
@@ -169,12 +179,23 @@ __device__ __forceinline__ void shrink_pass(
   auto load = [&](int buf, int kt) {
     const int d0 = kt * C::kBD;
     T* xb = xs + buf * BM * C::kLdx;
-    constexpr int XC = C::kBD / VEC;        // copies a row of x
-    for (int i = tid; i < BM * XC; i += kThr) {
-      const int r = i / XC, d = d0 + (i % XC) * VEC;
-      const bool ok = sidx[r] == s && d < d_in;    // other slots' rows: 0
-      const T* src = ok ? x + (size_t)(row0 + r) * d_in + d : x;
-      rt::cp_async16(xb + r * C::kLdx + (i % XC) * VEC, src, ok);
+    if constexpr (kVec) {
+      constexpr int XC = C::kBD / VEC;      // copies a row of x
+      for (int i = tid; i < BM * XC; i += kThr) {
+        const int r = i / XC, d = d0 + (i % XC) * VEC;
+        const bool ok = sidx[r] == s && d < d_in;  // other slots' rows: 0
+        const T* src = ok ? x + (size_t)(row0 + r) * d_in + d : x;
+        rt::cp_async16(xb + r * C::kLdx + (i % XC) * VEC, src, ok);
+      }
+    } else {
+      // the buffer was consumed before the __syncthreads() that precedes
+      // this copy, so plain stores may land in it at once
+      for (int i = tid; i < BM * C::kBD; i += kThr) {
+        const int r = i / C::kBD, d = d0 + i % C::kBD;
+        xb[r * C::kLdx + i % C::kBD] =
+            sidx[r] == s && d < d_in ? x[(size_t)(row0 + r) * d_in + d]
+                                     : rt::from_f32<T>(0.f);
+      }
     }
     T* ab = as + buf * C::kBD * C::kLda;
     constexpr int AC = kCols / VEC;         // copies a d row of A
@@ -311,7 +332,7 @@ __device__ __forceinline__ void shrink_pass(
   }
 }
 
-template <typename T, int BM>
+template <typename T, int BM, bool kVec>
 __global__ void __launch_bounds__(2 * BM) lora_shrink_tile_kernel(
     const T* __restrict__ x, const T* __restrict__ a,
     const int* __restrict__ idx, const int* __restrict__ live,
@@ -370,8 +391,8 @@ __global__ void __launch_bounds__(2 * BM) lora_shrink_tile_kernel(
     for (int c0 = 0; c0 < r_max; c0 += kCols) {
       const int nc = min(kCols, ncol - c0);
       if (nc > 0) {
-        shrink_pass<T, BM>(x, as_g, y, xs, as, sidx, slive, s, row0, rows,
-                           d_in, r_max, c0, nc);
+        shrink_pass<T, BM, kVec>(x, as_g, y, xs, as, sidx, slive, s, row0,
+                                 rows, d_in, r_max, c0, nc);
       } else {                              // columns past every live
         const int ccount = min(kCols, r_max - c0);
         for (int i = tid; i < BM * ccount; i += kThr) {
@@ -387,8 +408,10 @@ __global__ void __launch_bounds__(2 * BM) lora_shrink_tile_kernel(
 
 // a tile holds at most min(slots, BM) distinct slots: one block each
 template <typename T, int BM>
-rt::Launch tile_launch(int rows, int slots) {
-  return {(const void*)lora_shrink_tile_kernel<T, BM>,
+rt::Launch tile_launch(int rows, int d_in, int slots) {
+  return {d_in % rt::kVec == 0
+              ? (const void*)lora_shrink_tile_kernel<T, BM, true>
+              : (const void*)lora_shrink_tile_kernel<T, BM, false>,
           dim3((rows + BM - 1) / BM, max(1, min(slots, BM))), 2 * BM,
           tile_smem<T, BM>()};
 }
@@ -443,8 +466,10 @@ constexpr size_t expand_tile_smem() {
 // writes the rows of s; rows with no adapter get zeros. Every element of
 // out is written once, by one block. kMulti: r_max > kER, rank rows in
 // several passes (the partial sums take another 64 registers: one block
-// an SM then, as for f32, so that nothing spills).
-template <typename T, bool kMulti>
+// an SM then, as for f32, so that nothing spills). kVec: d_out a multiple
+// of 8, B's rows copied and out's written 16 bytes at a time; else
+// element by element (a row then starts anywhere), zero past d_out.
+template <typename T, bool kMulti, bool kVec>
 __global__ void __launch_bounds__(
     kEThr, (std::is_same<T, bf16>::value && !kMulti) ? 2 : 1)
     lora_expand_tile_kernel(
@@ -467,7 +492,7 @@ __global__ void __launch_bounds__(
   int pb = 0;                               // this tile's buffer: 0 or kEM
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * kEN;
-  const int ncols = min(kEN, d_out - n0);   // a multiple of 8
+  const int ncols = min(kEN, d_out - n0);   // a multiple of 8 with kVec
   const int ntiles = (rows + kEM - 1) / kEM;
   const T zero = rt::from_f32<T>(0.f);
 
@@ -483,11 +508,20 @@ __global__ void __launch_bounds__(
   // B[s][k0 : k0 + kn, n0 : n0 + kEN]; other rank rows as 0 (never read)
   auto load_b = [&](int s, int k0, int kn) {
     const T* src = b + ((size_t)s * r_max + k0) * d_out + n0;
-    for (int i = tid; i < kER * OC; i += kEThr) {
-      const int r = i / OC, c = (i % OC) * VEC;
-      const bool ok = r < kn && c < ncols;
-      rt::cp_async16(bs + r * C::kLdb + c,
-                     ok ? src + (size_t)r * d_out + c : b, ok);
+    if constexpr (kVec) {
+      for (int i = tid; i < kER * OC; i += kEThr) {
+        const int r = i / OC, c = (i % OC) * VEC;
+        const bool ok = r < kn && c < ncols;
+        rt::cp_async16(bs + r * C::kLdb + c,
+                       ok ? src + (size_t)r * d_out + c : b, ok);
+      }
+    } else {
+      // bs is free here (a __syncthreads() since its last read)
+      for (int i = tid; i < kER * kEN; i += kEThr) {
+        const int r = i / kEN, c = i % kEN;
+        bs[r * C::kLdb + c] =
+            r < kn && c < ncols ? src[(size_t)r * d_out + c] : zero;
+      }
     }
   };
   // row `tid` of tile t: its slot (-1: no adapter or past `rows`), live
@@ -600,12 +634,18 @@ __global__ void __launch_bounds__(
     const bool zeros = __syncthreads_or(tid < kEM && row0 + tid < rows &&
                                         sidx[pb + tid] < 0);
     // rows without an adapter: zeros, 16 bytes a store
-    if (zeros) {
+    if (zeros && kVec) {
       for (int i = tid; i < kEM * OC; i += kEThr) {
         const int r = i / OC, c = (i % OC) * VEC;
         if (row0 + r < rows && sidx[pb + r] < 0 && c < ncols)
           *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out + n0 +
                                     c) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else if (zeros) {
+      for (int i = tid; i < kEM * kEN; i += kEThr) {
+        const int r = i / kEN, c = i % kEN;
+        if (row0 + r < rows && sidx[pb + r] < 0 && c < ncols)
+          out[(size_t)(row0 + r) * d_out + n0 + c] = zero;
       }
     }
     for (int q = 0; q < kEM / 32; ++q) {
@@ -697,23 +737,40 @@ __global__ void __launch_bounds__(
               float* o = out + (size_t)(row0 + r) * d_out + n0 + cg * 16 +
                          h * FW;
 #pragma unroll
-              for (int q4 = 0; q4 < FW / 4; ++q4)
-                if (cg * 16 + h * FW + q4 * 4 < ncols)
+              for (int q4 = 0; q4 < FW / 4; ++q4) {
+                const int col = cg * 16 + h * FW + q4 * 4;
+                if (kVec && col < ncols) {
                   *reinterpret_cast<float4*>(o + q4 * 4) = make_float4(
                       acc[FW / 4 * i + q4][0], acc[FW / 4 * i + q4][1],
                       acc[FW / 4 * i + q4][2], acc[FW / 4 * i + q4][3]);
+                } else if (!kVec) {
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    if (col + e < ncols) o[q4 * 4 + e] =
+                        acc[FW / 4 * i + q4][e];
+                }
+              }
             }
           }
         }
         if constexpr (kBF) {
           // the slot's rows of the staged tile, 16 bytes a store
           __syncthreads();
-          for (int i = tid; i < kEM * OC; i += kEThr) {
-            const int r = i / OC, c = (i % OC) * VEC;
-            if (sidx[pb + r] == s && c < ncols)
-              *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out +
-                                        n0 + c) =
-                  *reinterpret_cast<const uint4*>(stage + r * C::kLdb + c);
+          if constexpr (kVec) {
+            for (int i = tid; i < kEM * OC; i += kEThr) {
+              const int r = i / OC, c = (i % OC) * VEC;
+              if (sidx[pb + r] == s && c < ncols)
+                *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out +
+                                          n0 + c) =
+                    *reinterpret_cast<const uint4*>(stage + r * C::kLdb + c);
+            }
+          } else {
+            for (int i = tid; i < kEM * kEN; i += kEThr) {
+              const int r = i / kEN, c = i % kEN;
+              if (sidx[pb + r] == s && c < ncols)
+                out[(size_t)(row0 + r) * d_out + n0 + c] =
+                    stage[r * C::kLdb + c];
+            }
           }
         }
         __syncthreads();                    // stage, bs, yx, wred free
@@ -725,9 +782,13 @@ __global__ void __launch_bounds__(
 
 template <typename T>
 rt::Launch expand_tile_launch(int r_max, int d_out, int row_blocks) {
-  return {r_max > kER ? (const void*)lora_expand_tile_kernel<T, true>
-                      : (const void*)lora_expand_tile_kernel<T, false>,
-          dim3((d_out + kEN - 1) / kEN, row_blocks), kEThr,
+  const bool multi = r_max > kER, vec = d_out % rt::kVec == 0;
+  const void* fn =
+      multi ? (vec ? (const void*)lora_expand_tile_kernel<T, true, true>
+                   : (const void*)lora_expand_tile_kernel<T, true, false>)
+            : (vec ? (const void*)lora_expand_tile_kernel<T, false, true>
+                   : (const void*)lora_expand_tile_kernel<T, false, false>);
+  return {fn, dim3((d_out + kEN - 1) / kEN, row_blocks), kEThr,
           expand_tile_smem<T>()};
 }
 
@@ -739,8 +800,10 @@ constexpr int kDecCols = 8 * 32;            // columns a block: 8 a lane
 // out[row, c0 : c0 + kDecCols]: lane l of every warp owns 8 columns and
 // reads them from one rank row of B in a single 16-byte load; warp w sums
 // rank rows w, w + kRankSplit, ... below live[row] (up to 8 loads a thread
-// in flight), and the warps' partials are added in warp order.
-template <typename T>
+// in flight), and the warps' partials are added in warp order. kVec: d_out
+// a multiple of 8; else the 8 columns are read one by one (a rank row then
+// starts anywhere), zero past d_out.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kRankSplit * 32) lora_expand_decode_kernel(
     const T* __restrict__ y, const T* __restrict__ b,
     const int* __restrict__ idx, const int* __restrict__ live,
@@ -764,7 +827,13 @@ __global__ void __launch_bounds__(kRankSplit * 32) lora_expand_decode_kernel(
 #pragma unroll 8
     for (int r = warp; r < lv; r += kRankSplit) {
       float w[rt::kVec];
-      rt::load8(bs + (size_t)r * d_out, w);
+      if constexpr (kVec) {
+        rt::load8(bs + (size_t)r * d_out, w);
+      } else {
+#pragma unroll
+        for (int j = 0; j < rt::kVec; ++j)
+          w[j] = c + j < d_out ? rt::to_f32(bs[(size_t)r * d_out + j]) : 0.f;
+      }
       const float yv = ysm[r];
 #pragma unroll
       for (int j = 0; j < rt::kVec; ++j) acc[j] += yv * w[j];
@@ -786,7 +855,9 @@ __global__ void __launch_bounds__(kRankSplit * 32) lora_expand_decode_kernel(
 
 template <typename T>
 rt::Launch expand_decode_launch(int rows, int r_max, int d_out) {
-  return {(const void*)lora_expand_decode_kernel<T>,
+  return {d_out % rt::kVec == 0
+              ? (const void*)lora_expand_decode_kernel<T, true>
+              : (const void*)lora_expand_decode_kernel<T, false>,
           dim3(rows, (d_out + kDecCols - 1) / kDecCols), kRankSplit * 32,
           sizeof(float) * ((size_t)kRankSplit * kDecCols + r_max)};
 }
@@ -796,10 +867,10 @@ rt::Launch expand_decode_launch(int rows, int r_max, int d_out) {
 cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
                           int d_chunk, int dtype, rt::Launch* l) {
   // r_max a multiple of 8 (one 8-column lane each, at most 1,024 lanes a
-  // block); d_in a multiple of 8 for 16-byte copies of x
+  // block); any d_in (16-byte copies of x where it is a multiple of 8)
   const int lanes = r_max / rt::kVec;
   if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || lanes > 1024 ||
-      d_in <= 0 || d_in % rt::kVec != 0)
+      d_in <= 0)
     return cudaErrorInvalidValue;
   const bool bf = dtype == rt::kBF16;
   if (!bf && dtype != rt::kF32) return cudaErrorInvalidValue;
@@ -810,11 +881,11 @@ cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
     *l = bf ? split_launch<bf16>(rows, r_max)
             : split_launch<float>(rows, r_max);
   } else if (tile == 64) {
-    *l = bf ? tile_launch<bf16, 64>(rows, slots)
-            : tile_launch<float, 64>(rows, slots);
+    *l = bf ? tile_launch<bf16, 64>(rows, d_in, slots)
+            : tile_launch<float, 64>(rows, d_in, slots);
   } else if (tile == 128) {
-    *l = bf ? tile_launch<bf16, 128>(rows, slots)
-            : tile_launch<float, 128>(rows, slots);
+    *l = bf ? tile_launch<bf16, 128>(rows, d_in, slots)
+            : tile_launch<float, 128>(rows, d_in, slots);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -824,9 +895,10 @@ cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
 // The expand's launch for these arguments (see rt_lora_expand).
 cudaError_t expand_launch(int rows, int r_max, int d_out, int row_blocks,
                           int dtype, rt::Launch* l) {
-  // 16-byte copies of y's rows and B's rows, 16-byte stores of out's
+  // 16-byte copies of y's rows; B's and out's 16 bytes at a time where
+  // d_out is a multiple of 8, element by element otherwise
   if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || d_out <= 0 ||
-      d_out % rt::kVec != 0 || row_blocks < 0)
+      row_blocks < 0)
     return cudaErrorInvalidValue;
   const bool bf = dtype == rt::kBF16;
   if (!bf && dtype != rt::kF32) return cudaErrorInvalidValue;

@@ -104,25 +104,26 @@ def padded_rank(max_rank: int) -> int:
     return -(-max_rank // RANK_ALIGN) * RANK_ALIGN
 
 
-def shrink_refusal(d_in: int, r_max: int) -> Optional[str]:
-    """Why the shrink kernel refuses these widths, or None: 16-byte rows of
-    x and of A."""
+def _rank_refusal(r_max: int) -> Optional[str]:
     if r_max % RANK_ALIGN or not 0 < r_max <= MAX_R:
         return (f"the kernel takes r_max a multiple of {RANK_ALIGN} up to "
-                f"{MAX_R}, got {r_max}")
-    if d_in % 8:
-        return (f"the kernel takes d_in a multiple of 8 (16-byte copies of "
-                f"x), got {d_in}")
+                f"{MAX_R} (16-byte rows of A, y and B; the pool pads it), "
+                f"got {r_max}")
     return None
+
+
+def shrink_refusal(d_in: int, r_max: int) -> Optional[str]:
+    """Why the shrink kernel refuses these widths, or None: any d_in (a
+    width no multiple of 8 takes element copies of x), r_max as
+    `padded_rank` makes it."""
+    return _rank_refusal(r_max)
 
 
 def expand_refusal(r_max: int, d_out: int) -> Optional[str]:
-    """Why the expand kernel refuses these widths, or None: 16-byte rows of
-    y, B and out."""
-    if r_max % RANK_ALIGN or d_out % 8 or not 0 < r_max <= MAX_R:
-        return (f"the kernel takes r_max <= {MAX_R} and d_out multiples of "
-                f"8 (16-byte copies), got r_max {r_max}, d_out {d_out}")
-    return None
+    """Why the expand kernel refuses these widths, or None: any d_out (a
+    width no multiple of 8 takes element copies of B and stores of out),
+    r_max as `padded_rank` makes it."""
+    return _rank_refusal(r_max)
 
 
 _SMS: dict = {}
@@ -171,7 +172,8 @@ def _shrink(x, a, idx, live):
         raise ValueError(f"lora_shrink: {why}")
     build.require(x, "x", dtypes=_FLOATS, ndim=2)
     build.require(a, "a", dtypes=(x.dtype,), ndim=3, device=x.device)
-    build.require_aligned(x, "x")
+    if d_in % 8 == 0:         # 16-byte copies; other widths copy elements
+        build.require_aligned(x, "x")
     build.require_aligned(a, "a")
     for name, t in (("idx", idx), ("live", live)):
         build.require(t, name, dtypes=(torch.int32,), device=x.device)
@@ -218,7 +220,8 @@ def _expand(y, b, idx, live):
     build.require(y, "y", dtypes=_FLOATS, ndim=2)
     build.require(b, "b", dtypes=(y.dtype,), ndim=3, device=y.device)
     build.require_aligned(y, "y")
-    build.require_aligned(b, "b")
+    if d_out % 8 == 0:        # 16-byte copies; other widths copy elements
+        build.require_aligned(b, "b")
     for name, t in (("idx", idx), ("live", live)):
         build.require(t, name, dtypes=(torch.int32,), device=y.device)
     lib = build.library()

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "rt_paged_attention": [_P] * 8 + [_I] * 9 + [_P],
     # G (query heads a KV head), hd -> 1 if the paged kernel takes them
     "rt_paged_attention_fits": [_I, _I],
+    # G, hd -> the group tiles a KV head's heads are cut into (0: refused)
+    "rt_paged_attention_tiles": [_I, _I],
     # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, dtype,
     # stream
     "rt_lora_shrink": [_P] * 5 + [_I] * 7 + [_P],

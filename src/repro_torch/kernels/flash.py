@@ -6,7 +6,9 @@ A CPU tensor runs the plain version (`ref.flash_attention_ref`); a CUDA
 tensor launches the kernel or raises. `flash_attention.launches` counts
 kernel launches. The kernel reads q/k/v through their strides (last dim
 contiguous), so a (B, L, H, hd) tensor can be passed as its (B, H, L, hd)
-transpose without a copy; the output has q's strides.
+transpose without a copy; the output has q's strides. A head dim that is
+no multiple of 8 is passed as zero-padded copies (TMA's rows need 16-byte
+strides) and its output is a view of the first hd columns.
 
 Gradients: when q, k or v requires grad (and grad mode is on), the call
 goes through `FlashAttention`, a `torch.autograd.Function` whose forward
@@ -26,18 +28,28 @@ import torch
 from repro_torch.kernels import build, ref
 
 # head dims the kernel is instantiated for (csrc/flash_attention.cu): 96 is
-# phi-3-vision's, 256 recurrentgemma's
+# phi-3-vision's, 256 recurrentgemma's. Any other hd up to MAX_HEAD_DIM runs
+# at the next of these (`padded_width`), its missing columns zero.
 HEAD_DIMS = {torch.bfloat16: (32, 64, 96, 128, 256),
              torch.float32: (16, 32, 64, 96, 128, 256)}
+MAX_HEAD_DIM = 256             # O: 64 x hd f32 a warpgroup in registers
 NOT_SUPPORTED = 801            # cudaErrorNotSupported: no TMA encoder
 
 
 def shape_refusal(hd: int, dtype: torch.dtype) -> Optional[str]:
     """Why the kernel refuses this head dim and dtype, or None."""
-    if hd in HEAD_DIMS.get(dtype, ()):
+    if dtype in HEAD_DIMS and 1 <= hd <= MAX_HEAD_DIM:
         return None
-    return (f"the kernel takes hd in {HEAD_DIMS.get(dtype, ())} for "
-            f"{dtype}, got {hd}")
+    return (f"the kernel takes hd 1 to {MAX_HEAD_DIM} (its O accumulator, "
+            f"64 x hd f32 a warpgroup, must fit in registers) in "
+            f"{sorted(map(str, HEAD_DIMS))}, got hd {hd} in {dtype}")
+
+
+def padded_width(hd: int, dtype: torch.dtype) -> int:
+    """The instantiated width the kernel runs head dim `hd` at (the
+    narrowest of HEAD_DIMS[dtype] >= hd; csrc/flash_attention.cu:
+    for_head_dim)."""
+    return min(w for w in HEAD_DIMS[dtype] if w >= hd)
 
 
 def _require_strided(t, name, dtype, device):
@@ -88,6 +100,12 @@ def _forward(q, k, v, *, causal, window):
     why = shape_refusal(hd, q.dtype)
     if why:
         raise ValueError(f"flash_attention: {why}")
+    cols = -(-hd // 8) * 8
+    if cols != hd:
+        # TMA's rows need 16-byte strides: one zero-padded copy of each
+        # operand (zero columns change no score), the output sliced back
+        q, k, v = (torch.nn.functional.pad(t, (0, cols - hd))
+                   for t in (q, k, v))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require_strided(t, name, q.dtype, q.device)
     lib = build.library()
@@ -104,7 +122,7 @@ def _forward(q, k, v, *, causal, window):
                            "bf16 kernel needs")
     build.check_launch(rc, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out if cols == hd else out[..., :hd]
 
 
 flash_attention.launches = 0

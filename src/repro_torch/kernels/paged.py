@@ -8,7 +8,8 @@ kernel launches (one a call; with more than one split the call also
 launches the kernel's combine pass).
 
 The kernel splits each row's block table over `split_plan` blocks, chosen
-here from shapes alone (no device sync).
+here from shapes alone (no device sync), and cuts a GQA group too large
+for one block into `group_tiles` tiles.
 """
 from __future__ import annotations
 
@@ -23,42 +24,52 @@ _FLOATS = (torch.float32, torch.bfloat16)
 SPLIT_PAGES = 4                # block-table columns a split at least
 MAX_SPLIT_BLOCKS_PER_SM = 8    # blocks of all splits, an SM at most
 MAX_THREADS = 256              # csrc/paged_attention.cu: kMaxThreads
+MAX_HEAD_DIM = 256             # csrc/paged_attention.cu: kMaxHeadDim
 
 
 def fits(G: int, hd: int) -> bool:
     """The kernel's shape rule, `rt_paged_attention_fits` of
     csrc/paged_attention.cu, for the CPU (the wrapper asks the library; the
-    card checks hold the two equal over a grid of G and hd): one thread per
-    (query head of the group, 8 columns of hd rounded up to a power of
-    two) in a block."""
-    if G < 1 or hd < 8 or hd % 8 or hd > 32 * 8:
-        return False
-    L = 1
-    while L < hd // 8:
-        L *= 2
-    return G * L <= MAX_THREADS
+    card checks hold the two equal over a grid of G and hd): any GQA group
+    (cut into `group_tiles` tiles) and any hd up to MAX_HEAD_DIM, where a
+    head's lanes of 8 columns still fit one warp."""
+    return G >= 1 and 1 <= hd <= MAX_HEAD_DIM
 
 
 def shape_refusal(G: int, hd: int) -> Optional[str]:
     """Why the kernel refuses GQA group G at head dim hd, or None."""
     if fits(G, hd):
         return None
-    return (f"the kernel takes hd a multiple of 8 up to 256 and GQA group x "
-            f"pow2(hd / 8) <= {MAX_THREADS} (one thread per query head and "
-            f"8 columns), got group {G}, hd {hd}")
+    return (f"the kernel takes GQA group >= 1 and hd 1 to {MAX_HEAD_DIM} "
+            f"(a head's score is summed over pow2(hd / 8) lanes of one "
+            f"32-lane warp), got group {G}, hd {hd}")
 
 
-def split_plan(B: int, KV: int, W: int, sms: int) -> int:
+def group_tiles(G: int, hd: int) -> int:
+    """Tiles a KV head's G query heads are cut into, as
+    `rt_paged_attention_tiles` of csrc/paged_attention.cu cuts them: a
+    block holds MAX_THREADS threads, one per (head, 8 columns of hd
+    rounded up to a power of two), so one tile (one block a KV head)
+    where G x pow2(ceil(hd / 8)) <= MAX_THREADS, else as few as hold the
+    group. Each tile reads its KV head's pages again."""
+    lanes = 1
+    while lanes < -(-hd // 8):
+        lanes *= 2
+    return -(-G // (MAX_THREADS // lanes))
+
+
+def split_plan(B: int, KV: int, W: int, sms: int, tiles: int) -> int:
     """Runs of block-table columns a row is split into: one when the
-    B x KV blocks fill every SM (`sms`) already; else runs of SPLIT_PAGES
-    columns, so that a long row spreads over many SMs whichever rows are
-    long (blocks whose run holds no claimed page exit at once), capped at
-    MAX_SPLIT_BLOCKS_PER_SM blocks an SM, and no split left empty (the
-    kernel gives split k the columns [k * ceil(W / n), (k + 1) *
-    ceil(W / n)))."""
-    if B * KV >= sms or W < 2 * SPLIT_PAGES:
+    B x KV x `tiles` blocks (group tiles a KV head) fill every SM (`sms`)
+    already; else runs of SPLIT_PAGES columns, so that a long row spreads
+    over many SMs whichever rows are long (blocks whose run holds no
+    claimed page exit at once), capped at MAX_SPLIT_BLOCKS_PER_SM blocks
+    an SM, and no split left empty (the kernel gives split k the columns
+    [k * ceil(W / n), (k + 1) * ceil(W / n)))."""
+    blocks = B * KV * tiles
+    if blocks >= sms or W < 2 * SPLIT_PAGES:
         return 1
-    n = min(MAX_SPLIT_BLOCKS_PER_SM * sms // max(1, B * KV),
+    n = min(MAX_SPLIT_BLOCKS_PER_SM * sms // max(1, blocks),
             W // SPLIT_PAGES)
     per = -(-W // n)
     return -(-W // per)
@@ -100,10 +111,13 @@ def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
     for name, t in (("pos_pages", pos_pages), ("block_table", block_table),
                     ("pos", pos)):
         build.require(t, name, dtypes=(torch.int32,), device=q.device)
-    build.require_aligned(k_pages, "k_pages")
-    build.require_aligned(v_pages, "v_pages")
+    if hd % 8 == 0:           # 16-byte copies; other widths copy elements
+        for name, t in (("q", q), ("k_pages", k_pages),
+                        ("v_pages", v_pages)):
+            build.require_aligned(t, name)
     out = torch.empty_like(q)
-    nsplit = split_plan(B, KV, W, sm_count(q.device))
+    nsplit = split_plan(B, KV, W, sm_count(q.device),
+                        group_tiles(H // KV, hd))
     # per split: (m, l, acc) of each query head, combined by the kernel
     ws = torch.empty(B * H * nsplit * (hd + 2) if nsplit > 1 else 0,
                      dtype=torch.float32, device=q.device)

@@ -448,13 +448,13 @@ def test_flash_kernel_bf16_head_dims(card, hd, causal, window, group, Lq,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [80, 48])
+@pytest.mark.parametrize("hd", [320, 264])
 def test_flash_kernel_raises_for_other_head_dims(card, dtype, hd):
-    """A head dim the kernel is not instantiated for raises on the card
-    (no plain fallback), and nothing launches."""
+    """A head dim past 256 (any other runs at an instantiated width)
+    raises on the card (no plain fallback), and nothing launches."""
     q = torch.zeros(1, 2, 8, hd, device=card, dtype=dtype)
     n = flash.flash_attention.launches
-    with pytest.raises(ValueError, match="the kernel takes hd"):
+    with pytest.raises(ValueError, match="the kernel takes hd 1 to 256"):
         flash.flash_attention(q, q, q)
     assert flash.flash_attention.launches == n
 
@@ -538,8 +538,8 @@ def test_paged_attention_splits_match_plain(card, dtype, B, H, KV, hd,
         pos[b] = max(n_tok - 1, 0)
     bt[1, [5, 40]] = -1
     pp, bt, pos = pp.to(card), bt.to(card), pos.to(card)
-    assert (paged.split_plan(B, KV, W, bgmv.sm_count(q.device)) > 1) \
-        == split
+    assert (paged.split_plan(B, KV, W, bgmv.sm_count(q.device),
+                             paged.group_tiles(H // KV, hd)) > 1) == split
     n = paged.paged_attention.launches
     got = paged.paged_attention(q, k, v, pp, bt, pos)
     assert paged.paged_attention.launches == n + 1
@@ -558,11 +558,11 @@ def test_paged_attention_splits_match_plain(card, dtype, B, H, KV, hd,
         assert torch.equal(out[b], got[b]), b
 
 
-@pytest.mark.parametrize("H,KV,hd", [(136, 8, 128), (33, 1, 64),
-                                     (9, 1, 256), (17, 1, 96)])
+@pytest.mark.parametrize("H,KV,hd", [(136, 8, 264), (33, 1, 320),
+                                     (9, 1, 257), (17, 1, 512)])
 def test_paged_attention_refuses_groups_past_one_block(card, H, KV, hd):
-    """One past the edge (GQA group x pow2(hd / 8) > 256) the wrapper
-    raises, launching nothing."""
+    """Any group is taken now (group tiles); past hd 256, where a head's
+    lanes would pass one warp, the wrapper raises, launching nothing."""
     B, P, ps = 2, 4, 32
     q = torch.zeros(B, H, hd, device=card, dtype=torch.bfloat16)
     k = torch.zeros(P, KV, ps, hd, device=card, dtype=torch.bfloat16)
@@ -570,7 +570,7 @@ def test_paged_attention_refuses_groups_past_one_block(card, H, KV, hd):
     bt = torch.zeros(B, 2, dtype=torch.int32, device=card)
     pos = torch.zeros(B, dtype=torch.int32, device=card)
     n = paged.paged_attention.launches
-    with pytest.raises(ValueError, match="GQA group"):
+    with pytest.raises(ValueError, match="hd 1 to 256"):
         paged.paged_attention(q, k, k, pp, bt, pos)
     assert paged.paged_attention.launches == n
 
@@ -775,3 +775,179 @@ def test_lora_train_grads_on_card_match_cpu(card):
             w = gc[t][k]
             err = float((gg[t][k].cpu() - w).abs().max())
             assert err <= 1e-4 * float(w.abs().max()), (t, k, err)
+
+
+# ------------------------------- shapes past the registered configs ----
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,KV,hd", [
+    (8, 32, 1, 128), (3, 71, 1, 64), (4, 8, 2, 80), (4, 4, 2, 100),
+    (4, 8, 2, 12)], ids=["MQA G 32 hd 128", "MQA G 71 hd 64", "hd 80",
+                         "hd 100", "hd 12"])
+def test_paged_attention_new_shapes_match_plain(card, dtype, B, H, KV, hd):
+    """Group tiles (MQA at group 32 and 71) and head dims that are no
+    multiple of 8 (element copies into padded ring rows): a 2,300-token
+    row (splits) beside short rows and a row with no claimed page; each
+    row within 1e-2 (bf16) / 1e-5 (f32) of its max |plain|, NaN in every
+    page a row does not own leaves its output bitwise unchanged, a second
+    run is bitwise equal."""
+    ps, W = 32, 80
+    P = B * W + 1
+    g = torch.Generator(device=card).manual_seed(B * H + hd)
+    q = torch.randn(B, H, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(P, KV, ps, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(P, KV, ps, hd, generator=g, device=card).to(dtype)
+    pp = torch.full((P, ps), -1, dtype=torch.int32)
+    bt = torch.full((B, W), -1, dtype=torch.int32)
+    pos = torch.zeros(B, dtype=torch.int32)
+    perm = np.random.default_rng(B + hd).permutation(P - 1).tolist()
+    for b, n_tok in enumerate([0, 2300] + [37 * (i + 1)
+                                           for i in range(B - 2)]):
+        for j in range(-(-n_tok // ps)):
+            pg = perm.pop()
+            bt[b, j] = pg
+            filled = torch.arange(ps) + j * ps
+            pp[pg] = torch.where(filled < n_tok, filled, -1).int()
+        pos[b] = max(n_tok - 1, 0)
+    pp, bt, pos = pp.to(card), bt.to(card), pos.to(card)
+    n = paged.paged_attention.launches
+    got = paged.paged_attention(q, k, v, pp, bt, pos)
+    assert paged.paged_attention.launches == n + 1
+    want = ref.paged_attention_ref(q, k, v, pp, bt, pos)
+    if dtype == torch.float32:
+        _rows_close(got, want, 1e-5, 1.0)
+    else:
+        _rows_close(got, want, 1e-2, 0.0)
+    assert not got[0].any()
+    assert torch.equal(got, paged.paged_attention(q, k, v, pp, bt, pos))
+    for b in range(B):
+        keep = torch.zeros(P, dtype=torch.bool, device=card)
+        keep[bt[b][bt[b] >= 0].long()] = True
+        kk = torch.where(keep[:, None, None, None], k, float("nan"))
+        vv = torch.where(keep[:, None, None, None], v, float("nan"))
+        out = paged.paged_attention(q, kk, vv, torch.where(keep[:, None],
+                                                          pp, 0), bt, pos)
+        assert torch.equal(out[b], got[b]), b
+
+
+def test_paged_launch_is_unchanged_where_one_block_held_the_group(card):
+    """Where G x pow2(hd / 8) <= 256 (every registered config) the kernel
+    still takes one group tile: the grid's y axis is the KV heads and the
+    block G x pow2(hd / 8) x slot-group threads, as before group tiles;
+    past it the library's tile count equals `paged.group_tiles`."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library()
+    out = (ctypes.c_longlong * (2 * len(build.INFO_FIELDS)))()
+    for G in range(1, 40):
+        for hd in (64, 80, 96, 128, 256):
+            lanes = 1
+            while lanes < hd // 8:
+                lanes *= 2
+            tiles = lib.rt_paged_attention_tiles(G, hd)
+            assert tiles == paged.group_tiles(G, hd)
+            assert lib.rt_paged_attention_info(8, 2 * G, 2, 32, hd, 16, 1, 1,
+                                               out) == 0
+            info = dict(zip(build.INFO_FIELDS, out[:len(build.INFO_FIELDS)]))
+            if G * lanes <= 256:
+                assert tiles == 1 and info["grid_y"] == 2
+                tg = 256 // (G * lanes)
+                assert info["threads"] == -(-G * lanes * tg // 32) * 32
+            else:
+                assert info["grid_y"] == 2 * tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [80, 72, 100, 160, 200, 12])
+@pytest.mark.parametrize("causal,window,group,Lq,Lk", [
+    (True, None, 4, 300, 300), (True, 64, 1, 200, 333),
+    (False, 100, 2, 257, 190)])
+def test_flash_kernel_padded_widths_match_plain(card, dtype, hd, causal,
+                                                window, group, Lq, Lk):
+    """A head dim with no instantiation of its own runs at the next width
+    (zero columns from TMA, or from the f32 loads; a padded copy where hd
+    is no multiple of 8), on (B, L, H, hd) views: each query row within
+    1e-2 (bf16) / 1e-5 x max(1, it) (f32) of its max |plain|, the output
+    hd wide, a second run bitwise equal."""
+    KV = 2
+    H = KV * group
+    g = torch.Generator(device=card).manual_seed(hd + Lq + Lk)
+    q, k, v = (torch.randn(2, L, n, hd, generator=g, device=card)
+               .to(dtype).transpose(1, 2) for L, n in ((Lq, H), (Lk, KV),
+                                                       (Lk, KV)))
+    n = flash.flash_attention.launches
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash.flash_attention.launches == n + 1
+    assert tuple(got.shape) == (2, H, Lq, hd)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        _rows_close(got.reshape(-1, hd), want.reshape(-1, hd), 1e-5, 1.0)
+    else:
+        _rows_close(got.reshape(-1, hd), want.reshape(-1, hd), 1e-2, 0.0)
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal,
+                                                  window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_function_grads_at_hd_80_match_plain(card, dtype):
+    """dq, dk, dv through the flash Function at hd 80 (the kernel at width
+    96, the plain blockwise backward) against autograd through the plain
+    version: each leaf within 5e-2 of its max |plain|."""
+    g = torch.Generator(device=card).manual_seed(80)
+    leaves = [torch.randn(2, 300, n, 80, generator=g, device=card).to(dtype)
+              .requires_grad_() for n in (8, 2, 2)]
+    views = [t.transpose(1, 2) for t in leaves]
+    dout = torch.randn(2, 8, 300, 80, generator=g, device=card).to(dtype)
+    n = flash.flash_attention.launches
+    out = flash.flash_attention(*views, causal=True)
+    assert flash.flash_attention.launches == n + 1
+    got = torch.autograd.grad(out, leaves, dout)
+    plain = ref.flash_attention_ref(*views, causal=True)
+    want = torch.autograd.grad(plain, leaves, dout)
+    for a, w in zip(got, want):
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= 5e-2 * float(w.float().abs().max()), err
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,seg", [(8, 0), (300, 17), (4133, 4096)])
+@pytest.mark.parametrize("d_in,d_out", [(4100, 1000), (1000, 4100),
+                                        (131, 37)])
+def test_lora_pair_tails_match_plain(card, mode, dtype, rows, seg, d_in,
+                                     d_out):
+    """The shrink and the expand at widths that are no multiple of 8 (the
+    element-copy instantiations) on every launch path (decode and split
+    d_in at 8 rows; row tiles at 300 and 4,133), ranks 8/16/32/64: each
+    row within 1e-5 x max(1, it) (shrink, f32 out) and 1e-2 (bf16) /
+    1e-5 (f32) of its max |plain| (expand), idx -1 rows zero, repeatable
+    bitwise."""
+    g = torch.Generator(device=card).manual_seed(rows + d_in + d_out)
+    ranks = [8, 16, 32, 64]
+    a = torch.zeros(4, d_in, 64, device=card, dtype=dtype)
+    b = torch.zeros(4, 64, d_out, device=card, dtype=dtype)
+    for s, r in enumerate(ranks):
+        a[s, :, :r] = (torch.randn(d_in, r, generator=g, device=card)
+                       * d_in ** -0.5).to(dtype)
+        b[s, :r] = (torch.randn(r, d_out, generator=g, device=card)
+                    * r ** -0.5).to(dtype)
+    x = torch.randn(rows, d_in, generator=g, device=card).to(dtype)
+    if seg:
+        idx = torch.arange(rows, device=card) // seg % 5 - 1
+    else:
+        idx = torch.randint(-1, 4, (rows,), generator=g, device=card)
+    idx = idx.to(torch.int32)
+    live = ref.bgmv_live(idx, 64) if mode == "bgmv" else ref.mbgmv_live(
+        idx, torch.tensor(ranks, dtype=torch.int32, device=card), 16)
+    y = bgmv.lora_shrink(x, a, idx, live)
+    _rows_close(y, ref.lora_shrink_ref(x, a, idx, live), 1e-5, 1.0)
+    assert torch.equal(y, bgmv.lora_shrink(x, a, idx, live))
+    yd = y.to(dtype)
+    out = bgmv.lora_expand(yd, b, idx, live)
+    want = ref.lora_expand_ref(yd, b, idx, live)
+    if dtype == torch.float32:
+        _rows_close(out, want, 1e-5, 1.0)
+    else:
+        _rows_close(out, want, 1e-2, 0.0)
+    assert not out[idx < 0].any()
+    assert torch.equal(out, bgmv.lora_expand(yd, b, idx, live))

@@ -1,6 +1,7 @@
 """The kernels' launch model (`repro_torch.analysis.kernel_model`): every
-registered config is taken by every kernel on its path; mutated configs
-are refused by the rule the wrapper raises on; and max_rank 12, no
+registered config is taken by every kernel on its path, and so are the
+MQA, hd-80 and LoRA-tail mutations; head dims past 256 and r_max past
+MAX_R are refused by the rule the wrapper raises on; and max_rank 12, no
 multiple of 8, runs after the pool pads it to 16 columns — it serves
 token for token with the reference (bgmv and mbgmv, f32) and a rank-12
 LoRA step's gradients equal the reference's. The card checks of
@@ -82,46 +83,77 @@ def _refused(case, kernel):
             and x.refusal]
 
 
-@pytest.mark.parametrize("mutation", ["hd 80", "GQA 32 at hd 128",
-                                      "d_in 4100"])
+@pytest.mark.parametrize("mutation", ["flash hd 320", "paged hd 320",
+                                      "r_max above MAX_R"])
 def test_mutated_configs_are_refused_by_the_wrappers_rule(mutation):
     """Each mutation is refused by the named rule, and that function is
-    the one the wrapper raises through on the card."""
+    the one the wrapper raises through on the card: a head dim past 256
+    (flash's O accumulator and paged attention's one-warp score sum) and
+    an r_max past MAX_R, which the padded pool never passes."""
     case = _case("llama2-7b")
-    if mutation == "hd 80":
-        case = dataclasses.replace(case, hd=80)
+    if mutation == "flash hd 320":
+        case = dataclasses.replace(case, hd=320, paged=False)
         kernel, rule, wrapper = "flash_attention", flash.shape_refusal, \
             flash._forward
-        want = rule(80, torch.bfloat16)
-    elif mutation == "GQA 32 at hd 128":
-        case = dataclasses.replace(case, n_heads=32, n_kv_heads=1)
+        want = rule(320, torch.bfloat16)
+    elif mutation == "paged hd 320":
+        case = dataclasses.replace(case, hd=320, attention=False)
         kernel, rule, wrapper = "paged_attention", paged.shape_refusal, \
             paged.paged_attention
-        want = rule(32, 128)
+        want = rule(1, 320)
     else:
-        case = dataclasses.replace(case, lora=(("q", 4100, 4096),))
+        r = bgmv.MAX_R + bgmv.RANK_ALIGN
+        case = dataclasses.replace(case, r_pad=r, lora=(("q", 4096, 4096),))
         kernel, rule, wrapper = "lora_shrink", bgmv.shrink_refusal, \
             bgmv._shrink
-        want = rule(4100, case.r_pad)
+        want = rule(4096, r)
     bad = _refused(case, kernel)
     assert bad and want
     assert {(x.rule, x.refusal) for x in bad} == {
         (f"{rule.__module__.rsplit('.', 1)[1]}.{rule.__name__}", want)}
     assert f"{rule.__name__}(" in inspect.getsource(wrapper)
     others = [x.label for x in kernel_model.launches(case)
-              if x.refusal and x.kernel != kernel]
+              if x.refusal and not x.kernel.startswith(kernel[:4])]
     assert others == []
 
 
+@pytest.mark.parametrize("mutation", ["hd 80", "GQA 32 at hd 128",
+                                      "d_in 4100"])
+def test_once_refused_mutations_are_taken_by_every_launch(mutation):
+    """The three shapes the reference's kernels take and the Hopper kernels
+    refused before group tiles, padded widths and LoRA tails: every launch
+    on the mutated config's path is taken, through the wrapper's own
+    rule, and lands on the new launch (a group tile count > 1, a padded
+    flash width, the LoRA kernels' element-copy instantiations)."""
+    case = _case("llama2-7b")
+    if mutation == "hd 80":
+        case = dataclasses.replace(case, hd=80)
+        want = "flash_attention[bf16 wgmma hd 80 at 96]"
+    elif mutation == "GQA 32 at hd 128":
+        case = dataclasses.replace(case, n_heads=32, n_kv_heads=1)
+        want = "paged_attention[4 splits + combine G 32 hd 128 in 2 group " \
+            "tiles]"
+    else:
+        case = dataclasses.replace(case, lora=(("q", 4100, 4096),))
+        want = "lora_shrink[split tail]"
+    launches = kernel_model.launches(case)
+    assert [x.label for x in launches if x.refusal] == []
+    assert f"{case.config} {want}" in [x.label for x in launches]
+
+
 def test_paged_rule_copy_matches_its_documented_edge():
-    """`paged.fits` (the CPU's copy of rt_paged_attention_fits): group x
-    pow2(hd / 8) <= 256, hd a multiple of 8 up to 256. The card holds the
-    copy equal to the library's over a grid."""
-    assert paged.fits(16, 128) and not paged.fits(17, 128)
-    assert paged.fits(32, 64) and not paged.fits(33, 64)
-    assert paged.fits(8, 256) and not paged.fits(9, 256)
-    assert paged.fits(16, 96) and not paged.fits(17, 96)
-    assert not paged.fits(1, 260) and not paged.fits(1, 12)
+    """`paged.fits` (the CPU's copy of rt_paged_attention_fits): any GQA
+    group >= 1 and hd 1 to 256 (a head's pow2(hd / 8) lanes in one warp);
+    `group_tiles` cuts a group past one block of 256 threads. The card
+    holds both copies equal to the library's over a grid."""
+    assert paged.fits(1, 1) and paged.fits(160, 256) and paged.fits(71, 12)
+    assert not paged.fits(1, 257) and not paged.fits(1, 0)
+    assert not paged.fits(0, 128) and not paged.fits(4, 320)
+    assert paged.group_tiles(16, 128) == 1 and paged.group_tiles(17, 128) == 2
+    assert paged.group_tiles(32, 64) == 1 and paged.group_tiles(33, 64) == 2
+    assert paged.group_tiles(8, 256) == 1 and paged.group_tiles(9, 256) == 2
+    assert paged.group_tiles(71, 64) == 3 and paged.group_tiles(32, 100) == 2
+    assert "hd 1 to 256" in paged.shape_refusal(1, 260)
 
 
 def test_max_rank_12_is_taken_after_the_pad():

@@ -456,8 +456,8 @@ def test_paged_split_plan_covers_each_column_once(W, bkv):
     split k takes the columns [k * ceil(W / n), (k + 1) * ceil(W / n)),
     which cover each block-table column of each (row, KV head) exactly
     once and leave no split empty."""
-    n = paged.split_plan(1, bkv, W, _SMS)
-    assert n == paged.split_plan(bkv, 1, W, _SMS)
+    n = paged.split_plan(1, bkv, W, _SMS, 1)
+    assert n == paged.split_plan(bkv, 1, W, _SMS, 1)
     assert 1 <= n <= max(W, 1)
     if bkv >= _SMS:
         assert n == 1
