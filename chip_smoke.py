@@ -347,6 +347,7 @@ def main() -> int:
     kernels.append(flash_timing(torch, capture["args"],
                                 errs["flash_attention"], yi_serving))
     kernels.append(shrink_prefill_timing(torch, lora_args, yi_serving))
+    kernels.append(chunk_shrink_timing(torch, lora_args, yi_serving))
     kernels.append(expand_prefill_timing(torch, lora_args, yi_serving))
     kernels.append(paged_capture_timing(
         torch, capture["decode"], yi_serving, "paged_attention[yi-9b]",
@@ -374,6 +375,7 @@ def main() -> int:
 
 
 KERNEL_NAMES = ("flash_bf16", "flash_f32", "lora_shrink_tile",
+                "lora_shrink_wgmma",
                 "lora_shrink_split", "lora_expand_tile", "lora_expand_decode",
                 "paged_attention", "paged_combine")
 
@@ -1831,8 +1833,10 @@ def train_rows(torch, cfg, launches, errs):
     4,096, r_max 64, where the backward's launches on B^T and A^T take
     the same shapes. Each held per row to its plain version and timed
     beside its bound, the plain version and a library call (SDPA; one
-    torch.matmul), which the port never calls. Launches: phase T2(c)'s
-    ten steps (forward, the remat recompute and the backward)."""
+    torch.matmul), which the port never calls; the LoRA pair and its
+    matmul also in a CUDA graph (`graph_ms`), as T4's graphed step
+    launches them. Launches: phase T2(c)'s ten steps (forward, the remat
+    recompute and the backward)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.bgmv import lora_expand, lora_shrink
@@ -1901,9 +1905,11 @@ def train_rows(torch, cfg, launches, errs):
                     "backward's launches on the transposed weights)",
             "launches": launches[name], "max_abs_err": e,
             "ms": time_ms(torch, fn, flush),
+            "graph_ms": graph_ms(torch, fn, flush),
             "plain_ms": time_ms(torch, plain, flush, n=20),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(torch, lib, flush),
+            "library_graph_ms": graph_ms(torch, lib, flush),
             "library_call": "torch.matmul with the one slot's weight",
             "bytes": nb, "shape": {"rows": rows_n, "d": d, "r_max": r,
                                    "slots": 1}})
@@ -1922,11 +1928,14 @@ def train_rows(torch, cfg, launches, errs):
             n=10),
         "grad_errors_full_width": errs}
     for r_ in rows:
+        graphed = "" if "graph_ms" not in r_ else (
+            f"; in a CUDA graph {r_['graph_ms'] * 1e3:.1f} us, library "
+            f"{r_['library_graph_ms'] * 1e3:.1f} us")
         print(f"  {r_['name']}: {r_['ms'] * 1e3:.1f} us (bound "
               f"{r_['bound_ms'] * 1e3:.1f} us by {r_['bound_by']}), plain "
               f"{r_['plain_ms'] * 1e3:.1f} us, library "
-              f"{r_['library_ms'] * 1e3:.1f} us, {r_['launches']} launches",
-              flush=True)
+              f"{r_['library_ms'] * 1e3:.1f} us, {r_['launches']} launches"
+              f"{graphed}", flush=True)
     print(f"  flash backward (plain PyTorch, blockwise) "
           f"{bwd['flash_backward_ms']:.3f} ms, autograd through the plain "
           f"version {bwd['plain_autograd_backward_ms']:.3f} ms", flush=True)
@@ -3705,12 +3714,82 @@ def shrink_prefill_timing(torch, captured, serving):
            "bytes": nbytes,
            "shape": {"rows": rows, "d_in": d_in, "r_max": r_max,
                      "slots": slots, "adapters": len(slot_live),
-                     "live_columns": row_live, "tile_rows": plan.tile}}
+                     "live_columns": row_live, "tile_rows": plan.tile,
+                     "split": plan.split}}
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
           f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (matmul over A_cat) "
           f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches",
           flush=True)
+    return row
+
+
+P_CHUNK_ROWS = 512                    # the yi-9b chunk's rows (chunk_budget)
+
+
+def chunk_shrink_timing(torch, captured, serving):
+    """Phase 5b: the LoRA shrink at the yi-9b chunk's shape: 512 rows (one
+    chunk of one long prompt, so one slot of the pool's 8), d_in 4,096,
+    r_max 64, the first 512 rows of phase 4b's layer-0 q input and its
+    pool; the row-tile path (64-row tiles split over clusters of 8). Held
+    per row against the plain version and timed beside its bound (phase
+    5a's formula), the plain version and one torch.matmul(x, A[s]) with
+    the one slot's weight, timed only and never called by the port.
+    Launches: the yi-9b chunked arm's (each chunk launches it once a layer
+    and target)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bgmv import lora_shrink, shrink_plan, sm_count
+    print("phase 5b: LoRA shrink at the yi-9b chunk's shape", flush=True)
+    (x, a, _, idx), _ = captured
+    x = x[:P_CHUNK_ROWS].contiguous()
+    slots, d_in, r_max = a.shape
+    s = int(idx[idx >= 0][0])
+    idx = torch.full((P_CHUNK_ROWS,), s, dtype=torch.int32, device="cuda")
+    live = ref.bgmv_live(idx, r_max)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    y = lora_shrink(x, a, idx, live)
+    err = check_close("lora_shrink yi-9b chunk (layer 0 q)", y,
+                      ref.lora_shrink_ref(x, a, idx, live), torch.float32)
+    check(torch.equal(y, lora_shrink(x, a, idx, live)),
+          "shrink chunk: two runs differ")
+    e = x.element_size()
+    nbytes = x.numel() * e + r_max * d_in * e + 8 * P_CHUNK_ROWS \
+        + y.numel() * 4
+    ops_n = 2 * d_in * int(live.sum())
+    b_ms, b_by = bound(nbytes, ops_n, "bfloat16")
+    plan = shrink_plan(P_CHUNK_ROWS, d_in, slots, sm_count(x.device))
+    from repro_torch.configs.base import get_config
+    yi = get_config("yi-9b")
+    row = {"name": "lora_shrink[yi-9b chunk]", "route": "cuda",
+           "source": "src/repro_torch/csrc/lora.cu",
+           "replaces": "src/repro/kernels/bgmv.py:86",
+           "path": "yi-9b chunked prefill (chunk_budget 512)",
+           "launches": serving[1]["launches"]["lora_shrink"],
+           "launches_a_chunk": yi.n_layers * len(yi.lora.targets),
+           "max_abs_err": err,
+           "ms": time_ms(torch, lambda: lora_shrink(x, a, idx, live), flush),
+           "graph_ms": graph_ms(torch, lambda: lora_shrink(x, a, idx, live),
+                                flush),
+           "plain_ms": time_ms(torch, lambda: ref.lora_shrink_ref(
+               x, a, idx, live), flush, n=20),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, lambda: torch.matmul(x, a[s]),
+                                 flush),
+           "library_graph_ms": graph_ms(torch, lambda: torch.matmul(
+               x, a[s]), flush),
+           "library_call": "torch.matmul(x, A[s]) with the one slot's "
+                           "weight",
+           "bytes": nbytes,
+           "shape": {"rows": P_CHUNK_ROWS, "d_in": d_in, "r_max": r_max,
+                     "slots": slots, "adapters": 1,
+                     "tile_rows": plan.tile, "split": plan.split}}
+    print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us, in a CUDA graph "
+          f"{row['graph_ms'] * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by "
+          f"{b_by}), plain {row['plain_ms'] * 1e3:.1f} us, library "
+          f"(matmul) {row['library_ms'] * 1e3:.1f} us, in a CUDA graph "
+          f"{row['library_graph_ms'] * 1e3:.1f} us, {row['launches']} "
+          f"launches ({row['launches_a_chunk']} a chunk)", flush=True)
     return row
 
 
@@ -3998,22 +4077,24 @@ def kernel_tooling_phase(torch):
         key = (fp.launch.kernel, fp.part, fp.launch.path,
                str(fp.launch.dtype).replace("torch.", ""), fp.threads,
                fp.dyn_smem, fp.registers, fp.static_smem, fp.local_bytes,
-               fp.blocks_per_sm)
+               fp.blocks_per_sm, fp.cluster, fp.max_clusters)
         groups.setdefault(key, []).append(fp.launch.case)
     table = []
     for key, cases in sorted(groups.items()):
-        kernel, part, path, dt, thr, dyn, regs, st, loc, blk = key
+        kernel, part, path, dt, thr, dyn, regs, st, loc, blk, cl, mcl = key
         occ = blk * thr / lim["threads_sm"]
         table.append({"kernel": kernel, "part": part, "path": path,
                       "dtype": dt, "threads": thr, "dyn_smem": dyn,
                       "registers": regs, "static_smem": st,
                       "local_bytes": loc, "blocks_per_sm": blk,
+                      "cluster": cl, "max_clusters": mcl,
                       "occupancy": occ, "configs": sorted(set(cases))})
+        clusters = f", clusters of {cl} ({mcl} at once)" if cl > 1 else ""
         print(f"  {kernel}[{path}]{'' if part == kernel else ' ' + part} "
               f"{dt}: {thr} threads, dyn smem {dyn} B, {regs} registers, "
               f"static smem {st} B, local {loc} B, {blk} blocks/SM "
-              f"(occupancy {occ:.2f}) — {len(set(cases))} configs",
-              flush=True)
+              f"(occupancy {occ:.2f}){clusters} — {len(set(cases))} "
+              "configs", flush=True)
     found += kernel_verify.paged_rule_findings(lib)
     check(not found, "phase S1 findings:\n  " + "\n  ".join(found))
     print(f"  {len(rows)} launches of {len(groups)} distinct footprints "

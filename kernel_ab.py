@@ -12,8 +12,10 @@ the L2 flushed before each launch) of flash attention at yi-9b's 8 x
 4,096 prefill, at 8 x 512 (hd 128), at 4 x 256 (hd 96) and at 4 x 256
 (hd 256, 10 heads over 1, window 2,048), of paged attention at
 llama2-7b's decode (8 rows, 32 x 32 heads, 16 pages of 32), and of the
-LoRA shrink and expand at 8 rows (d 4,096, r_max 64). `--tree ROOT` runs
-one tree. Needs one NVIDIA card.
+LoRA shrink and expand (d 4,096, r_max 64) at 8 rows, at the training
+step's 4,096 rows of one slot, at the yi-9b chunk's 512 rows of one slot
+of 8 (the shrink) and at the yi-9b prefill's 32,768 rows (8 slots).
+`--tree ROOT` runs one tree. Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -80,6 +82,29 @@ def time_tree(root: str) -> dict:
                                  n=100)
     out["expand decode us"] = us(lambda: bgmv.lora_expand(y, b, idx, live),
                                  n=100)
+    # the row tiles: training (4,096 rows of one slot), the yi-9b chunk
+    # (512 rows of one slot of 8) and the yi-9b prefill (8 slots, 4,096
+    # rows each)
+    for label, rows, slots, run, pair in (("train", 4096, 1, 4096, True),
+                                          ("chunk", 512, 8, 512, False),
+                                          ("prefill", 32768, 8, 4096, True)):
+        x = torch.randn(rows, 4096, generator=g, device="cuda").bfloat16()
+        a = (torch.randn(slots, 4096, 64, generator=g, device="cuda")
+             / 64).bfloat16()
+        b = (torch.randn(slots, 64, 4096, generator=g, device="cuda")
+             / 8).bfloat16()
+        idx = (torch.arange(rows, device="cuda") // run % slots).to(
+            torch.int32)
+        if slots > 1 and not pair:
+            idx.fill_(slots - 1)
+        live = torch.full((rows,), 64, device="cuda", dtype=torch.int32)
+        out[f"shrink {label} us"] = us(
+            lambda: bgmv.lora_shrink(x, a, idx, live), n=50)
+        if pair:
+            y = bgmv.lora_shrink(x, a, idx, live).bfloat16()
+            out[f"expand {label} us"] = us(
+                lambda: bgmv.lora_expand(y, b, idx, live), n=50)
+        del x, a, b
     return out
 
 

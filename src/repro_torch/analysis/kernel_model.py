@@ -18,8 +18,9 @@ widths (head dim, heads over KV heads, the LoRA targets' d_in / d_out
 from d_model, the padded `max_rank`, `rank_block`); rows, batch and
 pages stay small, as they change a launch's grid and not its per-block
 footprint, except where they choose a path: each LoRA kernel is
-modelled at a decode batch and at two prefills' rows, so every path
-appears (the shrink's row tiles of 64 and of 128 rows). `launches(case)`
+modelled at a decode batch and at three row counts, so every path
+appears (the shrink's row tiles of 64 and of 128 rows, split over a
+cluster of blocks and whole). `launches(case)`
 gives each kernel of the config's serving and training path as a
 `Launch`: the C entry point's shape arguments, the path, and the
 refusal (None: the wrapper takes it).
@@ -37,7 +38,9 @@ from repro_torch.kernels import bgmv, flash, paged
 
 H100_SMS = 132                 # the card's SMs: the plans' `sms` off the card
 DECODE_ROWS = 8                # a decode batch: the split / decode paths
-PREFILL_ROWS = (2048, 32768)   # prefills' rows: row tiles of 64 and of 128
+PREFILL_ROWS = (512, 4096, 32768)   # a chunk, a training step's rows and a
+                                    # prefill: row tiles of 64 split 8
+                                    # ways, of 128 split 4 ways, of 128
 FLASH_LEN = 512                # a prefill's length a row
 PAGED_BATCH = 8
 PAGE_SIZE = 32
@@ -137,7 +140,8 @@ def _lora_launches(case: Case, sms: int) -> Iterator[Launch]:
                 ("split" if sp.tile == 0 else f"tile {sp.tile}")
                 + ("" if d_in % 8 == 0 else " tail"), case.dtype,
                 dict(rows=rows, d_in=d_in, r_max=case.r_pad,
-                     slots=case.n_slots, tile=sp.tile, d_chunk=sp.d_chunk),
+                     slots=case.n_slots, tile=sp.tile, d_chunk=sp.d_chunk,
+                     split=sp.split),
                 bgmv.shrink_refusal(d_in, case.r_pad), "bgmv.shrink_refusal")
             rb = bgmv.expand_plan(rows, d_out, sms)
             yield Launch(

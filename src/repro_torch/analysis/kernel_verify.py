@@ -29,12 +29,16 @@ them, or reads what the compiler and the CUDA runtime report:
   repeated beside a matrix product on a second stream (which changes
   which blocks run when): bitwise equal.
 * ``kernel-dtype`` -> phase 2's f32 tolerances (the kernels accumulate in
-  f32 and cast once).
+  f32 and cast once), and here each LoRA path's first run held to its
+  plain version row by row (`rows_close`), which a split shrink whose
+  blocks miss part of d_in fails.
 
 `mutants` proves the checks fire, at the ctypes boundary with no change
 to any .cu: a launch told one row more than its output holds must trip
-the guard band, one told a row fewer the fill check, and an idx that
-points at a poisoned slot the poison check. Every function here returns
+the guard band, one told a row fewer the fill check, an idx that points
+at a poisoned slot the poison check, a row-tile shrink told half its
+split the entry point's refusal, and one told d_in 64 short the plain
+check. Every function here returns
 its findings (strings); chip_smoke.py fails the run on any.
 """
 from __future__ import annotations
@@ -51,6 +55,7 @@ from repro_torch.analysis import kernel_model
 from repro_torch.kernels import bgmv, build, flash, paged, ref
 
 REGS_PER_SM = 65536
+MAX_CLUSTER = 8                # blocks a cluster without opting in
 # kernels (ptxas entry names, by substring) allowed to spill, with why
 # (PERF.md lists them with the spill sizes of the last card run)
 ALLOWED_SPILLS: Dict[str, str] = {
@@ -64,10 +69,6 @@ ALLOWED_SPILLS: Dict[str, str] = {
         "f32 paged attention at an hd that is no multiple of 8 spills 8 B "
         "stored / 16 B loaded a thread; f32 runs only in the accuracy arms "
         "and tests, and no registered config has such an hd"),
-    "lora_shrink_tile_kernelIfLi128ELb0E": (
-        "the f32 row-tile shrink of 128 rows at a d_in that is no multiple "
-        "of 8 spills 4 B a thread; f32 runs only in the accuracy arms and "
-        "tests, and no registered config has such a d_in"),
 }
 GUARD = 4096                   # sentinel elements before and after a buffer
 SENTINEL_BITS = {torch.float32: 0x7FA5A5A5, torch.bfloat16: 0x7FA5}
@@ -87,6 +88,8 @@ class Footprint:
     static_smem: int
     local_bytes: int
     blocks_per_sm: int
+    cluster: int               # blocks a cluster (1: none)
+    max_clusters: int          # clusters the card holds at once (cluster > 1)
 
 
 def device_limits(lib, device: int = 0) -> Dict[str, int]:
@@ -103,8 +106,8 @@ def _describe(lib, launch: kernel_model.Launch) -> List[Dict[str, int]]:
     out = (ctypes.c_longlong * (2 * n))()
     if launch.kernel == "lora_shrink":
         rc = lib.rt_lora_shrink_info(a["rows"], a["d_in"], a["r_max"],
-                                     a["slots"], a["tile"], a["d_chunk"], dt,
-                                     out)
+                                     a["slots"], a["tile"], a["d_chunk"],
+                                     a["split"], dt, out)
     elif launch.kernel == "lora_expand":
         rc = lib.rt_lora_expand_info(a["rows"], a["r_max"], a["d_out"],
                                      a["row_blocks"], dt, out)
@@ -156,7 +159,8 @@ def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
                 fp = Footprint(
                     launch, "combine" if i else launch.kernel,
                     r["threads"], r["dyn_smem"], r["registers"],
-                    r["static_smem"], r["local_bytes"], r["blocks_per_sm"])
+                    r["static_smem"], r["local_bytes"], r["blocks_per_sm"],
+                    r["cluster"], r["max_clusters"])
                 rows.append(fp)
                 where = f"{launch.label} ({fp.part})"
                 smem = fp.dyn_smem + fp.static_smem
@@ -173,6 +177,16 @@ def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
                                     f"{min(REGS_PER_SM, lim['regs_block'])}")
                 if fp.blocks_per_sm == 0:
                     findings.append(f"{where}: no block fits on an SM")
+                if fp.cluster > MAX_CLUSTER:
+                    findings.append(f"{where}: a cluster of {fp.cluster} "
+                                    f"blocks > the portable {MAX_CLUSTER}")
+                if r["grid_x"] % fp.cluster:
+                    findings.append(f"{where}: grid x {r['grid_x']} is no "
+                                    f"multiple of its cluster {fp.cluster}")
+                if fp.cluster > 1 and fp.max_clusters < 1:
+                    findings.append(f"{where}: no cluster of {fp.cluster} "
+                                    f"blocks fits on the card "
+                                    f"({fp.max_clusters})")
     if not log:
         findings.append("no ptxas report (build.build_log is empty), so "
                         "spills cannot be read")
@@ -239,12 +253,25 @@ class Path:
     """One launch path of one kernel: `launch(ins, outs)` calls the C entry
     point on `ins` (tensors) into `outs` (Guarded) on the current stream;
     `poisoned` is `ins` with NaN in every region the launch must not
-    read."""
+    read; `want` (where given) the plain version's outputs on `ins`,
+    which the first run must match row by row (`rows_close`)."""
     name: str
     launch: Callable
     ins: dict
     poisoned: dict
     outs: Dict[str, Guarded]
+    want: Dict[str, torch.Tensor] = None
+
+
+def rows_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """chip_smoke's row rule: max |got - want| of each row within 1e-2 of
+    the row's max |want| in bf16, within 1e-5 x max(1, it) in f32."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().flatten(1).amax(1)
+    scale = w.abs().flatten(1).amax(1)
+    lim = 1e-2 * scale if want.dtype == torch.bfloat16 \
+        else 1e-5 * scale.clamp(min=1.0)
+    return bool(torch.isfinite(g).all()) and bool((err <= lim).all())
 
 
 def _run(path: Path, ins: dict, fill: float) -> Dict[str, torch.Tensor]:
@@ -263,6 +290,9 @@ def check_path(path: Path, busy: Callable) -> List[str]:
     """The canary protocol on one path (module docstring); its findings."""
     found = []
     first = _run(path, path.ins, float("nan"))
+    for k, w in (path.want or {}).items():
+        if not rows_close(path.outs[k].t, w):
+            found.append(f"{path.name}: {k} differs from the plain version")
     broke = [k for k, g in path.outs.items() if not g.guards_intact()]
     if broke:
         found.append(f"{path.name}: wrote past its output ({broke})")
@@ -340,20 +370,26 @@ def lora_inputs(rows, d_in, d_out, r_max, ranks, rank_block, dtype, seg,
     return clean, poisoned
 
 
-def shrink_path(lib, name, ins, poisoned, tile, d_chunk, rows_told=None):
+def shrink_path(lib, name, ins, poisoned, plan, rows_told=None,
+                split_told=None, d_in_told=None):
     rows, r_max = ins["rows"], ins["a"].shape[-1]
     told = rows if rows_told is None else rows_told
+    split = plan.split if split_told is None else split_told
+    d_in = ins["x"].shape[1] if d_in_told is None else d_in_told
 
     def launch(i, outs):
         rc = lib.rt_lora_shrink(
             i["x"].data_ptr(), i["a"].data_ptr(), i["idx"].data_ptr(),
-            i["live"].data_ptr(), outs["y"].t.data_ptr(), told,
-            i["x"].shape[1], r_max, i["slots"], tile, d_chunk,
+            i["live"].data_ptr(), outs["y"].t.data_ptr(), told, d_in, r_max,
+            i["slots"], plan.tile, plan.d_chunk, split,
             build.DTYPE_CODE[i["x"].dtype], _stream())
         build.check_launch(rc, name)
 
+    want = ref.lora_shrink_ref(ins["x"][:rows], ins["a"], ins["idx"][:rows],
+                               ins["live"][:rows])
     return Path(name, launch, ins, poisoned,
-                {"y": Guarded((rows, r_max), torch.float32, "cuda")})
+                {"y": Guarded((rows, r_max), torch.float32, "cuda")},
+                {"y": want})
 
 
 def expand_path(lib, name, ins, poisoned, row_blocks, rows_told=None):
@@ -368,8 +404,11 @@ def expand_path(lib, name, ins, poisoned, row_blocks, rows_told=None):
             _stream())
         build.check_launch(rc, name)
 
+    want = ref.lora_expand_ref(ins["y"][:rows], ins["b"], ins["idx"][:rows],
+                               ins["live"][:rows])
     return Path(name, launch, ins, poisoned,
-                {"out": Guarded((rows, d_out), ins["b"].dtype, "cuda")})
+                {"out": Guarded((rows, d_out), ins["b"].dtype, "cuda")},
+                {"out": want})
 
 
 def lora_paths(lib, sms) -> List[Path]:
@@ -385,6 +424,9 @@ def lora_paths(lib, sms) -> List[Path]:
               17),
              ("prefill many tiles bf16", 128 * sms + 77, 512, 512, 64,
               (64, 16, 33, 8), 16, bf, 4096),
+             # training's shape: one slot's rows (and idx -1) in tiles of
+             # 128, each split over a cluster of 8
+             ("train bf16", 4096, 4096, 4096, 64, (64,), 16, bf, 2048),
              ("prefill r_max 128 bf16", 300, 512, 1024, 128,
               (128, 16, 100, 8), 16, bf, 17),
              ("decode f32", 8, 256, 136, 24, (24, 3, 9, 1), 8, f32, 1),
@@ -400,9 +442,9 @@ def lora_paths(lib, sms) -> List[Path]:
         clean, pois = lora_inputs(rows, d_in, d_out, r_max, ranks, rb, dt,
                                   seg, seed=rows)
         sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms)
-        kind = "split" if sp.tile == 0 else f"tile {sp.tile}"
+        kind = "split" if sp.tile == 0 else f"tile {sp.tile} x{sp.split}"
         out.append(shrink_path(lib, f"lora_shrink[{kind}] {label}", clean,
-                               pois, sp.tile, sp.d_chunk))
+                               pois, sp))
         rb_ = bgmv.expand_plan(rows, d_out, sms)
         kind = "decode" if rb_ == 0 else f"row tiles r_max {r_max}"
         out.append(expand_path(lib, f"lora_expand[{kind}] {label}", clean,
@@ -564,6 +606,14 @@ def canaries(lib, sms) -> Tuple[List[str], List[str]]:
 
 # ------------------------------------------------------------- mutants ----
 
+def refused(run: Callable[[], List[str]]) -> List[str]:
+    """run()'s findings, or the entry point's refusal as one."""
+    try:
+        return run()
+    except RuntimeError as e:
+        return [f"refused: {e}"]
+
+
 def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
     """Each mutant and what the checks found; a mutant with no finding
     means a check that does not fire."""
@@ -580,8 +630,7 @@ def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
         for told, what in ((rows + 1, "one row more"),
                            (rows - 1, "one row fewer")):
             out.append((f"lora_shrink {label}: told {what}", check_path(
-                shrink_path(lib, "shrink", clean, pois, sp.tile, sp.d_chunk,
-                            told), busy)))
+                shrink_path(lib, "shrink", clean, pois, sp, told), busy)))
             out.append((f"lora_expand {label}: told {what}", check_path(
                 expand_path(lib, "expand", clean, pois, rb, told), busy)))
         # a row (of slot 0) pointed at the poisoned slot, with a live width
@@ -590,8 +639,20 @@ def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
         bad["idx"][row] = clean["slots"] - 1
         bad["live"][row] = 16
         out.append((f"lora_shrink {label}: idx at the poisoned slot",
-                    check_path(shrink_path(lib, "shrink", clean, bad,
-                                           sp.tile, sp.d_chunk), busy)))
+                    check_path(shrink_path(lib, "shrink", clean, bad, sp),
+                               busy)))
+        if sp.tile and sp.split > 1:
+            # a row-tile split told half its blocks: its slices miss half of d_in,
+            # which the entry point refuses; told d_in 64 short, its
+            # slices miss d_in's last box, which the plain version sees
+            out.append((f"lora_shrink {label}: told split {sp.split // 2} "
+                        f"of {sp.split}", refused(lambda: check_path(
+                            shrink_path(lib, "shrink", clean, pois, sp,
+                                        split_told=sp.split // 2), busy))))
+            out.append((f"lora_shrink {label}: told d_in {d_in - 64}",
+                        check_path(shrink_path(
+                            lib, "shrink", clean, pois, sp,
+                            d_in_told=d_in - 64), busy)))
         out.append((f"lora_expand {label}: idx at the poisoned slot",
                     check_path(expand_path(lib, "expand", clean, bad, rb),
                                busy)))

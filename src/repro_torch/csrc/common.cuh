@@ -122,15 +122,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ------------------------------------------------------------ launches ----
 
-// One kernel launch: the kernel, its grid, its block and its dynamic shared
-// memory. Every entry point builds its launches with one function, which
-// serves both the launch (`launch`) and its description (`describe`, for the
-// rt_*_info entry points): the footprint checks read the launch that runs.
+// One kernel launch: the kernel, its grid, its block, its dynamic shared
+// memory and, where it is more than 1, the blocks of a cluster it is
+// launched with (grid.x a multiple of it). Every entry point builds its
+// launches with one function, which serves both the launch (`launch`) and
+// its description (`describe`, for the rt_*_info entry points): the
+// footprint checks read the launch that runs.
 struct Launch {
   const void* fn;
   dim3 grid;
   int threads;
   size_t smem;
+  unsigned cluster = 1;
 };
 
 // Raise the kernel's dynamic shared memory limit where the launch needs more
@@ -141,22 +144,51 @@ inline cudaError_t prepare(const Launch& l) {
       l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
 }
 
+// The launch's configuration for cudaLaunchKernelExC (a cluster of
+// l.cluster blocks along x); `attr` must outlive its use.
+inline cudaLaunchConfig_t cluster_config(const Launch& l,
+                                         cudaLaunchAttribute* attr,
+                                         cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = l.grid;
+  cfg.blockDim = dim3(l.threads);
+  cfg.dynamicSmemBytes = l.smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = l.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // `args`: a pointer to each of the kernel's arguments, in order.
 inline cudaError_t launch(const Launch& l, void** args, cudaStream_t st) {
   cudaError_t e = prepare(l);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernel(l.fn, l.grid, dim3(l.threads), args, l.smem, st);
+  if (l.cluster > 1) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(l, &attr, st);
+    e = cudaLaunchKernelExC(&cfg, l.fn, args);
+  } else {
+    e = cudaLaunchKernel(l.fn, l.grid, dim3(l.threads), args, l.smem, st);
+  }
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
 }
 
-constexpr int kInfoFields = 10;
+constexpr int kInfoFields = 12;
 
 // kInfoFields numbers of launch `l`: grid x, y, z, threads, dynamic shared
 // memory, registers a thread, static shared memory, local memory a thread
-// (bytes), the kernel's most threads a block, and resident blocks an SM
+// (bytes), the kernel's most threads a block, resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; minus its error code
-// where the query fails).
+// where the query fails), the blocks of a cluster (the launch's, or the
+// kernel's compiled __cluster_dims__; 1: none) and, for clusters of more
+// than one block, the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; minus its error code where the query
+// fails; 0 where no cluster fits), else 0.
 inline cudaError_t describe(const Launch& l, long long* out) {
   cudaError_t e = prepare(l);
   if (e != cudaSuccess) return e;
@@ -167,6 +199,18 @@ inline cudaError_t describe(const Launch& l, long long* out) {
   const cudaError_t oe = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks, l.fn, l.threads, l.smem);
   cudaGetLastError();   // a failed query must not surface at a later launch
+  const long long compiled = (long long)a.requiredClusterWidth *
+                             a.requiredClusterHeight *
+                             a.requiredClusterDepth;
+  int clusters = 0;
+  cudaError_t ce = cudaSuccess;
+  if (l.cluster > 1 || compiled > 1) {
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(l, &attr, nullptr);
+    if (l.cluster <= 1) cfg.numAttrs = 0;   // the compiled cluster
+    ce = cudaOccupancyMaxActiveClusters(&clusters, l.fn, &cfg);
+    cudaGetLastError();
+  }
   out[0] = l.grid.x;
   out[1] = l.grid.y;
   out[2] = l.grid.z;
@@ -177,6 +221,9 @@ inline cudaError_t describe(const Launch& l, long long* out) {
   out[7] = (long long)a.localSizeBytes;
   out[8] = a.maxThreadsPerBlock;
   out[9] = oe == cudaSuccess ? blocks : -(long long)oe;
+  out[10] = l.cluster > 1 ? (long long)l.cluster
+                          : (compiled > 1 ? compiled : 1);
+  out[11] = ce == cudaSuccess ? clusters : -(long long)ce;
   return cudaSuccess;
 }
 

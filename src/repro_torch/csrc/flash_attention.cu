@@ -551,34 +551,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return rt::launch(f32_launch<HD>(B, p.H, p.Lq), args, st);
 }
 
-// cuTensorMapEncodeTiled is a driver-API function. It is looked up at run
-// time through the runtime's driver entry point, so the library links
-// nothing beyond the CUDA runtime; a driver without it makes every bf16
-// call fail with cudaErrorNotSupported.
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                            cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The 4-D map (cols, L, heads, batch) of a bf16 (B, heads, L, cols) view
 // with element strides sb, sh, sl, boxes of (kBox, rows) zero-filled
 // outside: a width below HD reads as HD columns, the rest zero.
@@ -593,7 +565,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int heads, int L,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {(cuuint32_t)T::kBox, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return encode_tiled()(
+  return rt::encode_tiled()(
              map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<void*>(ptr), dims, strides, box, estr,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -614,7 +586,7 @@ rt::Launch bf16_launch(int B, int H, int Lq) {
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, Problem p, int B, cudaStream_t st) {
-  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  if (rt::encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   constexpr int kBK = Tile<HD>::kBK;
   if (!tensor_map<HD>(&tq, q, B, p.H, p.Lq, p.cols, p.qb, p.qh, p.ql,

@@ -16,19 +16,32 @@
 // x against ~2 bytes, and each adapter's A (d_in x r_max) is shared by
 // every row of that adapter: at yi-9b's prefill (32,768 rows, d_in 4096,
 // r_max 64, 8 adapters) x is 268 MB, A 4 MB and y 8 MB, 84 us at
-// 3.35 TB/s against 17 us of tensor-core work. Two launch shapes, chosen
-// on the host from `rows` (kernels/bgmv.py: shrink_plan):
-//  - Row tiles (prefill and chunks). Tiles of 64 or 128 consecutive rows,
-//    one block per (tile, distinct slot of the tile); prefill repeats each
-//    row's slot T times, so most tiles hold one slot and their other
-//    blocks exit at once. A block streams d_in in 64-wide chunks of x
-//    (its slot's rows only) and of
-//    A[s][:, :live] through a 4-stage cp.async ring and multiplies on the
-//    tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate; N <= 64 a
-//    pass, so mma.sync's fragments cost no more than wgmma's here), each
-//    warp 16 rows; each stage's sum is added into the f32 total on the
-//    CUDA cores. So x is read once and A once per tile, not once per
-//    row. f32 takes the same tiles on CUDA cores (no TF32).
+// 3.35 TB/s against 17 us of tensor-core work. Three launch shapes, chosen
+// on the host from `rows`, d_in and the SM count (kernels/bgmv.py:
+// shrink_plan):
+//  - Row tiles (prefill, chunks, training). Tiles of 64 or 128 consecutive
+//    rows, one block per (tile, distinct slot of the tile); prefill
+//    repeats each row's slot T times, so most tiles hold one slot and
+//    their other blocks exit at once. What bounds a launch is how many
+//    blocks stream x at once: a block walks its d range one stage after
+//    another, so a launch of few tiles (the yi-9b chunk: 8 tiles of one
+//    slot; training: 32 tiles of one slot) left most SMs idle while a few
+//    walked all of d_in (81-90 us on the H100 against 1.4-10.5 us of
+//    bytes). So where the tiles cannot fill the card, `split` blocks of
+//    one cluster (2, 4 or 8, as many as give no SM a second block) share
+//    a tile, each over a slice of d_in of whole 64-wide stages; each
+//    keeps its f32 partial sums in its shared memory, and the cluster
+//    adds them in rank order through distributed shared memory (no
+//    atomics), each block writing 1 / split of the tile's rows.
+//    Launches whose tiles fill the card (the 32,768-row
+//    prefill) keep one block a tile. In bf16 (d_in a multiple of 8) a
+//    stage costs one thread a TMA copy of x's 64-d slab of the tile and
+//    A[s][64 d, 64 columns] into a ring of 4-6 stages (an mbarrier each,
+//    96 KiB: 2 blocks an SM) and each warpgroup (64 rows) one wgmma
+//    m64n64k16 chain of 4 k-steps, bf16 in, f32 out, added into the f32
+//    total on the CUDA cores. f32 and other widths take cp.async copies
+//    and mma.sync (bf16) or the CUDA cores (f32). So x is read once and A
+//    once per tile, not once per row.
 //  - Split d_in (decode, up to 64 rows). A cluster of kSplit blocks per
 //    row, each reducing a slice of d_in; rank 0 adds the blocks' partial
 //    sums from their shared memory (distributed shared memory) in rank
@@ -38,18 +51,23 @@
 // The expand is bound by bytes too, and by its output: at yi-9b's prefill
 // (d_out 4096) out is 268 MB against 4 MB each of y and B. Two launch
 // shapes, chosen on the host from `rows` (kernels/bgmv.py: expand_plan):
-//  - Row tiles (prefill and chunks). A block owns 256 output columns and
-//    walks every row_blocks-th tile of 64 consecutive rows, with the next
-//    tile's y and slots loading (cp.async) while it works on the current
-//    one. For each distinct slot of a tile (prefill repeats each row's
-//    slot T times, so most tiles hold one) it multiplies the tile's y by
-//    B[s][:live, 256 columns] on the tensor cores (mma.sync m16n8k16,
-//    bf16 in, f32 accumulate; warp tiles of 32 x 64), 64 rank rows a
-//    pass, each pass added on the CUDA cores, casts once and writes the
-//    slot's rows through shared memory as 16-byte stores. The B tile
-//    stays in shared memory while the slot does not change, so B is read
-//    about once per block instead of once per row; every element of out
-//    is written by one block. f32 takes the same tiles on CUDA cores.
+//  - Row tiles (prefill, chunks, training). A block owns 256 output
+//    columns and walks every row_blocks-th tile of 64 consecutive rows,
+//    with the next tile's y and slots loading (cp.async) while it works on
+//    the current one. For each distinct slot of a tile (prefill repeats
+//    each row's slot T times, so most tiles hold one) it multiplies the
+//    tile's y by B[s][:live, 256 columns] on the tensor cores (mma.sync
+//    m16n8k16, bf16 in, f32 accumulate; warp tiles of 32 x 64), 64 rank
+//    rows a pass, each pass added on the CUDA cores, and casts once into a
+//    staged output tile. The B tile stays in shared memory while the slot
+//    does not change, so B is read about once per block instead of once
+//    per row; every element of out is written by one block. The output's
+//    32 KB a tile are most of the bytes: in bf16 a tile whose rows all
+//    belong to the slot (every tile of training's and prefill's runs) is
+//    written by TMA bulk stores from one thread, which drain while the
+//    block loads and multiplies the next tile, instead of by every thread
+//    between two barriers; other tiles store their slot's rows 16 bytes a
+//    thread. f32 takes the same tiles on CUDA cores.
 //  - Decode (up to 64 rows). One block per (row, 256 columns): each lane
 //    owns 8 columns, read from one rank row of B in a 16-byte load, and
 //    the 8 warps split the live rank rows, their partials added in warp
@@ -59,14 +77,18 @@
 // is a multiple of 8, x, B and out move 16 bytes at a time; otherwise the
 // row-tile and decode kernels are instantiated with element copies and
 // stores (kVec false), zero past the width, so a partial k-step of 16 sums
-// zeros. The split shrink reads x element by element on either. r_max
-// stays a multiple of 8 (the pool pads it: kernels/bgmv.py padded_rank).
+// zeros. The split shrink reads x element by element on either; TMA
+// needs 16-byte strides, so only such widths take the wgmma shrink and the
+// TMA stores. r_max stays a multiple of 8 (the pool pads it:
+// kernels/bgmv.py padded_rank).
 // Every sum runs in a fixed order (no atomics): results repeat bitwise.
 #include <type_traits>
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -141,6 +163,247 @@ __global__ void __cluster_dims__(kSplit, 1, 1) lora_shrink_split_kernel(
 // -------------------------------------------------- shrink: row tiles ----
 
 constexpr int kCols = 64;                   // rank columns a pass
+constexpr int kLdp = kCols + 4;             // a partial's row (f32)
+constexpr int kMaxTileSplit = 8;            // blocks a cluster: portable
+
+// The row-tile prologue, shared by both row-tile kernels: each row of the
+// tile [row0, row0 + BM) gets its slot (-1: past `rows` or no adapter) in
+// sidx and its live width in slive; `k`, the block's y, selects the tile's
+// k-th distinct slot, returned in s (-1: the tile has fewer) with its
+// rows' widest live width rounded up to 8 in ncol. With `zeros`, the rows
+// without an adapter are written as zero rows (the first block of a tile).
+// Every block of a cluster shares (tile, k), so they return together.
+template <int BM, int kThr>
+__device__ __forceinline__ void tile_slot(
+    const int* __restrict__ idx, const int* __restrict__ live,
+    float* __restrict__ y, int* sidx, int* slive, int* width, int rows,
+    int r_max, int slots, int row0, int k, bool zeros, int& s, int& ncol) {
+  const int tid = threadIdx.x;
+  if (tid < BM) {
+    const int r = row0 + tid;
+    int sl = -1, lv = 0;
+    if (r < rows) {
+      sl = idx[r];
+      if (sl < 0 || sl >= slots) sl = -1;
+      else lv = max(0, min(live[r], r_max));
+    }
+    sidx[tid] = sl;
+    slive[tid] = lv;
+  }
+  __syncthreads();
+  // a slot's first row in the tile holds the widest live width of the
+  // slot's rows; every other row -1
+  if (tid < BM) {
+    const int sl = sidx[tid];
+    int w = -1;
+    if (sl >= 0) {
+      bool first = true;
+      for (int u = tid - 1; u >= 0 && first; --u) first = sidx[u] != sl;
+      if (first) {
+        w = 0;
+        for (int u = tid; u < BM; ++u)
+          if (sidx[u] == sl) w = max(w, slive[u]);
+      }
+    }
+    width[tid] = w;
+  }
+  if (zeros) {
+    for (int i = tid; i < BM * r_max; i += kThr) {
+      const int r = i / r_max;
+      if (row0 + r < rows && sidx[r] < 0)
+        y[(size_t)(row0 + r) * r_max + i % r_max] = 0.f;
+    }
+  }
+  __syncthreads();
+  s = -1;
+  ncol = 0;
+  for (int u = 0, n = 0; u < BM; ++u) {
+    if (width[u] < 0 || n++ != k) continue;                 // uniform
+    s = sidx[u];
+    ncol = (width[u] + 7) / 8 * 8;
+    break;
+  }
+}
+
+// Barrier of the blocks that share a tile's partial sums: the cluster, or
+// the block alone.
+__device__ __forceinline__ void split_sync(int split) {
+  if (split > 1) cg::this_cluster().sync();
+  else __syncthreads();
+}
+
+// y[rows of slot s, c0 : c0 + kCols] from the blocks' partial sums of a
+// pass (each block's BM x kCols f32 in its own shared memory, row stride
+// kLdp, written before the call). Block `part` of the `split` blocks of
+// the tile sums and writes rows [part * BM / split, ...) of every block's
+// partials in rank order (distributed shared memory, no atomics: the sum
+// repeats bitwise), 4 columns a thread; columns at or past the pass's nc
+// or a row's live width are 0. nc <= 0: no partials, zeros. Returns once
+// every block has read every partial.
+template <int BM, int kThr>
+__device__ __forceinline__ void store_pass(
+    float* partial, float* __restrict__ y, const int* sidx, const int* slive,
+    int s, int row0, int rows, int r_max, int c0, int nc, int split,
+    int part) {
+  const int ccount = min(kCols, r_max - c0);     // a multiple of 8
+  const int per = BM / split;
+  if (nc > 0) split_sync(split);                 // every partial written
+  for (int i = threadIdx.x; i < per * (ccount / 4); i += kThr) {
+    const int r = part * per + i / (ccount / 4), c = i % (ccount / 4) * 4;
+    if (row0 + r >= rows || sidx[r] != s) continue;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < nc && c0 + c < slive[r]) {
+#pragma unroll
+      for (int k = 0; k < kMaxTileSplit; ++k) {
+        if (k >= split) break;
+        const float* src = split > 1
+            ? cg::this_cluster().map_shared_rank(partial, k) : partial;
+        const float4 p = *reinterpret_cast<const float4*>(src + r * kLdp + c);
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+      }
+      const int lv = min(nc, slive[r] - c0);     // columns [c, lv) live
+      if (c + 1 >= lv) v.y = 0.f;
+      if (c + 2 >= lv) v.z = 0.f;
+      if (c + 3 >= lv) v.w = 0.f;
+    }
+    *reinterpret_cast<float4*>(y + (size_t)(row0 + r) * r_max + c0 + c) = v;
+  }
+  if (nc > 0) split_sync(split);                 // every partial read
+}
+
+// -- bf16 row tiles through TMA and wgmma (d_in a multiple of 8) --
+
+constexpr int kWD = 64;                     // d a TMA box: 128 bytes of bf16
+
+// BM rows a tile in BM / 64 warpgroups (wgmma's 64 rows each); a stage is
+// the tile's x[:, 64 d] (BM rows of 128 bytes) and A[s][64 d, 64 columns]
+// (64 rows of 128 bytes), both 128-byte swizzled as TMA writes them.
+template <int BM>
+struct WTile {
+  static constexpr int kThreads = 2 * BM;           // BM / 64 warpgroups
+  static constexpr int kXBytes = BM * kWD * 2;
+  static constexpr int kABytes = kWD * kCols * 2;
+  static constexpr int kStageBytes = kXBytes + kABytes;
+  static constexpr int kStages = BM == 64 ? 6 : 4;  // 96 KiB: 2 blocks an SM
+  static constexpr int kRing = kStages * kStageBytes;
+  static_assert(kRing >= BM * kLdp * 4, "the partials reuse the ring");
+  static constexpr size_t kSmem = kRing + 1024;     // + a 1024-byte align
+};
+
+// Block (tile, k, part): the tile's k-th distinct slot s over d in
+// [part * d_chunk, (part + 1) * d_chunk) (d_chunk a multiple of kWD),
+// `split` blocks a tile in one cluster. Thread 0 keeps the ring full
+// (one mbarrier a stage; TMA zero-fills past d_in and past `rows`);
+// each warpgroup multiplies its 64 rows of every stage by the stage's A
+// tile (wgmma m64n64k16, bf16 in, f32 out, 4 k-steps) and adds the sum
+// into its f32 total on the CUDA cores: the tensor cores' f32 adds round
+// toward zero, which over d_in 4096 drifts past the f32 limit. Rows of
+// other slots are multiplied too and never stored; a warpgroup with no
+// row of s only waits. After all stages the totals go to shared memory
+// (over the ring) and store_pass sums the cluster's partials.
+template <int BM>
+__global__ void __launch_bounds__(WTile<BM>::kThreads)
+    lora_shrink_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap ta,
+                             const int* __restrict__ idx,
+                             const int* __restrict__ live,
+                             float* __restrict__ y, int rows, int d_in,
+                             int r_max, int slots, int d_chunk, int split) {
+  using W = WTile<BM>;
+  constexpr int S = W::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (rt::smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ __align__(8) uint64_t full[S];
+  __shared__ int sidx[BM], slive[BM], width[BM];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid / 128, warp = (tid / 32) & 3;
+  const int part = (int)blockIdx.x % split;
+  const int row0 = (int)blockIdx.x / split * BM;
+  int s, ncol;
+  tile_slot<BM, W::kThreads>(idx, live, y, sidx, slive, width, rows, r_max,
+                             slots, row0, blockIdx.y,
+                             blockIdx.y == 0 && part == 0, s, ncol);
+  if (s < 0) return;
+  if (tid == 0) {
+    for (int b = 0; b < S; ++b) rt::mbar_init(&full[b], 1);
+    rt::fence_barrier_init();
+  }
+  bool mine = false;                        // a row of s in my 64 rows
+  for (int r = 0; r < 64; ++r) mine |= sidx[wg * 64 + r] == s;
+  __syncthreads();
+  const int lo = part * d_chunk, hi = min(d_in, lo + d_chunk);
+  const int nk = hi > lo ? (hi - lo + kWD - 1) / kWD : 0;
+  float* partial = reinterpret_cast<float*>(ring);
+  int g = 0;                                // stages issued before the pass
+  for (int c0 = 0; c0 < r_max; c0 += kCols) {
+    const int nc = min(kCols, ncol - c0);
+    if (nc > 0) {
+      const CUtensorMap* mx = &tx;
+      const CUtensorMap* ma = &ta;
+      auto issue = [&](int kt) {            // stage kt of this pass
+        const int b = (g + kt) % S;
+        unsigned char* st = ring + b * W::kStageBytes;
+        rt::mbar_expect_tx(&full[b], W::kStageBytes);
+        rt::tma_load_4d(st, mx, &full[b], lo + kt * kWD, row0, 0, 0);
+        rt::tma_load_4d(st + W::kXBytes, ma, &full[b], c0, lo + kt * kWD, s,
+                        0);
+      };
+      if (tid == 0)
+        for (int kt = 0; kt < min(nk, S); ++kt) issue(kt);
+      float acc[kCols / 2], part_d[kCols / 2];
+#pragma unroll
+      for (int i = 0; i < kCols / 2; ++i) acc[i] = part_d[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int b = (g + kt) % S;
+        rt::mbar_wait(&full[b], ((g + kt) / S) & 1);
+        if (mine) {
+          unsigned char* st = ring + b * W::kStageBytes;
+          // x: K-major, SBO one 8-row atom, a k-step 32 bytes on; A:
+          // MN-major (transpose bit), a k-step 16 rows of 128 bytes on
+          const uint64_t da = rt::smem_desc(st + wg * 64 * 128, 16, 1024, 1);
+          const uint64_t db = rt::smem_desc(st + W::kXBytes, kWD * 128, 1024,
+                                            1);
+          rt::fence_regs(part_d);
+          rt::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kWD / 16; ++kk)
+            rt::Wgmma<kCols>::template ss<0, 1>(part_d, da + 2 * kk,
+                                                db + 128 * kk, kk > 0);
+          rt::wgmma_commit();
+          rt::wgmma_wait<0>();
+          rt::fence_regs(part_d);
+#pragma unroll
+          for (int i = 0; i < kCols / 2; ++i) acc[i] += part_d[i];
+        }
+        __syncthreads();                    // stage b read by every warp
+        if (tid == 0 && kt + S < nk) issue(kt + S);
+      }
+      g += nk;
+      // d[4i + 2h + e]: row 16 warp + lane / 4 + 8h, column 8i + 2 (lane %
+      // 4) + e of the warpgroup's 64 rows
+      if (mine) {
+#pragma unroll
+        for (int i = 0; i < kCols / 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+            *reinterpret_cast<float2*>(partial + r * kLdp + 8 * i +
+                                       2 * (lane & 3)) =
+                make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+          }
+      }
+      rt::fence_proxy_async();              // the ring is TMA's again next
+    }
+    store_pass<BM, W::kThreads>(partial, y, sidx, slive, s, row0, rows,
+                                r_max, c0, nc, split, part);
+  }
+}
+
+// -- row tiles through cp.async (f32 on CUDA cores; bf16 at other d_in) --
 
 template <typename T> struct TileCfg;
 template <> struct TileCfg<bf16> {
@@ -159,31 +422,32 @@ constexpr size_t tile_smem() {
                                    (size_t)C::kBD * C::kLda);
 }
 
-// One pass: y[rows of slot s in the tile, c0 : c0 + kCols] over all of
-// d_in, with nc (a multiple of 8, >= 8) columns computed and the rest 0.
-// kVec: d_in a multiple of 8, x's rows copied in 16-byte cp.async; else
-// element by element (a row then starts anywhere), zero past d_in, so a
-// partial mma k-step of 16 sums zeros.
+// One pass: the partial sums of y[rows of slot s in the tile, c0 : c0 +
+// kCols] over d in [lo, hi), with nc (a multiple of 8, >= 8) columns
+// computed, into `partial` (BM x kLdp f32 over the ring; rows of other
+// slots are not written). kVec: d_in a multiple of 8, x's rows copied in
+// 16-byte cp.async (f32 only: bf16 at such widths takes the wgmma
+// kernel); else element by element (a row then starts anywhere), zero past
+// hi, so a partial mma k-step of 16 sums zeros.
 template <typename T, int BM, bool kVec>
 __device__ __forceinline__ void shrink_pass(
-    const T* __restrict__ x, const T* __restrict__ as_g, float* __restrict__ y,
-    T* xs, T* as, const int* sidx, const int* slive, int s, int row0,
-    int rows, int d_in, int r_max, int c0, int nc) {
+    const T* __restrict__ x, const T* __restrict__ as_g, float* partial,
+    T* xs, T* as, const int* sidx, int s, int row0, int lo, int hi,
+    int d_in, int r_max, int c0, int nc) {
   using C = TileCfg<T>;
   constexpr int kThr = 2 * BM;
   constexpr int VEC = 16 / sizeof(T);       // elements a 16-byte copy
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nk = (d_in + C::kBD - 1) / C::kBD;
-  const int ccount = min(kCols, r_max - c0);
+  const int nk = hi > lo ? (hi - lo + C::kBD - 1) / C::kBD : 0;
 
   auto load = [&](int buf, int kt) {
-    const int d0 = kt * C::kBD;
+    const int d0 = lo + kt * C::kBD;
     T* xb = xs + buf * BM * C::kLdx;
     if constexpr (kVec) {
       constexpr int XC = C::kBD / VEC;      // copies a row of x
       for (int i = tid; i < BM * XC; i += kThr) {
         const int r = i / XC, d = d0 + (i % XC) * VEC;
-        const bool ok = sidx[r] == s && d < d_in;  // other slots' rows: 0
+        const bool ok = sidx[r] == s && d < hi;  // other slots' rows: 0
         const T* src = ok ? x + (size_t)(row0 + r) * d_in + d : x;
         rt::cp_async16(xb + r * C::kLdx + (i % XC) * VEC, src, ok);
       }
@@ -193,15 +457,15 @@ __device__ __forceinline__ void shrink_pass(
       for (int i = tid; i < BM * C::kBD; i += kThr) {
         const int r = i / C::kBD, d = d0 + i % C::kBD;
         xb[r * C::kLdx + i % C::kBD] =
-            sidx[r] == s && d < d_in ? x[(size_t)(row0 + r) * d_in + d]
-                                     : rt::from_f32<T>(0.f);
+            sidx[r] == s && d < hi ? x[(size_t)(row0 + r) * d_in + d]
+                                   : rt::from_f32<T>(0.f);
       }
     }
     T* ab = as + buf * C::kBD * C::kLda;
     constexpr int AC = kCols / VEC;         // copies a d row of A
     for (int i = tid; i < C::kBD * AC; i += kThr) {
       const int r = i / AC, c = (i % AC) * VEC, d = d0 + r;
-      const bool ok = d < d_in && c < nc;   // dead columns are never read
+      const bool ok = d < hi && c < nc;     // dead columns are never read
       const T* src = ok ? as_g + (size_t)d * r_max + c0 + c : as_g;
       rt::cp_async16(ab + r * C::kLda + c, src, ok);
     }
@@ -213,8 +477,7 @@ __device__ __forceinline__ void shrink_pass(
     const bool mine = __any_sync(0xffffffffu, sidx[warp * 16 + (lane & 15)]
                                                   == s);
     // each stage's products are summed by the tensor cores into `part`,
-    // then added to `acc` on the CUDA cores: the tensor cores' f32 adds
-    // round toward zero, which over d_in 4096 drifts past the f32 limit
+    // then added to `acc` on the CUDA cores (see the wgmma kernel)
     float acc[kCols / 8][4];
 #pragma unroll
     for (int n = 0; n < kCols / 8; ++n)
@@ -261,24 +524,16 @@ __device__ __forceinline__ void shrink_pass(
         for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
     }
     rt::cp_async_wait<0>();
-    __syncthreads();                        // buffers free for the next pass
+    __syncthreads();                        // the ring is free: partials
     if (!mine) return;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = warp * 16 + (lane >> 2) + 8 * h;
-      if (row0 + r >= rows || sidx[r] != s) continue;
-      float* yr = y + (size_t)(row0 + r) * r_max + c0;
 #pragma unroll
-      for (int n = 0; n < kCols / 8; ++n) {
-        const int c = n * 8 + (lane & 3) * 2;
-        if (n * 8 < ccount) {
-          float2 v;
-          v.x = (c < nc && c0 + c < slive[r]) ? acc[n][2 * h] : 0.f;
-          v.y = (c + 1 < nc && c0 + c + 1 < slive[r]) ? acc[n][2 * h + 1]
-                                                      : 0.f;
-          *reinterpret_cast<float2*>(yr + c) = v;
-        }
-      }
+      for (int n = 0; n < kCols / 8; ++n)
+        *reinterpret_cast<float2*>(partial + r * kLdp + n * 8 +
+                                   (lane & 3) * 2) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
     }
   } else {
     // f32 on CUDA cores: thread = 4 rows x 8 columns
@@ -316,104 +571,71 @@ __device__ __forceinline__ void shrink_pass(
       }
     }
     rt::cp_async_wait<0>();
-    __syncthreads();
-    if (cgp * 8 >= ccount) return;
+    __syncthreads();                        // the ring is free: partials
+    if (cgp * 8 >= nc) return;              // columns past nc: never read
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i;
-      if (row0 + r >= rows || sidx[r] != s) continue;
-      float* yr = y + (size_t)(row0 + r) * r_max + c0 + cgp * 8;
+      float* pr = partial + (rg * 4 + i) * kLdp + cgp * 8;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cgp * 8 + j;
-        yr[j] = (c < nc && c0 + c < slive[r]) ? acc[i][j] : 0.f;
-      }
+      for (int j = 0; j < 8; ++j) pr[j] = acc[i][j];
     }
   }
 }
 
+// Block (tile, k, part) as the wgmma kernel's, through shrink_pass.
 template <typename T, int BM, bool kVec>
 __global__ void __launch_bounds__(2 * BM) lora_shrink_tile_kernel(
     const T* __restrict__ x, const T* __restrict__ a,
     const int* __restrict__ idx, const int* __restrict__ live,
-    float* __restrict__ y, int rows, int d_in, int r_max, int slots) {
+    float* __restrict__ y, int rows, int d_in, int r_max, int slots,
+    int d_chunk, int split) {
   using C = TileCfg<T>;
   constexpr int kThr = 2 * BM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
   T* as = xs + C::kStages * BM * C::kLdx;
+  float* partial = reinterpret_cast<float*>(smem_raw);
   __shared__ int sidx[BM], slive[BM], width[BM];
-  const int row0 = blockIdx.x * BM, tid = threadIdx.x;
-  // each row's slot (-1: past `rows` or no adapter) and live width
-  if (tid < BM) {
-    const int r = row0 + tid;
-    int s = -1, lv = 0;
-    if (r < rows) {
-      s = idx[r];
-      if (s < 0 || s >= slots) s = -1;
-      else lv = max(0, min(live[r], r_max));
-    }
-    sidx[tid] = s;
-    slive[tid] = lv;
-  }
-  __syncthreads();
-  // a slot's first row in the tile holds the widest live width of the
-  // slot's rows; every other row -1
-  if (tid < BM) {
-    const int s = sidx[tid];
-    int w = -1;
-    if (s >= 0) {
-      bool first = true;
-      for (int u = tid - 1; u >= 0 && first; --u) first = sidx[u] != s;
-      if (first) {
-        w = 0;
-        for (int u = tid; u < BM; ++u)
-          if (sidx[u] == s) w = max(w, slive[u]);
-      }
-    }
-    width[tid] = w;
-  }
-  // rows without an adapter: zero rows (written by the tile's first block)
-  if (blockIdx.y == 0) {
-    for (int i = tid; i < BM * r_max; i += kThr) {
-      const int r = i / r_max;
-      if (row0 + r < rows && sidx[r] < 0)
-        y[(size_t)(row0 + r) * r_max + i % r_max] = 0.f;
-    }
-  }
-  __syncthreads();
-  // block y of the tile takes the tile's y-th distinct slot, if any
-  for (int u = 0, k = 0; u < BM; ++u) {
-    if (width[u] < 0 || k++ != (int)blockIdx.y) continue;   // uniform
-    const int s = sidx[u];
-    const int ncol = (width[u] + 7) / 8 * 8;      // computed columns
-    const T* as_g = a + (size_t)s * d_in * r_max;
-    for (int c0 = 0; c0 < r_max; c0 += kCols) {
-      const int nc = min(kCols, ncol - c0);
-      if (nc > 0) {
-        shrink_pass<T, BM, kVec>(x, as_g, y, xs, as, sidx, slive, s, row0,
-                                 rows, d_in, r_max, c0, nc);
-      } else {                              // columns past every live
-        const int ccount = min(kCols, r_max - c0);
-        for (int i = tid; i < BM * ccount; i += kThr) {
-          const int r = i / ccount;
-          if (row0 + r < rows && sidx[r] == s)
-            y[(size_t)(row0 + r) * r_max + c0 + i % ccount] = 0.f;
-        }
-      }
-    }
-    break;
+  const int part = (int)blockIdx.x % split;
+  const int row0 = (int)blockIdx.x / split * BM;
+  int s, ncol;
+  tile_slot<BM, kThr>(idx, live, y, sidx, slive, width, rows, r_max, slots,
+                      row0, blockIdx.y, blockIdx.y == 0 && part == 0, s,
+                      ncol);
+  if (s < 0) return;
+  const int lo = part * d_chunk, hi = min(d_in, lo + d_chunk);
+  const T* as_g = a + (size_t)s * d_in * r_max;
+  for (int c0 = 0; c0 < r_max; c0 += kCols) {
+    const int nc = min(kCols, ncol - c0);
+    if (nc > 0)
+      shrink_pass<T, BM, kVec>(x, as_g, partial, xs, as, sidx, s, row0, lo,
+                               hi, d_in, r_max, c0, nc);
+    store_pass<BM, kThr>(partial, y, sidx, slive, s, row0, rows, r_max, c0,
+                         nc, split, part);
   }
 }
 
-// a tile holds at most min(slots, BM) distinct slots: one block each
+// A tile holds at most min(slots, BM) distinct slots: one block each (y),
+// `split` blocks a tile (x) in a cluster. bf16 at a d_in that is a
+// multiple of 8 takes the wgmma kernel (its tensor maps made by the
+// caller); f32 and other widths the cp.async kernel.
 template <typename T, int BM>
-rt::Launch tile_launch(int rows, int d_in, int slots) {
-  return {d_in % rt::kVec == 0
-              ? (const void*)lora_shrink_tile_kernel<T, BM, true>
-              : (const void*)lora_shrink_tile_kernel<T, BM, false>,
-          dim3((rows + BM - 1) / BM, max(1, min(slots, BM))), 2 * BM,
-          tile_smem<T, BM>()};
+rt::Launch tile_launch(int rows, int d_in, int slots, int split) {
+  static_assert(tile_smem<T, BM>() >= BM * kLdp * sizeof(float),
+                "the partials reuse the ring");
+  const dim3 grid((rows + BM - 1) / BM * split, max(1, min(slots, BM)));
+  const bool vec = d_in % rt::kVec == 0;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (vec)
+      return {(const void*)lora_shrink_wgmma_kernel<BM>, grid,
+              WTile<BM>::kThreads, WTile<BM>::kSmem, (unsigned)split};
+    return {(const void*)lora_shrink_tile_kernel<bf16, BM, false>, grid,
+            2 * BM, tile_smem<bf16, BM>(), (unsigned)split};
+  } else {
+    return {vec ? (const void*)lora_shrink_tile_kernel<T, BM, true>
+                : (const void*)lora_shrink_tile_kernel<T, BM, false>,
+            grid, 2 * BM, tile_smem<T, BM>(), (unsigned)split};
+  }
 }
 
 // a handful of rows is bound by latency: 512 threads keep more loads in
@@ -445,14 +667,23 @@ template <> struct ExpCfg<float> {
   static constexpr int kLdy = kER + 4, kLdb = kEN + 4;
 };
 
-// two y tiles (the current and the next, in flight), a y tile for rank
-// rows past kER, a B tile and the bf16 output tile
+// bf16: the output tile, kEN / 64 boxes of kEM rows x 64 columns
+// (128-byte rows, swizzled as TMA reads them), on a 1024-byte boundary;
+// then (both types) two y tiles (the current and the next, in flight), a y
+// tile for rank rows past kER and a B tile
+constexpr int kStageBytes = kEM * kEN * 2;
 template <typename T>
 constexpr size_t expand_tile_smem() {
   using C = ExpCfg<T>;
-  return sizeof(T) * (3 * (size_t)kEM * C::kLdy + (size_t)kER * C::kLdb +
-                      (std::is_same<T, bf16>::value ? (size_t)kEM * C::kLdb
-                                                    : 0));
+  return sizeof(T) * (3 * (size_t)kEM * C::kLdy + (size_t)kER * C::kLdb) +
+         (std::is_same<T, bf16>::value ? 1024 + kStageBytes : 0);
+}
+
+// Element (r, c) of the bf16 output tile: box c / 64, row r of 64
+// elements, its 16-byte chunk (c % 64) / 8 swizzled by r % 8.
+__device__ __forceinline__ int stage_at(int r, int c) {
+  return (c >> 6) * (kEM * 64) + r * 64 + ((((c & 63) >> 3) ^ (r & 7)) << 3) +
+         (c & 7);
 }
 
 // out[:, n0 : n0 + kEN] for the row tiles t = blockIdx.y, blockIdx.y +
@@ -464,7 +695,13 @@ constexpr size_t expand_tile_smem() {
 // = the slot's widest live width in the tile rounded up to 8, kept in
 // shared memory across tiles while the slot and width stay the same, and
 // writes the rows of s; rows with no adapter get zeros. Every element of
-// out is written once, by one block. kMulti: r_max > kER, rank rows in
+// out is written once, by one block. bf16 casts the pass's sums once into
+// the staged output tile; where every row of the tile (below `rows`)
+// belongs to s, one thread writes the tile with TMA bulk stores (`to`: out
+// as (d_out, rows), kVec only), which drain while the block goes on to the
+// next pass's product, and the block waits for them to have read the tile
+// only before it casts again; else each thread writes its slot's rows.
+// kMulti: r_max > kER, rank rows in
 // several passes (the partial sums take another 64 registers: one block
 // an SM then, as for f32, so that nothing spills). kVec: d_out a multiple
 // of 8, B's rows copied and out's written 16 bytes at a time; else
@@ -473,18 +710,22 @@ template <typename T, bool kMulti, bool kVec>
 __global__ void __launch_bounds__(
     kEThr, (std::is_same<T, bf16>::value && !kMulti) ? 2 : 1)
     lora_expand_tile_kernel(
-    const T* __restrict__ y, const T* __restrict__ b,
-    const int* __restrict__ idx, const int* __restrict__ live,
-    T* __restrict__ out, int rows, int r_max, int d_out, int slots) {
+    const __grid_constant__ CUtensorMap to, const T* __restrict__ y,
+    const T* __restrict__ b, const int* __restrict__ idx,
+    const int* __restrict__ live, T* __restrict__ out, int rows, int r_max,
+    int d_out, int slots) {
   using C = ExpCfg<T>;
   constexpr bool kBF = std::is_same<T, bf16>::value;
   constexpr int VEC = 16 / sizeof(T);       // elements a 16-byte copy
   constexpr int YC = kER / VEC, OC = kEN / VEC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ybuf = reinterpret_cast<T*>(smem_raw);              // 2 x kEM x kLdy
+  unsigned char* base =
+      kBF ? smem_raw + ((1024 - (rt::smem_u32(smem_raw) & 1023)) & 1023)
+          : smem_raw;
+  T* stage = reinterpret_cast<T*>(base);                 // bf16: the boxes
+  T* ybuf = reinterpret_cast<T*>(base + (kBF ? kStageBytes : 0));
   T* yx = ybuf + 2 * kEM * C::kLdy;                      // kEM x kLdy
   T* bs = yx + kEM * C::kLdy;                            // kER x kLdb
-  T* stage = bs + kER * C::kLdb;                         // kEM x kLdb
   // rows' slots and live widths, one buffer a tile parity: a thread may
   // write the next tile's while another still reads this tile's
   __shared__ int sidx[2 * kEM], slive[2 * kEM], wred[2][kEM / 32];
@@ -663,7 +904,9 @@ __global__ void __launch_bounds__(
             wred[1][warp] = lo;
           }
         }
-        __syncthreads();
+        // every row of the tile below `rows` is one of s's: a TMA store
+        const bool whole = __syncthreads_and(
+            tid >= kEM || t * kEM + tid >= rows || sidx[pb + tid] == s);
         int hi = 0, lo = r_max;
 #pragma unroll
         for (int w = 0; w < kEM / 32; ++w) {
@@ -713,7 +956,12 @@ __global__ void __launch_bounds__(
             }
           }
           if constexpr (kBF) {
-            // cast once into the staged tile
+            // cast once into the staged tile, once the last pass's TMA
+            // stores have read it
+            if (h == 0) {
+              if (tid == 0) rt::bulk_wait_read<0>();
+              __syncthreads();
+            }
             if (any) {
 #pragma unroll
               for (int mm = 0; mm < 2; ++mm)
@@ -723,8 +971,8 @@ __global__ void __launch_bounds__(
 #pragma unroll
                   for (int n = 0; n < NW / 8; ++n)
                     *reinterpret_cast<unsigned*>(
-                        stage + r * C::kLdb + wc * 64 + h * NW + n * 8 +
-                        (lane & 3) * 2) =
+                        stage + stage_at(r, wc * 64 + h * NW + n * 8 +
+                                            (lane & 3) * 2)) =
                         rt::pack_bf16(acc[mm * NW / 8 + n][2 * hr],
                                       acc[mm * NW / 8 + n][2 * hr + 1]);
                 }
@@ -754,22 +1002,31 @@ __global__ void __launch_bounds__(
           }
         }
         if constexpr (kBF) {
-          // the slot's rows of the staged tile, 16 bytes a store
+          // the slot's rows of the staged tile: TMA stores of whole
+          // tiles, else 16 bytes a store (elements without kVec)
+          rt::fence_proxy_async();          // the casts, seen by TMA
           __syncthreads();
-          if constexpr (kVec) {
+          if (kVec && whole) {
+            if (tid == 0) {
+              for (int j = 0; j < kEN / 64 && n0 + j * 64 < d_out; ++j)
+                rt::tma_store_4d(&to, stage + j * kEM * 64, n0 + j * 64,
+                                 row0, 0, 0);
+              rt::bulk_commit();
+            }
+          } else if constexpr (kVec) {
             for (int i = tid; i < kEM * OC; i += kEThr) {
               const int r = i / OC, c = (i % OC) * VEC;
               if (sidx[pb + r] == s && c < ncols)
                 *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out +
                                           n0 + c) =
-                    *reinterpret_cast<const uint4*>(stage + r * C::kLdb + c);
+                    *reinterpret_cast<const uint4*>(stage + stage_at(r, c));
             }
           } else {
             for (int i = tid; i < kEM * kEN; i += kEThr) {
               const int r = i / kEN, c = i % kEN;
               if (sidx[pb + r] == s && c < ncols)
                 out[(size_t)(row0 + r) * d_out + n0 + c] =
-                    stage[r * C::kLdb + c];
+                    stage[stage_at(r, c)];
             }
           }
         }
@@ -778,6 +1035,7 @@ __global__ void __launch_bounds__(
     }
   }
   rt::cp_async_wait<0>();
+  if (kBF && tid == 0) rt::bulk_wait_read<0>();   // the tile outlives reads
 }
 
 template <typename T>
@@ -865,31 +1123,55 @@ rt::Launch expand_decode_launch(int rows, int r_max, int d_out) {
 // The shrink's launch for these arguments (see rt_lora_shrink), or the
 // error the entry point returns.
 cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
-                          int d_chunk, int dtype, rt::Launch* l) {
+                          int d_chunk, int split, int dtype, rt::Launch* l) {
   // r_max a multiple of 8 (one 8-column lane each, at most 1,024 lanes a
   // block); any d_in (16-byte copies of x where it is a multiple of 8)
   const int lanes = r_max / rt::kVec;
   if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || lanes > 1024 ||
-      d_in <= 0)
+      d_in <= 0 || d_chunk <= 0)
     return cudaErrorInvalidValue;
   const bool bf = dtype == rt::kBF16;
   if (!bf && dtype != rt::kF32) return cudaErrorInvalidValue;
   if (tile == 0) {
-    if (d_chunk <= 0 || d_chunk % rt::kVec != 0 ||
+    if (split != kSplit || d_chunk % rt::kVec != 0 ||
         (long long)d_chunk * kSplit < d_in)
       return cudaErrorInvalidValue;
     *l = bf ? split_launch<bf16>(rows, r_max)
             : split_launch<float>(rows, r_max);
-  } else if (tile == 64) {
-    *l = bf ? tile_launch<bf16, 64>(rows, d_in, slots)
-            : tile_launch<float, 64>(rows, d_in, slots);
+    return cudaSuccess;
+  }
+  // row tiles: `split` (a power of two up to a portable cluster) slices of
+  // d_chunk (whole TMA boxes) that cover d_in
+  if (split < 1 || split > kMaxTileSplit || (split & (split - 1)) != 0 ||
+      d_chunk % kWD != 0 || (long long)d_chunk * split < d_in)
+    return cudaErrorInvalidValue;
+  if (tile == 64) {
+    *l = bf ? tile_launch<bf16, 64>(rows, d_in, slots, split)
+            : tile_launch<float, 64>(rows, d_in, slots, split);
   } else if (tile == 128) {
-    *l = bf ? tile_launch<bf16, 128>(rows, d_in, slots)
-            : tile_launch<float, 128>(rows, d_in, slots);
+    *l = bf ? tile_launch<bf16, 128>(rows, d_in, slots, split)
+            : tile_launch<float, 128>(rows, d_in, slots, split);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaSuccess;
+}
+
+// A 4-D bf16 tensor map (`dims` innermost first, each dense in the next)
+// cut into boxes of 64 x `box_rows`, 128-byte swizzled, zero-filled
+// outside the tensor.
+bool bf16_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+              int box_rows) {
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * dims[2] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kWD, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return rt::encode_tiled()(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The expand's launch for these arguments (see rt_lora_expand).
@@ -913,34 +1195,52 @@ cudaError_t expand_launch(int rows, int r_max, int d_out, int row_blocks,
 
 }  // namespace
 
-// tile = 64 or 128: the row-tile path with tiles of that many rows;
-// tile = 0: the split path, kSplit blocks a row over d_chunk-wide slices
-// of d_in (a multiple of 8 with kSplit * d_chunk >= d_in).
+// tile = 64 or 128: the row-tile path with tiles of that many rows, split
+// blocks a tile (1, 2, 4 or 8: a cluster) over d_chunk-wide slices of d_in
+// (a multiple of 64 with split * d_chunk >= d_in); tile = 0: the split
+// path, split = kSplit blocks a row over d_chunk-wide slices of d_in (a
+// multiple of 8 with kSplit * d_chunk >= d_in).
 extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
                               const int* live, float* y, int rows, int d_in,
                               int r_max, int slots, int tile, int d_chunk,
-                              int dtype, void* stream) {
+                              int split, int dtype, void* stream) {
   if (rows == 0) return 0;
   rt::Launch l;
   const cudaError_t e = shrink_launch(rows, d_in, r_max, slots, tile,
-                                      d_chunk, dtype, &l);
+                                      d_chunk, split, dtype, &l);
   if (e != cudaSuccess) return (int)e;
-  void* split_args[] = {&x, &a, &idx, &live, &y, &d_in, &r_max, &slots,
-                        &d_chunk};
-  void* tile_args[] = {&x, &a, &idx, &live, &y, &rows, &d_in, &r_max,
-                       &slots};
-  return (int)rt::launch(l, tile == 0 ? split_args : tile_args,
-                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile == 0) {
+    void* args[] = {&x, &a, &idx, &live, &y, &d_in, &r_max, &slots,
+                    &d_chunk};
+    return (int)rt::launch(l, args, st);
+  }
+  if (dtype == rt::kBF16 && d_in % rt::kVec == 0) {
+    // the wgmma kernel: x as (d_in, rows), A as (r_max, d_in, slots)
+    if (rt::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+    CUtensorMap tx, ta;
+    const cuuint64_t xd[4] = {(cuuint64_t)d_in, (cuuint64_t)rows, 1, 1};
+    const cuuint64_t ad[4] = {(cuuint64_t)r_max, (cuuint64_t)d_in,
+                              (cuuint64_t)max(slots, 1), 1};
+    if (!bf16_map(&tx, x, xd, tile) || !bf16_map(&ta, a, ad, kWD))
+      return (int)cudaErrorInvalidValue;
+    void* args[] = {&tx, &ta, &idx, &live, &y, &rows, &d_in, &r_max, &slots,
+                    &d_chunk, &split};
+    return (int)rt::launch(l, args, st);
+  }
+  void* args[] = {&x, &a, &idx, &live, &y, &rows, &d_in, &r_max, &slots,
+                  &d_chunk, &split};
+  return (int)rt::launch(l, args, st);
 }
 
 // rt_lora_shrink's launch, described (rt::describe) into
 // out[0 : rt::kInfoFields]; no kernel runs.
 extern "C" int rt_lora_shrink_info(int rows, int d_in, int r_max, int slots,
-                                   int tile, int d_chunk, int dtype,
-                                   long long* out) {
+                                   int tile, int d_chunk, int split,
+                                   int dtype, long long* out) {
   rt::Launch l;
   const cudaError_t e = shrink_launch(rows, d_in, r_max, slots, tile,
-                                      d_chunk, dtype, &l);
+                                      d_chunk, split, dtype, &l);
   return (int)(e != cudaSuccess ? e : rt::describe(l, out));
 }
 
@@ -956,11 +1256,22 @@ extern "C" int rt_lora_expand(const void* y, const void* b, const int* idx,
   const cudaError_t e = expand_launch(rows, r_max, d_out, row_blocks, dtype,
                                       &l);
   if (e != cudaSuccess) return (int)e;
-  void* decode_args[] = {&y, &b, &idx, &live, &out, &r_max, &d_out, &slots};
-  void* tile_args[] = {&y, &b, &idx, &live, &out, &rows, &r_max, &d_out,
-                       &slots};
-  return (int)rt::launch(l, row_blocks == 0 ? decode_args : tile_args,
-                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (row_blocks == 0) {
+    void* args[] = {&y, &b, &idx, &live, &out, &r_max, &d_out, &slots};
+    return (int)rt::launch(l, args, st);
+  }
+  // the bf16 row tiles' TMA stores: out as (d_out, rows) in boxes of 64 x
+  // kEM (the f32 and element-store kernels take the map unread)
+  CUtensorMap to = {};
+  if (dtype == rt::kBF16 && d_out % rt::kVec == 0) {
+    if (rt::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t od[4] = {(cuuint64_t)d_out, (cuuint64_t)rows, 1, 1};
+    if (!bf16_map(&to, out, od, kEM)) return (int)cudaErrorInvalidValue;
+  }
+  void* args[] = {&to, &y, &b, &idx, &live, &out, &rows, &r_max, &d_out,
+                  &slots};
+  return (int)rt::launch(l, args, st);
 }
 
 // rt_lora_expand's launch, described into out[0 : rt::kInfoFields].

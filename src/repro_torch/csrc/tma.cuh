@@ -75,6 +75,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Orders this thread's earlier shared-memory accesses of the generic proxy
+// before later accesses of the async proxy (TMA) to the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One box of a 4-D tensor map from shared memory (laid out as
+// tma_load_4d writes it) to device memory, in this thread's bulk group;
+// the part of the box outside the tensor is not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their
+// shared memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // Move registers between warpgroups (every warp of the warpgroup runs it).
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -94,6 +125,34 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, unsigned lbo,
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) |
          (static_cast<uint64_t>(layout) << 62);
+}
+
+// cuTensorMapEncodeTiled is a driver-API function. It is looked up at run
+// time through the runtime's driver entry point, so the library links
+// nothing beyond the CUDA runtime; a driver without it makes every launch
+// that encodes a map fail with cudaErrorNotSupported.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                            cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace rt

@@ -10,16 +10,25 @@ tensor launches the kernel or raises. `lora_shrink.launches` and
     shrink:  y[b]   = x[b] @ A[idx[b]][:, :live[b]]    (rows, d_in) -> f32
     expand:  out[b] = y[b, :live[b]] @ B[idx[b]][:live[b]]
 
-The shrink kernel has two launch shapes, chosen here from the row count
-alone (`shrink_plan`, no device sync): up to SPLIT_MAX_ROWS rows (decode)
-split d_in over a cluster of SPLIT blocks a row; more rows (prefill,
-chunks) go in tiles of 64 or 128 consecutive rows, one block per (tile,
-distinct slot of the tile). The expand has two as well (`expand_plan`):
-up to DECODE_MAX_ROWS rows one block per (row, DECODE_COLS columns) with
-the rank rows split over RANK_SPLIT warps; more rows go in tiles of
+The shrink kernel has two launch shapes, chosen here from the row count,
+d_in and the SM count (`shrink_plan`, no device sync, so a CUDA graph can
+capture it): up to SPLIT_MAX_ROWS rows (decode) split d_in over a
+cluster of SPLIT blocks a row; more rows (prefill, chunks, training) go
+in tiles of 64 or 128 consecutive rows, one block per (tile, distinct
+slot of the tile). A tile's block walks its d range one stage at a time,
+so a launch of few tiles is bound by how few SMs stream x, not by bytes:
+the yi-9b chunk (512 rows of one slot) had 8 working blocks and the
+training step (4,096 rows of one slot) 64, on 132 SMs. Where the tiles
+cannot fill the card, `split` blocks of one cluster share a tile over
+slices of d_in and add their partial sums in rank order (no atomics);
+launches that fill it (the 32,768-row prefill) keep one block a tile.
+The expand has two launch shapes as well (`expand_plan`): up to
+DECODE_MAX_ROWS rows one block per (row, DECODE_COLS columns) with the
+rank rows split over RANK_SPLIT warps; more rows go in tiles of
 EXPAND_ROWS consecutive rows x EXPAND_COLS columns, each block walking
-every n-th tile of its columns and visiting each tile's distinct slots
-in turn.
+every n-th tile of its columns and visiting each tile's distinct slots in
+turn. Its output is most of its bytes: a bf16 tile of one slot's rows is
+written by TMA bulk stores that drain while the block works on the next.
 
 Gradients: when an operand requires grad (and grad mode is on), each
 wrapper goes through its `torch.autograd.Function` (`LoRAShrink`,
@@ -47,6 +56,9 @@ MAX_R = 8 * 1024               # ... up to this
 SPLIT = 8                      # csrc/lora.cu: kSplit, blocks a row (cluster)
 SPLIT_MAX_ROWS = 64            # split path up to here (decode batches)
 TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the shrink takes
+MAX_TILE_SPLIT = 8             # csrc/lora.cu: kMaxTileSplit (a cluster)
+TILE_D = 64                    # csrc/lora.cu: kWD, d a TMA box
+MIN_SLICE_D = 256              # a row-tile block's d slice: >= 4 boxes
 DECODE_MAX_ROWS = 64           # expand: decode path up to here
 DECODE_COLS = 256              # csrc/lora.cu: kDecCols, columns a block
 RANK_SPLIT = 8                 # csrc/lora.cu: kRankSplit, warps a block
@@ -57,27 +69,45 @@ EXPAND_BLOCKS_PER_SM = 2       # row-tile blocks an SM holds at once
 
 class ShrinkPlan(NamedTuple):
     """The shrink kernel's launch. Row-tile path: tiles of `tile` rows,
-    `per_tile` blocks a tile (block k takes the tile's k-th distinct slot),
-    `blocks` in all. Split path (tile 0): SPLIT blocks a row, block k of a
-    row reducing d in [k * d_chunk, (k + 1) * d_chunk)."""
+    `per_tile` blocks a tile's slots (block k takes the tile's k-th
+    distinct slot) times `split` blocks (one cluster) over d_chunk-wide
+    slices of d_in, `blocks` in all. Split path (tile 0): SPLIT blocks a
+    row (`split`), block k of a row reducing d in [k * d_chunk, (k + 1) *
+    d_chunk)."""
     tile: int
     per_tile: int
     blocks: int
     d_chunk: int
+    split: int
 
 
 def shrink_plan(rows: int, d_in: int, slots: int, sms: int) -> ShrinkPlan:
     """Split d_in up to SPLIT_MAX_ROWS rows: a row tile holding many
     slots would stream each slot's A through one SM, while the split path
-    spreads every row over SPLIT blocks. Above it, row tiles of 128 once
-    they fill every SM (`sms`) at least once, of 64 below that (twice the
-    blocks for mid-sized calls)."""
+    spreads every row over SPLIT blocks. Above it, row tiles: of 128 rows
+    where they (split up to MAX_TILE_SPLIT ways) can fill every SM
+    (`sms`), else of 64; then the most of 1, 2, 4 or 8 blocks a tile (a
+    cluster, each over a d slice of whole TILE_D boxes of at least
+    MIN_SLICE_D) that give no SM a second block, counting one working
+    slot a tile (the slots a tile holds are not known without a device
+    sync): at two blocks an SM the H100 holds only 30 clusters of 8 at
+    once, so 32 tiles split 8 ways ran in two waves. Launches of more
+    tiles than half the SMs keep one block a tile."""
     if rows <= SPLIT_MAX_ROWS:
         d_chunk = -(-d_in // SPLIT)
-        return ShrinkPlan(0, SPLIT, rows * SPLIT, -(-d_chunk // 8) * 8)
-    tile = TILE_ROWS[1] if -(-rows // TILE_ROWS[1]) >= sms else TILE_ROWS[0]
+        return ShrinkPlan(0, SPLIT, rows * SPLIT, -(-d_chunk // 8) * 8,
+                          SPLIT)
+    big = TILE_ROWS[1]
+    tile = big if -(-rows // big) * MAX_TILE_SPLIT >= sms else TILE_ROWS[0]
+    tiles = -(-rows // tile)
+    split = 1
+    while (split < MAX_TILE_SPLIT and 2 * tiles * split <= sms
+           and d_in >= 2 * split * MIN_SLICE_D):
+        split *= 2
+    d_chunk = -(-(-(-d_in // split)) // TILE_D) * TILE_D
     per_tile = max(1, min(slots, tile))
-    return ShrinkPlan(tile, per_tile, -(-rows // tile) * per_tile, 0)
+    return ShrinkPlan(tile, per_tile, tiles * per_tile * split, d_chunk,
+                      split)
 
 
 def expand_plan(rows: int, d_out: int, sms: int) -> int:
@@ -182,7 +212,7 @@ def _shrink(x, a, idx, live):
     y = torch.empty(rows, r_max, dtype=torch.float32, device=x.device)
     rc = lib.rt_lora_shrink(x.data_ptr(), a.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), y.data_ptr(), rows, d_in, r_max,
-                            slots, plan.tile, plan.d_chunk,
+                            slots, plan.tile, plan.d_chunk, plan.split,
                             build.DTYPE_CODE[x.dtype],
                             build.stream_handle(x.device))
     build.check_launch(rc, "lora_shrink")

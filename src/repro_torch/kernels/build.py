@@ -9,11 +9,11 @@ ctypes; each entry point launches on the stream it is given and returns
 builds (or finds) the library. A missing `nvcc` or a failed build raises —
 no caller falls back to the plain versions.
 
-The flash kernel's TMA tensor maps are encoded by the driver function
-`cuTensorMapEncodeTiled`, which the library looks up at run time through
+The TMA tensor maps (flash, the bf16 row-tile shrink) are encoded by the
+driver function `cuTensorMapEncodeTiled`, which the library looks up at run time through
 the CUDA runtime's driver entry point (`cudaGetDriverEntryPoint`), so
-nothing beyond the runtime is linked; a driver without it makes the bf16
-flash call raise (`flash_attention`: CUDA error 801, not supported).
+nothing beyond the runtime is linked; a driver without it makes those
+calls raise (CUDA error 801, not supported).
 nvcc runs with `-Xptxas -v`; its report (registers, shared memory and
 spills of each kernel) is written beside the library as
 `libkernels-<hash>.log` and held in `build_log`, whether this process built
@@ -50,9 +50,9 @@ _SIGNATURES = {
     "rt_paged_attention_fits": [_I, _I],
     # G, hd -> the group tiles a KV head's heads are cut into (0: refused)
     "rt_paged_attention_tiles": [_I, _I],
-    # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, dtype,
-    # stream
-    "rt_lora_shrink": [_P] * 5 + [_I] * 7 + [_P],
+    # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, split,
+    # dtype, stream
+    "rt_lora_shrink": [_P] * 5 + [_I] * 8 + [_P],
     # y, b, idx, live, out, rows, r_max, d_out, slots, row_blocks, dtype,
     # stream
     "rt_lora_expand": [_P] * 5 + [_I] * 6 + [_P],
@@ -62,7 +62,7 @@ _SIGNATURES = {
     # the launches the entry points above would make, described (no
     # kernel runs): the same shape arguments, then an int64 out array of
     # INFO_FIELDS a launch (csrc/common.cuh: rt::describe)
-    "rt_lora_shrink_info": [_I] * 7 + [_P],
+    "rt_lora_shrink_info": [_I] * 8 + [_P],
     "rt_lora_expand_info": [_I] * 5 + [_P],
     # B, H, KV, ps, hd, W, nsplit, dtype: the attention kernel, then the
     # combine with nsplit > 1
@@ -75,7 +75,8 @@ _SIGNATURES = {
 # rt::describe's fields, in order
 INFO_FIELDS = ("grid_x", "grid_y", "grid_z", "threads", "dyn_smem",
                "registers", "static_smem", "local_bytes",
-               "max_threads_per_block", "blocks_per_sm")
+               "max_threads_per_block", "blocks_per_sm", "cluster",
+               "max_clusters")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

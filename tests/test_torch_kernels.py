@@ -321,20 +321,29 @@ _SMS = 132                               # the H100 SXM's SM count
 
 @pytest.mark.parametrize("rows", [
     1, 8, bgmv.SPLIT_MAX_ROWS, bgmv.SPLIT_MAX_ROWS + 1, 63, 64, 65, 129,
-    128 * _SMS - 1, 128 * _SMS, 128 * (_SMS - 1) + 1, 128 * _SMS + 1,
-    32768])
+    512, 4096, 128 * _SMS - 1, 128 * _SMS, 128 * (_SMS - 1) + 1,
+    128 * _SMS + 1, 32768])
 @pytest.mark.parametrize("d_in", [4096, 520, 8])
 @pytest.mark.parametrize("slots", [1, 8, 300])
 def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
     """The launch plan computed on the host from `rows`: the split path up
     to SPLIT_MAX_ROWS rows (SPLIT blocks a row over disjoint d slices that
-    cover d_in once, in multiples of 8), row tiles above it (128 rows once
-    they fill every SM, else 64), one block per (tile, distinct slot of the
-    tile) with the first also zeroing rows without an adapter: every row
-    is written by exactly one block, at random and at prefill layouts."""
+    cover d_in once, in multiples of 8), row tiles above it (128 rows
+    where, split up to MAX_TILE_SPLIT ways, they fill every SM, else 64),
+    one block per (tile, distinct slot of the tile) times `split` blocks
+    over d slices of whole TILE_D boxes (at least MIN_SLICE_D wide) that
+    cover d_in once, as many as give no SM a second block (one where the
+    tiles fill half the card: the 32,768-row prefill). Block
+    `part` of a (tile, slot) writes the slot's rows of its 1 / split of
+    the tile, the first block of a tile also the rows without an adapter:
+    every row is written by exactly one block and every (row, d) pair
+    reduced by exactly one (tile, part) block, at random and at prefill
+    layouts (the chunk: 512 rows, one slot of 8; training: 4,096 rows,
+    one slot)."""
     plan = bgmv.shrink_plan(rows, d_in, slots, _SMS)
     if rows <= bgmv.SPLIT_MAX_ROWS:
         assert plan.tile == 0 and plan.blocks == rows * bgmv.SPLIT
+        assert plan.split == bgmv.SPLIT
         assert plan.d_chunk % 8 == 0 and plan.d_chunk > 0
         hits = np.zeros(d_in, int)
         for part in range(bgmv.SPLIT):    # the kernel's d slice of a block
@@ -342,27 +351,95 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
             hits[lo:min(d_in, lo + plan.d_chunk)] += 1
         assert np.all(hits == 1)
         return
-    big = -(-rows // 128) >= _SMS
-    assert plan.tile == (128 if big else 64) and plan.d_chunk == 0
+    big = -(-rows // 128) * bgmv.MAX_TILE_SPLIT >= _SMS
+    assert plan.tile == (128 if big else 64)
     assert plan.tile in bgmv.TILE_ROWS
     assert plan.per_tile == min(slots, plan.tile)
-    n_tiles = plan.blocks // plan.per_tile
-    assert n_tiles == -(-rows // plan.tile)
+    n_tiles = -(-rows // plan.tile)
+    split = plan.split
+    assert split in (1, 2, 4, 8) and split <= bgmv.MAX_TILE_SPLIT
+    assert plan.blocks == n_tiles * plan.per_tile * split
+    assert n_tiles * split <= max(n_tiles, _SMS)     # one block an SM
+    if 2 * n_tiles > _SMS:
+        assert split == 1                 # tiles that fill half the card
+    else:                                 # the most that fit it once
+        assert split == bgmv.MAX_TILE_SPLIT \
+            or 2 * n_tiles * split > _SMS \
+            or d_in < 2 * split * bgmv.MIN_SLICE_D
+    if split > 1:
+        assert -(-d_in // split) >= bgmv.MIN_SLICE_D // 2
+    assert plan.d_chunk % bgmv.TILE_D == 0
+    d_hits = np.zeros(d_in, int)
+    for part in range(split):             # the kernel's d slice of a block
+        lo = part * plan.d_chunk
+        d_hits[lo:min(d_in, lo + plan.d_chunk)] += 1
+    assert np.all(d_hits == 1)
+    if rows == 512 and d_in == 4096:      # the chunk
+        assert (plan.tile, split) == (64, 8)
+    if rows == 4096 and d_in == 4096:     # the training step
+        assert (plan.tile, split) == (128, 4)
     rng = np.random.default_rng(rows + slots)
+    per = plan.tile // split              # rows a part writes
     for idx in (rng.integers(-1, slots, rows),
-                _segmented_idx(rows, 17, slots)):
+                _segmented_idx(rows, 17, slots),
+                np.full(rows, slots - 1, np.int32)):
         hits = np.zeros(rows, int)
-        for t in range(n_tiles):          # the kernel's blocks (t, k)
+        for t in range(n_tiles):          # the kernel's blocks (t, k, part)
             lo = t * plan.tile
             tile = idx[lo:lo + plan.tile]
             firsts = list(dict.fromkeys(int(i) for i in tile if i >= 0))
             assert len(firsts) <= plan.per_tile
             for k in range(plan.per_tile):
-                if k < len(firsts):
-                    hits[lo + np.flatnonzero(tile == firsts[k])] += 1
-                if k == 0:
-                    hits[lo + np.flatnonzero(tile < 0)] += 1
+                for part in range(split):
+                    mine = np.zeros(len(tile), bool)
+                    mine[part * per:(part + 1) * per] = True
+                    if k < len(firsts):
+                        hits[lo + np.flatnonzero(mine & (tile == firsts[k]))
+                             ] += 1
+                    if k == 0 and part == 0:
+                        hits[lo + np.flatnonzero(tile < 0)] += 1
         assert np.all(hits == 1)
+
+
+@pytest.mark.parametrize("rows,d_in,slots,seg", [
+    (300, 1024, 4, 17), (512, 4096, 8, 512), (130, 520, 2, 64)])
+def test_split_shrink_rank_order_sum_matches_plain_and_pallas(rows, d_in,
+                                                              slots, seg):
+    """The row-tile kernel's arithmetic, emulated in numpy: each (tile,
+    slot) block `part` sums x[rows of the slot, its d slice] @ A[s][its d
+    slice] in f32 in its shared memory, and the cluster adds the parts'
+    partials in rank order, then zeros the columns past each row's live
+    width. That equals the plain shrink (`ref.lora_shrink_ref`, what the
+    kernel is held to on the card) within f32's 1e-5, and the Pallas
+    bgmv_shrink in interpret mode, at plans split 4, 8 and 2 ways."""
+    ranks = [16, 8, 16, 8, 16, 8, 16, 8][:slots]
+    a, _, rng = _lora_pool(rows, slots, d_in, 8, 16, ranks)
+    x = rng.normal(size=(rows, d_in)).astype(np.float32)
+    idx = _segmented_idx(rows, seg, slots)
+    idx[0] = slots - 1                    # every slot has a row
+    live = ref.bgmv_live(_t(idx), 16).numpy()
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS)
+    assert plan.tile > 0 and plan.split > 1
+    got = np.full((rows, 16), np.nan, np.float32)
+    for t in range(-(-rows // plan.tile)):
+        lo = t * plan.tile
+        tile = idx[lo:lo + plan.tile]
+        got[lo + np.flatnonzero(tile < 0)] = 0.0
+        for s in dict.fromkeys(int(i) for i in tile if i >= 0):
+            r = lo + np.flatnonzero(tile == s)
+            parts = [x[r, p * plan.d_chunk:(p + 1) * plan.d_chunk]
+                     @ a[s, p * plan.d_chunk:(p + 1) * plan.d_chunk]
+                     for p in range(plan.split)]
+            total = np.zeros((len(r), 16), np.float32)
+            for p in parts:               # rank order
+                total = total + p.astype(np.float32)
+            total[np.arange(16)[None] >= live[r][:, None]] = 0.0
+            got[r] = total
+    want = ref.lora_shrink_ref(_t(x), _t(a), _t(idx), _t(live)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    pallas = jbgmv.bgmv_shrink(jnp.asarray(x), jnp.asarray(a),
+                               jnp.asarray(idx))
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
 
 
 # ------------------------------------- LoRA expand at prefill layouts ----
@@ -398,7 +475,7 @@ def test_expand_segmented_rows_match_pallas(mode, seg):
     assert np.all(got.numpy()[idx < 0] == 0)
 
 
-@pytest.mark.parametrize("rows", [1, 8, 64, 65, 4133, 32768])
+@pytest.mark.parametrize("rows", [1, 8, 64, 65, 512, 4096, 4133, 32768])
 @pytest.mark.parametrize("d_out", [8, 384, 512, 4096])
 @pytest.mark.parametrize("slots", [1, 8, 300])
 def test_expand_plan_covers_each_output_once(rows, d_out, slots):
