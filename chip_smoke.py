@@ -232,8 +232,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      its cross-entropy's adapter gradients within 5e-2 of their max, no
      drop, flash and the LoRA kernels launched under the mesh; M4 the
      port's dry run (`launch/dryrun.py`) of whisper-tiny decode_32k and
-     dbrx / grok `moe_ep` decode_32k and train_4k on pod16x16 in a
-     subprocess within 300 s, every record ok, its peak bytes a chip,
+     dbrx / grok `moe_ep` decode_32k on pod16x16 in a subprocess within
+     300 s (their train_4k, 55-85 s of host work each, is left to
+     tests/test_torch_dryrun.py and the CLI), every record ok, its peak bytes a chip,
      fits_80g and dominant roofline term printed;
   then one {"kernels": [...]} line (the six TPU kernels' rows, the
   prefill shrink and expand rows, the yi-9b and mistral-large paged
@@ -354,6 +355,7 @@ def main() -> int:
         "yi-9b decode", min_pos=YI_LONG_POS))
     report["chunk_graphs"] = chunk_graphs_phase(torch, yi, yi_params,
                                                 yi_serving)
+    chunk_launches(kernels, report["chunk_graphs"]["p4"])
     del yi_params, capture, lora_args
     gc.collect()
     torch.cuda.empty_cache()
@@ -1667,6 +1669,16 @@ def chunk_graphs_phase(torch, cfg, params, serving):
     return out
 
 
+def chunk_launches(kernels, p4):
+    """The `lora_shrink[yi-9b chunk]` row's launches a chunk: the count of
+    P4's graphed chunk, equal to its eager chunk's."""
+    n = {arm: r["lora_shrink_launches_a_chunk"] for arm, r in p4.items()}
+    check(n["graphed"] == n["eager"] > 0,
+          f"P4: lora_shrink launches a chunk differ or are 0: {n}")
+    row = next(k for k in kernels if k["name"] == "lora_shrink[yi-9b chunk]")
+    row["launches_a_chunk"] = n["graphed"]
+
+
 def bucket_tokens(key):
     """Nb x Lp of a `prefill[Nb=n,Lp=l]` key."""
     nb, lp = (int(x.split("=")[1]) for x in key[8:-1].split(","))
@@ -1699,10 +1711,20 @@ def profile_chunk(torch, cfg, params, graphs, smi):
 
     call()
     call()                   # the key's capture (the first was its warm-up)
+    from repro_torch.kernels.bgmv import lora_shrink
+    before = lora_shrink.launches
+    lora_shrink.launches = 0
+    call()                   # one chunk's shrink launches (a replay adds
+    shrinks = lora_shrink.launches        # what its capture launched)
+    lora_shrink.launches += before
     prof = profile_step(torch, call, f"one {arm} {cfg.name} chunk of "
                         f"{P_CHUNK} tokens")
-    return p4_record(torch, be, prof, records, arm, f"{cfg.name} chunk",
-                     smi)
+    rec = p4_record(torch, be, prof, records, arm, f"{cfg.name} chunk",
+                    smi)
+    rec["lora_shrink_launches_a_chunk"] = shrinks
+    print(f"  P4 {cfg.name} chunk {arm}: {shrinks} lora_shrink launches "
+          "in one chunk", flush=True)
+    return rec
 
 
 def debug_switch_lines(torch):
@@ -1906,6 +1928,7 @@ def train_rows(torch, cfg, launches, errs):
             "launches": launches[name], "max_abs_err": e,
             "ms": time_ms(torch, fn, flush),
             "graph_ms": graph_ms(torch, fn, flush),
+            "host_ms": host_ms(torch, fn),
             "plain_ms": time_ms(torch, plain, flush, n=20),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(torch, lib, flush),
@@ -1930,7 +1953,8 @@ def train_rows(torch, cfg, launches, errs):
     for r_ in rows:
         graphed = "" if "graph_ms" not in r_ else (
             f"; in a CUDA graph {r_['graph_ms'] * 1e3:.1f} us, library "
-            f"{r_['library_graph_ms'] * 1e3:.1f} us")
+            f"{r_['library_graph_ms'] * 1e3:.1f} us; host "
+            f"{r_['host_ms'] * 1e3:.1f} us a call")
         print(f"  {r_['name']}: {r_['ms'] * 1e3:.1f} us (bound "
               f"{r_['bound_ms'] * 1e3:.1f} us by {r_['bound_by']}), plain "
               f"{r_['plain_ms'] * 1e3:.1f} us, library "
@@ -3392,6 +3416,21 @@ def time_ms(torch, fn, flush, n=100, warm=3):
     return total / n
 
 
+def host_ms(torch, fn, n=20):
+    """Mean host time of one call of fn (a wrapper's checks, plan, tensor
+    maps and launch), n calls queued with no sync between them. Where it
+    outlasts the L2 flush that time_ms queues before each launch, the
+    device idles inside time_ms's events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return 1e3 * t
+
+
 def graph_ms(torch, fn, flush, n=20, reps=5):
     """Mean device time of fn as a graphed step launches it: n launches,
     each after an L2 flush, captured in one CUDA graph and replayed
@@ -3704,6 +3743,9 @@ def shrink_prefill_timing(torch, captured, serving):
            "launches": serving[0]["launches"]["lora_shrink"],
            "max_abs_err": err,
            "ms": time_ms(torch, lambda: lora_shrink(x, a, idx, live), flush),
+           "graph_ms": graph_ms(torch, lambda: lora_shrink(x, a, idx, live),
+                                flush),
+           "host_ms": host_ms(torch, lambda: lora_shrink(x, a, idx, live)),
            "plain_ms": time_ms(torch, lambda: ref.lora_shrink_ref(
                x, a, idx, live), flush, n=10),
            "bound_ms": b_ms, "bound_by": b_by,
@@ -3719,8 +3761,9 @@ def shrink_prefill_timing(torch, captured, serving):
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
           f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (matmul over A_cat) "
-          f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches",
-          flush=True)
+          f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches; "
+          f"in a CUDA graph {row['graph_ms'] * 1e3:.1f} us, host "
+          f"{row['host_ms'] * 1e3:.1f} us a call", flush=True)
     return row
 
 
@@ -3735,8 +3778,8 @@ def chunk_shrink_timing(torch, captured, serving):
     per row against the plain version and timed beside its bound (phase
     5a's formula), the plain version and one torch.matmul(x, A[s]) with
     the one slot's weight, timed only and never called by the port.
-    Launches: the yi-9b chunked arm's (each chunk launches it once a layer
-    and target)."""
+    Launches: every shrink launch of the yi-9b chunked arm; its launches
+    a chunk are counted in P4 (`chunk_launches`)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bgmv import lora_shrink, shrink_plan, sm_count
     print("phase 5b: LoRA shrink at the yi-9b chunk's shape", flush=True)
@@ -3759,18 +3802,18 @@ def chunk_shrink_timing(torch, captured, serving):
     ops_n = 2 * d_in * int(live.sum())
     b_ms, b_by = bound(nbytes, ops_n, "bfloat16")
     plan = shrink_plan(P_CHUNK_ROWS, d_in, slots, sm_count(x.device))
-    from repro_torch.configs.base import get_config
-    yi = get_config("yi-9b")
     row = {"name": "lora_shrink[yi-9b chunk]", "route": "cuda",
            "source": "src/repro_torch/csrc/lora.cu",
            "replaces": "src/repro/kernels/bgmv.py:86",
            "path": "yi-9b chunked prefill (chunk_budget 512)",
            "launches": serving[1]["launches"]["lora_shrink"],
-           "launches_a_chunk": yi.n_layers * len(yi.lora.targets),
+           "launches_of": "every lora_shrink launch of the chunked arm: "
+                          "its chunks, short prefills and decode steps",
            "max_abs_err": err,
            "ms": time_ms(torch, lambda: lora_shrink(x, a, idx, live), flush),
            "graph_ms": graph_ms(torch, lambda: lora_shrink(x, a, idx, live),
                                 flush),
+           "host_ms": host_ms(torch, lambda: lora_shrink(x, a, idx, live)),
            "plain_ms": time_ms(torch, lambda: ref.lora_shrink_ref(
                x, a, idx, live), flush, n=20),
            "bound_ms": b_ms, "bound_by": b_by,
@@ -3788,8 +3831,9 @@ def chunk_shrink_timing(torch, captured, serving):
           f"{row['graph_ms'] * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by "
           f"{b_by}), plain {row['plain_ms'] * 1e3:.1f} us, library "
           f"(matmul) {row['library_ms'] * 1e3:.1f} us, in a CUDA graph "
-          f"{row['library_graph_ms'] * 1e3:.1f} us, {row['launches']} "
-          f"launches ({row['launches_a_chunk']} a chunk)", flush=True)
+          f"{row['library_graph_ms'] * 1e3:.1f} us, host "
+          f"{row['host_ms'] * 1e3:.1f} us a call, {row['launches']} "
+          "launches in the chunked arm", flush=True)
     return row
 
 
@@ -3844,6 +3888,9 @@ def expand_prefill_timing(torch, captured, serving):
            "launches": serving[0]["launches"]["lora_expand"],
            "max_abs_err": err,
            "ms": time_ms(torch, lambda: lora_expand(yd, b, idx, live), flush),
+           "graph_ms": graph_ms(torch, lambda: lora_expand(yd, b, idx, live),
+                                flush),
+           "host_ms": host_ms(torch, lambda: lora_expand(yd, b, idx, live)),
            "plain_ms": time_ms(torch, lambda: ref.lora_expand_ref(
                yd, b, idx, live), flush, n=10),
            "bound_ms": b_ms, "bound_by": b_by,
@@ -3861,8 +3908,9 @@ def expand_prefill_timing(torch, captured, serving):
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
           f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (matmul Y_bd x B_cat) "
-          f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches",
-          flush=True)
+          f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches; "
+          f"in a CUDA graph {row['graph_ms'] * 1e3:.1f} us, host "
+          f"{row['host_ms'] * 1e3:.1f} us a call", flush=True)
     return row
 
 
@@ -4439,9 +4487,7 @@ M3_TRAIN = (2, 512)            # the LoRA loss + backward
 M3_RANK = 16
 M4_COMBOS = [("whisper-tiny", "decode_32k", ()),
              ("dbrx-132b", "decode_32k", ("moe_ep",)),
-             ("grok-1-314b", "decode_32k", ("moe_ep",)),
-             ("dbrx-132b", "train_4k", ("moe_ep",)),
-             ("grok-1-314b", "train_4k", ("moe_ep",))]
+             ("grok-1-314b", "decode_32k", ("moe_ep",))]
 M4_TIMEOUT = 300
 M_TIMEOUT = 500
 M_DEVICE, M_BACKEND = "cuda", "nccl"
@@ -4455,7 +4501,7 @@ def multi_device_phase(torch):
     f32; M3 dbrx-132b at full width cut to 6 layers, `moe_ep` under the
     mesh against the same weights without it (prefill, decode, a LoRA
     loss and its adapter gradients), flash and the LoRA kernels launched;
-    M4 the port's dry run of five combos in a process of its own. Its
+    M4 the port's dry run of three combos in a process of its own. Its
     failure fails the run. Returns its report."""
     gc.collect()
     torch.cuda.empty_cache()

@@ -425,7 +425,7 @@ def lora_paths(lib, sms) -> List[Path]:
              ("prefill many tiles bf16", 128 * sms + 77, 512, 512, 64,
               (64, 16, 33, 8), 16, bf, 4096),
              # training's shape: one slot's rows (and idx -1) in tiles of
-             # 128, each split over a cluster of 8
+             # 64, each split over a cluster of 2
              ("train bf16", 4096, 4096, 4096, 64, (64,), 16, bf, 2048),
              ("prefill r_max 128 bf16", 300, 512, 1024, 128,
               (128, 16, 100, 8), 16, bf, 17),

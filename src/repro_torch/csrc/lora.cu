@@ -25,7 +25,7 @@
 //    their other blocks exit at once. What bounds a launch is how many
 //    blocks stream x at once: a block walks its d range one stage after
 //    another, so a launch of few tiles (the yi-9b chunk: 8 tiles of one
-//    slot; training: 32 tiles of one slot) left most SMs idle while a few
+//    slot; training: 64 tiles of one slot) left most SMs idle while a few
 //    walked all of d_in (81-90 us on the H100 against 1.4-10.5 us of
 //    bytes). So where the tiles cannot fill the card, `split` blocks of
 //    one cluster (2, 4 or 8, as many as give no SM a second block) share
@@ -39,9 +39,13 @@
 //    A[s][64 d, 64 columns] into a ring of 4-6 stages (an mbarrier each,
 //    96 KiB: 2 blocks an SM) and each warpgroup (64 rows) one wgmma
 //    m64n64k16 chain of 4 k-steps, bf16 in, f32 out, added into the f32
-//    total on the CUDA cores. f32 and other widths take cp.async copies
-//    and mma.sync (bf16) or the CUDA cores (f32). So x is read once and A
-//    once per tile, not once per row.
+//    total on the CUDA cores. Each block of a tile of k slots reads the
+//    whole slab, so such a tile reads x k times; runs of at least a
+//    tile's rows (prompts of 64 tokens or more in 64-row tiles; on the
+//    H100's 132 SMs 128-row tiles come only at 16,769 rows or more) keep
+//    k at most 2. f32 and other widths take cp.async copies and mma.sync
+//    (bf16) or the CUDA cores (f32). So x is read once and A once per
+//    tile, not once per row.
 //  - Split d_in (decode, up to 64 rows). A cluster of kSplit blocks per
 //    row, each reducing a slice of d_in; rank 0 adds the blocks' partial
 //    sums from their shared memory (distributed shared memory) in rank
@@ -61,13 +65,15 @@
 //    rows a pass, each pass added on the CUDA cores, and casts once into a
 //    staged output tile. The B tile stays in shared memory while the slot
 //    does not change, so B is read about once per block instead of once
-//    per row; every element of out is written by one block. The output's
-//    32 KB a tile are most of the bytes: in bf16 a tile whose rows all
-//    belong to the slot (every tile of training's and prefill's runs) is
-//    written by TMA bulk stores from one thread, which drain while the
-//    block loads and multiplies the next tile, instead of by every thread
-//    between two barriers; other tiles store their slot's rows 16 bytes a
-//    thread. f32 takes the same tiles on CUDA cores.
+//    per row; every element of out is written by one block, its slot's
+//    rows 16 bytes a thread from the staged tile. f32 takes the same tiles
+//    on CUDA cores. The output's 32 KB a tile are most of the bytes, and
+//    at one slot (training: 4,096 rows x d_out 4,096, 256 blocks over 132
+//    SMs) what bounds a launch is that a block's stores of a tile do not
+//    overlap its next tile's product: 22-23 us in a CUDA graph on the
+//    H100 against 10.3 us of bytes. Writing whole one-slot tiles with TMA
+//    bulk stores that drain under the next tile's work measured no faster
+//    there, so the one store path stays.
 //  - Decode (up to 64 rows). One block per (row, 256 columns): each lane
 //    owns 8 columns, read from one rank row of B in a 16-byte load, and
 //    the 8 warps split the live rank rows, their partials added in warp
@@ -78,9 +84,8 @@
 // row-tile and decode kernels are instantiated with element copies and
 // stores (kVec false), zero past the width, so a partial k-step of 16 sums
 // zeros. The split shrink reads x element by element on either; TMA
-// needs 16-byte strides, so only such widths take the wgmma shrink and the
-// TMA stores. r_max stays a multiple of 8 (the pool pads it:
-// kernels/bgmv.py padded_rank).
+// needs 16-byte strides, so only such widths take the wgmma shrink. r_max
+// stays a multiple of 8 (the pool pads it: kernels/bgmv.py padded_rank).
 // Every sum runs in a fixed order (no atomics): results repeat bitwise.
 #include <type_traits>
 
@@ -667,23 +672,14 @@ template <> struct ExpCfg<float> {
   static constexpr int kLdy = kER + 4, kLdb = kEN + 4;
 };
 
-// bf16: the output tile, kEN / 64 boxes of kEM rows x 64 columns
-// (128-byte rows, swizzled as TMA reads them), on a 1024-byte boundary;
-// then (both types) two y tiles (the current and the next, in flight), a y
-// tile for rank rows past kER and a B tile
-constexpr int kStageBytes = kEM * kEN * 2;
+// two y tiles (the current and the next, in flight), a y tile for rank
+// rows past kER, a B tile and the bf16 output tile
 template <typename T>
 constexpr size_t expand_tile_smem() {
   using C = ExpCfg<T>;
-  return sizeof(T) * (3 * (size_t)kEM * C::kLdy + (size_t)kER * C::kLdb) +
-         (std::is_same<T, bf16>::value ? 1024 + kStageBytes : 0);
-}
-
-// Element (r, c) of the bf16 output tile: box c / 64, row r of 64
-// elements, its 16-byte chunk (c % 64) / 8 swizzled by r % 8.
-__device__ __forceinline__ int stage_at(int r, int c) {
-  return (c >> 6) * (kEM * 64) + r * 64 + ((((c & 63) >> 3) ^ (r & 7)) << 3) +
-         (c & 7);
+  return sizeof(T) * (3 * (size_t)kEM * C::kLdy + (size_t)kER * C::kLdb +
+                      (std::is_same<T, bf16>::value ? (size_t)kEM * C::kLdb
+                                                    : 0));
 }
 
 // out[:, n0 : n0 + kEN] for the row tiles t = blockIdx.y, blockIdx.y +
@@ -695,13 +691,7 @@ __device__ __forceinline__ int stage_at(int r, int c) {
 // = the slot's widest live width in the tile rounded up to 8, kept in
 // shared memory across tiles while the slot and width stay the same, and
 // writes the rows of s; rows with no adapter get zeros. Every element of
-// out is written once, by one block. bf16 casts the pass's sums once into
-// the staged output tile; where every row of the tile (below `rows`)
-// belongs to s, one thread writes the tile with TMA bulk stores (`to`: out
-// as (d_out, rows), kVec only), which drain while the block goes on to the
-// next pass's product, and the block waits for them to have read the tile
-// only before it casts again; else each thread writes its slot's rows.
-// kMulti: r_max > kER, rank rows in
+// out is written once, by one block. kMulti: r_max > kER, rank rows in
 // several passes (the partial sums take another 64 registers: one block
 // an SM then, as for f32, so that nothing spills). kVec: d_out a multiple
 // of 8, B's rows copied and out's written 16 bytes at a time; else
@@ -710,22 +700,18 @@ template <typename T, bool kMulti, bool kVec>
 __global__ void __launch_bounds__(
     kEThr, (std::is_same<T, bf16>::value && !kMulti) ? 2 : 1)
     lora_expand_tile_kernel(
-    const __grid_constant__ CUtensorMap to, const T* __restrict__ y,
-    const T* __restrict__ b, const int* __restrict__ idx,
-    const int* __restrict__ live, T* __restrict__ out, int rows, int r_max,
-    int d_out, int slots) {
+    const T* __restrict__ y, const T* __restrict__ b,
+    const int* __restrict__ idx, const int* __restrict__ live,
+    T* __restrict__ out, int rows, int r_max, int d_out, int slots) {
   using C = ExpCfg<T>;
   constexpr bool kBF = std::is_same<T, bf16>::value;
   constexpr int VEC = 16 / sizeof(T);       // elements a 16-byte copy
   constexpr int YC = kER / VEC, OC = kEN / VEC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* base =
-      kBF ? smem_raw + ((1024 - (rt::smem_u32(smem_raw) & 1023)) & 1023)
-          : smem_raw;
-  T* stage = reinterpret_cast<T*>(base);                 // bf16: the boxes
-  T* ybuf = reinterpret_cast<T*>(base + (kBF ? kStageBytes : 0));
+  T* ybuf = reinterpret_cast<T*>(smem_raw);              // 2 x kEM x kLdy
   T* yx = ybuf + 2 * kEM * C::kLdy;                      // kEM x kLdy
   T* bs = yx + kEM * C::kLdy;                            // kER x kLdb
+  T* stage = bs + kER * C::kLdb;                         // kEM x kLdb
   // rows' slots and live widths, one buffer a tile parity: a thread may
   // write the next tile's while another still reads this tile's
   __shared__ int sidx[2 * kEM], slive[2 * kEM], wred[2][kEM / 32];
@@ -904,9 +890,7 @@ __global__ void __launch_bounds__(
             wred[1][warp] = lo;
           }
         }
-        // every row of the tile below `rows` is one of s's: a TMA store
-        const bool whole = __syncthreads_and(
-            tid >= kEM || t * kEM + tid >= rows || sidx[pb + tid] == s);
+        __syncthreads();
         int hi = 0, lo = r_max;
 #pragma unroll
         for (int w = 0; w < kEM / 32; ++w) {
@@ -956,12 +940,7 @@ __global__ void __launch_bounds__(
             }
           }
           if constexpr (kBF) {
-            // cast once into the staged tile, once the last pass's TMA
-            // stores have read it
-            if (h == 0) {
-              if (tid == 0) rt::bulk_wait_read<0>();
-              __syncthreads();
-            }
+            // cast once into the staged tile
             if (any) {
 #pragma unroll
               for (int mm = 0; mm < 2; ++mm)
@@ -971,8 +950,8 @@ __global__ void __launch_bounds__(
 #pragma unroll
                   for (int n = 0; n < NW / 8; ++n)
                     *reinterpret_cast<unsigned*>(
-                        stage + stage_at(r, wc * 64 + h * NW + n * 8 +
-                                            (lane & 3) * 2)) =
+                        stage + r * C::kLdb + wc * 64 + h * NW + n * 8 +
+                        (lane & 3) * 2) =
                         rt::pack_bf16(acc[mm * NW / 8 + n][2 * hr],
                                       acc[mm * NW / 8 + n][2 * hr + 1]);
                 }
@@ -1002,31 +981,22 @@ __global__ void __launch_bounds__(
           }
         }
         if constexpr (kBF) {
-          // the slot's rows of the staged tile: TMA stores of whole
-          // tiles, else 16 bytes a store (elements without kVec)
-          rt::fence_proxy_async();          // the casts, seen by TMA
+          // the slot's rows of the staged tile, 16 bytes a store
           __syncthreads();
-          if (kVec && whole) {
-            if (tid == 0) {
-              for (int j = 0; j < kEN / 64 && n0 + j * 64 < d_out; ++j)
-                rt::tma_store_4d(&to, stage + j * kEM * 64, n0 + j * 64,
-                                 row0, 0, 0);
-              rt::bulk_commit();
-            }
-          } else if constexpr (kVec) {
+          if constexpr (kVec) {
             for (int i = tid; i < kEM * OC; i += kEThr) {
               const int r = i / OC, c = (i % OC) * VEC;
               if (sidx[pb + r] == s && c < ncols)
                 *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * d_out +
                                           n0 + c) =
-                    *reinterpret_cast<const uint4*>(stage + stage_at(r, c));
+                    *reinterpret_cast<const uint4*>(stage + r * C::kLdb + c);
             }
           } else {
             for (int i = tid; i < kEM * kEN; i += kEThr) {
               const int r = i / kEN, c = i % kEN;
               if (sidx[pb + r] == s && c < ncols)
                 out[(size_t)(row0 + r) * d_out + n0 + c] =
-                    stage[stage_at(r, c)];
+                    stage[r * C::kLdb + c];
             }
           }
         }
@@ -1035,7 +1005,6 @@ __global__ void __launch_bounds__(
     }
   }
   rt::cp_async_wait<0>();
-  if (kBF && tid == 0) rt::bulk_wait_read<0>();   // the tile outlives reads
 }
 
 template <typename T>
@@ -1256,22 +1225,11 @@ extern "C" int rt_lora_expand(const void* y, const void* b, const int* idx,
   const cudaError_t e = expand_launch(rows, r_max, d_out, row_blocks, dtype,
                                       &l);
   if (e != cudaSuccess) return (int)e;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (row_blocks == 0) {
-    void* args[] = {&y, &b, &idx, &live, &out, &r_max, &d_out, &slots};
-    return (int)rt::launch(l, args, st);
-  }
-  // the bf16 row tiles' TMA stores: out as (d_out, rows) in boxes of 64 x
-  // kEM (the f32 and element-store kernels take the map unread)
-  CUtensorMap to = {};
-  if (dtype == rt::kBF16 && d_out % rt::kVec == 0) {
-    if (rt::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-    const cuuint64_t od[4] = {(cuuint64_t)d_out, (cuuint64_t)rows, 1, 1};
-    if (!bf16_map(&to, out, od, kEM)) return (int)cudaErrorInvalidValue;
-  }
-  void* args[] = {&to, &y, &b, &idx, &live, &out, &rows, &r_max, &d_out,
-                  &slots};
-  return (int)rt::launch(l, args, st);
+  void* decode_args[] = {&y, &b, &idx, &live, &out, &r_max, &d_out, &slots};
+  void* tile_args[] = {&y, &b, &idx, &live, &out, &rows, &r_max, &d_out,
+                       &slots};
+  return (int)rt::launch(l, row_blocks == 0 ? decode_args : tile_args,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // rt_lora_expand's launch, described into out[0 : rt::kInfoFields].

@@ -81,31 +81,6 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// One box of a 4-D tensor map from shared memory (laid out as
-// tma_load_4d writes it) to device memory, in this thread's bulk group;
-// the part of the box outside the tensor is not written.
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
-                                             const void* src, int c0, int c1,
-                                             int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's bulk groups still read their
-// shared memory source.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
 // Move registers between warpgroups (every warp of the warpgroup runs it).
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {

@@ -391,12 +391,14 @@ def _rows_close(got, want, tol, floor):
 @pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
 @pytest.mark.parametrize("rows,seg,d_in", [
     (8, 0, 1024), (64, 0, 4096), (65, 1, 512), (300, 17, 512),
+    (2048, 32, 1024), (4096 + 5, 32, 1024),
     (8269, 4096, 256), (16896 + 77, 4096, 64)])
 def test_lora_shrink_paths_match_plain(card, mode, rows, seg, d_in):
     """bf16 shrink on both launch shapes: split d_in (<= 64 rows) and row
     tiles of 64 / 128 rows, at random slots (seg 0) and at prefill's runs
     of `seg` rows per slot (boundaries inside tiles, whole tiles of idx -1
-    rows, a ragged last tile), ranks 8/16/32/64. f32 output: each row
+    rows, a ragged last tile; runs of 32: every tile of two slots, each
+    block reading the whole tile), ranks 8/16/32/64. f32 output: each row
     within 1e-5 x max(1, its max |plain|), dead columns exactly 0, and a
     second run bitwise equal (no atomics)."""
     g = torch.Generator(device=card).manual_seed(rows + d_in)

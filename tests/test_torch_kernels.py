@@ -329,7 +329,7 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
     """The launch plan computed on the host from `rows`: the split path up
     to SPLIT_MAX_ROWS rows (SPLIT blocks a row over disjoint d slices that
     cover d_in once, in multiples of 8), row tiles above it (128 rows
-    where, split up to MAX_TILE_SPLIT ways, they fill every SM, else 64),
+    where they alone fill every SM, else 64),
     one block per (tile, distinct slot of the tile) times `split` blocks
     over d slices of whole TILE_D boxes (at least MIN_SLICE_D wide) that
     cover d_in once, as many as give no SM a second block (one where the
@@ -351,7 +351,7 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
             hits[lo:min(d_in, lo + plan.d_chunk)] += 1
         assert np.all(hits == 1)
         return
-    big = -(-rows // 128) * bgmv.MAX_TILE_SPLIT >= _SMS
+    big = -(-rows // 128) >= _SMS
     assert plan.tile == (128 if big else 64)
     assert plan.tile in bgmv.TILE_ROWS
     assert plan.per_tile == min(slots, plan.tile)
@@ -377,7 +377,7 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
     if rows == 512 and d_in == 4096:      # the chunk
         assert (plan.tile, split) == (64, 8)
     if rows == 4096 and d_in == 4096:     # the training step
-        assert (plan.tile, split) == (128, 4)
+        assert (plan.tile, split) == (64, 2)
     rng = np.random.default_rng(rows + slots)
     per = plan.tile // split              # rows a part writes
     for idx in (rng.integers(-1, slots, rows),
