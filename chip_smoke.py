@@ -30,9 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      and at widths that are no multiple of 8 (d_in 4,100 -> d_out 1,000
      and 1,000 -> 4,100 on decode rows, 2,048 / 1,100 / 32,768 prefill
      rows; 131 -> 37 in f32), every kernel repeatable bitwise; paged
-     attention over group tiles (MQA: group 32 at hd 128, and 71 at hd 64
-     with long rows and splits, NaN in foreign pages at group 32) and at
-     hd 80, 100 and 12 (bf16 and f32); flash attention at
+     attention at MQA groups (32 at hd 128, and 71 at hd 64 with long
+     rows and splits, NaN in foreign pages at group 32: the group kernel
+     in bf16, group tiles of the lane kernel in f32) and at hd 80, 100
+     and 12 (bf16 and f32); flash attention at
      yi-9b's long prompt (bf16, B 2, H 32 over KV 4, hd 128, L 4096,
      causal), at llama2-7b's (H = KV = 32, L 256), llama2-13b's (H = KV =
      40), mistral-large's (96 over 8) and dbrx/grok's (48 over 8), all on
@@ -215,7 +216,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      and LoRA kernels launch, graphed = eager tokens and launches; one
      decode step's logits and a 2-row prefill's and decode step's through
      the kernels vs the plain versions within 5e-2 of max |logit|; paged
-     attention timed at K1's and K3's decode (group tiles), flash at K2's
+     attention timed at K1's and K3's decode (the group kernel), flash at
+     K2's
      largest prefill (hd 80, run at width 96), the LoRA shrink at K3's
      decode (d_in 4,100), each beside SDPA / torch.bmm;
   M. the multi-device plane, in a process of its own (`--phase-m`): M1
@@ -379,7 +381,8 @@ def main() -> int:
 KERNEL_NAMES = ("flash_bf16", "flash_f32", "lora_shrink_tile",
                 "lora_shrink_wgmma",
                 "lora_shrink_split", "lora_expand_tile", "lora_expand_decode",
-                "paged_attention", "paged_combine")
+                "paged_attention", "paged_combine", "paged_group",
+                "paged_group_combine")
 
 
 def print_build_info(log):
@@ -414,16 +417,17 @@ def print_build_info(log):
 
 # ------------------------------------------------------------ phase 2 ----
 
-def check_close(name, got, want, dtype):
+def check_close(name, got, want, dtype, share=False):
     """Each row b (leading axis) is held to its own scale: max|got[b] -
     want[b]| <= tol * max|want[b]| in bf16, <= tol * max(1, max|want[b]|)
     in f32. A row whose plain output is all zero must come out exactly
-    zero. Returns the largest absolute error over all rows."""
+    zero. Returns the largest absolute error over all rows (with `share`,
+    also the largest share of a row's limit)."""
     import torch
     g, w = got.float(), want.float()
     check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
     if not g.numel():
-        return 0.0
+        return (0.0, 0.0) if share else 0.0
     err = (g - w).abs().flatten(1).amax(1)
     scale = w.abs().flatten(1).amax(1)
     lim = BF16_TOL * scale if dtype == torch.bfloat16 \
@@ -440,7 +444,8 @@ def check_close(name, got, want, dtype):
     print(f"  {name}: max abs err {float(err.max()):.3e}, at most "
           f"{float(ratio.max()):.3f} of its row's limit (row limits {span})",
           flush=True)
-    return float(err.max())
+    return (float(err.max()), float(ratio.max())) if share \
+        else float(err.max())
 
 
 def paged_case(torch, np_rng, B, H, KV, hd, ps, W, P, dtype, ctx):
@@ -508,10 +513,11 @@ def kernel_checks(torch):
              ("GQA 4 hd 16 f32", 4, 8, 2, 16, 8, 5, 24, f32, False, None),
              ("GQA 8 long row splits f32", 3, 8, 1, 64, 16, 160, 170, f32,
               False, [0, 2400, 30]),
-             # group tiles: MQA at group 32 (hd 128: 2 tiles) and 71 (hd
-             # 64, falcon-7b's: 3 tiles) with long rows and splits; head
-             # dims that are no multiple of 8 (element copies into padded
-             # ring rows) and hd 80
+             # MQA at group 32 (hd 128) and 71 (hd 64, falcon-7b's) with
+             # long rows and splits: the group kernel in bf16, group tiles
+             # of the lane kernel in f32 (2 at group 32); head dims that
+             # are no multiple of 8 (element copies into padded ring rows)
+             # and hd 80
              ("MQA G 32 hd 128 bf16", 8, 32, 1, 128, 32, 16, 176, bf,
               True, None),
              ("MQA G 71 hd 64 long rows bf16", 8, 71, 1, 64, 32, 128, 200,
@@ -3475,12 +3481,14 @@ def paged_row(torch, args, flush, **meta):
     its bound (each claimed page of K and V read once, q read and out
     written once; 4 flops a valid slot and head dim per query head), the
     plain version and SDPA over the gathered pages with K/V repeated
-    across each GQA group (timed only, never called by the port); also as
-    a graphed step launches it (`graph_ms`)."""
+    across each GQA group (timed only, never called by the port); also
+    both as a graphed step launches them (`graph_ms`). `shape.route` names
+    the kernel (kernels/paged.py: ROUTES)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.bgmv import sm_count
-    from repro_torch.kernels.paged import (group_tiles, paged_attention,
+    from repro_torch.kernels.paged import (ROUTES, launch_tiles,
+                                           paged_attention, route,
                                            split_plan)
     from repro_torch.models.layers import paged_kv_for_attn
     q, k, v, pp, bt, pos = args
@@ -3500,6 +3508,7 @@ def paged_row(torch, args, flush, **meta):
     vd = vd.repeat_interleave(H // KV, dim=1)
     mask = ((kp >= 0) & (kp <= pos[:, None]))[:, None, None, :]
     qs = q[:, :, None, :]
+    tiles = launch_tiles(H // KV, hd, q.dtype)
     return {
         "name": meta["name"], "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -3515,13 +3524,17 @@ def paged_row(torch, args, flush, **meta):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kd, vd, attn_mask=mask), flush),
+        "library_graph_ms": graph_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=mask), flush),
         "bytes": nbytes, "shape": {
             "B": B, "H": H, "KV": KV, "hd": hd, "ps": ps, "W": bt.shape[1],
             "claimed_pages": int(claimed.numel()), "valid_slots": n_valid,
             "max_pos": int(pos.max()),
-            "group_tiles": group_tiles(H // KV, hd),
+            "route": ROUTES[route(H // KV, hd, q.dtype)],
+            "group_tiles": tiles,
             "splits": split_plan(B, KV, bt.shape[1], sm_count(q.device),
-                                 group_tiles(H // KV, hd))}}
+                                 tiles)}}
 
 
 def timing_phase(torch, step, errs, serving):
@@ -3926,19 +3939,24 @@ def paged_capture_timing(torch, args, serving, name, path, min_pos=0):
     q, k, v, pp, bt, pos = args
     check(int(pos.max()) >= min_pos,
           f"{path} capture: no row at pos >= {min_pos}")
-    err = check_close(f"paged_attention {path} (layer 0)",
-                      paged_attention(*args), ref.paged_attention_ref(*args),
-                      q.dtype)
+    err, share = check_close(f"paged_attention {path} (layer 0)",
+                             paged_attention(*args),
+                             ref.paged_attention_ref(*args), q.dtype,
+                             share=True)
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     row = paged_row(torch, args, flush_buf.zero_, name=name, path=path,
                     launches=serving[0]["launches"]["paged_attention"],
                     max_abs_err=err)
-    print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
+    row["limit_share"] = share
+    print(f"  {row['name']} ({row['shape']['route']} kernel): "
+          f"{row['ms'] * 1e3:.1f} us (bound "
           f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}), in a CUDA "
           f"graph {row['graph_ms'] * 1e3:.1f} us, plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (SDPA) "
-          f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches, "
-          f"shape {row['shape']}", flush=True)
+          f"{row['library_ms'] * 1e3:.1f} us, in a CUDA graph "
+          f"{row['library_graph_ms'] * 1e3:.1f} us, {row['launches']} "
+          f"launches, worst {share:.3f} of a row's limit, shape "
+          f"{row['shape']}", flush=True)
     return row
 
 
@@ -3972,9 +3990,9 @@ def rank_sweep(torch, a, b, x, flush):
 
 # llama2-7b changed to shapes the reference's kernels take and no
 # registered config reaches: (tag, label, ModelConfig changes). K1 MQA
-# (group 32 at hd 128: paged attention in 2 group tiles), K2 hd 80 (32
+# (group 32 at hd 128: paged attention on the group kernel), K2 hd 80 (32
 # heads of 80: flash at width 96), K3 falcon-7b's attention (71 query
-# heads of 64 over one KV head: 3 group tiles) over a d_model of 4,100
+# heads of 64 over one KV head, one block a KV head) over a d_model of 4,100
 # (no multiple of 8: the LoRA shrink's tail on q, k and v), its depth cut
 # to K3_LAYERS; K1 and K2 whole.
 K3_LAYERS = 4
@@ -4051,7 +4069,7 @@ def shapes_phase(torch, errs):
     prefill's and its decode step's (`g_logits`) through the kernels vs
     the plain versions within LOGIT_TOL x max |logit|; then the new
     shapes timed as phase 5a / 5b time theirs: paged attention at K1's
-    and K3's decode (group tiles), flash at K2's largest prefill (hd 80
+    and K3's decode (the group kernel), flash at K2's largest prefill (hd 80
     at width 96), the LoRA shrink at K3's decode (d_in 4,100). Returns
     (report, kernels-line rows)."""
     from repro_torch.configs.base import get_config
@@ -4146,8 +4164,9 @@ def kernel_tooling_phase(torch):
     found += kernel_verify.paged_rule_findings(lib)
     check(not found, "phase S1 findings:\n  " + "\n  ".join(found))
     print(f"  {len(rows)} launches of {len(groups)} distinct footprints "
-          "within the limits; paged.fits and paged.group_tiles equal "
-          "rt_paged_attention_fits and rt_paged_attention_tiles",
+          "within the limits; paged.fits, "
+          "paged.group_tiles and paged.route equal rt_paged_attention_fits, "
+          "rt_paged_attention_tiles and rt_paged_attention_route",
           flush=True)
     print("phase S2: canaries (fills, guard bands, poisoned inputs, a "
           "concurrent stream)", flush=True)

@@ -11,12 +11,36 @@ tree builds its kernels into `<tree>/build/repro_torch`), and prints one
 the L2 flushed before each launch) of flash attention at yi-9b's 8 x
 4,096 prefill, at 8 x 512 (hd 128), at 4 x 256 (hd 96) and at 4 x 256
 (hd 256, 10 heads over 1, window 2,048), of paged attention at
-llama2-7b's decode (8 rows, 32 x 32 heads, 16 pages of 32), and of the
+llama2-7b's decode (8 rows, 32 x 32 heads, 16 pages of 32; also in a
+CUDA graph) and at the four GQA decode shapes of `GQA_SHAPES` (yi-9b's
+long row: 32 heads over 4, 116 pages in one row; mistral-large's 96
+over 8, 6 pages; MQA 32 over 1 at hd 128, 38 pages over 8 rows; 71 over
+1 at hd 64, 41 pages) and the loaded batches of `LOADED_SHAPES` (yi-9b
+64 rows x 2,048 tokens, mistral-large 32 x 1,024, dbrx's G 6 at 8 x
+4,096, groups of 4 and 2 at 32 x 2,048 and 8 x 300, yi-9b at pages of
+128, G 8 at hd 256 and pages of 64), each per launch and in a CUDA
+graph, with SDPA over the gathered, group-repeated K/V in a graph
+beside, and of the
 LoRA shrink and expand (d 4,096, r_max 64) at 8 rows, at the training
 step's 4,096 rows of one slot, at the yi-9b chunk's 512 rows of one slot
 of 8 (the shrink), at the yi-9b prefill's 32,768 rows (8 slots) and at
 2,048 and 4,096 rows in runs of 32 over 8 slots (tiles of several slots:
 a packed prefill of short prompts). `--tree ROOT` runs one tree.
+
+    python3 kernel_ab.py --paged-probe
+
+splits, in this tree, paged attention's time at the GQA shapes: the
+wrapper in a graph with L2 flushed and warm, each kernel's device time
+from a profiled replay (the attention kernel and the combine), the
+attention kernel alone with one split, and both at 1, 4 and 16 claimed
+pages in every row; SDPA in a graph beside.
+
+    python3 kernel_ab.py --paged-loaded
+
+times, in this tree, the group kernel at the loaded batches of
+`LOADED_SHAPES` under forced split counts (1 to 16), beside a gather of
+the claimed pages, a flat copy of as many bytes and the bound
+(`paged_bound_us`).
 
     python3 kernel_ab.py --sweep
 
@@ -82,6 +106,22 @@ def time_tree(root: str) -> dict:
     pos = torch.full((B,), 300, device="cuda", dtype=torch.int32)
     out["paged llama2-7b us"] = us(
         lambda: paged.paged_attention(q, k, v, pp, bt, pos), n=100)
+    out["paged llama2-7b graph us"] = graph_us(
+        torch, lambda: paged.paged_attention(q, k, v, pp, bt, pos),
+        flush_buf.zero_)
+    # the GQA decode rows (GQA_SHAPES): the wrapper in a graph and per
+    # launch, SDPA over the gathered, group-repeated K/V in a graph
+    for name, (B, H, KV, hd, ps, W, ctx) in {**GQA_SHAPES,
+                                              **LOADED_SHAPES}.items():
+        args = paged_args(torch, B, H, KV, hd, ps, W, ctx)
+        call = (lambda a: lambda: paged.paged_attention(*a))(args)
+        out[f"paged {name} graph us"] = graph_us(torch, call,
+                                                 flush_buf.zero_)
+        out[f"paged {name} us"] = us(call, n=50)
+        out[f"sdpa {name} graph us"] = graph_us(
+            torch, sdpa_call(torch, args), flush_buf.zero_)
+        del args, call
+        torch.cuda.empty_cache()
     x = torch.randn(8, 4096, generator=g, device="cuda").bfloat16()
     a = torch.randn(8, 4096, 64, generator=g, device="cuda").bfloat16()
     b = torch.randn(8, 64, 4096, generator=g, device="cuda").bfloat16()
@@ -120,20 +160,35 @@ def time_tree(root: str) -> dict:
     return out
 
 
-def graph_us(torch, fn, flush, n=20, reps=5):
-    """Microseconds a launch of fn in a CUDA graph: n launches, each after
-    an L2 flush, replayed `reps` times, less a graph of the flushes alone
-    (chip_smoke.graph_ms)."""
-    per = []
-    for body in (lambda: (flush(), fn()), flush):
-        body()
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
+def capture(torch, body, n):
+    """A CUDA graph of n calls of body (the garbage collector off while
+    capturing: a graph destroyed mid-capture voids it), replayed once."""
+    import gc
+    body()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    gc.collect()
+    gc.disable()
+    try:
         with torch.cuda.graph(g):
             for _ in range(n):
                 body()
-        g.replay()
-        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    g.replay()
+    torch.cuda.synchronize()
+    return g
+
+
+def graph_us(torch, fn, flush, n=20, reps=5):
+    """Microseconds a launch of fn in a CUDA graph: n launches, each after
+    an L2 flush, replayed `reps` times, less a graph of the flushes alone
+    (chip_smoke.graph_ms). With `flush` None: n launches back to back, L2
+    warm."""
+    per = []
+    bodies = (fn,) if flush is None else ((lambda: (flush(), fn())), flush)
+    for body in bodies:
+        g = capture(torch, body, n)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -142,7 +197,218 @@ def graph_us(torch, fn, flush, n=20, reps=5):
         e.record()
         e.synchronize()
         per.append(1e3 * s.elapsed_time(e) / (reps * n))
-    return per[0] - per[1]
+        del g
+    return per[0] - (per[1] if len(per) > 1 else 0.0)
+
+
+def kernel_us(torch, fn, flush, n=20):
+    """Device microseconds by kernel name a call of fn, each call after an
+    L2 flush, from one replay of a CUDA graph of n calls under
+    torch.profiler (the flush's own kernel listed too)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = capture(torch, lambda: (flush(), fn()), n)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0 and "CUDA" in str(ev.device_type):
+            out[ev.key[:72]] = us / n
+    return out or "the profiler's trace holds no device time"
+
+
+# GQA decode shapes as run 99 of chip_smoke.py served them (PERF.md §6):
+# (B, H, KV, hd, ps, W, tokens of each row); page ids drawn at random.
+# yi-9b's first decode step holds one row at pos >= 2,048 (116 pages).
+GQA_SHAPES = {
+    "yi-9b": (8, 32, 4, 128, 32, 128, [3684] + [0] * 7),
+    "mistral-large": (8, 96, 8, 128, 32, 16, [183] + [0] * 7),
+    "MQA G 32 hd 128": (8, 32, 1, 128, 32, 16,
+                        [246, 224, 160, 128, 120, 96, 97, 80]),
+    "G 71 hd 64": (8, 71, 1, 64, 32, 16,
+                   [246, 224, 192, 160, 128, 112, 97, 73]),
+}
+
+
+# Decode batches that fill the card (B x KV blocks past the SM count, so
+# one split where the rows are equal), the groups of 2 and 4 no served
+# config has, and pages larger than the group kernel's 32-slot ring
+# stage: (B, H, KV, hd, ps, W, tokens of each row).
+LOADED_SHAPES = {
+    "yi-9b 64 x 2,048": (64, 32, 4, 128, 32, 64, [2048] * 64),
+    "mistral-large 32 x 1,024": (32, 96, 8, 128, 32, 32, [1024] * 32),
+    "dbrx G 6 8 x 4,096": (8, 48, 8, 128, 32, 128, [4096] * 8),
+    "G 4 32 x 2,048": (32, 32, 8, 128, 32, 64, [2048] * 32),
+    "G 2 32 x 2,048": (32, 16, 8, 128, 32, 64, [2048] * 32),
+    "G 4 8 x 300": (8, 32, 8, 128, 32, 16, [300] * 8),
+    "G 2 8 x 300": (8, 16, 8, 128, 32, 16, [300] * 8),
+    "yi-9b ps 128 64 x 2,048": (64, 32, 4, 128, 128, 16, [2048] * 64),
+    "G 8 hd 256 ps 64 16 x 2,048": (16, 32, 4, 256, 64, 32, [2048] * 16),
+}
+
+
+def paged_bound_us(B, H, KV, hd, ps, W, ctx, esz=2):
+    """Microseconds the card needs at least for a paged launch at this
+    shape: every claimed page's K, V and positions, q, out, the block
+    table and pos moved once at the H100 data sheet's 3.35 TB/s."""
+    pages = sum(-(-c // ps) for c in ctx)
+    nbytes = (2 * pages * KV * ps * hd * esz + 4 * pages * ps
+              + 2 * B * H * hd * esz + 4 * B * W + 4 * B)
+    return 1e6 * nbytes / 3.35e12
+
+
+def paged_args(torch, B, H, KV, hd, ps, W, ctx, seed=0):
+    """Seeded paged-attention arguments: row b holds ctx[b] tokens in
+    pages drawn at random from a pool of the pages claimed + 4."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    need = [-(-c // ps) for c in ctx]
+    P = sum(need) + 4
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, H, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(P, KV, ps, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(P, KV, ps, hd, generator=g, device="cuda").bfloat16()
+    pp = torch.full((P, ps), -1, dtype=torch.int32)
+    bt = torch.full((B, W), -1, dtype=torch.int32)
+    free = [int(x) for x in rng.permutation(P)]
+    for b, n_tok in enumerate(ctx):
+        for j in range(need[b]):
+            pg = free.pop()
+            bt[b, j] = pg
+            filled = torch.arange(ps) + j * ps
+            pp[pg] = torch.where(filled < n_tok, filled, -1).int()
+    pos = torch.tensor([max(c - 1, 0) for c in ctx], dtype=torch.int32)
+    return [q, k, v, pp.cuda(), bt.cuda(), pos.cuda()]
+
+
+def sdpa_call(torch, args):
+    """SDPA over each row's gathered pages with K/V repeated across the
+    GQA group (the library yardstick, as chip_smoke.paged_row times it)."""
+    import torch.nn.functional as F
+    q, k, v, pp, bt, pos = args
+    B, H, hd = q.shape
+    P, KV, ps, _ = k.shape
+    safe = bt.clamp(min=0).long()
+    kd = k[safe].permute(0, 2, 1, 3, 4).reshape(B, KV, -1, hd)
+    vd = v[safe].permute(0, 2, 1, 3, 4).reshape(B, KV, -1, hd)
+    kd = kd.repeat_interleave(H // KV, dim=1)
+    vd = vd.repeat_interleave(H // KV, dim=1)
+    kp = torch.where(bt[:, :, None] >= 0, pp[safe], -1).reshape(B, -1)
+    mask = ((kp >= 0) & (kp <= pos[:, None]))[:, None, None, :]
+    qs = q[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, kd, vd,
+                                                  attn_mask=mask)
+
+
+def paged_direct(torch, lib, build, args, nsplit):
+    """rt_paged_attention at a given split count, outputs allocated once;
+    the stream is read inside the call, so a capture records the launch."""
+    q, k, v, pp, bt, pos = args
+    B, H, hd = q.shape
+    P, KV, ps, _ = k.shape
+    W = bt.shape[1]
+    out = torch.empty_like(q)
+    ws = torch.empty(max(1, B * H * nsplit * (hd + 2)), device="cuda")
+
+    def call():
+        rc = lib.rt_paged_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pp.data_ptr(),
+            bt.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            B, H, KV, P, ps, hd, W, nsplit, build.DTYPE_CODE[q.dtype],
+            build.stream_handle(q.device))
+        assert rc == 0, rc
+    return call
+
+
+def paged_probe() -> dict:
+    """Where paged attention's time goes at the GQA shapes (GQA_SHAPES),
+    in this tree, each figure in a CUDA graph after an L2 flush: the
+    wrapper as shipped (attention and, with splits, the combine), the
+    same with L2 warm and no flush, the device time of each kernel from
+    a profiled replay, the attention kernel alone with one split, and
+    the same at 1, 4 and 16 claimed pages in every row; SDPA beside."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.kernels import build, paged
+    from repro_torch.kernels.bgmv import sm_count
+    lib = build.library()
+    sms = sm_count(torch.device("cuda"))
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    res = {}
+    for name, (B, H, KV, hd, ps, W, ctx) in GQA_SHAPES.items():
+        tiles = paged.group_tiles(H // KV, hd)
+        args = paged_args(torch, B, H, KV, hd, ps, W, ctx)
+        wrap = (lambda a: lambda: paged.paged_attention(*a))(args)
+        r = {"splits": paged.split_plan(B, KV, W, sms, tiles),
+             "group_tiles": tiles,
+             "graph_us": graph_us(torch, wrap, flush),
+             "graph_us_warm": graph_us(torch, wrap, None),
+             "kernels_us": kernel_us(torch, wrap, flush),
+             "one_split_graph_us": graph_us(
+                 torch, paged_direct(torch, lib, build, args, 1), flush),
+             "sdpa_graph_us": graph_us(torch, sdpa_call(torch, args),
+                                       flush)}
+        for n in (1, 4, 16):
+            if n > W:
+                continue
+            a = paged_args(torch, B, H, KV, hd, ps, W, [n * ps] * B)
+            r[f"{n} pages a row"] = {
+                "splits": paged.split_plan(B, KV, W, sms, tiles),
+                "graph_us": graph_us(
+                    torch, (lambda a: lambda: paged.paged_attention(*a))(a),
+                    flush),
+                "one_split_graph_us": graph_us(
+                    torch, paged_direct(torch, lib, build, a, 1), flush)}
+        res[name] = r
+        print("PROBE", name, json.dumps(r), flush=True)
+    return res
+
+
+def paged_loaded() -> dict:
+    """The loaded decode batches (LOADED_SHAPES), in this tree, each in a
+    CUDA graph after an L2 flush: the kernel at forced split counts (the
+    shipped count beside), and the same K/V bytes read without attention:
+    the claimed pages gathered (`index_select`, which writes them too) and
+    a flat copy of as many bytes (half read, half written)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.kernels import build, paged
+    from repro_torch.kernels.bgmv import sm_count
+    lib = build.library()
+    sms = sm_count(torch.device("cuda"))
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    res = {}
+    for name, (B, H, KV, hd, ps, W, ctx) in LOADED_SHAPES.items():
+        args = paged_args(torch, B, H, KV, hd, ps, W, ctx)
+        k, v, bt = args[1], args[2], args[4]
+        idx = bt[bt >= 0].long()
+        kv_bytes = 2 * idx.numel() * k[0].numel() * k.element_size()
+        r = {"shipped_splits": paged.split_plan(B, KV, W, sms, 1),
+             "kv_bytes": kv_bytes,
+             "bound_us": paged_bound_us(B, H, KV, hd, ps, W, ctx)}
+        for n in (1, 2, 3, 4, 8, 16):
+            if n <= W:
+                r[f"{n} splits graph_us"] = graph_us(
+                    torch, paged_direct(torch, lib, build, args, n), flush)
+        ko = torch.empty((idx.numel(),) + tuple(k.shape[1:]),
+                         dtype=k.dtype, device="cuda")
+        vo = torch.empty_like(ko)
+        r["gather graph_us"] = graph_us(
+            torch, lambda: (torch.index_select(k, 0, idx, out=ko),
+                            torch.index_select(v, 0, idx, out=vo)), flush)
+        src = torch.empty(kv_bytes // 2, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        r["flat copy graph_us"] = graph_us(torch, lambda: dst.copy_(src),
+                                           flush)
+        res[name] = r
+        print("LOADED", name, json.dumps(r), flush=True)
+        del args, k, v, ko, vo, src, dst
+        torch.cuda.empty_cache()
+    return res
 
 
 # CUPTI range-profiler counters asked of torch.profiler in --sweep
@@ -242,6 +508,12 @@ def sweep() -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--paged-probe"]:
+        paged_probe()
+        return 0
+    if sys.argv[1:2] == ["--paged-loaded"]:
+        paged_loaded()
+        return 0
     if sys.argv[1:2] == ["--sweep"]:
         print("SWEEP", json.dumps(sweep()), flush=True)
         return 0

@@ -5,13 +5,15 @@ The reference's `repro.analysis.kernel_model` intercepts `pl.pallas_call`
 and walks BlockSpecs; CUDA kernels have neither. Here a kernel's launch is
 what its wrapper passes to the library: the wrapper's own plan functions
 (`bgmv.shrink_plan`, `bgmv.expand_plan`, `paged.split_plan`,
-`paged.group_tiles`, `flash.padded_width`) and shape
+`paged.launch_tiles`, `flash.padded_width`) and shape
 rules (`bgmv.shrink_refusal`, `bgmv.expand_refusal`,
 `paged.shape_refusal`, `flash.shape_refusal`) are called, so there is no
 second copy of the launch math to drift. The paged rule lives in C++
 (`rt_paged_attention_fits`); `paged.fits` is its Python copy, held equal
 to it over a grid of (G, hd) by `kernel_verify` on the card, as
-`paged.group_tiles` is to `rt_paged_attention_tiles`.
+`paged.group_tiles` is to `rt_paged_attention_tiles` and `paged.route`
+(which kernel: the group kernel or the lane kernel) to
+`rt_paged_attention_route`.
 
 `config_cases()` yields one `Case` per registered config at its real
 widths (head dim, heads over KV heads, the LoRA targets' d_in / d_out
@@ -112,12 +114,15 @@ def config_cases() -> Iterator[Case]:
 
 def shape_cases() -> Iterator[Case]:
     """llama2-7b at shapes the reference's kernels take and no registered
-    config reaches: an MQA group of 32 at hd 128 (`n_kv_heads=1`, paged
-    attention in group tiles), hd 80 (`head_dim=80`, flash at a padded
-    width) and LoRA targets of 4,100 -> 1,000 and 1,000 -> 4,100 (the
-    shrink's and the expand's tails)."""
+    config reaches: an MQA group of 32 at hd 128 (`n_kv_heads=1`: paged
+    attention on the group kernel in bf16, in group tiles of the lane
+    kernel in f32), hd 80 (`head_dim=80`, flash at a padded width) and
+    LoRA targets of 4,100 -> 1,000 and 1,000 -> 4,100 (the shrink's and
+    the expand's tails)."""
     base = get_config("llama2-7b")
     for label, kw in (("n_kv_heads=1", dict(n_kv_heads=1)),
+                      ("n_kv_heads=1 f32", dict(n_kv_heads=1,
+                                                dtype="float32")),
                       ("head_dim=80", dict(head_dim=80))):
         case = case_from_config(dataclasses.replace(base, **kw))
         yield dataclasses.replace(case, config=f"{base.name} {label}")
@@ -169,14 +174,16 @@ def launches(case: Case, sms: int = H100_SMS) -> List[Launch]:
             flash.shape_refusal(case.hd, case.dtype), "flash.shape_refusal"))
     if case.paged:
         W = CACHE_SLOTS // PAGE_SIZE
-        tiles = paged.group_tiles(case.group, case.hd)
+        group = paged.route(case.group, case.hd, case.dtype) == 1
+        tiles = paged.launch_tiles(case.group, case.hd, case.dtype)
         nsplit = paged.split_plan(PAGED_BATCH, case.n_kv_heads, W, sms,
                                   tiles)
         out.append(Launch(
             case.config, "paged_attention",
             ("one split" if nsplit == 1 else f"{nsplit} splits + combine")
             + f" G {case.group} hd {case.hd}"
-            + ("" if tiles == 1 else f" in {tiles} group tiles"),
+            + (" on the group kernel" if group else
+               "" if tiles == 1 else f" in {tiles} group tiles"),
             case.dtype, dict(B=PAGED_BATCH, H=case.n_heads,
                              KV=case.n_kv_heads, ps=PAGE_SIZE, hd=case.hd,
                              W=W, nsplit=nsplit),

@@ -198,18 +198,25 @@ def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
 
 
 def paged_rule_findings(lib) -> List[str]:
-    """`paged.fits` and `paged.group_tiles` (the CPU's copies) against
-    `rt_paged_attention_fits` and `rt_paged_attention_tiles` over every
-    (G, hd) with G 0-160 and hd 0-300."""
+    """`paged.fits`, `paged.group_tiles` and `paged.route` (the CPU's
+    copies) against `rt_paged_attention_fits`, `rt_paged_attention_tiles`
+    and `rt_paged_attention_route` over every (G, hd) with G 0-160 and hd
+    0-300, the route in bf16 and f32."""
     grid = [(G, hd) for G in range(0, 161) for hd in range(0, 301)]
     bad = [x for x in grid
            if bool(lib.rt_paged_attention_fits(*x)) != paged.fits(*x)]
     tiles = [x for x in grid if paged.fits(*x) and
              lib.rt_paged_attention_tiles(*x) != paged.group_tiles(*x)]
+    routes = [(*x, str(dt).split(".")[-1]) for x in grid
+              for dt in build.DTYPE_CODE
+              if lib.rt_paged_attention_route(*x, build.DTYPE_CODE[dt])
+              != paged.route(*x, dt)]
     return ([f"paged.fits disagrees with rt_paged_attention_fits at (G, hd) "
              f"in {bad[:8]}"] if bad else []) + \
         ([f"paged.group_tiles disagrees with rt_paged_attention_tiles at "
-          f"(G, hd) in {tiles[:8]}"] if tiles else [])
+          f"(G, hd) in {tiles[:8]}"] if tiles else []) + \
+        ([f"paged.route disagrees with rt_paged_attention_route at (G, hd, "
+          f"dtype) in {routes[:8]}"] if routes else [])
 
 
 # ------------------------------------------------------------ canaries ----
@@ -483,7 +490,7 @@ def paged_path(lib, label, B, H, KV, hd, ps, W, P, dt, ctx, sms,
     pois = dict(ins, k=torch.where(foreign[:, None, None, None], nan, k),
                 v=torch.where(foreign[:, None, None, None], nan, v),
                 pp=torch.where(foreign[:, None], 0, ins["pp"]))
-    tiles = paged.group_tiles(H // KV, hd)
+    tiles = paged.launch_tiles(H // KV, hd, dt)
     nsplit = paged.split_plan(told, KV, W, sms, tiles)
     outs = {"out": Guarded((B, H, hd), dt, "cuda")}
     if nsplit > 1:
@@ -499,7 +506,9 @@ def paged_path(lib, label, B, H, KV, hd, ps, W, P, dt, ctx, sms,
         build.check_launch(rc, label)
 
     kind = "one split" if nsplit == 1 else f"{nsplit} splits + combine"
-    if tiles > 1:
+    if paged.route(H // KV, hd, dt) == 1:
+        kind += ", group kernel"
+    elif tiles > 1:
         kind += f", {tiles} group tiles"
     return Path(f"paged_attention[{kind}] {label}", launch, ins, pois, outs)
 
@@ -512,8 +521,9 @@ PAGED_CASES = [
      [0, 2500, 9]),
     ("splits f32", 3, 8, 1, 64, 16, 160, 200, torch.float32, [2400, 0, 30]),
     ("one split f32", 4, 4, 2, 32, 8, 5, 24, torch.float32, [0, 1, 33, 40]),
-    # group tiles (MQA at G 32, hd 128; G 71, hd 64) and head dims that
-    # are no multiple of 8 (element copies into padded ring rows)
+    # MQA at G 32, hd 128 and G 71, hd 64 (the group kernel's 2 and 5 M
+    # tiles) and head dims that are no multiple of 8 (element copies into
+    # padded ring rows)
     ("MQA G 32 hd 128 bf16", 8, 32, 1, 128, 32, 16, 140, torch.bfloat16,
      [0, 1, 500, 37, 256, 100, 31, 511]),
     ("MQA G 71 hd 64 long rows bf16", 3, 71, 1, 64, 32, 96, 120,
@@ -522,13 +532,21 @@ PAGED_CASES = [
      [0, 1, 200, 77]),
     ("hd 12 GQA 4 splits f32", 3, 8, 2, 12, 8, 64, 100, torch.float32,
      [0, 500, 9]),
+    # the lane kernel's group tiles with splits (f32 at MQA), and the
+    # group kernel streaming pages larger than a ring stage in chunks
+    ("MQA G 32 hd 128 splits f32", 3, 32, 1, 128, 32, 96, 120,
+     torch.float32, [0, 2500, 9]),
+    ("GQA 8 pages of 128 bf16", 3, 16, 2, 128, 128, 24, 40, torch.bfloat16,
+     [0, 2500, 9]),
+    ("GQA 4 hd 256 pages of 48 bf16", 3, 8, 2, 256, 48, 64, 80,
+     torch.bfloat16, [0, 2500, 9]),
 ]
 
 
 def paged_paths(lib, sms) -> List[Path]:
-    """One split and many (with the combine), bf16 and f32, group tiles
-    and head dims no multiple of 8: NaN in every page no row's table
-    names."""
+    """One split and many (with the combine), bf16 and f32, both kernels,
+    group tiles, head dims no multiple of 8 and pages larger than the
+    group kernel's ring stage: NaN in every page no row's table names."""
     return [paged_path(lib, *case, sms) for case in PAGED_CASES]
 
 

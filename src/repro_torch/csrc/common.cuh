@@ -4,6 +4,8 @@
 #pragma once
 
 #include <cmath>
+#include <mutex>
+#include <unordered_map>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,10 +138,30 @@ struct Launch {
   unsigned cluster = 1;
 };
 
-// Raise the kernel's dynamic shared memory limit where the launch needs more
-// than the default 48 KB.
+// The kernel's static shared memory (cudaFuncGetAttributes), read once a
+// kernel.
+inline cudaError_t static_smem(const void* fn, size_t* bytes) {
+  static std::mutex mu;
+  static std::unordered_map<const void*, size_t> known;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(fn);
+  if (it == known.end()) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    if (e != cudaSuccess) return e;
+    it = known.emplace(fn, a.sharedSizeBytes).first;
+  }
+  *bytes = it->second;
+  return cudaSuccess;
+}
+
+// Raise the kernel's dynamic shared memory limit where the launch's
+// dynamic memory and the kernel's static memory pass the default 48 KB.
 inline cudaError_t prepare(const Launch& l) {
-  if (l.smem <= 48 * 1024) return cudaSuccess;
+  size_t fixed = 0;
+  const cudaError_t e = static_smem(l.fn, &fixed);
+  if (e != cudaSuccess) return e;
+  if (l.smem + fixed <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
 }

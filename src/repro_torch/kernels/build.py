@@ -50,6 +50,8 @@ _SIGNATURES = {
     "rt_paged_attention_fits": [_I, _I],
     # G, hd -> the group tiles a KV head's heads are cut into (0: refused)
     "rt_paged_attention_tiles": [_I, _I],
+    # G, hd, dtype -> the kernel launched: 0 lanes, 1 group (-1: refused)
+    "rt_paged_attention_route": [_I, _I, _I],
     # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, split,
     # dtype, stream
     "rt_lora_shrink": [_P] * 5 + [_I] * 8 + [_P],

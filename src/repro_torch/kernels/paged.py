@@ -7,9 +7,12 @@ tensor launches the kernel or raises. `paged_attention.launches` counts
 kernel launches (one a call; with more than one split the call also
 launches the kernel's combine pass).
 
-The kernel splits each row's block table over `split_plan` blocks, chosen
-here from shapes alone (no device sync), and cuts a GQA group too large
-for one block into `group_tiles` tiles.
+Two kernels, chosen by `route` from shapes alone: the group kernel (bf16
+at GQA groups 2 to GROUP_MAX_G: one block holds a KV head's whole group
+as the M rows of tensor-core products) and the lane kernel (MHA, f32,
+larger groups: lanes of 8 columns a head, a group too large for one
+block cut into `group_tiles` tiles). Both split each row's block table
+over `split_plan` blocks, chosen here from shapes alone (no device sync).
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ SPLIT_PAGES = 4                # block-table columns a split at least
 MAX_SPLIT_BLOCKS_PER_SM = 8    # blocks of all splits, an SM at most
 MAX_THREADS = 256              # csrc/paged_attention.cu: kMaxThreads
 MAX_HEAD_DIM = 256             # csrc/paged_attention.cu: kMaxHeadDim
+GROUP_MAX_G = 128              # csrc/paged_attention.cu: kGroupMaxG
+ROUTES = ("lanes", "group")    # rt_paged_attention_route's codes
 
 
 def fits(G: int, hd: int) -> bool:
@@ -43,6 +48,23 @@ def shape_refusal(G: int, hd: int) -> Optional[str]:
     return (f"the kernel takes GQA group >= 1 and hd 1 to {MAX_HEAD_DIM} "
             f"(a head's score is summed over pow2(hd / 8) lanes of one "
             f"32-lane warp), got group {G}, hd {hd}")
+
+
+def route(G: int, hd: int, dtype: torch.dtype) -> int:
+    """The kernel the wrapper launches, `rt_paged_attention_route` of
+    csrc/paged_attention.cu for the CPU (the card checks hold the two
+    equal over a grid of G, hd and dtype): 1 (ROUTES: "group") for bf16 at
+    GQA groups 2 to GROUP_MAX_G, 0 ("lanes") for MHA, f32 and larger
+    groups; -1 where the kernels refuse."""
+    if not fits(G, hd) or dtype not in _FLOATS:
+        return -1
+    return int(dtype == torch.bfloat16 and 2 <= G <= GROUP_MAX_G)
+
+
+def launch_tiles(G: int, hd: int, dtype: torch.dtype) -> int:
+    """Blocks a KV head takes along the group: the lane kernel's
+    `group_tiles`, one on the group route."""
+    return 1 if route(G, hd, dtype) == 1 else group_tiles(G, hd)
 
 
 def group_tiles(G: int, hd: int) -> int:
@@ -105,6 +127,7 @@ def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
     if not lib.rt_paged_attention_fits(H // KV, hd):
         raise ValueError(
             f"paged_attention: {shape_refusal(H // KV, hd) or 'refused'}")
+    G = H // KV
     build.require(q, "q", dtypes=_FLOATS, ndim=3)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         build.require(t, name, dtypes=(q.dtype,), ndim=4, device=q.device)
@@ -117,7 +140,7 @@ def paged_attention(q, k_pages, v_pages, pos_pages, block_table, pos):
             build.require_aligned(t, name)
     out = torch.empty_like(q)
     nsplit = split_plan(B, KV, W, sm_count(q.device),
-                        group_tiles(H // KV, hd))
+                        launch_tiles(G, hd, q.dtype))
     # per split: (m, l, acc) of each query head, combined by the kernel
     ws = torch.empty(B * H * nsplit * (hd + 2) if nsplit > 1 else 0,
                      dtype=torch.float32, device=q.device)

@@ -833,14 +833,18 @@ def test_paged_attention_new_shapes_match_plain(card, dtype, B, H, KV, hd):
 
 
 def test_paged_launch_is_unchanged_where_one_block_held_the_group(card):
-    """Where G x pow2(hd / 8) <= 256 (every registered config) the kernel
-    still takes one group tile: the grid's y axis is the KV heads and the
-    block G x pow2(hd / 8) x slot-group threads, as before group tiles;
-    past it the library's tile count equals `paged.group_tiles`."""
+    """The lane kernel (f32 at every group, bf16 at G 1): where G x
+    pow2(hd / 8) <= 256 it still takes one group tile, the grid's y axis
+    the KV heads and the block G x pow2(hd / 8) x slot-group threads, as
+    before group tiles; past it the library's tile count equals
+    `paged.group_tiles`. bf16 at G >= 2 launches the group kernel, one
+    block a (split, KV head, row) at any page size, its combine one warp
+    a (row, head)."""
     import ctypes
     from repro_torch.kernels import build
     lib = build.library()
-    out = (ctypes.c_longlong * (2 * len(build.INFO_FIELDS)))()
+    n = len(build.INFO_FIELDS)
+    out = (ctypes.c_longlong * (2 * n))()
     for G in range(1, 40):
         for hd in (64, 80, 96, 128, 256):
             lanes = 1
@@ -848,15 +852,124 @@ def test_paged_launch_is_unchanged_where_one_block_held_the_group(card):
                 lanes *= 2
             tiles = lib.rt_paged_attention_tiles(G, hd)
             assert tiles == paged.group_tiles(G, hd)
-            assert lib.rt_paged_attention_info(8, 2 * G, 2, 32, hd, 16, 1, 1,
+            assert lib.rt_paged_attention_info(8, 2 * G, 2, 32, hd, 16, 1, 0,
                                                out) == 0
-            info = dict(zip(build.INFO_FIELDS, out[:len(build.INFO_FIELDS)]))
+            info = dict(zip(build.INFO_FIELDS, out[:n]))
             if G * lanes <= 256:
                 assert tiles == 1 and info["grid_y"] == 2
                 tg = 256 // (G * lanes)
                 assert info["threads"] == -(-G * lanes * tg // 32) * 32
             else:
                 assert info["grid_y"] == 2 * tiles
+            for ps in (16, 32, 64, 128) if G > 1 else (32,):
+                assert lib.rt_paged_attention_info(8, 2 * G, 2, ps, hd, 16,
+                                                   4, 1, out) == 0
+                attn = dict(zip(build.INFO_FIELDS, out[:n]))
+                comb = dict(zip(build.INFO_FIELDS, out[n:2 * n]))
+                if G == 1:
+                    assert attn["grid_y"] == 2 and attn["grid_z"] == 4
+                    assert comb["grid_x"] == 8 and comb["grid_y"] == 2
+                else:
+                    assert (attn["grid_x"], attn["grid_y"],
+                            attn["grid_z"]) == (4, 2, 8), (G, hd, ps)
+                    assert (comb["grid_x"], comb["threads"]) == (
+                        -(-16 * G // 4), 128)
+                    # the ring holds chunks of at most 32 slots
+                    if ps > 32:
+                        assert attn["dyn_smem"] <= small["dyn_smem"], ps
+                    else:
+                        small = attn
+
+
+def _group_case(card, G, hd, KV=2, B=4, seed=0, ps=32):
+    """Paged inputs in bf16 at GQA group G: row 0 claims no page, row 1
+    holds 2,300 tokens (its table split over blocks) with unclaimed
+    entries mid-table, row 2 a short row, row 3 one claimed page whose
+    slots are all empty (no valid slot)."""
+    W = max(80, -(-2300 // ps) + 4)
+    P = B * W + 1
+    g = torch.Generator(device=card).manual_seed(seed * 1000 + G * 7 + hd)
+    q = torch.randn(B, G * KV, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(P, KV, ps, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(P, KV, ps, hd, generator=g, device=card).bfloat16()
+    pp = torch.full((P, ps), -1, dtype=torch.int32)
+    bt = torch.full((B, W), -1, dtype=torch.int32)
+    pos = torch.zeros(B, dtype=torch.int32)
+    perm = np.random.default_rng(G + hd).permutation(P - 1).tolist()
+    for b, n_tok in enumerate([0, 2300, 77, 0][:B]):
+        for j in range(-(-n_tok // ps)):
+            pg = perm.pop()
+            bt[b, j] = pg
+            filled = torch.arange(ps) + j * ps
+            pp[pg] = torch.where(filled < n_tok, filled, -1).int()
+        pos[b] = max(n_tok - 1, 0)
+    bt[1, [3, 30, 31]] = -1
+    bt[3, 0] = perm.pop()                  # claimed, every slot empty
+    pos[3] = 50
+    return [q, k, v, pp.to(card), bt.to(card), pos.to(card)]
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("G", [2, 6, 8, 12, 32, 71, 128])
+def test_paged_group_kernel_matches_plain(card, G, hd):
+    """The group kernel (bf16, one block a KV head's whole group) against
+    the plain version: each row within 1e-2 of its max |plain|, the rows
+    with no valid slot (no claimed page; one claimed page of empty slots)
+    exactly zero, one launch counted a call."""
+    args = _group_case(card, G, hd)
+    assert paged.route(G, hd, torch.bfloat16) == 1
+    assert paged.split_plan(4, 2, 80, bgmv.sm_count(card), 1) > 1
+    n = paged.paged_attention.launches
+    got = paged.paged_attention(*args)
+    assert paged.paged_attention.launches == n + 1
+    _rows_close(got, ref.paged_attention_ref(*args), 1e-2, 0.0)
+    assert not got[0].any() and not got[3].any()
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("G,ps", [(8, 16), (8, 48), (8, 64), (8, 128),
+                                  (32, 64), (71, 128), (128, 128)])
+def test_paged_group_kernel_at_any_page_size(card, G, ps, hd):
+    """The group kernel at pages smaller and larger than its ring stage
+    (32 slots; a larger page streams through it in chunks, the last one
+    short at 48) against the plain version: each row within 1e-2 of its
+    max |plain|, the rows with no valid slot zero, two launches equal."""
+    args = _group_case(card, G, hd, ps=ps)
+    got = paged.paged_attention(*args)
+    _rows_close(got, ref.paged_attention_ref(*args), 1e-2, 0.0)
+    assert not got[0].any() and not got[3].any()
+    assert torch.equal(got, paged.paged_attention(*args))
+
+
+@pytest.mark.parametrize("G", [8, 32])
+def test_paged_group_kernel_never_reads_foreign_pages(card, G):
+    """NaN in every page a row does not own (with valid positions) leaves
+    that row's output bitwise unchanged on the group kernel."""
+    q, k, v, pp, bt, pos = _group_case(card, G, 128, seed=1)
+    got = paged.paged_attention(q, k, v, pp, bt, pos)
+    for b in range(q.shape[0]):
+        keep = torch.zeros(k.shape[0], dtype=torch.bool, device=card)
+        keep[bt[b][bt[b] >= 0].long()] = True
+        kk = torch.where(keep[:, None, None, None], k, float("nan"))
+        vv = torch.where(keep[:, None, None, None], v, float("nan"))
+        out = paged.paged_attention(q, kk, vv, torch.where(keep[:, None],
+                                                          pp, 0), bt, pos)
+        assert torch.equal(out[b], got[b]), b
+
+
+@pytest.mark.parametrize("B", [4, 68])
+def test_paged_group_kernel_repeats_bitwise(card, B):
+    """Two launches of the group kernel give equal bits, with splits (4
+    rows) and in one split (68 rows x 2 KV heads fill the card)."""
+    args = _group_case(card, 8, 128, B=4, seed=2)
+    if B > 4:
+        args = [a.repeat(B // 4, *[1] * (a.dim() - 1)) if i in (0, 4, 5)
+                else a for i, a in enumerate(args)]
+    splits = paged.split_plan(B, 2, 80, bgmv.sm_count(card), 1)
+    assert (splits > 1) == (B == 4)
+    first = paged.paged_attention(*args)
+    assert torch.equal(first, paged.paged_attention(*args))
+    _rows_close(first, ref.paged_attention_ref(*args), 1e-2, 0.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -202,6 +202,13 @@ def _both(arch):
     return cj, ct, pj, pt, pool_j, pool_t
 
 
+def _adapter_seeds(uids, seed=0):
+    """Each adapter's derived seed, abs(hash((uid, seed))) % 2**31 as
+    make_adapter_weights draws it. Python salts the hash per process, so a
+    failure message that carries these lets the case be rebuilt."""
+    return {u: abs(hash((u, seed))) % 2 ** 31 for u in uids}
+
+
 @pytest.fixture(scope="module")
 def models():
     return {arch: _both(arch) for arch in ("llama2-7b", "yi-9b")}
@@ -224,6 +231,7 @@ def test_prefill_and_two_dense_decode_steps_match_reference(models, arch,
     cj, ct, pj, pt, pool_j, pool_t = models[arch]
     cj = dataclasses.replace(cj, kv_cache_dtype=kv)
     ct = dataclasses.replace(ct, kv_cache_dtype=kv)
+    seeds = f"adapter seeds {_adapter_seeds(f'd{s}' for s in range(3))}"
     B, L = 3, 12
     S = 8 if ring else 16
     rng = np.random.default_rng(21 + S)
@@ -237,8 +245,8 @@ def test_prefill_and_two_dense_decode_steps_match_reference(models, arch,
     logits_t, cache_t = tmodel.prefill(
         ct, pt, {"tokens": _t(toks[:, :L])}, lora=lt, cache_slots=S,
         last_only=True)
-    _close(logits_t.numpy(), logits_j, "prefill logits")
-    flips = _cache_close(cache_t, cache_j, "prefill cache")
+    _close(logits_t.numpy(), logits_j, f"prefill logits, {seeds}")
+    flips = _cache_close(cache_t, cache_j, f"prefill cache, {seeds}")
     for step in range(2):
         if kv == "int8":
             cache_t = {n: _t(c) for n, c in cache_j.items()}
@@ -250,9 +258,11 @@ def test_prefill_and_two_dense_decode_steps_match_reference(models, arch,
             write_mask=jnp.asarray(wm))
         logits_t, cache_t = tmodel.decode(
             ct, pt, cache_t, _t(tok), _t(pos), lora=lt, write_mask=_t(wm))
-        _close(logits_t.numpy(), logits_j, f"decode {step} logits")
-        flips += _cache_close(cache_t, cache_j, f"decode {step} cache")
-    assert kv == "int8" or flips == 0
+        _close(logits_t.numpy(), logits_j,
+               f"decode {step} logits, {seeds}")
+        flips += _cache_close(cache_t, cache_j,
+                              f"decode {step} cache, {seeds}")
+    assert kv == "int8" or flips == 0, seeds
     if ring:
         assert int(cache_t["pos"].max()) == L + 1 > S
 

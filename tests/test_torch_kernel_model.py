@@ -123,16 +123,17 @@ def test_once_refused_mutations_are_taken_by_every_launch(mutation):
     """The three shapes the reference's kernels take and the Hopper kernels
     refused before group tiles, padded widths and LoRA tails: every launch
     on the mutated config's path is taken, through the wrapper's own
-    rule, and lands on the new launch (a group tile count > 1, a padded
-    flash width, the LoRA kernels' element-copy instantiations)."""
+    rule, and lands on the new launch (the group kernel, which holds the
+    whole group of 32 in one block, a padded flash width, the LoRA
+    kernels' element-copy instantiations)."""
     case = _case("llama2-7b")
     if mutation == "hd 80":
         case = dataclasses.replace(case, hd=80)
         want = "flash_attention[bf16 wgmma hd 80 at 96]"
     elif mutation == "GQA 32 at hd 128":
         case = dataclasses.replace(case, n_heads=32, n_kv_heads=1)
-        want = "paged_attention[4 splits + combine G 32 hd 128 in 2 group " \
-            "tiles]"
+        want = "paged_attention[4 splits + combine G 32 hd 128 on the " \
+            "group kernel]"
     else:
         case = dataclasses.replace(case, lora=(("q", 4100, 4096),))
         want = "lora_shrink[split tail]"
@@ -154,6 +155,73 @@ def test_paged_rule_copy_matches_its_documented_edge():
     assert paged.group_tiles(8, 256) == 1 and paged.group_tiles(9, 256) == 2
     assert paged.group_tiles(71, 64) == 3 and paged.group_tiles(32, 100) == 2
     assert "hd 1 to 256" in paged.shape_refusal(1, 260)
+
+
+@pytest.mark.parametrize("G,hd,dtype,want", [
+    (1, 128, torch.bfloat16, 0),         # MHA: the lane kernel
+    (2, 128, torch.bfloat16, 1),         # the smallest group
+    (8, 128, torch.bfloat16, 1),         # yi-9b, llama2-70b, qwen2-72b
+    (71, 64, torch.bfloat16, 1),         # falcon-7b's MQA
+    (128, 256, torch.bfloat16, 1),       # GROUP_MAX_G: 8 M tiles
+    (129, 64, torch.bfloat16, 0),        # past it: lane tiles
+    (8, 128, torch.float32, 0),          # f32 stays on the lane kernel
+    (32, 12, torch.bfloat16, 1),         # hd no multiple of 8 or 16
+    (8, 257, torch.bfloat16, -1),        # refused, as paged.fits
+    (0, 128, torch.bfloat16, -1),
+    (8, 128, torch.float16, -1)])
+def test_paged_route_copy_matches_its_documented_edges(G, hd, dtype, want):
+    """`paged.route` (the CPU's copy of rt_paged_attention_route): the
+    group kernel for bf16 at groups 2 to GROUP_MAX_G, the lane kernel for
+    MHA, f32 and larger groups, -1 where the kernels refuse. The group
+    route takes one block a KV head (`launch_tiles` 1); the lane route
+    keeps `group_tiles`. The card holds the copy to the library's."""
+    assert paged.route(G, hd, dtype) == want
+    if want == 1:
+        assert paged.launch_tiles(G, hd, dtype) == 1
+    elif want == 0:
+        assert paged.launch_tiles(G, hd, dtype) == paged.group_tiles(G, hd)
+
+
+@pytest.mark.parametrize("B,KV,W,want", [
+    (8, 4, 128, 32),                     # yi-9b's long row: 32 splits
+    (8, 8, 16, 4),                       # mistral-large, W 16
+    (8, 1, 16, 4),                       # MQA at W 16
+    (8, 32, 16, 1),                      # llama2-7b: 256 blocks fill it
+    (4, 2, 7, 1),                        # W < 2 x SPLIT_PAGES
+    (68, 2, 80, 1), (64, 2, 80, 8), (1, 1, 4096, 1024)])
+def test_paged_split_plan_at_one_tile(B, KV, W, want):
+    """split_plan with tiles = 1 (the group route): splits of at least
+    SPLIT_PAGES columns until B x KV x splits blocks reach
+    MAX_SPLIT_BLOCKS_PER_SM an SM, none left empty, one split where B x
+    KV blocks fill the card."""
+    n = paged.split_plan(B, KV, W, kernel_model.H100_SMS, 1)
+    assert n == want
+    per = -(-W // n)
+    assert (n - 1) * per < W                 # no split is empty
+    assert n == 1 or per >= paged.SPLIT_PAGES
+    assert B * KV * n <= max(paged.MAX_SPLIT_BLOCKS_PER_SM *
+                             kernel_model.H100_SMS, B * KV)
+
+
+@pytest.mark.parametrize("name,route", [
+    ("llama2-7b", "lanes"), ("llama2-13b", "lanes"),
+    ("phi-3-vision-4.2b", "lanes"), ("yi-9b", "group"),
+    ("llama2-70b", "group"), ("qwen2-72b", "group"),
+    ("command-r-35b", "group"), ("mistral-large-123b", "group"),
+    ("dbrx-132b", "group"), ("grok-1-314b", "group")])
+def test_paged_launch_of_each_config_names_its_route(name, route):
+    """Each paged config's decode launch, as the kernel model describes it
+    to phase S, lands on the kernel `paged.route` gives: MHA on the lane
+    kernel in one group tile, every GQA group on the group kernel, one
+    block a KV head."""
+    case = _case(name)
+    [launch] = [x for x in kernel_model.launches(case)
+                if x.kernel == "paged_attention"]
+    assert paged.ROUTES[paged.route(case.group, case.hd, case.dtype)] == \
+        route
+    assert ("on the group kernel" in launch.label) == (route == "group")
+    assert "group tiles" not in launch.label
+    assert paged.launch_tiles(case.group, case.hd, case.dtype) == 1
 
 
 def test_max_rank_12_is_taken_after_the_pad():

@@ -233,14 +233,16 @@ def test_lora_rules_take_any_width():
 
 def test_shape_cases_are_taken_on_every_path():
     """kernel_model's shape cases (the card's phase S footprints take them
-    too): the MQA case's paged launch in group tiles, the hd-80 case's
-    flash at width 96, the LoRA tails on all four paths."""
+    too): the MQA case's paged launch on the group kernel in bf16 and in
+    group tiles in f32, the hd-80 case's flash at width 96, the LoRA tails
+    on all four paths."""
     labels = [x.label for c in kernel_model.shape_cases()
               for x in kernel_model.launches(c)]
     refused = [x.label for c in kernel_model.shape_cases()
                for x in kernel_model.launches(c) if x.refusal]
     assert refused == []
     assert any("G 32 hd 128 in 2 group tiles" in x for x in labels)
+    assert any("G 32 hd 128 on the group kernel" in x for x in labels)
     assert any("hd 80 at 96" in x for x in labels)
     for path in ("split tail", "tile 64 tail", "decode tail",
                  "row tiles tail"):
