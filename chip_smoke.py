@@ -64,7 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode shape after phase 5b: layer 0 of the first decode step of
      phase 3b's monolithic arm, a row at pos >= 2,048); the decode LoRA
      kernels and their `torch.bmm` also as a graphed step launches them
-     (`graph_ms`: launches replayed from one CUDA graph);
+     (`graph_ms`: launches replayed from one CUDA graph); flash attention
+     at layer 0 of the largest prefill call phase 3a served (llama2-7b's
+     largest bucket), with its launches a call;
   3d. on the same llama2-7b weights, a cluster (`core.cluster.Cluster`) of
      two servers sharing the weights, each with its own page and adapter
      pools, behind the router, 24 requests of 32-256 prompt tokens and 32
@@ -240,7 +242,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      fits_80g and dominant roofline term printed;
   then one {"kernels": [...]} line (the six TPU kernels' rows, the
   prefill shrink and expand rows, the yi-9b and mistral-large paged
-  rows, the hd 96 / hd 256 flash rows, phase T's rows at the training
+  rows, the hd 96 / hd 256 flash rows, the llama2-7b serving-prefill
+  flash row, phase T's rows at the training
   step's shapes and phase K's MQA, G 71, hd 80 and LoRA-tail rows) and
   the last line
   {"ok": true, "device": {...}}.
@@ -317,10 +320,16 @@ def main() -> int:
     tooling = kernel_tooling_phase(torch)
     from repro_torch.configs.base import get_config
     llama = get_config("llama2-7b")
-    serving, params = serve_phase(torch, llama, LLAMA_RUNS, "3a")
+    llama_capture = {}
+    with capture_largest_attention(llama_capture):
+        serving, params = serve_phase(torch, llama, LLAMA_RUNS, "3a")
     tooling.update(sanitized_serving_phase(torch, llama, params))
     step = logits_phase(torch, llama, params)
     kernels = timing_phase(torch, step, errs, serving)
+    kernels.append(flash_timing(
+        torch, llama_capture.pop("args"), errs["flash_attention"], serving,
+        name="flash_attention[llama2-7b serving prefill]",
+        path="llama2-7b serving prefill"))
     report = {"serving": serving, "decode_logits": step["logits"],
               "decode_profile": step["profile"],
               "lora_rank_sweep": step["rank_sweep"], "tooling": tooling}
@@ -733,6 +742,12 @@ def kernel_checks(torch):
                True, 64, bf, False),
               ("hd 128 GQA 1 Lq < Lk window 200 ragged view bf16", 1, 4, 4,
                129, 1100, 128, True, 200, bf, False),
+              # the persistent walk with one work tile and a few: a single
+              # query row, a window across two query tiles at MQA
+              ("hd 128 one query B 1 L 1 view bf16", 1, 8, 8, 1, 1, 128,
+               True, None, bf, False),
+              ("hd 64 MQA 3 L 129 window 100 view bf16", 1, 3, 1, 129, 129,
+               64, True, 100, bf, False),
               ("smoke non-causal f32", 2, 4, 4, 130, 130, 32, False, None,
                f32, False),
               ("smoke window 48 GQA 2 ragged f32", 2, 4, 2, 257, 257, 32,
@@ -3695,6 +3710,8 @@ def flash_timing(torch, args, err, serving, name="flash_attention",
            "replaces": "src/repro/kernels/flash.py:110",
            "path": path,
            "launches": serving[0]["launches"]["flash_attention"],
+           "launches_a_call": serving[0]["launches"]["flash_attention"]
+           / max(1, serving[0]["prefill_calls"]),
            "max_abs_err": err,
            "ms": time_ms(torch, kern, flush, n=auto_n(kern), warm=1),
            "plain_ms": time_ms(torch, plain, flush, n=auto_n(plain), warm=0),
@@ -3706,11 +3723,18 @@ def flash_timing(torch, args, err, serving, name="flash_attention",
            "shape": {"B": B, "H": H, "KV": KV, "Lq": Lq, "Lk": Lk, "hd": hd,
                      "window": window, "causal_pairs": pairs,
                      "dtype": str(q.dtype)}}
+    # as a graphed prefill launches them: no wrapper host work between
+    # launches (graph_ms)
+    row["graph_ms"] = graph_ms(torch, kern, flush)
+    row["library_graph_ms"] = graph_ms(torch, library, flush)
     row["tflop_s"] = row["ops"] / row["ms"] / 1e9
-    print(f"  {name}: {row['ms']:.3f} ms (bound {b_ms:.3f} ms by "
+    print(f"  {name}: {row['ms']:.3f} ms, in a CUDA graph "
+          f"{row['graph_ms']:.3f} ms (bound {b_ms:.3f} ms by "
           f"{b_by}, {row['tflop_s']:.1f} TFLOP/s), plain "
           f"{row['plain_ms']:.1f} ms, library (SDPA) "
-          f"{row['library_ms']:.3f} ms, launches {by_run}", flush=True)
+          f"{row['library_ms']:.3f} ms, in a graph "
+          f"{row['library_graph_ms']:.3f} ms, launches {by_run} "
+          f"({row['launches_a_call']:g} a prefill call)", flush=True)
     return row
 
 
@@ -4162,12 +4186,15 @@ def kernel_tooling_phase(torch):
               f"(occupancy {occ:.2f}){clusters} — {len(set(cases))} "
               "configs", flush=True)
     found += kernel_verify.paged_rule_findings(lib)
+    found += kernel_verify.flash_order_findings(lib)
     check(not found, "phase S1 findings:\n  " + "\n  ".join(found))
     print(f"  {len(rows)} launches of {len(groups)} distinct footprints "
-          "within the limits; paged.fits, "
-          "paged.group_tiles and paged.route equal rt_paged_attention_fits, "
-          "rt_paged_attention_tiles and rt_paged_attention_route",
-          flush=True)
+          "within the limits (bf16 flash on its persistent grid); "
+          "paged.fits, paged.group_tiles and paged.route equal "
+          "rt_paged_attention_fits, rt_paged_attention_tiles and "
+          "rt_paged_attention_route; flash.tile_order equals "
+          f"rt_flash_attention_order at "
+          f"{len(kernel_verify.FLASH_ORDER_CASES)} shapes", flush=True)
     print("phase S2: canaries (fills, guard bands, poisoned inputs, a "
           "concurrent stream)", flush=True)
     paths, found = kernel_verify.canaries(lib, sms)

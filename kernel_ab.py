@@ -42,6 +42,18 @@ times, in this tree, the group kernel at the loaded batches of
 the claimed pages, a flat copy of as many bytes and the bound
 (`paged_bound_us`).
 
+    python3 kernel_ab.py --flash build/parent [OTHER_TREE ...]
+
+times bf16 flash attention at the shapes of `FLASH_SHAPES` in CUDA
+graphs (20 launches a graph, each after an L2 flush, less the flushes
+alone), the trees in the order parent, this tree, the others, then the
+same backwards (parent, change, change, parent with no other tree), each
+in a process of its own; every run prints one `FLASH <tree> {...}` line
+with each row's graph microseconds, SDPA's over K/V repeated across the
+GQA group in a graph (timed only: the port never calls it), the row's
+bound (`flash_bound_us`) and the bf16 kernel's registers and spills from
+that tree's ptxas report.
+
     python3 kernel_ab.py --sweep
 
 times, in this tree, the training step's one-slot shrink under every row
@@ -411,6 +423,86 @@ def paged_loaded() -> dict:
     return res
 
 
+# bf16 flash rows of --flash: (B, H, KV, L, hd, window), causal, the
+# (B, L, H, hd) tensors passed as (B, H, L, hd) views as the model does
+FLASH_SHAPES = {
+    "yi-9b 8 x 4,096 GQA 8 hd 128": (8, 32, 4, 4096, 128, None),
+    "8 x 512 hd 128 (training, llama2-7b largest buckets)":
+        (8, 32, 32, 512, 128, None),
+    "llama2-7b 8 x 256 hd 128 (P4)": (8, 32, 32, 256, 128, None),
+    "K2 8 x 256 hd 80 (at width 96)": (8, 32, 32, 256, 80, None),
+    "4 x 256 hd 96": (4, 32, 32, 256, 96, None),
+    "4 x 256 hd 256 MQA 10 window 2,048": (4, 10, 1, 256, 256, 2048),
+}
+
+
+def flash_bound_us(B, H, KV, L, hd, window=None):
+    """Microseconds the card needs at least for a causal flash launch:
+    max(q, k, v read and out written once at 3.35 TB/s, 4 B H hd x the
+    causal (query, key) pairs inside the window at 989 TFLOP/s)."""
+    pairs = sum(min(i + 1, window or L) for i in range(L))
+    nbytes = 2 * (2 * B * H * L * hd + 2 * B * KV * L * hd)
+    return 1e6 * max(nbytes / 3.35e12, 4 * B * H * hd * pairs / 989e12)
+
+
+def flash_ptxas(log: str) -> dict:
+    """Registers and spill bytes (stored / loaded) of each bf16 flash
+    kernel in a ptxas report, and ptxas's performance advisories on them
+    (wgmma serialized, and why)."""
+    import re
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"flash_bf16_kernelILi(\d+)E", line)
+        if m and "Performance Loss" in line:
+            why = line.split("Performance Loss:", 1)[1].split(" in the func")
+            out.setdefault(f"flash_bf16<{m.group(1)}> advisories",
+                           []).append(why[0].strip())
+            continue
+        m = re.search(r"Compiling entry function '\S*flash_bf16_kernelILi"
+                      r"(\d+)E", line)
+        if m:
+            name = f"flash_bf16<{m.group(1)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, spills {spill} B"
+            name, spill = None, ""
+    return out
+
+
+def flash_tree(root: str) -> dict:
+    """--flash's run in one tree (see the module docstring)."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, flash
+    build.library()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {"ptxas": flash_ptxas(build.build_log)}
+    for name, (B, H, KV, L, hd, window) in FLASH_SHAPES.items():
+        q, k, v = (torch.randn(B, L, n, hd, generator=g, device="cuda")
+                   .bfloat16().transpose(1, 2) for n in (H, KV, KV))
+        kr = k.repeat_interleave(H // KV, dim=1)
+        vr = v.repeat_interleave(H // KV, dim=1)
+        kern = (lambda q, k, v, w: lambda: flash.flash_attention(
+            q, k, v, window=w))(q, k, v, window)
+        # the window (2,048) is past L (256): causal alone masks the same
+        lib = (lambda q, k, v: lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))(q, kr, vr)
+        out[name] = {"graph_us": graph_us(torch, kern, flush),
+                     "sdpa_graph_us": graph_us(torch, lib, flush),
+                     "bound_us": flash_bound_us(B, H, KV, L, hd, window)}
+        del q, k, v, kr, vr, kern, lib
+        torch.cuda.empty_cache()
+    return out
+
+
 # CUPTI range-profiler counters asked of torch.profiler in --sweep
 CUPTI_METRICS = ["dram__bytes_read.sum", "dram__bytes_write.sum",
                  "sm__throughput.avg.pct_of_peak_sustained_elapsed",
@@ -521,17 +613,25 @@ def main() -> int:
         print("AB", sys.argv[2], json.dumps(time_tree(sys.argv[2])),
               flush=True)
         return 0
-    if len(sys.argv) != 2:
+    if sys.argv[1:2] == ["--flash-tree"]:
+        print("FLASH", sys.argv[2], json.dumps(flash_tree(sys.argv[2])),
+              flush=True)
+        return 0
+    here = str(Path(__file__).resolve().parent)
+    if sys.argv[1:2] == ["--flash"] and len(sys.argv) >= 3:
+        trees = [sys.argv[2], here, *sys.argv[3:]]
+        mode = "--flash-tree"
+    elif len(sys.argv) == 2 and not sys.argv[1].startswith("--"):
+        trees, mode = [sys.argv[1], here], "--tree"
+    else:
         print(__doc__, file=sys.stderr)
         return 2
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    here = str(Path(__file__).resolve().parent)
-    for tree in (sys.argv[1], here, here, sys.argv[1]):
-        subprocess.run([sys.executable, __file__, "--tree", tree],
-                       check=True)
+    for tree in trees + trees[::-1]:
+        subprocess.run([sys.executable, __file__, mode, tree], check=True)
     return 0
 
 

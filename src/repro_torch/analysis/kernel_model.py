@@ -5,7 +5,8 @@ The reference's `repro.analysis.kernel_model` intercepts `pl.pallas_call`
 and walks BlockSpecs; CUDA kernels have neither. Here a kernel's launch is
 what its wrapper passes to the library: the wrapper's own plan functions
 (`bgmv.shrink_plan`, `bgmv.expand_plan`, `paged.split_plan`,
-`paged.launch_tiles`, `flash.padded_width`) and shape
+`paged.launch_tiles`, `flash.padded_width`, `flash.persistent_grid`) and
+shape
 rules (`bgmv.shrink_refusal`, `bgmv.expand_refusal`,
 `paged.shape_refusal`, `flash.shape_refusal`) are called, so there is no
 second copy of the launch math to drift. The paged rule lives in C++
@@ -13,7 +14,8 @@ second copy of the launch math to drift. The paged rule lives in C++
 to it over a grid of (G, hd) by `kernel_verify` on the card, as
 `paged.group_tiles` is to `rt_paged_attention_tiles` and `paged.route`
 (which kernel: the group kernel or the lane kernel) to
-`rt_paged_attention_route`.
+`rt_paged_attention_route`, and `flash.tile_order` (the bf16 flash
+kernel's walk over query tiles) to `rt_flash_attention_order`.
 
 `config_cases()` yields one `Case` per registered config at its real
 widths (head dim, heads over KV heads, the LoRA targets' d_in / d_out
@@ -170,7 +172,8 @@ def launches(case: Case, sms: int = H100_SMS) -> List[Launch]:
             case.config, "flash_attention",
             ("bf16 wgmma" if case.dtype == torch.bfloat16 else "f32")
             + f" hd {case.hd}{width}",
-            case.dtype, dict(B=1, H=case.n_heads, Lq=FLASH_LEN, hd=case.hd),
+            case.dtype, dict(B=1, H=case.n_heads, Lq=FLASH_LEN, Lk=FLASH_LEN,
+                             hd=case.hd, causal=1, window=0),
             flash.shape_refusal(case.hd, case.dtype), "flash.shape_refusal"))
     if case.paged:
         W = CACHE_SLOTS // PAGE_SIZE

@@ -15,11 +15,17 @@ them, or reads what the compiler and the CUDA runtime report:
   report of the build, `build.build_log`). Held to the card's limits
   (`rt_device_limits`): shared memory a block may opt in to, 65,536
   registers an SM and a block, threads a block; a spill fails unless
-  `ALLOWED_SPILLS` gives its reason.
+  `ALLOWED_SPILLS` gives its reason. The persistent bf16 flash launch's
+  grid must be min(work tiles, SMs) (`flash.persistent_grid`), and
+  `flash.tile_order`, the CPU's copy of its walk over query tiles, must
+  equal the library's (`flash_order_findings`).
 * ``kernel-scratch`` -> the canaries' fills: each launch runs with its
   outputs and workspace filled with NaN, then with another pattern; the
   results must be bitwise equal (an element the kernel does not write
-  keeps the fill).
+  keeps the fill). The bf16 flash kernel writes its output by TMA stores
+  through a map of the guarded view, so the same fills and guard bands
+  see what the map writes, clipped or not, on launches whose blocks walk
+  one tile and many.
 * ``kernel-bounds`` -> guard bands and poisoned inputs: sentinels before
   and after every output and workspace must survive; NaN in every input
   region the launch must not read (pages of no row, the rows of idx -1,
@@ -116,7 +122,8 @@ def _describe(lib, launch: kernel_model.Launch) -> List[Dict[str, int]]:
                                          a["hd"], a["W"], a["nsplit"], dt,
                                          out)
     else:
-        rc = lib.rt_flash_attention_info(a["B"], a["H"], a["Lq"], a["hd"],
+        rc = lib.rt_flash_attention_info(a["B"], a["H"], a["Lq"], a["Lk"],
+                                         a["hd"], a["causal"], a["window"],
                                          dt, out)
     build.check_launch(rc, f"{launch.label}: describe")
     recs = [dict(zip(build.INFO_FIELDS, out[:n]))]
@@ -187,6 +194,17 @@ def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
                     findings.append(f"{where}: no cluster of {fp.cluster} "
                                     f"blocks fits on the card "
                                     f"({fp.max_clusters})")
+                if launch.kernel == "flash_attention" and \
+                        launch.dtype == torch.bfloat16:
+                    a = launch.args
+                    want = flash.persistent_grid(a["B"], a["H"], a["Lq"],
+                                                 lim["sms"])
+                    if (r["grid_x"], r["grid_y"], r["grid_z"]) != \
+                            (want, 1, 1):
+                        findings.append(
+                            f"{where}: grid {r['grid_x']} x {r['grid_y']} x "
+                            f"{r['grid_z']}, not the persistent {want} "
+                            f"(min(work tiles, {lim['sms']} SMs))")
     if not log:
         findings.append("no ptxas report (build.build_log is empty), so "
                         "spills cannot be read")
@@ -217,6 +235,36 @@ def paged_rule_findings(lib) -> List[str]:
           f"(G, hd) in {tiles[:8]}"] if tiles else []) + \
         ([f"paged.route disagrees with rt_paged_attention_route at (G, hd, "
           f"dtype) in {routes[:8]}"] if routes else [])
+
+
+# (Lq, Lk, causal, window, hd) of the flash walk check: one tile and
+# many, Lq != Lk, windows inside a tile and straddling several, no
+# visible key, both key tiles (128 up to hd 128, 64 at 256)
+FLASH_ORDER_CASES = [
+    (Lq, Lk, causal, window, hd)
+    for Lq, Lk in ((1, 1), (127, 127), (129, 129), (512, 512),
+                   (4096, 4096), (1000, 333), (300, 2000), (777, 0))
+    for causal in (True, False)
+    for window in (None, 1, 100, 128, 300, 2048)
+    for hd in (128, 256)]
+
+
+def flash_order_findings(lib) -> List[str]:
+    """`flash.tile_order` (the CPU's copy of the bf16 kernel's walk over
+    query tiles, heaviest first) against `rt_flash_attention_order`,
+    which runs the kernel's own TileOrder on the host."""
+    bad = []
+    for Lq, Lk, causal, window, hd in FLASH_ORDER_CASES:
+        n = -(-Lq // flash.BQ)
+        out = (ctypes.c_int * n)()
+        build.check_launch(lib.rt_flash_attention_order(
+            Lq, Lk, hd, int(causal), window or 0, out),
+            "rt_flash_attention_order")
+        if list(out) != flash.tile_order(Lq, Lk, causal, window,
+                                         flash.key_tile(hd)):
+            bad.append((Lq, Lk, causal, window, hd))
+    return [f"flash.tile_order disagrees with rt_flash_attention_order at "
+            f"(Lq, Lk, causal, window, hd) in {bad[:8]}"] if bad else []
 
 
 # ------------------------------------------------------------ canaries ----
@@ -550,15 +598,17 @@ def paged_paths(lib, sms) -> List[Path]:
     return [paged_path(lib, *case, sms) for case in PAGED_CASES]
 
 
-def flash_path(lib, dt, hd, causal, window, hd_told=None) -> Path:
+def flash_path(lib, dt, hd, causal, window, hd_told=None, B=2, H=4, KV=2,
+               L=300) -> Path:
     """One flash launch at head dim `hd` (tensors of hd rounded up to 8
     columns, the pad zero, as the wrapper passes them): q / k / v views of
     buffers PAD rows longer a head and 16 columns wider a row, NaN in
     both margins; out a view whose rows are followed by sentinels, so a
-    write past the tensors' columns is caught on every row. `hd_told` (a
+    write past the tensors' columns is caught on every row (the bf16
+    kernel writes out by TMA stores through a map of that view, which
+    must clip rows at L and columns at the tensors' width). `hd_told` (a
     mutant) tells the launch another hd."""
     pad, wide = 40, 16
-    B, H, KV, L = 2, 4, 2, 300
     cols = -(-hd // 8) * 8
     g = torch.Generator(device="cuda").manual_seed(hd)
 
@@ -591,18 +641,30 @@ def flash_path(lib, dt, hd, causal, window, hd_told=None) -> Path:
     kind = "bf16 wgmma" if dt == torch.bfloat16 else "f32"
     width = flash.padded_width(hd, dt)
     at = "" if width == hd else f" at {width}"
-    return Path(f"flash_attention[{kind}] hd {hd}{at}", launch, ins, pois,
-                outs)
+    mask = ("causal" if causal else "non-causal") + \
+        (f" window {window}" if window else "")
+    return Path(f"flash_attention[{kind}] hd {hd}{at} B {B} H {H} KV {KV} "
+                f"L {L} {mask}", launch, ins, pois, outs)
 
 
 def flash_paths(lib) -> List[Path]:
     """bf16 (wgmma + TMA) at hd 64 / 96 / 128 / 256 and at widths padded to
-    them (80, 100), f32 (CUDA cores) at 64 / 128 and a padded 72."""
+    them (80, 100), f32 (CUDA cores) at 64 / 128 and a padded 72; and the
+    bf16 kernel's persistent walk: 512 and 256 work tiles over the SMs
+    (each block takes several tiles of unequal weight, causal and under a
+    non-causal window) and a single tile (a grid of one)."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(bf, hd, True, None) for hd in (64, 96, 128, 256, 80)]
     cases += [(bf, 100, True, 48), (f32, 64, True, 48),
               (f32, 128, False, None), (f32, 72, True, None)]
-    return [flash_path(lib, *case) for case in cases]
+    walks = [dict(dt=bf, hd=128, causal=True, window=None, H=32, KV=8,
+                  L=1000),
+             dict(dt=bf, hd=64, causal=False, window=200, H=16, KV=4,
+                  L=1000),
+             dict(dt=bf, hd=256, causal=True, window=None, B=1, H=1, KV=1,
+                  L=100)]
+    return [flash_path(lib, *case) for case in cases] + \
+        [flash_path(lib, **kw) for kw in walks]
 
 
 def busy_kernel() -> Callable:

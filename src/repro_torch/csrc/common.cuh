@@ -116,6 +116,16 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// Named barrier `id` (1-15; 0 is __syncthreads) over n threads, a
+// multiple of 32: sync waits until n threads have arrived (itself
+// included), arrive counts this thread and goes on.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -198,6 +208,25 @@ inline cudaError_t launch(const Launch& l, void** args, cudaStream_t st) {
   }
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
+}
+
+// The current device's SMs (cudaDevAttrMultiProcessorCount), read once a
+// device; 0 where the query fails.
+inline int sm_count() {
+  static std::mutex mu;
+  static std::unordered_map<int, int> known;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(dev);
+  if (it == known.end()) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 0;
+    it = known.emplace(dev, n).first;
+  }
+  return it->second;
 }
 
 constexpr int kInfoFields = 12;

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
-// loads, register reallocation between warpgroups and wgmma shared-memory
-// descriptors.
+// loads and stores, register reallocation between warpgroups and wgmma
+// shared-memory descriptors.
 #pragma once
 
 #include <cstdint>
@@ -73,6 +73,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of shared memory into a 4-D tensor map's box at (c0..c3),
+// innermost first; elements outside the tensor are not written. The copy
+// joins this thread's open bulk group (bulk_commit closes it).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their
+// shared memory (which may then be written again) ...
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... or are still in flight at all.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Orders this thread's earlier shared-memory accesses of the generic proxy

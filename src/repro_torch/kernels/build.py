@@ -69,8 +69,11 @@ _SIGNATURES = {
     # B, H, KV, ps, hd, W, nsplit, dtype: the attention kernel, then the
     # combine with nsplit > 1
     "rt_paged_attention_info": [_I] * 8 + [_P],
-    # B, H, Lq, hd, dtype
-    "rt_flash_attention_info": [_I] * 5 + [_P],
+    # B, H, Lq, Lk, hd, causal, window, dtype
+    "rt_flash_attention_info": [_I] * 8 + [_P],
+    # Lq, Lk, hd, causal, window, out (ceil(Lq / 128) int32): the bf16
+    # kernel's query-tile order (kernels/flash.py: tile_order)
+    "rt_flash_attention_order": [_I] * 5 + [_P],
     # device, out: csrc/device.cu
     "rt_device_limits": [_I, _P],
 }

@@ -34,6 +34,8 @@ HEAD_DIMS = {torch.bfloat16: (32, 64, 96, 128, 256),
              torch.float32: (16, 32, 64, 96, 128, 256)}
 MAX_HEAD_DIM = 256             # O: 64 x hd f32 a warpgroup in registers
 NOT_SUPPORTED = 801            # cudaErrorNotSupported: no TMA encoder
+BQ = 128                       # query rows a bf16 work tile (csrc: kBQ)
+MAX_QUERY_TILES = 8192         # of a (head, row) (csrc: kMaxQTiles)
 
 
 def shape_refusal(hd: int, dtype: torch.dtype) -> Optional[str]:
@@ -45,11 +47,89 @@ def shape_refusal(hd: int, dtype: torch.dtype) -> Optional[str]:
             f"{sorted(map(str, HEAD_DIMS))}, got hd {hd} in {dtype}")
 
 
+def length_refusal(Lq: int, dtype: torch.dtype) -> Optional[str]:
+    """Why the kernel refuses this query length, or None: the bf16 walk's
+    order table holds MAX_QUERY_TILES query tiles a (head, row)."""
+    if dtype == torch.bfloat16 and Lq > MAX_QUERY_TILES * BQ:
+        return (f"the bf16 kernel takes Lq up to {MAX_QUERY_TILES * BQ} "
+                f"({MAX_QUERY_TILES} query tiles of {BQ}), got {Lq}")
+    return None
+
+
 def padded_width(hd: int, dtype: torch.dtype) -> int:
     """The instantiated width the kernel runs head dim `hd` at (the
     narrowest of HEAD_DIMS[dtype] >= hd; csrc/flash_attention.cu:
     for_head_dim)."""
     return min(w for w in HEAD_DIMS[dtype] if w >= hd)
+
+
+def key_tile(hd: int) -> int:
+    """Keys a K/V tile of the bf16 kernel at head dim `hd` (csrc: Tile::kBK):
+    128 up to width 128, 64 at width 256."""
+    return 64 if padded_width(hd, torch.bfloat16) > 128 else 128
+
+
+def tile_weights(Lq: int, Lk: int, causal: bool, window: Optional[int],
+                 bk: int) -> list:
+    """The KV tiles each query tile of BQ rows sees (csrc: kv_tiles): keys
+    past its last query are causally masked, keys at or before its first
+    query less the window are outside every row's window."""
+    out = []
+    for m in range(-(-Lq // BQ)):
+        q0 = m * BQ
+        k_hi = min(Lk, q0 + BQ) if causal else Lk
+        k_lo = max(0, q0 - window + 1) if window else 0
+        out.append(max(0, -(-k_hi // bk) - k_lo // bk))
+    return out
+
+
+def tile_order(Lq: int, Lk: int, causal: bool, window: Optional[int],
+               bk: int) -> list:
+    """The order of one (head, row)'s query tiles in the bf16 kernel's
+    walk, heaviest first (csrc: TileOrder; the card holds this copy equal
+    to `rt_flash_attention_order`). The weights first rise (a causal mask)
+    and then fall (a window), so two cursors start where the fall begins
+    and walk outwards, each step taking the heavier side, the later tile
+    on a tie."""
+    w = tile_weights(Lq, Lk, causal, window, bk)
+    s = len(w) - 1
+    while s > 0 and w[s - 1] >= w[s]:
+        s -= 1
+    lo, hi, out = s - 1, s, []
+    for _ in w:
+        if lo < 0 or (hi < len(w) and w[hi] >= w[lo]):
+            out.append(hi)
+            hi += 1
+        else:
+            out.append(lo)
+            lo -= 1
+    return out
+
+
+def persistent_grid(B: int, H: int, Lq: int, sms: int) -> int:
+    """Blocks of a bf16 launch (csrc: bf16_launch): one an SM, at most one
+    a work tile (query tile, head, row)."""
+    return min(-(-Lq // BQ) * H * B, sms)
+
+
+def work_walks(B: int, H: int, Lq: int, Lk: int, hd: int, causal: bool,
+               window: Optional[int], sms: int) -> list:
+    """The work tiles (query tile, head, row) each block of a bf16 launch
+    takes, in order (csrc: the producer's walk). Position w = (b H + h) nq
+    + rank lists each (head, row)'s query tiles in `tile_order`, the
+    heads of a row in turn, so the tiles that run at once share a KV
+    head's keys in L2. Round k deals positions k G .. k G + G - 1 to the
+    G blocks, reversed in odd rounds (a snake), so each block pairs heavy
+    ranks with light ones."""
+    order = tile_order(Lq, Lk, causal, window, key_tile(hd))
+    nq, grid = len(order), persistent_grid(B, H, Lq, sms)
+    walks = [[] for _ in range(grid)]
+    for w in range(nq * H * B):
+        k, i = divmod(w, grid)
+        hb = w // nq
+        walks[grid - 1 - i if k % 2 else i].append(
+            (order[w % nq], hb % H, hb // H))
+    return walks
 
 
 def _require_strided(t, name, dtype, device):
@@ -97,7 +177,7 @@ def _forward(q, k, v, *, causal, window):
     KV, Lk = k.shape[1], k.shape[2]
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    why = shape_refusal(hd, q.dtype)
+    why = shape_refusal(hd, q.dtype) or length_refusal(Lq, q.dtype)
     if why:
         raise ValueError(f"flash_attention: {why}")
     cols = -(-hd // 8) * 8

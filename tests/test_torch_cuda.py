@@ -1066,3 +1066,90 @@ def test_lora_pair_tails_match_plain(card, mode, dtype, rows, seg, d_in,
         _rows_close(out, want, 1e-2, 0.0)
     assert not out[idx < 0].any()
     assert torch.equal(out, bgmv.lora_expand(yd, b, idx, live))
+
+
+# ------------------------------------------ the persistent bf16 flash ----
+
+# (B, H, KV, Lq, Lk, causal, window): more work tiles than blocks (the
+# walk takes several tiles of unequal weight a block) and fewer (B 1, Lq
+# 1 / 127 / 129), Lq != Lk, windows that straddle tiles, GQA 8 and MQA
+PERSISTENT_CASES = [
+    (2, 32, 4, 2000, 2000, True, None),          # 1,024 tiles, GQA 8
+    (1, 16, 1, 1000, 1000, False, 300),          # MQA, a non-causal window
+    (1, 8, 8, 1, 1, True, None),                 # one row a tile
+    (1, 2, 1, 127, 127, True, None),
+    (1, 3, 3, 129, 129, True, 100),              # a window across tiles
+    (2, 8, 1, 700, 1300, True, 250),             # Lq < Lk, MQA
+    (2, 16, 2, 1500, 600, False, None),          # Lq > Lk
+]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 80, 96, 128, 256])
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,causal,window", PERSISTENT_CASES)
+def test_flash_persistent_walk_matches_plain(card, hd, B, H, KV, Lq, Lk,
+                                             causal, window):
+    """The persistent bf16 kernel (min(work tiles, SMs) blocks, each walking
+    its tiles heaviest first, TMA-stored output) on (B, L, H, hd) views:
+    each query row within 1e-2 of its max |plain|, a second run bitwise
+    equal."""
+    g = torch.Generator(device=card).manual_seed(hd + Lq + 7 * H)
+    q, k, v = (torch.randn(B, L, n, hd, generator=g, device=card)
+               .bfloat16().transpose(1, 2)
+               for L, n in ((Lq, H), (Lk, KV), (Lk, KV)))
+    n = flash.flash_attention.launches
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash.flash_attention.launches == n + 1
+    assert tuple(got.shape) == (B, H, Lq, hd)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _rows_close(got.reshape(-1, hd), want.reshape(-1, hd), 1e-2, 0.0)
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal,
+                                                  window=window))
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_graph_replay_equals_eager_launch(card, hd):
+    """A CUDA graph of the kernel (the walk has no counter to reset)
+    replayed twice gives the eager launch's bits."""
+    import gc
+    g = torch.Generator(device=card).manual_seed(hd)
+    q, k, v = (torch.randn(2, 1100, n, hd, generator=g, device=card)
+               .bfloat16().transpose(1, 2) for n in (16, 2, 2))
+    eager = flash.flash_attention(q, k, v)
+    out = torch.empty_like(eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(flash.flash_attention(q, k, v))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            out.copy_(flash.flash_attention(q, k, v))
+    finally:
+        gc.enable()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_flash_walk_copy_matches_the_library(card):
+    """`flash.tile_order` equals the kernel's own TileOrder run on the host
+    (`rt_flash_attention_order`), and every bf16 launch's description is
+    the persistent grid `flash.persistent_grid` gives."""
+    import ctypes
+    from repro_torch.analysis import kernel_verify
+    from repro_torch.kernels import build
+    lib = build.library()
+    assert kernel_verify.flash_order_findings(lib) == []
+    sms = bgmv.sm_count(card)
+    info = (ctypes.c_longlong * len(build.INFO_FIELDS))()
+    for B, H, Lq in ((1, 1, 1), (8, 32, 512), (1, 4, 300), (8, 32, 4096)):
+        assert lib.rt_flash_attention_info(B, H, Lq, Lq, 128, 1, 0,
+                                           build.DTYPE_CODE[torch.bfloat16],
+                                           info) == 0
+        got = dict(zip(build.INFO_FIELDS, info))
+        assert (got["grid_x"], got["grid_y"], got["grid_z"]) == \
+            (flash.persistent_grid(B, H, Lq, sms), 1, 1)

@@ -224,6 +224,62 @@ def test_paged_launch_of_each_config_names_its_route(name, route):
     assert paged.launch_tiles(case.group, case.hd, case.dtype) == 1
 
 
+@pytest.mark.parametrize("name", ["llama2-7b", "yi-9b",
+                                  "recurrentgemma-2b", "phi-3-vision-4.2b"])
+def test_flash_launch_carries_what_its_grid_and_walk_depend_on(name):
+    """The flash launch the model gives phase S holds every argument of
+    `rt_flash_attention_info` (B, H, Lq, Lk, hd, causal, window: the grid
+    is min(work tiles, SMs), the walk's weights come from Lk and the
+    masks), and its persistent grid never passes the SMs."""
+    from repro_torch.kernels import build
+    [launch] = [x for x in kernel_model.launches(_case(name))
+                if x.kernel == "flash_attention"]
+    a = launch.args
+    assert set(a) == {"B", "H", "Lq", "Lk", "hd", "causal", "window"}
+    # the shape arguments, the dtype and the out array
+    assert len(build._SIGNATURES["rt_flash_attention_info"]) == len(a) + 2
+    sms = kernel_model.H100_SMS
+    grid = flash.persistent_grid(a["B"], a["H"], a["Lq"], sms)
+    assert grid == min(-(-a["Lq"] // flash.BQ) * a["H"] * a["B"], sms)
+    walks = flash.work_walks(a["B"], a["H"], a["Lq"], a["Lk"], a["hd"],
+                             bool(a["causal"]), a["window"] or None, sms)
+    assert len(walks) == grid
+
+
+class _OrderLibrary:
+    """rt_flash_attention_order answered by a Python walk, for the check
+    that holds `flash.tile_order` to the library's."""
+
+    def __init__(self, walk):
+        self.walk = walk
+
+    def rt_flash_attention_order(self, Lq, Lk, hd, causal, window, out):
+        for i, m in enumerate(self.walk(Lq, Lk, bool(causal), window or None,
+                                        flash.key_tile(hd))):
+            out[i] = m
+        return 0
+
+
+@pytest.mark.parametrize("walk", ["the copy", "plain ascending",
+                                  "ties to the earlier tile"])
+def test_flash_walk_check_fires_on_a_walk_that_differs(walk):
+    """`kernel_verify.flash_order_findings` (phase S1's check of the bf16
+    flash kernel's walk) is clean against the kernel's own rule and fires
+    on another order: query tiles in index order, or the two cursors
+    breaking ties to the earlier tile."""
+    from repro_torch.analysis import kernel_verify
+
+    def earlier_on_ties(Lq, Lk, causal, window, bk):
+        w = flash.tile_weights(Lq, Lk, causal, window, bk)
+        return sorted(range(len(w)), key=lambda m: (-w[m], m))
+
+    fn = {"the copy": flash.tile_order,
+          "plain ascending": lambda Lq, *_: list(range(-(-Lq // flash.BQ))),
+          "ties to the earlier tile": earlier_on_ties}[walk]
+    found = kernel_verify.flash_order_findings(_OrderLibrary(fn))
+    assert (found == []) == (walk == "the copy"), found
+
+
 def test_max_rank_12_is_taken_after_the_pad():
     """The kernels' 16-byte rows need r_max a multiple of 8: 12 itself is
     refused, the pool's padded 16 columns are taken on every path."""
