@@ -19,7 +19,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      and in many, dbrx/grok's group 6), NaN in every page a row does not
      own (llama2-7b, yi-9b and mistral-large shapes), idx = -1
      rows and ranks 8/16/32/64 under BGMV and MBGMV, the shrink on both
-     its paths (8 and 64 rows: split d_in; prefill rows in runs of 1/17/
+     its paths (1 to 64 rows: the decode blocks by slot, with the expand
+     of the f32 y rounded on load held bitwise to the expand of the cast
+     y; prefill rows in runs of 1/17/
      32/64/4,096 per slot, a ragged last tile, whole tiles of idx -1 rows,
      and yi-9b's 32,768 rows: row tiles), the expand on both of its (1, 8
      and 64 rows: decode; 65 to 32,768 rows: row tiles), d_out 512 / 4,096
@@ -389,7 +391,7 @@ def main() -> int:
 
 KERNEL_NAMES = ("flash_bf16", "flash_f32", "lora_shrink_tile",
                 "lora_shrink_wgmma",
-                "lora_shrink_split", "lora_expand_tile", "lora_expand_decode",
+                "lora_shrink_decode", "lora_expand_tile", "lora_expand_decode",
                 "paged_attention", "paged_combine", "paged_group",
                 "paged_group_combine")
 
@@ -588,9 +590,11 @@ def kernel_checks(torch):
     # prefill's layout, runs of T rows per slot cycling through -1 and
     # every slot, so run boundaries fall inside row tiles, whole tiles
     # hold only idx -1 rows (T >= 64) and the last tile is ragged. Up to
-    # 64 rows the shrink takes its split-d_in path, above it row tiles
-    # (of 128 rows at 32,768 rows: yi-9b's 8 x 4,096 prefill).
-    # The expand takes its decode path up to 64 rows and row tiles above.
+    # 64 rows both kernels take their decode path (blocks by slot; the
+    # shrink's d slices a cluster), above it row tiles (of 128 rows at
+    # 32,768 rows: yi-9b's 8 x 4,096 prefill). On the decode path the
+    # expand of the shrink's f32 y (rounded as it is loaded) must equal
+    # the expand of y cast to the pool's dtype bitwise.
     y8 = [8, 16, 32, 64] * 2
     lcases = [("decode 1 row bf16", 1, 4096, 4096, 64, y8, 16, bf, True, 0),
               ("decode bf16", 8, 4096, 4096, 64, y8, 16, bf, True, 0),
@@ -599,6 +603,10 @@ def kernel_checks(torch):
               ("prefill 4133 rows runs of 4096 bf16", 4096 + 37, 4096, 4096,
                64, y8, 16, bf, True, 4096),
               ("64 rows bf16", 64, 4096, 4096, 64, y8, 16, bf, True, 0),
+              ("32 rows runs of 5 bf16", 32, 4096, 4096, 64, y8, 16, bf,
+               True, 5),
+              ("64 rows runs of 17 bf16", 64, 4096, 4096, 64, y8, 16, bf,
+               True, 17),
               ("prefill 1024 rows bf16", 1024, 4096, 4096, 64, y8, 16, bf,
                True, 0),
               *[(f"prefill runs of {T} bf16", 5 * max(T, 64) + 77, 4096,
@@ -630,7 +638,7 @@ def kernel_checks(torch):
               ("mamba2 out_proj prefill 2048 rows bf16", 2048, 1536, 768,
                64, y8, 16, bf, True, 256),
               # r_max a multiple of 8 that is no power-of-two multiple
-              # of it (the split path's d-groups fit beside 6 or 3 lanes)
+              # of it (the decode shrink's last column group: 16 or 24)
               ("r_max 48 decode bf16", 8, 4096, 4096, 48,
                [48, 16, 33, 8] * 2, 16, bf, False, 0),
               ("r_max 48 prefill runs of 512 bf16", 2048 + 37, 4096, 4096,
@@ -713,6 +721,10 @@ def kernel_checks(torch):
             check(bool((out[idx < 0] == 0).all()), "expand: idx -1 row != 0")
             check(torch.equal(out, lora_expand(yd, b, idx, live)),
                   "expand: two runs differ (sums must repeat bitwise)")
+            if rows <= 64:
+                check(torch.equal(out, lora_expand(y, b, idx, live)),
+                      f"expand {mode} {label}: f32 y rounded on load != "
+                      "the expand of the cast y")
 
     # flash attention: (label, B, H, KV, Lq, Lk, hd, causal, window, dtype,
     # full-width); full-width and "view" cases are (B, L, H, hd) tensors
@@ -1399,6 +1411,7 @@ def graphs_phase(torch, cfg, params, serving, dense):
         arm = "graphed" if graphs else "eager"
         srv, uids = make_server(torch, cfg, "bgmv", params, graphs=graphs)
         be, adm = srv.backend, srv.admission
+        be.graphs.keep_graphs = graphs     # read the graphs' edges below
         records = []
         _sync_sites(torch, be, records)
         for r in make_requests(cfg, uids, spacing_ms=0.0, **D_PROFILE):
@@ -1434,6 +1447,7 @@ def graphs_phase(torch, cfg, params, serving, dense):
                "graphs": stats}
         if graphs:
             rec["pool_bytes"] = be.graphs.pool_bytes()
+            rec["step_graph_edges"] = step_graph_edges(be, stats)
         out["d4"][arm] = rec
         print(f"  D4 {arm}: decode call {p_dec['wall_ms']:.2f} ms wall, "
               f"{p_dec['device_ms']:.2f} ms device, idle "
@@ -1455,6 +1469,35 @@ def graphs_phase(torch, cfg, params, serving, dense):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase D took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def step_graph_edges(be, stats):
+    """Nodes, edges and programmatic edges of the decode and megastep
+    graphs (kept by `StepGraphs.keep_graphs`): the decode LoRA kernels are
+    launched with programmatic dependent launch and each expand follows
+    its shrink, so every captured step holds at least as many
+    programmatic edges as it launches expands."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library()
+    out = {}
+    for key, e in be.graphs.entries.items():
+        if e.graph is None or not key.startswith(("decode", "megastep")):
+            continue
+        info = (ctypes.c_longlong * 3)()
+        rc = lib.rt_graph_edges(ctypes.c_void_p(e.graph.raw_cuda_graph()),
+                                info)
+        check(rc == 0, f"D4 {key}: rt_graph_edges returned {rc}")
+        nodes, edges, prog = (int(v) for v in info)
+        expands = stats[key]["launches_a_replay"]["lora_expand"]
+        out[key] = {"nodes": nodes, "edges": edges,
+                    "programmatic_edges": prog, "lora_expand_launches":
+                    expands}
+        print(f"  D4 {key} graph: {nodes} nodes, {edges} edges, {prog} "
+              f"programmatic, {expands} lora_expand launches", flush=True)
+        check(prog >= expands > 0, f"D4 {key}: {prog} programmatic edges "
+              f"for {expands} lora_expand launches")
     return out
 
 
@@ -3593,7 +3636,8 @@ def timing_phase(torch, step, errs, serving):
         s_bytes = (x.numel() * e + live_cols * d_in * e + 8 * nrows
                    + y.numel() * 4)
         s_ms, s_by = bound(s_bytes, 2 * d_in * row_live, "bfloat16")
-        e_bytes = (yd.numel() * e + live_cols * d_out * e + 8 * nrows
+        # the main path's expand reads the shrink's f32 y (ops.lora_delta)
+        e_bytes = (y.numel() * 4 + live_cols * d_out * e + 8 * nrows
                    + nrows * d_out * e)
         e_ms, e_by = bound(e_bytes, 2 * d_out * row_live, "bfloat16")
         common = {"route": "cuda", "source": "src/repro_torch/csrc/lora.cu",
@@ -3619,13 +3663,14 @@ def timing_phase(torch, step, errs, serving):
             "name": f"lora_expand[{mode}]", "replaces": src_line[1],
             "launches": launches[mode]["lora_expand"],
             "max_abs_err": errs["lora_expand"],
-            "ms": time_ms(torch, lambda: lora_expand(yd, b, idx, live), flush),
+            "y": "the shrink's f32 y, rounded as it is loaded",
+            "ms": time_ms(torch, lambda: lora_expand(y, b, idx, live), flush),
             "plain_ms": time_ms(torch, lambda: ref.lora_expand_ref(
                 yd, b, idx, live), flush, n=20),
             "bound_ms": e_ms, "bound_by": e_by,
             "library_ms": time_ms(torch, lambda: torch.bmm(
                 yd[:, None, :], b_g), flush),
-            "graph_ms": graph_ms(torch, lambda: lora_expand(yd, b, idx, live),
+            "graph_ms": graph_ms(torch, lambda: lora_expand(y, b, idx, live),
                                  flush),
             "library_graph_ms": graph_ms(torch, lambda: torch.bmm(
                 yd[:, None, :], b_g), flush),
@@ -3772,7 +3817,7 @@ def shrink_prefill_timing(torch, captured, serving):
               + y.numel() * 4)
     b_ms, b_by = bound(nbytes, 2 * d_in * row_live, "bfloat16")
     a_cat = a.permute(1, 0, 2).reshape(d_in, slots * r_max).contiguous()
-    plan = shrink_plan(rows, d_in, slots, sm_count(x.device))
+    plan = shrink_plan(rows, d_in, slots, sm_count(x.device), a.shape[-1])
     row = {"name": "lora_shrink[bgmv, prefill]", "route": "cuda",
            "source": "src/repro_torch/csrc/lora.cu",
            "replaces": "src/repro/kernels/bgmv.py:86",
@@ -3838,7 +3883,8 @@ def chunk_shrink_timing(torch, captured, serving):
         + y.numel() * 4
     ops_n = 2 * d_in * int(live.sum())
     b_ms, b_by = bound(nbytes, ops_n, "bfloat16")
-    plan = shrink_plan(P_CHUNK_ROWS, d_in, slots, sm_count(x.device))
+    plan = shrink_plan(P_CHUNK_ROWS, d_in, slots, sm_count(x.device),
+                       a.shape[-1])
     row = {"name": "lora_shrink[yi-9b chunk]", "route": "cuda",
            "source": "src/repro_torch/csrc/lora.cu",
            "replaces": "src/repro/kernels/bgmv.py:86",
@@ -4031,8 +4077,8 @@ K_REQUESTS = {"n": 8, "seed": SEED + 10, "max_new": 32}
 def tail_shrink_row(torch, step, serving, flush):
     """A kernels-line row for the LoRA shrink at a width that is no
     multiple of 8: layer 0's first LoRA call (target q) of phase K3's
-    decode step, 8 rows of d_in 4,100 (the element-copy instantiation of
-    the split-d_in path), held per row against the plain version and
+    decode step, 8 rows of d_in 4,100 (the 4-byte-copy instantiation of
+    the decode path), held per row against the plain version and
     timed as phase 5a's shrink is (events, in a graph, `torch.bmm`)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.bgmv import lora_shrink

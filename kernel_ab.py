@@ -54,6 +54,39 @@ GQA group in a graph (timed only: the port never calls it), the row's
 bound (`flash_bound_us`) and the bf16 kernel's registers and spills from
 that tree's ptxas report.
 
+    python3 kernel_ab.py --lora build/parent [OTHER_TREE ...]
+
+times the decode LoRA pair in CUDA graphs (20 launches a graph, each
+after an L2 flush, less the flushes alone: `graph_us`), the trees in the
+order parent, this tree, the others, then the same backwards, each in a
+process of its own; every run prints one `LORA <tree> {...}` line. Rows
+(`lora_tree`): 1, 8, 32 and 64 rows (`LORA_ROWS`) at d_in = d_out 4,096
+and the 4,100 tail, a pool of 8 slots of ranks 8/16/32/64 (r_max 64),
+row r at slot r % 8 (rows share slots past 8) and the last row of a
+batch without an adapter, under BGMV and MBGMV live widths: the shrink,
+the expand of y in the pool's dtype, the expand of the shrink's f32 y
+(the launch the model makes; null in a tree whose expand refuses f32
+y), and the pair as the model calls it (`ops.lora_delta`), with
+torch.bmm over the gathered pools in a graph (timed only: the port
+never calls it) and the bytes bound (`lora_bound_us`) beside. At d 4,096
+and 8 and 64 rows the same again for two other batches (`LORA_PATTERNS`):
+row 0 idle too ("idle first": a finished request's row waiting to be
+refilled) and slots drawn with weights 1 / (s + 1) ("zipf": skewed
+adapter popularity, rows sharing slots at any batch size).
+
+    python3 kernel_ab.py --lora-probe
+
+splits, in this tree, the decode pair's time into fixed cost, barriers
+and bytes, each figure in a graph after L2 flushes and with L2 warm: an
+empty kernel with and without programmatic dependent launch (and the
+programmatic edges its capture holds) and at 128 blocks in clusters of
+1 to 8 that pass two cluster barriers; a read and a copy of the A pool's
+4 MiB; the shrink and the expand at 1, 8 and 64 rows with every adapted
+row's live width 8 and 64 (the expand also on the shrink's f32 y), with
+torch.bmm beside; each kernel's device time from a profiled replay; the
+bf16 row-tile shrink launched directly at those rows; and the decode
+shrink at splits 1, 2, 4 and 8 (`decode_direct`).
+
     python3 kernel_ab.py --sweep
 
 times, in this tree, the training step's one-slot shrink under every row
@@ -503,6 +536,239 @@ def flash_tree(root: str) -> dict:
     return out
 
 
+# The decode LoRA rows of --lora and --lora-probe: d_in = d_out = 4,096 (and
+# the 4,100 tail), r_max 64, a pool of 8 slots of ranks 8/16/32/64 (two
+# each, zero past each rank), rows of 1 to 64 (rows share slots past 8)
+LORA_RANKS = (8, 16, 32, 64, 8, 16, 32, 64)
+LORA_ROWS = (1, 8, 32, 64)
+LORA_R_MAX = 64
+# the other batches of --lora (lora_case's `pattern`), at d 4,096
+LORA_PATTERNS = ("idle first", "zipf")
+LORA_PATTERN_ROWS = (8, 64)
+
+
+def lora_case(torch, rows, d, seed=0, pattern="round"):
+    """Seeded decode LoRA inputs at width d: x (rows, d), the A and B pools,
+    idx and the pool's ranks. idx: row r takes slot r % 8 ("round"), or
+    the same with row 0 idle as well ("idle first"), or slots drawn with
+    weights 1 / (s + 1) ("zipf"); the last row of a batch of more than
+    one has no adapter."""
+    g = torch.Generator(device="cuda").manual_seed(seed + rows + d)
+    n = len(LORA_RANKS)
+    a = torch.zeros(n, d, LORA_R_MAX, device="cuda")
+    b = torch.zeros(n, LORA_R_MAX, d, device="cuda")
+    for s, r in enumerate(LORA_RANKS):
+        a[s, :, :r] = torch.randn(d, r, generator=g, device="cuda") * d ** -.5
+        b[s, :r] = torch.randn(r, d, generator=g, device="cuda") * r ** -.5
+    x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
+    if pattern == "zipf":
+        w = 1.0 / torch.arange(1, n + 1, device="cuda", dtype=torch.float32)
+        idx = torch.multinomial(w, rows, replacement=True,
+                                generator=g).to(torch.int32)
+    else:
+        idx = torch.arange(rows, device="cuda", dtype=torch.int32) % n
+        if pattern == "idle first":
+            idx[0] = -1
+    if rows > 1:
+        idx[-1] = -1
+    ranks = torch.tensor(LORA_RANKS, dtype=torch.int32, device="cuda")
+    return x, a.bfloat16(), b.bfloat16(), idx, ranks
+
+
+def lora_bound_us(x, a, b, idx, live):
+    """Microseconds the card needs at least for the decode shrink and the
+    expand at these inputs: x and each distinct slot's live columns of A
+    read once, y (f32) written once; y (in x's dtype) and the live rank
+    rows of B read once, out written once; idx and live read once; at the
+    H100 data sheet's 3.35 TB/s (both are far below the 989 TFLOP/s)."""
+    rows, d_in = x.shape
+    d_out, r_max = b.shape[-1], a.shape[-1]
+    widths = {}
+    for s, lv in zip(idx.tolist(), live.tolist()):
+        if s >= 0:
+            widths[s] = max(widths.get(s, 0), lv)
+    cols, esz = sum(widths.values()), x.element_size()
+    shrink = (x.numel() + cols * d_in) * esz + rows * r_max * 4 + 8 * rows
+    expand = (rows * r_max + cols * d_out + rows * d_out) * esz + 8 * rows
+    return 1e6 * shrink / 3.35e12, 1e6 * expand / 3.35e12
+
+
+def lora_tree(root: str) -> dict:
+    """--lora's run in one tree: the decode shrink, the expand (y in x's
+    dtype, and the shrink's f32 y) and the pair as the model calls it
+    (`ops.lora_delta`) at LORA_ROWS rows, d 4,096 and 4,100, and at d
+    4,096 for LORA_PATTERNS, under BGMV and MBGMV, each in a CUDA graph
+    after L2 flushes (`graph_us`); torch.bmm over the gathered pools in a
+    graph and the bound beside."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    from repro_torch.kernels import bgmv, build, ops
+    build.library()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    cases = [(d, rows, "round") for d in (4096, 4100) for rows in LORA_ROWS]
+    cases += [(4096, rows, p) for p in LORA_PATTERNS
+              for rows in LORA_PATTERN_ROWS]
+    out = {}
+    for d, rows, pattern in cases:
+        x, a, b, idx, ranks = lora_case(torch, rows, d, pattern=pattern)
+        safe = idx.clamp(min=0).long()
+        a_g, b_g = a[safe], b[safe]
+        yb = torch.randn(rows, LORA_R_MAX, device="cuda").bfloat16()
+        lib_s = graph_us(torch, lambda: torch.bmm(x[:, None], a_g), flush)
+        lib_e = graph_us(torch, lambda: torch.bmm(yb[:, None], b_g), flush)
+        for mode in ("bgmv", "mbgmv"):
+            live = ops.lora_live(idx, ranks, mode, LORA_R_MAX, 16)
+            yf = bgmv.lora_shrink(x, a, idx, live)
+            y = yf.to(x.dtype)
+            s_us, e_us = lora_bound_us(x, a, b, idx, live)
+            try:                    # a tree whose expand takes f32 y
+                bgmv.lora_expand(yf, b, idx, live)
+                e32 = graph_us(torch, lambda: bgmv.lora_expand(
+                    yf, b, idx, live), flush)
+            except ValueError:
+                e32 = None
+            key = f"{mode} d {d} rows {rows}"
+            out[key if pattern == "round" else f"{key} {pattern}"] = {
+                "shrink": graph_us(torch, lambda: bgmv.lora_shrink(
+                    x, a, idx, live), flush),
+                "expand": graph_us(torch, lambda: bgmv.lora_expand(
+                    y, b, idx, live), flush),
+                "expand_f32": e32,
+                "pair": graph_us(torch, lambda: ops.lora_delta(
+                    x, a, b, idx, live=live), flush),
+                "bmm_shrink": lib_s, "bmm_expand": lib_e,
+                "bound_shrink": s_us, "bound_expand": e_us,
+                "slots": len(set(idx.tolist()) - {-1})}
+        del x, a, b, a_g, b_g
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_edges(torch, lib, body) -> dict:
+    """Nodes, edges and programmatic edges of a CUDA graph captured from
+    one call of body (`rt_graph_edges`)."""
+    import ctypes
+    body()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        body()
+    out = (ctypes.c_longlong * 3)()
+    rc = lib.rt_graph_edges(ctypes.c_void_p(g.raw_cuda_graph()), out)
+    if rc:
+        return {"error": rc}
+    return dict(zip(("nodes", "edges", "programmatic_edges"), out))
+
+
+def decode_direct(torch, lib, build, x, a, idx, live, y, split):
+    """rt_lora_shrink's decode path at a given split (d_chunk: d_in over
+    split in whole 16-wide k-steps); the stream is read inside the call."""
+    rows, d = x.shape
+    d_chunk = -(-(-(-d // split)) // 16) * 16
+
+    def call():
+        rc = lib.rt_lora_shrink(
+            x.data_ptr(), a.data_ptr(), idx.data_ptr(), live.data_ptr(),
+            y.data_ptr(), rows, d, a.shape[-1], a.shape[0], 0, d_chunk,
+            split, build.DTYPE_CODE[x.dtype], build.stream_handle(x.device))
+        assert rc == 0, rc
+    return call
+
+
+def lora_probe() -> dict:
+    """Where the decode LoRA pair's time goes, in this tree, each figure in
+    a CUDA graph after L2 flushes and with L2 warm (`graph_us`): an empty
+    kernel (with and without programmatic dependent launch, and the edges
+    its capture holds; 128 blocks in clusters of 1 to 8), a read of the A pool's bytes (torch.sum) and a
+    copy of them, the decode shrink and expand at 1, 8 and 64 rows with
+    every adapted row's live width 8 and 64, torch.bmm over the gathered
+    pools beside, the shrink's and the expand's device time from a
+    profiled replay, the bf16 row-tile shrink (64-row tile, a cluster of 8
+    over d) and the decode shrink at splits 1 to 8 launched directly at
+    the same rows."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.kernels import bgmv, build
+    lib = build.library()
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    res = {"torch": torch.__version__, "cuda": torch.version.cuda}
+
+    def empty(pdl, blocks=1, cluster=1):
+        def call():
+            rc = lib.rt_empty(pdl, blocks, cluster, build.stream_handle(dev))
+            assert rc == 0, rc
+        return call
+    for pdl in (0, 1):
+        res[f"empty pdl {pdl}"] = {
+            "graph_us": graph_us(torch, empty(pdl), flush),
+            "graph_us_warm": graph_us(torch, empty(pdl), None)}
+    res["empty pdl capture"] = graph_edges(
+        torch, lib, lambda: (flush(), empty(1)(), empty(1)()))
+    # a launch of 128 blocks in clusters of 1 to 8 that pass two cluster
+    # barriers, as a cluster's reduction does
+    for cluster in (1, 2, 4, 8):
+        res[f"empty 128 blocks cluster {cluster} graph_us"] = graph_us(
+            torch, empty(0, 128, cluster), flush)
+    d = 4096
+    for rows in (1, 8, 64):
+        x, a, b, idx, _ = lora_case(torch, rows, d)
+        safe = idx.clamp(min=0).long()
+        a_g, b_g = a[safe], b[safe]
+        r = {"slots_used": len(set(idx.tolist()) - {-1})}
+        if rows == 8:
+            dst = torch.empty_like(a)
+            res["A pool bytes"] = a.numel() * 2
+            res["sum of A graph_us"] = graph_us(torch, lambda: a.sum(),
+                                                flush)
+            res["copy of A graph_us"] = graph_us(torch,
+                                                 lambda: dst.copy_(a), flush)
+        for lv in (8, 64):
+            live = torch.where(idx >= 0, lv, 0).to(torch.int32)
+            y = bgmv.lora_shrink(x, a, idx, live).to(x.dtype)
+            ag, bg = a_g[..., :lv].contiguous(), b_g[:, :lv].contiguous()
+            yl = y[:, None, :lv].contiguous()
+            calls = {
+                "shrink": lambda: bgmv.lora_shrink(x, a, idx, live),
+                "expand": lambda: bgmv.lora_expand(y, b, idx, live),
+                "bmm_shrink": lambda: torch.bmm(x[:, None], ag),
+                "bmm_expand": lambda: torch.bmm(yl, bg)}
+            if hasattr(bgmv, "col_groups"):     # the expand takes f32 y
+                yf = bgmv.lora_shrink(x, a, idx, live)
+                calls["expand f32 y"] = lambda: bgmv.lora_expand(yf, b, idx,
+                                                                 live)
+            for name, fn in calls.items():
+                r[f"live {lv} {name} graph_us"] = graph_us(torch, fn, flush)
+                r[f"live {lv} {name} graph_us_warm"] = graph_us(torch, fn,
+                                                                None)
+            if lv == 64:
+                r["kernels_us"] = {
+                    "shrink": kernel_us(torch, calls["shrink"], flush),
+                    "expand": kernel_us(torch, calls["expand"], flush)}
+                yt = torch.empty(rows, LORA_R_MAX, device="cuda")
+
+                def tile():
+                    rc = lib.rt_lora_shrink(
+                        x.data_ptr(), a.data_ptr(), idx.data_ptr(),
+                        live.data_ptr(), yt.data_ptr(), rows, d, LORA_R_MAX,
+                        a.shape[0], 64, 512, 8, 1, build.stream_handle(dev))
+                    assert rc == 0, rc
+                r["tile 64 x8 graph_us"] = graph_us(torch, tile, flush)
+                r["tile 64 x8 graph_us_warm"] = graph_us(torch, tile, None)
+                if hasattr(bgmv, "col_groups"):
+                    # the decode shrink at each split it takes
+                    for split in (1, 2, 4, 8):
+                        r[f"decode split {split} graph_us"] = graph_us(
+                            torch, decode_direct(torch, lib, build, x, a,
+                                                 idx, live, yt, split),
+                            flush)
+        res[f"rows {rows}"] = r
+        print("LORA-PROBE", f"rows {rows}", json.dumps(r), flush=True)
+    return res
+
+
 # CUPTI range-profiler counters asked of torch.profiler in --sweep
 CUPTI_METRICS = ["dram__bytes_read.sum", "dram__bytes_write.sum",
                  "sm__throughput.avg.pct_of_peak_sustained_elapsed",
@@ -531,7 +797,8 @@ def sweep() -> dict:
     y = torch.empty(rows, r, device="cuda")
     out = torch.empty(rows, d, device="cuda", dtype=torch.bfloat16)
     info = (ctypes.c_longlong * len(build.INFO_FIELDS))()
-    res = {"sms": sms, "plan": bgmv.shrink_plan(rows, d, 1, sms)._asdict(),
+    res = {"sms": sms,
+           "plan": bgmv.shrink_plan(rows, d, 1, sms, r)._asdict(),
            "expand_plan": bgmv.expand_plan(rows, d, sms), "shrink": [],
            "expand": []}
     shrink_bytes = (x.numel() + a.numel()) * 2 + y.numel() * 4
@@ -563,7 +830,7 @@ def sweep() -> dict:
         def expand():
             rc = lib.rt_lora_expand(
                 yb.data_ptr(), b.data_ptr(), idx.data_ptr(), live.data_ptr(),
-                out.data_ptr(), rows, r, d, 1, rb, 1,
+                out.data_ptr(), rows, r, d, 1, rb, 1, 1,
                 build.stream_handle(x.device))
             assert rc == 0, rc
         us = graph_us(torch, expand, flush)
@@ -606,6 +873,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--paged-loaded"]:
         paged_loaded()
         return 0
+    if sys.argv[1:2] == ["--lora-probe"]:
+        print("LORA-PROBE", json.dumps(lora_probe()), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--lora-tree"]:
+        print("LORA", sys.argv[2], json.dumps(lora_tree(sys.argv[2])),
+              flush=True)
+        return 0
     if sys.argv[1:2] == ["--sweep"]:
         print("SWEEP", json.dumps(sweep()), flush=True)
         return 0
@@ -621,6 +895,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--flash"] and len(sys.argv) >= 3:
         trees = [sys.argv[2], here, *sys.argv[3:]]
         mode = "--flash-tree"
+    elif sys.argv[1:2] == ["--lora"] and len(sys.argv) >= 3:
+        trees = [sys.argv[2], here, *sys.argv[3:]]
+        mode = "--lora-tree"
     elif len(sys.argv) == 2 and not sys.argv[1].startswith("--"):
         trees, mode = [sys.argv[1], here], "--tree"
     else:

@@ -22,8 +22,9 @@ widths (head dim, heads over KV heads, the LoRA targets' d_in / d_out
 from d_model, the padded `max_rank`, `rank_block`); rows, batch and
 pages stay small, as they change a launch's grid and not its per-block
 footprint, except where they choose a path: each LoRA kernel is
-modelled at a decode batch and at three row counts, so every path
-appears (the shrink's row tiles of 64 and of 128 rows, split over a
+modelled at two decode batches (8 rows and the decode paths' largest,
+64) and at three row counts, so every path appears (the shrink's
+decode blocks, its row tiles of 64 and of 128 rows, split over a
 cluster of blocks and whole). `launches(case)`
 gives each kernel of the config's serving and training path as a
 `Launch`: the C entry point's shape arguments, the path, and the
@@ -41,7 +42,8 @@ from repro_torch.core.lora import lora_target_dims
 from repro_torch.kernels import bgmv, flash, paged
 
 H100_SMS = 132                 # the card's SMs: the plans' `sms` off the card
-DECODE_ROWS = 8                # a decode batch: the split / decode paths
+DECODE_ROWS = (8, 64)          # decode batches: the decode paths (64:
+                               # their largest shared memory)
 PREFILL_ROWS = (512, 4096, 32768)   # a chunk, a training step's rows and a
                                     # prefill: row tiles of 64 split 8
                                     # ways, of 128 split 4 ways, of 128
@@ -136,27 +138,29 @@ def shape_cases() -> Iterator[Case]:
 def _lora_launches(case: Case, sms: int) -> Iterator[Launch]:
     seen = set()
     for _, d_in, d_out in case.lora:
-        for rows in (DECODE_ROWS, *PREFILL_ROWS):
+        for rows in (*DECODE_ROWS, *PREFILL_ROWS):
             key = (d_in, d_out, rows)
             if key in seen:
                 continue
             seen.add(key)
-            sp = bgmv.shrink_plan(rows, d_in, case.n_slots, sms)
+            sp = bgmv.shrink_plan(rows, d_in, case.n_slots, sms, case.r_pad)
             yield Launch(
                 case.config, "lora_shrink",
-                ("split" if sp.tile == 0 else f"tile {sp.tile}")
+                ("decode" if sp.tile == 0 else f"tile {sp.tile}")
                 + ("" if d_in % 8 == 0 else " tail"), case.dtype,
                 dict(rows=rows, d_in=d_in, r_max=case.r_pad,
                      slots=case.n_slots, tile=sp.tile, d_chunk=sp.d_chunk,
                      split=sp.split),
                 bgmv.shrink_refusal(d_in, case.r_pad), "bgmv.shrink_refusal")
             rb = bgmv.expand_plan(rows, d_out, sms)
+            # the decode kernel takes the shrink's f32 y (ops.lora_delta)
+            y_dtype = torch.float32 if rb == 0 else case.dtype
             yield Launch(
                 case.config, "lora_expand",
                 ("decode" if rb == 0 else "row tiles")
                 + ("" if d_out % 8 == 0 else " tail"), case.dtype,
                 dict(rows=rows, r_max=case.r_pad, d_out=d_out,
-                     row_blocks=rb),
+                     row_blocks=rb, y_dtype=y_dtype),
                 bgmv.expand_refusal(case.r_pad, d_out),
                 "bgmv.expand_refusal")
 

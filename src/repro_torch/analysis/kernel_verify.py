@@ -42,9 +42,9 @@ them, or reads what the compiler and the CUDA runtime report:
 `mutants` proves the checks fire, at the ctypes boundary with no change
 to any .cu: a launch told one row more than its output holds must trip
 the guard band, one told a row fewer the fill check, an idx that points
-at a poisoned slot the poison check, a row-tile shrink told half its
-split the entry point's refusal, and one told d_in 64 short the plain
-check. Every function here returns
+at a poisoned slot the poison check, a shrink (decode or row tiles)
+told half its split the entry point's refusal, and one told d_in 64
+short the plain check. Every function here returns
 its findings (strings); chip_smoke.py fails the run on any.
 """
 from __future__ import annotations
@@ -116,7 +116,8 @@ def _describe(lib, launch: kernel_model.Launch) -> List[Dict[str, int]]:
                                      a["split"], dt, out)
     elif launch.kernel == "lora_expand":
         rc = lib.rt_lora_expand_info(a["rows"], a["r_max"], a["d_out"],
-                                     a["row_blocks"], dt, out)
+                                     a["row_blocks"], dt,
+                                     build.DTYPE_CODE[a["y_dtype"]], out)
     elif launch.kernel == "paged_attention":
         rc = lib.rt_paged_attention_info(a["B"], a["H"], a["KV"], a["ps"],
                                          a["hd"], a["W"], a["nsplit"], dt,
@@ -420,8 +421,9 @@ def lora_inputs(rows, d_in, d_out, r_max, ranks, rank_block, dtype, seg,
         pa[s, :, w:] = float("nan")
         pb[s, w:] = float("nan")
     dead = (idx < 0) | (ar >= rows + 1)
+    clean["y32"] = y.float()              # the decode expand's f32 y
     poisoned = dict(clean, x=_nan_rows(x, dead), y=_nan_rows(y, dead),
-                    a=pa, b=pb)
+                    y32=_nan_rows(clean["y32"], dead), a=pa, b=pb)
     return clean, poisoned
 
 
@@ -447,16 +449,21 @@ def shrink_path(lib, name, ins, poisoned, plan, rows_told=None,
                 {"y": want})
 
 
-def expand_path(lib, name, ins, poisoned, row_blocks, rows_told=None):
+def expand_path(lib, name, ins, poisoned, row_blocks, rows_told=None,
+                y32=None):
+    """y32 (default: on the decode path, as `ops.lora_delta` launches
+    it): the expand takes the f32 y and rounds it as it loads it; the
+    inputs' f32 y holds exactly their y in B's dtype."""
     rows, (_, r_max, d_out) = ins["rows"], ins["b"].shape
     told = rows if rows_told is None else rows_told
+    key = "y32" if (row_blocks == 0 if y32 is None else y32) else "y"
 
     def launch(i, outs):
         rc = lib.rt_lora_expand(
-            i["y"].data_ptr(), i["b"].data_ptr(), i["idx"].data_ptr(),
+            i[key].data_ptr(), i["b"].data_ptr(), i["idx"].data_ptr(),
             i["live"].data_ptr(), outs["out"].t.data_ptr(), told, r_max,
-            d_out, i["slots"], row_blocks, build.DTYPE_CODE[i["y"].dtype],
-            _stream())
+            d_out, i["slots"], row_blocks, build.DTYPE_CODE[i["b"].dtype],
+            build.DTYPE_CODE[i[key].dtype], _stream())
         build.check_launch(rc, name)
 
     want = ref.lora_expand_ref(ins["y"][:rows], ins["b"], ins["idx"][:rows],
@@ -475,6 +482,14 @@ def lora_paths(lib, sms) -> List[Path]:
     out = []
     # (label, rows, d_in, d_out, r_max, ranks, rank_block, dtype, seg)
     cases = [("decode bf16", 8, 4096, 4096, 64, (64, 16, 33, 8), 16, bf, 1),
+             # the decode kernels at their largest rows: runs of 17 rows a
+             # slot (two 16-row tiles of a slot), and 4 column groups
+             ("decode 64 rows runs of 17 bf16", 64, 1024, 1024, 64,
+              (64, 16, 33, 8), 16, bf, 17),
+             ("decode r_max 128 bf16", 8, 512, 1024, 128, (128, 16, 100, 8),
+              16, bf, 1),
+             ("decode 64 rows runs of 17 f32", 64, 256, 136, 24,
+              (24, 3, 9, 1), 8, f32, 17),
              ("prefill bf16", 300, 1024, 1024, 64, (64, 16, 33, 8), 16, bf,
               17),
              ("prefill many tiles bf16", 128 * sms + 77, 512, 512, 64,
@@ -496,14 +511,17 @@ def lora_paths(lib, sms) -> List[Path]:
     for label, rows, d_in, d_out, r_max, ranks, rb, dt, seg in cases:
         clean, pois = lora_inputs(rows, d_in, d_out, r_max, ranks, rb, dt,
                                   seg, seed=rows)
-        sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms)
-        kind = "split" if sp.tile == 0 else f"tile {sp.tile} x{sp.split}"
+        sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms, r_max)
+        kind = "decode" if sp.tile == 0 else f"tile {sp.tile} x{sp.split}"
         out.append(shrink_path(lib, f"lora_shrink[{kind}] {label}", clean,
                                pois, sp))
         rb_ = bgmv.expand_plan(rows, d_out, sms)
-        kind = "decode" if rb_ == 0 else f"row tiles r_max {r_max}"
+        kind = "decode f32 y" if rb_ == 0 else f"row tiles r_max {r_max}"
         out.append(expand_path(lib, f"lora_expand[{kind}] {label}", clean,
                                pois, rb_))
+        if rb_ == 0:                       # y in B's dtype too
+            out.append(expand_path(lib, f"lora_expand[decode] {label}",
+                                   clean, pois, rb_, y32=False))
     return out
 
 
@@ -705,7 +723,7 @@ def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
             ("tail prefill", 300, 4100, 1000, 17)):
         clean, pois = lora_inputs(rows, d_in, d_out, 64, (64, 16, 33, 8),
                                   16, torch.bfloat16, seg, seed=rows + 1)
-        sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms)
+        sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms, 64)
         rb = bgmv.expand_plan(rows, d_out, sms)
         for told, what in ((rows + 1, "one row more"),
                            (rows - 1, "one row fewer")):
@@ -721,8 +739,8 @@ def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
         out.append((f"lora_shrink {label}: idx at the poisoned slot",
                     check_path(shrink_path(lib, "shrink", clean, bad, sp),
                                busy)))
-        if sp.tile and sp.split > 1:
-            # a row-tile split told half its blocks: its slices miss half of d_in,
+        if sp.split > 1:
+            # a split told half its blocks: its slices miss half of d_in,
             # which the entry point refuses; told d_in 64 short, its
             # slices miss d_in's last box, which the plain version sees
             out.append((f"lora_shrink {label}: told split {sp.split // 2} "

@@ -133,11 +133,15 @@ class GraphEntry:
 class StepGraphs:
     """The step graphs of one backend or one trainer (see the module
     docstring). `capture=False`, or a device other than CUDA, runs every
-    call eagerly."""
+    call eagerly. `keep_graphs` (set before a key's capture) keeps each
+    captured graph's cudaGraph_t (`CUDAGraph(keep_graph=True)`,
+    instantiated at once), so a tool can read its nodes and edges through
+    `entries[key].graph.raw_cuda_graph()`."""
 
     def __init__(self, device: torch.device, capture: bool = True):
         self.device = device
         self.capture = capture and device.type == "cuda"
+        self.keep_graphs = False
         self.entries: Dict[str, GraphEntry] = {}
         self.pool = None            # torch.cuda.graph_pool_handle()
         self._stream = None         # the side stream captures run on
@@ -196,7 +200,7 @@ class StepGraphs:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         side = self._side_stream()
-        g = torch.cuda.CUDAGraph()
+        g = torch.cuda.CUDAGraph(keep_graph=self.keep_graphs)
         for gen in generators:
             if not hasattr(g, "register_generator_state"):
                 raise RuntimeError(
@@ -226,6 +230,8 @@ class StepGraphs:
                         g.capture_end()
                     raise
                 g.capture_end()
+                if self.keep_graphs:
+                    g.instantiate()
             main.wait_stream(side)
             e.launches = tuple(fn.launches - b
                                for fn, b in zip(COUNTERS, before))

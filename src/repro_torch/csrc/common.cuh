@@ -76,6 +76,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src));
 }
 
+// 4 bytes global -> shared, both 4-byte aligned; `pred` false zero-fills
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -132,20 +140,45 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Programmatic dependent launch (sm_90). A kernel launched with
+// Launch.pdl may start while the kernel before it on the stream is still
+// running; grid_dep_wait() returns once that kernel has finished and its
+// writes are visible, so every read of what an earlier kernel may have
+// written comes after it. grid_dep_launch() lets the next kernel, if it
+// was launched with Launch.pdl, start before this one finishes. Both are
+// no-ops in a kernel launched without the attribute.
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Bring the L2 line that holds `p` into L2 (an ordinary load-unit
+// instruction: a bulk prefetch a row goes through the SM's copy engine one
+// at a time and cost ~10 ns each on the H100). L2 is the device's point of
+// coherence, so a prefetch of data another kernel is still writing cannot
+// make a later read stale.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p) : "memory");
+}
+
 // ------------------------------------------------------------ launches ----
 
 // One kernel launch: the kernel, its grid, its block, its dynamic shared
-// memory and, where it is more than 1, the blocks of a cluster it is
-// launched with (grid.x a multiple of it). Every entry point builds its
-// launches with one function, which serves both the launch (`launch`) and
-// its description (`describe`, for the rt_*_info entry points): the
-// footprint checks read the launch that runs.
+// memory, where it is more than 1 the blocks of a cluster it is launched
+// with (grid.x a multiple of it), and whether it is launched with
+// programmatic stream serialization (`pdl`: see grid_dep_wait). Every
+// entry point builds its launches with one function, which serves both the
+// launch (`launch`) and its description (`describe`, for the rt_*_info
+// entry points): the footprint checks read the launch that runs.
 struct Launch {
   const void* fn;
   dim3 grid;
   int threads;
   size_t smem;
   unsigned cluster = 1;
+  bool pdl = false;
 };
 
 // The kernel's static shared memory (cudaFuncGetAttributes), read once a
@@ -176,8 +209,9 @@ inline cudaError_t prepare(const Launch& l) {
       l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
 }
 
-// The launch's configuration for cudaLaunchKernelExC (a cluster of
-// l.cluster blocks along x); `attr` must outlive its use.
+// The launch's configuration for cudaLaunchKernelExC: a cluster of
+// l.cluster blocks along x where it is more than 1, programmatic stream
+// serialization with l.pdl; `attr` (two entries) must outlive its use.
 inline cudaLaunchConfig_t cluster_config(const Launch& l,
                                          cudaLaunchAttribute* attr,
                                          cudaStream_t st) {
@@ -186,12 +220,19 @@ inline cudaLaunchConfig_t cluster_config(const Launch& l,
   cfg.blockDim = dim3(l.threads);
   cfg.dynamicSmemBytes = l.smem;
   cfg.stream = st;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = l.cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  if (l.cluster > 1) {
+    attr[cfg.numAttrs].id = cudaLaunchAttributeClusterDimension;
+    attr[cfg.numAttrs].val.clusterDim.x = l.cluster;
+    attr[cfg.numAttrs].val.clusterDim.y = 1;
+    attr[cfg.numAttrs].val.clusterDim.z = 1;
+    ++cfg.numAttrs;
+  }
+  if (l.pdl) {
+    attr[cfg.numAttrs].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[cfg.numAttrs].val.programmaticStreamSerializationAllowed = 1;
+    ++cfg.numAttrs;
+  }
   return cfg;
 }
 
@@ -199,9 +240,9 @@ inline cudaLaunchConfig_t cluster_config(const Launch& l,
 inline cudaError_t launch(const Launch& l, void** args, cudaStream_t st) {
   cudaError_t e = prepare(l);
   if (e != cudaSuccess) return e;
-  if (l.cluster > 1) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(l, &attr, st);
+  if (l.cluster > 1 || l.pdl) {
+    cudaLaunchAttribute attr[2];
+    const cudaLaunchConfig_t cfg = cluster_config(l, attr, st);
     e = cudaLaunchKernelExC(&cfg, l.fn, args);
   } else {
     e = cudaLaunchKernel(l.fn, l.grid, dim3(l.threads), args, l.smem, st);
@@ -256,9 +297,10 @@ inline cudaError_t describe(const Launch& l, long long* out) {
   int clusters = 0;
   cudaError_t ce = cudaSuccess;
   if (l.cluster > 1 || compiled > 1) {
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = cluster_config(l, &attr, nullptr);
-    if (l.cluster <= 1) cfg.numAttrs = 0;   // the compiled cluster
+    Launch lc = l;
+    lc.pdl = false;
+    cudaLaunchAttribute attr[2];
+    const cudaLaunchConfig_t cfg = cluster_config(lc, attr, nullptr);
     ce = cudaOccupancyMaxActiveClusters(&clusters, l.fn, &cfg);
     cudaGetLastError();
   }

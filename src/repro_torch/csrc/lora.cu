@@ -9,7 +9,8 @@
 //   MBGMV live[b] = ceil(rank[idx[b]] / rank_block) * rank_block
 //                                                        (sum-rank law)
 // Columns at or past live[b] are exactly zero and their weights are never
-// read (beyond the 8-column group live[b] ends in); a row with idx[b] < 0
+// read (beyond the 8-column group that the widest live width of the rows
+// of b's slot, in its tile or batch, ends in); a row with idx[b] < 0
 // or >= slots (no adapter) is a zero row and reads nothing.
 //
 // Bound on the H100: bytes. The shrink does 2 * live flops per element of
@@ -46,11 +47,26 @@
 //    k at most 2. f32 and other widths take cp.async copies and mma.sync
 //    (bf16) or the CUDA cores (f32). So x is read once and A once per
 //    tile, not once per row.
-//  - Split d_in (decode, up to 64 rows). A cluster of kSplit blocks per
-//    row, each reducing a slice of d_in; rank 0 adds the blocks' partial
-//    sums from their shared memory (distributed shared memory) in rank
-//    order and writes y, so 8 rows fill 64 SMs instead of 8. A row
-//    re-reads its adapter's A from L2, which a handful of rows affords.
+//  - Decode (up to 64 rows). A decode batch's bytes are A's: at 8 rows
+//    x is 64 KB against 3.6 MB of A for 7 slots, so the launch is laid
+//    out over the slots' A and not over rows. One warp groups the rows by
+//    slot (decode_group: warp match and ballots, no device sync); block
+//    (d slice, 16 rank columns, k) reads the k-th distinct slot's slice
+//    of A once for all of that slot's rows, 16 bytes a copy, the whole
+//    slice in flight in a ring of 128-d stages, x's rows of the slot
+//    beside it, both issued once the rows are grouped (x's rows are not
+//    known before, so A issued earlier on a guess of the slot saved no
+//    round trip: the H100 measured it slower). The slot's rows (padded
+//    to 16) times A on the tensor cores (mma.sync), each warp a quarter
+//    of a stage's d; the warps' partials added in warp order, then pushed through
+//    distributed shared memory to the block of the cluster (the d slices,
+//    up to 8) that writes the row, one cluster barrier, and added there
+//    in rank order. Launched with programmatic dependent launch: it lets
+//    the expand after it start at once. Every step of a launch is a
+//    round trip that a decode batch's few bytes cannot hide (the H100
+//    measured ~1 us for the grouping, ~2 us to A's first stage and ~2 us
+//    for a reduction by two cluster barriers and remote loads, at 8
+//    rows), so the design cuts round trips rather than bytes.
 //
 // The expand is bound by bytes too, and by its output: at yi-9b's prefill
 // (d_out 4096) out is 268 MB against 4 MB each of y and B. Two launch
@@ -75,16 +91,27 @@
 //    bulk stores that drain under the next tile's work measured no faster
 //    there, so the one store path stays.
 //  - Decode (up to 64 rows). One block per (row, 256 columns): each lane
-//    owns 8 columns, read from one rank row of B in a 16-byte load, and
-//    the 8 warps split the live rank rows, their partials added in warp
-//    order.
+//    owns 8 columns, read from one rank row of B in a 16-byte load, the
+//    8 warps split the live rank rows, their partials added in warp
+//    order; up to 16 rows B's first rank rows are issued before y is
+//    loaded, so a launch is one round trip for idx and live and one for B
+//    and y (past 16 rows, 1,024 blocks at 64, y first). A block per (128
+//    columns, distinct slot), which read B once for all the rows of a
+//    slot, measured slower at 32 and 64 rows on the H100 (7.7-9.3 us in a
+//    graph against 5.9-6.3: the rows' grouping and y's load after it are
+//    two more round trips than B's bytes from L2 cost).
+//    It takes the shrink's f32 y and rounds each value to B's dtype as it
+//    loads it (what y.to(b.dtype) gives), so no cast launch stands
+//    between the pair, and is launched with programmatic dependent
+//    launch: it prefetches B into L2 while the shrink runs and waits for
+//    y only then.
 // Widths: any d_in and d_out, as the Pallas kernels' _fit_block takes them
 // (src/repro/kernels/bgmv.py:40-47). Where d_in (shrink) or d_out (expand)
 // is a multiple of 8, x, B and out move 16 bytes at a time; otherwise the
 // row-tile and decode kernels are instantiated with element copies and
 // stores (kVec false), zero past the width, so a partial k-step of 16 sums
-// zeros. The split shrink reads x element by element on either; TMA
-// needs 16-byte strides, so only such widths take the wgmma shrink. r_max
+// zeros. TMA needs 16-byte strides, so only such widths take the wgmma
+// shrink. r_max
 // stays a multiple of 8 (the pool pads it: kernels/bgmv.py padded_rank).
 // Every sum runs in a fixed order (no atomics): results repeat bitwise.
 #include <type_traits>
@@ -100,76 +127,405 @@ namespace {
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-// ------------------------------------------------- shrink: split d_in ----
+// ------------------------------------------------ decode: rows by slot ----
 
-constexpr int kSplit = 8;                // blocks a row: a portable cluster
+constexpr int kDecRows = 64;                // rows the decode kernels take
+constexpr int kDThr = 128;                  // threads a decode block: 4 warps
 
-// y[row, r] for r < live[row]: block `part` of the row's cluster reduces
-// d in [part * d_chunk, (part + 1) * d_chunk). Threads are r_max/8 rank
-// lanes of 8 columns x (blockDim / lanes) d-groups, a power of two; a
-// lane reads its 8 columns of one d row of A in a single 16-byte load, up
-// to 8 loads a thread in flight. The d-groups are reduced through shared
-// memory by a fixed tree, the blocks by rank 0.
+// A decode block's slot, as its prologue finds it.
+struct DecSlot {
+  int s;                      // the k-th distinct slot (-1: fewer slots)
+  int m;                      // its rows
+  int ncol;                   // their widest live width, rounded up to 8
+  unsigned zero[2];           // the rows without an adapter, a bit a row
+  int rlist[kDecRows];        // its rows, in row order
+  int rlive[kDecRows];        // and their live widths
+};
+
+__device__ __forceinline__ bool dec_zero_row(const DecSlot& g, int r) {
+  return (g.zero[r >> 5] >> (r & 31)) & 1u;
+}
+
+// The decode prologue, shared by both decode kernels, in one warp (lane l
+// holds rows l and l + 32 of [0, rows)): each row's slot (-1: no adapter)
+// and live width; the first row of each distinct slot, in row order,
+// numbers the slots (warp match and ballots, no block barrier), and `k`
+// (the block's y) picks one. Writes *out, read after a __syncthreads().
+__device__ __forceinline__ void decode_group(
+    const int* __restrict__ idx, const int* __restrict__ live, int rows,
+    int r_max, int slots, int k, DecSlot* out) {
+  const int lane = threadIdx.x & 31;
+  int sl[2], lv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {             // both loads in flight at once
+    const int r = lane + 32 * h;
+    sl[h] = r < rows ? idx[r] : -1;
+    lv[h] = r < rows ? live[r] : 0;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (sl[h] < 0 || sl[h] >= slots) sl[h] = -1;
+    lv[h] = sl[h] < 0 ? 0 : max(0, min(lv[h], r_max));
+  }
+  bool first[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {             // every lane takes the match
+    const unsigned peers = __match_any_sync(0xffffffffu, sl[h]);
+    first[h] = sl[h] >= 0 && lane == __ffs(peers) - 1;
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j)              // and no row of the first half
+    first[1] &= __shfl_sync(0xffffffffu, sl[0], j) != sl[1];
+  const unsigned long long f =
+      __ballot_sync(0xffffffffu, first[0]) |
+      (unsigned long long)__ballot_sync(0xffffffffu, first[1]) << 32;
+  const unsigned z0 = __ballot_sync(0xffffffffu, lane < rows && sl[0] < 0);
+  const unsigned z1 =
+      __ballot_sync(0xffffffffu, lane + 32 < rows && sl[1] < 0);
+  int s = -1, m = 0, ncol = 0;
+  if (k < __popcll(f)) {                    // uniform
+    unsigned long long g = f;
+    for (int i = 0; i < k; ++i) g &= g - 1;
+    const int u = __ffsll((long long)g) - 1;
+    s = __shfl_sync(0xffffffffu, u < 32 ? sl[0] : sl[1], u & 31);
+    const bool in0 = sl[0] == s, in1 = sl[1] == s;
+    const unsigned b0 = __ballot_sync(0xffffffffu, in0);
+    const unsigned b1 = __ballot_sync(0xffffffffu, in1);
+    m = __popc(b0) + __popc(b1);
+    ncol = (__reduce_max_sync(0xffffffffu,
+                              max(in0 ? lv[0] : 0, in1 ? lv[1] : 0)) + 7) /
+           8 * 8;
+    const unsigned below = (1u << lane) - 1u;
+    if (in0) {
+      out->rlist[__popc(b0 & below)] = lane;
+      out->rlive[__popc(b0 & below)] = lv[0];
+    }
+    if (in1) {
+      out->rlist[__popc(b0) + __popc(b1 & below)] = lane + 32;
+      out->rlive[__popc(b0) + __popc(b1 & below)] = lv[1];
+    }
+  }
+  if (lane == 0) {
+    out->s = s;
+    out->m = m;
+    out->ncol = ncol;
+    out->zero[0] = z0;
+    out->zero[1] = z1;
+  }
+}
+
+// The hardware cluster barrier in two halves: arrive, then wait (release
+// and acquire; `relaxed` arrives without ordering memory).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ------------------------------------------------ shrink: decode ----
+
+constexpr int kDCols = 16;                  // rank columns a block
+constexpr int kMaxTileSplit = 8;            // blocks a cluster: portable
+
+template <typename T> struct DecCfg;
+template <> struct DecCfg<bf16> {
+  static constexpr int kSD = 128;           // d a stage
+  static constexpr int kLdx = kSD + 8, kLda = kDCols + 8;   // ldmatrix pad
+};
+template <> struct DecCfg<float> {
+  static constexpr int kSD = 64;
+  static constexpr int kLdx = kSD + 4, kLda = kDCols + 4;
+};
+
+// rows padded to whole 16-row mma tiles, at most kDecRows
+__host__ __device__ constexpr int dec_rows_pad(int rows) {
+  return rows >= kDecRows ? kDecRows : (rows + 15) / 16 * 16;
+}
+
+// the ring's stages: four, three where the rows (padded) pass 32, so that
+// two blocks fit an SM at 64 rows (one a SM left a 64-row launch of 128
+// blocks in clusters of 8 a second wave)
+__host__ __device__ constexpr int dec_stages(int mp) {
+  return mp <= 32 ? 4 : 3;
+}
+
+// the ring (x of mp rows, A; the bf16 partials over it after the loop),
+// the f32 partials beside it (f32 adds into them stage by stage), and the
+// inbox the cluster's blocks push their partial sums into: split x
+// ceil(mp / split) rows of kDCols
 template <typename T>
-__global__ void __cluster_dims__(kSplit, 1, 1) lora_shrink_split_kernel(
+constexpr size_t dec_shrink_smem(int mp, int split) {
+  using C = DecCfg<T>;
+  constexpr bool kBF = std::is_same<T, bf16>::value;
+  return sizeof(T) * dec_stages(mp) *
+             ((size_t)mp * C::kLdx + (size_t)C::kSD * C::kLda) +
+         sizeof(float) * ((kBF ? 0 : 4 * (size_t)mp * kDCols) +
+                          (size_t)split * ((mp + split - 1) / split) *
+                              kDCols);
+}
+
+// Block (part, g, k) of a launch of `split` blocks a cluster (x: g *
+// split + part; y: k): y[rows of the k-th distinct slot s, c0 : c0 +
+// kDCols] (c0 = g * kDCols), the cluster's part-th block reducing d in
+// [part * d_chunk, (part + 1) * d_chunk). Each stage of kSD d brings
+// A[s][kSD d, the block's columns below the slot's widest live width] and
+// x[the slot's rows] (gathered, zero past d_chunk and in the padding rows)
+// into a ring of S stages (cp.async, 16 bytes a copy; 4 bytes where d_in
+// is no multiple of 8), so a block reads its slice of A once for every row
+// of its slot, with its whole slice in flight at d_in 4,096 (split 8, four
+// stages of 128), a commit group a stage. bf16: warp w takes k-steps w
+// and w + 4 of a stage on the tensor cores (mma.sync m16n8k16, f32
+// accumulate; a stage's sum added on the CUDA cores), the slot's rows in
+// 16-row tiles; f32 on the CUDA cores, lane = column, warp = a quarter of
+// the stage's d. The warps'
+// partials are added in warp order; then each block pushes its partial of
+// every row into the inbox of the block that writes that row (part p: a
+// 1 / split share of the slot's rows; distributed shared memory), one
+// cluster barrier, and each block adds its inbox in rank order: no
+// atomics, the sums repeat bitwise. Launched with programmatic dependent
+// launch: it lets the expand after it start at once and waits for x's
+// writer only before its first read.
+template <typename T, bool kVec, int S>
+__global__ void __launch_bounds__(kDThr) lora_shrink_decode_kernel(
     const T* __restrict__ x, const T* __restrict__ a,
     const int* __restrict__ idx, const int* __restrict__ live,
-    float* __restrict__ y, int d_in, int r_max, int slots, int d_chunk) {
-  extern __shared__ float red[];            // ngrp * r_max
-  cg::cluster_group cluster = cg::this_cluster();
-  const int row = blockIdx.x / kSplit;
-  const int part = (int)cluster.block_rank();
-  const int lanes = r_max / rt::kVec;
-  const int lane = threadIdx.x % lanes, grp = threadIdx.x / lanes;
-  const int ngrp = blockDim.x / lanes;      // a power of two
-  const int c0 = lane * rt::kVec;
-  const int s = idx[row];
-  const int lv = (s >= 0 && s < slots) ? min(live[row], r_max) : 0;
-  const int d_lo = part * d_chunk, d_hi = min(d_in, d_lo + d_chunk);
-  float acc[rt::kVec];
+    float* __restrict__ y, int rows, int d_in, int r_max, int slots,
+    int d_chunk, int split) {
+  using C = DecCfg<T>;
+  constexpr int VEC = 16 / sizeof(T);       // elements a 16-byte copy
+  constexpr bool kBF = std::is_same<T, bf16>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ DecSlot grp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int part = (int)blockIdx.x % split;
+  const int k = blockIdx.y, c0 = (int)blockIdx.x / split * kDCols;
+  const int cw = min(kDCols, r_max - c0);   // the block's columns (8k)
+  const int lo = part * d_chunk, hi = min(d_in, lo + d_chunk);
+  const int nk = hi > lo ? (hi - lo + C::kSD - 1) / C::kSD : 0;
+  const int mp = dec_rows_pad(rows);
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  T* as = xs + S * mp * C::kLdx;
+  float* beside = reinterpret_cast<float*>(as + S * C::kSD * C::kLda);
+  float* partial = kBF ? reinterpret_cast<float*>(smem_raw) : beside;
+  float* inbox = kBF ? beside : beside + 4 * mp * kDCols;
+  const int per_max = (mp + split - 1) / split;
+  // x's rows start 4-byte aligned: bf16 pairs can be copied 4 bytes a copy
+  const bool pairs = d_in % 2 == 0 && (reinterpret_cast<size_t>(x) & 3) == 0;
+
+  if (split > 1) cluster_arrive_relaxed();  // started: waited for below
+  rt::grid_dep_wait();
+
+  // A[sa][stage kt, columns [c0, c0 + na)] into ring buffer `buf`, by
+  // threads [t0, t0 + nt)
+  auto load_a = [&](int buf, int kt, int sa, int na, int t0, int nt) {
+    const T* as_g = a + (size_t)sa * d_in * r_max + c0;
+    const int d0 = lo + kt * C::kSD;
+    T* ab = as + buf * C::kSD * C::kLda;
+    constexpr int AC = kDCols / VEC;        // copies a d row of A
+    for (int i = tid - t0; i < C::kSD * AC; i += nt) {
+      const int r = i / AC, c = (i % AC) * VEC, d = d0 + r;
+      const bool ok = d < hi && c < na;     // dead columns are never read
+      const T* src = ok ? as_g + (size_t)d * r_max + c : as_g;
+      rt::cp_async16(ab + r * C::kLda + c, src, ok);
+    }
+  };
+  // x of stage kt into rows [r0, r1) of ring buffer `buf`: row r from x's
+  // row src(r) (-1: zeros), zero past hi, by threads [t0, t0 + nt)
+  auto load_x = [&](int buf, int kt, int r0, int r1, auto src, int t0,
+                    int nt) {
+    const int d0 = lo + kt * C::kSD;
+    T* xb = xs + buf * mp * C::kLdx;
+    if constexpr (kVec) {
+      constexpr int XC = C::kSD / VEC;      // copies a row of x
+      for (int i = tid - t0; i < (r1 - r0) * XC; i += nt) {
+        const int r = r0 + i / XC, d = d0 + (i % XC) * VEC, u = src(r);
+        const bool ok = u >= 0 && d < hi;
+        rt::cp_async16(xb + r * C::kLdx + (i % XC) * VEC,
+                       ok ? x + (size_t)u * d_in + d : x, ok);
+      }
+    } else if (sizeof(T) == 4 || pairs) {
+      // 4-byte copies: an f32 element, or two bf16 at an even d_in (hi is
+      // even then, so a pair that starts below hi ends below it)
+      constexpr int E = 4 / sizeof(T);      // elements a copy
+      for (int i = tid - t0; i < (r1 - r0) * C::kSD / E; i += nt) {
+        const int r = r0 + i / (C::kSD / E), c = i % (C::kSD / E) * E;
+        const int d = d0 + c, u = src(r);
+        const bool ok = u >= 0 && d < hi;
+        rt::cp_async4z(xb + r * C::kLdx + c,
+                       ok ? x + (size_t)u * d_in + d : x, ok);
+      }
+    } else {
+      // bf16 at an odd d_in: element by element (the buffer was read
+      // before the __syncthreads() that precedes this copy, so plain stores
+      // may land in it at once)
+      for (int i = tid - t0; i < (r1 - r0) * C::kSD; i += nt) {
+        const int r = r0 + i / C::kSD, d = d0 + i % C::kSD, u = src(r);
+        xb[r * C::kLdx + i % C::kSD] = u >= 0 && d < hi
+            ? x[(size_t)u * d_in + d] : rt::from_f32<T>(0.f);
+      }
+    }
+  };
+
+  if (warp == 0) decode_group(idx, live, rows, r_max, slots, k, &grp);
+  __syncthreads();
+  const int s = grp.s, m = grp.m;
+  if (k == 0 && part == 0 && (grp.zero[0] | grp.zero[1]))
+    for (int i = tid; i < rows * cw; i += kDThr)   // rows without an adapter
+      if (dec_zero_row(grp, i / cw))
+        y[(size_t)(i / cw) * r_max + c0 + i % cw] = 0.f;
+  const int nc = s >= 0 ? min(cw, grp.ncol - c0) : 0;   // columns computed
+  if (nc <= 0) {                            // no slot, or past every live
+    if (s >= 0 && part == 0)                // width of its rows
+      for (int i = tid; i < m * cw; i += kDThr)
+        y[(size_t)grp.rlist[i / cw] * r_max + c0 + i % cw] = 0.f;
+    return;                                 // (the whole cluster returns)
+  }
+  const int mr = (m + 15) / 16 * 16;        // x rows the tiles read
+  auto rows_of_s = [&](int r) { return r < m ? grp.rlist[r] : -1; };
 #pragma unroll
-  for (int j = 0; j < rt::kVec; ++j) acc[j] = 0.f;
-  if (c0 < lv) {
-    const T* xr = x + (size_t)row * d_in;
-    const T* as = a + (size_t)s * d_in * r_max + c0;
+  for (int st = 0; st < S; ++st) {          // a commit group a stage
+    if (st < nk) {
+      load_a(st, st, s, nc, 0, kDThr);
+      load_x(st, st, 0, mr, rows_of_s, 0, kDThr);
+    }
+    rt::cp_async_commit();
+  }
+
+  if constexpr (!kBF)
+    for (int i = tid; i < 4 * mp * kDCols; i += kDThr)
+      if (i / kDCols % mp < m) partial[i] = 0.f;
+  const int mt_n = mr / 16;                 // 16-row tiles of the slot
+  float acc[kBF ? 4 : 1][kDCols / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < (kBF ? 4 : 1); ++mt)
+#pragma unroll
+    for (int n = 0; n < kDCols / 8; ++n)
+      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    rt::cp_async_wait<S - 1>();
+    __syncthreads();                        // stage kt landed
+    const T* xb = xs + (kt % S) * mp * C::kLdx;
+    const T* ab = as + (kt % S) * C::kSD * C::kLda;
+    if constexpr (kBF) {
+      float pr[4][kDCols / 8][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int n = 0; n < kDCols / 8; ++n)
+          pr[mt][n][0] = pr[mt][n][1] = pr[mt][n][2] = pr[mt][n][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < C::kSD / 64; ++j) {
+        const int ks = warp + 4 * j;        // 16 d a k-step
+        unsigned bv[kDCols / 16][4];
+#pragma unroll
+        for (int np = 0; np < kDCols / 16; ++np)
+          if (np * 16 < nc)
+            rt::ldsm_x4_trans(bv[np], ab + (ks * 16 + (lane & 7) +
+                                            ((lane >> 3) & 1) * 8) * C::kLda +
+                                          np * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt >= mt_n) break;
+          unsigned af[4];
+          rt::ldsm_x4(af, xb + (mt * 16 + (lane & 15)) * C::kLdx + ks * 16 +
+                              (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < kDCols / 16; ++np) {
+            if (np * 16 < nc)
+              rt::mma_bf16(pr[mt][2 * np], af, bv[np][0], bv[np][1]);
+            if (np * 16 + 8 < nc)
+              rt::mma_bf16(pr[mt][2 * np + 1], af, bv[np][2], bv[np][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int n = 0; n < kDCols / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][n][e] += pr[mt][n][e];
+    } else {
+      // lane = column, warp = d [warp * kSD / 4, ...) of the stage; the
+      // stage's sum a row added into the warp's partial
+      constexpr int QD = C::kSD / 4;
+      if (lane < nc)
+        for (int r = 0; r < m; ++r) {
+          float v = 0.f;
 #pragma unroll 8
-    for (int d = d_lo + grp; d < d_hi; d += ngrp) {
-      const float xv = rt::to_f32(xr[d]);
-      float w[rt::kVec];
-      rt::load8(as + (size_t)d * r_max, w);
+          for (int dd = 0; dd < QD; ++dd)
+            v += rt::to_f32(xb[r * C::kLdx + warp * QD + dd]) *
+                 rt::to_f32(ab[(warp * QD + dd) * C::kLda + lane]);
+          partial[(warp * mp + r) * kDCols + lane] += v;
+        }
+    }
+    __syncthreads();                        // stage kt read by every warp
+    if (kt + S < nk) {
+      load_a(kt % S, kt + S, s, nc, 0, kDThr);
+      load_x(kt % S, kt + S, 0, mr, rows_of_s, 0, kDThr);
+    }
+    rt::cp_async_commit();
+  }
+  rt::cp_async_wait<0>();
+  // the expand after this launch may start now: it prefetches B while
+  // this block reduces (earlier, its loads would compete with A's)
+  rt::grid_dep_launch();
+  if constexpr (kBF) {
+    // d[n][2h + e]: row 16 mt + lane / 4 + 8h, column 8n + 2 (lane % 4) + e
 #pragma unroll
-      for (int j = 0; j < rt::kVec; ++j) acc[j] += xv * w[j];
+    for (int mt = 0; mt < 4; ++mt) {
+      if (mt >= mt_n) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int n = 0; n < kDCols / 8; ++n)
+          *reinterpret_cast<float2*>(partial + (warp * mp + r) * kDCols +
+                                     n * 8 + (lane & 3) * 2) =
+              make_float2(acc[mt][n][2 * h], acc[mt][n][2 * h + 1]);
+      }
     }
   }
-  float* mine = red + grp * r_max + c0;
-#pragma unroll
-  for (int j = 0; j < rt::kVec; ++j) mine[j] = acc[j];
   __syncthreads();
-  for (int st = ngrp / 2; st > 0; st >>= 1) {
-    if (grp < st) {
-      const float* other = red + (grp + st) * r_max + c0;
+  // the warps' partials in warp order, pushed to the block that writes the
+  // row: part q writes rows [q * per, (q + 1) * per), into its inbox at
+  // [this block's rank][row - q * per]
+  const int per = (m + split - 1) / split;
+  if (split > 1) cluster_wait();            // every block has started
+  for (int i = tid; i < m * kDCols; i += kDThr) {
+    float v = partial[i];
 #pragma unroll
-      for (int j = 0; j < rt::kVec; ++j) mine[j] += other[j];
-    }
+    for (int w = 1; w < 4; ++w) v += partial[w * mp * kDCols + i];
+    const int r = i / kDCols, q = r / per;
+    float* dst = inbox + (part * per_max + r - q * per) * kDCols + i % kDCols;
+    if (split > 1) dst = cg::this_cluster().map_shared_rank(dst, q);
+    *dst = v;
+  }
+  if (split > 1) {                          // every push landed
+    cluster_arrive();
+    cluster_wait();
+  } else {
     __syncthreads();
   }
-  cluster.sync();                           // every block's red[0:r_max]
-  if (part == 0) {
-    for (int c = threadIdx.x; c < r_max; c += blockDim.x) {
-      float sum = 0.f;
-      for (int k = 0; k < kSplit; ++k)
-        sum += cluster.map_shared_rank(red, k)[c];
-      y[(size_t)row * r_max + c] = c < lv ? sum : 0.f;
-    }
+  for (int i = tid; i < per * cw; i += kDThr) {
+    const int j = i / cw, r = part * per + j, c = i % cw;
+    if (r >= m) break;
+    float v = 0.f;
+    if (c < nc && c0 + c < grp.rlive[r])
+      for (int q = 0; q < split; ++q)       // rank order
+        v += inbox[(q * per_max + j) * kDCols + c];
+    y[(size_t)grp.rlist[r] * r_max + c0 + c] = v;
   }
-  cluster.sync();                           // rank 0 has read them all
 }
 
 // -------------------------------------------------- shrink: row tiles ----
 
 constexpr int kCols = 64;                   // rank columns a pass
 constexpr int kLdp = kCols + 4;             // a partial's row (f32)
-constexpr int kMaxTileSplit = 8;            // blocks a cluster: portable
 
 // The row-tile prologue, shared by both row-tile kernels: each row of the
 // tile [row0, row0 + BM) gets its slot (-1: past `rows` or no adapter) in
@@ -643,18 +999,26 @@ rt::Launch tile_launch(int rows, int d_in, int slots, int split) {
   }
 }
 
-// a handful of rows is bound by latency: 512 threads keep more loads in
-// flight; from 17 rows on, rows x kSplit blocks fill the card at 256.
-// The d-groups are the largest power of two that fits beside the lanes
-// (the tree reduction halves them), so any r_max = 8 x lanes is taken
+// x: split blocks (a cluster) a column group of kDCols, y: a block per
+// distinct slot the rows can hold; each block's dynamic shared memory is
+// sized for the launch's rows (padded to 16)
 template <typename T>
-rt::Launch split_launch(int rows, int r_max) {
-  const int lanes = r_max / rt::kVec;
-  const int target = rows <= 16 ? 512 : 256;
-  int ngrp = 1;
-  while (2 * ngrp * lanes <= target) ngrp *= 2;
-  return {(const void*)lora_shrink_split_kernel<T>, dim3(rows * kSplit),
-          ngrp * lanes, (size_t)ngrp * r_max * sizeof(float)};
+rt::Launch dec_shrink_launch(int rows, int d_in, int r_max, int slots,
+                             int split) {
+  const int mp = dec_rows_pad(rows);
+  const dim3 grid((r_max + kDCols - 1) / kDCols * split,
+                  max(1, min(slots, rows)));
+  const bool vec = d_in % rt::kVec == 0;
+  const void* fn =
+      dec_stages(mp) == 4
+          ? (vec ? (const void*)lora_shrink_decode_kernel<T, true, 4>
+                 : (const void*)lora_shrink_decode_kernel<T, false, 4>)
+          : (vec ? (const void*)lora_shrink_decode_kernel<T, true, 3>
+                 : (const void*)lora_shrink_decode_kernel<T, false, 3>);
+  rt::Launch l{fn, grid, kDThr, dec_shrink_smem<T>(mp, split),
+               (unsigned)split};
+  l.pdl = true;
+  return l;
 }
 
 // ------------------------------------------------ expand: row tiles ----
@@ -1021,49 +1385,179 @@ rt::Launch expand_tile_launch(int r_max, int d_out, int row_blocks) {
 
 // --------------------------------------------------- expand: decode ----
 
+// 8 values as 16 bytes of bf16 (one uint4) or 32 of f32 (two), and back:
+// exact for values of that type
+__device__ __forceinline__ void pack8(const float (&v)[rt::kVec],
+                                      uint4 (&w)[1]) {
+  w[0] = make_uint4(rt::pack_bf16(v[0], v[1]), rt::pack_bf16(v[2], v[3]),
+                    rt::pack_bf16(v[4], v[5]), rt::pack_bf16(v[6], v[7]));
+}
+__device__ __forceinline__ void pack8(const float (&v)[rt::kVec],
+                                      uint4 (&w)[2]) {
+  w[0] = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+  w[1] = make_uint4(__float_as_uint(v[4]), __float_as_uint(v[5]),
+                    __float_as_uint(v[6]), __float_as_uint(v[7]));
+}
+__device__ __forceinline__ void unpack8(const uint4 (&w)[1],
+                                        float (&v)[rt::kVec]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w[0]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack8(const uint4 (&w)[2],
+                                        float (&v)[rt::kVec]) {
+  v[0] = __uint_as_float(w[0].x); v[1] = __uint_as_float(w[0].y);
+  v[2] = __uint_as_float(w[0].z); v[3] = __uint_as_float(w[0].w);
+  v[4] = __uint_as_float(w[1].x); v[5] = __uint_as_float(w[1].y);
+  v[6] = __uint_as_float(w[1].z); v[7] = __uint_as_float(w[1].w);
+}
+
 constexpr int kRankSplit = 8;               // warps a block: rank slices
 constexpr int kDecCols = 8 * 32;            // columns a block: 8 a lane
 
-// out[row, c0 : c0 + kDecCols]: lane l of every warp owns 8 columns and
-// reads them from one rank row of B in a single 16-byte load; warp w sums
-// rank rows w, w + kRankSplit, ... below live[row] (up to 8 loads a thread
-// in flight), and the warps' partials are added in warp order. kVec: d_out
-// a multiple of 8; else the 8 columns are read one by one (a rank row then
-// starts anywhere), zero past d_out.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kRankSplit * 32) lora_expand_decode_kernel(
-    const T* __restrict__ y, const T* __restrict__ b,
+// out[row, n0 : n0 + kDecCols] (n0 = blockIdx.y * kDecCols) = y[row,
+// :live] @ B[idx[row]][:live, n0 : ...]: lane l of every warp owns 8
+// columns, read from one rank row of B in a single 16-byte load (element
+// loads where d_out is no multiple of 8: 4-byte pairs at an even d_out,
+// zero past d_out); warp w sums rank rows w, w + kRankSplit, ... below
+// live[row] in order, and the warps' partials are added in warp order. y is TY: B's
+// dtype, or f32 rounded to B's dtype as it is loaded (the value
+// `y.to(b.dtype)` gives), so no cast launch stands between the shrink and
+// this kernel. A decode batch's B is a few MB: each row's blocks read
+// their slot's B, the rows of one slot from L2 after the first. The chain
+// of round trips is what a launch costs here (the H100 measured ~1 us a
+// step), so kEarly (up to kDecEarlyRows rows) issues B's first 8 rank
+// rows a warp before y is loaded, both after one read of idx and live,
+// and prefetches its B lines into L2 before it waits for y. Past
+// kDecEarlyRows rows (1,024 blocks at 64) a launch keeps y first, then B
+// a rank row a loop step at 32 registers a thread, eight blocks an SM:
+// 64 rows' 1,024 blocks in one wave on 132 SMs (at 64 registers, four
+// blocks an SM, they took two waves and ~1.5 us more on the H100;
+// kernels/bgmv.py: expand_plan). The sums and their order are the same
+// either way. Both
+// are launched with programmatic dependent launch after the shrink, which
+// lets them start early; each waits for y (and anything else an earlier
+// kernel wrote) before reading it.
+template <typename T, typename TY, bool kVec, bool kEarly>
+__global__ void __launch_bounds__(
+    kRankSplit * 32,
+    kEarly ? ((kVec && sizeof(T) == 2) ? 3 : 1) : (kVec ? 8 : 1))
+    lora_expand_decode_kernel(
+    const TY* __restrict__ y, const T* __restrict__ b,
     const int* __restrict__ idx, const int* __restrict__ live,
-    T* __restrict__ out, int r_max, int d_out, int slots) {
+    T* __restrict__ out, int rows, int r_max, int d_out, int slots) {
   extern __shared__ __align__(16) float esm[];
   float* part = esm;                        // kRankSplit x kDecCols
-  float* ysm = esm + kRankSplit * kDecCols; // r_max
+  float* ysm = esm + kRankSplit * kDecCols; // y's live values, rounded
   const int row = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int c = blockIdx.y * kDecCols + lane * rt::kVec;
-  const int s = idx[row];
-  const int lv = (s >= 0 && s < slots) ? max(0, min(live[row], r_max)) : 0;
-  for (int r = tid; r < lv; r += blockDim.x)
-    ysm[r] = rt::to_f32(y[(size_t)row * r_max + r]);
-  __syncthreads();
+  const int n0 = blockIdx.y * kDecCols, c = n0 + lane * rt::kVec;
+  auto slot_of = [&](int& s, int& lv) {
+    s = idx[row];
+    lv = (s >= 0 && s < slots) ? max(0, min(live[row], r_max)) : 0;
+  };
+  int s, lv;
+  if constexpr (kEarly) {
+    slot_of(s, lv);                         // (may be stale: aims the
+    // prefetch only) the block's B lines, by the first row of each slot
+    // alone (rows of one slot would prefetch the same lines again)
+    const int u0 = lane < rows ? idx[lane] : -1;
+    const int u1 = lane + 32 < rows ? idx[lane + 32] : -1;
+    const bool seen =
+        __ballot_sync(0xffffffffu, lane < row && u0 == s) |
+        __ballot_sync(0xffffffffu, lane + 32 < row && u1 == s);
+    if (lv > 0 && !seen && lane < 4)
+      for (int r = warp; r < lv; r += kRankSplit)
+        rt::prefetch_l2(b + ((size_t)s * r_max + r) * d_out +
+                        min(n0 + lane * 64, d_out - 1));
+  }
+  rt::grid_dep_wait();
+  slot_of(s, lv);
+  const T* bs = b + (size_t)max(s, 0) * r_max * d_out + c;
   float acc[rt::kVec];
 #pragma unroll
   for (int j = 0; j < rt::kVec; ++j) acc[j] = 0.f;
-  if (c < d_out) {
-    const T* bs = b + (size_t)max(s, 0) * r_max * d_out + c;
-#pragma unroll 8
-    for (int r = warp; r < lv; r += kRankSplit) {
-      float w[rt::kVec];
-      if constexpr (kVec) {
-        rt::load8(bs + (size_t)r * d_out, w);
-      } else {
+  // B's rows start 4-byte aligned at an even d_out: bf16 pairs a load
+  const bool pairs = d_out % 2 == 0 && (reinterpret_cast<size_t>(b) & 3) == 0;
+  // a lane's 8 values of rank row r into w (16 bytes of bf16, 32 of f32,
+  // kept as loaded until used: half the registers of 8 floats); zero past
+  // d_out
+  constexpr int WQ = sizeof(T) * rt::kVec / 16;
+  auto load_row = [&](int r, uint4 (&w)[WQ]) {
 #pragma unroll
-        for (int j = 0; j < rt::kVec; ++j)
-          w[j] = c + j < d_out ? rt::to_f32(bs[(size_t)r * d_out + j]) : 0.f;
+    for (int q = 0; q < WQ; ++q) w[q] = make_uint4(0u, 0u, 0u, 0u);
+    if (c >= d_out) return;
+    const T* src = bs + (size_t)r * d_out;
+    if constexpr (kVec) {
+#pragma unroll
+      for (int q = 0; q < WQ; ++q) w[q] = reinterpret_cast<const uint4*>(src)[q];
+    } else if (sizeof(T) == 2 && pairs) {
+      // c is even and so is d_out: a pair that starts below d_out ends
+      // below it
+      const unsigned* p2 = reinterpret_cast<const unsigned*>(src);
+      w[0] = make_uint4(p2[0], c + 2 < d_out ? p2[1] : 0u,
+                        c + 4 < d_out ? p2[2] : 0u,
+                        c + 6 < d_out ? p2[3] : 0u);
+    } else {
+      float e[rt::kVec];
+#pragma unroll
+      for (int j = 0; j < rt::kVec; ++j)
+        e[j] = c + j < d_out ? rt::to_f32(src[j]) : 0.f;
+      pack8(e, w);
+    }
+  };
+  auto fma_row = [&](int r, const uint4 (&w)[WQ]) {
+    const float yv = ysm[r];
+    float e[rt::kVec];
+    unpack8(w, e);
+#pragma unroll
+    for (int j = 0; j < rt::kVec; ++j) acc[j] += yv * e[j];
+  };
+  auto load_y = [&] {
+    for (int r = tid; r < lv; r += kRankSplit * 32)
+      ysm[r] = rt::to_f32(rt::from_f32<T>(rt::to_f32(
+          y[(size_t)row * r_max + r])));
+  };
+  if constexpr (kEarly) {
+    // rank rows warp + kRankSplit * (r0 + i), i < 8, below lv
+    constexpr int kChunk = 8;
+    uint4 w[kChunk][WQ];
+    auto load_chunk = [&](int r0) {
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const int r = warp + kRankSplit * (r0 + i);
+        if (r < lv) load_row(r, w[i]);
       }
-      const float yv = ysm[r];
+    };
+    load_chunk(0);                          // in flight while y loads
+    load_y();
+    __syncthreads();
+    for (int r0 = 0;;) {
 #pragma unroll
-      for (int j = 0; j < rt::kVec; ++j) acc[j] += yv * w[j];
+      for (int i = 0; i < kChunk; ++i) {
+        const int r = warp + kRankSplit * (r0 + i);
+        if (r < lv) fma_row(r, w[i]);
+      }
+      r0 += kChunk;
+      if (warp + kRankSplit * r0 >= lv) break;
+      load_chunk(r0);
+    }
+  } else {
+    // y first, then a rank row a loop step (8 steps unrolled)
+    load_y();
+    __syncthreads();
+    if (c < d_out) {
+#pragma unroll 8
+      for (int r = warp; r < lv; r += kRankSplit) {
+        uint4 w[WQ];
+        load_row(r, w);
+        fma_row(r, w);
+      }
     }
   }
   float4* mine = reinterpret_cast<float4*>(part + warp * kDecCols +
@@ -1071,42 +1565,63 @@ __global__ void __launch_bounds__(kRankSplit * 32) lora_expand_decode_kernel(
   mine[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
   mine[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
   __syncthreads();
-  const int col = blockIdx.y * kDecCols + tid;
+  const int col = n0 + tid;
   if (col < d_out) {
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < kRankSplit; ++w) sum += part[w * kDecCols + tid];
+    for (int q = 0; q < kRankSplit; ++q) sum += part[q * kDecCols + tid];
     out[(size_t)row * d_out + col] = rt::from_f32<T>(sum);
   }
 }
 
+// a block per (row, kDecCols columns); y in B's dtype or (y_f32) f32. Up
+// to kDecEarlyRows rows B's first rank rows are issued before y (kEarly);
+// more rows keep y first (kernels/bgmv.py: expand_plan)
+constexpr int kDecEarlyRows = 16;
+
+template <typename T, typename TY, bool kVec>
+const void* dec_expand_fn(int rows) {
+  return rows <= kDecEarlyRows
+             ? (const void*)lora_expand_decode_kernel<T, TY, kVec, true>
+             : (const void*)lora_expand_decode_kernel<T, TY, kVec, false>;
+}
+
 template <typename T>
-rt::Launch expand_decode_launch(int rows, int r_max, int d_out) {
-  return {d_out % rt::kVec == 0
-              ? (const void*)lora_expand_decode_kernel<T, true>
-              : (const void*)lora_expand_decode_kernel<T, false>,
-          dim3(rows, (d_out + kDecCols - 1) / kDecCols), kRankSplit * 32,
-          sizeof(float) * ((size_t)kRankSplit * kDecCols + r_max)};
+rt::Launch dec_expand_launch(int rows, int r_max, int d_out, bool y_f32) {
+  const bool vec = d_out % rt::kVec == 0;
+  const void* fn;
+  if (y_f32)
+    fn = vec ? dec_expand_fn<T, float, true>(rows)
+             : dec_expand_fn<T, float, false>(rows);
+  else
+    fn = vec ? dec_expand_fn<T, T, true>(rows)
+             : dec_expand_fn<T, T, false>(rows);
+  rt::Launch l{fn, dim3(rows, (d_out + kDecCols - 1) / kDecCols),
+               kRankSplit * 32,
+               sizeof(float) * ((size_t)kRankSplit * kDecCols + r_max)};
+  l.pdl = true;
+  return l;
 }
 
 // The shrink's launch for these arguments (see rt_lora_shrink), or the
 // error the entry point returns.
 cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
                           int d_chunk, int split, int dtype, rt::Launch* l) {
-  // r_max a multiple of 8 (one 8-column lane each, at most 1,024 lanes a
-  // block); any d_in (16-byte copies of x where it is a multiple of 8)
-  const int lanes = r_max / rt::kVec;
-  if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || lanes > 1024 ||
+  // r_max a multiple of 8 (16-byte rows of A), at most 8,192; any d_in
+  // (16-byte copies of x where it is a multiple of 8)
+  if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || r_max > 8192 ||
       d_in <= 0 || d_chunk <= 0)
     return cudaErrorInvalidValue;
   const bool bf = dtype == rt::kBF16;
   if (!bf && dtype != rt::kF32) return cudaErrorInvalidValue;
   if (tile == 0) {
-    if (split != kSplit || d_chunk % rt::kVec != 0 ||
-        (long long)d_chunk * kSplit < d_in)
+    // decode: up to kDecRows rows, `split` blocks (a cluster) over slices
+    // of d_chunk (whole 16-wide k-steps) that cover d_in
+    if (rows > kDecRows || split < 1 || split > kMaxTileSplit ||
+        d_chunk % 16 != 0 || (long long)d_chunk * split < d_in)
       return cudaErrorInvalidValue;
-    *l = bf ? split_launch<bf16>(rows, r_max)
-            : split_launch<float>(rows, r_max);
+    *l = bf ? dec_shrink_launch<bf16>(rows, d_in, r_max, slots, split)
+            : dec_shrink_launch<float>(rows, d_in, r_max, slots, split);
     return cudaSuccess;
   }
   // row tiles: `split` (a power of two up to a portable cluster) slices of
@@ -1145,7 +1660,7 @@ bool bf16_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
 
 // The expand's launch for these arguments (see rt_lora_expand).
 cudaError_t expand_launch(int rows, int r_max, int d_out, int row_blocks,
-                          int dtype, rt::Launch* l) {
+                          int dtype, int y_dtype, rt::Launch* l) {
   // 16-byte copies of y's rows; B's and out's 16 bytes at a time where
   // d_out is a multiple of 8, element by element otherwise
   if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || d_out <= 0 ||
@@ -1153,12 +1668,18 @@ cudaError_t expand_launch(int rows, int r_max, int d_out, int row_blocks,
     return cudaErrorInvalidValue;
   const bool bf = dtype == rt::kBF16;
   if (!bf && dtype != rt::kF32) return cudaErrorInvalidValue;
-  if (row_blocks == 0)
-    *l = bf ? expand_decode_launch<bf16>(rows, r_max, d_out)
-            : expand_decode_launch<float>(rows, r_max, d_out);
-  else
+  // y in B's dtype; the decode kernel also takes f32 y (rounded on load)
+  if (y_dtype != dtype && (row_blocks != 0 || y_dtype != rt::kF32))
+    return cudaErrorInvalidValue;
+  if (row_blocks == 0) {
+    if (rows > kDecRows) return cudaErrorInvalidValue;
+    const bool y32 = y_dtype == rt::kF32;
+    *l = bf ? dec_expand_launch<bf16>(rows, r_max, d_out, y32)
+            : dec_expand_launch<float>(rows, r_max, d_out, y32);
+  } else {
     *l = bf ? expand_tile_launch<bf16>(r_max, d_out, row_blocks)
             : expand_tile_launch<float>(r_max, d_out, row_blocks);
+  }
   return cudaSuccess;
 }
 
@@ -1166,9 +1687,10 @@ cudaError_t expand_launch(int rows, int r_max, int d_out, int row_blocks,
 
 // tile = 64 or 128: the row-tile path with tiles of that many rows, split
 // blocks a tile (1, 2, 4 or 8: a cluster) over d_chunk-wide slices of d_in
-// (a multiple of 64 with split * d_chunk >= d_in); tile = 0: the split
-// path, split = kSplit blocks a row over d_chunk-wide slices of d_in (a
-// multiple of 8 with kSplit * d_chunk >= d_in).
+// (a multiple of 64 with split * d_chunk >= d_in); tile = 0: the decode
+// path (up to 64 rows), split blocks (1 to 8, a cluster) a column group
+// over d_chunk-wide slices of d_in (a multiple of 16 with split * d_chunk
+// >= d_in), launched with programmatic stream serialization.
 extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
                               const int* live, float* y, int rows, int d_in,
                               int r_max, int slots, int tile, int d_chunk,
@@ -1179,12 +1701,7 @@ extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
                                       d_chunk, split, dtype, &l);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile == 0) {
-    void* args[] = {&x, &a, &idx, &live, &y, &d_in, &r_max, &slots,
-                    &d_chunk};
-    return (int)rt::launch(l, args, st);
-  }
-  if (dtype == rt::kBF16 && d_in % rt::kVec == 0) {
+  if (tile != 0 && dtype == rt::kBF16 && d_in % rt::kVec == 0) {
     // the wgmma kernel: x as (d_in, rows), A as (r_max, d_in, slots)
     if (rt::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
     CUtensorMap tx, ta;
@@ -1213,31 +1730,31 @@ extern "C" int rt_lora_shrink_info(int rows, int d_in, int r_max, int slots,
   return (int)(e != cudaSuccess ? e : rt::describe(l, out));
 }
 
-// row_blocks = 0: the decode path, one block per (row, kDecCols columns);
-// row_blocks > 0: row tiles of kEM rows x kEN columns, row_blocks blocks
-// a column tile, block k taking the tiles k, k + row_blocks, ...
+// row_blocks = 0: the decode path (up to 64 rows), a block per (row, 256
+// output columns), launched with programmatic stream serialization, y in
+// B's dtype or (y_dtype f32) f32, each value rounded to B's dtype as it is
+// loaded; row_blocks > 0: row tiles of kEM rows x kEN
+// columns, row_blocks blocks a column tile, block k taking the tiles k,
+// k + row_blocks, ..., y in B's dtype.
 extern "C" int rt_lora_expand(const void* y, const void* b, const int* idx,
                               const int* live, void* out, int rows, int r_max,
                               int d_out, int slots, int row_blocks, int dtype,
-                              void* stream) {
+                              int y_dtype, void* stream) {
   if (rows == 0) return 0;
   rt::Launch l;
   const cudaError_t e = expand_launch(rows, r_max, d_out, row_blocks, dtype,
-                                      &l);
+                                      y_dtype, &l);
   if (e != cudaSuccess) return (int)e;
-  void* decode_args[] = {&y, &b, &idx, &live, &out, &r_max, &d_out, &slots};
-  void* tile_args[] = {&y, &b, &idx, &live, &out, &rows, &r_max, &d_out,
-                       &slots};
-  return (int)rt::launch(l, row_blocks == 0 ? decode_args : tile_args,
-                         static_cast<cudaStream_t>(stream));
+  void* args[] = {&y, &b, &idx, &live, &out, &rows, &r_max, &d_out, &slots};
+  return (int)rt::launch(l, args, static_cast<cudaStream_t>(stream));
 }
 
 // rt_lora_expand's launch, described into out[0 : rt::kInfoFields].
 extern "C" int rt_lora_expand_info(int rows, int r_max, int d_out,
-                                   int row_blocks, int dtype,
+                                   int row_blocks, int dtype, int y_dtype,
                                    long long* out) {
   rt::Launch l;
   const cudaError_t e = expand_launch(rows, r_max, d_out, row_blocks, dtype,
-                                      &l);
+                                      y_dtype, &l);
   return (int)(e != cudaSuccess ? e : rt::describe(l, out));
 }

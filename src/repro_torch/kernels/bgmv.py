@@ -12,24 +12,32 @@ tensor launches the kernel or raises. `lora_shrink.launches` and
 
 The shrink kernel has two launch shapes, chosen here from the row count,
 d_in and the SM count (`shrink_plan`, no device sync, so a CUDA graph can
-capture it): up to SPLIT_MAX_ROWS rows (decode) split d_in over a
-cluster of SPLIT blocks a row; more rows (prefill, chunks, training) go
-in tiles of 64 or 128 consecutive rows, one block per (tile, distinct
-slot of the tile). A tile's block walks its d range one stage at a time,
-so a launch of few tiles is bound by how few SMs stream x, not by bytes:
-the yi-9b chunk (512 rows of one slot) had 8 working blocks and the
-training step (4,096 rows of one slot) 64, on 132 SMs. Where the tiles
-cannot fill the card, `split` blocks of one cluster share a tile over
-slices of d_in and add their partial sums in rank order (no atomics);
-launches that fill it (the 32,768-row prefill) keep one block a tile.
-The expand has two launch shapes as well (`expand_plan`): up to
-DECODE_MAX_ROWS rows one block per (row, DECODE_COLS columns) with the
-rank rows split over RANK_SPLIT warps; more rows go in tiles of
-EXPAND_ROWS consecutive rows x EXPAND_COLS columns, each block walking
+capture it): up to DECODE_MAX_ROWS rows (decode) one block per (distinct
+slot, DECODE_SHRINK_COLS rank columns, d slice), the d slices of a
+(slot, columns) one cluster that adds its partial sums in rank order;
+more rows (prefill, chunks, training) go in tiles of 64 or 128
+consecutive rows, one block per (tile, distinct slot of the tile). A
+tile's block walks its d range one stage at a time, so a launch of few
+tiles is bound by how few SMs stream x, not by bytes: the yi-9b chunk
+(512 rows of one slot) had 8 working blocks and the training step (4,096
+rows of one slot) 64, on 132 SMs. Where the tiles cannot fill the card,
+`split` blocks of one cluster share a tile over slices of d_in and add
+their partial sums in rank order (no atomics); launches that fill it (the
+32,768-row prefill) keep one block a tile. The expand has two launch
+shapes as well (`expand_plan`): up to DECODE_MAX_ROWS rows one block per
+(row, DECODE_EXPAND_COLS output columns); more rows go in tiles
+of EXPAND_ROWS consecutive rows x EXPAND_COLS columns, each block walking
 every n-th tile of its columns and visiting each tile's distinct slots in
 turn. Its output is most of its bytes, written 16 bytes a thread from a
 staged tile; at one slot a block's stores do not overlap its next tile's
-product, which bounds the training shape.
+product, which bounds the training shape. The decode shrink groups the
+rows by slot, so a slot's A is read once for all its rows. Both decode
+kernels are launched with programmatic dependent launch: each may start
+while the kernel before it finishes (the shrink lets the expand start
+once its loads are done, and the expand prefetches B into L2 before it
+waits for y). The decode expand also takes the shrink's f32 y and rounds
+each value to B's dtype as it loads it, which `y.to(b.dtype)` would give,
+so the pair runs without a cast between its launches.
 
 Gradients: when an operand requires grad (and grad mode is on), each
 wrapper goes through its `torch.autograd.Function` (`LoRAShrink`,
@@ -54,15 +62,15 @@ from repro_torch.kernels import build, ref
 _FLOATS = (torch.float32, torch.bfloat16)
 RANK_ALIGN = 8                 # r_max: a multiple of this (16-byte rows)
 MAX_R = 8 * 1024               # ... up to this
-SPLIT = 8                      # csrc/lora.cu: kSplit, blocks a row (cluster)
-SPLIT_MAX_ROWS = 64            # split path up to here (decode batches)
+DECODE_MAX_ROWS = 64           # csrc/lora.cu: kDecRows, decode path
+DECODE_SHRINK_COLS = 16        # csrc/lora.cu: kDCols, rank columns a block
+DECODE_SLICE_D = 128           # a decode shrink block's d slice: >= this
+DECODE_EXPAND_COLS = 256       # csrc/lora.cu: kDecCols, columns a block
+RANK_SPLIT = 8                 # csrc/lora.cu: kRankSplit, warps a block
 TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the shrink takes
 MAX_TILE_SPLIT = 8             # csrc/lora.cu: kMaxTileSplit (a cluster)
 TILE_D = 64                    # csrc/lora.cu: kWD, d a TMA box
 MIN_SLICE_D = 256              # a row-tile block's d slice: >= 4 boxes
-DECODE_MAX_ROWS = 64           # expand: decode path up to here
-DECODE_COLS = 256              # csrc/lora.cu: kDecCols, columns a block
-RANK_SPLIT = 8                 # csrc/lora.cu: kRankSplit, warps a block
 EXPAND_ROWS = 64               # csrc/lora.cu: kEM, rows a tile
 EXPAND_COLS = 256              # csrc/lora.cu: kEN, columns a row-tile block
 EXPAND_BLOCKS_PER_SM = 2       # row-tile blocks an SM holds at once
@@ -72,9 +80,11 @@ class ShrinkPlan(NamedTuple):
     """The shrink kernel's launch. Row-tile path: tiles of `tile` rows,
     `per_tile` blocks a tile's slots (block k takes the tile's k-th
     distinct slot) times `split` blocks (one cluster) over d_chunk-wide
-    slices of d_in, `blocks` in all. Split path (tile 0): SPLIT blocks a
-    row (`split`), block k of a row reducing d in [k * d_chunk, (k + 1) *
-    d_chunk)."""
+    slices of d_in, `blocks` in all. Decode path (tile 0): `per_tile`
+    blocks for the rows' distinct slots (block k takes the k-th) times
+    `split` blocks (one cluster, block p reducing d in [p * d_chunk, (p +
+    1) * d_chunk)) for each of the col_groups(r_max) groups of
+    DECODE_SHRINK_COLS rank columns, `blocks` in all."""
     tile: int
     per_tile: int
     blocks: int
@@ -82,10 +92,27 @@ class ShrinkPlan(NamedTuple):
     split: int
 
 
-def shrink_plan(rows: int, d_in: int, slots: int, sms: int) -> ShrinkPlan:
-    """Split d_in up to SPLIT_MAX_ROWS rows: a row tile holding many
-    slots would stream each slot's A through one SM, while the split path
-    spreads every row over SPLIT blocks. Above it, row tiles: of 128 rows
+def col_groups(r_max: int) -> int:
+    """The decode shrink's groups of DECODE_SHRINK_COLS rank columns."""
+    return -(-r_max // DECODE_SHRINK_COLS)
+
+
+def shrink_plan(rows: int, d_in: int, slots: int, sms: int,
+                r_max: int) -> ShrinkPlan:
+    """Up to DECODE_MAX_ROWS rows, the decode path: a row tile holding
+    many slots would stream each slot's A through one SM, and the earlier
+    decode kernel's cluster a row read each slot's A once a row. The
+    decode blocks cover the card from (slot, column group, d slice): the
+    most of 1, 2, 4 or 8 d slices (a portable cluster) that give each at
+    least DECODE_SLICE_D of d (one bf16 stage), each d_chunk a whole
+    number of 16-wide k-steps; one block a distinct slot the rows can hold
+    (min(slots, rows): the slots in use are not known without a device
+    sync; blocks past them return at once). The block's threads are fixed
+    (128, kDThr): the earlier kernel took 512 threads at 16 rows or fewer
+    and 256 above, more loads in flight for a handful of rows; a decode
+    block keeps its whole slice of A in flight from its shared-memory ring
+    instead (four stages of 128 d: all 512 of d_in 4,096 at split 8).
+    Above it, row tiles: of 128 rows
     where they alone fill every SM (`sms`), else of 64; then the most of
     1, 2, 4 or 8 blocks a tile (a cluster, each over a d slice of whole
     TILE_D boxes of at least MIN_SLICE_D) that give no SM a second block,
@@ -96,10 +123,15 @@ def shrink_plan(rows: int, d_in: int, slots: int, sms: int) -> ShrinkPlan:
     4,096 rows of one slot (training) the H100 took 22.4 us in a CUDA
     graph with 64-row tiles split 2 ways against 25.2 with 128-row tiles
     split 4 ways, the same 128 blocks."""
-    if rows <= SPLIT_MAX_ROWS:
-        d_chunk = -(-d_in // SPLIT)
-        return ShrinkPlan(0, SPLIT, rows * SPLIT, -(-d_chunk // 8) * 8,
-                          SPLIT)
+    if rows <= DECODE_MAX_ROWS:
+        split = 1
+        while (split < MAX_TILE_SPLIT
+               and 2 * split * DECODE_SLICE_D <= d_in):
+            split *= 2
+        d_chunk = -(-(-(-d_in // split)) // 16) * 16
+        per = max(1, min(slots, rows))
+        return ShrinkPlan(0, per, per * split * col_groups(r_max), d_chunk,
+                          split)
     big = TILE_ROWS[1]
     tile = big if -(-rows // big) >= sms else TILE_ROWS[0]
     tiles = -(-rows // tile)
@@ -116,13 +148,22 @@ def shrink_plan(rows: int, d_in: int, slots: int, sms: int) -> ShrinkPlan:
 def expand_plan(rows: int, d_out: int, sms: int) -> int:
     """The expand kernel's launch, as its row blocks a column tile. 0: the
     decode path (up to DECODE_MAX_ROWS rows), one block per (row,
-    DECODE_COLS columns), live rank row r taken by warp r % RANK_SPLIT: a
-    row tile would visit each row's slot in turn on one block. Otherwise
-    row tiles of EXPAND_ROWS rows x EXPAND_COLS columns, block k of a
-    column tile taking the tiles k, k + row_blocks, ...: as many blocks as
-    fill every SM (`sms`) EXPAND_BLOCKS_PER_SM times in one round (at
-    least one, at most one a tile), so no block waits for a second
-    round."""
+    DECODE_EXPAND_COLS output columns), live rank row r taken by warp r %
+    RANK_SPLIT: a row tile would visit each row's slot in turn on one
+    block; a block per (columns, distinct slot) read each slot's B once
+    but measured slower at 32 and 64 rows on the H100 (its grouping and
+    y's load after it cost two more round trips than re-reading B from
+    L2). Up to 16 rows (csrc/lora.cu: kDecEarlyRows) the block issues its
+    first 8 rank rows of B before it loads y; past it (up to 1,024
+    blocks) y is loaded first and B a rank row a loop step, four blocks
+    an SM: on the H100 in a graph, B first took 8 rows from 5.5-5.9 to
+    4.1-4.6 us but 64 rows to 8.2-8.9, y first 7.3-7.5 there (the earlier
+    kernel's 6.1-6.3 is not reached: see PERF.md).
+    Otherwise row tiles of EXPAND_ROWS rows x EXPAND_COLS columns,
+    block k of a column tile taking the tiles k, k + row_blocks, ...: as
+    many blocks as fill every SM (`sms`) EXPAND_BLOCKS_PER_SM times in one
+    round (at least one, at most one a tile), so no block waits for a
+    second round."""
     if rows <= DECODE_MAX_ROWS:
         return 0
     tiles = -(-rows // EXPAND_ROWS)
@@ -211,7 +252,7 @@ def _shrink(x, a, idx, live):
     for name, t in (("idx", idx), ("live", live)):
         build.require(t, name, dtypes=(torch.int32,), device=x.device)
     lib = build.library()
-    plan = shrink_plan(rows, d_in, slots, sm_count(x.device))
+    plan = shrink_plan(rows, d_in, slots, sm_count(x.device), r_max)
     y = torch.empty(rows, r_max, dtype=torch.float32, device=x.device)
     rc = lib.rt_lora_shrink(x.data_ptr(), a.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), y.data_ptr(), rows, d_in, r_max,
@@ -224,19 +265,21 @@ def _shrink(x, a, idx, live):
 
 
 def lora_expand(y, b, idx, live):
-    """y (rows, r_max) in B's dtype; b (slots, r_max, d_out); idx, live
-    (rows,) int32 -> (rows, d_out) in B's dtype."""
+    """y (rows, r_max) in B's dtype, or float32 (each value then rounded to
+    B's dtype first, as `y.to(b.dtype)` rounds it: the decode kernel rounds
+    as it loads); b (slots, r_max, d_out); idx, live (rows,) int32 ->
+    (rows, d_out) in B's dtype."""
     rows, r_max = y.shape
     slots, b_r, d_out = b.shape
     if b_r != r_max:
         raise ValueError(f"lora_expand: y {tuple(y.shape)} and b "
                          f"{tuple(b.shape)} disagree on rank")
-    if y.dtype != b.dtype:
+    if y.dtype not in (b.dtype, torch.float32):
         raise ValueError(f"lora_expand: y ({y.dtype}) must have b's dtype "
-                         f"({b.dtype})")
+                         f"({b.dtype}) or float32")
     _check_rows("lora_expand", idx, live, rows)
     if _needs_grad(y, b):
-        return LoRAExpand.apply(y, b, idx, live)
+        return LoRAExpand.apply(y.to(b.dtype), b, idx, live)
     return _expand(y, b, idx, live)
 
 
@@ -246,12 +289,15 @@ def _expand(y, b, idx, live):
     rows, r_max = y.shape
     slots, _, d_out = b.shape
     if not y.is_cuda:
-        return ref.lora_expand_ref(y, b, idx, live)
+        return ref.lora_expand_ref(y.to(b.dtype), b, idx, live)
     why = expand_refusal(r_max, d_out)
     if why:
         raise ValueError(f"lora_expand: {why}")
-    build.require(y, "y", dtypes=_FLOATS, ndim=2)
-    build.require(b, "b", dtypes=(y.dtype,), ndim=3, device=y.device)
+    row_blocks = expand_plan(rows, d_out, sm_count(y.device))
+    if row_blocks and y.dtype != b.dtype:
+        y = y.to(b.dtype)         # the row tiles take y in B's dtype
+    build.require(b, "b", dtypes=_FLOATS, ndim=3, device=y.device)
+    build.require(y, "y", dtypes=(b.dtype, torch.float32), ndim=2)
     build.require_aligned(y, "y")
     if d_out % 8 == 0:        # 16-byte copies; other widths copy elements
         build.require_aligned(b, "b")
@@ -261,8 +307,8 @@ def _expand(y, b, idx, live):
     out = torch.empty(rows, d_out, dtype=b.dtype, device=y.device)
     rc = lib.rt_lora_expand(y.data_ptr(), b.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), out.data_ptr(), rows, r_max,
-                            d_out, slots,
-                            expand_plan(rows, d_out, sm_count(y.device)),
+                            d_out, slots, row_blocks,
+                            build.DTYPE_CODE[b.dtype],
                             build.DTYPE_CODE[y.dtype],
                             build.stream_handle(y.device))
     build.check_launch(rc, "lora_expand")

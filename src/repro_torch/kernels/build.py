@@ -56,8 +56,8 @@ _SIGNATURES = {
     # dtype, stream
     "rt_lora_shrink": [_P] * 5 + [_I] * 8 + [_P],
     # y, b, idx, live, out, rows, r_max, d_out, slots, row_blocks, dtype,
-    # stream
-    "rt_lora_expand": [_P] * 5 + [_I] * 6 + [_P],
+    # y_dtype, stream
+    "rt_lora_expand": [_P] * 5 + [_I] * 7 + [_P],
     # q, k, v, out, strides (12 int64 on the host),
     # B, H, KV, Lq, Lk, hd, causal, window, dtype, stream
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
@@ -65,7 +65,7 @@ _SIGNATURES = {
     # kernel runs): the same shape arguments, then an int64 out array of
     # INFO_FIELDS a launch (csrc/common.cuh: rt::describe)
     "rt_lora_shrink_info": [_I] * 8 + [_P],
-    "rt_lora_expand_info": [_I] * 5 + [_P],
+    "rt_lora_expand_info": [_I] * 6 + [_P],
     # B, H, KV, ps, hd, W, nsplit, dtype: the attention kernel, then the
     # combine with nsplit > 1
     "rt_paged_attention_info": [_I] * 8 + [_P],
@@ -76,6 +76,11 @@ _SIGNATURES = {
     "rt_flash_attention_order": [_I] * 5 + [_P],
     # device, out: csrc/device.cu
     "rt_device_limits": [_I, _P],
+    # pdl, blocks, cluster, stream: an empty kernel (csrc/device.cu,
+    # measurement only)
+    "rt_empty": [_I, _I, _I, _P],
+    # graph (cudaGraph_t), out: nodes, edges, programmatic edges
+    "rt_graph_edges": [_P, _P],
 }
 # rt::describe's fields, in order
 INFO_FIELDS = ("grid_x", "grid_y", "grid_z", "threads", "dyn_smem",

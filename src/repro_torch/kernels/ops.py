@@ -52,12 +52,15 @@ def lora_delta(x, a, b, idx, ranks=None, mode="bgmv", rank_block=16,
     columns (max-rank law), "mbgmv" only each adapter's live rank blocks
     (sum-rank law); the pool is zero-padded past each rank, so both give
     the same numbers. `live`: a precomputed `lora_live`. The f32 shrink is
-    cast to x's dtype before the expand, as the reference's kernels do.
+    rounded to x's (the pool's) dtype before the expand, as the
+    reference's kernels do: the expand takes it in f32 and rounds it (the
+    decode kernel as it loads it, with no launch between the two).
     Returns (rows, d_out) in x's dtype."""
     if live is None:
         live = lora_live(idx, ranks, mode, a.shape[-1], rank_block)
     y = lora_shrink(x, a, idx, live)
-    return lora_expand(y.to(x.dtype), b, idx, live)
+    return lora_expand(y if b.dtype == x.dtype else y.to(x.dtype), b, idx,
+                       live)
 
 
 # ----------------------------------------------- custom ops, for tracing ----
@@ -152,7 +155,7 @@ def _(x, a, idx, live):
 
 @lora_expand_op.register_fake
 def _(y, b, idx, live):
-    return y.new_empty(y.shape[0], b.shape[-1])
+    return y.new_empty(y.shape[0], b.shape[-1], dtype=b.dtype)
 
 
 # every row adapted at the pool's full rank: the max-rank law's work

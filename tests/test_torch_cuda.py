@@ -394,8 +394,9 @@ def _rows_close(got, want, tol, floor):
     (2048, 32, 1024), (4096 + 5, 32, 1024),
     (8269, 4096, 256), (16896 + 77, 4096, 64)])
 def test_lora_shrink_paths_match_plain(card, mode, rows, seg, d_in):
-    """bf16 shrink on both launch shapes: split d_in (<= 64 rows) and row
-    tiles of 64 / 128 rows, at random slots (seg 0) and at prefill's runs
+    """bf16 shrink on both launch shapes: decode (<= 64 rows: blocks by
+    slot, a cluster over d) and row tiles of 64 / 128 rows, at random
+    slots (seg 0) and at prefill's runs
     of `seg` rows per slot (boundaries inside tiles, whole tiles of idx -1
     rows, a ragged last tile; runs of 32: every tile of two slots, each
     block reading the whole tile), ranks 8/16/32/64. f32 output: each row
@@ -471,8 +472,8 @@ def test_flash_kernel_raises_for_other_head_dims(card, dtype, hd):
 def test_lora_expand_paths_match_plain(card, mode, rows, seg, d_out,
                                        dtype):
     """The expand on both launch shapes: decode (<= 64 rows: a block per
-    (row, 256 columns), rank rows split over warps) and row tiles of 64 /
-    128 rows on the tensor cores (bf16) or CUDA cores (f32), at random
+    (row, 256 columns)) and row tiles of 64 / 128 rows on the
+    tensor cores (bf16) or CUDA cores (f32), at random
     slots (seg 0) and at prefill's runs of `seg` rows per slot (boundaries
     inside tiles, whole tiles of idx -1 rows, ragged last tiles and column
     tiles), live widths 16/32/64. Each row within 1e-2 (bf16) / 1e-5 (f32)
@@ -500,6 +501,101 @@ def test_lora_expand_paths_match_plain(card, mode, rows, seg, d_out,
                 0.0 if dtype == torch.bfloat16 else 1.0)
     assert bool((out[idx < 0] == 0).all())
     assert torch.equal(out, bgmv.lora_expand(y, b, idx, live))
+
+
+def _decode_case(card, rows, d, dtype, pattern="round"):
+    """kernel_ab.py's decode LoRA inputs (`lora_case`): 8 slots of ranks
+    8/16/32/64 (two each, zero past each rank), row r at slot r % 8 (rows
+    share slots past 8; "idle first": row 0 without an adapter too) or
+    slots drawn with weights 1 / (s + 1) ("zipf"), the last row of a
+    batch of more than one without an adapter."""
+    g = torch.Generator(device=card).manual_seed(rows + d)
+    ranks = [8, 16, 32, 64] * 2
+    a = torch.zeros(8, d, 64, device=card)
+    b = torch.zeros(8, 64, d, device=card)
+    for s, r in enumerate(ranks):
+        a[s, :, :r] = torch.randn(d, r, generator=g, device=card) * d ** -.5
+        b[s, :r] = torch.randn(r, d, generator=g, device=card) * r ** -.5
+    x = torch.randn(rows, d, generator=g, device=card)
+    if pattern == "zipf":
+        w = 1.0 / torch.arange(1, 9, device=card, dtype=torch.float32)
+        idx = torch.multinomial(w, rows, replacement=True,
+                                generator=g).to(torch.int32)
+    else:
+        idx = (torch.arange(rows, device=card) % 8).to(torch.int32)
+        if pattern == "idle first":
+            idx[0] = -1
+    if rows > 1:
+        idx[-1] = -1
+    return (x.to(dtype), a.to(dtype), b.to(dtype), idx,
+            torch.tensor(ranks, dtype=torch.int32, device=card))
+
+
+@pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
+@pytest.mark.parametrize("d", [4096, 4100])
+@pytest.mark.parametrize("rows", [1, 8, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pattern", ["round", "idle first", "zipf"])
+def test_decode_lora_pair_matches_plain_and_repeats(card, pattern, dtype,
+                                                    rows, d, mode):
+    """The decode shrink and expand at kernel_ab.py's A/B shapes (1 to 64
+    rows, d 4,096 and the 4,100 tail, BGMV and MBGMV live widths; its
+    three batches: slots in turn, row 0 idle as well, skewed slots): the
+    shrink within 1e-5 x max(1, a row's max |plain|), the expand within
+    1e-2 (bf16) / 1e-5 (f32) of a row's max |plain|, idx -1 rows exactly
+    0; the expand of the shrink's f32 y (rounded as it is loaded) bitwise
+    equal to the expand of y cast to the pool's dtype; two runs and a CUDA
+    graph replay of the pair bitwise equal (no atomics)."""
+    x, a, b, idx, ranks = _decode_case(card, rows, d, dtype, pattern)
+    live = ops.lora_live(idx, ranks, mode, 64, 16)
+    n = (bgmv.lora_shrink.launches, bgmv.lora_expand.launches)
+    y = bgmv.lora_shrink(x, a, idx, live)
+    _rows_close(y, ref.lora_shrink_ref(x, a, idx, live), 1e-5, 1.0)
+    yd = y.to(dtype)
+    out = bgmv.lora_expand(yd, b, idx, live)
+    out32 = bgmv.lora_expand(y, b, idx, live)
+    assert (bgmv.lora_shrink.launches, bgmv.lora_expand.launches) == \
+        (n[0] + 1, n[1] + 2)
+    bf = dtype == torch.bfloat16
+    _rows_close(out, ref.lora_expand_ref(yd, b, idx, live),
+                1e-2 if bf else 1e-5, 0.0 if bf else 1.0)
+    assert bool((out[idx < 0] == 0).all())
+    assert torch.equal(out32, out)
+    assert torch.equal(y, bgmv.lora_shrink(x, a, idx, live))
+    assert torch.equal(out32, bgmv.lora_expand(y, b, idx, live))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        gy = bgmv.lora_shrink(x, a, idx, live)
+        go = bgmv.lora_expand(gy, b, idx, live)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(gy, y) and torch.equal(go, out32)
+
+
+def test_decode_pair_graph_holds_a_programmatic_edge(card):
+    """`ops.lora_delta` at 8 rows captured in a CUDA graph: two kernel
+    nodes (the decode expand rounds the f32 y itself: no cast between
+    them), the expand joined to the shrink by a programmatic edge (it is
+    launched with programmatic dependent launch and the shrink lets it
+    start), and a replay equal to the eager pair bitwise."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library()
+    x, a, b, idx, ranks = _decode_case(card, 8, 4096, torch.bfloat16)
+    live = ops.lora_live(idx, ranks, "mbgmv", 64, 16)
+    want = ops.lora_delta(x, a, b, idx, live=live)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        got = ops.lora_delta(x, a, b, idx, live=live)
+    info = (ctypes.c_longlong * 3)()
+    assert lib.rt_graph_edges(ctypes.c_void_p(g.raw_cuda_graph()),
+                              info) == 0
+    assert tuple(info) == (2, 1, 1)
+    g.instantiate()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -73,7 +73,7 @@ def test_every_kernel_on_the_path_takes_the_config(name):
     assert ("paged_attention" in kinds) == case.paged
     # both launch paths of each LoRA kernel, from the wrappers' own plans
     paths = {(x.kernel, x.path) for x in launches}
-    assert {("lora_shrink", "split"), ("lora_shrink", "tile 64"),
+    assert {("lora_shrink", "decode"), ("lora_shrink", "tile 64"),
             ("lora_shrink", "tile 128"), ("lora_expand", "decode"),
             ("lora_expand", "row tiles")} <= paths
 
@@ -136,7 +136,7 @@ def test_once_refused_mutations_are_taken_by_every_launch(mutation):
             "group kernel]"
     else:
         case = dataclasses.replace(case, lora=(("q", 4100, 4096),))
-        want = "lora_shrink[split tail]"
+        want = "lora_shrink[decode tail]"
     launches = kernel_model.launches(case)
     assert [x.label for x in launches if x.refusal] == []
     assert f"{case.config} {want}" in [x.label for x in launches]
@@ -289,8 +289,9 @@ def test_max_rank_12_is_taken_after_the_pad():
     assert bgmv.shrink_refusal(4096, 12) and bgmv.expand_refusal(12, 4096)
     lora = [x for x in kernel_model.launches(case)
             if x.kernel.startswith("lora")]
-    # each LoRA kernel at the decode batch and at each prefill row count
-    assert len(lora) == 2 * (1 + len(kernel_model.PREFILL_ROWS))
+    # each LoRA kernel at the decode batches and at each prefill row count
+    assert len(lora) == 2 * (len(kernel_model.DECODE_ROWS)
+                             + len(kernel_model.PREFILL_ROWS))
     assert not [x for x in lora if x.refusal]
     assert {x.args["r_max"] for x in lora} == {16}
 

@@ -320,16 +320,14 @@ _SMS = 132                               # the H100 SXM's SM count
 
 
 @pytest.mark.parametrize("rows", [
-    1, 8, bgmv.SPLIT_MAX_ROWS, bgmv.SPLIT_MAX_ROWS + 1, 63, 64, 65, 129,
-    512, 4096, 128 * _SMS - 1, 128 * _SMS, 128 * (_SMS - 1) + 1,
-    128 * _SMS + 1, 32768])
+    bgmv.DECODE_MAX_ROWS + 1, 65, 129, 512, 4096, 128 * _SMS - 1,
+    128 * _SMS, 128 * (_SMS - 1) + 1, 128 * _SMS + 1, 32768])
 @pytest.mark.parametrize("d_in", [4096, 520, 8])
 @pytest.mark.parametrize("slots", [1, 8, 300])
 def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
-    """The launch plan computed on the host from `rows`: the split path up
-    to SPLIT_MAX_ROWS rows (SPLIT blocks a row over disjoint d slices that
-    cover d_in once, in multiples of 8), row tiles above it (128 rows
-    where they alone fill every SM, else 64),
+    """The row-tile launch plan computed on the host from `rows` (above
+    DECODE_MAX_ROWS; the decode plan has its own tests below): tiles of
+    128 rows where they alone fill every SM, else 64,
     one block per (tile, distinct slot of the tile) times `split` blocks
     over d slices of whole TILE_D boxes (at least MIN_SLICE_D wide) that
     cover d_in once, as many as give no SM a second block (one where the
@@ -340,17 +338,7 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
     reduced by exactly one (tile, part) block, at random and at prefill
     layouts (the chunk: 512 rows, one slot of 8; training: 4,096 rows,
     one slot)."""
-    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS)
-    if rows <= bgmv.SPLIT_MAX_ROWS:
-        assert plan.tile == 0 and plan.blocks == rows * bgmv.SPLIT
-        assert plan.split == bgmv.SPLIT
-        assert plan.d_chunk % 8 == 0 and plan.d_chunk > 0
-        hits = np.zeros(d_in, int)
-        for part in range(bgmv.SPLIT):    # the kernel's d slice of a block
-            lo = part * plan.d_chunk
-            hits[lo:min(d_in, lo + plan.d_chunk)] += 1
-        assert np.all(hits == 1)
-        return
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 64)
     big = -(-rows // 128) >= _SMS
     assert plan.tile == (128 if big else 64)
     assert plan.tile in bgmv.TILE_ROWS
@@ -418,7 +406,7 @@ def test_split_shrink_rank_order_sum_matches_plain_and_pallas(rows, d_in,
     idx = _segmented_idx(rows, seg, slots)
     idx[0] = slots - 1                    # every slot has a row
     live = ref.bgmv_live(_t(idx), 16).numpy()
-    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS)
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 16)
     assert plan.tile > 0 and plan.split > 1
     got = np.full((rows, 16), np.nan, np.float32)
     for t in range(-(-rows // plan.tile)):
@@ -440,6 +428,191 @@ def test_split_shrink_rank_order_sum_matches_plain_and_pallas(rows, d_in,
     pallas = jbgmv.bgmv_shrink(jnp.asarray(x), jnp.asarray(a),
                                jnp.asarray(idx))
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+# ------------------------------------------------ LoRA decode plans ----
+
+def _decode_groups(idx, live, slots, rows, r_max):
+    """The decode kernels' prologue (csrc/lora.cu: decode_group): the rows'
+    distinct slots in order of their first row, each with its rows (in
+    row order) and its widest live width rounded up to 8; and the rows
+    without an adapter."""
+    sl = [int(i) if 0 <= i < slots else -1 for i in idx[:rows]]
+    groups = []
+    for s in dict.fromkeys(v for v in sl if v >= 0):
+        mine = [r for r in range(rows) if sl[r] == s]
+        wide = max(max(0, min(int(live[r]), r_max)) for r in mine)
+        groups.append((s, mine, -(-wide // 8) * 8))
+    return groups, [r for r in range(rows) if sl[r] < 0]
+
+
+def _decode_layouts(rows, slots, r_max, seed):
+    """idx and live layouts a decode batch takes: slots at random (idx -1
+    among them) with random live widths, runs of 17 rows a slot, every row
+    at one slot, no row adapted."""
+    rng = np.random.default_rng(seed)
+    lives = rng.integers(0, r_max + 1, rows)
+    return [(rng.integers(-1, slots, rows), lives),
+            (_segmented_idx(rows, 17, slots), np.full(rows, r_max)),
+            (np.full(rows, slots - 1), lives),
+            (np.full(rows, -1), np.zeros(rows, int))]
+
+
+@pytest.mark.parametrize("rows", [1, 8, 17, 33, 63, bgmv.DECODE_MAX_ROWS])
+@pytest.mark.parametrize("d_in", [8, 520, 4096, 4100])
+@pytest.mark.parametrize("r_max", [8, 64, 1024])
+def test_decode_shrink_plan_reads_each_slot_slice_once(rows, d_in, r_max):
+    """The decode shrink's plan (up to DECODE_MAX_ROWS rows) and its
+    blocks as csrc/lora.cu's lora_shrink_decode_kernel walks them: block
+    (part, g, k) takes the k-th distinct slot (`_decode_groups`), rank
+    columns [16 g, 16 g + 16) (DECODE_SHRINK_COLS) and d [part * d_chunk,
+    ...), split blocks a cluster: the most of 1, 2, 4, 8 that give each
+    at least DECODE_SLICE_D of d, d_chunk in whole 16-wide k-steps covering d_in
+    once. At 1 to 64 rows, d_in tails and r_max up to 1,024, at random
+    slots and live widths and at runs of rows a slot: every (row, rank
+    column) of y written by exactly one block (the slot's rows by the
+    cluster's part p, a 1 / split share; rows without an adapter by the
+    blocks of k = 0, part 0), every (slot, d, column below the slot's
+    widest live width) of A read by exactly one block and no column past
+    it, and every block's x rows those of its slot."""
+    for slots in (1, 8, 300):
+        plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, r_max)
+        split, d_chunk = plan.split, plan.d_chunk
+        assert plan.tile == 0 and split in (1, 2, 4, 8)
+        assert split == 1 or d_in >= split * bgmv.DECODE_SLICE_D
+        assert split == bgmv.MAX_TILE_SPLIT \
+            or d_in < 2 * split * bgmv.DECODE_SLICE_D
+        assert d_chunk % 16 == 0 and (split - 1) * d_chunk < d_in \
+            <= split * d_chunk
+        groups = bgmv.col_groups(r_max)
+        per = max(1, min(slots, rows))
+        assert plan.per_tile == per
+        assert plan.blocks == per * split * groups
+        for idx, live in _decode_layouts(rows, slots, r_max,
+                                         rows + d_in + r_max):
+            firsts, zero_rows = _decode_groups(idx, live, slots, rows,
+                                               r_max)
+            assert len(firsts) <= per
+            writes = np.zeros((rows, r_max), int)
+            reads = {s: np.zeros((d_in, r_max), int) for s, _, _ in firsts}
+            for k in range(per):
+                for g in range(groups):
+                    c0 = g * bgmv.DECODE_SHRINK_COLS
+                    cw = min(bgmv.DECODE_SHRINK_COLS, r_max - c0)
+                    for part in range(split):
+                        if k == 0 and part == 0:
+                            writes[zero_rows, c0:c0 + cw] += 1
+                        if k >= len(firsts):
+                            continue
+                        s, mine, ncol = firsts[k]
+                        nc = min(cw, ncol - c0)
+                        if nc <= 0:
+                            if part == 0:
+                                writes[mine, c0:c0 + cw] += 1
+                            continue
+                        lo, hi = part * d_chunk, min(d_in, (part + 1)
+                                                     * d_chunk)
+                        reads[s][lo:hi, c0:c0 + nc] += 1
+                        share = -(-len(mine) // split)
+                        writes[mine[part * share:(part + 1) * share],
+                               c0:c0 + cw] += 1
+            assert np.all(writes == 1)
+            for s, _, ncol in firsts:
+                assert np.all(reads[s][:, :ncol] == 1)
+                assert np.all(reads[s][:, ncol:] == 0)
+
+
+@pytest.mark.parametrize("rows,d_in,slots", [(8, 4096, 8), (64, 1024, 4),
+                                             (17, 4100, 12), (1, 520, 8)])
+def test_decode_shrink_rank_order_sum_matches_plain_and_pallas(rows, d_in,
+                                                               slots):
+    """The decode shrink's arithmetic, emulated in numpy: the cluster's
+    block `part` sums x[the slot's rows, its d slice] @ A[s][its d slice]
+    in f32, the parts' partials are added in rank order and the columns
+    past each row's live width zeroed. That equals the plain shrink (what
+    the kernel is held to on the card) within f32's 1e-5, and the Pallas
+    bgmv_shrink in interpret mode."""
+    ranks = [16, 8] * (slots // 2)
+    a, _, rng = _lora_pool(rows + d_in, slots, d_in, 8, 16, ranks)
+    x = rng.normal(size=(rows, d_in)).astype(np.float32)
+    idx = rng.integers(-1, min(slots, 8), rows).astype(np.int32)
+    live = ref.bgmv_live(_t(idx), 16).numpy()
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 16)
+    assert plan.tile == 0
+    got = np.zeros((rows, 16), np.float32)
+    firsts, _ = _decode_groups(idx, live, slots, rows, 16)
+    for s, mine, _ in firsts:
+        total = np.zeros((len(mine), 16), np.float32)
+        for p in range(plan.split):        # rank order
+            sl = slice(p * plan.d_chunk, (p + 1) * plan.d_chunk)
+            total = total + (x[mine, sl] @ a[s, sl]).astype(np.float32)
+        total[np.arange(16)[None] >= live[mine][:, None]] = 0.0
+        got[mine] = total
+    want = ref.lora_shrink_ref(_t(x), _t(a), _t(idx), _t(live)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    pallas = jbgmv.bgmv_shrink(jnp.asarray(x), jnp.asarray(a),
+                               jnp.asarray(idx))
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 33, bgmv.DECODE_MAX_ROWS])
+@pytest.mark.parametrize("d_out", [8, 136, 4096, 4100])
+@pytest.mark.parametrize("r_max", [8, 64, 1024])
+def test_decode_expand_plan_writes_each_output_once(rows, d_out, r_max):
+    """The decode expand (expand_plan 0, up to DECODE_MAX_ROWS rows) as
+    csrc/lora.cu's lora_expand_decode_kernel walks it: block (row, j)
+    writes output columns [j * DECODE_EXPAND_COLS, ...) of its row, lane
+    l of a warp 8 of them, warp w summing live rank rows w, w +
+    RANK_SPLIT, ... At 1 to 64 rows, d_out tails and r_max up to 1,024,
+    at random slots and live widths and at runs of rows a slot: every
+    (row, column) of out written by exactly one block (rows without an
+    adapter as zeros), and every live rank row of a row's slot summed by
+    exactly one warp for each of the row's columns, none past the row's
+    live width."""
+    assert bgmv.expand_plan(rows, d_out, _SMS) == 0
+    cols, split = bgmv.DECODE_EXPAND_COLS, bgmv.RANK_SPLIT
+    assert cols == 32 * 8                 # a lane's 8 columns, 32 lanes
+    for slots in (1, 8, 300):
+        for idx, live in _decode_layouts(rows, slots, r_max,
+                                         rows + d_out + r_max):
+            writes = np.zeros((rows, d_out), int)
+            for row in range(rows):
+                s = int(idx[row])
+                lv = max(0, min(int(live[row]), r_max)) \
+                    if 0 <= s < slots else 0
+                used = np.zeros((r_max, d_out), int)
+                for j in range(-(-d_out // cols)):
+                    n0 = j * cols
+                    writes[row, n0:n0 + cols] += 1
+                    for w in range(split):    # warp w's rank rows
+                        used[w:lv:split, n0:n0 + cols] += 1
+                assert np.all(used[:lv] == 1)
+                assert np.all(used[lv:] == 0)
+            assert np.all(writes == 1)
+
+
+def test_expand_takes_f32_y_rounded_as_cast():
+    """lora_expand of an f32 y rounds it to B's dtype first, as
+    `y.to(b.dtype)` does (the decode kernel rounds as it loads): bitwise
+    the expand of the cast y, in bf16 and f32; `ops.lora_delta` passes the
+    shrink's f32 y on, with the same numbers as an explicit cast; y of
+    another dtype raises."""
+    a, b, rng = _lora_pool(7, 4, 64, 48, 16, [16, 8, 16, 8])
+    idx = _t(np.array([0, 3, -1, 1, 0, 2], np.int32))
+    y = _t(rng.normal(size=(6, 16)).astype(np.float32))
+    x = _t(rng.normal(size=(6, 64)).astype(np.float32))
+    for dt in (torch.bfloat16, torch.float32):
+        bt = _t(b).to(dt)
+        live = ref.bgmv_live(idx, 16)
+        assert torch.equal(bgmv.lora_expand(y, bt, idx, live),
+                           bgmv.lora_expand(y.to(dt), bt, idx, live))
+        at, xt = _t(a).to(dt), x.to(dt)
+        ys = bgmv.lora_shrink(xt, at, idx, live)
+        assert torch.equal(ops.lora_delta(xt, at, bt, idx, live=live),
+                           bgmv.lora_expand(ys.to(dt), bt, idx, live))
+    with pytest.raises(ValueError, match="or float32"):
+        bgmv.lora_expand(y.half(), _t(b).bfloat16(), idx,
+                         ref.bgmv_live(idx, 16))
 
 
 # ------------------------------------- LoRA expand at prefill layouts ----
@@ -475,34 +648,26 @@ def test_expand_segmented_rows_match_pallas(mode, seg):
     assert np.all(got.numpy()[idx < 0] == 0)
 
 
-@pytest.mark.parametrize("rows", [1, 8, 64, 65, 512, 4096, 4133, 32768])
+@pytest.mark.parametrize("rows", [65, 512, 4096, 4133, 32768])
 @pytest.mark.parametrize("d_out", [8, 384, 512, 4096])
 @pytest.mark.parametrize("slots", [1, 8, 300])
 def test_expand_plan_covers_each_output_once(rows, d_out, slots):
-    """The expand's launch plan, computed on the host from `rows`: the
-    decode path up to DECODE_MAX_ROWS rows (a block per (row, DECODE_COLS
-    columns), rank rows split over RANK_SPLIT warps), tiles of
-    EXPAND_ROWS rows above it, block k of a column tile walking the
+    """The expand's row-tile launch plan, computed on the host from `rows`
+    (above DECODE_MAX_ROWS; the decode plan has its own test above):
+    tiles of EXPAND_ROWS rows, block k of a column tile walking the
     tiles k, k + row_blocks, ... (as many blocks as fill every SM twice in
     one round), visiting each tile's distinct slots and zeroing its rows
     without an adapter. The grid is rows x columns, so each (row, column)
     is written exactly once iff each row and each column is covered once:
     checked at random and at prefill layouts."""
     row_blocks = bgmv.expand_plan(rows, d_out, _SMS)
-    decode = rows <= bgmv.DECODE_MAX_ROWS
-    assert (row_blocks == 0) == decode
-    cols = bgmv.DECODE_COLS if decode else bgmv.EXPAND_COLS
+    assert row_blocks > 0
+    cols = bgmv.EXPAND_COLS
     col_blocks = -(-d_out // cols)
     hits = np.zeros(d_out, int)
     for cb in range(col_blocks):          # the kernel's column blocks
         hits[cb * cols:min(d_out, (cb + 1) * cols)] += 1
     assert np.all(hits == 1)
-    if decode:                            # a block a row
-        for r_max in (8, 64, 8192):       # warp w: rank rows w (mod split)
-            warp = np.arange(r_max) % bgmv.RANK_SPLIT
-            assert np.all(np.bincount(warp, minlength=bgmv.RANK_SPLIT)
-                          == r_max // bgmv.RANK_SPLIT)
-        return
     tile = bgmv.EXPAND_ROWS
     tiles = -(-rows // tile)
     assert 1 <= row_blocks <= tiles

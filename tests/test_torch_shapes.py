@@ -244,9 +244,9 @@ def test_shape_cases_are_taken_on_every_path():
     assert any("G 32 hd 128 in 2 group tiles" in x for x in labels)
     assert any("G 32 hd 128 on the group kernel" in x for x in labels)
     assert any("hd 80 at 96" in x for x in labels)
-    for path in ("split tail", "tile 64 tail", "decode tail",
-                 "row tiles tail"):
-        assert any(f"[{path}]" in x for x in labels), path
+    for path in ("lora_shrink[decode tail]", "lora_shrink[tile 64 tail]",
+                 "lora_expand[decode tail]", "lora_expand[row tiles tail]"):
+        assert any(path in x for x in labels), path
 
 
 # ------------------------------------------------ serving, on the CPU ----
