@@ -362,6 +362,7 @@ def main() -> int:
                                 errs["flash_attention"], yi_serving))
     kernels.append(shrink_prefill_timing(torch, lora_args, yi_serving))
     kernels.append(chunk_shrink_timing(torch, lora_args, yi_serving))
+    kernels.extend(chunk_expand_timing(torch, lora_args, yi_serving))
     kernels.append(expand_prefill_timing(torch, lora_args, yi_serving))
     kernels.append(paged_capture_timing(
         torch, capture["decode"], yi_serving, "paged_attention[yi-9b]",
@@ -390,8 +391,8 @@ def main() -> int:
 
 
 KERNEL_NAMES = ("flash_bf16", "flash_f32", "lora_shrink_tile",
-                "lora_shrink_wgmma",
-                "lora_shrink_decode", "lora_expand_tile", "lora_expand_decode",
+                "lora_shrink_wgmma", "lora_shrink_decode", "lora_expand_tile",
+                "lora_expand_wgmma", "lora_expand_decode",
                 "paged_attention", "paged_combine", "paged_group",
                 "paged_group_combine")
 
@@ -592,9 +593,11 @@ def kernel_checks(torch):
     # hold only idx -1 rows (T >= 64) and the last tile is ragged. Up to
     # 64 rows both kernels take their decode path (blocks by slot; the
     # shrink's d slices a cluster), above it row tiles (of 128 rows at
-    # 32,768 rows: yi-9b's 8 x 4,096 prefill). On the decode path the
-    # expand of the shrink's f32 y (rounded as it is loaded) must equal
-    # the expand of y cast to the pool's dtype bitwise.
+    # 32,768 rows: yi-9b's 8 x 4,096 prefill; the bf16 expand at d_out a
+    # multiple of 8 on the persistent wgmma kernel). On every path the
+    # expand of the shrink's f32 y (rounded as it is loaded, or cast by the
+    # wrapper for the mma.sync row tiles) must equal the expand of y cast to
+    # the pool's dtype bitwise.
     y8 = [8, 16, 32, 64] * 2
     lcases = [("decode 1 row bf16", 1, 4096, 4096, 64, y8, 16, bf, True, 0),
               ("decode bf16", 8, 4096, 4096, 64, y8, 16, bf, True, 0),
@@ -649,6 +652,11 @@ def kernel_checks(torch):
                [24, 8, 17, 5] * 2, 8, bf, False, 17),
               ("r_max 24 decode f32", 8, 128, 136, 24, [24, 3, 9, 1], 8, f32,
                False, 0),
+              # MBGMV rank blocks of 4: live widths that end inside an
+              # 8-column group (the wgmma expand zeroes B's group past
+              # them in shared memory and masks y past each row's width)
+              ("rank blocks of 4 prefill runs of 17 bf16", 1100, 4096, 1024,
+               24, [24, 4, 20, 12] * 2, 4, bf, False, 17),
               # max_rank 12 and 20, no multiple of 8: the pool pads them
               # to 16 and 24 columns (bgmv.padded_rank), zero past each
               # rank; MBGMV's live width is clamped to the pool (20 at
@@ -721,10 +729,9 @@ def kernel_checks(torch):
             check(bool((out[idx < 0] == 0).all()), "expand: idx -1 row != 0")
             check(torch.equal(out, lora_expand(yd, b, idx, live)),
                   "expand: two runs differ (sums must repeat bitwise)")
-            if rows <= 64:
-                check(torch.equal(out, lora_expand(y, b, idx, live)),
-                      f"expand {mode} {label}: f32 y rounded on load != "
-                      "the expand of the cast y")
+            check(torch.equal(out, lora_expand(y, b, idx, live)),
+                  f"expand {mode} {label}: f32 y rounded on load != "
+                  "the expand of the cast y")
 
     # flash attention: (label, B, H, KV, Lq, Lk, hd, causal, window, dtype,
     # full-width); full-width and "view" cases are (B, L, H, hd) tensors
@@ -1734,13 +1741,16 @@ def chunk_graphs_phase(torch, cfg, params, serving):
 
 
 def chunk_launches(kernels, p4):
-    """The `lora_shrink[yi-9b chunk]` row's launches a chunk: the count of
-    P4's graphed chunk, equal to its eager chunk's."""
-    n = {arm: r["lora_shrink_launches_a_chunk"] for arm, r in p4.items()}
-    check(n["graphed"] == n["eager"] > 0,
-          f"P4: lora_shrink launches a chunk differ or are 0: {n}")
-    row = next(k for k in kernels if k["name"] == "lora_shrink[yi-9b chunk]")
-    row["launches_a_chunk"] = n["graphed"]
+    """The yi-9b chunk rows' launches a chunk (`lora_shrink[yi-9b chunk]`,
+    `lora_expand[yi-9b chunk, ...]`): the counts of P4's graphed chunk,
+    equal to its eager chunk's."""
+    for kernel in ("lora_shrink", "lora_expand"):
+        n = {arm: r[f"{kernel}_launches_a_chunk"] for arm, r in p4.items()}
+        check(n["graphed"] == n["eager"] > 0,
+              f"P4: {kernel} launches a chunk differ or are 0: {n}")
+        for row in kernels:
+            if row["name"].startswith(f"{kernel}[yi-9b chunk"):
+                row["launches_a_chunk"] = n["graphed"]
 
 
 def bucket_tokens(key):
@@ -1775,19 +1785,22 @@ def profile_chunk(torch, cfg, params, graphs, smi):
 
     call()
     call()                   # the key's capture (the first was its warm-up)
-    from repro_torch.kernels.bgmv import lora_shrink
-    before = lora_shrink.launches
-    lora_shrink.launches = 0
-    call()                   # one chunk's shrink launches (a replay adds
+    from repro_torch.kernels.bgmv import lora_expand, lora_shrink
+    before = (lora_shrink.launches, lora_expand.launches)
+    lora_shrink.launches = lora_expand.launches = 0
+    call()                   # one chunk's LoRA launches (a replay adds
     shrinks = lora_shrink.launches        # what its capture launched)
-    lora_shrink.launches += before
+    expands = lora_expand.launches
+    lora_shrink.launches += before[0]
+    lora_expand.launches += before[1]
     prof = profile_step(torch, call, f"one {arm} {cfg.name} chunk of "
                         f"{P_CHUNK} tokens")
     rec = p4_record(torch, be, prof, records, arm, f"{cfg.name} chunk",
                     smi)
     rec["lora_shrink_launches_a_chunk"] = shrinks
-    print(f"  P4 {cfg.name} chunk {arm}: {shrinks} lora_shrink launches "
-          "in one chunk", flush=True)
+    rec["lora_expand_launches_a_chunk"] = expands
+    print(f"  P4 {cfg.name} chunk {arm}: {shrinks} lora_shrink and "
+          f"{expands} lora_expand launches in one chunk", flush=True)
     return rec
 
 
@@ -3920,17 +3933,106 @@ def chunk_shrink_timing(torch, captured, serving):
     return row
 
 
+P_CHUNK_KV_COLS = 512                 # yi-9b's k / v: 4 KV heads x 128
+
+
+def chunk_expand_timing(torch, captured, serving):
+    """Phase 5b: the LoRA expand at the yi-9b chunk's shapes: 512 rows of
+    one slot of the pool's 8, r_max 64, y from the shrink of the first 512
+    rows of phase 4b's layer-0 q input (f32, as `ops.lora_delta` passes
+    it: the expand rounds it on load), at d_out 4,096 (q, the captured
+    pool's B) and 512 (k / v: a seeded B of that width); the persistent
+    wgmma kernel. Each held per row against the plain version on the cast
+    y, timed beside its bound (y, the slot's B and out moved once), the
+    plain version and one torch.matmul(y, B[s]) (timed only, never called
+    by the port), each also in a CUDA graph. Launches: every expand launch
+    of the yi-9b chunked arm; its launches a chunk are counted in P4
+    (`chunk_launches`)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bgmv import (expand_plan, lora_expand,
+                                          lora_shrink, sm_count)
+    print("phase 5b: LoRA expand at the yi-9b chunk's shapes", flush=True)
+    (x, a, b, idx), _ = captured
+    x = x[:P_CHUNK_ROWS].contiguous()
+    slots, r_max, d_q = b.shape
+    s = int(idx[idx >= 0][0])
+    idx = torch.full((P_CHUNK_ROWS,), s, dtype=torch.int32, device="cuda")
+    live = ref.bgmv_live(idx, r_max)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    y = lora_shrink(x, a, idx, live)
+    yd = y.to(b.dtype)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    b_kv = (torch.randn(slots, r_max, P_CHUNK_KV_COLS, generator=g,
+                        device="cuda") * r_max ** -0.5).to(b.dtype)
+    rows = []
+    for label, bw in (("q", b), ("k / v", b_kv)):
+        d_out = bw.shape[-1]
+        out = lora_expand(y, bw, idx, live)
+        err = check_close(f"lora_expand yi-9b chunk {label} (d_out {d_out})",
+                          out, ref.lora_expand_ref(yd, bw, idx, live),
+                          b.dtype)
+        check(torch.equal(out, lora_expand(y, bw, idx, live)),
+              f"expand chunk {label}: two runs differ")
+        check(torch.equal(out, lora_expand(yd, bw, idx, live)),
+              f"expand chunk {label}: f32 y rounded on load != the cast y")
+        e = bw.element_size()
+        nbytes = y.numel() * 4 + r_max * d_out * e + 8 * P_CHUNK_ROWS \
+            + P_CHUNK_ROWS * d_out * e
+        b_ms, b_by = bound(nbytes, 2 * d_out * int(live.sum()), "bfloat16")
+        row = {"name": f"lora_expand[yi-9b chunk, d_out {d_out}]",
+               "route": "cuda", "source": "src/repro_torch/csrc/lora.cu",
+               "replaces": "src/repro/kernels/bgmv.py:136",
+               "path": "yi-9b chunked prefill (chunk_budget 512), target "
+                       + label,
+               "launches": serving[1]["launches"]["lora_expand"],
+               "launches_of": "every lora_expand launch of the chunked "
+                              "arm: its chunks, short prefills and decode "
+                              "steps",
+               "max_abs_err": err,
+               "ms": time_ms(torch, lambda: lora_expand(y, bw, idx, live),
+                             flush),
+               "graph_ms": graph_ms(torch, lambda: lora_expand(
+                   y, bw, idx, live), flush),
+               "plain_ms": time_ms(torch, lambda: ref.lora_expand_ref(
+                   yd, bw, idx, live), flush, n=20),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(torch, lambda: torch.matmul(
+                   yd, bw[s]), flush),
+               "library_graph_ms": graph_ms(torch, lambda: torch.matmul(
+                   yd, bw[s]), flush),
+               "library_call": "torch.matmul(y, B[s]) with the one slot's "
+                               "weight",
+               "bytes": nbytes,
+               "shape": {"rows": P_CHUNK_ROWS, "r_max": r_max,
+                         "d_out": d_out, "slots": slots, "adapters": 1,
+                         "y": "f32, rounded on load",
+                         "plan": expand_plan(P_CHUNK_ROWS, d_out,
+                                             sm_count(x.device),
+                                             bw.dtype)._asdict()}}
+        print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us, in a CUDA graph "
+              f"{row['graph_ms'] * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us "
+              f"by {b_by}), plain {row['plain_ms'] * 1e3:.1f} us, library "
+              f"(matmul) in a CUDA graph "
+              f"{row['library_graph_ms'] * 1e3:.1f} us, "
+              f"{row['launches']} launches in the chunked arm", flush=True)
+        rows.append(row)
+    return rows
+
+
 def expand_prefill_timing(torch, captured, serving):
     """Phase 5b: the LoRA expand at layer 0 (target q) of the yi-9b
     prefill call of phase 4b: 32,768 rows (each row's slot repeated over
     its 4,096 tokens), r_max 64, d_out 4,096, 8 adapters, y from the
-    shrink cast to bf16; the row-tile path. Held per row against the plain
-    version, timed beside its bound (phase 5a's formula), the plain
-    version and one torch.matmul(Y_bd, B_cat): Y_bd (rows, 8 r_max) holds
-    each row's y in its slot's r_max columns and zeros elsewhere, B_cat
-    (8 r_max, d_out) stacks the slots' B — the same function at 8x the
-    flops, timed only and never called by the port. Launches: the yi-9b
-    monolithic arm's."""
+    shrink cast to bf16 (and, `f32_y_graph_ms`, the shrink's f32 y, as
+    the model passes it: rounded on load); the row-tile path (the
+    persistent wgmma kernel). Held per row against the plain version,
+    timed beside its bound (phase 5a's formula), the plain version and one
+    torch.matmul(Y_bd, B_cat), also in a CUDA graph: Y_bd (rows, 8 r_max)
+    holds each row's y in its slot's r_max columns and zeros elsewhere,
+    B_cat (8 r_max, d_out) stacks the slots' B — the same function at 8x
+    the flops, timed only and never called by the port. Launches: the
+    yi-9b monolithic arm's."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.bgmv import (expand_plan, lora_expand,
                                           lora_shrink, sm_count)
@@ -3944,12 +4046,15 @@ def expand_prefill_timing(torch, captured, serving):
     slots, r_max, d_out = b.shape
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
-    yd = lora_shrink(x, a, idx, live).to(x.dtype)
+    y32 = lora_shrink(x, a, idx, live)
+    yd = y32.to(x.dtype)
     out = lora_expand(yd, b, idx, live)
     err = check_close("lora_expand prefill (yi-9b layer 0 q)", out,
                       ref.lora_expand_ref(yd, b, idx, live), x.dtype)
     check(torch.equal(out, lora_expand(yd, b, idx, live)),
           "expand prefill: two runs differ")
+    check(torch.equal(out, lora_expand(y32, b, idx, live)),
+          "expand prefill: f32 y rounded on load != the cast y")
     del out
     adapted = idx >= 0
     slot_live = dict(zip(idx[adapted].tolist(), live[adapted].tolist()))
@@ -3979,6 +4084,10 @@ def expand_prefill_timing(torch, captured, serving):
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": time_ms(torch, lambda: torch.matmul(y_bd, b_cat),
                                  flush),
+           "library_graph_ms": graph_ms(torch, lambda: torch.matmul(
+               y_bd, b_cat), flush),
+           "f32_y_graph_ms": graph_ms(torch, lambda: lora_expand(
+               y32, b, idx, live), flush),
            "library_call": f"torch.matmul(Y_bd {tuple(y_bd.shape)}, B_cat "
                            f"{tuple(b_cat.shape)}): the same function at "
                            f"{slots}x the flops",
@@ -3986,13 +4095,15 @@ def expand_prefill_timing(torch, captured, serving):
            "shape": {"rows": rows, "r_max": r_max, "d_out": d_out,
                      "slots": slots, "adapters": len(slot_live),
                      "live_columns": row_live,
-                     "row_blocks": expand_plan(rows, d_out,
-                                               sm_count(x.device))}}
+                     "plan": expand_plan(rows, d_out, sm_count(x.device),
+                                         b.dtype)._asdict()}}
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
           f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (matmul Y_bd x B_cat) "
           f"{row['library_ms'] * 1e3:.1f} us, {row['launches']} launches; "
-          f"in a CUDA graph {row['graph_ms'] * 1e3:.1f} us, host "
+          f"in a CUDA graph {row['graph_ms'] * 1e3:.1f} us (on the "
+          f"shrink's f32 y {row['f32_y_graph_ms'] * 1e3:.1f} us), library "
+          f"{row['library_graph_ms'] * 1e3:.1f} us, host "
           f"{row['host_ms'] * 1e3:.1f} us a call", flush=True)
     return row
 

@@ -87,14 +87,39 @@ torch.bmm beside; each kernel's device time from a profiled replay; the
 bf16 row-tile shrink launched directly at those rows; and the decode
 shrink at splits 1, 2, 4 and 8 (`decode_direct`).
 
+    python3 kernel_ab.py --expand build/parent [OTHER_TREE ...]
+
+times the row-tile expand (more than 64 rows) at the rows of
+`EXPAND_SHAPES` in CUDA graphs (20 launches a graph, each after an L2
+flush, less the flushes alone), the trees built in parallel first, then
+timed in the order parent, this tree, the others, then the same
+backwards, each in a process of its own; every run prints one `EXPAND
+<tree> {...}` line (`expand_tree`): the training step's 4,096 rows of
+one slot, the yi-9b chunk's 512 rows of one slot of 8 at d_out 4,096 (q)
+and 512 (k / v), the yi-9b prefill's 32,768 rows (8 slots), 2,048 and
+4,096 rows in runs of 32 over 8 slots, 8 slots of ranks 8/16/32/64 under
+BGMV and MBGMV, r_max 128, a partial tile (4,133 rows), f32 and d_out
+4,100; each the expand of y in B's dtype and of the shrink's f32 y (the
+launch the model makes), with torch.matmul in a graph and the bytes bound
+(`expand_bound_us`) beside.
+
+    python3 kernel_ab.py --expand-probe
+
+times, in this tree, how fast the card takes the one-slot expand's
+output stream (`expand_probe`): the expand at the training shape, a
+store-only kernel writing the same 33.5 MB from shared memory by
+16-byte st.global and by TMA stores at one and two blocks an SM
+(`rt_store_probe`), torch.matmul, a fill of the output and an empty
+kernel, each in a graph after L2 flushes and with L2 warm.
+
     python3 kernel_ab.py --sweep
 
 times, in this tree, the training step's one-slot shrink under every row
-tile and split the kernel takes and its expand under several row-block
-counts, each in a CUDA graph, with the blocks, the clusters the card
-holds at once, the waves and the bytes a microsecond, and asks the CUDA
-profiler (CUPTI) for the kernels' counters (its trace goes to
-build/kernel_ab_cupti.json). Needs one NVIDIA card.
+tile and split the kernel takes, each in a CUDA graph, with the blocks,
+the clusters the card holds at once, the waves and the bytes a
+microsecond, and asks the CUDA profiler (CUPTI) for the LoRA pair's
+counters (its trace goes to build/kernel_ab_cupti.json). Needs one
+NVIDIA card.
 """
 from __future__ import annotations
 
@@ -769,6 +794,164 @@ def lora_probe() -> dict:
     return res
 
 
+def expand_probe() -> dict:
+    """How fast this card takes the one-slot expand's output stream, in
+    this tree, each figure in a CUDA graph after L2 flushes and with L2
+    warm (`graph_us`): the row-tile expand at the training shape (4,096
+    rows of one slot, d_out 4,096, r_max 64, y in bf16; and on the
+    shrink's f32 y, the launch the model makes), a store-only kernel that
+    writes the same 33.5 MB from shared memory in 64 x 128 tiles by 16-byte
+    st.global and by TMA bulk stores at one and two blocks an SM
+    (`rt_store_probe`), torch.matmul(y, B[0]) and a fill of the output
+    (the library's own stream of writes), and an empty kernel; with the
+    bytes bound (`expand_bound_us`) and each figure's write rate."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.kernels import bgmv, build
+    lib = build.library()
+    dev = torch.device("cuda")
+    sms = bgmv.sm_count(dev)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows, d, r = 4096, 4096, 64
+    yf = torch.randn(rows, r, generator=g, device="cuda")
+    yb = yf.bfloat16()
+    b = (torch.randn(1, r, d, generator=g, device="cuda") / 8).bfloat16()
+    idx = torch.zeros(rows, device="cuda", dtype=torch.int32)
+    live = torch.full((rows,), r, device="cuda", dtype=torch.int32)
+    out = torch.empty(rows, d, device="cuda", dtype=torch.bfloat16)
+    out_bytes = out.numel() * 2
+    res = {"torch": torch.__version__, "cuda": torch.version.cuda,
+           "sms": sms, "out_bytes": out_bytes,
+           "bound_us": expand_bound_us(yb, b, idx, live)}
+
+    def store(tma, blocks):
+        def call():
+            rc = lib.rt_store_probe(out.data_ptr(), rows, d, tma, blocks,
+                                    build.stream_handle(dev))
+            assert rc == 0, rc
+        return call
+
+    def empty():
+        rc = lib.rt_empty(0, 1, 1, build.stream_handle(dev))
+        assert rc == 0, rc
+
+    calls = {"expand bf16 y": lambda: bgmv.lora_expand(yb, b, idx, live),
+             "expand f32 y": lambda: bgmv.lora_expand(yf, b, idx, live),
+             "matmul": lambda: torch.matmul(yb, b[0]),
+             "fill": lambda: out.fill_(1.0),
+             "empty kernel": empty}
+    for blocks in (sms, 2 * sms):
+        calls[f"store st.global {blocks} blocks"] = store(0, blocks)
+        calls[f"store TMA {blocks} blocks"] = store(1, blocks)
+    for name, fn in calls.items():
+        cold, warm = graph_us(torch, fn, flush), graph_us(torch, fn, None)
+        res[name] = {"graph_us": cold, "graph_us_warm": warm,
+                     "TB_per_s_written": out_bytes / cold / 1e6
+                     if cold > 0 else None}
+        print("EXPAND-PROBE", name, json.dumps(res[name]), flush=True)
+    return res
+
+
+# The row-tile expand rows of --expand: (rows, d_out, r_max, slot ranks,
+# rows a run of one slot, dtype), the pool zero past each rank, idx cycling
+# through the slots in runs (a run of `rows`: every row at the last slot)
+EXPAND_SHAPES = {
+    "training 4,096 rows, 1 slot": (4096, 4096, 64, [64], 4096, "bf16"),
+    "yi-9b chunk q: 512 rows, 1 slot of 8": (512, 4096, 64, [64] * 8, 512,
+                                             "bf16"),
+    "yi-9b chunk k/v: 512 rows, d_out 512": (512, 512, 64, [64] * 8, 512,
+                                             "bf16"),
+    "yi-9b prefill: 32,768 rows, 8 slots": (32768, 4096, 64, [64] * 8, 4096,
+                                            "bf16"),
+    "mixed 2,048 rows, runs of 32": (2048, 4096, 64, [64] * 8, 32, "bf16"),
+    "mixed 4,096 rows, runs of 32": (4096, 4096, 64, [64] * 8, 32, "bf16"),
+    "ranks 8/16/32/64, 4,096 rows, runs of 512": (
+        4096, 4096, 64, [8, 16, 32, 64] * 2, 512, "bf16"),
+    "r_max 128, 4,096 rows, 1 slot": (4096, 4096, 128, [128], 4096, "bf16"),
+    "4,133 rows, 1 slot": (4133, 4096, 64, [64], 4133, "bf16"),
+    "f32, 4,096 rows, 1 slot": (4096, 4096, 64, [64], 4096, "f32"),
+    "d_out 4,100, 4,096 rows, 1 slot": (4096, 4100, 64, [64], 4096, "bf16"),
+}
+
+
+def expand_tree(root: str) -> dict:
+    """--expand's run in one tree: each row of EXPAND_SHAPES under BGMV
+    (and MBGMV live widths at the mixed-rank row) in a CUDA graph after L2
+    flushes (`graph_us`): the expand of y in B's dtype and of the shrink's
+    f32 y (what `ops.lora_delta` launches: in a tree whose row tiles take
+    only B's dtype, with the wrapper's cast launch), with torch.matmul in
+    a graph (one slot's B, or Y_bd x B_cat over the slots: each row's y
+    in its slot's r_max columns, the same function at slots x the flops)
+    and the bound (`expand_bound_us`) beside."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    from repro_torch.kernels import bgmv, build, ops
+    build.library()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    out = {}
+    for name, (rows, d_out, r_max, ranks, run, dt) in EXPAND_SHAPES.items():
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        g = torch.Generator(device="cuda").manual_seed(rows + d_out + r_max)
+        slots = len(ranks)
+        b = torch.zeros(slots, r_max, d_out, device="cuda")
+        for s, r in enumerate(ranks):
+            b[s, :r] = torch.randn(r, d_out, generator=g,
+                                   device="cuda") * r ** -.5
+        b = b.to(dtype)
+        yf = torch.randn(rows, r_max, generator=g, device="cuda")
+        yd = yf.to(dtype)
+        idx = (torch.arange(rows, device="cuda") // run % slots).to(
+            torch.int32)
+        if run >= rows:
+            idx.fill_(slots - 1)
+        ranks_t = torch.tensor(ranks, dtype=torch.int32, device="cuda")
+        modes = ("bgmv", "mbgmv") if len(set(ranks)) > 1 else ("bgmv",)
+        used = sorted(set(idx.tolist()))
+        if len(used) == 1:
+            lib = (lambda y_, b_: lambda: torch.matmul(y_, b_))(
+                yd, b[used[0]])
+        else:
+            y_bd = torch.zeros(rows, slots, r_max, dtype=dtype,
+                               device="cuda")
+            y_bd[torch.arange(rows, device="cuda"), idx.long()] = yd
+            y_bd = y_bd.reshape(rows, slots * r_max)
+            b_cat = b.reshape(slots * r_max, d_out)
+            lib = (lambda y_, b_: lambda: torch.matmul(y_, b_))(y_bd, b_cat)
+        lib_us = graph_us(torch, lib, flush)
+        for mode in modes:
+            live = ops.lora_live(idx, ranks_t, mode, r_max, 16)
+            out[f"{name} {mode}"] = {
+                "graph_us": graph_us(torch, lambda: bgmv.lora_expand(
+                    yd, b, idx, live), flush),
+                "f32_y_graph_us": graph_us(torch, lambda: bgmv.lora_expand(
+                    yf, b, idx, live), flush),
+                "matmul_graph_us": lib_us,
+                "bound_us": expand_bound_us(yd, b, idx, live)}
+        del b, yf, yd, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def expand_bound_us(y, b, idx, live):
+    """Microseconds the card needs at least for a row-tile expand at these
+    inputs: y read once (its own dtype), the live rank rows of each slot
+    in use read once, idx and live read once, out (rows x d_out in B's
+    dtype) written once, at the H100 data sheet's 3.35 TB/s (the flops,
+    2 x live x d_out a row, are far below 989 TFLOP/s)."""
+    rows, d_out = y.shape[0], b.shape[-1]
+    widths = {}
+    for s, lv in zip(idx.tolist(), live.tolist()):
+        if s >= 0:
+            widths[s] = max(widths.get(s, 0), lv)
+    nbytes = (y.numel() * y.element_size()
+              + sum(widths.values()) * d_out * b.element_size()
+              + 8 * rows + rows * d_out * b.element_size())
+    return 1e6 * nbytes / 3.35e12
+
+
 # CUPTI range-profiler counters asked of torch.profiler in --sweep
 CUPTI_METRICS = ["dram__bytes_read.sum", "dram__bytes_write.sum",
                  "sm__throughput.avg.pct_of_peak_sustained_elapsed",
@@ -777,8 +960,8 @@ CUPTI_METRICS = ["dram__bytes_read.sum", "dram__bytes_write.sum",
 
 
 def sweep() -> dict:
-    """The training shape's one-slot LoRA pair (4,096 rows, d 4,096,
-    r_max 64, bf16) under each launch the kernels take."""
+    """The training shape's one-slot LoRA shrink (4,096 rows, d 4,096,
+    r_max 64, bf16) under each launch the kernel takes."""
     import ctypes
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
@@ -795,12 +978,10 @@ def sweep() -> dict:
     idx = torch.zeros(rows, device="cuda", dtype=torch.int32)
     live = torch.full((rows,), r, device="cuda", dtype=torch.int32)
     y = torch.empty(rows, r, device="cuda")
-    out = torch.empty(rows, d, device="cuda", dtype=torch.bfloat16)
     info = (ctypes.c_longlong * len(build.INFO_FIELDS))()
     res = {"sms": sms,
            "plan": bgmv.shrink_plan(rows, d, 1, sms, r)._asdict(),
-           "expand_plan": bgmv.expand_plan(rows, d, sms), "shrink": [],
-           "expand": []}
+           "shrink": []}
     shrink_bytes = (x.numel() + a.numel()) * 2 + y.numel() * 4
     for tile in (64, 128):
         for split in (1, 2, 4, 8):
@@ -824,23 +1005,9 @@ def sweep() -> dict:
                 "tile": tile, "split": split, "working_blocks": working,
                 "blocks_at_once": at_once, "waves": -(-working // at_once),
                 "us_graph": us, "GB_per_s": shrink_bytes / us / 1e3})
-    expand_bytes = (y.numel() + b.numel() + out.numel()) * 2
-    yb = y.bfloat16()
-    for rb in (8, 16, 32, 64):
-        def expand():
-            rc = lib.rt_lora_expand(
-                yb.data_ptr(), b.data_ptr(), idx.data_ptr(), live.data_ptr(),
-                out.data_ptr(), rows, r, d, 1, rb, 1, 1,
-                build.stream_handle(x.device))
-            assert rc == 0, rc
-        us = graph_us(torch, expand, flush)
-        res["expand"].append({"row_blocks": rb, "blocks": rb * (d // 256),
-                              "us_graph": us,
-                              "GB_per_s": expand_bytes / us / 1e3})
     res["shrink_matmul_us_graph"] = graph_us(
         torch, lambda: torch.matmul(x, a[0]), flush)
-    res["expand_matmul_us_graph"] = graph_us(
-        torch, lambda: torch.matmul(yb, b[0]), flush)
+    yb = bgmv.lora_shrink(x, a, idx, live).bfloat16()
     try:
         from torch.profiler import ProfilerActivity, _ExperimentalConfig, \
             profile
@@ -876,6 +1043,18 @@ def main() -> int:
     if sys.argv[1:2] == ["--lora-probe"]:
         print("LORA-PROBE", json.dumps(lora_probe()), flush=True)
         return 0
+    if sys.argv[1:2] == ["--expand-probe"]:
+        print("EXPAND-PROBE", json.dumps(expand_probe()), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--expand-tree"]:
+        print("EXPAND", sys.argv[2], json.dumps(expand_tree(sys.argv[2])),
+              flush=True)
+        return 0
+    if sys.argv[1:2] == ["--build-tree"]:
+        sys.path.insert(0, str(Path(sys.argv[2]) / "src"))
+        from repro_torch.kernels import build
+        build.library()
+        return 0
     if sys.argv[1:2] == ["--lora-tree"]:
         print("LORA", sys.argv[2], json.dumps(lora_tree(sys.argv[2])),
               flush=True)
@@ -898,6 +1077,9 @@ def main() -> int:
     elif sys.argv[1:2] == ["--lora"] and len(sys.argv) >= 3:
         trees = [sys.argv[2], here, *sys.argv[3:]]
         mode = "--lora-tree"
+    elif sys.argv[1:2] == ["--expand"] and len(sys.argv) >= 3:
+        trees = [sys.argv[2], here, *sys.argv[3:]]
+        mode = "--expand-tree"
     elif len(sys.argv) == 2 and not sys.argv[1].startswith("--"):
         trees, mode = [sys.argv[1], here], "--tree"
     else:
@@ -907,6 +1089,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
+    builds = [subprocess.Popen([sys.executable, __file__, "--build-tree",
+                                tree]) for tree in trees]
+    if any(p.wait() for p in builds):
+        return 1
     for tree in trees + trees[::-1]:
         subprocess.run([sys.executable, __file__, mode, tree], check=True)
     return 0

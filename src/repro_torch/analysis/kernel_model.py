@@ -25,7 +25,9 @@ footprint, except where they choose a path: each LoRA kernel is
 modelled at two decode batches (8 rows and the decode paths' largest,
 64) and at three row counts, so every path appears (the shrink's
 decode blocks, its row tiles of 64 and of 128 rows, split over a
-cluster of blocks and whole). `launches(case)`
+cluster of blocks and whole; the expand's decode blocks and its row
+tiles: the persistent wgmma kernel's tiles of 64 and 128 columns in
+bf16 at d_out a multiple of 8, the mma.sync kernel otherwise). `launches(case)`
 gives each kernel of the config's serving and training path as a
 `Launch`: the C entry point's shape arguments, the path, and the
 refusal (None: the wrapper takes it).
@@ -152,15 +154,17 @@ def _lora_launches(case: Case, sms: int) -> Iterator[Launch]:
                      slots=case.n_slots, tile=sp.tile, d_chunk=sp.d_chunk,
                      split=sp.split),
                 bgmv.shrink_refusal(d_in, case.r_pad), "bgmv.shrink_refusal")
-            rb = bgmv.expand_plan(rows, d_out, sms)
-            # the decode kernel takes the shrink's f32 y (ops.lora_delta)
-            y_dtype = torch.float32 if rb == 0 else case.dtype
+            ep = bgmv.expand_plan(rows, d_out, sms, case.dtype)
+            # the decode and wgmma kernels take the shrink's f32 y
+            # (ops.lora_delta); the mma.sync row tiles y in B's dtype
+            y_dtype = torch.float32 if ep.grid == 0 or ep.cols \
+                else case.dtype
             yield Launch(
                 case.config, "lora_expand",
-                ("decode" if rb == 0 else "row tiles")
+                ("decode" if ep.grid == 0 else "row tiles")
                 + ("" if d_out % 8 == 0 else " tail"), case.dtype,
                 dict(rows=rows, r_max=case.r_pad, d_out=d_out,
-                     row_blocks=rb, y_dtype=y_dtype),
+                     blocks=ep.grid, cols=ep.cols, y_dtype=y_dtype),
                 bgmv.expand_refusal(case.r_pad, d_out),
                 "bgmv.expand_refusal")
 

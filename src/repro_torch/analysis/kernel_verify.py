@@ -116,7 +116,7 @@ def _describe(lib, launch: kernel_model.Launch) -> List[Dict[str, int]]:
                                      a["split"], dt, out)
     elif launch.kernel == "lora_expand":
         rc = lib.rt_lora_expand_info(a["rows"], a["r_max"], a["d_out"],
-                                     a["row_blocks"], dt,
+                                     a["blocks"], a["cols"], dt,
                                      build.DTYPE_CODE[a["y_dtype"]], out)
     elif launch.kernel == "paged_attention":
         rc = lib.rt_paged_attention_info(a["B"], a["H"], a["KV"], a["ps"],
@@ -195,6 +195,16 @@ def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
                     findings.append(f"{where}: no cluster of {fp.cluster} "
                                     f"blocks fits on the card "
                                     f"({fp.max_clusters})")
+                if launch.kernel == "lora_expand" and launch.args["cols"]:
+                    a = launch.args
+                    want = bgmv.expand_plan(a["rows"], a["d_out"], sms,
+                                            launch.dtype)
+                    if (r["grid_x"], r["grid_y"], r["grid_z"]) != \
+                            (want.grid, 1, 1):
+                        findings.append(
+                            f"{where}: grid {r['grid_x']} x {r['grid_y']} x "
+                            f"{r['grid_z']}, not the persistent "
+                            f"{want.grid} of expand_plan")
                 if launch.kernel == "flash_attention" and \
                         launch.dtype == torch.bfloat16:
                     a = launch.args
@@ -449,21 +459,26 @@ def shrink_path(lib, name, ins, poisoned, plan, rows_told=None,
                 {"y": want})
 
 
-def expand_path(lib, name, ins, poisoned, row_blocks, rows_told=None,
+def expand_path(lib, name, ins, poisoned, plan, rows_told=None,
                 y32=None):
-    """y32 (default: on the decode path, as `ops.lora_delta` launches
-    it): the expand takes the f32 y and rounds it as it loads it; the
-    inputs' f32 y holds exactly their y in B's dtype."""
+    """`plan`: a `bgmv.ExpandPlan`. y32 (default: on the decode and the
+    wgmma paths, as `ops.lora_delta` launches them): the expand takes the
+    f32 y and rounds it as it loads it; the inputs' f32 y holds exactly
+    their y in B's dtype. The wgmma kernel stores through a tensor map of
+    the (told rows, d_out) output, so a launch told a row more writes it
+    into the guard band."""
     rows, (_, r_max, d_out) = ins["rows"], ins["b"].shape
     told = rows if rows_told is None else rows_told
-    key = "y32" if (row_blocks == 0 if y32 is None else y32) else "y"
+    f32_y = plan.grid == 0 or plan.cols > 0
+    key = "y32" if (f32_y if y32 is None else y32) else "y"
 
     def launch(i, outs):
         rc = lib.rt_lora_expand(
             i[key].data_ptr(), i["b"].data_ptr(), i["idx"].data_ptr(),
             i["live"].data_ptr(), outs["out"].t.data_ptr(), told, r_max,
-            d_out, i["slots"], row_blocks, build.DTYPE_CODE[i["b"].dtype],
-            build.DTYPE_CODE[i[key].dtype], _stream())
+            d_out, i["slots"], plan.grid, plan.cols,
+            build.DTYPE_CODE[i["b"].dtype], build.DTYPE_CODE[i[key].dtype],
+            _stream())
         build.check_launch(rc, name)
 
     want = ref.lora_expand_ref(ins["y"][:rows], ins["b"], ins["idx"][:rows],
@@ -499,6 +514,12 @@ def lora_paths(lib, sms) -> List[Path]:
              ("train bf16", 4096, 4096, 4096, 64, (64,), 16, bf, 2048),
              ("prefill r_max 128 bf16", 300, 512, 1024, 128,
               (128, 16, 100, 8), 16, bf, 17),
+             # the wgmma expand: the yi-9b chunk's one slot at d_out 512,
+             # a column tile past d_out (136) and MBGMV rank blocks of 4
+             # (live widths that end inside an 8-row group of B)
+             ("chunk k/v bf16", 512, 1024, 512, 64, (64,), 16, bf, 256),
+             ("prefill d_out 136 rank blocks of 4 bf16", 300, 256, 136, 24,
+              (24, 3, 9, 1), 4, bf, 17),
              ("decode f32", 8, 256, 136, 24, (24, 3, 9, 1), 8, f32, 1),
              ("prefill f32", 300, 256, 136, 24, (24, 3, 9, 1), 8, f32, 17),
              # tails: d_in and d_out no multiple of 8 (element copies)
@@ -515,13 +536,17 @@ def lora_paths(lib, sms) -> List[Path]:
         kind = "decode" if sp.tile == 0 else f"tile {sp.tile} x{sp.split}"
         out.append(shrink_path(lib, f"lora_shrink[{kind}] {label}", clean,
                                pois, sp))
-        rb_ = bgmv.expand_plan(rows, d_out, sms)
-        kind = "decode f32 y" if rb_ == 0 else f"row tiles r_max {r_max}"
-        out.append(expand_path(lib, f"lora_expand[{kind}] {label}", clean,
-                               pois, rb_))
-        if rb_ == 0:                       # y in B's dtype too
-            out.append(expand_path(lib, f"lora_expand[decode] {label}",
-                                   clean, pois, rb_, y32=False))
+        ep = bgmv.expand_plan(rows, d_out, sms, dt)
+        kind = ("decode" if ep.grid == 0 else
+                f"wgmma tiles of {ep.cols}" if ep.cols else "row tiles") + \
+            f" r_max {r_max}"
+        f32_y = ep.grid == 0 or ep.cols > 0
+        out.append(expand_path(lib, f"lora_expand[{kind}"
+                               + (" f32 y" if f32_y else "") + f"] {label}",
+                               clean, pois, ep))
+        if f32_y:                          # y in B's dtype too
+            out.append(expand_path(lib, f"lora_expand[{kind}] {label}",
+                                   clean, pois, ep, y32=False))
     return out
 
 
@@ -724,7 +749,7 @@ def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
         clean, pois = lora_inputs(rows, d_in, d_out, 64, (64, 16, 33, 8),
                                   16, torch.bfloat16, seg, seed=rows + 1)
         sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms, 64)
-        rb = bgmv.expand_plan(rows, d_out, sms)
+        rb = bgmv.expand_plan(rows, d_out, sms, torch.bfloat16)
         for told, what in ((rows + 1, "one row more"),
                            (rows - 1, "one row fewer")):
             out.append((f"lora_shrink {label}: told {what}", check_path(

@@ -215,7 +215,9 @@ def _lora_apply_dist(x, ab, lora_idx, ranks, mode, rank_block):
         y = ops.lora_shrink_op(x.reshape(B * T, d_in), a, idx, live)
         if placed.get("lora_in"):
             y = shd.sum_over(y, shd.group_of(mesh, placed["lora_in"]))
-        # the expand rounds f32 y to the pool's dtype (as lora_delta)
+        # f32 y goes to the expand, which rounds it to the pool's dtype as
+        # it loads it (the decode and wgmma kernels: no cast launch; the
+        # mma.sync f32 / tail tiles cast in the wrapper), as lora_delta
         y = y if b.dtype == x.dtype else y.to(x.dtype)
         return ops.lora_expand_op(y, b, idx, live).reshape(B, T, -1)
 

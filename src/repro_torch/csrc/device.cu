@@ -3,6 +3,9 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+#include "tma.cuh"
+
 // out[0 : 6]: shared memory a block may opt in to, shared memory an SM,
 // registers an SM, registers a block, threads an SM, SMs.
 extern "C" int rt_device_limits(int device, long long* out) {
@@ -61,6 +64,90 @@ extern "C" int rt_empty(int pdl, int blocks, int cluster, void* stream) {
       cudaLaunchKernelExC(&cfg, (const void*)empty_kernel, args);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
+}
+
+namespace {
+constexpr int kProbeRows = 64, kProbeCols = 128;   // a tile: 16 KB of bf16
+constexpr int kProbeBytes = kProbeRows * kProbeCols * 2;
+
+// Writes every (64 x 128) tile of a (rows, cols) bf16 matrix from shared
+// memory, each block a contiguous run of the tiles in column-block order
+// (the walk of the persistent expand), through two staged tiles: by TMA
+// bulk stores (kTma; a stage is written again once its store has read it)
+// or by 16-byte st.global a thread. What a tile holds is the block's id.
+template <bool kTma>
+__global__ void __launch_bounds__(128) store_probe_kernel(
+    const __grid_constant__ CUtensorMap map, __nv_bfloat16* out, int rows,
+    int cols) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* st =
+      smem_raw + ((1024 - (rt::smem_u32(smem_raw) & 1023)) & 1023);
+  const int t = threadIdx.x;
+  for (int i = t; i < 2 * kProbeBytes / 16; i += 128)
+    reinterpret_cast<uint4*>(st)[i] = make_uint4(blockIdx.x, i, 0u, 0u);
+  rt::fence_proxy_async();
+  __syncthreads();
+  const int rt_n = (rows + kProbeRows - 1) / kProbeRows;
+  const long long tiles =
+      (long long)rt_n * ((cols + kProbeCols - 1) / kProbeCols);
+  const int w0 = (int)(tiles * blockIdx.x / gridDim.x);
+  const int w1 = (int)(tiles * (blockIdx.x + 1) / gridDim.x);
+  for (int w = w0; w < w1; ++w) {
+    const int row0 = w % rt_n * kProbeRows, n0 = w / rt_n * kProbeCols;
+    const unsigned char* src = st + (w & 1) * kProbeBytes;
+    if constexpr (kTma) {
+      if (t == 0) {
+        rt::bulk_wait_read<1>();
+        for (int x = 0; x < kProbeCols / 64; ++x)
+          rt::tma_store_4d(&map, src + x * kProbeRows * 128, n0 + 64 * x,
+                           row0, 0, 0);
+        rt::bulk_commit();
+      }
+    } else {
+      for (int i = t; i < kProbeBytes / 16; i += 128) {
+        const int r = i / (kProbeCols / 8), c = i % (kProbeCols / 8) * 8;
+        if (row0 + r < rows && n0 + c < cols)
+          *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * cols + n0 +
+                                    c) =
+              reinterpret_cast<const uint4*>(src)[i];
+      }
+    }
+  }
+  if (kTma && t == 0) rt::bulk_wait<0>();
+}
+}  // namespace
+
+// One launch of the store probe on `stream`: `blocks` blocks write the
+// (rows, cols) bf16 matrix `out` (cols a multiple of 8, out 16-byte
+// aligned) by TMA bulk stores (tma 1) or 16-byte st.global (tma 0): how
+// fast the card takes a stream of writes from shared memory, as the
+// expand's epilogue issues them.
+extern "C" int rt_store_probe(void* out, int rows, int cols, int tma,
+                              int blocks, void* stream) {
+  if (rows <= 0 || cols <= 0 || cols % 8 != 0 || blocks <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map = {};
+  if (tma) {
+    if (rt::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, 1, 1};
+    const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                   dims[0] * dims[1] * 2};
+    const cuuint32_t box[4] = {64, kProbeRows, 1, 1};
+    const cuuint32_t estr[4] = {1, 1, 1, 1};
+    if (rt::encode_tiled()(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, out,
+                           dims, strides, box, estr,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           CU_TENSOR_MAP_SWIZZLE_128B,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  const void* fn = tma ? (const void*)store_probe_kernel<true>
+                       : (const void*)store_probe_kernel<false>;
+  rt::Launch l{fn, dim3(blocks), 128, 2 * kProbeBytes + 1024};
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  void* args[] = {&map, &o, &rows, &cols};
+  return (int)rt::launch(l, args, static_cast<cudaStream_t>(stream));
 }
 
 // out[0 : 3]: the nodes of a CUDA graph (a cudaGraph_t, e.g. a captured

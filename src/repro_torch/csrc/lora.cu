@@ -69,9 +69,36 @@
 //    rows), so the design cuts round trips rather than bytes.
 //
 // The expand is bound by bytes too, and by its output: at yi-9b's prefill
-// (d_out 4096) out is 268 MB against 4 MB each of y and B. Two launch
-// shapes, chosen on the host from `rows` (kernels/bgmv.py: expand_plan):
-//  - Row tiles (prefill, chunks, training). A block owns 256 output
+// (d_out 4096) out is 268 MB against 4 MB each of y and B. Three launch
+// shapes, chosen on the host from `rows`, B's dtype and d_out
+// (kernels/bgmv.py: expand_plan):
+//  - Row tiles in bf16 at a d_out that is a multiple of 8 (prefill,
+//    chunks, training): a persistent kernel (lora_expand_wgmma_kernel),
+//    two blocks an SM, each walking a contiguous run of 64-row x 64- or
+//    128-column tiles, column tile by column tile, so B[s][:, columns]
+//    stays loaded while the slot's rows run on. A producer warp copies
+//    idx and live a few tiles ahead, finds each tile's slots (a warp vote
+//    where one slot holds every row) and keeps TMA loads of y in flight
+//    through a ring of 5-8 stages, one 128-byte box of y's columns a
+//    stage (64 bf16, or 32 of the shrink's f32 y, rounded to bf16 as it
+//    is read: no cast launch), and B in two buffers, loaded again only
+//    when (slot, columns, rank chunk) changes; a consumer warpgroup runs
+//    wgmma with y in registers (columns past each row's live width
+//    zeroed), one pass a distinct slot of the tile, each keeping its
+//    slot's rows; the tile is rounded once into one of two staged tiles
+//    and leaves by TMA stores that drain under the next tile's work. Its
+//    output is what bounds it: the H100 takes such a stream at ~2.6-2.9
+//    TB/s (a store-only kernel, `kernel_ab.py --expand-probe`), where
+//    the mma.sync blocks below, which stored a tile and then computed
+//    the next, reached 1.5 at one slot. The ring is deep because y's
+//    loads are slow under that stream: designs with a ring of y and B
+//    together (3 stages) and with y loaded into registers a tile ahead
+//    left the consumers waiting for y (the one-slot training shape 16-20
+//    us in a graph against 15 now). Launched with programmatic dependent
+//    launch: a block sets up while the kernel ahead finishes and reads
+//    nothing before it has.
+//  - Row tiles otherwise (f32; d_out no multiple of 8, which TMA's
+//    16-byte strides refuse). A block owns 256 output
 //    columns and walks every row_blocks-th tile of 64 consecutive rows,
 //    with the next tile's y and slots loading (cp.async) while it works on
 //    the current one. For each distinct slot of a tile (prefill repeats
@@ -83,13 +110,7 @@
 //    does not change, so B is read about once per block instead of once
 //    per row; every element of out is written by one block, its slot's
 //    rows 16 bytes a thread from the staged tile. f32 takes the same tiles
-//    on CUDA cores. The output's 32 KB a tile are most of the bytes, and
-//    at one slot (training: 4,096 rows x d_out 4,096, 256 blocks over 132
-//    SMs) what bounds a launch is that a block's stores of a tile do not
-//    overlap its next tile's product: 22-23 us in a CUDA graph on the
-//    H100 against 10.3 us of bytes. Writing whole one-slot tiles with TMA
-//    bulk stores that drain under the next tile's work measured no faster
-//    there, so the one store path stays.
+//    on CUDA cores.
 //  - Decode (up to 64 rows). One block per (row, 256 columns): each lane
 //    owns 8 columns, read from one rank row of B in a 16-byte load, the
 //    8 warps split the live rank rows, their partials added in warp
@@ -111,7 +132,7 @@
 // row-tile and decode kernels are instantiated with element copies and
 // stores (kVec false), zero past the width, so a partial k-step of 16 sums
 // zeros. TMA needs 16-byte strides, so only such widths take the wgmma
-// shrink. r_max
+// shrink and expand. r_max
 // stays a multiple of 8 (the pool pads it: kernels/bgmv.py padded_rank).
 // Every sum runs in a fixed order (no atomics): results repeat bitwise.
 #include <type_traits>
@@ -1371,16 +1392,447 @@ __global__ void __launch_bounds__(
   rt::cp_async_wait<0>();
 }
 
+// f32, and bf16 at a d_out that is no multiple of 8 (the wgmma kernel
+// takes the others)
 template <typename T>
 rt::Launch expand_tile_launch(int r_max, int d_out, int row_blocks) {
-  const bool multi = r_max > kER, vec = d_out % rt::kVec == 0;
+  const bool multi = r_max > kER;
   const void* fn =
-      multi ? (vec ? (const void*)lora_expand_tile_kernel<T, true, true>
-                   : (const void*)lora_expand_tile_kernel<T, true, false>)
-            : (vec ? (const void*)lora_expand_tile_kernel<T, false, true>
-                   : (const void*)lora_expand_tile_kernel<T, false, false>);
+      multi ? (const void*)lora_expand_tile_kernel<T, true, false>
+            : (const void*)lora_expand_tile_kernel<T, false, false>;
+  if constexpr (std::is_same<T, float>::value)
+    if (d_out % rt::kVec == 0)
+      fn = multi ? (const void*)lora_expand_tile_kernel<T, true, true>
+                 : (const void*)lora_expand_tile_kernel<T, false, true>;
   return {fn, dim3((d_out + kEN - 1) / kEN, row_blocks), kEThr,
           expand_tile_smem<T>()};
+}
+
+// ---------------------------- expand: persistent TMA + wgmma (bf16 B) ----
+
+constexpr int kXM = 64;                     // rows a tile: wgmma's M
+constexpr int kXThreads = 160;              // a consumer warpgroup + a warp
+constexpr int kXBlocksPerSm = 2;
+constexpr int kXPre = 4;                    // tiles of idx / live in flight
+constexpr int kXMaxStages = 8;
+// dynamic shared memory a block: an SM's 228 KB over its blocks, less
+// the 1 KB the runtime keeps a block and the static part (8 KB at most)
+constexpr int kXBudget = 233472 / kXBlocksPerSm - 9216;
+
+// An item: one rank chunk (a 128-byte box of y's columns) of one slot's
+// pass over one tile, as the producer warp hands it to the consumers.
+enum { kXFirst = 1, kXLastChunk = 2, kXLastOfTile = 4, kXEnd = 8 };
+struct XItem {
+  int row0, n0;          // the tile: rows [row0, +kXM), columns [n0, +BN)
+  int s;                 // the pass's slot (-1: a tile with no pass)
+  int k0, ksteps;        // rank rows [k0, k0 + 16 ksteps) (0: none)
+  int flags;
+  int bbuf;              // the B buffer it reads
+  int sl[kXM], lv[kXM];  // each row's slot (-1: a zero row), live width
+};
+
+// y of type TY (B's bf16, or the shrink's f32, rounded to bf16 as it is
+// read), BN output columns a tile. A chunk is kK = one 128-byte box of
+// y's columns (64 bf16, 32 f32): a ring stage holds y[tile rows, k0 : k0
+// + kK]; two B buffers hold B[s][k0 : k0 + kK, n0 : n0 + BN] (boxes of
+// 64 columns x 8 rank rows), all 128-byte swizzled as TMA writes them;
+// two staged output tiles.
+template <typename TY, int BN>
+struct XCfg {
+  static constexpr int kK = 128 / (int)sizeof(TY);
+  static constexpr int kYBytes = kXM * 128;
+  static constexpr int kBBytes = kK * BN * 2;
+  static constexpr int kOutBytes = kXM * BN * 2;
+  static constexpr int kFixed = 2 * kBBytes + 2 * kOutBytes + 1024;
+  static constexpr int kFit = (kXBudget - kFixed) / kYBytes;
+  static constexpr int kStages = kFit > kXMaxStages ? kXMaxStages : kFit;
+  static_assert(kStages >= 4, "a ring of four stages at least");
+  static constexpr size_t kSmem = (size_t)kStages * kYBytes + kFixed;
+};
+
+// A warp's A fragments of y for k-step kk of a stage (rows 16 warp + g
+// and + 8, g = lane / 4, as wgmma's register A takes them: mma.sync
+// m16n8k16's layout), rounded to bf16 (f32 y: what y.to(bf16) gives).
+__device__ __forceinline__ void y_frags(const bf16*, const unsigned char* ys,
+                                        int kk, int warp, int lane,
+                                        uint32_t (&a)[4]) {
+  const int row = warp * 16 + (lane & 15), chunk = 2 * kk + (lane >> 4);
+  rt::ldsm_x4(a, ys + row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+__device__ __forceinline__ void y_frags(const float*, const unsigned char* ys,
+                                        int kk, int warp, int lane,
+                                        uint32_t (&a)[4]) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {             // row + 8 (i & 1), col + 8 (i / 2)
+    const int row = warp * 16 + g + 8 * (i & 1);
+    const int chunk = 4 * kk + (q >> 1) + 2 * (i >> 1);
+    const float2 v = *reinterpret_cast<const float2*>(
+        ys + row * 128 + ((chunk ^ (row & 7)) << 4) + (q & 1) * 8);
+    a[i] = rt::pack_bf16(v.x, v.y);
+  }
+}
+
+// The two bf16 of a fragment register that are at or past a row's live
+// width lv (columns c, c + 1) zeroed.
+__device__ __forceinline__ unsigned live_mask(int c, int lv) {
+  return (c < lv ? 0x0000ffffu : 0u) | (c + 1 < lv ? 0xffff0000u : 0u);
+}
+
+// out = y @ B[idx] row by row, persistent: block b walks the tiles [T b /
+// G, T (b + 1) / G) of the T = row tiles x column tiles, numbered column
+// tile by column tile, so a block's tiles share their columns and, where
+// a slot's rows run on (prefill, training), their slot. Warp 4 (the
+// producer) keeps each tile's idx and live copying kXPre tiles ahead
+// (cp.async), finds the tile's distinct slots in row order (one slot: a
+// warp vote; several: warp match and ballots) and the widest live width
+// of each, rounded up to 8 (ncol), and hands out one item a (slot, rank
+// chunk below ncol) through a ring of stages (an mbarrier full and empty
+// each): y's chunk by TMA (zero past `rows` and r_max; a tile's first
+// chunk as soon as its stage is free, before its slots are known). B's
+// chunk stays in one of two buffers while items ask for it (slot,
+// columns, rank chunk); another chunk goes into the buffer read least
+// recently, once the consumers have released the last item that read
+// it: B's rank rows below ncol in 8-row boxes, the 8-row group past an
+// odd ncol / 8 zeroed in shared memory (B is never read past ncol).
+// Warpgroup 0 (the consumers) reads y's fragments into registers,
+// rounding f32 y to bf16 (what y.to(bf16) gives) and zeroing columns at
+// or past each row's live width, and runs wgmma m64nBNk16 (register A, B
+// from its buffer, f32 accumulate) over the chunk's k-steps; at a pass's
+// last chunk each thread writes its rows of that pass's slot, rounded
+// once to bf16, into the staged output tile (128-byte swizzled), so a
+// tile of several slots is computed once a slot and stored once; rows
+// without an adapter or past `rows` are zeros. The tile leaves by TMA
+// stores (clipped at `rows` and d_out) from one of two stages; a stage is
+// written again only once the store that read it has (two tiles back),
+// so two stores drain under the next tile's work. Every element of out is
+// written by one store; the sums run in a fixed order (no atomics), so
+// results repeat bitwise.
+template <typename TY, int BN>
+__global__ void __launch_bounds__(kXThreads, kXBlocksPerSm)
+    lora_expand_wgmma_kernel(const __grid_constant__ CUtensorMap ty,
+                             const __grid_constant__ CUtensorMap tb,
+                             const __grid_constant__ CUtensorMap tout,
+                             const int* __restrict__ idx,
+                             const int* __restrict__ live, int rows,
+                             int r_max, int d_out, int slots) {
+  using C = XCfg<TY, BN>;
+  constexpr int S = C::kStages;
+  constexpr int K = C::kK;                  // rank rows a chunk
+  constexpr int NB = BN / 64;               // 64-column boxes a tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (rt::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* bbase = ring + S * C::kYBytes;
+  unsigned char* outs = bbase + 2 * C::kBBytes;
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  __shared__ XItem meta[S];
+  __shared__ int pidx[kXPre][kXM], plive[kXPre][kXM];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      rt::mbar_init(&full[i], 1);
+      rt::mbar_init(&empty[i], 128);        // every consumer thread
+    }
+    rt::fence_barrier_init();
+  }
+  __syncthreads();
+  const int row_tiles = (rows + kXM - 1) / kXM;
+  const long long tiles =
+      (long long)row_tiles * ((d_out + BN - 1) / BN);
+  const int w0 = (int)(tiles * blockIdx.x / gridDim.x);
+  const int w1 = (int)(tiles * (blockIdx.x + 1) / gridDim.x);
+
+  if (warp == 4) {
+    // ------------------------------------------------------ producer ----
+    if (lane == 0) {
+      rt::prefetch_map(&ty);
+      rt::prefetch_map(&tb);
+      rt::prefetch_map(&tout);
+    }
+    int item = 0;
+    // tile w's idx and live into the copy ring (rows past `rows` read
+    // nothing), one commit group a tile, none of it past the run
+    auto fetch_rows = [&](int w) {
+      if (w < w1) {
+        const int row0 = w % row_tiles * kXM, slot = (w - w0) % kXPre;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + lane + 32 * h;
+          const bool in = r < rows;
+          rt::cp_async4z(&pidx[slot][lane + 32 * h], in ? idx + r : idx, in);
+          rt::cp_async4z(&plive[slot][lane + 32 * h], in ? live + r : live,
+                         in);
+        }
+      }
+      rt::cp_async_commit();
+    };
+    // wait for stage item % S; with y0 (a tile's first item, whose chunk
+    // is rank columns [0, K)), load the tile's y chunk into it at once,
+    // before the tile's slots are known
+    auto open_stage = [&](int row0, bool y0) {
+      const int st = item % S;
+      rt::mbar_wait(&empty[st], ((item / S) & 1) ^ 1);
+      if (y0 && lane == 0) {
+        rt::mbar_add_tx(&full[st], C::kYBytes);
+        rt::tma_load_4d(ring + st * C::kYBytes, &ty, &full[st], 0, row0, 0,
+                        0);
+      }
+    };
+    // the B chunk each buffer holds (slot, n0, k0, rank rows), and the
+    // last item that read it (-1: none)
+    int4 key0 = make_int4(-1, -1, -1, -1), key1 = key0;
+    int use0 = -1, use1 = -1;
+    // write the item into the stage open_stage opened (every lane: its
+    // rows) and, with ksteps > 0, load its y chunk (unless open_stage did)
+    // and pick its B buffer, loading the chunk where neither holds it
+    auto emit = [&](int row0, int n0, int s, int k0, int ncol, int flags,
+                    const int (&sl)[2], const int (&lv)[2], bool y_done) {
+      const int st = item % S;
+      XItem& m = meta[st];
+      const int nrows = max(0, min(K, ncol - k0));   // B's rank rows
+      const int ksteps = (nrows + 15) / 16;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m.sl[lane + 32 * h] = sl[h];
+        m.lv[lane + 32 * h] = lv[h];
+      }
+      const int nbox = min(NB, (d_out - n0 + 63) / 64);  // inside d_out
+      const int4 key = make_int4(s, n0, k0, nrows);
+      auto holds = [&](const int4& k) {
+        return k.x == key.x && k.y == key.y && k.z == key.z && k.w == key.w;
+      };
+      int bb = 0;
+      bool load_b = false;
+      if (ksteps > 0) {
+        bb = holds(key0) ? 0 : holds(key1) ? 1 : -1;
+        if (bb < 0) {
+          bb = use0 <= use1 ? 0 : 1;        // the one read least recently
+          const int lu = bb ? use1 : use0;
+          if (lu >= 0 && lu > item - S)     // its reader may still run
+            rt::mbar_wait(&empty[lu % S], (lu / S) & 1);
+          load_b = true;
+          (bb ? key1 : key0) = key;
+          if (nrows % 16 == 8) {            // the group past B's rows: 0
+            unsigned char* bs = bbase + bb * C::kBBytes;
+            for (int i = lane; i < nbox * 64; i += 32)
+              reinterpret_cast<uint4*>(bs + (i >> 6) * K * 128 +
+                                       (nrows / 8) * 1024)[i & 63] =
+                  make_uint4(0u, 0u, 0u, 0u);
+            rt::fence_proxy_async();        // before the consumers' wgmma
+          }
+        }
+        (bb ? use1 : use0) = item;
+      }
+      const bool load_y = ksteps > 0 && !y_done;
+      __syncwarp();
+      if (lane == 0) {
+        m.row0 = row0;
+        m.n0 = n0;
+        m.s = s;
+        m.k0 = k0;
+        m.ksteps = ksteps;
+        m.flags = flags;
+        m.bbuf = bb;
+        rt::mbar_expect_tx(&full[st],       // the stage's one arrival
+                           (load_y ? C::kYBytes : 0) +
+                               (load_b ? nbox * (nrows / 8) * 1024 : 0));
+        if (load_y)
+          rt::tma_load_4d(ring + st * C::kYBytes, &ty, &full[st], k0, row0,
+                          0, 0);
+      }
+      __syncwarp();                         // B's copies after the expect
+      if (load_b) {
+        const int groups = nrows / 8;
+        unsigned char* bs = bbase + bb * C::kBBytes;
+        for (int i = lane; i < nbox * groups; i += 32)
+          rt::tma_load_4d(bs + (i / groups) * K * 128 + (i % groups) * 1024,
+                          &tb, &full[st], n0 + 64 * (i / groups),
+                          k0 + 8 * (i % groups), s, 0);
+      }
+      ++item;
+    };
+    // a pass over slot s of widest live width `widest`: an item a chunk
+    auto pass = [&](int row0, int n0, int s, int widest, bool last_pass,
+                    const int (&sl)[2], const int (&lv)[2], bool y_done) {
+      const int ncol = (widest + 7) / 8 * 8;
+      const int chunks = max(1, (ncol + K - 1) / K);
+      for (int c = 0; c < chunks; ++c) {
+        const bool last = c == chunks - 1 && last_pass;
+        if (c > 0) open_stage(row0, false);
+        emit(row0, n0, s, c * K, ncol,
+             (c == 0 ? kXFirst : 0) | (c == chunks - 1 ? kXLastChunk : 0) |
+                 (last ? kXLastOfTile : 0),
+             sl, lv, y_done && c == 0);
+      }
+    };
+
+    // launched with programmatic dependent launch: the block sets up
+    // while the kernel ahead (the shrink) finishes, and reads nothing
+    // before it has (any input may be that kernel's output)
+    rt::grid_dep_wait();
+    for (int w = w0; w < w0 + kXPre; ++w) fetch_rows(w);
+    int sl[2] = {-1, -1}, lv[2] = {0, 0};
+    for (int w = w0; w < w1; ++w) {
+      const int row0 = w % row_tiles * kXM, n0 = w / row_tiles * BN;
+      open_stage(row0, true);               // y while idx may still copy
+      rt::cp_async_wait<kXPre - 1>();       // tile w's idx and live
+      const int slot = (w - w0) % kXPre;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool in = row0 + lane + 32 * h < rows;
+        sl[h] = in ? pidx[slot][lane + 32 * h] : -1;
+        lv[h] = in ? plive[slot][lane + 32 * h] : 0;
+        if (sl[h] < 0 || sl[h] >= slots) sl[h] = -1;
+        lv[h] = sl[h] < 0 ? 0 : max(0, min(lv[h], r_max));
+      }
+      __syncwarp();
+      asm volatile("" ::: "memory");        // the slot is read before
+      fetch_rows(w + kXPre);                // its next copy lands in it
+      const int s0 = __shfl_sync(0xffffffffu, sl[0], 0);
+      if (__all_sync(0xffffffffu, sl[0] == s0 && sl[1] == s0)) {
+        // one slot, or none, on every row: one pass
+        if (s0 < 0)
+          emit(row0, n0, -1, 0, 0, kXFirst | kXLastChunk | kXLastOfTile, sl,
+               lv, true);
+        else
+          pass(row0, n0, s0, __reduce_max_sync(0xffffffffu,
+                                               max(lv[0], lv[1])),
+               true, sl, lv, true);
+        continue;
+      }
+      // the first row of each distinct slot, in row order
+      bool first[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned peers = __match_any_sync(0xffffffffu, sl[h]);
+        first[h] = sl[h] >= 0 && lane == __ffs(peers) - 1;
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        first[1] &= __shfl_sync(0xffffffffu, sl[0], j) != sl[1];
+      unsigned long long f =
+          __ballot_sync(0xffffffffu, first[0]) |
+          (unsigned long long)__ballot_sync(0xffffffffu, first[1]) << 32;
+      bool y_done = true;                   // the tile's first item's y
+      while (f != 0) {                      // uniform: a pass a slot
+        const int u = __ffsll((long long)f) - 1;
+        f &= f - 1;
+        const int s = __shfl_sync(0xffffffffu, u < 32 ? sl[0] : sl[1],
+                                  u & 31);
+        if (!y_done) open_stage(row0, false);
+        pass(row0, n0, s,
+             __reduce_max_sync(0xffffffffu, max(sl[0] == s ? lv[0] : 0,
+                                                sl[1] == s ? lv[1] : 0)),
+             f == 0, sl, lv, y_done);
+        y_done = false;
+      }
+    }
+    rt::cp_async_wait<0>();
+    open_stage(0, false);
+    emit(0, 0, -1, 0, 0, kXEnd, sl, lv, true);   // the end of the walk
+    return;
+  }
+
+  // -------------------------------------------------------- consumers ----
+  const int g = lane >> 2, q = lane & 3;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;  // this thread's rows
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int tile = 0;
+  bool fresh = true;                        // the tile's stage not written
+  for (int item = 0;; ++item) {
+    const int st = item % S;
+    rt::mbar_wait(&full[st], (item / S) & 1);
+    const XItem& m = meta[st];
+    const int flags = m.flags;
+    if (flags & kXEnd) break;
+    const int s = m.s, k0 = m.k0, ksteps = m.ksteps;
+    const int row0 = m.row0, n0 = m.n0;
+    const int sl0 = m.sl[r0], sl1 = m.sl[r1];
+    const int lv0 = m.lv[r0], lv1 = m.lv[r1];
+    if (ksteps > 0) {
+      const unsigned char* ys = ring + st * C::kYBytes;
+      uint32_t a[K / 16][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < K / 16; ++kk) {
+        if (kk >= ksteps) break;
+        y_frags(static_cast<const TY*>(nullptr), ys, kk, warp, lane, a[kk]);
+        const int c = k0 + 16 * kk + 2 * q;
+        a[kk][0] &= live_mask(c, lv0);
+        a[kk][1] &= live_mask(c, lv1);
+        a[kk][2] &= live_mask(c + 8, lv0);
+        a[kk][3] &= live_mask(c + 8, lv1);
+      }
+      // B: MN-major (the transpose bit), a 64-column box of K rank rows
+      // to the next (LBO), 8 rank rows an atom (SBO), a k-step 16 rows on
+      const uint64_t db =
+          rt::smem_desc(bbase + m.bbuf * C::kBBytes, K * 128, 1024, 1);
+#pragma unroll
+      for (int kk = 0; kk < K / 16; ++kk) rt::fence_regs(a[kk]);
+      rt::fence_regs(acc);
+      rt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < K / 16; ++kk)
+        if (kk < ksteps)
+          rt::Wgmma<BN>::template rs<1>(acc, a[kk], db + 128 * kk,
+                                        kk > 0 || !(flags & kXFirst));
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(acc);
+    } else if (flags & kXFirst) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    }
+    rt::mbar_arrive(&empty[st]);            // the stage is read
+    unsigned char* ost = outs + (tile & 1) * C::kOutBytes;
+    // d[4i + 2h + e]: row r0 + 8h, column 8i + 2q + e; into the staged
+    // tile's box i / 8, 16-byte chunk i % 8 of the row, swizzled (h a
+    // constant: acc stays in registers)
+    auto put = [&](auto hc, bool zero) {
+      constexpr int h = decltype(hc)::value;
+      const int r = h ? r1 : r0;
+      unsigned char* rowp = ost + r * 128 + q * 4;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+        *reinterpret_cast<unsigned*>(rowp + (i >> 3) * kXM * 128 +
+                                     (((i & 7) ^ (r & 7)) << 4)) =
+            zero ? 0u : rt::pack_bf16(acc[4 * i + 2 * h],
+                                      acc[4 * i + 2 * h + 1]);
+    };
+    const std::integral_constant<int, 0> top;
+    const std::integral_constant<int, 1> bottom;
+    // before the tile's first write into its stage: the store that read
+    // the stage last (two tiles back) has read it; the tile before's
+    // store may still run, so two stores drain under this tile's work
+    if (fresh && (flags & (kXLastChunk | kXLastOfTile))) {
+      if (tid == 0) rt::bulk_wait_read<1>();
+      rt::named_sync(1, 128);
+      fresh = false;
+    }
+    if (flags & kXLastChunk) {              // the pass's rows, rounded once
+      if (s >= 0 && sl0 == s) put(top, false);
+      if (s >= 0 && sl1 == s) put(bottom, false);
+    }
+    if (flags & kXLastOfTile) {
+      if (sl0 < 0) put(top, true);
+      if (sl1 < 0) put(bottom, true);
+      rt::fence_proxy_async();              // the generic writes -> TMA
+      rt::named_sync(2, 128);
+      if (tid == 0) {
+        if (tile == 0) rt::grid_dep_wait(); // out: the kernels ahead done
+        for (int x = 0; x < NB; ++x)
+          if (n0 + 64 * x < d_out)
+            rt::tma_store_4d(&tout, ost + x * kXM * 128, n0 + 64 * x, row0,
+                             0, 0);
+        rt::bulk_commit();
+      }
+      ++tile;
+      fresh = true;
+    }
+  }
+  if (tid == 0) rt::bulk_wait<0>();         // smem must outlive the stores
 }
 
 // --------------------------------------------------- expand: decode ----
@@ -1641,35 +2093,69 @@ cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
   return cudaSuccess;
 }
 
-// A 4-D bf16 tensor map (`dims` innermost first, each dense in the next)
-// cut into boxes of 64 x `box_rows`, 128-byte swizzled, zero-filled
-// outside the tensor.
-bool bf16_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
-              int box_rows) {
-  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
-                                 dims[0] * dims[1] * dims[2] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kWD, (cuuint32_t)box_rows, 1, 1};
+// A 4-D tensor map of bf16 or (f32) f32 elements (`dims` innermost first,
+// each dense in the next) cut into boxes of 128 bytes x `box_rows`,
+// 128-byte swizzled, zero-filled outside the tensor (a TMA store clips
+// there).
+bool tile_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+              int box_rows, bool f32 = false) {
+  const cuuint64_t e = f32 ? 4 : 2;
+  const cuuint64_t strides[3] = {dims[0] * e, dims[0] * dims[1] * e,
+                                 dims[0] * dims[1] * dims[2] * e};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / e), (cuuint32_t)box_rows, 1,
+                             1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return rt::encode_tiled()(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(ptr), dims, strides, box, estr,
+             map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             4, const_cast<void*>(ptr), dims, strides, box, estr,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <typename TY, int BN>
+rt::Launch wgmma_expand_launch(int blocks) {
+  rt::Launch l{(const void*)lora_expand_wgmma_kernel<TY, BN>, dim3(blocks),
+               kXThreads, XCfg<TY, BN>::kSmem};
+  l.pdl = true;
+  return l;
+}
+
 // The expand's launch for these arguments (see rt_lora_expand).
-cudaError_t expand_launch(int rows, int r_max, int d_out, int row_blocks,
-                          int dtype, int y_dtype, rt::Launch* l) {
+cudaError_t expand_launch(int rows, int r_max, int d_out, int blocks,
+                          int cols, int dtype, int y_dtype, rt::Launch* l) {
   // 16-byte copies of y's rows; B's and out's 16 bytes at a time where
   // d_out is a multiple of 8, element by element otherwise
   if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || d_out <= 0 ||
-      row_blocks < 0)
+      blocks < 0)
     return cudaErrorInvalidValue;
   const bool bf = dtype == rt::kBF16;
   if (!bf && dtype != rt::kF32) return cudaErrorInvalidValue;
-  // y in B's dtype; the decode kernel also takes f32 y (rounded on load)
+  if (cols != 0) {
+    // the persistent wgmma kernel: bf16 B and out, whose rows TMA moves
+    // (16-byte strides: d_out a multiple of 8), y in bf16 or f32
+    if (!bf || d_out % rt::kVec != 0 || blocks < 1 ||
+        (y_dtype != rt::kBF16 && y_dtype != rt::kF32))
+      return cudaErrorInvalidValue;
+    const bool y32 = y_dtype == rt::kF32;
+    if (cols == 64)
+      *l = y32 ? wgmma_expand_launch<float, 64>(blocks)
+               : wgmma_expand_launch<bf16, 64>(blocks);
+    else if (cols == 128)
+      *l = y32 ? wgmma_expand_launch<float, 128>(blocks)
+               : wgmma_expand_launch<bf16, 128>(blocks);
+    else
+      return cudaErrorInvalidValue;
+    return cudaSuccess;
+  }
+  const int row_blocks = blocks;
+  // y in B's dtype; the decode kernel also takes f32 y (rounded on load);
+  // bf16 row tiles at a d_out that is a multiple of 8 are the wgmma
+  // kernel's
   if (y_dtype != dtype && (row_blocks != 0 || y_dtype != rt::kF32))
+    return cudaErrorInvalidValue;
+  if (row_blocks != 0 && bf && d_out % rt::kVec == 0)
     return cudaErrorInvalidValue;
   if (row_blocks == 0) {
     if (rows > kDecRows) return cudaErrorInvalidValue;
@@ -1708,7 +2194,7 @@ extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
     const cuuint64_t xd[4] = {(cuuint64_t)d_in, (cuuint64_t)rows, 1, 1};
     const cuuint64_t ad[4] = {(cuuint64_t)r_max, (cuuint64_t)d_in,
                               (cuuint64_t)max(slots, 1), 1};
-    if (!bf16_map(&tx, x, xd, tile) || !bf16_map(&ta, a, ad, kWD))
+    if (!tile_map(&tx, x, xd, tile) || !tile_map(&ta, a, ad, kWD))
       return (int)cudaErrorInvalidValue;
     void* args[] = {&tx, &ta, &idx, &live, &y, &rows, &d_in, &r_max, &slots,
                     &d_chunk, &split};
@@ -1730,31 +2216,51 @@ extern "C" int rt_lora_shrink_info(int rows, int d_in, int r_max, int slots,
   return (int)(e != cudaSuccess ? e : rt::describe(l, out));
 }
 
-// row_blocks = 0: the decode path (up to 64 rows), a block per (row, 256
+// cols = 64 or 128: the persistent wgmma kernel (bf16 B, d_out a
+// multiple of 8), `blocks` blocks walking tiles of 64 rows x cols columns,
+// y in bf16 or (y_dtype f32) f32, rounded to bf16 as it is read; cols = 0
+// and blocks = 0: the decode path (up to 64 rows), a block per (row, 256
 // output columns), launched with programmatic stream serialization, y in
 // B's dtype or (y_dtype f32) f32, each value rounded to B's dtype as it is
-// loaded; row_blocks > 0: row tiles of kEM rows x kEN
-// columns, row_blocks blocks a column tile, block k taking the tiles k,
-// k + row_blocks, ..., y in B's dtype.
+// loaded; cols = 0 and blocks > 0: the mma.sync row tiles of kEM rows x kEN
+// columns (f32, and widths that are no multiple of 8), `blocks` blocks a
+// column tile, block k taking the tiles k, k + blocks, ..., y in B's
+// dtype.
 extern "C" int rt_lora_expand(const void* y, const void* b, const int* idx,
                               const int* live, void* out, int rows, int r_max,
-                              int d_out, int slots, int row_blocks, int dtype,
-                              int y_dtype, void* stream) {
+                              int d_out, int slots, int blocks, int cols,
+                              int dtype, int y_dtype, void* stream) {
   if (rows == 0) return 0;
   rt::Launch l;
-  const cudaError_t e = expand_launch(rows, r_max, d_out, row_blocks, dtype,
-                                      y_dtype, &l);
+  const cudaError_t e = expand_launch(rows, r_max, d_out, blocks, cols,
+                                      dtype, y_dtype, &l);
   if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols != 0) {
+    // y as (r_max, rows), B as (d_out, r_max, slots), out as (d_out, rows)
+    if (rt::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+    CUtensorMap ty, tb, tout;
+    const cuuint64_t yd[4] = {(cuuint64_t)r_max, (cuuint64_t)rows, 1, 1};
+    const cuuint64_t bd[4] = {(cuuint64_t)d_out, (cuuint64_t)r_max,
+                              (cuuint64_t)max(slots, 1), 1};
+    const cuuint64_t od[4] = {(cuuint64_t)d_out, (cuuint64_t)rows, 1, 1};
+    if (!tile_map(&ty, y, yd, kXM, y_dtype == rt::kF32) ||
+        !tile_map(&tb, b, bd, 8) || !tile_map(&tout, out, od, kXM))
+      return (int)cudaErrorInvalidValue;
+    void* args[] = {&ty, &tb, &tout, &idx, &live, &rows, &r_max, &d_out,
+                    &slots};
+    return (int)rt::launch(l, args, st);
+  }
   void* args[] = {&y, &b, &idx, &live, &out, &rows, &r_max, &d_out, &slots};
-  return (int)rt::launch(l, args, static_cast<cudaStream_t>(stream));
+  return (int)rt::launch(l, args, st);
 }
 
 // rt_lora_expand's launch, described into out[0 : rt::kInfoFields].
 extern "C" int rt_lora_expand_info(int rows, int r_max, int d_out,
-                                   int row_blocks, int dtype, int y_dtype,
-                                   long long* out) {
+                                   int blocks, int cols, int dtype,
+                                   int y_dtype, long long* out) {
   rt::Launch l;
-  const cudaError_t e = expand_launch(rows, r_max, d_out, row_blocks, dtype,
-                                      y_dtype, &l);
+  const cudaError_t e = expand_launch(rows, r_max, d_out, blocks, cols,
+                                      dtype, y_dtype, &l);
   return (int)(e != cudaSuccess ? e : rt::describe(l, out));
 }

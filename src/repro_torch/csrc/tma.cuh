@@ -75,6 +75,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Expect `bytes` more of TMA transactions in the current phase without
+// arriving (the arrival comes later, with mbar_expect_tx or mbar_arrive).
+__device__ __forceinline__ void mbar_add_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Bring a tensor map (a __grid_constant__ kernel parameter) into the
+// descriptor cache before its first TMA.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // One box of shared memory into a 4-D tensor map's box at (c0..c3),
 // innermost first; elements outside the tensor are not written. The copy
 // joins this thread's open bulk group (bulk_commit closes it).

@@ -23,21 +23,24 @@ tiles is bound by how few SMs stream x, not by bytes: the yi-9b chunk
 rows of one slot) 64, on 132 SMs. Where the tiles cannot fill the card,
 `split` blocks of one cluster share a tile over slices of d_in and add
 their partial sums in rank order (no atomics); launches that fill it (the
-32,768-row prefill) keep one block a tile. The expand has two launch
-shapes as well (`expand_plan`): up to DECODE_MAX_ROWS rows one block per
-(row, DECODE_EXPAND_COLS output columns); more rows go in tiles
-of EXPAND_ROWS consecutive rows x EXPAND_COLS columns, each block walking
-every n-th tile of its columns and visiting each tile's distinct slots in
-turn. Its output is most of its bytes, written 16 bytes a thread from a
-staged tile; at one slot a block's stores do not overlap its next tile's
-product, which bounds the training shape. The decode shrink groups the
+32,768-row prefill) keep one block a tile. The expand has three launch
+shapes (`expand_plan`): up to DECODE_MAX_ROWS rows one block per (row,
+DECODE_EXPAND_COLS output columns); more rows in bf16 at a d_out that is
+a multiple of 8 go to a persistent kernel (TMA + wgmma) whose blocks walk
+contiguous runs of EXPAND_ROWS x 64- or 128-column tiles (`expand_walk`),
+one pass a distinct slot of a tile, and store each tile by TMA while the
+next one is computed: its output is most of its bytes, and the stores
+that drain under the work keep the stream going; f32 and other widths go
+to the mma.sync tiles of EXPAND_ROWS rows x EXPAND_COLS columns, each block
+walking every n-th tile of its columns. The decode shrink groups the
 rows by slot, so a slot's A is read once for all its rows. Both decode
 kernels are launched with programmatic dependent launch: each may start
 while the kernel before it finishes (the shrink lets the expand start
 once its loads are done, and the expand prefetches B into L2 before it
-waits for y). The decode expand also takes the shrink's f32 y and rounds
-each value to B's dtype as it loads it, which `y.to(b.dtype)` would give,
-so the pair runs without a cast between its launches.
+waits for y). The decode and wgmma expands also take the shrink's f32 y
+and round each value to B's dtype as they load it, which `y.to(b.dtype)`
+would give, so the pair runs without a cast between its launches (the
+mma.sync tiles take y in B's dtype: the wrapper casts for them).
 
 Gradients: when an operand requires grad (and grad mode is on), each
 wrapper goes through its `torch.autograd.Function` (`LoRAShrink`,
@@ -71,9 +74,10 @@ TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the shrink takes
 MAX_TILE_SPLIT = 8             # csrc/lora.cu: kMaxTileSplit (a cluster)
 TILE_D = 64                    # csrc/lora.cu: kWD, d a TMA box
 MIN_SLICE_D = 256              # a row-tile block's d slice: >= 4 boxes
-EXPAND_ROWS = 64               # csrc/lora.cu: kEM, rows a tile
-EXPAND_COLS = 256              # csrc/lora.cu: kEN, columns a row-tile block
-EXPAND_BLOCKS_PER_SM = 2       # row-tile blocks an SM holds at once
+EXPAND_ROWS = 64               # csrc/lora.cu: kEM / kXM, rows a tile
+EXPAND_COLS = 256              # csrc/lora.cu: kEN, an mma.sync block's
+EXPAND_TILE_COLS = (64, 128)   # csrc/lora.cu: the wgmma kernel's BN
+EXPAND_BLOCKS_PER_SM = 2       # row-tile blocks an SM holds (both kernels)
 
 
 class ShrinkPlan(NamedTuple):
@@ -145,30 +149,70 @@ def shrink_plan(rows: int, d_in: int, slots: int, sms: int,
                       split)
 
 
-def expand_plan(rows: int, d_out: int, sms: int) -> int:
-    """The expand kernel's launch, as its row blocks a column tile. 0: the
-    decode path (up to DECODE_MAX_ROWS rows), one block per (row,
-    DECODE_EXPAND_COLS output columns), live rank row r taken by warp r %
-    RANK_SPLIT: a row tile would visit each row's slot in turn on one
-    block; a block per (columns, distinct slot) read each slot's B once
-    but measured slower at 32 and 64 rows on the H100 (its grouping and
-    y's load after it cost two more round trips than re-reading B from
-    L2). Up to 16 rows (csrc/lora.cu: kDecEarlyRows) the block issues its
-    first 8 rank rows of B before it loads y; past it (up to 1,024
-    blocks) y is loaded first and B a rank row a loop step, four blocks
-    an SM: on the H100 in a graph, B first took 8 rows from 5.5-5.9 to
-    4.1-4.6 us but 64 rows to 8.2-8.9, y first 7.3-7.5 there (the earlier
-    kernel's 6.1-6.3 is not reached: see PERF.md).
-    Otherwise row tiles of EXPAND_ROWS rows x EXPAND_COLS columns,
-    block k of a column tile taking the tiles k, k + row_blocks, ...: as
-    many blocks as fill every SM (`sms`) EXPAND_BLOCKS_PER_SM times in one
-    round (at least one, at most one a tile), so no block waits for a
-    second round."""
+class ExpandPlan(NamedTuple):
+    """The expand kernel's launch. `cols` 0 and `grid` 0: the decode
+    path; `cols` 0 and `grid` > 0: the mma.sync row tiles, `grid` blocks a
+    column tile of EXPAND_COLS; `cols` 64 or 128: the persistent wgmma
+    kernel, `grid` blocks in all walking tiles of EXPAND_ROWS rows x
+    `cols` columns (`expand_walk`)."""
+    grid: int
+    cols: int
+
+
+def expand_plan(rows: int, d_out: int, sms: int,
+                dtype: torch.dtype) -> ExpandPlan:
+    """The expand kernel's launch for B of `dtype`. Up to DECODE_MAX_ROWS
+    rows the decode path, one block per (row, DECODE_EXPAND_COLS output
+    columns), live rank row r taken by warp r % RANK_SPLIT: a row tile
+    would visit each row's slot in turn on one block; a block per
+    (columns, distinct slot) read each slot's B once but measured slower
+    at 32 and 64 rows on the H100 (its grouping and y's load after it
+    cost two more round trips than re-reading B from L2). Up to 16 rows
+    (csrc/lora.cu: kDecEarlyRows) the block issues its first 8 rank rows
+    of B before it loads y; past it y is loaded first and B a rank row a
+    loop step at 32 registers, eight blocks an SM (one wave of 1,024
+    blocks at 64 rows).
+    More rows in bf16 at a d_out that is a multiple of 8 (TMA's 16-byte
+    strides): the persistent wgmma kernel, EXPAND_BLOCKS_PER_SM blocks an
+    SM, tiles of EXPAND_ROWS rows x 128 columns where they give every
+    block one, else x 64 (the yi-9b chunk's 512 rows: 512 tiles of 64
+    columns at d_out 4,096, 64 at its k / v's 512), min(tiles,
+    EXPAND_BLOCKS_PER_SM x `sms`) blocks, each a contiguous run of the
+    tiles (`expand_walk`). Its output
+    is most of its bytes and leaves by TMA stores that drain under the
+    next tiles' work: the H100 takes such a stream at 2.5-2.8 TB/s
+    (PERF.md, `kernel_ab.py --expand-probe`), where the mma.sync blocks, which
+    stored a tile before computing the next, reached 1.5.
+    Otherwise (f32, other widths) the mma.sync row tiles of EXPAND_ROWS rows x
+    EXPAND_COLS columns, block k of a column tile taking the tiles k, k +
+    blocks, ...: as many blocks as fill every SM (`sms`)
+    EXPAND_BLOCKS_PER_SM times in one round (at least one, at most one a
+    tile)."""
     if rows <= DECODE_MAX_ROWS:
-        return 0
+        return ExpandPlan(0, 0)
     tiles = -(-rows // EXPAND_ROWS)
+    if dtype == torch.bfloat16 and d_out % 8 == 0:
+        wide = EXPAND_TILE_COLS[1]
+        cols = wide if tiles * -(-d_out // wide) >= \
+            EXPAND_BLOCKS_PER_SM * sms else EXPAND_TILE_COLS[0]
+        return ExpandPlan(min(tiles * -(-d_out // cols),
+                              EXPAND_BLOCKS_PER_SM * sms), cols)
     col_blocks = -(-d_out // EXPAND_COLS)
-    return max(1, min(tiles, EXPAND_BLOCKS_PER_SM * sms // col_blocks))
+    return ExpandPlan(max(1, min(tiles, EXPAND_BLOCKS_PER_SM * sms
+                                 // col_blocks)), 0)
+
+
+def expand_walk(rows: int, d_out: int, plan: ExpandPlan):
+    """The wgmma expand's tiles, block by block, as (first row, first
+    column) in the order each block takes them (csrc/lora.cu:
+    lora_expand_wgmma_kernel): the T tiles numbered column tile by column
+    tile, block b taking [T b // grid, T (b + 1) // grid)."""
+    row_tiles = -(-rows // EXPAND_ROWS)
+    total = row_tiles * -(-d_out // plan.cols)
+    return [[(w % row_tiles * EXPAND_ROWS, w // row_tiles * plan.cols)
+             for w in range(total * b // plan.grid,
+                            total * (b + 1) // plan.grid)]
+            for b in range(plan.grid)]
 
 
 def padded_rank(max_rank: int) -> int:
@@ -266,9 +310,9 @@ def _shrink(x, a, idx, live):
 
 def lora_expand(y, b, idx, live):
     """y (rows, r_max) in B's dtype, or float32 (each value then rounded to
-    B's dtype first, as `y.to(b.dtype)` rounds it: the decode kernel rounds
-    as it loads); b (slots, r_max, d_out); idx, live (rows,) int32 ->
-    (rows, d_out) in B's dtype."""
+    B's dtype first, as `y.to(b.dtype)` rounds it: the decode and wgmma
+    kernels round as they load); b (slots, r_max, d_out); idx, live
+    (rows,) int32 -> (rows, d_out) in B's dtype."""
     rows, r_max = y.shape
     slots, b_r, d_out = b.shape
     if b_r != r_max:
@@ -293,9 +337,9 @@ def _expand(y, b, idx, live):
     why = expand_refusal(r_max, d_out)
     if why:
         raise ValueError(f"lora_expand: {why}")
-    row_blocks = expand_plan(rows, d_out, sm_count(y.device))
-    if row_blocks and y.dtype != b.dtype:
-        y = y.to(b.dtype)         # the row tiles take y in B's dtype
+    plan = expand_plan(rows, d_out, sm_count(y.device), b.dtype)
+    if plan.grid and not plan.cols and y.dtype != b.dtype:
+        y = y.to(b.dtype)         # the mma.sync tiles take y in B's dtype
     build.require(b, "b", dtypes=_FLOATS, ndim=3, device=y.device)
     build.require(y, "y", dtypes=(b.dtype, torch.float32), ndim=2)
     build.require_aligned(y, "y")
@@ -307,7 +351,7 @@ def _expand(y, b, idx, live):
     out = torch.empty(rows, d_out, dtype=b.dtype, device=y.device)
     rc = lib.rt_lora_expand(y.data_ptr(), b.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), out.data_ptr(), rows, r_max,
-                            d_out, slots, row_blocks,
+                            d_out, slots, plan.grid, plan.cols,
                             build.DTYPE_CODE[b.dtype],
                             build.DTYPE_CODE[y.dtype],
                             build.stream_handle(y.device))

@@ -9,11 +9,12 @@ ctypes; each entry point launches on the stream it is given and returns
 builds (or finds) the library. A missing `nvcc` or a failed build raises —
 no caller falls back to the plain versions.
 
-The TMA tensor maps (flash, the bf16 row-tile shrink) are encoded by the
-driver function `cuTensorMapEncodeTiled`, which the library looks up at run time through
-the CUDA runtime's driver entry point (`cudaGetDriverEntryPoint`), so
-nothing beyond the runtime is linked; a driver without it makes those
-calls raise (CUDA error 801, not supported).
+The TMA tensor maps (flash, the bf16 row-tile shrink and expand) are
+encoded by the driver function `cuTensorMapEncodeTiled`, which the
+library looks up at run time through the CUDA runtime's driver entry
+point (`cudaGetDriverEntryPoint`), so nothing beyond the runtime is
+linked; a driver without it makes those calls raise (CUDA error 801, not
+supported).
 nvcc runs with `-Xptxas -v`; its report (registers, shared memory and
 spills of each kernel) is written beside the library as
 `libkernels-<hash>.log` and held in `build_log`, whether this process built
@@ -55,9 +56,9 @@ _SIGNATURES = {
     # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, split,
     # dtype, stream
     "rt_lora_shrink": [_P] * 5 + [_I] * 8 + [_P],
-    # y, b, idx, live, out, rows, r_max, d_out, slots, row_blocks, dtype,
-    # y_dtype, stream
-    "rt_lora_expand": [_P] * 5 + [_I] * 7 + [_P],
+    # y, b, idx, live, out, rows, r_max, d_out, slots, blocks, cols,
+    # dtype, y_dtype, stream
+    "rt_lora_expand": [_P] * 5 + [_I] * 8 + [_P],
     # q, k, v, out, strides (12 int64 on the host),
     # B, H, KV, Lq, Lk, hd, causal, window, dtype, stream
     "rt_flash_attention": [_P] * 5 + [_I] * 9 + [_P],
@@ -65,7 +66,7 @@ _SIGNATURES = {
     # kernel runs): the same shape arguments, then an int64 out array of
     # INFO_FIELDS a launch (csrc/common.cuh: rt::describe)
     "rt_lora_shrink_info": [_I] * 8 + [_P],
-    "rt_lora_expand_info": [_I] * 6 + [_P],
+    "rt_lora_expand_info": [_I] * 7 + [_P],
     # B, H, KV, ps, hd, W, nsplit, dtype: the attention kernel, then the
     # combine with nsplit > 1
     "rt_paged_attention_info": [_I] * 8 + [_P],
@@ -79,6 +80,9 @@ _SIGNATURES = {
     # pdl, blocks, cluster, stream: an empty kernel (csrc/device.cu,
     # measurement only)
     "rt_empty": [_I, _I, _I, _P],
+    # out, rows, cols, tma, blocks, stream: a store-only kernel
+    # (csrc/device.cu, measurement only)
+    "rt_store_probe": [_P, _I, _I, _I, _I, _P],
     # graph (cudaGraph_t), out: nodes, edges, programmatic edges
     "rt_graph_edges": [_P, _P],
 }

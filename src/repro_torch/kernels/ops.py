@@ -54,7 +54,8 @@ def lora_delta(x, a, b, idx, ranks=None, mode="bgmv", rank_block=16,
     the same numbers. `live`: a precomputed `lora_live`. The f32 shrink is
     rounded to x's (the pool's) dtype before the expand, as the
     reference's kernels do: the expand takes it in f32 and rounds it (the
-    decode kernel as it loads it, with no launch between the two).
+    decode and wgmma kernels as they load it, with no launch between the
+    two).
     Returns (rows, d_out) in x's dtype."""
     if live is None:
         live = lora_live(idx, ranks, mode, a.shape[-1], rank_block)

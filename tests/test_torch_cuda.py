@@ -699,6 +699,168 @@ def test_lora_expand_ranks_past_64_match_plain(card, mode, rows, dtype):
     assert torch.equal(out, bgmv.lora_expand(y, b, idx, live))
 
 
+def _wgmma_expand_case(card, rows, d_out, r_max, ranks, seg, one_slot=None,
+                       seed=0):
+    """Expand inputs for the persistent wgmma kernel: a bf16 pool of
+    len(ranks) slots (zero past each rank), f32 y (the shrink's) with junk
+    at and past each row's live width under MBGMV, and idx in runs of
+    `seg` rows cycling through -1 and every slot (seg 0: random), or every
+    row at slot `one_slot`."""
+    g = torch.Generator(device=card).manual_seed(seed + rows + d_out + r_max)
+    b = torch.zeros(len(ranks), r_max, d_out, device=card)
+    for s, r in enumerate(ranks):
+        b[s, :r] = torch.randn(r, d_out, generator=g, device=card) * r ** -.5
+    y = torch.randn(rows, r_max, generator=g, device=card)
+    if one_slot is not None:
+        idx = torch.full((rows,), one_slot, device=card)
+    elif seg:
+        idx = torch.arange(rows, device=card) // seg % (len(ranks) + 1) - 1
+    else:
+        idx = torch.randint(-1, len(ranks), (rows,), generator=g,
+                            device=card)
+    return y, b.bfloat16(), idx.to(torch.int32), torch.tensor(
+        ranks, dtype=torch.int32, device=card)
+
+
+# (rows, d_out, r_max, ranks, seg, one slot): kernel_ab.py --expand's rows
+# (training; the yi-9b chunk's q and k / v; the prefill; runs of 32 over 8
+# slots; a partial last tile) and MBGMV's odd widths
+WGMMA_EXPAND_CASES = [
+    (4096, 4096, 64, [64], 0, 0),
+    (512, 4096, 64, [8, 16, 32, 64] * 2, 0, 7),
+    (512, 512, 64, [8, 16, 32, 64] * 2, 0, 7),
+    (32768, 4096, 64, [8, 16, 32, 64] * 2, 4096, None),
+    (2048, 4096, 64, [8, 16, 32, 64] * 2, 32, None),
+    (4133, 4096, 64, [64, 16, 48, 8], 4096, None),
+    (65, 8, 64, [64, 16, 48, 8], 1, None),
+    (300, 136, 64, [64, 16, 48, 8], 17, None),
+    (777, 520, 24, [24, 4, 20], 0, None),
+]
+
+
+@pytest.mark.parametrize("mode,rank_block", [("bgmv", 16), ("mbgmv", 16),
+                                             ("mbgmv", 4)])
+@pytest.mark.parametrize("rows,d_out,r_max,ranks,seg,one_slot",
+                         WGMMA_EXPAND_CASES)
+def test_lora_expand_wgmma_matches_plain(card, mode, rank_block, rows, d_out,
+                                         r_max, ranks, seg, one_slot):
+    """The persistent wgmma expand (bf16 B, d_out a multiple of 8, more
+    than 64 rows) at kernel_ab.py's shapes, under BGMV and MBGMV live
+    widths (rank blocks of 16 and of 4: live widths that are no multiple
+    of 8), the shrink's f32 y with junk past each row's live width: each
+    row within 1e-2 of its max |plain| on the cast y, idx -1 rows exactly
+    0; bitwise equal to the expand of y cast to bf16 first (rounding on
+    load is the cast) and to a second run."""
+    y, b, idx, ranks_t = _wgmma_expand_case(card, rows, d_out, r_max, ranks,
+                                            seg, one_slot)
+    live = ops.lora_live(idx, ranks_t, mode, r_max, rank_block)
+    plan = bgmv.expand_plan(rows, d_out, bgmv.sm_count(card), b.dtype)
+    assert plan.cols in bgmv.EXPAND_TILE_COLS
+    if mode == "mbgmv":
+        junk = torch.arange(r_max, device=card)[None] >= live[:, None]
+        y = torch.where(junk, 1e4, y)
+    n = bgmv.lora_expand.launches
+    out = bgmv.lora_expand(y, b, idx, live)
+    assert bgmv.lora_expand.launches == n + 1
+    yd = y.bfloat16()
+    _rows_close(out, ref.lora_expand_ref(yd, b, idx, live), 1e-2, 0.0)
+    assert bool((out[idx < 0] == 0).all())
+    assert torch.equal(out, bgmv.lora_expand(yd, b, idx, live))
+    assert torch.equal(out, bgmv.lora_expand(y, b, idx, live))
+
+
+@pytest.mark.parametrize("mode,rank_block", [("bgmv", 16), ("mbgmv", 4)])
+@pytest.mark.parametrize("r_max", [8, 16, 24, 64, 72, 128, 200, 1024])
+def test_lora_expand_wgmma_any_rank_matches_plain(card, mode, rank_block,
+                                                  r_max):
+    """r_max 8 to 1,024 on the wgmma expand: rank chunks of 64 (several
+    passes' worth of items a slot past 64), B's last 8-row group zeroed
+    where a slot's width ends mid k-step, idx -1 rows and MBGMV rank
+    blocks of 4; 300 rows in runs of 17, d_out 264. Each row within 1e-2
+    of its max |plain|, bitwise equal to a second run."""
+    ranks = [r_max, max(4, r_max // 3), 4, min(r_max, 12)]
+    y, b, idx, ranks_t = _wgmma_expand_case(card, 300, 264, r_max, ranks, 17)
+    live = ops.lora_live(idx, ranks_t, mode, r_max, rank_block)
+    out = bgmv.lora_expand(y, b, idx, live)
+    _rows_close(out, ref.lora_expand_ref(y.bfloat16(), b, idx, live), 1e-2,
+                0.0)
+    assert bool((out[idx < 0] == 0).all())
+    assert torch.equal(out, bgmv.lora_expand(y, b, idx, live))
+
+
+def test_lora_expand_wgmma_never_reads_past_live_rows(card):
+    """NaN in every rank row of B past each slot's live width rounded up
+    to 8 (the group a width ends in may be read, as the kernel's header
+    says), in the slot no row uses, and in y's rows of idx -1: the result
+    is bitwise that of the clean inputs."""
+    ranks = [64, 20, 4, 36]
+    y, b, idx, ranks_t = _wgmma_expand_case(card, 1000, 1024, 64,
+                                            ranks + [64], 17)
+    idx = torch.where(idx == 4, -1, idx)
+    live = ops.lora_live(idx, ranks_t, "mbgmv", 64, 4)
+    clean = bgmv.lora_expand(y, b, idx, live)
+    pb, py = b.clone(), y.clone()
+    for s, r in enumerate(ranks):
+        pb[s, -(-r // 8) * 8:] = float("nan")
+    pb[4] = float("nan")
+    py[idx < 0] = float("nan")
+    assert torch.equal(bgmv.lora_expand(py, pb, idx, live), clean)
+
+
+def test_lora_expand_wgmma_graph_replay_equals_eager(card):
+    """A CUDA graph of the wgmma expand (the training shape and a tile of
+    several slots) replayed twice gives the eager launch's bits."""
+    import gc
+    for rows, seg, one in ((4096, 0, 0), (2048, 32, None)):
+        y, b, idx, _ = _wgmma_expand_case(card, rows, 4096, 64,
+                                          [8, 16, 32, 64] * 2, seg, one)
+        live = ref.bgmv_live(idx, 64)
+        eager = bgmv.lora_expand(y, b, idx, live)
+        out = torch.empty_like(eager)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out.copy_(bgmv.lora_expand(y, b, idx, live))
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out.copy_(bgmv.lora_expand(y, b, idx, live))
+        finally:
+            gc.enable()
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+
+
+def test_lora_expand_wgmma_refusals_raise(card):
+    """The wgmma launch is never given up for another: the entry point
+    refuses a tile width it has no kernel for, f32 B, a d_out that is no
+    multiple of 8 (TMA's 16-byte strides) and the mma.sync row tiles for
+    what the wgmma kernel takes; the wrapper raises for a B that does not
+    start on 16 bytes."""
+    from repro_torch.kernels import build
+    lib = build.library()
+    y, b, idx, _ = _wgmma_expand_case(card, 300, 264, 64, [64], 0, 0)
+    live = ref.bgmv_live(idx, 64)
+    out = torch.empty(300, 264, device=card, dtype=torch.bfloat16)
+    st = build.stream_handle(card)
+    bf, f32 = build.DTYPE_CODE[torch.bfloat16], build.DTYPE_CODE[
+        torch.float32]
+    for d_out, cols, dt, yd in ((264, 96, bf, f32), (264, 64, f32, f32),
+                                (260, 64, bf, f32), (264, 0, bf, bf)):
+        assert lib.rt_lora_expand(y.data_ptr(), b.data_ptr(), idx.data_ptr(),
+                                  live.data_ptr(), out.data_ptr(), 300, 64,
+                                  d_out, 1, 8, cols, dt, yd, st) != 0
+    wide = torch.zeros(1, 64 * 264 + 8, device=card, dtype=torch.bfloat16)
+    odd = wide[0, 4:4 + 64 * 264].view(1, 64, 264)
+    with pytest.raises(ValueError, match="16-byte"):
+        bgmv.lora_expand(y, odd, idx, live)
+
+
 @pytest.mark.parametrize("mode", ["bgmv", "mbgmv"])
 @pytest.mark.parametrize("rows,seg", [(8, 0), (2048, 256)])
 @pytest.mark.parametrize("d_in,d_out", [(5120, 5120), (12288, 12288),

@@ -569,7 +569,8 @@ def test_decode_expand_plan_writes_each_output_once(rows, d_out, r_max):
     adapter as zeros), and every live rank row of a row's slot summed by
     exactly one warp for each of the row's columns, none past the row's
     live width."""
-    assert bgmv.expand_plan(rows, d_out, _SMS) == 0
+    for dt in (torch.bfloat16, torch.float32):
+        assert bgmv.expand_plan(rows, d_out, _SMS, dt) == (0, 0)
     cols, split = bgmv.DECODE_EXPAND_COLS, bgmv.RANK_SPLIT
     assert cols == 32 * 8                 # a lane's 8 columns, 32 lanes
     for slots in (1, 8, 300):
@@ -652,32 +653,79 @@ def test_expand_segmented_rows_match_pallas(mode, seg):
 @pytest.mark.parametrize("d_out", [8, 384, 512, 4096])
 @pytest.mark.parametrize("slots", [1, 8, 300])
 def test_expand_plan_covers_each_output_once(rows, d_out, slots):
-    """The expand's row-tile launch plan, computed on the host from `rows`
-    (above DECODE_MAX_ROWS; the decode plan has its own test above):
-    tiles of EXPAND_ROWS rows, block k of a column tile walking the
-    tiles k, k + row_blocks, ... (as many blocks as fill every SM twice in
+    """The expand's row-tile plans, computed on the host from `rows`
+    (above DECODE_MAX_ROWS; the decode plan has its own test above), d_out
+    and the SM count. bf16 (these widths are multiples of 8) takes the
+    persistent wgmma kernel: min(tiles, 2 x SMs) blocks, block b walking
+    the tiles [T b // blocks, T (b + 1) // blocks) of EXPAND_ROWS rows x
+    `cols` columns numbered column tile by column tile (`expand_walk`, the
+    kernel's own walk). Every tile is visited once, by one block; the
+    tiles cover each (row, column) once (rows and columns each
+    partitioned, the tiles their product), so each element is written by
+    one store; a block's tiles are consecutive, a column tile's in row
+    order, so the tiles of one slot (runs of rows a slot: prefill and
+    training) at one column tile are one run of the block's tiles that
+    read B (tiles without an adapter read none) and its B stays loaded;
+    and a tile's items (a pass a distinct slot, in row
+    order, rows without an adapter zeros) write each row once. f32 takes
+    the mma.sync tiles of EXPAND_ROWS rows, block k of a column tile walking
+    the tiles k, k + blocks, ... (as many blocks as fill every SM twice in
     one round), visiting each tile's distinct slots and zeroing its rows
-    without an adapter. The grid is rows x columns, so each (row, column)
-    is written exactly once iff each row and each column is covered once:
-    checked at random and at prefill layouts."""
-    row_blocks = bgmv.expand_plan(rows, d_out, _SMS)
-    assert row_blocks > 0
-    cols = bgmv.EXPAND_COLS
-    col_blocks = -(-d_out // cols)
-    hits = np.zeros(d_out, int)
-    for cb in range(col_blocks):          # the kernel's column blocks
-        hits[cb * cols:min(d_out, (cb + 1) * cols)] += 1
-    assert np.all(hits == 1)
+    without an adapter. Checked at random and at prefill layouts."""
     tile = bgmv.EXPAND_ROWS
     tiles = -(-rows // tile)
-    assert 1 <= row_blocks <= tiles
-    assert row_blocks * col_blocks <= max(2 * _SMS, col_blocks)  # 1 round
+    plan = bgmv.expand_plan(rows, d_out, _SMS, torch.bfloat16)
+    assert plan.cols in bgmv.EXPAND_TILE_COLS
+    col_tiles = -(-d_out // plan.cols)
+    assert plan.grid == min(tiles * col_tiles,
+                            bgmv.EXPAND_BLOCKS_PER_SM * _SMS)
+    if plan.cols == bgmv.EXPAND_TILE_COLS[0]:   # the wide tiles leave SMs idle
+        assert tiles * -(-d_out // bgmv.EXPAND_TILE_COLS[1]) < \
+            bgmv.EXPAND_BLOCKS_PER_SM * _SMS
+    walk = bgmv.expand_walk(rows, d_out, plan)
+    assert len(walk) == plan.grid and all(walk)    # no idle block
+    order = [t for run in walk for t in run]
+    assert len(order) == len(set(order)) == tiles * col_tiles
+    assert set(order) == {(r * tile, c * plan.cols) for r in range(tiles)
+                          for c in range(col_tiles)}
+    for starts, width, n in ((sorted({r for r, _ in order}), tile, rows),
+                             (sorted({c for _, c in order}), plan.cols,
+                              d_out)):
+        hits = np.zeros(n, int)
+        for lo in starts:
+            hits[lo:lo + width] += 1
+        assert np.all(hits == 1)
+    for run in walk:                      # consecutive tiles, a column's
+        for (r0, c0), (r1, c1) in zip(run, run[1:]):   # in row order
+            assert (r1, c1) == ((r0 + tile, c0) if r0 + tile < rows
+                                else (0, c0 + plan.cols))
     rng = np.random.default_rng(rows + slots + d_out)
     for idx in (rng.integers(-1, slots, rows),
                 _segmented_idx(rows, 17, slots),
                 _segmented_idx(rows, 4096, slots)):
+        for run in walk:                  # a (slot, column) is one run of
+            keys = [(frozenset(idx[r:r + tile].tolist()) - {-1}, c)
+                    for r, c in run]      # the tiles that read B
+            keys = [k for k in keys if k[0]]
+            for k in set(keys):
+                at = [i for i, x in enumerate(keys) if x == k]
+                if len(k[0]) == 1:
+                    assert at == list(range(at[0], at[-1] + 1))
+        hits = np.zeros(rows, int)        # the kernel's items, a tile's rows
+        for lo in range(0, rows, tile):
+            part = idx[lo:lo + tile]
+            for s in dict.fromkeys(int(i) for i in part if i >= 0):
+                hits[lo + np.flatnonzero(part == s)] += 1
+            hits[lo + np.flatnonzero(part < 0)] += 1
+        assert np.all(hits == 1)
+        # the mma.sync plan (f32): block k of a column tile, tiles k, k + n
+        row_blocks, cols = bgmv.expand_plan(rows, d_out, _SMS,
+                                            torch.float32)
+        assert cols == 0 and 1 <= row_blocks <= tiles
+        col_blocks = -(-d_out // bgmv.EXPAND_COLS)
+        assert row_blocks * col_blocks <= max(2 * _SMS, col_blocks)
         hits = np.zeros(rows, int)
-        for k in range(row_blocks):       # block k: its tiles' passes
+        for k in range(row_blocks):
             for t in range(k, tiles, row_blocks):
                 lo = t * tile
                 part = idx[lo:lo + tile]
