@@ -1981,6 +1981,8 @@ def train_rows(torch, cfg, launches, errs):
     yd = y.bfloat16()
     s_err = check_close("lora_shrink train shape", y,
                         ref.lora_shrink_ref(x, a, idx, live), torch.float32)
+    check(torch.equal(y, lora_shrink(x, a, idx, live)),
+          "shrink train shape: two runs differ")
     e_err = check_close("lora_expand train shape", lora_expand(
         yd, bw, idx, live), ref.lora_expand_ref(yd, bw, idx, live),
         torch.bfloat16)
@@ -3807,7 +3809,8 @@ def shrink_prefill_timing(torch, captured, serving):
     only and never called by the port. Launches: the yi-9b monolithic
     arm's."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.bgmv import lora_shrink, shrink_plan, sm_count
+    from repro_torch.kernels.bgmv import cluster_room, lora_shrink, \
+        shrink_plan, sm_count
     print("phase 5b: LoRA shrink at the yi-9b prefill shape", flush=True)
     (x, a, b, idx), kw = captured
     live = kw.get("live")
@@ -3830,7 +3833,8 @@ def shrink_prefill_timing(torch, captured, serving):
               + y.numel() * 4)
     b_ms, b_by = bound(nbytes, 2 * d_in * row_live, "bfloat16")
     a_cat = a.permute(1, 0, 2).reshape(d_in, slots * r_max).contiguous()
-    plan = shrink_plan(rows, d_in, slots, sm_count(x.device), a.shape[-1])
+    plan = shrink_plan(rows, d_in, slots, sm_count(x.device), a.shape[-1],
+                       x.dtype, cluster_room(x.device))
     row = {"name": "lora_shrink[bgmv, prefill]", "route": "cuda",
            "source": "src/repro_torch/csrc/lora.cu",
            "replaces": "src/repro/kernels/bgmv.py:86",
@@ -3852,7 +3856,7 @@ def shrink_prefill_timing(torch, captured, serving):
            "shape": {"rows": rows, "d_in": d_in, "r_max": r_max,
                      "slots": slots, "adapters": len(slot_live),
                      "live_columns": row_live, "tile_rows": plan.tile,
-                     "split": plan.split}}
+                     "split": plan.split, "grid": plan.grid}}
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us (bound "
           f"{b_ms * 1e3:.1f} us by {b_by}, {row['ms'] / b_ms:.2f}x), plain "
           f"{row['plain_ms'] * 1e3:.1f} us, library (matmul over A_cat) "
@@ -3876,7 +3880,8 @@ def chunk_shrink_timing(torch, captured, serving):
     Launches: every shrink launch of the yi-9b chunked arm; its launches
     a chunk are counted in P4 (`chunk_launches`)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bgmv import lora_shrink, shrink_plan, sm_count
+    from repro_torch.kernels.bgmv import cluster_room, lora_shrink, \
+        shrink_plan, sm_count
     print("phase 5b: LoRA shrink at the yi-9b chunk's shape", flush=True)
     (x, a, _, idx), _ = captured
     x = x[:P_CHUNK_ROWS].contiguous()
@@ -3897,7 +3902,7 @@ def chunk_shrink_timing(torch, captured, serving):
     ops_n = 2 * d_in * int(live.sum())
     b_ms, b_by = bound(nbytes, ops_n, "bfloat16")
     plan = shrink_plan(P_CHUNK_ROWS, d_in, slots, sm_count(x.device),
-                       a.shape[-1])
+                       a.shape[-1], x.dtype, cluster_room(x.device))
     row = {"name": "lora_shrink[yi-9b chunk]", "route": "cuda",
            "source": "src/repro_torch/csrc/lora.cu",
            "replaces": "src/repro/kernels/bgmv.py:86",
@@ -3922,7 +3927,8 @@ def chunk_shrink_timing(torch, captured, serving):
            "bytes": nbytes,
            "shape": {"rows": P_CHUNK_ROWS, "d_in": d_in, "r_max": r_max,
                      "slots": slots, "adapters": 1,
-                     "tile_rows": plan.tile, "split": plan.split}}
+                     "tile_rows": plan.tile, "split": plan.split,
+                     "grid": plan.grid}}
     print(f"  {row['name']}: {row['ms'] * 1e3:.1f} us, in a CUDA graph "
           f"{row['graph_ms'] * 1e3:.1f} us (bound {b_ms * 1e3:.2f} us by "
           f"{b_by}), plain {row['plain_ms'] * 1e3:.1f} us, library "

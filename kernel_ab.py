@@ -112,14 +112,37 @@ store-only kernel writing the same 33.5 MB from shared memory by
 (`rt_store_probe`), torch.matmul, a fill of the output and an empty
 kernel, each in a graph after L2 flushes and with L2 warm.
 
+    python3 kernel_ab.py --shrink build/parent [OTHER_TREE ...]
+
+times the row-tile shrink (more than 64 rows) at the rows of
+`SHRINK_SHAPES` in CUDA graphs (20 launches a graph, each after an L2
+flush, less the flushes alone), the trees built in parallel first, then
+timed in the order parent, this tree, the others, then the same
+backwards, each in a process of its own; every run prints one `SHRINK
+<tree> {...}` line (`shrink_tree`): the training step's 4,096 rows of
+one slot, the yi-9b chunk's 512 rows of one slot of 8, the yi-9b
+prefill's 32,768 rows (8 slots in runs of 4,096), 2,048 and 4,096 rows
+in runs of 32 over 8 slots, 8 slots of ranks 8/16/32/64 in runs of 512
+under BGMV and MBGMV, r_max 128, a partial tile (4,133 rows), and the
+cp.async kernel's f32 and d_in 4,100 as controls; torch.matmul in a
+graph and the bytes bound (`shrink_bound_us`) beside.
+
+    python3 kernel_ab.py --shrink-probe
+
+splits, in this tree, the row-tile shrink's time (`shrink_probe`) at the
+training, chunk and prefill shapes: the shrink beside a load-only TMA
+stream of x (`rt_load_probe`) at 132 / 264 blocks and 4-24 boxes in
+flight and torch.matmul; then, from a build with -DLORA_SHRINK_STAMPS,
+the microseconds a block spends in each phase of the persistent kernel
+(waits for loads, products, the cluster's barrier and reduction).
+
     python3 kernel_ab.py --sweep
 
-times, in this tree, the training step's one-slot shrink under every row
-tile and split the kernel takes, each in a CUDA graph, with the blocks,
-the clusters the card holds at once, the waves and the bytes a
-microsecond, and asks the CUDA profiler (CUPTI) for the LoRA pair's
-counters (its trace goes to build/kernel_ab_cupti.json). Needs one
-NVIDIA card.
+times, in this tree, the persistent shrink at the training, chunk and
+prefill shapes under every split, with the clusters the card holds at
+once (and fewer at the training shape), beside the plan's choice and
+matmul, and asks the CUDA profiler (CUPTI) for the LoRA pair's counters
+(its trace goes to build/kernel_ab_cupti.json). Needs one NVIDIA card.
 """
 from __future__ import annotations
 
@@ -696,7 +719,8 @@ def decode_direct(torch, lib, build, x, a, idx, live, y, split):
         rc = lib.rt_lora_shrink(
             x.data_ptr(), a.data_ptr(), idx.data_ptr(), live.data_ptr(),
             y.data_ptr(), rows, d, a.shape[-1], a.shape[0], 0, d_chunk,
-            split, build.DTYPE_CODE[x.dtype], build.stream_handle(x.device))
+            split, 0, build.DTYPE_CODE[x.dtype],
+            build.stream_handle(x.device))
         assert rc == 0, rc
     return call
 
@@ -709,9 +733,9 @@ def lora_probe() -> dict:
     copy of them, the decode shrink and expand at 1, 8 and 64 rows with
     every adapted row's live width 8 and 64, torch.bmm over the gathered
     pools beside, the shrink's and the expand's device time from a
-    profiled replay, the bf16 row-tile shrink (64-row tile, a cluster of 8
-    over d) and the decode shrink at splits 1 to 8 launched directly at
-    the same rows."""
+    profiled replay, the bf16 row-tile shrink (the persistent kernel: one
+    64-row tile, a cluster of 8 over d) and the decode shrink at splits 1
+    to 8 launched directly at the same rows."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
     from repro_torch.kernels import bgmv, build
@@ -778,7 +802,8 @@ def lora_probe() -> dict:
                     rc = lib.rt_lora_shrink(
                         x.data_ptr(), a.data_ptr(), idx.data_ptr(),
                         live.data_ptr(), yt.data_ptr(), rows, d, LORA_R_MAX,
-                        a.shape[0], 64, 512, 8, 1, build.stream_handle(dev))
+                        a.shape[0], 64, 512, 8, 8, 1,
+                        build.stream_handle(dev))
                     assert rc == 0, rc
                 r["tile 64 x8 graph_us"] = graph_us(torch, tile, flush)
                 r["tile 64 x8 graph_us_warm"] = graph_us(torch, tile, None)
@@ -952,6 +977,194 @@ def expand_bound_us(y, b, idx, live):
     return 1e6 * nbytes / 3.35e12
 
 
+# The row-tile shrink rows of --shrink: (rows, d_in, r_max, slot ranks,
+# rows a run of one slot, dtype), as EXPAND_SHAPES lays them out
+SHRINK_SHAPES = {
+    "training 4,096 rows, 1 slot": (4096, 4096, 64, [64], 4096, "bf16"),
+    "yi-9b chunk: 512 rows, 1 slot of 8": (512, 4096, 64, [64] * 8, 512,
+                                           "bf16"),
+    "yi-9b prefill: 32,768 rows, 8 slots": (32768, 4096, 64, [64] * 8, 4096,
+                                            "bf16"),
+    "mixed 2,048 rows, runs of 32": (2048, 4096, 64, [64] * 8, 32, "bf16"),
+    "mixed 4,096 rows, runs of 32": (4096, 4096, 64, [64] * 8, 32, "bf16"),
+    "ranks 8/16/32/64, 4,096 rows, runs of 512": (
+        4096, 4096, 64, [8, 16, 32, 64] * 2, 512, "bf16"),
+    "r_max 128, 4,096 rows, 1 slot": (4096, 4096, 128, [128], 4096, "bf16"),
+    "4,133 rows, 1 slot": (4133, 4096, 64, [64], 4133, "bf16"),
+    "f32, 4,096 rows, 1 slot": (4096, 4096, 64, [64], 4096, "f32"),
+    "d_in 4,100, 4,096 rows, 1 slot": (4096, 4100, 64, [64], 4096, "bf16"),
+}
+
+
+def shrink_case(torch, rows, d_in, r_max, ranks, run, dt):
+    """x, the A pool (zero past each slot's rank), idx (runs of `run` rows
+    a slot; a run of `rows`: every row at the last slot) and the ranks,
+    seeded from the shape, on the card."""
+    dtype = torch.float32 if dt == "f32" else torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(rows + d_in + r_max)
+    slots = len(ranks)
+    a = torch.zeros(slots, d_in, r_max, device="cuda")
+    for s, r in enumerate(ranks):
+        a[s, :, :r] = torch.randn(d_in, r, generator=g,
+                                  device="cuda") * d_in ** -.5
+    x = torch.randn(rows, d_in, generator=g, device="cuda").to(dtype)
+    idx = (torch.arange(rows, device="cuda") // run % slots).to(torch.int32)
+    if run >= rows:
+        idx.fill_(slots - 1)
+    return x, a.to(dtype), idx, torch.tensor(ranks, dtype=torch.int32,
+                                             device="cuda")
+
+
+def shrink_library(torch, x, a, idx):
+    """torch.matmul computing the shrink's function at these inputs (timed
+    only: the port never calls it): x @ A[s] where one slot is used, else
+    x @ A_cat (d_in, slots x r_max), every slot's columns for every row."""
+    used = sorted(set(idx.tolist()))
+    a_ = a[used[0]] if len(used) == 1 else \
+        a.permute(1, 0, 2).reshape(a.shape[1], -1).contiguous()
+    return lambda: torch.matmul(x, a_)
+
+
+def shrink_tree(root: str) -> dict:
+    """--shrink's run in one tree: each row of SHRINK_SHAPES under BGMV
+    (and MBGMV live widths at the mixed-rank row) in a CUDA graph after L2
+    flushes (`graph_us`), with torch.matmul in a graph (`shrink_library`)
+    and the bound (`shrink_bound_us`) beside."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import torch
+    from repro_torch.kernels import bgmv, build, ops
+    build.library()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    out = {}
+    for name, shape in SHRINK_SHAPES.items():
+        x, a, idx, ranks = shrink_case(torch, *shape)
+        lib_us = graph_us(torch, shrink_library(torch, x, a, idx), flush)
+        modes = ("bgmv", "mbgmv") if len(set(shape[3])) > 1 else ("bgmv",)
+        for mode in modes:
+            live = ops.lora_live(idx, ranks, mode, shape[2], 16)
+            out[f"{name} {mode}"] = {
+                "graph_us": graph_us(torch, lambda: bgmv.lora_shrink(
+                    x, a, idx, live), flush),
+                "matmul_graph_us": lib_us,
+                "bound_us": shrink_bound_us(x, a, idx, live)}
+        del x, a
+        torch.cuda.empty_cache()
+    return out
+
+
+def shrink_bound_us(x, a, idx, live):
+    """Microseconds the card needs at least for a row-tile shrink at these
+    inputs: x read once, the live columns of each slot in use read once,
+    idx and live read once, y (rows x r_max f32) written once, at the H100
+    data sheet's 3.35 TB/s (the flops, 2 x live x d_in a row, are far
+    below 989 TFLOP/s)."""
+    rows, d_in = x.shape
+    widths = {}
+    for s, lv in zip(idx.tolist(), live.tolist()):
+        if s >= 0:
+            widths[s] = max(widths.get(s, 0), lv)
+    nbytes = (x.numel() * x.element_size()
+              + sum(widths.values()) * d_in * a.element_size()
+              + 8 * rows + rows * a.shape[-1] * 4)
+    return 1e6 * nbytes / 3.35e12
+
+
+# --shrink-probe's shapes: (rows, slots a run of 4,096 rows cycles over)
+SHRINK_PROBE_SHAPES = {"training 4,096 rows, 1 slot": (4096, 1),
+                       "yi-9b chunk: 512 rows, 1 slot of 8": (512, 8),
+                       "yi-9b prefill: 32,768 rows, 8 slots": (32768, 8)}
+# csrc/lora.cu's stamps of the persistent shrink (kSt*), in order
+SHRINK_STAMPS = ["other", "full", "mma", "wait", "reduce", "extra", "put",
+                 "cycles", "ns", "blocks", "exchanges"]
+
+
+def shrink_probe() -> dict:
+    """Where this tree's row-tile shrink spends its time, at
+    SHRINK_PROBE_SHAPES (d_in 4,096, r_max 64, bf16): the shrink, a
+    load-only kernel (`rt_load_probe`) that streams x of the shape by TMA
+    at one and two blocks an SM with 4 to 24 boxes of 8 KB in flight a
+    block, torch.matmul and the bytes bound, each in a graph after L2
+    flushes and with L2 warm; then the library built again with
+    -DLORA_SHRINK_STAMPS, whose shrink adds each block's phases
+    (SHRINK_STAMPS: thread 0 of the consumers, by clock64(), scaled to the
+    block's %globaltimer span) over 5 replays of a graph of 20 launches
+    after L2 flushes: the microseconds a block spends in each, and the
+    stamped launch's own graph time."""
+    import ctypes
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.kernels import bgmv, build
+    lib = build.library()
+    dev = torch.device("cuda")
+    sms = bgmv.sm_count(dev)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    cases, res = {}, {}
+    for name, (rows, slots) in SHRINK_PROBE_SHAPES.items():
+        x, a, idx, _ = shrink_case(torch, rows, 4096, 64, [64] * slots,
+                                   4096 if rows > 512 else 512, "bf16")
+        live = torch.full((rows,), 64, dtype=torch.int32, device="cuda")
+        cases[name] = (x, a, idx, live)
+        row = {"x_bytes": x.numel() * 2,
+               "bound_us": shrink_bound_us(x, a, idx, live)}
+
+        def load(blocks, stages):
+            def call():
+                rc = lib.rt_load_probe(x.data_ptr(), rows, 4096, blocks,
+                                       stages, build.stream_handle(dev))
+                assert rc == 0, rc
+            return call
+        calls = {"shrink": (lambda x_, a_, i_, l_: lambda: bgmv.lora_shrink(
+                     x_, a_, i_, l_))(x, a, idx, live),
+                 "matmul": shrink_library(torch, x, a, idx)}
+        for blocks in (sms, 2 * sms):
+            for stages in (4, 8, 12, 24):
+                if blocks > sms and stages > 12:
+                    continue                # two blocks an SM: <= 113 KB
+                calls[f"load {blocks} blocks, {stages} stages"] = \
+                    load(blocks, stages)
+        for what, fn in calls.items():
+            cold, warm = graph_us(torch, fn, flush), graph_us(torch, fn, None)
+            row[what] = {"graph_us": cold, "graph_us_warm": warm,
+                         "TB_per_s_x": row["x_bytes"] / cold / 1e6
+                         if cold > 0 else None}
+        res[name] = row
+        print("SHRINK-PROBE", name, json.dumps(row), flush=True)
+    # the stamped build: a library of its own (the flags name its file)
+    build.NVCC_FLAGS = [*build.NVCC_FLAGS, "-DLORA_SHRINK_STAMPS"]
+    build._lib = None
+    lib = build.library()
+    out = (ctypes.c_longlong * len(SHRINK_STAMPS))()
+    for name, (x, a, idx, live) in cases.items():
+        fn = (lambda x_, a_, i_, l_: lambda: bgmv.lora_shrink(
+            x_, a_, i_, l_))(x, a, idx, live)
+        stamped_us = graph_us(torch, fn, flush)
+        g = capture(torch, lambda: (flush(), fn()), 20)
+        assert lib.rt_lora_shrink_stamps(out) == 0   # the capture's calls
+        for _ in range(5):
+            g.replay()
+        torch.cuda.synchronize()
+        assert lib.rt_lora_shrink_stamps(out) == 0
+        del g
+        t = dict(zip(SHRINK_STAMPS, out))
+        per_block_us = t["ns"] / t["blocks"] / 1e3
+        row = {"stamped_graph_us": stamped_us,
+               "launches": 100, "blocks_a_launch": t["blocks"] / 100,
+               "exchanges_a_block": t["exchanges"] / t["blocks"],
+               "block_span_us": per_block_us,
+               "phase_us_a_block": {
+                   k: per_block_us * t[k] / t["cycles"]
+                   for k in SHRINK_STAMPS[:7]}}
+        res[name]["stamps"] = row
+        print("SHRINK-STAMPS", name, json.dumps(row), flush=True)
+    return res
+
+
 # CUPTI range-profiler counters asked of torch.profiler in --sweep
 CUPTI_METRICS = ["dram__bytes_read.sum", "dram__bytes_write.sum",
                  "sm__throughput.avg.pct_of_peak_sustained_elapsed",
@@ -960,53 +1173,75 @@ CUPTI_METRICS = ["dram__bytes_read.sum", "dram__bytes_write.sum",
 
 
 def sweep() -> dict:
-    """The training shape's one-slot LoRA shrink (4,096 rows, d 4,096,
-    r_max 64, bf16) under each launch the kernel takes."""
+    """The persistent bf16 shrink (d 4,096, r_max 64) of this tree at the
+    training step's 4,096 rows of one slot, the yi-9b chunk's 512 rows and
+    the 32,768-row prefill (8 slots in runs of 4,096), under every split
+    it takes, each with as many clusters as the card holds at once (no
+    more than the tiles) and, at the training shape, with half and a
+    quarter of them; each in a CUDA graph after L2 flushes, beside the
+    plan's choice; then the CUDA profiler (CUPTI) is asked for the
+    training pair's counters."""
     import ctypes
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
     from repro_torch.kernels import bgmv, build
     lib = build.library()
-    sms = bgmv.sm_count(torch.device("cuda"))
+    dev = torch.device("cuda")
+    sms = bgmv.sm_count(dev)
+    room = bgmv.cluster_room(dev)
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
+    info = (ctypes.c_longlong * len(build.INFO_FIELDS))()
+    res = {"sms": sms, "room": room, "shrink": []}
+    d, r = 4096, 64
+    for name, (rows, slots) in {"training": (4096, 1), "chunk": (512, 8),
+                                "prefill": (32768, 8)}.items():
+        x, a, idx, _ = shrink_case(torch, rows, d, r, [r] * slots, 4096,
+                                   "bf16")
+        live = torch.full((rows,), r, device="cuda", dtype=torch.int32)
+        y = torch.empty(rows, r, device="cuda")
+        plan = bgmv.shrink_plan(rows, d, slots, sms, r, torch.bfloat16, room)
+        tiles = -(-rows // bgmv.SHRINK_ROWS)
+        for split in (1, 2, 4, 8):
+            d_chunk = -(-(-(-d // split)) // 64) * 64
+            most = min(room[split], tiles)
+            counts = (most, most // 2, most // 4) if name == "training" \
+                else (most,)
+            for clusters in counts:
+                blocks = clusters * split
+
+                def shrink():
+                    rc = lib.rt_lora_shrink(
+                        x.data_ptr(), a.data_ptr(), idx.data_ptr(),
+                        live.data_ptr(), y.data_ptr(), rows, d, r, slots,
+                        bgmv.SHRINK_ROWS, d_chunk, split, blocks, 1,
+                        build.stream_handle(dev))
+                    assert rc == 0, rc
+                rc = lib.rt_lora_shrink_info(rows, d, r, slots,
+                                             bgmv.SHRINK_ROWS, d_chunk, split,
+                                             blocks, 1, info)
+                assert rc == 0, rc
+                f = dict(zip(build.INFO_FIELDS, info))
+                us = graph_us(torch, shrink, flush)
+                res["shrink"].append({
+                    "shape": name, "split": split, "clusters": clusters,
+                    "tiles_a_cluster": -(-tiles // clusters),
+                    "plan": (split, blocks) == (plan.split, plan.grid),
+                    "registers": f["registers"],
+                    "blocks_per_sm": f["blocks_per_sm"], "us_graph": us,
+                    "x_TB_per_s": x.numel() * 2 / us / 1e6})
+                print("SWEEP", json.dumps(res["shrink"][-1]), flush=True)
+        res[f"{name} matmul_us_graph"] = graph_us(
+            torch, shrink_library(torch, x, a, idx), flush)
+        del x, a, y
+        torch.cuda.empty_cache()
+    rows = 4096
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows, d, r = 4096, 4096, 64
     x = torch.randn(rows, d, generator=g, device="cuda").bfloat16()
     a = (torch.randn(1, d, r, generator=g, device="cuda") / 64).bfloat16()
     b = (torch.randn(1, r, d, generator=g, device="cuda") / 8).bfloat16()
     idx = torch.zeros(rows, device="cuda", dtype=torch.int32)
     live = torch.full((rows,), r, device="cuda", dtype=torch.int32)
-    y = torch.empty(rows, r, device="cuda")
-    info = (ctypes.c_longlong * len(build.INFO_FIELDS))()
-    res = {"sms": sms,
-           "plan": bgmv.shrink_plan(rows, d, 1, sms, r)._asdict(),
-           "shrink": []}
-    shrink_bytes = (x.numel() + a.numel()) * 2 + y.numel() * 4
-    for tile in (64, 128):
-        for split in (1, 2, 4, 8):
-            d_chunk = -(-(-(-d // split)) // 64) * 64
-
-            def shrink():
-                rc = lib.rt_lora_shrink(
-                    x.data_ptr(), a.data_ptr(), idx.data_ptr(),
-                    live.data_ptr(), y.data_ptr(), rows, d, r, 1, tile,
-                    d_chunk, split, 1, build.stream_handle(x.device))
-                assert rc == 0, rc
-            rc = lib.rt_lora_shrink_info(rows, d, r, 1, tile, d_chunk, split,
-                                         1, info)
-            assert rc == 0, rc
-            f = dict(zip(build.INFO_FIELDS, info))
-            working = -(-rows // tile) * split       # blocks that do work
-            at_once = f["max_clusters"] * split if split > 1 \
-                else f["blocks_per_sm"] * sms
-            us = graph_us(torch, shrink, flush)
-            res["shrink"].append({
-                "tile": tile, "split": split, "working_blocks": working,
-                "blocks_at_once": at_once, "waves": -(-working // at_once),
-                "us_graph": us, "GB_per_s": shrink_bytes / us / 1e3})
-    res["shrink_matmul_us_graph"] = graph_us(
-        torch, lambda: torch.matmul(x, a[0]), flush)
     yb = bgmv.lora_shrink(x, a, idx, live).bfloat16()
     try:
         from torch.profiler import ProfilerActivity, _ExperimentalConfig, \
@@ -1046,6 +1281,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--expand-probe"]:
         print("EXPAND-PROBE", json.dumps(expand_probe()), flush=True)
         return 0
+    if sys.argv[1:2] == ["--shrink-probe"]:
+        shrink_probe()
+        return 0
+    if sys.argv[1:2] == ["--shrink-tree"]:
+        print("SHRINK", sys.argv[2], json.dumps(shrink_tree(sys.argv[2])),
+              flush=True)
+        return 0
     if sys.argv[1:2] == ["--expand-tree"]:
         print("EXPAND", sys.argv[2], json.dumps(expand_tree(sys.argv[2])),
               flush=True)
@@ -1080,6 +1322,9 @@ def main() -> int:
     elif sys.argv[1:2] == ["--expand"] and len(sys.argv) >= 3:
         trees = [sys.argv[2], here, *sys.argv[3:]]
         mode = "--expand-tree"
+    elif sys.argv[1:2] == ["--shrink"] and len(sys.argv) >= 3:
+        trees = [sys.argv[2], here, *sys.argv[3:]]
+        mode = "--shrink-tree"
     elif len(sys.argv) == 2 and not sys.argv[1].startswith("--"):
         trees, mode = [sys.argv[1], here], "--tree"
     else:

@@ -24,8 +24,9 @@ pages stay small, as they change a launch's grid and not its per-block
 footprint, except where they choose a path: each LoRA kernel is
 modelled at two decode batches (8 rows and the decode paths' largest,
 64) and at three row counts, so every path appears (the shrink's
-decode blocks, its row tiles of 64 and of 128 rows, split over a
-cluster of blocks and whole; the expand's decode blocks and its row
+decode blocks, its persistent wgmma kernel in bf16 at d_in a multiple of
+8, in clusters of 1 to 8 d slices, and the cp.async row tiles of 64 and
+128 rows otherwise; the expand's decode blocks and its row
 tiles: the persistent wgmma kernel's tiles of 64 and 128 columns in
 bf16 at d_out a multiple of 8, the mma.sync kernel otherwise). `launches(case)`
 gives each kernel of the config's serving and training path as a
@@ -35,7 +36,7 @@ refusal (None: the wrapper takes it).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -137,7 +138,8 @@ def shape_cases() -> Iterator[Case]:
                               lora=(("q", 4100, 1000), ("o", 1000, 4100)))
 
 
-def _lora_launches(case: Case, sms: int) -> Iterator[Launch]:
+def _lora_launches(case: Case, sms: int,
+                   room: Mapping[int, int]) -> Iterator[Launch]:
     seen = set()
     for _, d_in, d_out in case.lora:
         for rows in (*DECODE_ROWS, *PREFILL_ROWS):
@@ -145,14 +147,18 @@ def _lora_launches(case: Case, sms: int) -> Iterator[Launch]:
             if key in seen:
                 continue
             seen.add(key)
-            sp = bgmv.shrink_plan(rows, d_in, case.n_slots, sms, case.r_pad)
+            sp = bgmv.shrink_plan(rows, d_in, case.n_slots, sms, case.r_pad,
+                                  case.dtype, room)
             yield Launch(
                 case.config, "lora_shrink",
-                ("decode" if sp.tile == 0 else f"tile {sp.tile}")
+                ("decode" if sp.tile == 0 else
+                 f"persistent x{sp.split}" if sp.per_tile == 0 else
+                 f"tile {sp.tile}")
                 + ("" if d_in % 8 == 0 else " tail"), case.dtype,
                 dict(rows=rows, d_in=d_in, r_max=case.r_pad,
                      slots=case.n_slots, tile=sp.tile, d_chunk=sp.d_chunk,
-                     split=sp.split),
+                     split=sp.split, grid=sp.grid,
+                     per_tile=sp.per_tile),
                 bgmv.shrink_refusal(d_in, case.r_pad), "bgmv.shrink_refusal")
             ep = bgmv.expand_plan(rows, d_out, sms, case.dtype)
             # the decode and wgmma kernels take the shrink's f32 y
@@ -169,9 +175,13 @@ def _lora_launches(case: Case, sms: int) -> Iterator[Launch]:
                 "bgmv.expand_refusal")
 
 
-def launches(case: Case, sms: int = H100_SMS) -> List[Launch]:
-    """Every kernel launch on `case`'s path (see the module docstring)."""
-    out = list(_lora_launches(case, sms))
+def launches(case: Case, sms: int = H100_SMS,
+             room: Mapping[int, int] = bgmv.H100_CLUSTER_ROOM
+             ) -> List[Launch]:
+    """Every kernel launch on `case`'s path (see the module docstring);
+    `room`: the clusters of each split the card holds at once
+    (`bgmv.cluster_room`)."""
+    out = list(_lora_launches(case, sms, room))
     if case.attention:
         width = ("" if flash.shape_refusal(case.hd, case.dtype)
                  or flash.padded_width(case.hd, case.dtype) == case.hd

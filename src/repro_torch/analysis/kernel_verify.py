@@ -16,7 +16,8 @@ them, or reads what the compiler and the CUDA runtime report:
   (`rt_device_limits`): shared memory a block may opt in to, 65,536
   registers an SM and a block, threads a block; a spill fails unless
   `ALLOWED_SPILLS` gives its reason. The persistent bf16 flash launch's
-  grid must be min(work tiles, SMs) (`flash.persistent_grid`), and
+  grid must be min(work tiles, SMs) (`flash.persistent_grid`), the
+  persistent shrink's the plan's, every cluster on the card at once, and
   `flash.tile_order`, the CPU's copy of its walk over query tiles, must
   equal the library's (`flash_order_findings`).
 * ``kernel-scratch`` -> the canaries' fills: each launch runs with its
@@ -113,7 +114,7 @@ def _describe(lib, launch: kernel_model.Launch) -> List[Dict[str, int]]:
     if launch.kernel == "lora_shrink":
         rc = lib.rt_lora_shrink_info(a["rows"], a["d_in"], a["r_max"],
                                      a["slots"], a["tile"], a["d_chunk"],
-                                     a["split"], dt, out)
+                                     a["split"], a["grid"], dt, out)
     elif launch.kernel == "lora_expand":
         rc = lib.rt_lora_expand_info(a["rows"], a["r_max"], a["d_out"],
                                      a["blocks"], a["cols"], dt,
@@ -157,8 +158,9 @@ def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
     Returns (footprints, the limits, findings)."""
     lim = device_limits(lib)
     rows, findings = [], []
+    room = bgmv.cluster_room(torch.device("cuda"))
     for case in [*kernel_model.config_cases(), *kernel_model.shape_cases()]:
-        for launch in kernel_model.launches(case, sms):
+        for launch in kernel_model.launches(case, sms, room):
             if launch.refusal:
                 findings.append(f"{launch.label}: the wrapper refuses a "
                                 f"registered config: {launch.refusal}")
@@ -205,6 +207,21 @@ def footprint(lib, log: str, sms: int) -> Tuple[List[Footprint],
                             f"{where}: grid {r['grid_x']} x {r['grid_y']} x "
                             f"{r['grid_z']}, not the persistent "
                             f"{want.grid} of expand_plan")
+                if launch.kernel == "lora_shrink" and launch.args["tile"] \
+                        and launch.args["per_tile"] == 0:
+                    # the persistent shrink: the plan's grid, every
+                    # cluster on the card at once (one wave)
+                    a = launch.args
+                    if (r["grid_x"], r["grid_y"], r["grid_z"]) != \
+                            (a["grid"], 1, 1) or \
+                            a["grid"] // a["split"] > fp.max_clusters > 0 \
+                            or a["grid"] > fp.blocks_per_sm * lim["sms"]:
+                        findings.append(
+                            f"{where}: grid {r['grid_x']} x {r['grid_y']} x "
+                            f"{r['grid_z']} in clusters of {fp.cluster}, not "
+                            f"the plan's {a['grid']} in one wave "
+                            f"({fp.max_clusters} clusters, "
+                            f"{fp.blocks_per_sm} blocks an SM)")
                 if launch.kernel == "flash_attention" and \
                         launch.dtype == torch.bfloat16:
                     a = launch.args
@@ -437,6 +454,13 @@ def lora_inputs(rows, d_in, d_out, r_max, ranks, rank_block, dtype, seg,
     return clean, poisoned
 
 
+def shrink_plan(rows, d_in, slots, sms, r_max, dtype) -> bgmv.ShrinkPlan:
+    """`bgmv.shrink_plan` as the wrapper makes it on this card (with the
+    clusters it holds at once, `bgmv.cluster_room`)."""
+    return bgmv.shrink_plan(rows, d_in, slots, sms, r_max, dtype,
+                            bgmv.cluster_room(torch.device("cuda")))
+
+
 def shrink_path(lib, name, ins, poisoned, plan, rows_told=None,
                 split_told=None, d_in_told=None):
     rows, r_max = ins["rows"], ins["a"].shape[-1]
@@ -448,7 +472,7 @@ def shrink_path(lib, name, ins, poisoned, plan, rows_told=None,
         rc = lib.rt_lora_shrink(
             i["x"].data_ptr(), i["a"].data_ptr(), i["idx"].data_ptr(),
             i["live"].data_ptr(), outs["y"].t.data_ptr(), told, d_in, r_max,
-            i["slots"], plan.tile, plan.d_chunk, split,
+            i["slots"], plan.tile, plan.d_chunk, split, plan.grid,
             build.DTYPE_CODE[i["x"].dtype], _stream())
         build.check_launch(rc, name)
 
@@ -532,7 +556,7 @@ def lora_paths(lib, sms) -> List[Path]:
     for label, rows, d_in, d_out, r_max, ranks, rb, dt, seg in cases:
         clean, pois = lora_inputs(rows, d_in, d_out, r_max, ranks, rb, dt,
                                   seg, seed=rows)
-        sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms, r_max)
+        sp = shrink_plan(rows, d_in, clean["slots"], sms, r_max, dt)
         kind = "decode" if sp.tile == 0 else f"tile {sp.tile} x{sp.split}"
         out.append(shrink_path(lib, f"lora_shrink[{kind}] {label}", clean,
                                pois, sp))
@@ -743,12 +767,13 @@ def mutants(lib, sms) -> List[Tuple[str, List[str]]]:
     busy = busy_kernel()
     out = []
     for label, rows, d_in, d_out, seg in (
-            ("decode", 8, 1024, 1024, 1), ("prefill", 300, 512, 512, 17),
+            ("decode", 8, 1024, 1024, 1), ("prefill", 300, 1024, 512, 17),
             ("tail decode", 8, 4100, 1000, 1),
             ("tail prefill", 300, 4100, 1000, 17)):
         clean, pois = lora_inputs(rows, d_in, d_out, 64, (64, 16, 33, 8),
                                   16, torch.bfloat16, seg, seed=rows + 1)
-        sp = bgmv.shrink_plan(rows, d_in, clean["slots"], sms, 64)
+        sp = shrink_plan(rows, d_in, clean["slots"], sms, 64,
+                         torch.bfloat16)
         rb = bgmv.expand_plan(rows, d_out, sms, torch.bfloat16)
         for told, what in ((rows + 1, "one row more"),
                            (rows - 1, "one row fewer")):

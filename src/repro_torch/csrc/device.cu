@@ -150,6 +150,72 @@ extern "C" int rt_store_probe(void* out, int rows, int cols, int tma,
   return (int)rt::launch(l, args, static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+constexpr int kLoadBox = 64 * 128;                 // 64 rows x 128 bytes
+constexpr int kLoadMaxStages = 24;
+
+// Reads every (64 x 64) box of a (rows, cols) bf16 matrix into shared
+// memory by TMA and nothing else, each block a contiguous run of the boxes
+// in row-tile order (a row tile's boxes along its columns, as a row-tile
+// shrink block walks d), through a ring of `stages` boxes (an mbarrier
+// each): one thread issues a box as soon as its stage's last box has
+// landed, so `stages` boxes are in flight a block.
+__global__ void __launch_bounds__(32) load_probe_kernel(
+    const __grid_constant__ CUtensorMap map, int rows, int cols,
+    int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (rt::smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ __align__(8) uint64_t full[kLoadMaxStages];
+  if (threadIdx.x != 0) return;
+  for (int i = 0; i < stages; ++i) rt::mbar_init(&full[i], 1);
+  rt::fence_barrier_init();
+  const int cb = (cols + 63) / 64;
+  const long long boxes = (long long)((rows + 63) / 64) * cb;
+  const int w0 = (int)(boxes * blockIdx.x / gridDim.x);
+  const int w1 = (int)(boxes * (blockIdx.x + 1) / gridDim.x);
+  for (int w = w0; w < w1; ++w) {
+    const int i = w - w0, b = i % stages;
+    if (i >= stages) rt::mbar_wait(&full[b], (i / stages - 1) & 1);
+    rt::mbar_expect_tx(&full[b], kLoadBox);
+    rt::tma_load_4d(ring + b * kLoadBox, &map, &full[b], w % cb * 64,
+                    w / cb * 64, 0, 0);
+  }
+  for (int i = max(w0, w1 - stages) - w0; i < w1 - w0; ++i)
+    rt::mbar_wait(&full[i % stages], (i / stages) & 1);
+}
+}  // namespace
+
+// One launch of the load probe on `stream`: `blocks` blocks read the
+// (rows, cols) bf16 matrix `x` (cols a multiple of 8, x 16-byte aligned)
+// into shared memory by TMA, `stages` (1-24) boxes of 8 KB in flight a
+// block: how fast the card feeds a stream of TMA loads, as the row-tile
+// shrink issues them.
+extern "C" int rt_load_probe(const void* x, int rows, int cols, int blocks,
+                             int stages, void* stream) {
+  if (rows <= 0 || cols <= 0 || cols % 8 != 0 || blocks <= 0 ||
+      stages < 1 || stages > kLoadMaxStages)
+    return (int)cudaErrorInvalidValue;
+  if (rt::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap map = {};
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows, 1, 1};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  if (rt::encode_tiled()(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(x), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  rt::Launch l{(const void*)load_probe_kernel, dim3(blocks), 32,
+               (size_t)stages * kLoadBox + 1024};
+  void* args[] = {&map, &rows, &cols, &stages};
+  return (int)rt::launch(l, args, static_cast<cudaStream_t>(stream));
+}
+
 // out[0 : 3]: the nodes of a CUDA graph (a cudaGraph_t, e.g. a captured
 // torch.cuda.CUDAGraph(keep_graph=True)'s raw_cuda_graph()), its edges,
 // and the edges among them that are programmatic (a kernel launched with

@@ -20,33 +20,33 @@
 // 3.35 TB/s against 17 us of tensor-core work. Three launch shapes, chosen
 // on the host from `rows`, d_in and the SM count (kernels/bgmv.py:
 // shrink_plan):
-//  - Row tiles (prefill, chunks, training). Tiles of 64 or 128 consecutive
-//    rows, one block per (tile, distinct slot of the tile); prefill
-//    repeats each row's slot T times, so most tiles hold one slot and
-//    their other blocks exit at once. What bounds a launch is how many
-//    blocks stream x at once: a block walks its d range one stage after
-//    another, so a launch of few tiles (the yi-9b chunk: 8 tiles of one
-//    slot; training: 64 tiles of one slot) left most SMs idle while a few
-//    walked all of d_in (81-90 us on the H100 against 1.4-10.5 us of
-//    bytes). So where the tiles cannot fill the card, `split` blocks of
-//    one cluster (2, 4 or 8, as many as give no SM a second block) share
-//    a tile, each over a slice of d_in of whole 64-wide stages; each
-//    keeps its f32 partial sums in its shared memory, and the cluster
-//    adds them in rank order through distributed shared memory (no
-//    atomics), each block writing 1 / split of the tile's rows.
-//    Launches whose tiles fill the card (the 32,768-row
-//    prefill) keep one block a tile. In bf16 (d_in a multiple of 8) a
-//    stage costs one thread a TMA copy of x's 64-d slab of the tile and
-//    A[s][64 d, 64 columns] into a ring of 4-6 stages (an mbarrier each,
-//    96 KiB: 2 blocks an SM) and each warpgroup (64 rows) one wgmma
-//    m64n64k16 chain of 4 k-steps, bf16 in, f32 out, added into the f32
-//    total on the CUDA cores. Each block of a tile of k slots reads the
-//    whole slab, so such a tile reads x k times; runs of at least a
-//    tile's rows (prompts of 64 tokens or more in 64-row tiles; on the
-//    H100's 132 SMs 128-row tiles come only at 16,769 rows or more) keep
-//    k at most 2. f32 and other widths take cp.async copies and mma.sync
-//    (bf16) or the CUDA cores (f32). So x is read once and A once per
-//    tile, not once per row.
+//  - Row tiles in bf16 at a d_in that is a multiple of 8 (prefill,
+//    chunks, training): a persistent kernel (lora_shrink_wgmma_kernel),
+//    one block an SM, in clusters of `split` blocks that each take a
+//    slice of d_in; each cluster walks a contiguous run of 64-row tiles,
+//    a pass a distinct slot of a tile (and 64 rank columns). A producer
+//    warp copies idx and live a few tiles ahead, finds each tile's slots
+//    and keeps TMA loads of x's 64 x 64 boxes in flight through a ring;
+//    the block's slice of A[s] stays in shared memory while the slot's
+//    tiles run on, so at one slot A is read once a cluster, not once a
+//    tile. A consumer warpgroup multiplies each box on wgmma and adds it
+//    into an f32 total; the cluster adds its blocks' totals in rank order
+//    through distributed shared memory, a tile's reduction overlapping
+//    the next tile's loads. What bounded the kernel before (one block a
+//    (tile, slot, d slice), which reloaded its stage only after the whole
+//    block had read it) was that chain, not A's bytes: with A's loads cut
+//    it ran no faster (kernel_ab.py --shrink-probe); x's stream alone
+//    takes ~16 us at 4,096 rows and ~100 at 32,768 on the H100.
+//  - Row tiles otherwise (f32; bf16 at a d_in that is no multiple of 8,
+//    which TMA's 16-byte strides refuse): tiles of 64 or 128 consecutive
+//    rows, one block per (tile, distinct slot of the tile); where the
+//    tiles cannot fill the card, `split` blocks of one cluster (2, 4 or
+//    8) share a tile, each over a slice of d_in, keeping its f32 partial
+//    sums in shared memory, and the cluster adds them in rank order
+//    through distributed shared memory (no atomics), each block writing
+//    1 / split of the tile's rows. cp.async copies and mma.sync (bf16) or
+//    the CUDA cores (f32). x is read once a distinct slot of a tile and A
+//    once a tile, not once a row.
 //  - Decode (up to 64 rows). A decode batch's bytes are A's: at 8 rows
 //    x is 64 KB against 3.6 MB of A for 7 slots, so the launch is laid
 //    out over the slots' A and not over rows. One warp groups the rows by
@@ -656,133 +656,620 @@ __device__ __forceinline__ void store_pass(
   if (nc > 0) split_sync(split);                 // every partial read
 }
 
-// -- bf16 row tiles through TMA and wgmma (d_in a multiple of 8) --
+// -- bf16 row tiles: persistent, TMA + wgmma (d_in a multiple of 8) --
 
 constexpr int kWD = 64;                     // d a TMA box: 128 bytes of bf16
+constexpr int kSM = 64;                     // rows a tile: wgmma's M
+constexpr int kSThreads = 160;              // a consumer warpgroup + a warp
+constexpr int kSStages = 7;                 // x boxes in flight a block
+constexpr int kSABoxes = 16;                // A's ring of boxes: 128 KiB
+constexpr int kSPre = 4;                    // tiles of idx / live in flight
+constexpr int kSXBytes = kSM * 128;         // a stage: x[tile, 64 d]
+constexpr int kSABytes = kWD * 128;         // A[s][64 d, 64 columns]
+constexpr int kSPartBytes = kSM * kLdp * 4;   // a block's partial sums
+constexpr size_t kSSmem = (size_t)kSABoxes * kSABytes +
+                          (size_t)kSStages * kSXBytes + 2 * kSPartBytes + 1024;
 
-// BM rows a tile in BM / 64 warpgroups (wgmma's 64 rows each); a stage is
-// the tile's x[:, 64 d] (BM rows of 128 bytes) and A[s][64 d, 64 columns]
-// (64 rows of 128 bytes), both 128-byte swizzled as TMA writes them.
-template <int BM>
-struct WTile {
-  static constexpr int kThreads = 2 * BM;           // BM / 64 warpgroups
-  static constexpr int kXBytes = BM * kWD * 2;
-  static constexpr int kABytes = kWD * kCols * 2;
-  static constexpr int kStageBytes = kXBytes + kABytes;
-  static constexpr int kStages = BM == 64 ? 6 : 4;  // 96 KiB: 2 blocks an SM
-  static constexpr int kRing = kStages * kStageBytes;
-  static_assert(kRing >= BM * kLdp * 4, "the partials reuse the ring");
-  static constexpr size_t kSmem = kRing + 1024;     // + a 1024-byte align
+// An item of the walk, as the producer warp hands it to the consumers: a
+// stage (x's box kt of a pass's d slice, read with A's box `abox` and a
+// pair's second slot's `abox2`), or,
+// with no stage, a pass past the slot's live columns or a tile with no
+// adapter (zeros only), or the walk's end.
+enum {
+  kSTileFirst = 1,   // the tile's first item: its rows without an adapter
+  kSStage = 2,       // a stage of a pass (else: zeros only)
+  kSPassFirst = 4,
+  kSPassLast = 8,
+  kSPair = 16,       // a pass of two slots over one x stage
+  kSEnd = 32
 };
+struct SItem {
+  int row0;          // the tile: rows [row0, row0 + kSM)
+  int s, c0, nc;     // the pass: slot, first column, columns computed
+  int s2, nc2;       // a pair's second slot and its columns
+  int abox, abox2;   // A's boxes this stage reads (-1: no stage)
+  int flags;
+  int info[kSM];     // row r: (slot + 2) << 16 | live (slot -2: past rows)
+};
+__device__ __forceinline__ int sinfo_slot(int v) { return (v >> 16) - 2; }
+__device__ __forceinline__ int sinfo_live(int v) { return v & 0xffff; }
 
-// Block (tile, k, part): the tile's k-th distinct slot s over d in
-// [part * d_chunk, (part + 1) * d_chunk) (d_chunk a multiple of kWD),
-// `split` blocks a tile in one cluster. Thread 0 keeps the ring full
-// (one mbarrier a stage; TMA zero-fills past d_in and past `rows`);
-// each warpgroup multiplies its 64 rows of every stage by the stage's A
-// tile (wgmma m64n64k16, bf16 in, f32 out, 4 k-steps) and adds the sum
-// into its f32 total on the CUDA cores: the tensor cores' f32 adds round
-// toward zero, which over d_in 4096 drifts past the f32 limit. Rows of
-// other slots are multiplied too and never stored; a warpgroup with no
-// row of s only waits. After all stages the totals go to shared memory
-// (over the ring) and store_pass sums the cluster's partials.
-template <int BM>
-__global__ void __launch_bounds__(WTile<BM>::kThreads)
+// y[row0 + r, c0 : c0 + ccount) = 0 for the rows r of the block's share
+// [r0, r0 + per) whose slot is `s` (-1: no adapter), by 128 threads (t:
+// this thread's index among them).
+__device__ __forceinline__ void zero_rows(float* __restrict__ y,
+                                          const int* info, int s, int row0,
+                                          int r0, int per, int r_max,
+                                          int c0, int ccount, int t) {
+  for (int i = t; i < per * (ccount / 4); i += 128) {
+    const int r = r0 + i / (ccount / 4), c = i % (ccount / 4) * 4;
+    if (sinfo_slot(info[r]) == s)
+      *reinterpret_cast<float4*>(y + (size_t)(row0 + r) * r_max + c0 + c) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Built with -DLORA_SHRINK_STAMPS (kernel_ab.py --shrink-probe, for
+// measurement only), thread 0 of each block's consumers splits its time
+// into the phases below by clock64() and adds them, its block's %globaltimer
+// span and its exchanges into g_shrink_stamps (rt_lora_shrink_stamps reads
+// and clears it); built without, the stamps compile to nothing.
+enum {
+  kStOther,     // zeros, releases, bookkeeping
+  kStFull,      // waits for a stage's loads (x and A)
+  kStMma,       // the stage's products and their f32 sums
+  kStWait,      // the cluster barrier before the last exchange's sums
+  kStReduce,    // the sums over the cluster's partials and y's stores
+  kStExtra,     // the extra barriers (a pair's buffers, the kernel's end)
+  kStPut,       // the partials written and the cluster barrier's arrive
+  kStCycles,    // every phase: the block's clock64() span
+  kStNs,        // the block's %globaltimer span
+  kStBlocks,
+  kStExchanges,
+  kStCount
+};
+#ifdef LORA_SHRINK_STAMPS
+__device__ unsigned long long g_shrink_stamps[kStCount];
+__device__ __forceinline__ unsigned long long shrink_globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+struct SStamps {
+  unsigned long long t[kStCount];
+  long long last, first;
+  unsigned long long ns0;
+  __device__ void start() {
+    last = first = clock64();
+    ns0 = shrink_globaltimer();
+    for (int k = 0; k < kStCount; ++k) t[k] = 0;
+  }
+  __device__ void tick(int k) {
+    const long long now = clock64();
+    t[k] += now - last;
+    last = now;
+  }
+  __device__ void flush(int exchanges) {
+    tick(kStOther);
+    t[kStCycles] = last - first;
+    t[kStNs] = shrink_globaltimer() - ns0;
+    t[kStBlocks] = 1;
+    t[kStExchanges] = exchanges;
+    for (int k = 0; k < kStCount; ++k) atomicAdd(&g_shrink_stamps[k], t[k]);
+  }
+};
+#else
+struct SStamps {
+  __device__ void start() {}
+  __device__ void tick(int) {}
+  __device__ void flush(int) {}
+};
+#endif
+
+// y = x @ A[idx] row by row over row tiles of kSM rows, persistent: the
+// blocks of a cluster (`split`, block `part` over d in [part * d_chunk,
+// +d_chunk), whole TMA boxes) walk the same contiguous run of tiles [T c /
+// G, T (c + 1) / G) of the T tiles, cluster c of G. Warp 4 (the producer)
+// copies each tile's idx and live kSPre tiles ahead (cp.async), finds the
+// tile's distinct slots in row order (a warp vote where one slot holds
+// every row) and the widest live width of each, rounded up to 8 (ncol),
+// and hands out the walk through a ring of kSStages stages (an mbarrier
+// full and empty each): a pass a (slot, 64 rank columns below ncol), a
+// stage a 64-wide box of d of the tile's x, loaded by TMA (zero past
+// `rows` and d_in), with A[s][the same 64 d, 64 columns] beside it
+// through a ring of kSABoxes boxes. A tile's slots go two to a pass: each
+// x box is multiplied by both slots' A boxes, so x is read once for the
+// pair (runs of 32 rows a slot). A is read again for every tile: holding
+// a block's slice of it across the tiles of one slot gave no gain on the
+// H100 (a stage takes ~0.35 us a block either way, and the parent's
+// kernel ran no faster with A's loads cut: kernel_ab.py --shrink-probe).
+// Warpgroup 0 (the consumers) multiplies two stages of a pass, or a
+// pair's two slots, at a time (wgmma m64n64k16, bf16 in, f32 out, 4
+// k-steps a stage, one wait for both) and adds each stage's products
+// into its slot's f32 total on the CUDA cores, in stage order: the tensor
+// cores' f32 adds round toward zero, which over d_in 4096 drifts past the
+// f32 limit. At a pass's end the totals go to partial buffers (two; a
+// pair fills both) and the cluster adds them in rank order through
+// distributed shared memory (no atomics: the sum repeats bitwise), block
+// `part` its 1 / split of the tile's rows; the cluster barrier that
+// guards a buffer is waited for only after the next pass is computed
+// (the producer warp takes part in it, so it runs at most about a pass
+// ahead), with one more barrier where a pair's two buffers and the last
+// exchange's are more than two. Rows of other slots are multiplied too
+// and never stored; columns past a row's live width and rows without an
+// adapter are zeros. Launched with programmatic dependent launch: a block
+// sets up while the kernel ahead finishes, and reads or writes nothing of
+// the tensors before it has. What bounds it on the H100 (kernel_ab.py
+// --shrink-probe, --sweep): x's stream from memory at the full card (a
+// TMA stream of x alone takes ~16 us at 4,096 rows after an L2 flush and
+// ~98 at 32,768), a block's stage pipeline (~0.35 us a stage, ~45 GB/s a
+// block at most) where few blocks work, and ~3 us a cluster's exchange
+// at split 2 and 8 (the stamps: its barrier ~0.2, the sums over DSMEM
+// with y's stores ~1.5, the partials written ~0.6, the closing barrier
+// ~0.7; loading all of a thread's partials before the first sum was
+// slower).
+__global__ void __launch_bounds__(kSThreads, 1)
     lora_shrink_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                              const __grid_constant__ CUtensorMap ta,
                              const int* __restrict__ idx,
                              const int* __restrict__ live,
                              float* __restrict__ y, int rows, int d_in,
                              int r_max, int slots, int d_chunk, int split) {
-  using W = WTile<BM>;
-  constexpr int S = W::kStages;
+  constexpr int S = kSStages;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring =
+  unsigned char* abase =
       smem_raw + ((1024 - (rt::smem_u32(smem_raw) & 1023)) & 1023);
-  __shared__ __align__(8) uint64_t full[S];
-  __shared__ int sidx[BM], slive[BM], width[BM];
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int wg = tid / 128, warp = (tid / 32) & 3;
+  unsigned char* xring = abase + kSABoxes * kSABytes;
+  float* pbuf = reinterpret_cast<float*>(xring + S * kSXBytes);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  __shared__ SItem meta[S];
+  __shared__ int pidx[kSPre][kSM], plive[kSPre][kSM];
+  // a pass's rows, for its sums: written at its last stage, read after
+  // the next pass (three, so a thread still summing exchange e - 1 never
+  // sees e + 2's rows land)
+  __shared__ int cinfo[3][kSM];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int part = (int)blockIdx.x % split;
-  const int row0 = (int)blockIdx.x / split * BM;
-  int s, ncol;
-  tile_slot<BM, W::kThreads>(idx, live, y, sidx, slive, width, rows, r_max,
-                             slots, row0, blockIdx.y,
-                             blockIdx.y == 0 && part == 0, s, ncol);
-  if (s < 0) return;
+  const int cl = (int)blockIdx.x / split, ncl = (int)gridDim.x / split;
   if (tid == 0) {
-    for (int b = 0; b < S; ++b) rt::mbar_init(&full[b], 1);
+    for (int i = 0; i < S; ++i) {
+      rt::mbar_init(&full[i], 1);
+      rt::mbar_init(&empty[i], 128);        // every consumer thread
+    }
     rt::fence_barrier_init();
   }
-  bool mine = false;                        // a row of s in my 64 rows
-  for (int r = 0; r < 64; ++r) mine |= sidx[wg * 64 + r] == s;
   __syncthreads();
+  const int tiles = (rows + kSM - 1) / kSM;
+  const int w0 = (int)((long long)tiles * cl / ncl);
+  const int w1 = (int)((long long)tiles * (cl + 1) / ncl);
   const int lo = part * d_chunk, hi = min(d_in, lo + d_chunk);
   const int nk = hi > lo ? (hi - lo + kWD - 1) / kWD : 0;
-  float* partial = reinterpret_cast<float*>(ring);
-  int g = 0;                                // stages issued before the pass
-  for (int c0 = 0; c0 < r_max; c0 += kCols) {
-    const int nc = min(kCols, ncol - c0);
-    if (nc > 0) {
-      const CUtensorMap* mx = &tx;
-      const CUtensorMap* ma = &ta;
-      auto issue = [&](int kt) {            // stage kt of this pass
-        const int b = (g + kt) % S;
-        unsigned char* st = ring + b * W::kStageBytes;
-        rt::mbar_expect_tx(&full[b], W::kStageBytes);
-        rt::tma_load_4d(st, mx, &full[b], lo + kt * kWD, row0, 0, 0);
-        rt::tma_load_4d(st + W::kXBytes, ma, &full[b], c0, lo + kt * kWD, s,
-                        0);
-      };
-      if (tid == 0)
-        for (int kt = 0; kt < min(nk, S); ++kt) issue(kt);
-      float acc[kCols / 2], part_d[kCols / 2];
-#pragma unroll
-      for (int i = 0; i < kCols / 2; ++i) acc[i] = part_d[i] = 0.f;
-      for (int kt = 0; kt < nk; ++kt) {
-        const int b = (g + kt) % S;
-        rt::mbar_wait(&full[b], ((g + kt) / S) & 1);
-        if (mine) {
-          unsigned char* st = ring + b * W::kStageBytes;
-          // x: K-major, SBO one 8-row atom, a k-step 32 bytes on; A:
-          // MN-major (transpose bit), a k-step 16 rows of 128 bytes on
-          const uint64_t da = rt::smem_desc(st + wg * 64 * 128, 16, 1024, 1);
-          const uint64_t db = rt::smem_desc(st + W::kXBytes, kWD * 128, 1024,
-                                            1);
-          rt::fence_regs(part_d);
-          rt::wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kWD / 16; ++kk)
-            rt::Wgmma<kCols>::template ss<0, 1>(part_d, da + 2 * kk,
-                                                db + 128 * kk, kk > 0);
-          rt::wgmma_commit();
-          rt::wgmma_wait<0>();
-          rt::fence_regs(part_d);
-#pragma unroll
-          for (int i = 0; i < kCols / 2; ++i) acc[i] += part_d[i];
-        }
-        __syncthreads();                    // stage b read by every warp
-        if (tid == 0 && kt + S < nk) issue(kt + S);
-      }
-      g += nk;
-      // d[4i + 2h + e]: row 16 warp + lane / 4 + 8h, column 8i + 2 (lane %
-      // 4) + e of the warpgroup's 64 rows
-      if (mine) {
-#pragma unroll
-        for (int i = 0; i < kCols / 8; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
-            *reinterpret_cast<float2*>(partial + r * kLdp + 8 * i +
-                                       2 * (lane & 3)) =
-                make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
-          }
-      }
-      rt::fence_proxy_async();              // the ring is TMA's again next
+  const int nst = max(nk, 1);               // a pass's stage items
+  const int per = kSM / split;              // rows a block sums and writes
+  // launched with programmatic dependent launch: nothing of idx, live, x,
+  // A or y is touched before the kernel ahead has finished
+  rt::grid_dep_wait();
+
+  if (warp == 4) {
+    // ------------------------------------------------------ producer ----
+    if (lane == 0) {
+      rt::prefetch_map(&tx);
+      rt::prefetch_map(&ta);
     }
-    store_pass<BM, W::kThreads>(partial, y, sidx, slive, s, row0, rows,
-                                r_max, c0, nc, split, part);
+    int item = 0;                           // items handed out
+    int psize = 0;                          // buffers of the last exchange
+    int abump = 0;                          // A boxes loaded so far
+    auto fetch_rows = [&](int w) {          // tile w's idx and live
+      if (w < w1) {
+        const int row0 = w * kSM, slot = (w - w0) % kSPre;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + lane + 32 * h;
+          const bool in = r < rows;
+          rt::cp_async4z(&pidx[slot][lane + 32 * h], in ? idx + r : idx, in);
+          rt::cp_async4z(&plive[slot][lane + 32 * h], in ? live + r : live,
+                         in);
+        }
+      }
+      rt::cp_async_commit();
+    };
+    int info[2] = {0, 0};                   // this lane's rows' info
+    // hand out one item: wait for its stage, write it (every lane: its
+    // rows' info), and with a stage, load x's box kt and A's box kt of
+    // (s, c0) into A's box `ab` (and of a pair's (s2, c0) into box `ab2`)
+    auto emit = [&](int row0, int s, int c0, int nc, int kt, int ab,
+                    int flags, int s2 = -1, int nc2 = 0, int ab2 = -1) {
+      const int st = item % S;
+      rt::mbar_wait(&empty[st], ((item / S) & 1) ^ 1);
+      SItem& m = meta[st];
+      m.info[lane] = info[0];
+      m.info[lane + 32] = info[1];
+      const bool load_x = (flags & kSStage) && kt < nk;
+      const bool pair = flags & kSPair;
+      __syncwarp();
+      if (lane == 0) {
+        m.row0 = row0;
+        m.s = s;
+        m.c0 = c0;
+        m.nc = nc;
+        m.s2 = s2;
+        m.nc2 = nc2;
+        m.abox = load_x ? ab : -1;
+        m.abox2 = load_x && pair ? ab2 : -1;
+        m.flags = flags;
+        rt::mbar_expect_tx(&full[st],
+                           load_x ? kSXBytes + (pair ? 2 : 1) * kSABytes
+                                  : 0);
+        if (load_x) {
+          const int d0 = lo + kt * kWD;
+          rt::tma_load_4d(xring + st * kSXBytes, &tx, &full[st], d0, row0,
+                          0, 0);
+          rt::tma_load_4d(abase + ab * kSABytes, &ta, &full[st], c0, d0, s,
+                          0);
+          if (pair)
+            rt::tma_load_4d(abase + ab2 * kSABytes, &ta, &full[st], c0, d0,
+                            s2, 0);
+        }
+      }
+      __syncwarp();
+      ++item;
+    };
+    // the cluster barriers of an exchange of `need` partial buffers, as
+    // the consumers pass them (see there): the last exchange's, and one
+    // more where its buffers and these are more than two
+    auto exchange = [&](int need) {
+      if (split > 1) {
+        if (psize > 0) cluster_wait();
+        if (psize + need > 2) {
+          cluster_arrive();
+          cluster_wait();
+        }
+        cluster_arrive();
+      }
+      psize = need;
+    };
+    // a pass over (s, c0): its stages, each with the next box of A's ring
+    // (two at most an item, so a box is loaded again 8 items later, when
+    // the consumers have read it: the ring of stages is 7)
+    auto pass = [&](int row0, int s, int c0, int nc, int first) {
+      for (int kt = 0; kt < nst; ++kt)
+        emit(row0, s, c0, nc, kt, abump++ % kSABoxes,
+             kSStage | (kt == 0 ? kSPassFirst | first : 0) |
+                 (kt == nst - 1 ? kSPassLast : 0));
+      exchange(1);
+    };
+    // a pass over two slots' (s, c0) and (s2, c0): each stage's x box read
+    // once for both
+    auto pair_pass = [&](int row0, int s, int nc, int s2, int nc2, int c0,
+                         int first) {
+      for (int kt = 0; kt < nst; ++kt) {
+        const int ab = abump++ % kSABoxes, ab2 = abump++ % kSABoxes;
+        emit(row0, s, c0, nc, kt, ab,
+             kSStage | kSPair | (kt == 0 ? kSPassFirst | first : 0) |
+                 (kt == nst - 1 ? kSPassLast : 0),
+             s2, nc2, ab2);
+      }
+      exchange(2);
+    };
+
+    for (int w = w0; w < w0 + kSPre; ++w) fetch_rows(w);
+    for (int w = w0; w < w1; ++w) {
+      const int row0 = w * kSM;
+      rt::cp_async_wait<kSPre - 1>();       // tile w's idx and live
+      const int slot = (w - w0) % kSPre;
+      int sl[2], lv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool in = row0 + lane + 32 * h < rows;
+        sl[h] = in ? pidx[slot][lane + 32 * h] : -1;
+        lv[h] = in ? plive[slot][lane + 32 * h] : 0;
+        if (sl[h] < 0 || sl[h] >= slots) sl[h] = -1;
+        lv[h] = sl[h] < 0 ? 0 : max(0, min(lv[h], r_max));
+        info[h] = ((in ? sl[h] + 2 : 0) << 16) | lv[h];
+      }
+      __syncwarp();
+      asm volatile("" ::: "memory");        // the slot is read before
+      fetch_rows(w + kSPre);                // its next copy lands in it
+      int first = kSTileFirst;
+      // a pass a 64 columns of slot s, below its rows' widest live width
+      // rounded up to 8 (ncol)
+      auto passes = [&](int s, int ncol) {
+        for (int c0 = 0; c0 < r_max; c0 += kCols) {
+          const int nc = min(kCols, ncol - c0);
+          if (nc > 0)
+            pass(row0, s, c0, nc, first);
+          else                              // past every live width: zeros
+            emit(row0, s, c0, nc, 0, -1, first);
+          first = 0;
+        }
+      };
+      const int s0 = __shfl_sync(0xffffffffu, sl[0], 0);
+      if (__all_sync(0xffffffffu, sl[0] == s0 && sl[1] == s0)) {
+        // one slot, or none, on every row
+        if (s0 < 0)
+          emit(row0, -1, 0, 0, 0, -1, first);
+        else
+          passes(s0, (__reduce_max_sync(0xffffffffu, max(lv[0], lv[1])) +
+                      7) / 8 * 8);
+        continue;
+      }
+      // the first row of each distinct slot, in row order
+      bool fst[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned peers = __match_any_sync(0xffffffffu, sl[h]);
+        fst[h] = sl[h] >= 0 && lane == __ffs(peers) - 1;
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        fst[1] &= __shfl_sync(0xffffffffu, sl[0], j) != sl[1];
+      unsigned long long f =
+          __ballot_sync(0xffffffffu, fst[0]) |
+          (unsigned long long)__ballot_sync(0xffffffffu, fst[1]) << 32;
+      auto next_slot = [&](int& s, int& ncol) {
+        const int u = __ffsll((long long)f) - 1;
+        f &= f - 1;
+        s = __shfl_sync(0xffffffffu, u < 32 ? sl[0] : sl[1], u & 31);
+        ncol = (__reduce_max_sync(0xffffffffu,
+                                  max(sl[0] == s ? lv[0] : 0,
+                                      sl[1] == s ? lv[1] : 0)) +
+                7) / 8 * 8;
+      };
+      while (f != 0) {                      // uniform: a slot at a time
+        int s, ncol;
+        next_slot(s, ncol);
+        if (f == 0) {                       // the last of an odd count
+          passes(s, ncol);
+          continue;
+        }
+        // two slots a pass, x's stages read once for both
+        int s2, ncol2;
+        next_slot(s2, ncol2);
+        for (int c0 = 0; c0 < r_max; c0 += kCols) {
+          const int nc = min(kCols, ncol - c0), nc2 = min(kCols, ncol2 - c0);
+          if (nc > 0 && nc2 > 0) {
+            pair_pass(row0, s, nc, s2, nc2, c0, first);
+          } else {
+            if (nc > 0) pass(row0, s, c0, nc, first);
+            else emit(row0, s, c0, nc, 0, -1, first);
+            if (nc2 > 0) pass(row0, s2, c0, nc2, 0);
+            else emit(row0, s2, c0, nc2, 0, -1, 0);
+          }
+          first = 0;
+        }
+      }
+    }
+    rt::cp_async_wait<0>();
+    // the kernel after this one may start setting up: every load is issued
+    rt::grid_dep_launch();
+    emit(0, -1, 0, 0, 0, -1, kSEnd);
+    if (split > 1 && psize > 0) {           // the consumers' last barrier
+      cluster_wait();
+      cluster_arrive();
+    }
+    return;
   }
+
+  // -------------------------------------------------------- consumers ----
+  const int g = lane >> 2, q = lane & 3;
+  float acc[kCols / 2], acc2[kCols / 2], pa[kCols / 2], pb[kCols / 2];
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) acc[i] = acc2[i] = 0.f;
+  int ex = 0;                               // exchanges begun
+  // the last exchange: the buffers it filled (0: none; a pair's two),
+  // which other threads or blocks may still read, whether its sums are
+  // still to take (split > 1: after the next pass), its first buffer,
+  // its tile and passes
+  int held = 0, p_b = 0, p_ex = 0, p_row0 = 0, p_c0 = 0;
+  int p_s = 0, p_nc = 0, p_s2 = 0, p_nc2 = 0;
+  bool pend = false;
+  // every consumer thread arrives (one lane a warp behind a branch also
+  // works; the stage's reads are all this thread's)
+  auto release = [&](int st) { rt::mbar_arrive(&empty[st]); };
+  SStamps stamps;
+  if (tid == 0) stamps.start();
+  // a phase of thread 0's time ends (LORA_SHRINK_STAMPS only)
+  auto tick = [&](int k) {
+    if (tid == 0) stamps.tick(k);
+  };
+  // the sums of buffer b (exchange e's rows) over the cluster's partials
+  // in rank order, for this block's rows of slot s; columns at or past nc
+  // or a row's live width are 0
+  auto reduce = [&](int b, int e, int row0, int s, int c0, int nc) {
+    const int ccount = min(kCols, r_max - c0);
+    const float* mine = pbuf + b * (kSPartBytes / 4);
+    const int* inf = cinfo[e % 3];
+    for (int i = tid; i < per * (ccount / 4); i += 128) {
+      const int r = part * per + i / (ccount / 4), c = i % (ccount / 4) * 4;
+      if (sinfo_slot(inf[r]) != s) continue;
+      const int lv = min(nc, sinfo_live(inf[r]) - c0);  // [c, lv) live
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < lv) {
+#pragma unroll
+        for (int k = 0; k < kMaxTileSplit; ++k) {
+          if (k >= split) break;
+          const float* src = split > 1
+              ? cg::this_cluster().map_shared_rank(mine, k) : mine;
+          const float4 p =
+              *reinterpret_cast<const float4*>(src + r * kLdp + c);
+          v.x += p.x;
+          v.y += p.y;
+          v.z += p.z;
+          v.w += p.w;
+        }
+        if (c + 1 >= lv) v.y = 0.f;
+        if (c + 2 >= lv) v.z = 0.f;
+        if (c + 3 >= lv) v.w = 0.f;
+      }
+      *reinterpret_cast<float4*>(y + (size_t)(row0 + r) * r_max + c0 + c) =
+          v;
+    }
+  };
+  auto reduce_pending = [&]() {
+    reduce(p_b, p_ex, p_row0, p_s, p_c0, p_nc);
+    if (held == 2) reduce(p_b ^ 1, p_ex, p_row0, p_s2, p_c0, p_nc2);
+  };
+  // d[4i + 2h + e]: row 16 warp + lane / 4 + 8h, column 8i + 2 (lane % 4)
+  // + e, into partial buffer b
+  auto put = [&](const float (&a)[kCols / 2], int b) {
+    float* out = pbuf + b * (kSPartBytes / 4);
+#pragma unroll
+    for (int i = 0; i < kCols / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(out + (warp * 16 + g + 8 * h) * kLdp +
+                                   8 * i + 2 * q) =
+            make_float2(a[4 * i + 2 * h], a[4 * i + 2 * h + 1]);
+  };
+  for (int item = 0;;) {
+    const int st = item % S;
+    tick(kStOther);
+    rt::mbar_wait(&full[st], (item / S) & 1);
+    tick(kStFull);
+    const SItem& m = meta[st];
+    const int flags = m.flags;
+    if (flags & kSEnd) break;
+    const int row0 = m.row0, s = m.s, c0 = m.c0, nc = m.nc;
+    if (flags & kSTileFirst)                // rows without an adapter
+      zero_rows(y, m.info, -1, row0, part * per, per, r_max, 0, r_max, tid);
+    if (!(flags & kSStage)) {
+      if (s >= 0)                           // a pass past every live width
+        zero_rows(y, m.info, s, row0, part * per, per, r_max, c0,
+                  min(kCols, r_max - c0), tid);
+      release(st);
+      ++item;
+      continue;
+    }
+    const bool pair = flags & kSPair;
+    if (flags & kSPassFirst) {
+#pragma unroll
+      for (int i = 0; i < kCols / 2; ++i) acc[i] = acc2[i] = 0.f;
+    }
+    // a single slot's pass takes two of its stages at a time where it goes
+    // on past this one: both products in flight before one wait
+    const bool two = !pair && !(flags & kSPassLast);
+    const int st2 = (item + 1) % S;
+    if (two) {
+      tick(kStOther);
+      rt::mbar_wait(&full[st2], ((item + 1) / S) & 1);
+      tick(kStFull);
+    }
+    const int last = (two ? meta[st2].flags : flags) & kSPassLast;
+    // x: K-major, SBO one 8-row atom, a k-step 32 bytes on; A: MN-major
+    // (transpose bit), a k-step 16 rows of 128 bytes on
+    const uint64_t da = rt::smem_desc(xring + st * kSXBytes, 16, 1024, 1);
+    const uint64_t db =
+        rt::smem_desc(abase + m.abox * kSABytes, kWD * 128, 1024, 1);
+    if (m.abox >= 0 && (two || pair)) {
+      // the second chain: the next stage's x and A, or this x and the
+      // pair's second A
+      const uint64_t da2 =
+          two ? rt::smem_desc(xring + st2 * kSXBytes, 16, 1024, 1) : da;
+      const uint64_t db2 = rt::smem_desc(
+          abase + (two ? meta[st2].abox : m.abox2) * kSABytes, kWD * 128,
+          1024, 1);
+      rt::fence_regs(pa);
+      rt::fence_regs(pb);
+      rt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWD / 16; ++kk)
+        rt::Wgmma<kCols>::template ss<0, 1>(pa, da + 2 * kk, db + 128 * kk,
+                                            kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kWD / 16; ++kk)
+        rt::Wgmma<kCols>::template ss<0, 1>(pb, da2 + 2 * kk,
+                                            db2 + 128 * kk, kk > 0);
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(pa);
+      rt::fence_regs(pb);
+#pragma unroll
+      for (int i = 0; i < kCols / 2; ++i) acc[i] += pa[i];
+      if (two) {
+#pragma unroll
+        for (int i = 0; i < kCols / 2; ++i) acc[i] += pb[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < kCols / 2; ++i) acc2[i] += pb[i];
+      }
+    } else if (m.abox >= 0) {
+      rt::fence_regs(pa);
+      rt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWD / 16; ++kk)
+        rt::Wgmma<kCols>::template ss<0, 1>(pa, da + 2 * kk, db + 128 * kk,
+                                            kk > 0);
+      rt::wgmma_commit();
+      rt::wgmma_wait<0>();
+      rt::fence_regs(pa);
+#pragma unroll
+      for (int i = 0; i < kCols / 2; ++i) acc[i] += pa[i];
+    }
+    tick(kStMma);
+    const int s2 = m.s2, nc2 = m.nc2;
+    if (last && tid < kSM) cinfo[ex % 3][tid] = m.info[tid];
+    release(st);
+    if (two) release(st2);
+    item += two ? 2 : 1;
+    if (!last) continue;
+    // The pass's totals: exchange `ex` of one buffer (a pair: two). The
+    // exchange before it is summed first (its cluster barrier waited for
+    // only now, after this pass); where its buffers and these are more
+    // than two, one more barrier lets every block finish reading them.
+    const int need = pair ? 2 : 1;
+    tick(kStOther);
+    if (pend) {
+      cluster_wait();                       // every partial of ex - 1
+      tick(kStWait);
+      reduce_pending();
+      tick(kStReduce);
+      pend = false;
+    }
+    const bool extra = held + need > 2;
+    if (extra) {
+      if (split > 1) {
+        cluster_arrive();
+        cluster_wait();
+      } else {
+        rt::named_sync(1, 128);
+      }
+      tick(kStExtra);
+    }
+    const int b = need == 2 || extra || held == 0 ? 0 : p_b ^ 1;
+    put(acc, b);
+    if (pair) put(acc2, b ^ 1);
+    held = need;
+    p_b = b;
+    p_ex = ex;
+    p_row0 = row0;
+    p_c0 = c0;
+    p_s = s;
+    p_nc = nc;
+    p_s2 = s2;
+    p_nc2 = nc2;
+    if (split > 1) {
+      cluster_arrive();                     // partials of ex written
+      tick(kStPut);
+      pend = true;
+    } else {
+      rt::named_sync(1, 128);
+      tick(kStPut);
+      reduce_pending();
+      tick(kStReduce);
+    }
+    ++ex;
+  }
+  if (pend) {
+    tick(kStOther);
+    cluster_wait();
+    tick(kStWait);
+    reduce_pending();
+    tick(kStReduce);
+    cluster_arrive();                       // every block's partials read
+    cluster_wait();
+    tick(kStExtra);
+  }
+  if (tid == 0) stamps.flush(ex);
 }
 
 // -- row tiles through cp.async (f32 on CUDA cores; bf16 at other d_in) --
@@ -997,10 +1484,9 @@ __global__ void __launch_bounds__(2 * BM) lora_shrink_tile_kernel(
   }
 }
 
-// A tile holds at most min(slots, BM) distinct slots: one block each (y),
-// `split` blocks a tile (x) in a cluster. bf16 at a d_in that is a
-// multiple of 8 takes the wgmma kernel (its tensor maps made by the
-// caller); f32 and other widths the cp.async kernel.
+// The cp.async tile kernel (f32, and bf16 at a d_in that is no multiple
+// of 8): a tile holds at most min(slots, BM) distinct slots, one block
+// each (y), `split` blocks a tile (x) in a cluster.
 template <typename T, int BM>
 rt::Launch tile_launch(int rows, int d_in, int slots, int split) {
   static_assert(tile_smem<T, BM>() >= BM * kLdp * sizeof(float),
@@ -1008,9 +1494,6 @@ rt::Launch tile_launch(int rows, int d_in, int slots, int split) {
   const dim3 grid((rows + BM - 1) / BM * split, max(1, min(slots, BM)));
   const bool vec = d_in % rt::kVec == 0;
   if constexpr (std::is_same<T, bf16>::value) {
-    if (vec)
-      return {(const void*)lora_shrink_wgmma_kernel<BM>, grid,
-              WTile<BM>::kThreads, WTile<BM>::kSmem, (unsigned)split};
     return {(const void*)lora_shrink_tile_kernel<bf16, BM, false>, grid,
             2 * BM, tile_smem<bf16, BM>(), (unsigned)split};
   } else {
@@ -2058,7 +2541,8 @@ rt::Launch dec_expand_launch(int rows, int r_max, int d_out, bool y_f32) {
 // The shrink's launch for these arguments (see rt_lora_shrink), or the
 // error the entry point returns.
 cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
-                          int d_chunk, int split, int dtype, rt::Launch* l) {
+                          int d_chunk, int split, int blocks, int dtype,
+                          rt::Launch* l) {
   // r_max a multiple of 8 (16-byte rows of A), at most 8,192; any d_in
   // (16-byte copies of x where it is a multiple of 8)
   if (rows <= 0 || r_max <= 0 || r_max % rt::kVec != 0 || r_max > 8192 ||
@@ -2081,6 +2565,16 @@ cudaError_t shrink_launch(int rows, int d_in, int r_max, int slots, int tile,
   if (split < 1 || split > kMaxTileSplit || (split & (split - 1)) != 0 ||
       d_chunk % kWD != 0 || (long long)d_chunk * split < d_in)
     return cudaErrorInvalidValue;
+  if (bf && d_in % rt::kVec == 0) {
+    // the persistent wgmma kernel: tiles of kSM rows, `blocks` (whole
+    // clusters of `split`) walking them
+    if (tile != kSM || blocks < split || blocks % split != 0)
+      return cudaErrorInvalidValue;
+    *l = rt::Launch{(const void*)lora_shrink_wgmma_kernel, dim3(blocks),
+                    kSThreads, kSSmem, (unsigned)split};
+    l->pdl = true;
+    return cudaSuccess;
+  }
   if (tile == 64) {
     *l = bf ? tile_launch<bf16, 64>(rows, d_in, slots, split)
             : tile_launch<float, 64>(rows, d_in, slots, split);
@@ -2171,20 +2665,25 @@ cudaError_t expand_launch(int rows, int r_max, int d_out, int blocks,
 
 }  // namespace
 
-// tile = 64 or 128: the row-tile path with tiles of that many rows, split
-// blocks a tile (1, 2, 4 or 8: a cluster) over d_chunk-wide slices of d_in
-// (a multiple of 64 with split * d_chunk >= d_in); tile = 0: the decode
-// path (up to 64 rows), split blocks (1 to 8, a cluster) a column group
-// over d_chunk-wide slices of d_in (a multiple of 16 with split * d_chunk
-// >= d_in), launched with programmatic stream serialization.
+// tile = 64 or 128: the row-tile path, split blocks (1, 2, 4 or 8: a
+// cluster) over d_chunk-wide slices of d_in (a multiple of 64 with split *
+// d_chunk >= d_in): in bf16 at a d_in that is a multiple of 8 the
+// persistent wgmma kernel (tile 64; `blocks` blocks, whole clusters,
+// walking the tiles; launched with programmatic stream serialization),
+// else the cp.async tile kernel with tiles of `tile` rows (blocks
+// unused); tile = 0: the decode path (up to 64 rows), split blocks (1 to
+// 8, a cluster) a column group over d_chunk-wide slices of d_in (a
+// multiple of 16 with split * d_chunk >= d_in), launched with programmatic
+// stream serialization.
 extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
                               const int* live, float* y, int rows, int d_in,
                               int r_max, int slots, int tile, int d_chunk,
-                              int split, int dtype, void* stream) {
+                              int split, int blocks, int dtype,
+                              void* stream) {
   if (rows == 0) return 0;
   rt::Launch l;
   const cudaError_t e = shrink_launch(rows, d_in, r_max, slots, tile,
-                                      d_chunk, split, dtype, &l);
+                                      d_chunk, split, blocks, dtype, &l);
   if (e != cudaSuccess) return (int)e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tile != 0 && dtype == rt::kBF16 && d_in % rt::kVec == 0) {
@@ -2205,14 +2704,31 @@ extern "C" int rt_lora_shrink(const void* x, const void* a, const int* idx,
   return (int)rt::launch(l, args, st);
 }
 
+// out[0 : kStCount]: the persistent shrink's stamps summed over every
+// block since the last call (kSt* above), then cleared; 1 where the
+// library was built without LORA_SHRINK_STAMPS.
+extern "C" int rt_lora_shrink_stamps(long long* out) {
+#ifdef LORA_SHRINK_STAMPS
+  unsigned long long h[kStCount];
+  cudaError_t e = cudaMemcpyFromSymbol(h, g_shrink_stamps, sizeof(h));
+  if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < kStCount; ++k) out[k] = (long long)h[k];
+  const unsigned long long zero[kStCount] = {};
+  return (int)cudaMemcpyToSymbol(g_shrink_stamps, zero, sizeof(zero));
+#else
+  (void)out;
+  return 1;
+#endif
+}
+
 // rt_lora_shrink's launch, described (rt::describe) into
 // out[0 : rt::kInfoFields]; no kernel runs.
 extern "C" int rt_lora_shrink_info(int rows, int d_in, int r_max, int slots,
                                    int tile, int d_chunk, int split,
-                                   int dtype, long long* out) {
+                                   int blocks, int dtype, long long* out) {
   rt::Launch l;
   const cudaError_t e = shrink_launch(rows, d_in, r_max, slots, tile,
-                                      d_chunk, split, dtype, &l);
+                                      d_chunk, split, blocks, dtype, &l);
   return (int)(e != cudaSuccess ? e : rt::describe(l, out));
 }
 

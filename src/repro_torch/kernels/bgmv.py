@@ -10,20 +10,21 @@ tensor launches the kernel or raises. `lora_shrink.launches` and
     shrink:  y[b]   = x[b] @ A[idx[b]][:, :live[b]]    (rows, d_in) -> f32
     expand:  out[b] = y[b, :live[b]] @ B[idx[b]][:live[b]]
 
-The shrink kernel has two launch shapes, chosen here from the row count,
-d_in and the SM count (`shrink_plan`, no device sync, so a CUDA graph can
-capture it): up to DECODE_MAX_ROWS rows (decode) one block per (distinct
-slot, DECODE_SHRINK_COLS rank columns, d slice), the d slices of a
-(slot, columns) one cluster that adds its partial sums in rank order;
-more rows (prefill, chunks, training) go in tiles of 64 or 128
-consecutive rows, one block per (tile, distinct slot of the tile). A
-tile's block walks its d range one stage at a time, so a launch of few
-tiles is bound by how few SMs stream x, not by bytes: the yi-9b chunk
-(512 rows of one slot) had 8 working blocks and the training step (4,096
-rows of one slot) 64, on 132 SMs. Where the tiles cannot fill the card,
-`split` blocks of one cluster share a tile over slices of d_in and add
-their partial sums in rank order (no atomics); launches that fill it (the
-32,768-row prefill) keep one block a tile. The expand has three launch
+The shrink kernel has three launch shapes, chosen here from the row
+count, d_in, the dtype and the SM count (`shrink_plan`, no device sync,
+so a CUDA graph can capture it): up to DECODE_MAX_ROWS rows (decode) one
+block per (distinct slot, DECODE_SHRINK_COLS rank columns, d slice), the
+d slices of a (slot, columns) one cluster that adds its partial sums in
+rank order; more rows (prefill, chunks, training) in bf16 at a d_in that
+is a multiple of 8 go to a persistent kernel (TMA + wgmma), one block an
+SM, in clusters of `split` d slices that each walk a contiguous run of
+SHRINK_ROWS-row tiles (`shrink_walk`): a producer warp keeps x's boxes
+in flight, each with its slot's box of A beside it, and takes a tile's
+distinct slots two to a pass (x read once for both); the cluster adds
+its blocks' partial sums in rank order (no atomics) while the next tile
+loads; f32 and other widths go to the cp.async tiles of 64 or 128 rows, one block per (tile, distinct slot of the tile), `split`
+blocks of one cluster sharing a tile where the tiles cannot fill the
+card. The expand has three launch
 shapes (`expand_plan`): up to DECODE_MAX_ROWS rows one block per (row,
 DECODE_EXPAND_COLS output columns); more rows in bf16 at a d_out that is
 a multiple of 8 go to a persistent kernel (TMA + wgmma) whose blocks walk
@@ -56,7 +57,7 @@ add nothing.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -70,10 +71,16 @@ DECODE_SHRINK_COLS = 16        # csrc/lora.cu: kDCols, rank columns a block
 DECODE_SLICE_D = 128           # a decode shrink block's d slice: >= this
 DECODE_EXPAND_COLS = 256       # csrc/lora.cu: kDecCols, columns a block
 RANK_SPLIT = 8                 # csrc/lora.cu: kRankSplit, warps a block
-TILE_ROWS = (64, 128)          # csrc/lora.cu: row tiles the shrink takes
+TILE_ROWS = (64, 128)          # csrc/lora.cu: the cp.async tile kernel's rows
+SHRINK_ROWS = 64               # csrc/lora.cu: kSM, the wgmma shrink's rows
+SHRINK_EXCHANGE = 6            # a cluster's reduction, in a block's stages
 MAX_TILE_SPLIT = 8             # csrc/lora.cu: kMaxTileSplit (a cluster)
 TILE_D = 64                    # csrc/lora.cu: kWD, d a TMA box
 MIN_SLICE_D = 256              # a row-tile block's d slice: >= 4 boxes
+# {split: clusters of `split` blocks of the persistent wgmma shrink one
+# H100 80GB HBM3 holds at once}, as `cluster_room` reads it there: what
+# the CPU's models of a launch plan with
+H100_CLUSTER_ROOM = {1: 132, 2: 66, 4: 30, 8: 15}
 EXPAND_ROWS = 64               # csrc/lora.cu: kEM / kXM, rows a tile
 EXPAND_COLS = 256              # csrc/lora.cu: kEN, an mma.sync block's
 EXPAND_TILE_COLS = (64, 128)   # csrc/lora.cu: the wgmma kernel's BN
@@ -81,17 +88,22 @@ EXPAND_BLOCKS_PER_SM = 2       # row-tile blocks an SM holds (both kernels)
 
 
 class ShrinkPlan(NamedTuple):
-    """The shrink kernel's launch. Row-tile path: tiles of `tile` rows,
-    `per_tile` blocks a tile's slots (block k takes the tile's k-th
-    distinct slot) times `split` blocks (one cluster) over d_chunk-wide
-    slices of d_in, `blocks` in all. Decode path (tile 0): `per_tile`
-    blocks for the rows' distinct slots (block k takes the k-th) times
-    `split` blocks (one cluster, block p reducing d in [p * d_chunk, (p +
-    1) * d_chunk)) for each of the col_groups(r_max) groups of
-    DECODE_SHRINK_COLS rank columns, `blocks` in all."""
+    """The shrink kernel's launch, `grid` blocks in all. Row-tile path in
+    bf16 at a d_in that is a multiple of 8 (`per_tile` 0): the persistent
+    wgmma kernel, in clusters of `split` (block `part` of a cluster
+    reducing d in [part * d_chunk, (part + 1) * d_chunk)), each cluster
+    walking a run of tiles of `tile` rows (`shrink_walk`) and, within a
+    tile, a pass per two distinct slots. Other row tiles (f32, other
+    widths): the cp.async tile kernel, tiles of `tile` rows, `per_tile` blocks a
+    tile's slots (block k takes the tile's k-th distinct slot) times
+    `split` blocks (one cluster) over d_chunk-wide slices of d_in. Decode
+    path (tile 0): `per_tile` blocks for the rows' distinct slots (block k
+    takes the k-th) times `split` blocks (one cluster, block p reducing d
+    in [p * d_chunk, (p + 1) * d_chunk)) for each of the col_groups(r_max)
+    groups of DECODE_SHRINK_COLS rank columns."""
     tile: int
     per_tile: int
-    blocks: int
+    grid: int
     d_chunk: int
     split: int
 
@@ -101,8 +113,8 @@ def col_groups(r_max: int) -> int:
     return -(-r_max // DECODE_SHRINK_COLS)
 
 
-def shrink_plan(rows: int, d_in: int, slots: int, sms: int,
-                r_max: int) -> ShrinkPlan:
+def shrink_plan(rows: int, d_in: int, slots: int, sms: int, r_max: int,
+                dtype: torch.dtype, room: Mapping[int, int]) -> ShrinkPlan:
     """Up to DECODE_MAX_ROWS rows, the decode path: a row tile holding
     many slots would stream each slot's A through one SM, and the earlier
     decode kernel's cluster a row read each slot's A once a row. The
@@ -116,17 +128,32 @@ def shrink_plan(rows: int, d_in: int, slots: int, sms: int,
     and 256 above, more loads in flight for a handful of rows; a decode
     block keeps its whole slice of A in flight from its shared-memory ring
     instead (four stages of 128 d: all 512 of d_in 4,096 at split 8).
-    Above it, row tiles: of 128 rows
-    where they alone fill every SM (`sms`), else of 64; then the most of
-    1, 2, 4 or 8 blocks a tile (a cluster, each over a d slice of whole
+
+    Above it in bf16 at a d_in that is a multiple of 8 (TMA's 16-byte
+    strides), the persistent wgmma kernel: SHRINK_ROWS-row tiles, one
+    block an SM, clusters of `split` d slices (1, 2, 4 or 8, each at least
+    MIN_SLICE_D wide past 1), as many clusters as the card holds at once
+    (`room[split]`: `cluster_room` on the card, H100_CLUSTER_ROOM in the
+    CPU's models) and no more than the tiles. A
+    block's time is its tiles (ceil(tiles / clusters)) times its stages
+    (d_chunk / TILE_D) and its tile's reduction: SHRINK_EXCHANGE stages
+    where a cluster adds its blocks' partial sums over distributed shared
+    memory, one where the block holds the whole of d. The plan takes the
+    split of the least, the smaller on a tie. On the H100 (`kernel_ab.py
+    --sweep`) a stage took ~0.35 us a block and a cluster's reduction
+    ~2 us, so the training step's 4,096 rows of one slot run as 64
+    clusters of 2, the yi-9b chunk's 512 rows as 8 clusters of 8 and the
+    32,768-row prefill as 132 blocks of the whole of d, 4 tiles each. The
+    slots a tile holds are not known without a device sync, so the plan
+    counts one pass a tile.
+
+    Otherwise (f32, other widths) the cp.async tile kernel: tiles of 128
+    rows where they alone fill every SM (`sms`), else of 64; then the most
+    of 1, 2, 4 or 8 blocks a tile (a cluster, each over a d slice of whole
     TILE_D boxes of at least MIN_SLICE_D) that give no SM a second block,
-    counting one working slot a tile (the slots a tile holds are not
-    known without a device sync): at two blocks an SM the H100 holds only
-    30 clusters of 8 at once, so 32 tiles split 8 ways ran in two waves.
-    Launches of more tiles than half the SMs keep one block a tile. At
-    4,096 rows of one slot (training) the H100 took 22.4 us in a CUDA
-    graph with 64-row tiles split 2 ways against 25.2 with 128-row tiles
-    split 4 ways, the same 128 blocks."""
+    counting one working slot a tile: at two blocks an SM the H100 holds
+    only 30 clusters of 8 at once. Launches of more tiles than half the
+    SMs keep one block a tile."""
     if rows <= DECODE_MAX_ROWS:
         split = 1
         while (split < MAX_TILE_SPLIT
@@ -136,6 +163,22 @@ def shrink_plan(rows: int, d_in: int, slots: int, sms: int,
         per = max(1, min(slots, rows))
         return ShrinkPlan(0, per, per * split * col_groups(r_max), d_chunk,
                           split)
+    if dtype == torch.bfloat16 and d_in % 8 == 0:
+        tiles = -(-rows // SHRINK_ROWS)
+        best = None
+        split = 1
+        while split <= MAX_TILE_SPLIT and (
+                split == 1 or d_in >= 2 * split * MIN_SLICE_D):
+            d_chunk = -(-(-(-d_in // split)) // TILE_D) * TILE_D
+            nk = d_chunk // TILE_D
+            clusters = max(1, min(room[split], tiles))
+            cost = -(-tiles // clusters) * (
+                nk + (SHRINK_EXCHANGE if split > 1 else 1))
+            if best is None or cost < best[0]:
+                best = (cost, ShrinkPlan(SHRINK_ROWS, 0, clusters * split,
+                                         d_chunk, split))
+            split *= 2
+        return best[1]
     big = TILE_ROWS[1]
     tile = big if -(-rows // big) >= sms else TILE_ROWS[0]
     tiles = -(-rows // tile)
@@ -147,6 +190,18 @@ def shrink_plan(rows: int, d_in: int, slots: int, sms: int,
     per_tile = max(1, min(slots, tile))
     return ShrinkPlan(tile, per_tile, tiles * per_tile * split, d_chunk,
                       split)
+
+
+def shrink_walk(rows: int, plan: ShrinkPlan):
+    """The persistent shrink's tiles, cluster by cluster, as their first
+    rows in the order each cluster takes them (csrc/lora.cu:
+    lora_shrink_wgmma_kernel): cluster c of G = grid / split takes the T
+    tiles [T c // G, T (c + 1) // G)."""
+    tiles = -(-rows // plan.tile)
+    g = plan.grid // plan.split
+    return [[t * plan.tile for t in range(tiles * c // g,
+                                          tiles * (c + 1) // g)]
+            for c in range(g)]
 
 
 class ExpandPlan(NamedTuple):
@@ -245,6 +300,7 @@ def expand_refusal(r_max: int, d_out: int) -> Optional[str]:
 
 
 _SMS: dict = {}
+_ROOM: dict = {}
 
 
 def sm_count(device: torch.device) -> int:
@@ -253,6 +309,34 @@ def sm_count(device: torch.device) -> int:
         _SMS[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
     return _SMS[device]
+
+
+def cluster_room(device: torch.device) -> Dict[int, int]:
+    """{split: clusters of `split` blocks of the persistent wgmma shrink
+    the card holds at once} (cudaOccupancyMaxActiveClusters, through
+    rt_lora_shrink_info; at split 1 its blocks an SM times the SMs),
+    cached: a launch of more clusters would run in two waves."""
+    if device not in _ROOM:
+        import ctypes
+        lib = build.library()
+        out = (ctypes.c_longlong * len(build.INFO_FIELDS))()
+        room = {}
+        for split in (1, 2, 4, 8):
+            d_in = 2 * split * MIN_SLICE_D
+            with torch.cuda.device(device):
+                build.check_launch(lib.rt_lora_shrink_info(
+                    DECODE_MAX_ROWS + 1, d_in, RANK_ALIGN, 1, SHRINK_ROWS,
+                    d_in // split, split, split,
+                    build.DTYPE_CODE[torch.bfloat16], out),
+                    "lora_shrink: cluster_room")
+            info = dict(zip(build.INFO_FIELDS, out))
+            room[split] = (info["blocks_per_sm"] * sm_count(device)
+                           if split == 1 else info["max_clusters"])
+            if room[split] <= 0:
+                raise RuntimeError(f"lora_shrink: the card holds no "
+                                   f"cluster of {split} ({room[split]})")
+        _ROOM[device] = room
+    return _ROOM[device]
 
 
 def _check_rows(name, idx, live, rows):
@@ -296,12 +380,13 @@ def _shrink(x, a, idx, live):
     for name, t in (("idx", idx), ("live", live)):
         build.require(t, name, dtypes=(torch.int32,), device=x.device)
     lib = build.library()
-    plan = shrink_plan(rows, d_in, slots, sm_count(x.device), r_max)
+    plan = shrink_plan(rows, d_in, slots, sm_count(x.device), r_max,
+                       x.dtype, cluster_room(x.device))
     y = torch.empty(rows, r_max, dtype=torch.float32, device=x.device)
     rc = lib.rt_lora_shrink(x.data_ptr(), a.data_ptr(), idx.data_ptr(),
                             live.data_ptr(), y.data_ptr(), rows, d_in, r_max,
                             slots, plan.tile, plan.d_chunk, plan.split,
-                            build.DTYPE_CODE[x.dtype],
+                            plan.grid, build.DTYPE_CODE[x.dtype],
                             build.stream_handle(x.device))
     build.check_launch(rc, "lora_shrink")
     lora_shrink.launches += 1

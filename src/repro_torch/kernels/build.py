@@ -54,8 +54,8 @@ _SIGNATURES = {
     # G, hd, dtype -> the kernel launched: 0 lanes, 1 group (-1: refused)
     "rt_paged_attention_route": [_I, _I, _I],
     # x, a, idx, live, y, rows, d_in, r_max, slots, tile, d_chunk, split,
-    # dtype, stream
-    "rt_lora_shrink": [_P] * 5 + [_I] * 8 + [_P],
+    # blocks, dtype, stream
+    "rt_lora_shrink": [_P] * 5 + [_I] * 9 + [_P],
     # y, b, idx, live, out, rows, r_max, d_out, slots, blocks, cols,
     # dtype, y_dtype, stream
     "rt_lora_expand": [_P] * 5 + [_I] * 8 + [_P],
@@ -65,7 +65,9 @@ _SIGNATURES = {
     # the launches the entry points above would make, described (no
     # kernel runs): the same shape arguments, then an int64 out array of
     # INFO_FIELDS a launch (csrc/common.cuh: rt::describe)
-    "rt_lora_shrink_info": [_I] * 8 + [_P],
+    "rt_lora_shrink_info": [_I] * 9 + [_P],
+    # out: the persistent shrink's phase stamps (measurement only)
+    "rt_lora_shrink_stamps": [_P],
     "rt_lora_expand_info": [_I] * 7 + [_P],
     # B, H, KV, ps, hd, W, nsplit, dtype: the attention kernel, then the
     # combine with nsplit > 1
@@ -83,6 +85,9 @@ _SIGNATURES = {
     # out, rows, cols, tma, blocks, stream: a store-only kernel
     # (csrc/device.cu, measurement only)
     "rt_store_probe": [_P, _I, _I, _I, _I, _P],
+    # x, rows, cols, blocks, stages, stream: a load-only kernel
+    # (csrc/device.cu, measurement only)
+    "rt_load_probe": [_P, _I, _I, _I, _I, _P],
     # graph (cudaGraph_t), out: nodes, edges, programmatic edges
     "rt_graph_edges": [_P, _P],
 }

@@ -395,11 +395,11 @@ def _rows_close(got, want, tol, floor):
     (8269, 4096, 256), (16896 + 77, 4096, 64)])
 def test_lora_shrink_paths_match_plain(card, mode, rows, seg, d_in):
     """bf16 shrink on both launch shapes: decode (<= 64 rows: blocks by
-    slot, a cluster over d) and row tiles of 64 / 128 rows, at random
-    slots (seg 0) and at prefill's runs
+    slot, a cluster over d) and the persistent row tiles of 64 rows, at
+    random slots (seg 0) and at prefill's runs
     of `seg` rows per slot (boundaries inside tiles, whole tiles of idx -1
-    rows, a ragged last tile; runs of 32: every tile of two slots, each
-    block reading the whole tile), ranks 8/16/32/64. f32 output: each row
+    rows, a ragged last tile; runs of 32: every tile of two slots, a pass
+    each), ranks 8/16/32/64. f32 output: each row
     within 1e-5 x max(1, its max |plain|), dead columns exactly 0, and a
     second run bitwise equal (no atomics)."""
     g = torch.Generator(device=card).manual_seed(rows + d_in)
@@ -423,6 +423,121 @@ def test_lora_shrink_paths_match_plain(card, mode, rows, seg, d_in):
     dead = torch.arange(64, device=card)[None] >= live[:, None]
     assert bool((y[dead] == 0).all())
     assert torch.equal(y, bgmv.lora_shrink(x, a, idx, live))
+
+
+def _shrink_case(card, rows, d_in, r_max, ranks, seg):
+    """x, the A pool (zero past each slot's rank) and idx: runs of `seg`
+    rows a slot cycling through the slots (seg >= rows: every row at the
+    last slot)."""
+    g = torch.Generator(device=card).manual_seed(rows + d_in + r_max)
+    a = torch.zeros(len(ranks), d_in, r_max, device=card,
+                    dtype=torch.bfloat16)
+    for s, r in enumerate(ranks):
+        a[s, :, :r] = (torch.randn(d_in, r, generator=g, device=card)
+                       * d_in ** -0.5).bfloat16()
+    x = torch.randn(rows, d_in, generator=g, device=card).bfloat16()
+    idx = (torch.arange(rows, device=card) // seg % len(ranks)).to(
+        torch.int32)
+    return x, a, idx
+
+
+@pytest.mark.parametrize("rows,d_in,r_max,ranks,seg", [
+    (4096, 4096, 64, [64], 4096), (32768, 4096, 64, [64] * 8, 4096),
+    (2048 + 37, 2048, 64, [8, 16, 32, 64] * 2, 32),
+    (4096, 4096, 128, [128], 4096), (1100, 12288, 64, [64, 16] * 2, 17),
+    (4133, 1024, 200, [200, 8, 100], 300)])
+def test_lora_shrink_wgmma_every_split_matches_plain(card, rows, d_in, r_max,
+                                                     ranks, seg):
+    """The persistent wgmma shrink launched directly at every split (1, 2,
+    4, 8 d slices a cluster) with the clusters the card holds at once, a
+    quarter of them and one: the training and prefill shapes, runs of 32
+    over 8 slots (tiles of two slots, one pass for the pair), r_max 128
+    (column passes), runs of 17 over slots of ranks 64 and 16 at d_in
+    12,288 (tiles of up to five slots), a partial tile at r_max 200 over
+    ranks 200 / 8 / 100 (column passes past one slot of a pair, which
+    then go one at a time); each row within 1e-5 x max(1, its max
+    |plain|), dead columns exactly 0."""
+    from repro_torch.kernels import build
+    lib = build.library()
+    x, a, idx = _shrink_case(card, rows, d_in, r_max, ranks, seg)
+    for mode in ("bgmv", "mbgmv"):
+        live = ops.lora_live(idx, torch.tensor(ranks, dtype=torch.int32,
+                                               device=card), mode, r_max, 16)
+        want = ref.lora_shrink_ref(x, a, idx, live)
+        room = bgmv.cluster_room(card)
+        tiles = -(-rows // bgmv.SHRINK_ROWS)
+        for split in (1, 2, 4, 8):
+            if split > 1 and d_in < 2 * split * bgmv.MIN_SLICE_D:
+                continue
+            d_chunk = -(-(-(-d_in // split)) // 64) * 64
+            most = min(room[split], tiles)
+            for clusters in sorted({most, max(1, most // 4), 1}):
+                y = torch.full((rows, r_max), float("nan"), device=card)
+                rc = lib.rt_lora_shrink(
+                    x.data_ptr(), a.data_ptr(), idx.data_ptr(),
+                    live.data_ptr(), y.data_ptr(), rows, d_in, r_max,
+                    len(ranks), bgmv.SHRINK_ROWS, d_chunk, split,
+                    clusters * split, build.DTYPE_CODE[torch.bfloat16],
+                    build.stream_handle(card))
+                assert rc == 0, (split, clusters, rc)
+                torch.cuda.synchronize()
+                _rows_close(y, want, 1e-5, 1.0)
+                dead = torch.arange(r_max, device=card)[None] >= \
+                    live[:, None]
+                assert bool((y[dead] == 0).all()), (split, clusters)
+
+
+@pytest.mark.parametrize("rows,slots", [(4096, 1), (32768, 8)])
+def test_lora_shrink_wgmma_repeats_bitwise_and_in_a_graph(card, rows,
+                                                          slots):
+    """The persistent shrink at the training shape (4,096 rows of one
+    slot) and the yi-9b prefill's (32,768 rows, 8 slots in runs of
+    4,096), d_in 4,096, r_max 64: two launches on the same inputs give
+    the same bits (a fixed order of sums, no atomics), and a CUDA graph of
+    it replayed twice gives the eager launch's bits (its plan needs no
+    device sync)."""
+    import gc
+    x, a, idx = _shrink_case(card, rows, 4096, 64, [64] * slots, 4096)
+    live = ref.bgmv_live(idx, 64)
+    eager = bgmv.lora_shrink(x, a, idx, live)
+    assert torch.equal(eager, bgmv.lora_shrink(x, a, idx, live))
+    _rows_close(eager, ref.lora_shrink_ref(x, a, idx, live), 1e-5, 1.0)
+    out = torch.empty_like(eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(bgmv.lora_shrink(x, a, idx, live))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            out.copy_(bgmv.lora_shrink(x, a, idx, live))
+    finally:
+        gc.enable()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_lora_shrink_wgmma_refusals_raise(card):
+    """The persistent launch is never given up for another: the entry
+    point refuses it a tile other than 64 rows, a grid that is no whole
+    number of clusters and a split whose slices miss part of d_in."""
+    from repro_torch.kernels import build
+    lib = build.library()
+    x, a, idx = _shrink_case(card, 300, 1024, 64, [64], 300)
+    live = ref.bgmv_live(idx, 64)
+    y = torch.empty(300, 64, device=card)
+    bf = build.DTYPE_CODE[torch.bfloat16]
+    for tile, d_chunk, split, grid in ((128, 512, 2, 8), (64, 512, 2, 7),
+                                       (64, 512, 2, 1), (64, 256, 2, 8)):
+        assert lib.rt_lora_shrink(
+            x.data_ptr(), a.data_ptr(), idx.data_ptr(), live.data_ptr(),
+            y.data_ptr(), 300, 1024, 64, 1, tile, d_chunk, split, grid, bf,
+            build.stream_handle(card)) != 0, (tile, d_chunk, split, grid)
 
 
 @pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])

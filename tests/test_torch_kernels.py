@@ -6,6 +6,7 @@ are checked against on the card — to the TPU kernels' function. f32
 throughout, atol = rtol = 1e-5: the same arithmetic in another summation
 order. The CUDA kernels themselves are held against these plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+import collections
 import numpy as np
 import pytest
 
@@ -319,26 +320,215 @@ def test_shrink_segmented_rows_match_pallas(mode, seg):
 _SMS = 132                               # the H100 SXM's SM count
 
 
+def _shrink_walk(plan, rows, d_in, r_max, slots, idx, live, x=None, a=None):
+    """csrc/lora.cu's persistent wgmma shrink (lora_shrink_wgmma_kernel),
+    emulated as its producer hands out the walk and its consumers sum it:
+    cluster c takes the tiles `bgmv.shrink_walk` gives it; a tile's rows
+    get their slots (-1: no adapter) and live widths, its distinct slots
+    in order of their first row, two to a pass, each pass per 64 rank
+    columns below both slots' widest live widths (rounded up to 8; past
+    one of them, the two go one at a time), a stage per 64-wide box of
+    each block's d slice, x's box read once for the stage's slots and A's
+    box once for each of them; a pass past every live width and a tile
+    with no adapter are items with no stage. With x and a, each block's
+    stage products are added in f32 stage by stage, the blocks' partials
+    in rank order, columns past nc or a row's live width zeroed, as the
+    kernel does. Returns y (NaN where never written), the writes of each
+    (row, column), the (row0, slot, c0) of each cluster's slot passes,
+    and each block's loads as (cluster, part) -> {"x": [(row0, c0, kt)],
+    "a": [(row0, slot, c0, kt)]}."""
+    tile, split, d_chunk = plan.tile, plan.split, plan.d_chunk
+    y = np.full((rows, r_max), np.nan, np.float32)
+    writes = np.zeros((rows, r_max), int)
+    passes, loads = [], {}
+    per = tile // split
+    for c, tiles in enumerate(bgmv.shrink_walk(rows, plan)):
+        cl_passes = []
+        blocks = []                                  # per block: lo, hi, nk
+        for p in range(split):
+            lo, hi = p * d_chunk, min(d_in, (p + 1) * d_chunk)
+            blocks.append((lo, hi, -(-(hi - lo) // bgmv.TILE_D)
+                           if hi > lo else 0))
+            loads[(c, p)] = {"x": [], "a": []}
+        for row0 in tiles:
+            rr = np.arange(row0, min(row0 + tile, rows))
+            sl = np.where((idx[rr] >= 0) & (idx[rr] < slots), idx[rr], -1)
+            lv = np.where(sl >= 0, np.clip(live[rr], 0, r_max), 0)
+            writes[rr[sl < 0]] += 1                  # zero rows, by owners
+            y[rr[sl < 0]] = 0.0
+            order = list(dict.fromkeys(int(v) for v in sl if v >= 0))
+            ncols = {s: -(-int(lv[sl == s].max()) // 8) * 8 for s in order}
+
+            def one(group, c0):
+                """A pass of the slots `group` (one or two) over columns c0:
+                each block streams x's boxes once for them and A's boxes
+                once for each; a slot past its live widths only writes
+                zeros."""
+                cc = min(64, r_max - c0)
+                for s in group:
+                    mine = rr[sl == s]
+                    writes[mine, c0:c0 + cc] += 1
+                    if ncols[s] - c0 <= 0:
+                        y[mine, c0:c0 + cc] = 0.0
+                group = [s for s in group if ncols[s] - c0 > 0]
+                if not group:
+                    return
+                totals = {s: np.zeros(((sl == s).sum(), 64), np.float32)
+                          for s in group}
+                for s in group:
+                    cl_passes.append((row0, s, c0))
+                for p, (lo, hi, nk) in enumerate(blocks):
+                    accs = {s: np.zeros_like(totals[s]) for s in group}
+                    for kt in range(nk):             # stage by stage in f32
+                        loads[(c, p)]["x"].append((row0, c0, kt))
+                        d0 = lo + kt * bgmv.TILE_D
+                        d1 = min(hi, d0 + bgmv.TILE_D)
+                        for s in group:
+                            loads[(c, p)]["a"].append((row0, s, c0, kt))
+                            if x is None:
+                                continue
+                            w = np.zeros((d1 - d0, 64), np.float32)
+                            w[:, :cc] = a[s, d0:d1, c0:c0 + cc]
+                            accs[s] = accs[s] + (x[rr[sl == s], d0:d1] @ w
+                                                 ).astype(np.float32)
+                    for s in group:                  # rank order
+                        totals[s] = totals[s] + accs[s]
+                if x is None:
+                    return
+                cols = np.arange(64)[None]
+                for s in group:
+                    mine = rr[sl == s]
+                    keep = (cols < ncols[s] - c0) & (
+                        c0 + cols < live[mine][:, None])
+                    y[mine, c0:c0 + cc] = np.where(keep, totals[s],
+                                                   0.0)[:, :cc]
+
+            for j in range(0, len(order), 2):
+                two = order[j:j + 2]                 # slots two to a pass
+                for c0 in range(0, r_max, 64):
+                    if len(two) == 2 and min(ncols[s] for s in two) > c0:
+                        one(two, c0)
+                    else:                            # one at a time
+                        for s in two:
+                            one([s], c0)
+        passes.append(cl_passes)
+        # every row of a tile has one owner: part (row - row0) // per
+        assert per * split == tile
+    return y, writes, passes, loads
+
+
+def _shrink_layouts(rows, slots, seed):
+    """idx layouts a row-tile launch takes: slots at random (idx -1 among
+    them), runs of 17 and of 32 rows a slot (tiles of two slots), every
+    row at one slot (training, the chunk), runs of 4,096 (the prefill)."""
+    rng = np.random.default_rng(seed)
+    return {"random": rng.integers(-1, slots, rows).astype(np.int32),
+            "runs of 17": _segmented_idx(rows, 17, slots),
+            "runs of 32": _segmented_idx(rows, 32, slots),
+            "one slot": np.full(rows, slots - 1, np.int32),
+            "runs of 4096": (np.arange(rows) // 4096 % slots).astype(
+                np.int32)}
+
+
 @pytest.mark.parametrize("rows", [
     bgmv.DECODE_MAX_ROWS + 1, 65, 129, 512, 4096, 128 * _SMS - 1,
     128 * _SMS, 128 * (_SMS - 1) + 1, 128 * _SMS + 1, 32768])
 @pytest.mark.parametrize("d_in", [4096, 520, 8])
 @pytest.mark.parametrize("slots", [1, 8, 300])
 def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
-    """The row-tile launch plan computed on the host from `rows` (above
-    DECODE_MAX_ROWS; the decode plan has its own tests below): tiles of
-    128 rows where they alone fill every SM, else 64,
-    one block per (tile, distinct slot of the tile) times `split` blocks
-    over d slices of whole TILE_D boxes (at least MIN_SLICE_D wide) that
-    cover d_in once, as many as give no SM a second block (one where the
-    tiles fill half the card: the 32,768-row prefill). Block
-    `part` of a (tile, slot) writes the slot's rows of its 1 / split of
-    the tile, the first block of a tile also the rows without an adapter:
-    every row is written by exactly one block and every (row, d) pair
-    reduced by exactly one (tile, part) block, at random and at prefill
-    layouts (the chunk: 512 rows, one slot of 8; training: 4,096 rows,
-    one slot)."""
-    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 64)
+    """The row-tile launch plans computed on the host from shapes alone
+    (above DECODE_MAX_ROWS; the decode plan has its own tests below).
+    bf16 at a d_in that is a multiple of 8: the persistent wgmma kernel,
+    SHRINK_ROWS-row tiles walked by clusters of `split` d slices (whole
+    TILE_D boxes, at least MIN_SLICE_D past one, covering d_in once, none
+    empty), no more clusters than the card holds at once or than the
+    tiles, every cluster some tiles; the least tiles x (stages + a
+    reduction) a block; at the card's room (H100_CLUSTER_ROOM) and at a
+    smaller one. Its walk emulated (`_shrink_walk`)
+    at random, runs of 17 and 32, one slot and runs of 4,096: every (row,
+    column) of y written exactly once, every distinct slot of every tile
+    visited in row order, and in every block each box of the block's d
+    slice of x read once for two slots of a tile (k slots: ceil(k / 2)
+    times) and of A once for each slot. The cp.async kernel's plan (f32)
+    as before: tiles
+    of 128 rows where they alone fill every SM, else 64, one block per
+    (tile, distinct slot) times `split` over d, as many as give no SM a
+    second block, every row written by exactly one block."""
+    small = {1: 100, 2: 40, 4: 12, 8: 4}         # a smaller card's room
+    for rm in (bgmv.H100_CLUSTER_ROOM, small):
+        plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 64,
+                                torch.bfloat16, rm)
+        tiles = -(-rows // bgmv.SHRINK_ROWS)
+        split = plan.split
+        assert plan.tile == bgmv.SHRINK_ROWS and plan.per_tile == 0
+        assert split in (1, 2, 4, 8) and plan.grid % split == 0
+        clusters = plan.grid // split
+        assert 1 <= clusters <= min(rm[split], tiles)
+        assert split == 1 or d_in >= 2 * split * bgmv.MIN_SLICE_D
+        assert plan.d_chunk % bgmv.TILE_D == 0
+        d_hits = np.zeros(d_in, int)
+        for part in range(split):             # each block's d slice
+            lo = part * plan.d_chunk
+            assert lo < d_in                   # no block without d
+            d_hits[lo:min(d_in, lo + plan.d_chunk)] += 1
+        assert np.all(d_hits == 1)
+
+        def cost(k):
+            dc = -(-(-(-d_in // k)) // bgmv.TILE_D) * bgmv.TILE_D
+            g = max(1, min(rm[k], tiles))
+            return -(-tiles // g) * (dc // bgmv.TILE_D + (
+                bgmv.SHRINK_EXCHANGE if k > 1 else 1))
+        fits = [k for k in (1, 2, 4, 8)
+                if k == 1 or d_in >= 2 * k * bgmv.MIN_SLICE_D]
+        assert cost(split) == min(map(cost, fits))
+        assert split == min(k for k in fits if cost(k) == cost(split))
+        walk = bgmv.shrink_walk(rows, plan)
+        assert len(walk) == clusters and all(walk)   # every cluster works
+        assert sorted(r for w in walk for r in w) == list(
+            range(0, rows, bgmv.SHRINK_ROWS))
+        if d_in == 4096 and rm is bgmv.H100_CLUSTER_ROOM:
+            if rows == 512:                    # the chunk: one tile each
+                assert (split, clusters) == (8, 8)
+            if rows == 4096:                   # training: one tile each
+                assert (split, clusters) == (2, 64)
+            if rows == 32768:                  # the prefill: 4 tiles each
+                assert (split, clusters) == (1, 132)
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 64, torch.bfloat16,
+                            bgmv.H100_CLUSTER_ROOM)
+    rng = np.random.default_rng(rows + slots)
+    for name, idx in _shrink_layouts(rows, slots, rows + d_in).items():
+        live = np.where(idx >= 0, rng.integers(1, 65, rows), 0)
+        if name == "one slot":
+            live[:] = 64
+        _, writes, passes, loads = _shrink_walk(plan, rows, d_in, 64, slots,
+                                                idx, live)
+        assert np.all(writes == 1), name
+        for c, tiles in enumerate(bgmv.shrink_walk(rows, plan)):
+            for row0 in tiles:                 # every slot of every tile
+                t = idx[row0:row0 + plan.tile]
+                want = list(dict.fromkeys(int(v) for v in t
+                                          if 0 <= v < slots))
+                got = [s for r0, s, _ in passes[c] if r0 == row0]
+                assert got == want, (name, c, row0)
+            for p in range(plan.split):        # each block's loads
+                nk = len(range(p * plan.d_chunk, min(
+                    d_in, (p + 1) * plan.d_chunk), bgmv.TILE_D))
+                got_x = collections.Counter(loads[(c, p)]["x"])
+                want_x = collections.Counter()
+                for row0 in tiles:             # every live width >= 1
+                    k = len(dict.fromkeys(
+                        int(v) for v in idx[row0:row0 + plan.tile]
+                        if 0 <= v < slots))
+                    for kt in range(nk):
+                        want_x[(row0, 0, kt)] = -(-k // 2)
+                assert got_x == want_x, (name, c, p)
+                got_a = collections.Counter(loads[(c, p)]["a"])
+                assert got_a == collections.Counter(
+                    (r0, s, c0, kt) for r0, s, c0 in passes[c]
+                    for kt in range(nk)), (name, c, p)
+    # the cp.async tile kernel's plan (f32), unchanged
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 64, torch.float32,
+                            bgmv.H100_CLUSTER_ROOM)
     big = -(-rows // 128) >= _SMS
     assert plan.tile == (128 if big else 64)
     assert plan.tile in bgmv.TILE_ROWS
@@ -346,7 +536,7 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
     n_tiles = -(-rows // plan.tile)
     split = plan.split
     assert split in (1, 2, 4, 8) and split <= bgmv.MAX_TILE_SPLIT
-    assert plan.blocks == n_tiles * plan.per_tile * split
+    assert plan.grid == n_tiles * plan.per_tile * split
     assert n_tiles * split <= max(n_tiles, _SMS)     # one block an SM
     if 2 * n_tiles > _SMS:
         assert split == 1                 # tiles that fill half the card
@@ -362,11 +552,6 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
         lo = part * plan.d_chunk
         d_hits[lo:min(d_in, lo + plan.d_chunk)] += 1
     assert np.all(d_hits == 1)
-    if rows == 512 and d_in == 4096:      # the chunk
-        assert (plan.tile, split) == (64, 8)
-    if rows == 4096 and d_in == 4096:     # the training step
-        assert (plan.tile, split) == (64, 2)
-    rng = np.random.default_rng(rows + slots)
     per = plan.tile // split              # rows a part writes
     for idx in (rng.integers(-1, slots, rows),
                 _segmented_idx(rows, 17, slots),
@@ -389,40 +574,39 @@ def test_shrink_plan_covers_each_row_once(rows, d_in, slots):
         assert np.all(hits == 1)
 
 
-@pytest.mark.parametrize("rows,d_in,slots,seg", [
-    (300, 1024, 4, 17), (512, 4096, 8, 512), (130, 520, 2, 64)])
+@pytest.mark.parametrize("rows,d_in,slots,layout,r_max", [
+    (300, 1024, 4, "runs of 17", 16), (512, 4096, 8, "one slot", 16),
+    (130, 520, 2, "runs of 64", 16), (300, 1024, 8, "random", 64),
+    (2048 + 37, 512, 8, "runs of 32", 64), (4096, 2048, 1, "one slot", 64),
+    (8192 + 77, 256, 8, "runs of 4096", 64), (1100, 256, 300, "random", 16),
+    (300, 512, 4, "runs of 17", 128), (4133, 1024, 1, "one slot", 24)])
 def test_split_shrink_rank_order_sum_matches_plain_and_pallas(rows, d_in,
-                                                              slots, seg):
-    """The row-tile kernel's arithmetic, emulated in numpy: each (tile,
-    slot) block `part` sums x[rows of the slot, its d slice] @ A[s][its d
-    slice] in f32 in its shared memory, and the cluster adds the parts'
-    partials in rank order, then zeros the columns past each row's live
-    width. That equals the plain shrink (`ref.lora_shrink_ref`, what the
-    kernel is held to on the card) within f32's 1e-5, and the Pallas
-    bgmv_shrink in interpret mode, at plans split 4, 8 and 2 ways."""
-    ranks = [16, 8, 16, 8, 16, 8, 16, 8][:slots]
-    a, _, rng = _lora_pool(rows, slots, d_in, 8, 16, ranks)
+                                                              slots, layout,
+                                                              r_max):
+    """The persistent wgmma kernel's arithmetic, emulated in numpy
+    (`_shrink_walk`): each block of a cluster adds x[the tile's rows of the
+    slot, a 64-wide box of its d slice] @ A[s][that box, 64 columns] into
+    an f32 total stage by stage, the cluster adds the blocks' totals in
+    rank order and zeros the columns past each row's live width. That
+    equals the plain shrink (`ref.lora_shrink_ref`, what the kernel is
+    held to on the card) within f32's 1e-5, and the Pallas bgmv_shrink in
+    interpret mode, at plans of 1 to 8 d slices (a cluster); at runs of 17
+    and 32 rows (tiles of several slots), one slot (the chunk, training at
+    a narrower d_in), runs of 4,096 (the prefill's layout), 300 slots,
+    r_max 128 (two column passes a tile) and 24, and a partial tile."""
+    ranks = ([r_max, r_max // 2] * slots)[:slots]
+    a, _, rng = _lora_pool(rows + r_max, slots, d_in, 8, r_max, ranks)
     x = rng.normal(size=(rows, d_in)).astype(np.float32)
-    idx = _segmented_idx(rows, seg, slots)
-    idx[0] = slots - 1                    # every slot has a row
-    live = ref.bgmv_live(_t(idx), 16).numpy()
-    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 16)
-    assert plan.tile > 0 and plan.split > 1
-    got = np.full((rows, 16), np.nan, np.float32)
-    for t in range(-(-rows // plan.tile)):
-        lo = t * plan.tile
-        tile = idx[lo:lo + plan.tile]
-        got[lo + np.flatnonzero(tile < 0)] = 0.0
-        for s in dict.fromkeys(int(i) for i in tile if i >= 0):
-            r = lo + np.flatnonzero(tile == s)
-            parts = [x[r, p * plan.d_chunk:(p + 1) * plan.d_chunk]
-                     @ a[s, p * plan.d_chunk:(p + 1) * plan.d_chunk]
-                     for p in range(plan.split)]
-            total = np.zeros((len(r), 16), np.float32)
-            for p in parts:               # rank order
-                total = total + p.astype(np.float32)
-            total[np.arange(16)[None] >= live[r][:, None]] = 0.0
-            got[r] = total
+    idx = {"runs of 64": _segmented_idx(rows, 64, slots),
+           **_shrink_layouts(rows, slots, rows)}[layout]
+    idx[0] = slots - 1                    # every layout holds a slot
+    live = ref.bgmv_live(_t(idx), r_max).numpy()
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, r_max, torch.bfloat16,
+                            bgmv.H100_CLUSTER_ROOM)
+    assert plan.tile == bgmv.SHRINK_ROWS and plan.per_tile == 0
+    got, writes, _, _ = _shrink_walk(plan, rows, d_in, r_max, slots, idx,
+                                     live, x, a)
+    assert np.all(writes == 1)
     want = ref.lora_shrink_ref(_t(x), _t(a), _t(idx), _t(live)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     pallas = jbgmv.bgmv_shrink(jnp.asarray(x), jnp.asarray(a),
@@ -476,7 +660,8 @@ def test_decode_shrink_plan_reads_each_slot_slice_once(rows, d_in, r_max):
     widest live width) of A read by exactly one block and no column past
     it, and every block's x rows those of its slot."""
     for slots in (1, 8, 300):
-        plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, r_max)
+        plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, r_max,
+                                torch.bfloat16, bgmv.H100_CLUSTER_ROOM)
         split, d_chunk = plan.split, plan.d_chunk
         assert plan.tile == 0 and split in (1, 2, 4, 8)
         assert split == 1 or d_in >= split * bgmv.DECODE_SLICE_D
@@ -487,7 +672,7 @@ def test_decode_shrink_plan_reads_each_slot_slice_once(rows, d_in, r_max):
         groups = bgmv.col_groups(r_max)
         per = max(1, min(slots, rows))
         assert plan.per_tile == per
-        assert plan.blocks == per * split * groups
+        assert plan.grid == per * split * groups
         for idx, live in _decode_layouts(rows, slots, r_max,
                                          rows + d_in + r_max):
             firsts, zero_rows = _decode_groups(idx, live, slots, rows,
@@ -537,7 +722,8 @@ def test_decode_shrink_rank_order_sum_matches_plain_and_pallas(rows, d_in,
     x = rng.normal(size=(rows, d_in)).astype(np.float32)
     idx = rng.integers(-1, min(slots, 8), rows).astype(np.int32)
     live = ref.bgmv_live(_t(idx), 16).numpy()
-    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 16)
+    plan = bgmv.shrink_plan(rows, d_in, slots, _SMS, 16, torch.bfloat16,
+                            bgmv.H100_CLUSTER_ROOM)
     assert plan.tile == 0
     got = np.zeros((rows, 16), np.float32)
     firsts, _ = _decode_groups(idx, live, slots, rows, 16)
